@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Phases, one line each: the device; the kernel build; the P-256 verify
-kernel against its plain version at 3072 lanes (adversarial lanes of
-every kind) and 64 lanes against the pure-Python oracle; the stage-2
+kernel against its plain version at 3072 lanes (each rejected or edge
+kind on at least 10% of them, x(R) >= n lanes that only the r + n
+compare accepts included) and 64 random lanes plus 4 of each kind
+against the pure-Python oracle; the stage-2
 kernels against their plain versions at T = 1024, Eb = 1024, S = 4,
 P = 3 (a 20-deep conflict chain, range phantoms, both creator
 sentinels, consumption-unsafe rows) and the ``mvcc_validate`` entry;
@@ -15,7 +17,9 @@ invalid) and one block with a consumption-unsafe namespace through
 ``CommitPipeline(depth=2)`` on the card, with the launch counts reset
 just before and read just after, checked against the filters the
 blocks were built to produce and against the same blocks validated
-through the plain versions on the CPU.  Then the kernels line (JSON),
+through the plain versions on the CPU; a second run of the main path
+under ``torch.profiler`` gives the card's busy time and idle share.
+Then the kernels line (JSON),
 the card's name and power limit as nvidia-smi reports them, and the
 result line.  Any mismatch raises; there is no result without CUDA.
 Signatures come from a pool of RFC 6979 signatures per identity made
@@ -106,54 +110,83 @@ class Net:
 # Phase 3: the verify kernel
 
 
+KINDS = ("valid", "bad_r", "high_s", "r_zero", "s_ge_n", "q_off_curve", "tampered_digest",
+         "zero_windows", "q_zero", "x_wrapped")
+
+
 def adversarial_items(net: Net, n: int):
-    """n (digest, r, s, qx, qy) lanes cycling through valid lanes and
-    eight rejected or edge kinds (each >= 10% of the batch)."""
+    """n (digest, r, s, qx, qy) lanes in shuffled order → (items, kind
+    of each lane).  Every kind but plain valid lanes takes ceil(n/10)
+    lanes (>= 10%): bad r, high-S, r = 0, s >= n, Q off the curve,
+    tampered digest, u1 = 0 (every G-window digit 0, valid), Q = (0, 0),
+    and x(R) in [n, p) — accepted only through the r + n compare —
+    alternating with its tampered twin."""
     ec = net.ec
-    zero_e = [(0, *k.sign_digest(0), *k.public) for k in net.keys]  # u1 = 0: all w1 digits 0
+    rng = np.random.default_rng(SEED + 4)
+    zero_e = [(0, *k.sign_digest(0), *k.public) for k in net.keys]
+    wrapped = [ec.wrapped_x_signature(int(rng.integers(1, 1 << 62)) << 64,
+                                      int.from_bytes(rng.bytes(32), "big"), ec.HALF_N - j)
+               for j in range(8)]
+    per = -(-n // 10)
+    kinds = np.concatenate([np.zeros(n - 9 * per, np.int64), np.repeat(np.arange(1, 10), per)])
+    rng.shuffle(kinds)
     items = []
-    for i in range(n):
+    for i, kind in enumerate(kinds):
         who = i % 4
         e, r, s = net.sig(who, i // 4)
         qx, qy = net.idents[who].qx, net.idents[who].qy
-        kind = i % 9
         if kind == 1:
-            r = (r + 1) % ec.N            # bad r
+            r = (r + 1) % ec.N
         elif kind == 2:
-            s = ec.N - s                  # high-S
+            s = ec.N - s
         elif kind == 3:
             r = 0
         elif kind == 4:
-            s = ec.N + 1                  # s >= n
+            s = ec.N + 1
         elif kind == 5:
-            qx = (qx + 1) % ec.P          # Q off the curve
+            qx = (qx + 1) % ec.P
         elif kind == 6:
-            e ^= 1                        # tampered digest
+            e ^= 1
         elif kind == 7:
-            e, r, s, qx, qy = zero_e[who]  # zero windows (valid)
+            e, r, s, qx, qy = zero_e[who]
+        elif kind == 8:
+            qx, qy = 0, 0
+        elif kind == 9:
+            e, r, s, qx, qy = wrapped[i % len(wrapped)]
+            e ^= (i // len(wrapped)) % 2  # every other x_wrapped lane tampered
         items.append((e, r, s, qx, qy))
-    return items
+    return items, kinds
 
 
 def phase_verify(net: Net, dev):
-    from fabric_tpu_torch import kernels
     from fabric_tpu_torch.ops import p256v3 as v3
 
-    items = adversarial_items(net, VERIFY_LANES)
+    items, kinds = adversarial_items(net, VERIFY_LANES)
     frame = torch.from_numpy(v3.stage_frame(items, v3._bucket(len(items)))).to(dev)
     got = v3.verify_batch_packed(frame)
     want = v3.verify_batch_ref(frame)
     torch.cuda.synchronize()
     mism = int((got != want).sum())
+    err = int((got.int() - want.int()).abs().max())
     if mism:
         raise AssertionError(f"p256_verify: {mism} lanes differ from verify_batch_ref")
+    # the oracle: 64 random lanes plus the first 4 of every kind
     rng = np.random.default_rng(SEED + 1)
-    sample = rng.choice(len(items), 64, replace=False)
+    sample = set(rng.choice(len(items), 64, replace=False).tolist())
+    for k in range(len(KINDS)):
+        sample.update(np.flatnonzero(kinds == k)[:4].tolist())
     g = got.cpu().numpy()
-    for i in sample:
+    oracle_mism = 0
+    for i in sorted(sample):
         e, r, s, qx, qy = items[i]
-        if bool(g[i]) != net.ec.verify_digest((qx, qy), e, r, s):
-            raise AssertionError(f"p256_verify lane {i} disagrees with ec_ref")
+        oracle_mism += bool(g[i]) != net.ec.verify_digest((qx, qy), e, r, s)
+    if oracle_mism:
+        raise AssertionError(f"p256_verify: {oracle_mism} sampled lanes disagree with ec_ref")
+    wrapped = kinds == 9
+    wrapped_accepted = int(g[:len(items)][wrapped].sum())
+    if not 0 < wrapped_accepted < int(wrapped.sum()):
+        raise AssertionError("p256_verify: the x(R) >= n lanes were not split into "
+                             "accepted and rejected")
     accepted = int(got.sum())
     ms = cuda_ms(lambda: v3.verify_batch_packed(frame), 10)
     plain_ms = cuda_ms(lambda: v3.verify_batch_ref(frame), 1)
@@ -164,13 +197,15 @@ def phase_verify(net: Net, dev):
     nonzero = int((w1 != 0).sum())
     products = frame.shape[0] * (5 + 14 * 14 + 64 * (4 * 13 + 14) + 4) + 13 * nonzero
     b_ms, b_by = bound(nbytes(frame, got) + 24 * 4 + 16 * 64, products * 128 * 2)
-    log("verify", lanes=frame.shape[0], accepted=accepted, mismatches=0,
-        oracle_lanes=64, ms=ms, plain_ms=plain_ms)
+    log("verify", lanes=frame.shape[0], accepted=accepted, mismatches=mism,
+        lanes_per_kind={k: int((kinds == i).sum()) for i, k in enumerate(KINDS)},
+        x_wrapped_accepted=wrapped_accepted, oracle_lanes=len(sample),
+        oracle_mismatches=oracle_mism, ms=ms, plain_ms=plain_ms)
     return {"name": "p256_verify", "route": "cuda",
             "source": "fabric_tpu_torch/kernels/csrc/p256_verify.cu",
-            "replaces": "fabric_tpu/ops/p256v3.py:183", "max_abs_err": 0,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+            "replaces": "fabric_tpu/ops/p256v3.py:183", "max_abs_err": err,
+            "mismatches": mism, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -242,12 +277,12 @@ def phase_stage2(dev):
     got = db.stage2(sv, lv, groups, sp, dims)
     want = db.stage2_ref(sv, lv, groups, sp, dims)
     torch.cuda.synchronize()
-    err = int((got.int() - want.int()).abs().max())
-    if err:
-        raise AssertionError(f"stage2 packed output differs: {int((got != want).sum())} bytes")
+    mism = int((got != want).sum())
+    if mism:
+        raise AssertionError(f"stage2 packed output differs: {mism} bytes")
     unsafe = int((want[5 * T + n_sig:] == 0).sum())
     valid = want[:T].bool()
-    log("stage2", T=T, n_sig=n_sig, groups=len(groups), mismatches=0,
+    log("stage2", T=T, n_sig=n_sig, groups=len(groups), mismatches=mism,
         valid=int(valid.sum()), conflict=int(want[T:2 * T].sum()),
         phantom=int(want[2 * T:3 * T].sum()), unsafe_rows=unsafe,
         chain_valid=valid[100:121].int().tolist())
@@ -275,6 +310,7 @@ def phase_stage2(dev):
 
     (pk, sk), (pp, spl) = policy_kernel(), policy_plain()
     perr = int(max((pk - pp).abs().max(), (sk.int() - spl.int()).abs().max()))
+    pmism = int((pk != pp).sum() + (sk != spl).sum())
     pok = pk
     out = torch.empty(5 * T + n_sig, dtype=torch.int8, device=dev)
     mvcc_kernel = lambda: kernels.stage2_mvcc(sp, R, W, Q, lv, sv, pok, out)
@@ -284,7 +320,8 @@ def phase_stage2(dev):
     mvcc_kernel()
     v, c, ph = mvcc_plain()
     merr = int((out[:3 * T].int() - torch.cat([v, c, ph]).int()).abs().max())
-    if perr or merr:
+    mmism = int((out[:3 * T] != torch.cat([v, c, ph]).to(torch.int8)).sum())
+    if pmism or mmism:
         raise AssertionError(f"stage2 kernels differ alone: policy {perr}, mvcc {merr}")
     words = T * ((T + 31) // 32)
     rel_ops = T * (T - 1) // 2 * W * (R + 2 * Q)  # compares below the diagonal
@@ -293,12 +330,14 @@ def phase_stage2(dev):
     recs.append({"name": "stage2_policy", "route": "cuda",
                  "source": "fabric_tpu_torch/kernels/csrc/stage2.cu",
                  "replaces": "fabric_tpu/peer/device_block.py:64", "max_abs_err": perr,
+                 "mismatches": pmism,
                  "ms": cuda_ms(policy_kernel, 20), "plain_ms": cuda_ms(policy_plain, 3),
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     b_ms, b_by = bound(nbytes(sp, lv, sv, pok, out), rel_ops + 2 * words)
     recs.append({"name": "stage2_mvcc", "route": "cuda",
                  "source": "fabric_tpu_torch/kernels/csrc/stage2.cu",
                  "replaces": "fabric_tpu/ops/mvcc.py:84", "max_abs_err": merr,
+                 "mismatches": mmism,
                  "ms": cuda_ms(mvcc_kernel, 20), "plain_ms": cuda_ms(mvcc_plain, 3),
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
 
@@ -317,13 +356,15 @@ def phase_stage2(dev):
     gk = torch.cat(mvcc_ops.mvcc_validate(*args))
     gp_ = torch.cat(mvcc_ops.mvcc_validate_ref(*args))
     verr = int((gk.int() - gp_.int()).abs().max())
-    if verr:
-        raise AssertionError("mvcc_validate differs from its plain version")
-    log("mvcc_validate", T=T, mismatches=0, valid=int(gk[:T].sum()))
+    vmism = int((gk != gp_).sum())
+    if vmism:
+        raise AssertionError(f"mvcc_validate differs from its plain version at {vmism} flags")
+    log("mvcc_validate", T=T, mismatches=vmism, valid=int(gk[:T].sum()))
     b_ms, b_by = bound(nbytes(*args) + 3 * T, rel_ops + 2 * words + T * R * 3)
     recs.append({"name": "mvcc_validate", "route": "cuda",
                  "source": "fabric_tpu_torch/kernels/csrc/stage2.cu",
                  "replaces": "fabric_tpu/ops/mvcc.py:49", "max_abs_err": verr,
+                 "mismatches": vmism,
                  "ms": cuda_ms(lambda: mvcc_ops.mvcc_validate(*args), 20),
                  "plain_ms": cuda_ms(lambda: mvcc_ops.mvcc_validate_ref(*args), 3),
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
@@ -422,6 +463,25 @@ def run_pipeline(blocks, seed_rows, device, depth=2):
     return out, time.perf_counter() - t0, marks
 
 
+def device_busy(blocks, seed_rows):
+    """A second run of the main path under ``torch.profiler`` → (the
+    union of the card's kernel and copy intervals in ms, that run's
+    wall seconds, the number of device events).  0 events means the
+    profiler saw no device activity: the busy time is then unknown."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, secs, _ = run_pipeline(blocks, seed_rows, "cuda")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy_us / 1e3, secs, len(spans)
+
+
 def phase_main_path(net: Net):
     from fabric_tpu_torch import kernels
 
@@ -439,6 +499,12 @@ def phase_main_path(net: Net):
     log("main_path", blocks=len(blocks), txs=n_tx, depth=2, seconds=secs,
         per_block_ms=1e3 * secs / len(blocks), tx_per_s=n_tx / secs,
         completion_s=marks, valid=[r.n_valid for r in res], launches=counts)
+    busy_ms, psecs_prof, n_ev = device_busy(blocks, seed_rows)
+    log("device_busy", profiled_seconds=psecs_prof, device_events=n_ev,
+        busy_ms=busy_ms if n_ev else None,
+        busy_ms_per_block=busy_ms / len(blocks) if n_ev else None,
+        idle_share_profiled=1 - busy_ms / (1e3 * psecs_prof) if n_ev else None,
+        idle_share_vs_unprofiled=1 - busy_ms / (1e3 * secs) if n_ev else None)
     plain, psecs, _ = run_pipeline(blocks, seed_rows, "cpu", depth=1)
     for a, b in zip(res, plain):
         rows = lambda x: sorted((k, vv.value, vv.version) for k, vv in x.batch.items())
@@ -479,7 +545,6 @@ def main() -> int:
     counts = phase_main_path(net)
     for r in recs:
         r["launches"] = counts[r["name"]]
-        r["mismatches"] = 0  # every comparison above raised on any difference
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "mismatches",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in order} for r in recs]}), flush=True)

@@ -4,7 +4,9 @@ deterministic signing).
 
 The oracle the port's verify kernel and its plain version are held
 against, and the deterministic (RFC 6979) signer ``chip_smoke.py`` uses
-to make its signatures.  ECDSA P-256 over SHA-256 digests with the
+to make its signatures.  ``wrapped_x_signature`` is the port's own
+addition: a test vector for the one verify branch random signatures
+never reach.  ECDSA P-256 over SHA-256 digests with the
 low-S rule of the reference's SW BCCSP (bccsp/sw/ecdsa.go:41-58).
 
 Python ints only; NOT constant-time; verify-only paths don't need to be.
@@ -169,3 +171,29 @@ def verify_digest(pub, e: int, r: int, s: int) -> bool:
     if pt is INF:
         return False
     return pt[0] % N == r % N
+
+
+def wrapped_x_signature(t: int, e: int, s: int):
+    """A valid (e, r, s, Q) whose R = u1*G + u2*Q has x(R) in [n, p), so
+    r = x(R) - n and only the verifier's X == (r+n)*Z compare accepts it
+    (random signatures land there with probability ~2^-128).  Built
+    without a discrete log: walk x = n + t, t + 1, ... to the first x
+    with a point R = (x, y), fix e and a low s, then solve for the
+    public key Q = u2^-1 * (R - u1*G).  → (e, r, s, qx, qy)."""
+    assert 1 <= s <= HALF_N
+    x = N + max(1, t % (P - N))
+    while True:
+        if x >= P:
+            x = N + 1
+        rhs = (x * x * x + A * x + B) % P
+        y = pow(rhs, (P + 1) // 4, P)  # p = 3 (mod 4)
+        if y * y % P == rhs:
+            break
+        x += 1
+    r = x - N
+    w = pow(s, -1, N)
+    u1, u2 = e * w % N, r * w % N
+    u1g = pt_mul(u1, G)
+    q = pt_mul(pow(u2, -1, N), pt_add((x, y), None if u1g is INF else (u1g[0], P - u1g[1])))
+    assert q is not INF and pt_add(pt_mul(u1, G), pt_mul(u2, q)) == (x, y)
+    return e, r, s, q[0], q[1]

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from fabric_tpu_torch import kernels
+from fabric_tpu_torch.device import resolve_device
 from fabric_tpu_torch.utils.batching import next_pow2
 
 
@@ -253,9 +254,10 @@ def prepare_block_static(txs: list[TxRWSet], bucketed: bool = False) -> StaticBl
     )
 
 
-def mvcc_validate_block(txs: list[TxRWSet], committed: dict, pre_ok=None, device="cpu"):
+def mvcc_validate_block(txs: list[TxRWSet], committed: dict, pre_ok=None, device="cuda"):
     """Prepare one block, run ``mvcc_validate`` on ``device`` → three
     numpy bool arrays (valid, conflict, phantom)."""
+    device = resolve_device(device)
     if pre_ok is None:
         pre_ok = np.ones(len(txs), bool)
     static = prepare_block_static(txs)

@@ -99,21 +99,6 @@ def _limbs16(us) -> np.ndarray:
     return ((raw[:, 0::2] << 8) | raw[:, 1::2]).astype(np.int16)
 
 
-def _chunk_bounds(n_real: int, chunk: int) -> list[tuple[int, int, int]]:
-    """[(lo, hi, pad)] microbatch slicing: every chunk but the last is
-    exactly ``chunk`` lanes and the last pads the total out to
-    ``_bucket(n_real)``, so item i stays at device index i."""
-    bounds = []
-    off = 0
-    total = _bucket(n_real)
-    while off < n_real:
-        k = min(chunk, n_real - off)
-        pad = chunk if off + k < n_real else total - off
-        bounds.append((off, off + k, pad))
-        off += k
-    return bounds
-
-
 def admit(e: int, r: int, s: int, qx: int, qy: int) -> bool:
     """Host admission: r, s ranges, low-S, Q's coordinates in range and
     not the (0, 0) encoding of infinity (on-curve is checked on device)."""
@@ -351,27 +336,16 @@ class VerifyHandle:
         return self.fetch()
 
 
-def _launch_frame(frame: np.ndarray, n_real: int, dev, chunk: int = 0) -> torch.Tensor:
-    ft = torch.from_numpy(frame).to(dev)
-    if chunk and n_real > chunk:
-        return torch.cat([verify_batch_packed(ft[lo:lo + pad])
-                          for lo, _, pad in _chunk_bounds(n_real, chunk)])
-    return verify_batch_packed(ft)
-
-
-def verify_launch(items, device="cuda", chunk: int | None = None) -> VerifyHandle:
+def verify_launch(items, device="cuda") -> VerifyHandle:
     """Stage (digest, r, s, qx, qy) tuples and launch the verify kernel
-    without waiting.  ``chunk`` splits the batch into launches of that
-    many lanes (the last pads out to the bucket); the accept set is the
-    same either way."""
+    without waiting: one launch over the whole bucketed batch."""
     dev = resolve_device(device)
     items = list(items)
     n = len(items)
     if not n:
         return VerifyHandle(torch.zeros(0, dtype=torch.bool, device=dev), 0)
-    chunk = max(int(chunk), MIN_BUCKET) if chunk else 0
     frame = stage_frame(items, _bucket(n))
-    return VerifyHandle(_launch_frame(frame, n, dev, chunk), n)
+    return VerifyHandle(verify_batch_packed(torch.from_numpy(frame).to(dev)), n)
 
 
 def verify_launch_many(batches, device="cuda") -> list[VerifyHandle]:
@@ -393,7 +367,7 @@ def verify_launch_many(batches, device="cuda") -> list[VerifyHandle]:
     for off, b in zip(offs, batches):
         if b:
             frame[off:off + _bucket(len(b))] = stage_frame(b, _bucket(len(b)))
-    out = _launch_frame(frame, grand, dev)
+    out = verify_batch_packed(torch.from_numpy(frame).to(dev))
     return [
         VerifyHandle(out[off:off + _bucket(len(b))], len(b)) if b
         else VerifyHandle(torch.zeros(0, dtype=torch.bool, device=dev), 0)

@@ -72,7 +72,7 @@ def test_entry_points_raise_without_cuda():
         pytest.skip("this host has a CUDA device; the check is for hosts without one")
     from fabric_tpu_torch import resolve_device
     from fabric_tpu_torch.ledger.statedb import MemVersionedDB
-    from fabric_tpu_torch.ops import p256v3
+    from fabric_tpu_torch.ops import mvcc, p256v3
     from fabric_tpu_torch.peer.validator import BlockValidator, PolicyProvider
 
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -81,4 +81,6 @@ def test_entry_points_raise_without_cuda():
         BlockValidator(PolicyProvider({}), MemVersionedDB())
     with pytest.raises(RuntimeError, match="CUDA"):
         p256v3.verify_launch([(1, 1, 1, 1, 1)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mvcc.mvcc_validate_block([mvcc.TxRWSet([("k", (1, 0))], ["k"], [])], {})
     assert BlockValidator(PolicyProvider({}), MemVersionedDB(), device="cpu").device.type == "cpu"

@@ -35,10 +35,13 @@ def _items(n):
             e = int.from_bytes(rng.bytes(32), "big")
             base.append((e, *k.sign_digest(e), *k.public))
     base += [(0, *k.sign_digest(0), *k.public) for k in keys]  # zero u1 windows
+    wrapped = [ec_ref.wrapped_x_signature(int(rng.integers(1, 1 << 62)) << 64,
+                                          int.from_bytes(rng.bytes(32), "big"),
+                                          ec_ref.HALF_N - j) for j in range(2)]
     out = []
     for i in range(n):
         e, r, s, qx, qy = base[i % len(base)]
-        kind = i % 7
+        kind = i % 10
         if kind == 1:
             r = (r + 1) % ec_ref.N
         elif kind == 2:
@@ -49,6 +52,11 @@ def _items(n):
             e ^= 2
         elif kind == 5:
             s = ec_ref.N + 1
+        elif kind in (6, 7):  # x(R) in [n, p): accepted only through r + n
+            e, r, s, qx, qy = wrapped[i % 2]
+            e ^= kind == 7
+        elif kind == 8:
+            qx, qy = 0, 0
         out.append((e, r, s, qx, qy))
     return out
 

@@ -126,10 +126,13 @@ def _items(n, seed=3):
             e = int.from_bytes(rng.bytes(32), "big")
             base.append((e, *k.sign_digest(e), *k.public))
     base += [(0, *k.sign_digest(0), *k.public) for k in keys]  # zero u1 windows
+    wrapped = [ec_ref.wrapped_x_signature(int(rng.integers(1, 1 << 62)) << 64,
+                                          int.from_bytes(rng.bytes(32), "big"),
+                                          ec_ref.HALF_N - j) for j in range(2)]
     out = []
     for i in range(n):
         e, r, s, qx, qy = base[i % len(base)]
-        kind = i % 8
+        kind = i % 10
         if kind == 1:
             r = (r + 1) % ec_ref.N
         elif kind == 2:
@@ -142,6 +145,11 @@ def _items(n, seed=3):
             s = ec_ref.N + 1
         elif kind == 6:
             r = 0
+        elif kind in (7, 8):  # x(R) in [n, p): accepted only through r + n
+            e, r, s, qx, qy = wrapped[i % 2]
+            e ^= kind == 8
+        elif kind == 9:
+            qx, qy = 0, 0
         out.append((e, r, s, qx, qy))
     return out
 
@@ -157,6 +165,7 @@ def test_verify_kernel_source_matches_plain_and_oracle(host_kernels):
     want = [ec_ref.verify_digest((x, y), e, r, s) for e, r, s, x, y in items]
     assert out[:len(items)].astype(bool).tolist() == want
     assert any(want) and not all(want)
+    assert all(want[i] == (i % 10 == 7) for i in range(len(items)) if i % 10 in (7, 8))
 
 
 def _stage2(seed, T=96, n_sig=160, S=4):

@@ -117,8 +117,6 @@ def test_host_staging_matches_reference(keys):
     assert np.array_equal(rec, jv3._windows(us))
     for n in (1, 15, 16, 17, 100, 512, 513, 1000, 3001):
         assert v3._bucket(n) == jv3._bucket(n)
-        for chunk in (16, 100, 1024):
-            assert v3._chunk_bounds(n, chunk) == jv3._chunk_bounds(n, chunk)
     items = _adversarial(keys, 32)
     want = jv3.prepare(items, pad_to=32)
     frame = v3.stage_frame(items, 32)
@@ -130,15 +128,19 @@ def test_host_staging_matches_reference(keys):
 
 def _adversarial(keys, n):
     """n lanes: valid signatures plus bad r, high-S, r = 0, s >= n,
-    off-curve Q, tampered digest, Q = (0, 0) and zero u1 windows."""
+    off-curve Q, tampered digest, Q = (0, 0), zero u1 windows, and a
+    signature whose x(R) lies in [n, p) (accepted only through the
+    r + n compare) with its tampered twin."""
     zero_e = [(0, *k.sign_digest(0), *k.public) for k in keys]
+    wrapped = [ec_ref.wrapped_x_signature(j << 120, ec_ref.digest_int(b"wrap-%d" % j),
+                                          ec_ref.HALF_N - j) for j in range(3)]
     out = []
     for i in range(n):
         k = keys[i % 3]
         e = ec_ref.digest_int(b"lane-%d" % i)
         r, s = k.sign_digest(e)
         qx, qy = k.public
-        kind = i % 10
+        kind = i % 12
         if kind == 1:
             r = (r + 1) % N
         elif kind == 2:
@@ -155,6 +157,9 @@ def _adversarial(keys, n):
             qx, qy = 0, 0
         elif kind == 8:
             e, r, s, qx, qy = zero_e[i % 3]
+        elif kind in (9, 10):
+            e, r, s, qx, qy = wrapped[i % 3]
+            e ^= kind == 10
         out.append((e, r, s, qx, qy))
     return out
 
@@ -166,16 +171,21 @@ def test_verify_matches_oracle_and_reference(keys, lanes):
     oracle = [ec_ref.verify_digest((x, y), e, r, s) for e, r, s, x, y in items]
     assert got == oracle
     assert any(oracle) and not all(oracle)
+    # the r + n lanes: accepted where untampered, and only through r + n
+    wrapped = [i for i in range(lanes) if i % 12 in (9, 10)]
+    assert [got[i] for i in wrapped] == [i % 12 == 9 for i in wrapped]
+    frame = v3.stage_frame(items, lanes)
+    frame[:, v3._RPN_OK] = 0
+    assert not v3.verify_batch_ref(torch.from_numpy(frame))[wrapped].any()
     assert jv3.verify_launch(items)() == got
     # the two oracles are the same module, copied
     assert [jax_ec_ref.verify_digest((x, y), e, r, s) for e, r, s, x, y in items] == oracle
 
 
 def test_launch_forms_agree(keys):
-    """Chunked and coalesced launches give the monolithic accept set."""
+    """A coalesced launch gives each batch its solo accept set."""
     items = _adversarial(keys, 40)
     mono = v3.verify_launch(items, device="cpu").fetch()
-    assert v3.verify_launch(items, device="cpu", chunk=16).fetch() == mono
     many = v3.verify_launch_many([items[:5], [], items[5:]], device="cpu")
     assert [h() for h in many] == [mono[:5], [], mono[5:]]
     assert many[0].device_out.shape[0] == v3._bucket(5)

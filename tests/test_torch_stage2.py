@@ -70,7 +70,7 @@ def _check(spec, committed, pre_ok=None):
         assert np.array_equal(a.numpy(), b)
     assert list(out[0][:n]) == want
     # the unbucketed helper agrees too
-    valid, _, _ = mvcc.mvcc_validate_block(port_txs, committed, pre)
+    valid, _, _ = mvcc.mvcc_validate_block(port_txs, committed, pre, device="cpu")
     assert list(valid) == want
     return want, out
 
