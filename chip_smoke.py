@@ -19,7 +19,26 @@ just before and read just after, checked against the filters the
 blocks were built to produce and against the same blocks validated
 through the plain versions on the CPU; a second run of the main path
 under ``torch.profiler`` gives the card's busy time and idle share.
-Then the kernels line (JSON),
+The resident-state kernels against their plain versions over the
+default 64 MB table (4,194,304 slots, 48 MiB): ``resident_verok`` at
+T = 1024, R = 2, Ub = 4096 with hit, miss, overlay and deleted lanes,
+each on >= 10% of the reads, and ``table_scatter`` at k = 16 and 2048
+beside ``index_copy_``.  The resident path: a world state of 1,000,000
+keys warmed into the table, 6 bench-shaped blocks whose read-only keys
+are the same in every block (a hot working set) through
+``CommitPipeline`` at depths 2 and 3 with ``state_resident=True``,
+checked against construction and against the same blocks without
+resident state (filters, update batches, history, final state), with
+one ``resident_verok`` launch per block, a hit rate >= 0.99 and no
+eviction; both paths' busy time under ``torch.profiler``; then a
+4,096-slot table under read keys that shift every block, which must
+evict and still agree.  The sign lane: ``p256_sign`` against its plain
+version at 4,096 and 256 lanes (edge nonces included), 256 lanes each
+against ``ec_ref``, fixed-nonce signatures against ``ec_ref`` and
+through ``p256_verify``, and 8 client threads signing 2,000 digests
+through ``SignBatcher(device_sign_backend(...))``, equal to
+``cpu_sign_backend``.  Each path's launch counts are reset just before
+it and read just after.  Then the kernels line (JSON),
 the card's name and power limit as nvidia-smi reports them, and the
 result line.  Any mismatch raises; there is no result without CUDA.
 Signatures come from a pool of RFC 6979 signatures per identity made
@@ -28,9 +47,11 @@ once with the port's pure-Python ``ec_ref`` from a fixed seed.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -378,27 +399,32 @@ def phase_stage2(dev):
 CC, UNSAFE_CC = "benchcc", "unsafecc"
 
 
-def build_blocks(net: Net):
-    """N_BLOCKS bench-shaped blocks plus one block in which every 60th
-    tx also writes a namespace under a consumption-unsafe policy.
-    → (blocks, expected filters, seed rows)."""
+def build_blocks(net: Net, n_blocks: int = N_BLOCKS, unsafe: bool = True,
+                 ro_key=lambda b, i: f"ro{b}_{i:05d}"):
+    """n_blocks bench-shaped blocks, plus (``unsafe``) one block in
+    which every 60th tx also writes a namespace under a
+    consumption-unsafe policy.  ``ro_key(b, i)``: the read-only key of
+    tx i of block b.  → (blocks, expected filters, seed rows)."""
     from fabric_tpu_torch.ledger.rwset import TxRWSet
     from fabric_tpu_torch.peer.txcodes import TxValidationCode as C
     from fabric_tpu_torch.peer.validator import DecodedBlock, DecodedEndorsement, DecodedTx
 
-    blocks, expected, seed_rows = [], [], []
-    for b in range(N_BLOCKS + 1):
-        unsafe_block = b == N_BLOCKS
+    blocks, expected, seed_rows, ro_seen = [], [], [], set()
+    for b in range(n_blocks + unsafe):
+        unsafe_block = b == n_blocks
         txs, want = [], []
         for i in range(BLOCK_TXS):
+            ro = ro_key(b, i)
             seed_rows.append((CC, f"seed{b}_{i:05d}", b"genesis", (1, 0)))
-            seed_rows.append((CC, f"ro{b}_{i:05d}", b"genesis", (1, 0)))
+            if ro not in ro_seen:
+                ro_seen.add(ro)
+                seed_rows.append((CC, ro, b"genesis", (1, 0)))
             bad = i % 20 == 0
             stale = bad and (i // 20) % 2 == 1
             rw = TxRWSet()
             ns = rw.ns_rwset(CC)
             ns.reads[f"seed{b}_{i:05d}"] = (9, 9) if stale else (1, 0)
-            ns.reads[f"ro{b}_{i:05d}"] = (1, 0)
+            ns.reads[ro] = (1, 0)
             ns.writes[f"w{b}_{i:05d}"] = b"value-%d" % i
             ns.writes[f"seed{b}_{i:05d}"] = b"updated"
             if unsafe_block and i % 60 == 3:  # i % 3 == 0: Org1 + Org2 peers endorse
@@ -420,15 +446,24 @@ def build_blocks(net: Net):
     return blocks, expected, seed_rows
 
 
+NAMESPACES = {CC: "OutOf(2, 'Org1MSP.peer', 'Org2MSP.peer', 'Org3MSP.peer')",
+              UNSAFE_CC: "OutOf(1, 'Org1MSP.peer', 'Org1MSP.member')"}
+
+
 def run_pipeline(blocks, seed_rows, device, depth=2):
     """→ ([CommittedBlock], seconds, per-block completion seconds)."""
     from fabric_tpu_torch import carry
-    from fabric_tpu_torch.peer.pipeline import CommitPipeline
     from fabric_tpu_torch.peer.validator import BlockValidator
 
-    state, prov, _ = carry.from_reference(seed_rows, {
-        CC: "OutOf(2, 'Org1MSP.peer', 'Org2MSP.peer', 'Org3MSP.peer')",
-        UNSAFE_CC: "OutOf(1, 'Org1MSP.peer', 'Org1MSP.member')"}, [])
+    state, prov, _ = carry.from_reference(seed_rows, NAMESPACES, [])
+    return run_validator(blocks, BlockValidator(prov, state, device=device), depth)
+
+
+def run_validator(blocks, v, depth=2):
+    """Commit ``blocks`` through ``CommitPipeline`` with the validator
+    ``v`` (its ``state`` receives the commits, a txid store is attached)
+    → ([CommittedBlock], seconds, per-block completion seconds)."""
+    from fabric_tpu_torch.peer.pipeline import CommitPipeline
 
     class Store:
         def __init__(self):
@@ -437,13 +472,14 @@ def run_pipeline(blocks, seed_rows, device, depth=2):
         def tx_exists(self, txid):
             return txid in self.txids
 
-    store = Store()
+    store = v.blocks = Store()
+    state = v.state
+    device = v.device.type
 
     def commit(res):
         state.apply_updates(res.batch)
         store.txids.update(t for t, _ in res.txids)
 
-    v = BlockValidator(prov, state, block_store=store, device=device)
     out, marks = [], []
     if device == "cuda":
         torch.cuda.synchronize()
@@ -463,16 +499,20 @@ def run_pipeline(blocks, seed_rows, device, depth=2):
     return out, time.perf_counter() - t0, marks
 
 
-def device_busy(blocks, seed_rows):
-    """A second run of the main path under ``torch.profiler`` → (the
-    union of the card's kernel and copy intervals in ms, that run's
-    wall seconds, the number of device events).  0 events means the
-    profiler saw no device activity: the busy time is then unknown."""
+def device_busy(blocks, seed_rows=None, validator=None):
+    """A second run of the main path (or of ``validator`` over
+    ``blocks``) under ``torch.profiler`` → (the union of the card's
+    kernel and copy intervals in ms, that run's wall seconds, the number
+    of device events).  0 events means the profiler saw no device
+    activity: the busy time is then unknown."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, secs, _ = run_pipeline(blocks, seed_rows, "cuda")
+        if validator is None:
+            _, secs, _ = run_pipeline(blocks, seed_rows, "cuda")
+        else:
+            _, secs, _ = run_validator(blocks, validator)
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
     busy_us, end = 0.0, float("-inf")
@@ -511,10 +551,383 @@ def phase_main_path(net: Net):
         if a.tx_filter != b.tx_filter or rows(a) != rows(b) or a.history != b.history:
             raise AssertionError(f"block {a.block.number}: card path differs from plain path")
     log("plain_path", blocks=len(plain), seconds=psecs, equal=True)
-    zero = [k for k, v in counts.items() if v == 0]
+    zero = [k for k in MAIN_PATH_KERNELS if counts[k] == 0]
     if zero:
         raise AssertionError(f"kernels not launched on the main path: {zero}")
     return counts
+
+
+MAIN_PATH_KERNELS = ("p256_verify", "stage2_policy", "stage2_mvcc", "mvcc_validate")
+RESIDENT_KERNELS = ("p256_verify", "stage2_policy", "stage2_mvcc", "resident_verok",
+                    "table_scatter")
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the resident-state kernels
+
+
+TABLE_SLOTS = 1 << 22  # the default 64 MB table: 4,194,304 slots, 48 MiB
+RES_T, RES_R, RES_UB = 1024, 2, 4096
+
+
+def resident_inputs(dev, seed=SEED + 5):
+    """``resident_verok`` operands at the main path's shapes over a full
+    64 MB table: every quarter of the 4096 pack rows is one lane kind —
+    hit (slot >= 0), miss (host lane from the state read), overlay
+    (host lane with an in-flight value) and deleted (a slot whose row
+    says absent) — and the 2048 reads pick rows at random, most of them
+    expecting the committed row, some stale or presence-flipped, a few
+    padding.  → (operands, reads per kind)."""
+    rng = np.random.default_rng(seed)
+    table = np.zeros((TABLE_SLOTS, 3), np.int32)
+    table[:, 0] = 1
+    table[:, 1:] = rng.integers(1, 1 << 20, (TABLE_SLOTS, 2))
+    kind = np.repeat(np.arange(4), RES_UB // 4)
+    rng.shuffle(kind)
+    u_pack = np.zeros((RES_UB, 4), np.int32)
+    slots = rng.choice(TABLE_SLOTS, RES_UB, replace=False)
+    u_pack[:, 0] = np.where((kind == 0) | (kind == 3), slots, -1)
+    table[slots[kind == 3], 0] = 0  # deleted: cached absence
+    table[slots[kind == 3], 1:] = 0
+    u_pack[:, 1] = rng.random(RES_UB) < 0.8
+    u_pack[:, 2:] = rng.integers(1, 1 << 20, (RES_UB, 2))
+    sp = np.full((RES_T, RES_R + 2 + 2), -1, np.int32)
+    sp[:, :RES_R] = rng.integers(0, RES_UB, (RES_T, RES_R))
+    sp[rng.random(RES_T) < 0.05, 1] = -1  # padding reads
+    ids = sp[:, :RES_R].clip(0)
+    slot = u_pack[ids, 0]
+    rpv = np.where((slot >= 0)[..., None], table[slot.clip(0)], u_pack[ids, 1:]).astype(np.int32)
+    rpv[rng.random((RES_T, RES_R)) < 0.05, 0] ^= 1
+    rpv[rng.random((RES_T, RES_R)) < 0.05, 2] += 1
+    live = sp[:, :RES_R] >= 0
+    per_kind = {k: int((kind[ids] == i)[live].sum())
+                for i, k in enumerate(("hit", "miss", "overlay", "deleted"))}
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return (t(sp), t(table), t(u_pack), t(rpv)), per_kind
+
+
+def phase_resident_kernels(dev):
+    from fabric_tpu_torch import kernels
+    from fabric_tpu_torch.peer import device_block as db
+    from fabric_tpu_torch.state import residency
+
+    (sp, table, u_pack, rpv), per_kind = resident_inputs(dev)
+    if min(per_kind.values()) < RES_T * RES_R // 10:
+        raise AssertionError(f"resident lanes per kind below 10%: {per_kind}")
+    lv = torch.zeros((RES_T, 3), dtype=torch.int32, device=dev)
+    db.resident_ver_ok(sp, table, u_pack, rpv, RES_R, lv)
+    want = db.resident_ver_ok_ref(sp, table, u_pack, rpv, RES_R)
+    torch.cuda.synchronize()
+    got = lv[:, 2] != 0
+    mism = int((got != want).sum())
+    err = int((got.int() - want.int()).abs().max())
+    if mism:
+        raise AssertionError(f"resident_verok: {mism} transactions differ from the plain version")
+    ms = cuda_ms(lambda: kernels.resident_verok(sp, RES_R, table, u_pack, rpv, lv), 50)
+    plain_ms = cuda_ms(lambda: db.resident_ver_ok_ref(sp, table, u_pack, rpv, RES_R), 10)
+    # bytes this run's data needs: the read-key columns, the pack rows and
+    # table rows the reads reach, the expected rows, the verdict column
+    ids = sp[:, :RES_R][sp[:, :RES_R] >= 0].unique()
+    hit_slots = u_pack[ids.long(), 0]
+    n_rows = int(hit_slots[hit_slots >= 0].unique().numel())
+    b_ms, b_by = bound(RES_T * RES_R * 4 + ids.numel() * 16 + n_rows * 12 + nbytes(rpv)
+                       + RES_T * 4, 0)
+    log("resident_verok", T=RES_T, R=RES_R, Ub=RES_UB, table_slots=TABLE_SLOTS,
+        table_mib=nbytes(table) / 2 ** 20, reads_per_kind=per_kind, mismatches=mism,
+        valid=int(got.sum()), ms=ms, plain_ms=plain_ms)
+    recs = [{"name": "resident_verok", "route": "cuda",
+             "source": "fabric_tpu_torch/kernels/csrc/resident.cu",
+             "replaces": "fabric_tpu/peer/device_block.py:87", "max_abs_err": err,
+             "mismatches": mism, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+             "bound_by": b_by, "library_ms": None}]
+
+    rng = np.random.default_rng(SEED + 6)
+    for k in (16, 2048):
+        idx = rng.choice(TABLE_SLOTS, k, replace=False).astype(np.int32)
+        rows = rng.integers(-(1 << 31), 1 << 31, (k, 3)).astype(np.int32)
+        it, rt = torch.from_numpy(idx).to(dev), torch.from_numpy(rows).to(dev)
+        a, b = table.clone(), table.clone()
+        residency.table_scatter(a, idx, rows)
+        residency.table_scatter_ref(b, it, rt)
+        torch.cuda.synchronize()
+        smism = int((a != b).any(dim=1).sum())
+        serr = int((a.long() - b.long()).abs().max())
+        if smism:
+            raise AssertionError(f"table_scatter at k = {k}: {smism} rows differ")
+        ms = cuda_ms(lambda: kernels.table_scatter(a, it, rt), 50)
+        plain_ms = cuda_ms(lambda: residency.table_scatter_ref(b, it, rt), 50)
+        ilong = it.long()
+        lib_ms = cuda_ms(lambda: b.index_copy_(0, ilong, rt), 50)
+        b_ms, b_by = bound(k * (4 + 12) + k * 12, 0)
+        log("table_scatter", k=k, mismatches=smism, ms=ms, plain_ms=plain_ms,
+            index_copy_ms=lib_ms, bound_ms=b_ms)
+    # the main path scatters a block's ~2,000-key write set: k = 2048
+    recs.append({"name": "table_scatter", "route": "cuda",
+                 "source": "fabric_tpu_torch/kernels/csrc/resident.cu",
+                 "replaces": "fabric_tpu/state/residency.py:410", "max_abs_err": serr,
+                 "mismatches": smism, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": lib_ms})
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the commit path with device-resident state
+
+
+WORLD_KEYS = 1_000_000
+RES_BLOCKS = 6
+CHURN_SLOTS = 4096
+
+
+class World:
+    """A world state of WORLD_KEYS keys: the blocks' own keys plus
+    filler, as one update batch that seeds a fresh state per run."""
+
+    def __init__(self, seed_rows):
+        from fabric_tpu_torch.ledger.statedb import UpdateBatch
+
+        self.batch = UpdateBatch()
+        for ns, key, value, ver in seed_rows:
+            self.batch.put(ns, key, value, ver)
+        i = 0
+        while len(self.batch.updates) < WORLD_KEYS:
+            self.batch.put(CC, f"fill{i:07d}", b"genesis", (1, i % 1000))
+            i += 1
+
+    def items(self):
+        return ((ns, key, vv.version) for (ns, key), vv in self.batch.items())
+
+    def validator(self, **kw):
+        from fabric_tpu_torch import carry
+        from fabric_tpu_torch.ledger.statedb import MemVersionedDB
+        from fabric_tpu_torch.peer.validator import BlockValidator
+
+        state = MemVersionedDB()
+        state.apply_updates(self.batch)
+        _, prov, _ = carry.from_reference([], NAMESPACES, [])
+        return BlockValidator(prov, state, device="cuda", **kw)
+
+
+def _same_runs(name, a_runs, b_runs, a_state, b_state):
+    rows = lambda x: sorted((k, vv.value, vv.version) for k, vv in x.batch.items())
+    for a, b in zip(a_runs, b_runs):
+        if a.tx_filter != b.tx_filter or rows(a) != rows(b) or a.history != b.history:
+            raise AssertionError(f"{name}: block {a.block.number} differs from the "
+                                 "non-resident run")
+    if a_state._data != b_state._data:
+        raise AssertionError(f"{name}: final state differs from the non-resident run")
+
+
+def _check_filters(name, res, expected):
+    got = [r.tx_filter for r in res]
+    if got != expected:
+        raise AssertionError(f"{name}: filters differ from construction")
+
+
+def phase_resident_path(net: Net):
+    from fabric_tpu_torch import kernels
+    from fabric_tpu_torch.state import ResidencyManager
+
+    t0 = time.perf_counter()
+    hot, hot_want, hot_rows = build_blocks(net, RES_BLOCKS, unsafe=False,
+                                           ro_key=lambda b, i: f"ro{i:05d}")
+    churn, churn_want, churn_rows = build_blocks(
+        net, RES_BLOCKS, unsafe=False, ro_key=lambda b, i: f"rc{(i + 500 * b) % 4000:05d}")
+    world = World(hot_rows + churn_rows)
+    log("world", keys=len(world.batch.updates), seconds=time.perf_counter() - t0)
+
+    def timed(blocks, v, depth):
+        """One timed run; the host stages that differ between the two
+        paths are timed on their own threads: the host read of the
+        committed versions, the resident launch (lookup, miss read, the
+        ``resident_verok`` enqueue, admissions) and the commit scatter."""
+        spent = {}
+        for name in ("_committed_versions", "_resident_launch_vec", "resident_commit"):
+            def wrap(fn, name=name):
+                def inner(*a, **kw):
+                    t = time.perf_counter()
+                    try:
+                        return fn(*a, **kw)
+                    finally:
+                        spent[name] = spent.get(name, 0.0) + time.perf_counter() - t
+                return inner
+            setattr(v, name, wrap(getattr(v, name)))
+        gc.collect()  # the 1M-key world's garbage, collected outside the timed run
+        out = run_validator(blocks, v, depth=depth)
+        v.stage_ms_per_block = {k: 1e3 * t / len(blocks) for k, t in spent.items()}
+        return out
+
+    host_v = world.validator()
+    host, host_s, _ = timed(hot, host_v, 2)
+    _check_filters("host path", host, hot_want)
+    log("host_path_hot", depth=2, blocks=len(hot), seconds=host_s,
+        per_block_ms=1e3 * host_s / len(hot), stage_ms_per_block=host_v.stage_ms_per_block)
+    counts = None
+    for depth in (2, 3):
+        v = world.validator(state_resident=True)
+        t1 = time.perf_counter()
+        warmed = v.resident.warm(world.items())
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t1
+        kernels.reset_counts()
+        res, secs, marks = timed(hot, v, depth)
+        c = dict(kernels.launches)
+        st = v.resident.stats()
+        _check_filters(f"resident depth {depth}", res, hot_want)
+        _same_runs(f"resident depth {depth}", res, host, v.state, host_v.state)
+        if c["resident_verok"] != len(hot):
+            raise AssertionError(f"resident_verok launched {c['resident_verok']} times "
+                                 f"for {len(hot)} blocks")
+        if st["hit_rate"] is None or st["hit_rate"] < 0.99 or st["evictions_total"]:
+            raise AssertionError(f"resident table after warm: {st}")
+        zero = [k for k in RESIDENT_KERNELS if c[k] == 0]
+        if zero:
+            raise AssertionError(f"kernels not launched on the resident path: {zero}")
+        log("resident_path", depth=depth, blocks=len(hot), warmed=warmed, warm_seconds=warm_s,
+            seconds=secs, per_block_ms=1e3 * secs / len(hot), completion_s=marks,
+            stage_ms_per_block=v.stage_ms_per_block, launches=c, stats=st,
+            equal_to_host_path=True)
+        if depth == 2:
+            counts = c
+            busy_v = world.validator(state_resident=True)
+            busy_v.resident.warm(world.items())
+    host3_v = world.validator()
+    host3, host3_s, _ = timed(hot, host3_v, 3)
+    _check_filters("host path, depth 3", host3, hot_want)
+    log("host_path_hot", depth=3, blocks=len(hot), seconds=host3_s,
+        per_block_ms=1e3 * host3_s / len(hot), stage_ms_per_block=host3_v.stage_ms_per_block)
+    for name, v in (("resident", busy_v), ("host", world.validator())):
+        gc.collect()
+        busy_ms, psecs, n_ev = device_busy(hot, validator=v)
+        log("device_busy_hot", path=name, profiled_seconds=psecs, device_events=n_ev,
+            busy_ms_per_block=busy_ms / len(hot) if n_ev else None,
+            idle_share_profiled=1 - busy_ms / (1e3 * psecs) if n_ev else None)
+
+    # churn: a 4,096-slot table under read keys that shift every block
+    host_v = world.validator()
+    host, _, _ = timed(churn, host_v, 2)
+    v = world.validator(state_resident=True)
+    v.resident = ResidencyManager(slots=CHURN_SLOTS, device="cuda")
+    res, secs, _ = timed(churn, v, 2)
+    st = v.resident.stats()
+    _check_filters("churn", res, churn_want)
+    _same_runs("churn", res, host, v.state, host_v.state)
+    if not st["evictions_total"]:
+        raise AssertionError(f"the churn table never evicted: {st}")
+    log("resident_churn", blocks=len(churn), slots=CHURN_SLOTS, seconds=secs, stats=st,
+        equal_to_host_path=True)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the sign lane
+
+
+SIGN_CLIENTS, SIGN_DIGESTS = 8, 2000
+SIGN_LANES = (4096, 256)  # the last is the batcher's default batch_max
+
+
+def sign_scalars(n, rng):
+    from fabric_tpu_torch.crypto import ec_ref
+
+    N = ec_ref.N
+    ks = [1, 2, N - 1, N - 2, 15, 16, 16 ** 63, 0xF << 128, (1 << 255) | 1, N >> 1]
+    ks += [16 ** j for j in range(1, 63, 7)]
+    return ks + [int.from_bytes(rng.bytes(32), "big") % (N - 1) + 1
+                 for _ in range(n - len(ks))]
+
+
+def phase_sign(net: Net, dev):
+    from fabric_tpu_torch import kernels
+    from fabric_tpu_torch.ops import p256sign, p256v3
+    from fabric_tpu_torch.peer import signlane
+
+    ec = net.ec
+    rng = np.random.default_rng(SEED + 7)
+    rec = None
+    for lanes in SIGN_LANES:
+        ks = sign_scalars(lanes, rng)
+        limbs = torch.from_numpy(p256v3._limbs16(ks)).to(dev)
+        got = p256sign.sign_batch_limbs(limbs)
+        want = p256sign.sign_batch_ref(limbs)
+        torch.cuda.synchronize()
+        mism = int((got != want).any(dim=2).any(dim=1).sum())
+        err = int((got.long() - want.long()).abs().max())
+        if mism:
+            raise AssertionError(f"p256_sign at {lanes} lanes: {mism} lanes differ")
+        out = got.cpu().numpy().view(np.uint32)
+        sample = rng.choice(lanes, 256, replace=False) if lanes > 256 else np.arange(lanes)
+        xs, zs = p256sign._to_ints(out[sample, 0]), p256sign._to_ints(out[sample, 1])
+        oracle_mism = sum(X * pow(Z, -1, ec.P) % ec.P != ec.pt_mul(ks[i], ec.G)[0]
+                          for i, X, Z in zip(sample.tolist(), xs, zs))
+        if oracle_mism:
+            raise AssertionError(f"p256_sign: {oracle_mism} sampled lanes differ from ec_ref")
+        ms = cuda_ms(lambda: kernels.p256_sign(limbs, *p256sign._kernel_tables(dev)), 20)
+        plain_ms = cuda_ms(lambda: p256sign.sign_batch_ref(limbs), 2)
+        # 13 Montgomery products per nonzero digit, 128 multiply-adds each
+        nonzero = int((p256v3.recode_windows(limbs) != 0).sum())
+        b_ms, b_by = bound(nbytes(limbs, got) + 64 + 64 * 16 * 64, nonzero * 13 * 128 * 2)
+        log("sign_kernel", lanes=lanes, mismatches=mism, oracle_lanes=len(sample),
+            oracle_mismatches=oracle_mism, ms=ms, plain_ms=plain_ms, bound_ms=b_ms)
+        if lanes == SIGN_LANES[-1]:  # the sign lane's batch shape
+            rec = {"name": "p256_sign", "route": "cuda",
+                   "source": "fabric_tpu_torch/kernels/csrc/p256_sign.cu",
+                   "replaces": "fabric_tpu/ops/p256sign.py:129", "max_abs_err": err,
+                   "mismatches": mism, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "library_ms": None}
+    # whole signatures, edge nonces, and the round trip through p256_verify
+    d = net.keys[1].d
+    digests = [int.from_bytes(rng.bytes(32), "big") for _ in range(256)]
+    fixed = sign_scalars(256, rng)
+    sigs = p256sign.sign_digests(digests, d, ks=fixed, device=dev)
+    if sigs != [ec.SigningKey(d).sign_digest(e, k=k) for e, k in zip(digests, fixed)]:
+        raise AssertionError("p256_sign: fixed-nonce signatures differ from ec_ref")
+    qx, qy = ec.SigningKey(d).public
+    ok = p256v3.verify_launch([(e, r, s, qx, qy) for e, (r, s) in zip(digests, sigs)],
+                              device=dev).fetch()
+    if not all(ok):
+        raise AssertionError("signatures from the card rejected by p256_verify")
+    log("sign_roundtrip", lanes=len(sigs), edge_nonces=True, verified=sum(ok))
+
+    # the sign lane: 8 clients through SignBatcher(device_sign_backend(...))
+    msgs = [b"proposal-%d" % i for i in range(SIGN_DIGESTS)]
+    got, errors = {}, []
+    batcher = signlane.SignBatcher(signlane.device_sign_backend(d))
+    p256sign.sign_digests([1], d, device=dev)  # the comb table, before the clock starts
+    kernels.reset_counts()
+
+    def client(part):
+        try:
+            for m in part:
+                got[m] = batcher.sign(m)
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(msgs[i::SIGN_CLIENTS],))
+               for i in range(SIGN_CLIENTS)]
+    with batcher:
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        secs = time.perf_counter() - t0
+        st = batcher.stats()
+    counts = dict(kernels.launches)
+    if errors or len(got) != SIGN_DIGESTS:
+        raise AssertionError(f"sign lane: {len(got)} of {SIGN_DIGESTS} signed, errors {errors[:3]}")
+    serial = signlane.cpu_sign_backend(d)
+    bad = sum(got[m] != ec.der_encode_sig(*serial([ec.digest_int(m)])[0]) for m in msgs)
+    if bad:
+        raise AssertionError(f"sign lane: {bad} signatures differ from cpu_sign_backend")
+    if counts["p256_sign"] == 0:
+        raise AssertionError("p256_sign not launched on the sign lane")
+    log("sign_lane", clients=SIGN_CLIENTS, digests=SIGN_DIGESTS, seconds=secs,
+        signatures_per_s=SIGN_DIGESTS / secs, batches=st["batches_total"],
+        occupancy=st["occupancy"], wait_ms=st["wait_ms"], launches=counts,
+        equal_to_cpu_backend=True)
+    rec["launches"] = counts["p256_sign"]
+    return rec
 
 
 def main() -> int:
@@ -545,6 +958,12 @@ def main() -> int:
     counts = phase_main_path(net)
     for r in recs:
         r["launches"] = counts[r["name"]]
+    res_recs = phase_resident_kernels(dev)
+    counts = phase_resident_path(net)
+    for r in res_recs:
+        r["launches"] = counts[r["name"]]
+    recs += res_recs
+    recs.append(phase_sign(net, dev))
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "mismatches",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in order} for r in recs]}), flush=True)

@@ -1,9 +1,10 @@
 """Pure-Python NIST P-256 reference (counterpart:
-``fabric_tpu/crypto/ec_ref.py``, a copy trimmed to verification and
-deterministic signing).
+``fabric_tpu/crypto/ec_ref.py``, a copy trimmed to verification,
+deterministic signing and the DER signature codec).
 
 The oracle the port's verify kernel and its plain version are held
-against, and the deterministic (RFC 6979) signer ``chip_smoke.py`` uses
+against, and the deterministic (RFC 6979) signer that the sign lane
+(``ops/p256sign.py``) is held bit-equal to and ``chip_smoke.py`` uses
 to make its signatures.  ``wrapped_x_signature`` is the port's own
 addition: a test vector for the one verify branch random signatures
 never reach.  ECDSA P-256 over SHA-256 digests with the
@@ -119,6 +120,50 @@ def rfc6979_candidates(d: int, e: int):
             yield k
         K = mac(K, V + b"\x00")
         V = mac(K, V)
+
+
+def rfc6979_k(d: int, e: int) -> int:
+    """The first RFC 6979 nonce candidate: THE deterministic k for
+    (d, e) except in the ~2^-256 case of a degenerate signature."""
+    return next(rfc6979_candidates(d, e))
+
+
+# ---------------------------------------------------------------------------
+# Minimal DER (r, s) codec, the SW BCCSP signature wire form.  P-256 r
+# and s are < 2^256, so every length fits the short form.
+
+
+def _der_int(v: int) -> bytes:
+    b = int(v).to_bytes((v.bit_length() + 8) // 8 or 1, "big")
+    return b"\x02" + bytes([len(b)]) + b
+
+
+def der_encode_sig(r: int, s: int) -> bytes:
+    """(r, s) → DER ECDSA-Sig-Value (SEQUENCE of two INTEGERs)."""
+    if not (0 < r < N and 0 < s < N):
+        raise ValueError("r/s out of range")
+    body = _der_int(r) + _der_int(s)
+    return b"\x30" + bytes([len(body)]) + body
+
+
+def der_decode_sig(der: bytes) -> tuple[int, int]:
+    """DER ECDSA-Sig-Value → (r, s); strict short-form parse."""
+    if len(der) < 8 or der[0] != 0x30 or der[1] != len(der) - 2:
+        raise ValueError("bad DER signature envelope")
+    out = []
+    off = 2
+    for _ in range(2):
+        if off + 2 > len(der) or der[off] != 0x02:
+            raise ValueError("bad DER integer tag")
+        ln = der[off + 1]
+        off += 2
+        if ln == 0 or off + ln > len(der) or ln > 33:
+            raise ValueError("bad DER integer length")
+        out.append(int.from_bytes(der[off:off + ln], "big"))
+        off += ln
+    if off != len(der):
+        raise ValueError("trailing DER bytes")
+    return out[0], out[1]
 
 
 @dataclass(frozen=True)

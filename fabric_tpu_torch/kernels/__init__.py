@@ -31,11 +31,12 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("p256_verify", "stage2")
+SOURCES = ("p256_verify", "stage2", "resident", "p256_sign")
 ARCH_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a",)
 
 launches = {"p256_verify": 0, "stage2_policy": 0, "stage2_mvcc": 0,
-            "mvcc_validate": 0}
+            "mvcc_validate": 0, "resident_verok": 0, "table_scatter": 0,
+            "p256_sign": 0}
 # nvcc's -Xptxas=-v report per source (registers, spills), for logs
 build_log: dict = {}
 
@@ -54,6 +55,13 @@ _SIGS = {
         "fab_mvcc_verok": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
         "fab_mvcc_bitsets": [_P, _I, _I, _I, _I, _P, _P, _P],
         "fab_mvcc_fixpoint": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
+    },
+    "resident": {
+        "fab_resident_verok": [_P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P],
+        "fab_table_scatter": [_P, _P, _P, _I, _P],
+    },
+    "p256_sign": {
+        "fab_p256_sign": [_P, _I, _P, _P, _P, _P],
     },
 }
 
@@ -241,3 +249,36 @@ def mvcc_validate(read_keys, read_present, read_vers, comm_present, comm_vers,
     _call("stage2", "fab_mvcc_fixpoint", T, direct.data_ptr(), phantom.data_ptr(),
           ver_ok.data_ptr(), pre_ok.data_ptr(), None, None, 0, None, out.data_ptr(), s)
     _count("mvcc_validate")
+
+
+def resident_verok(static_p, R: int, table, u_pack, read_pv, launch_vec) -> None:
+    """The committed-version check of one block against the resident
+    table, written into column 2 of ``launch_vec`` (int32 [T, 3])."""
+    _cuda(static_p, table, u_pack, read_pv, launch_vec)
+    T, cols = static_p.shape
+    if read_pv.shape != (T, R, 3) or launch_vec.shape != (T, 3) or u_pack.shape[1] != 4:
+        raise ValueError("resident_verok: operand shapes disagree")
+    _call("resident", "fab_resident_verok", static_p.data_ptr(), T, cols, R,
+          table.data_ptr(), table.shape[0], u_pack.data_ptr(), u_pack.shape[0],
+          read_pv.data_ptr(), launch_vec.data_ptr(), _stream(table))
+    _count("resident_verok")
+
+
+def table_scatter(table, idx, rows) -> None:
+    """table[idx[i]] = rows[i] for int32 [k] ``idx`` (checked in range
+    by the caller) and int32 [k, 3] ``rows``."""
+    _cuda(table, idx, rows)
+    _call("resident", "fab_table_scatter", table.data_ptr(), idx.data_ptr(), rows.data_ptr(),
+          idx.shape[0], _stream(table))
+    _count("table_scatter")
+
+
+def p256_sign(limbs, consts, comb) -> torch.Tensor:
+    """[B, 16] int16 nonce limbs → [B, 2, 8] int32 (uint32 bit patterns
+    of the projective X and Z of k·G, Montgomery form)."""
+    _cuda(limbs, consts, comb)
+    out = torch.empty((limbs.shape[0], 2, 8), dtype=torch.int32, device=limbs.device)
+    _call("p256_sign", "fab_p256_sign", limbs.data_ptr(), limbs.shape[0], consts.data_ptr(),
+          comb.data_ptr(), out.data_ptr(), _stream(limbs))
+    _count("p256_sign")
+    return out

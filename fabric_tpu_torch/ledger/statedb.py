@@ -2,8 +2,9 @@
 the ``UpdateBatch`` and ``MemVersionedDB`` part).
 
 Keyed (namespace, key) → (value, version); the validator reads
-committed versions for every read key of a block and re-runs recorded
-range queries against it (``get_state_range``).
+committed versions for every read key of a block (``get_versions_bulk``,
+or ``get_versions_cols`` for the resident-state miss set) and re-runs
+recorded range queries against it (``get_state_range``).
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 import threading
 from bisect import bisect_left
 from dataclasses import dataclass
+
+import numpy as np
 
 Version = tuple[int, int]
 
@@ -71,6 +74,19 @@ class MemVersionedDB:
             if vv is not None:
                 out[k] = vv.version
         return out
+
+    def get_versions_cols(self, keys):
+        """Column form of ``get_versions_bulk``: → ``(present [U] bool,
+        vers [U, 2] uint32)`` aligned with ``keys``."""
+        present = np.zeros(len(keys), bool)
+        vers = np.zeros((len(keys), 2), np.uint32)
+        get = self._data.get
+        for i, k in enumerate(keys):
+            vv = get(k)
+            if vv is not None:
+                present[i] = True
+                vers[i] = vv.version
+        return present, vers
 
     def _sorted_keys(self, ns):
         keys = self._sorted_cache.get(ns)

@@ -163,6 +163,13 @@ class StaticBlock:
     rq_hi: np.ndarray          # [T, Q] int32
     read_fill: list            # [(j, a, key)]
     read_key_set: set
+    # the unique-key form (``prepare_block_static(unique=True)``, blocks
+    # without range reads): read key ids 0..U-1 index ``u_pairs``
+    u_pairs: list | None = None   # [U] (ns, key) per unique read key id
+    u_index: dict | None = None   # (ns, key) → id
+    r_rows: np.ndarray | None = None  # [nr] tx row of each read
+    r_cols: np.ndarray | None = None  # [nr] read slot of each read
+    r_uid: np.ndarray | None = None   # [nr] unique-key id of each read
 
     def fill_committed(self, committed: dict):
         """→ (comm_present [T, R] bool, comm_vers [T, R, 2] uint32)."""
@@ -194,6 +201,29 @@ class StaticBlock:
         return np.concatenate([self.read_keys, self.write_keys, self.rq_lo, self.rq_hi],
                               axis=1)
 
+    def packed_read_pv(self) -> np.ndarray:
+        """[T, R, 3] int32: expected present | ver_block | ver_txnum per
+        read, the versions as int32 bit patterns (compared for equality
+        only) — the expected side of the resident-state compare."""
+        T, R = self.read_keys.shape
+        rpv = np.zeros((T, R, 3), np.int32)
+        rpv[:, :, 0] = self.read_present
+        rpv[:, :, 1:3] = self.read_vers.view(np.int32)
+        return rpv
+
+    def ver_ok_from_u(self, up: np.ndarray, uv: np.ndarray) -> np.ndarray:
+        """[T] bool from per-unique-key committed (present [U] bool,
+        versions [U, 2] uint32): the plain form of the resident compare."""
+        T = self.read_keys.shape[0]
+        if not len(self.r_rows):
+            return np.ones(T, bool)
+        rp = self.read_present[self.r_rows, self.r_cols]
+        rv = self.read_vers[self.r_rows, self.r_cols]
+        cp = up[self.r_uid]
+        ver_eq = (rv == uv[self.r_uid]).all(axis=1)
+        okr = np.where(rp & cp, ver_eq, rp == cp)
+        return np.bincount(self.r_rows[~okr], minlength=T) == 0
+
     def device_args(self, committed: dict, device) -> tuple:
         """``mvcc_validate`` arguments (minus pre_ok) as tensors on ``device``."""
         comm_present, comm_vers = self.fill_committed(committed)
@@ -203,10 +233,18 @@ class StaticBlock:
                 t(self.rq_lo), t(self.rq_hi))
 
 
-def prepare_block_static(txs: list[TxRWSet], bucketed: bool = False) -> StaticBlock:
+def prepare_block_static(txs: list[TxRWSet], bucketed: bool = False,
+                         unique: bool = False) -> StaticBlock:
     """Dense key ids in lexicographic key order over the block's key
     universe, so range bounds map to id intervals; ``bucketed`` rounds
-    T (to >= 16), R, W and Q up to powers of two (padding rows inert)."""
+    T (to >= 16), R, W and Q up to powers of two (padding rows inert).
+
+    ``unique`` (the resident-state path) on a block without range reads
+    numbers the read keys first, 0..U-1 in key order, then the keys only
+    written, and fills the unique-key form (``u_pairs``, ``u_index``,
+    ``r_rows``/``r_cols``/``r_uid``).  Without range reads only id
+    equality matters, so the order changes no verdict (the reference's
+    flat path interns keys in hash order for the same reason)."""
     universe = set()
     read_key_set = set()
     for tx in txs:
@@ -214,10 +252,15 @@ def prepare_block_static(txs: list[TxRWSet], bucketed: bool = False) -> StaticBl
             universe.add(k)
             read_key_set.add(k)
         universe.update(tx.writes)
+    unique = unique and not any(tx.range_reads for tx in txs)
     for tx in txs:
         for lo, _ in tx.range_reads:
             universe.add(lo)
-    skeys = sorted(universe)
+    if unique:
+        rkeys = sorted(read_key_set)
+        skeys = rkeys + sorted(universe - read_key_set)
+    else:
+        skeys = sorted(universe)
     kid = {k: i for i, k in enumerate(skeys)}
 
     T = len(txs)
@@ -247,11 +290,18 @@ def prepare_block_static(txs: list[TxRWSet], bucketed: bool = False) -> StaticBl
         for a, (lo, hi) in enumerate(tx.range_reads):
             rq_lo[j, a] = bisect.bisect_left(skeys, lo)
             rq_hi[j, a] = bisect.bisect_left(skeys, hi)
-    return StaticBlock(
+    static = StaticBlock(
         read_keys=read_keys, read_present=read_present, read_vers=read_vers,
         write_keys=write_keys, rq_lo=rq_lo, rq_hi=rq_hi,
         read_fill=read_fill, read_key_set=read_key_set,
     )
+    if unique:
+        static.u_pairs = [(k[1], k[2]) for k in rkeys]
+        static.u_index = {pr: i for i, pr in enumerate(static.u_pairs)}
+        rows, cols = np.nonzero(read_keys >= 0)
+        static.r_rows, static.r_cols = rows, cols
+        static.r_uid = read_keys[rows, cols]
+    return static
 
 
 def mvcc_validate_block(txs: list[TxRWSet], committed: dict, pre_ok=None, device="cuda"):

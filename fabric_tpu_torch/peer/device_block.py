@@ -21,11 +21,21 @@ gate tree goes to the kernel as data (``plan_vector``), so nothing is
 built per plan.  ``stage2`` is the wrapper: CPU tensors run
 ``stage2_ref``, CUDA tensors launch ``stage2_policy`` once per group and
 ``stage2_mvcc`` (two launches) from ``kernels/csrc/stage2.cu``.
+
+With device-resident state (``state/residency.py``) the ver_ok column is
+not filled on the host: ``resident_ver_ok`` computes it on the device
+from the resident version table and the block's unique-key pack
+(``u_pack [Ub, 4]``: slot | present | vb | vt, slot -1 = host lane) and
+writes it into the launch vector before stage 2 reads it — the
+reference's ``resident_dims`` variant of ``build_stage2``.  CPU tensors
+run ``resident_ver_ok_ref``, CUDA tensors launch ``resident_verok``
+(``kernels/csrc/resident.cu``).  It runs under the residency manager's
+lock on the manager's stream, before the block's own admissions can
+reuse a slot it reads (``state.build_launch_pack``).
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from fabric_tpu_torch import kernels
@@ -118,6 +128,38 @@ def stage2_ref(sig_valid, launch_vec, groups, static_p, dims) -> torch.Tensor:
     return torch.cat([p.to(torch.int8) for p in parts])
 
 
+def resident_ver_ok_ref(static_p, table, u_pack, read_pv, R: int) -> torch.Tensor:
+    """Plain ``resident_verok`` → [T] bool: the reference's
+    ``_resident_ver_ok``, gather for gather.  Read key ids index
+    ``u_pack``; slot >= 0 gathers the table row, slot < 0 takes the
+    pack's host lane; ids past the pack read an absent row and slots
+    past the table clamp to its last row, as jax's gathers do."""
+    Ub, cap = u_pack.shape[0], table.shape[0]
+    slot = u_pack[:, 0].long()
+    trow = table[torch.where(slot >= 0, slot, 0).clamp(max=cap - 1)]
+    urow = torch.where((slot < 0)[:, None], u_pack[:, 1:4], trow)
+    up = torch.cat([urow[:, 0] != 0, urow.new_zeros(1, dtype=torch.bool)])
+    uv = torch.cat([urow[:, 1:3], urow.new_zeros((1, 2))])
+    rk = static_p[:, :R].long()
+    idx = torch.where(rk >= 0, rk, Ub).clamp(max=Ub)
+    cp, cv = up[idx], uv[idx]
+    rp = read_pv[:, :, 0] != 0
+    ver_eq = (read_pv[:, :, 1:3] == cv).all(dim=-1)
+    okr = torch.where(rp & cp, ver_eq, rp == cp)
+    return (okr | (rk < 0)).all(dim=-1)
+
+
+def resident_ver_ok(static_p, table, u_pack, read_pv, R: int, launch_vec) -> None:
+    """The committed-version check against the resident table, written
+    into column 2 of ``launch_vec`` (int32 [T, 3]).  CPU tensors run
+    ``resident_ver_ok_ref``; CUDA tensors launch ``resident_verok``."""
+    if table.device.type == "cpu":
+        launch_vec[:, 2] = resident_ver_ok_ref(static_p, table, u_pack, read_pv, R).to(
+            launch_vec.dtype)
+        return
+    kernels.resident_verok(static_p, R, table, u_pack, read_pv, launch_vec)
+
+
 def stage2(sig_valid, launch_vec, groups, static_p, dims, plan_tensors=None) -> torch.Tensor:
     """The fused stage 2 → packed int8.  ``plan_tensors`` (CUDA only):
     one ``plan_vector`` int32 tensor per group, built here when None."""
@@ -157,20 +199,20 @@ class DeviceBlockPipeline:
                 plan, torch.tensor(plan_vector(plan), dtype=torch.int32, device=dev))
         return hit[1]
 
-    def run(self, handle, launch_vec: np.ndarray, groups, static_packed, static_dims,
+    def run(self, handle, launch_vec: torch.Tensor, groups, static_packed, static_dims,
             t_bucket: int):
         """handle: ``ops.p256v3.VerifyHandle``; launch_vec [T, 3] int32
-        numpy; groups [(plan, gp tensor, Eb, S)]; static_packed
-        [T, R+W+2Q] int32 tensor.  → zero-arg fetch of a dict of numpy
-        arrays (valid, conflict, phantom, creator_ok, policy_ok,
-        sig_valid, safe: [per-group arrays])."""
+        tensor on the handle's device (its ver_ok column filled on the
+        host or by ``resident_ver_ok``); groups [(plan, gp tensor, Eb,
+        S)]; static_packed [T, R+W+2Q] int32 tensor.  → zero-arg fetch
+        of a dict of numpy arrays (valid, conflict, phantom, creator_ok,
+        policy_ok, sig_valid, safe: [per-group arrays])."""
         sv = handle.device_out
         dev = sv.device
-        lv = torch.from_numpy(np.ascontiguousarray(launch_vec, np.int32)).to(dev)
         pts = None
         if dev.type == "cuda":
             pts = [self._plan_tensor(g[0], dev) for g in groups]
-        packed = stage2(sv, lv, groups, static_packed, static_dims, pts)
+        packed = stage2(sv, launch_vec, groups, static_packed, static_dims, pts)
         n_sig = int(sv.shape[0])
         e_sizes = [g[2] for g in groups]
 

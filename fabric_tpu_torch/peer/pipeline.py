@@ -16,6 +16,13 @@ predecessor's commit.  ``depth=1`` is the strict serial
 launch → finish → commit order.  The port's policies are static (no
 config or lifecycle transactions in this slice), so no block forces a
 barrier.
+
+Each commit runs ``commit_fn`` and then the validator's
+``resident_commit`` (the device-resident state's write-set scatter,
+``state/residency.py``), on the committer thread or inline, before the
+commit's future resolves: a launch whose overlay no longer covers a
+block is ordered after that block's scatter.  An error in either
+surfaces like any stage exception.
 """
 
 from __future__ import annotations
@@ -58,7 +65,8 @@ class CommitPipeline:
     or None while the pipe fills; ``flush()`` drains the tail.
     ``commit_fn(res: CommittedBlock)`` performs the ledger commit; it
     runs on the committer thread (inline at depth 1 and for the tail),
-    serialized in block order.  A stage exception closes the pipe: it
+    serialized in block order, followed by the validator's
+    ``resident_commit``.  A stage exception closes the pipe: it
     surfaces once and later submits raise."""
 
     def __init__(self, validator, commit_fn, depth: int = 2):
@@ -149,6 +157,12 @@ class CommitPipeline:
         self._launched = self.validator.validate_launch(
             block, pre=pre, overlay=overlay, extra_txids=extra)
 
+    def _run_commit(self, res: CommittedBlock) -> None:
+        """The one commit body: the ledger commit, then the resident
+        table's scatter of the same write set."""
+        self.commit_fn(res)
+        self.validator.resident_commit(res.batch)
+
     def _finish_and_commit(self, pend, tail: bool = False) -> CommittedBlock:
         flt, batch, history = self.validator.validate_finish(pend)
         # keep at most depth-2 older commits in flight beside this one
@@ -157,9 +171,9 @@ class CommitPipeline:
                              history=history)
         self._launched = None
         if tail:
-            self.commit_fn(res)
+            self._run_commit(res)
         else:
             self._commits.append(_InflightCommit(
-                fut=self._committer.submit(self.commit_fn, res), batch=batch,
+                fut=self._committer.submit(self._run_commit, res), batch=batch,
                 txids=pend.txids))
         return res

@@ -22,6 +22,16 @@ MVCC / phantom; ``_finish_device``):
   interpreter with ``ops.mvcc.mvcc_validate`` (the reference's
   ``_validate_host``) — then the update batch and history.
 
+``state_resident=True`` keeps the committed versions of the working set
+on the device (``state/residency.py``): the launch then computes the
+ver_ok column with ``resident_verok`` against the resident table instead
+of reading every unique read key from the state DB, and
+``resident_commit`` (called by ``CommitPipeline`` at the commit
+boundary; a caller committing outside the pipeline calls it after each
+commit) scatters each committed write set into the table.  Blocks with
+range queries, and working sets larger than the table, keep the host
+read.  Errors of the resident path raise; nothing falls back.
+
 A block carrying what this slice lacks raises ``NotImplementedError``
 naming the later slice: config transactions, idemix creators, key-level
 endorsement metadata writes, private-collection (hashed) read/write
@@ -43,8 +53,9 @@ from fabric_tpu_torch.ledger.rwset import TxRWSet
 from fabric_tpu_torch.ledger.statedb import UpdateBatch
 from fabric_tpu_torch.ops import mvcc as mvcc_ops
 from fabric_tpu_torch.ops import p256v3
-from fabric_tpu_torch.peer.device_block import DeviceBlockPipeline
+from fabric_tpu_torch.peer.device_block import DeviceBlockPipeline, resident_ver_ok
 from fabric_tpu_torch.peer.txcodes import TxValidationCode as C
+from fabric_tpu_torch.state.residency import ResidencyManager, build_launch_pack
 from fabric_tpu_torch.utils.batching import next_pow2
 
 _NV = int(C.NOT_VALIDATED)
@@ -137,6 +148,7 @@ class DevicePre:
     static: object        # ops.mvcc.StaticBlock
     static_t: torch.Tensor
     has_range: bool
+    read_pv: torch.Tensor | None = None  # [T, R, 3] expected reads (resident path)
 
 
 @dataclass
@@ -193,13 +205,17 @@ class BlockValidator:
     """validate(block) → (tx_filter bytes, UpdateBatch, history)."""
 
     def __init__(self, policy_provider: PolicyProvider, state_db, block_store=None,
-                 device="cuda"):
+                 device="cuda", state_resident: bool = False, state_resident_mb: int = 64,
+                 state_resident_range_bits: int = 12):
         self.policies = policy_provider
         self.state = state_db
         self.blocks = block_store  # anything with tx_exists(txid)
         self.device = resolve_device(device)
         self._plans: dict = {}
         self._stage2 = DeviceBlockPipeline()
+        self.resident = (ResidencyManager(state_resident_mb, state_resident_range_bits,
+                                          device=self.device)
+                         if state_resident else None)
 
     def _plan(self, policy) -> pol.BatchPlan:
         plan = self._plans.get(policy)
@@ -286,10 +302,14 @@ class BlockValidator:
                 has_range = True
             reads, writes, rqs = ptx.rwset.mvcc_form()
             mvcc_txs.append(mvcc_ops.TxRWSet(reads=reads, writes=writes, range_reads=rqs))
-        static = mvcc_ops.prepare_block_static(mvcc_txs, bucketed=True)
+        static = mvcc_ops.prepare_block_static(mvcc_txs, bucketed=True,
+                                               unique=self.resident is not None)
         static_t = torch.from_numpy(static.packed_static()).to(self.device)
+        read_pv = None
+        if static.u_pairs is not None:
+            read_pv = torch.from_numpy(static.packed_read_pv()).to(self.device)
         return DevicePre(groups=groups, group_entries=group_entries, static=static,
-                         static_t=static_t, has_range=has_range)
+                         static_t=static_t, has_range=has_range, read_pv=read_pv)
 
     def preprocess(self, block: DecodedBlock) -> Preprocessed:
         """Parse, launch the block's signature verify without waiting,
@@ -345,11 +365,46 @@ class BlockValidator:
             if ptx.undetermined:
                 launch_vec[ptx.idx, 0] = ptx.creator_item_idx
                 launch_vec[ptx.idx, 1] = ptx.idx not in range_phantom
-        committed = self._committed_versions(static.read_key_set, overlay)
-        launch_vec[:, 2] = static.host_ver_ok(committed)
-        fetch2 = self._stage2.run(handle, launch_vec, dpre.groups, dpre.static_t,
-                                  static.dims, T)
+        lv = self._resident_launch_vec(launch_vec, dpre, overlay)
+        if lv is None:
+            committed = self._committed_versions(static.read_key_set, overlay)
+            launch_vec[:, 2] = static.host_ver_ok(committed)
+            lv = torch.from_numpy(launch_vec).to(self.device)
+        fetch2 = self._stage2.run(handle, lv, dpre.groups, dpre.static_t, static.dims, T)
         return fetch2, frozenset(range_phantom)
+
+    # -- device-resident state ------------------------------------------------
+
+    def _resident_launch_vec(self, launch_vec, dpre: DevicePre, overlay):
+        """The launch vector on the device with its ver_ok column
+        computed by ``resident_ver_ok`` against the resident table, or
+        None when the block takes the host read (no resident state, range
+        queries, a working set larger than the table)."""
+        res = self.resident
+        if res is None:
+            return None
+        static = dpre.static
+        if static.u_pairs is None:
+            res.route_host("range")
+            return None
+        launch_vec[:, 2] = 0
+        lv = torch.from_numpy(launch_vec).to(self.device)
+        R = static.dims[0]
+
+        def read(table, u_pack):
+            resident_ver_ok(dpre.static_t, table, u_pack, dpre.read_pv, R, lv)
+
+        pack = build_launch_pack(res, static.u_pairs, self.state, overlay=overlay,
+                                 u_index=static.u_index, read=read)
+        return None if pack is None else lv
+
+    def resident_commit(self, batch) -> None:
+        """Scatter one committed block's write set into the resident
+        table; ``CommitPipeline`` calls it at the commit boundary, before
+        the block's commit future resolves.  A no-op without resident
+        state; a failure raises."""
+        if self.resident is not None:
+            self.resident.apply_batch(batch)
 
     # -- finish ---------------------------------------------------------------
 

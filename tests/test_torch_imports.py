@@ -72,8 +72,10 @@ def test_entry_points_raise_without_cuda():
         pytest.skip("this host has a CUDA device; the check is for hosts without one")
     from fabric_tpu_torch import resolve_device
     from fabric_tpu_torch.ledger.statedb import MemVersionedDB
-    from fabric_tpu_torch.ops import mvcc, p256v3
+    from fabric_tpu_torch.ops import mvcc, p256sign, p256v3
+    from fabric_tpu_torch.peer import signlane
     from fabric_tpu_torch.peer.validator import BlockValidator, PolicyProvider
+    from fabric_tpu_torch.state import ResidencyManager
 
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()
@@ -83,4 +85,14 @@ def test_entry_points_raise_without_cuda():
         p256v3.verify_launch([(1, 1, 1, 1, 1)])
     with pytest.raises(RuntimeError, match="CUDA"):
         mvcc.mvcc_validate_block([mvcc.TxRWSet([("k", (1, 0))], ["k"], [])], {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BlockValidator(PolicyProvider({}), MemVersionedDB(), state_resident=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ResidencyManager(slots=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        p256sign.sign_launch([1], 5)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        signlane.device_sign_backend(5)
+    v = BlockValidator(PolicyProvider({}), MemVersionedDB(), device="cpu", state_resident=True)
+    assert v.resident.device.type == "cpu"
     assert BlockValidator(PolicyProvider({}), MemVersionedDB(), device="cpu").device.type == "cpu"

@@ -129,3 +129,112 @@ def test_mvcc_validate_kernel_matches_plain(cuda):
           sp[:, R + W:R + W + Q].contiguous(), sp[:, R + W + Q:].contiguous(), pre)
     for a, b in zip(mvcc.mvcc_validate_hostver(*hv), mvcc.mvcc_validate_hostver_ref(*hv)):
         assert torch.equal(a, b)
+
+
+def _resident_operands(dev, seed=13, T=512, R=2, U=600, cap=1024):
+    rng = np.random.default_rng(seed)
+    Ub = 1024
+    sp = np.full((T, R + 4), -1, np.int32)
+    sp[:, :R] = np.where(rng.random((T, R)) < 0.85, rng.integers(0, U, (T, R)), -1)
+    sp[:4, 0] = [U, Ub, Ub + 5, U + 3]  # ids past the real keys and past the pack
+    table = rng.integers(-2, 3, (cap, 3)).astype(np.int32)
+    table[:, 0] = rng.random(cap) < 0.8
+    u_pack = np.zeros((Ub, 4), np.int32)
+    u_pack[:, 0] = np.where(rng.random(Ub) < 0.6, rng.integers(0, cap, Ub), -1)
+    u_pack[5, 0] = cap + 7  # a slot past the table clamps to its last row
+    u_pack[:, 1] = rng.random(Ub) < 0.8
+    u_pack[:, 2:4] = rng.integers(-2, 3, (Ub, 2))
+    ids = np.clip(sp[:, :R], 0, Ub - 1)
+    slot = u_pack[ids, 0]
+    read_pv = np.where((slot >= 0)[..., None], table[np.clip(slot, 0, cap - 1)],
+                       u_pack[ids, 1:4]).astype(np.int32)
+    read_pv[rng.random((T, R)) < 0.1, 0] ^= 1
+    read_pv[rng.random((T, R)) < 0.1, 2] += 1
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return t(sp), t(table), t(u_pack), t(read_pv), R
+
+
+def test_resident_verok_kernel_matches_plain(cuda):
+    sp, table, u_pack, read_pv, R = _resident_operands(cuda)
+    lv = torch.zeros((sp.shape[0], 3), dtype=torch.int32, device=cuda)
+    db.resident_ver_ok(sp, table, u_pack, read_pv, R, lv)
+    want = db.resident_ver_ok_ref(sp, table, u_pack, read_pv, R)
+    assert torch.equal(lv[:, 2] != 0, want)
+    assert 0 < int(want.sum()) < want.shape[0]
+
+
+def test_table_scatter_kernel_matches_plain(cuda):
+    from fabric_tpu_torch.state import residency
+
+    rng = np.random.default_rng(17)
+    base = torch.from_numpy(rng.integers(-9, 9, (4096, 3)).astype(np.int32)).to(cuda)
+    for k in (1, 16, 2048):
+        idx = rng.choice(4096, k, replace=False).astype(np.int32)
+        rows = rng.integers(-(1 << 31), 1 << 31, (k, 3)).astype(np.int32)
+        got, want = base.clone(), base.clone()
+        residency.table_scatter(got, idx, rows)
+        residency.table_scatter_ref(want, torch.from_numpy(idx).to(cuda),
+                                    torch.from_numpy(rows).to(cuda))
+        assert torch.equal(got, want)
+    with pytest.raises(IndexError):
+        residency.table_scatter(base, np.array([4096]), np.zeros((1, 3)))
+
+
+def test_resident_manager_on_card_matches_cpu(cuda):
+    """The same admissions, scatters and block reads through a CUDA
+    manager (its own stream) and a CPU manager."""
+    from fabric_tpu_torch.ledger.statedb import MemVersionedDB, UpdateBatch
+    from fabric_tpu_torch.state import ResidencyManager, build_launch_pack
+
+    state = MemVersionedDB()
+    seed = UpdateBatch()
+    for i in range(300):
+        if i % 7:
+            seed.put("ns", f"k{i}", b"v", (1, i))
+    state.apply_updates(seed)
+    rng = np.random.default_rng(19)
+    mgrs = [ResidencyManager(slots=128, range_bits=5, device=d) for d in ("cpu", cuda)]
+    for step in range(6):
+        pairs = sorted({("ns", f"k{int(i)}") for i in rng.choice(300, 100, replace=False)})
+        T = 64
+        sp = np.full((T, 2), -1, np.int32)
+        sp[:, 0] = rng.integers(0, len(pairs), T)
+        rpv = np.zeros((T, 2, 3), np.int32)
+        rpv[:, 0] = [(1, 1, int(pairs[i][1][1:])) if int(pairs[i][1][1:]) % 7 else (0, 0, 0)
+                     for i in sp[:, 0]]
+        batch = UpdateBatch()
+        for i in rng.choice(300, 20, replace=False):
+            batch.put("ns", f"k{int(i)}", b"w", (2 + step, int(i)))
+        outs = []
+        for m in mgrs:
+            dev = m.device
+            spt, rpt = torch.from_numpy(sp).to(dev), torch.from_numpy(rpv).to(dev)
+            lv = torch.zeros((T, 3), dtype=torch.int32, device=dev)
+            build_launch_pack(m, pairs, state, read=lambda table, u: db.resident_ver_ok(
+                spt, table, u, rpt, 2, lv))
+            m.apply_batch(batch)
+            outs.append(lv.cpu())
+        state.apply_updates(batch)
+        assert torch.equal(outs[0], outs[1])
+        assert np.array_equal(mgrs[0].table_rows(), mgrs[1].table_rows())
+        assert mgrs[0].stats() == mgrs[1].stats()
+    assert mgrs[1].stats()["evictions_total"] > 0
+
+
+def test_p256_sign_kernel_matches_plain_and_oracle(cuda):
+    from fabric_tpu_torch.ops import p256sign
+
+    N = ec_ref.N
+    rng = np.random.default_rng(23)
+    ks = [1, 2, N - 1, N - 2, 16, 16 ** 63, 0x0F << 200, (1 << 255) | 1]
+    ks += [int.from_bytes(rng.bytes(32), "big") % (N - 1) + 1 for _ in range(300)]
+    limbs = np.zeros((v3._bucket(len(ks)), 16), np.int16)
+    limbs[:len(ks)] = v3._limbs16(ks)
+    limbs[len(ks):, -1] = 1
+    lt = torch.from_numpy(limbs).to(cuda)
+    got = p256sign.sign_batch_limbs(lt)
+    assert torch.equal(got, p256sign.sign_batch_ref(lt))
+    d = int.from_bytes(rng.bytes(32), "big") % (N - 1) + 1
+    digests = [int.from_bytes(rng.bytes(32), "big") for _ in range(40)]
+    sigs = p256sign.sign_digests(digests, d, device=cuda, verify_after=True)
+    assert sigs == [ec_ref.SigningKey(d).sign_digest(e) for e in digests]

@@ -1,14 +1,17 @@
 """The CUDA kernel sources' device code, compiled as host C++ and run
-one thread per block, against the plain versions on the CPU.
+one thread per block, against the plain versions on the CPU (and the
+sign kernel against ``ec_ref``).
 
 The sm_90a kernels themselves run only on the card
 (tests/test_torch_kernels_cuda.py, chip_smoke.py).  Here a few shim
 macros turn ``__global__``/``__device__`` functions into plain C++ and
 a loop over ``blockIdx`` plays the grid; with one thread per block the
 fixpoint kernel's barriers are no-ops and its grid-stride loops cover
-every transaction.  That checks each kernel's arithmetic and indexing
+every transaction.  The shared ``p256_field.cuh`` is inlined where a
+source includes it.  That checks each kernel's arithmetic and indexing
 — the 256-bit Montgomery product, the point formulas, the window
-recoding, the policy gate walk, the bitsets and the fixpoint — bit for
+recoding, the comb ladder, the policy gate walk, the bitsets, the
+fixpoint, the resident-table compare and the table scatter — bit for
 bit, before a card ever sees it."""
 
 import ctypes
@@ -23,8 +26,10 @@ import torch
 from fabric_tpu_torch.crypto import ec_ref
 from fabric_tpu_torch.crypto import policy as pol
 from fabric_tpu_torch.ops import mvcc
+from fabric_tpu_torch.ops import p256sign
 from fabric_tpu_torch.ops import p256v3 as v3
 from fabric_tpu_torch.peer import device_block as db
+from fabric_tpu_torch.state import residency
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "fabric_tpu_torch" / "kernels" / "csrc"
 
@@ -81,6 +86,26 @@ extern "C" void host_fixpoint(int T, const uint32_t* d, const uint32_t* p, const
   mvcc_fixpoint_kernel(T, (T + 31) / 32, d, p, vo, po, lv, sv, n_sig, pok, out);
 }
 """,
+    "resident": r"""
+extern "C" void host_verok(const int32_t* sp, int T, int cols, int R, const int32_t* table,
+                           int cap, const int32_t* u_pack, int Ub, const int32_t* read_pv,
+                           int32_t* lv) {
+  blockDim.x = 1;
+  for (int t = 0; t < T; ++t) { blockIdx.x = t;
+    resident_verok_kernel(sp, T, cols, R, table, cap, u_pack, Ub, read_pv, lv); }
+}
+extern "C" void host_scatter(int32_t* table, const int32_t* idx, const int32_t* rows, int k) {
+  blockDim.x = 1;
+  for (int i = 0; i < k; ++i) { blockIdx.x = i; table_scatter_kernel(table, idx, rows, k); }
+}
+""",
+    "p256_sign": r"""
+extern "C" void host_sign(const int16_t* limbs, int B, const uint32_t* c, const uint32_t* comb,
+                          uint32_t* out) {
+  blockDim.x = 1;
+  for (int i = 0; i < B; ++i) { blockIdx.x = i; p256_sign_kernel(limbs, B, c, comb, out); }
+}
+""",
 }
 
 
@@ -101,6 +126,8 @@ def host_kernels(tmp_path_factory):
     d = tmp_path_factory.mktemp("host_kernels")
     for name, launcher in LAUNCHERS.items():
         src = (CSRC / f"{name}.cu").read_text()
+        header = (CSRC / "p256_field.cuh").read_text().replace("#pragma once", "")
+        src = src.replace('#include "p256_field.cuh"', header)
         device_code = src.split("}  // namespace")[0]
         device_code = device_code.replace("#include <cuda_runtime.h>", "").replace(
             "extern __shared__ uint32_t sm[];", "uint32_t* sm = host_smem;")
@@ -244,3 +271,77 @@ def test_stage2_kernel_sources_match_plain(host_kernels, seed):
                                  c(sp[:, R:R + W]), c(sp[:, R + W:R + W + Q]),
                                  c(sp[:, R + W + Q:]), c(pre))
     assert np.array_equal(o3.astype(bool), torch.cat(ref).numpy())
+
+
+def _sign_limbs(ks):
+    limbs = np.zeros((v3._bucket(len(ks)), 16), np.int16)
+    limbs[:len(ks)] = v3._limbs16(ks)
+    limbs[len(ks):, -1] = 1
+    return limbs
+
+
+def test_sign_kernel_source_matches_plain_and_oracle(host_kernels):
+    N = ec_ref.N
+    rng = np.random.default_rng(11)
+    ks = [1, 2, N - 1, N - 2, 16, 16 ** 63, 0x0F << 200, (1 << 255) | 1]
+    ks += [int.from_bytes(rng.bytes(32), "big") % (N - 1) + 1 for _ in range(12)]
+    limbs = _sign_limbs(ks)
+    consts, comb = (t.numpy().view(np.uint32)
+                    for t in p256sign._kernel_tables(torch.device("cpu")))
+    out = np.zeros((len(limbs), 2, 8), np.uint32)
+    host_kernels["p256_sign"].host_sign(_p(limbs), len(limbs), _p(consts), _p(comb), _p(out))
+    plain = p256sign.sign_batch_ref(torch.from_numpy(limbs)).numpy().view(np.uint32)
+    assert np.array_equal(out, plain)
+    xs, zs = p256sign._to_ints(out[:, 0]), p256sign._to_ints(out[:, 1])
+    for k, X, Z in zip(ks, xs, zs):
+        assert X * pow(Z, -1, ec_ref.P) % ec_ref.P == ec_ref.pt_mul(k, ec_ref.G)[0]
+
+
+def _resident_operands(seed, T=64, R=2, U=40, cap=32):
+    rng = np.random.default_rng(seed)
+    Ub = 64
+    sp = np.full((T, R + 2 + 2), -1, np.int32)
+    sp[:, :R] = np.where(rng.random((T, R)) < 0.85, rng.integers(0, U, (T, R)), -1)
+    sp[:4, 0] = [U, Ub, Ub + 5, U + 3]  # ids past the pack read an absent row
+    table = rng.integers(-2, 3, (cap, 3)).astype(np.int32)
+    table[:, 0] = rng.random(cap) < 0.8
+    u_pack = np.zeros((Ub, 4), np.int32)
+    u_pack[:, 0] = np.where(rng.random(Ub) < 0.6, rng.integers(0, cap, Ub), -1)
+    u_pack[5, 0] = cap + 7  # a slot past the table clamps to its last row
+    u_pack[:, 1] = rng.random(Ub) < 0.8
+    u_pack[:, 2:4] = rng.integers(-2, 3, (Ub, 2))
+    read_pv = np.zeros((T, R, 3), np.int32)
+    ids = np.clip(sp[:, :R], 0, Ub - 1)
+    slot = u_pack[ids, 0]
+    row = np.where((slot >= 0)[..., None], table[np.clip(slot, 0, cap - 1)],
+                   u_pack[ids, 1:4])
+    read_pv[:] = row  # mostly matching reads ...
+    flip = rng.random((T, R)) < 0.1
+    read_pv[flip, 0] ^= 1  # ... some with presence flipped ...
+    bump = rng.random((T, R)) < 0.1
+    read_pv[bump, 2] += 1  # ... some stale
+    return sp, table, u_pack, read_pv, R
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_resident_kernel_sources_match_plain(host_kernels, seed):
+    lib = host_kernels["resident"]
+    sp, table, u_pack, read_pv, R = _resident_operands(seed)
+    T = sp.shape[0]
+    t = torch.from_numpy
+    want = db.resident_ver_ok_ref(t(sp), t(table), t(u_pack), t(read_pv), R).numpy()
+    lv = np.zeros((T, 3), np.int32)
+    lib.host_verok(_p(sp), T, sp.shape[1], R, _p(table), table.shape[0], _p(u_pack),
+                   u_pack.shape[0], _p(read_pv), _p(lv))
+    assert np.array_equal(lv[:, 2].astype(bool), want)
+    assert 0 < want.sum() < T
+
+    rng = np.random.default_rng(50 + seed)
+    k = 20
+    idx = rng.choice(table.shape[0], k, replace=False).astype(np.int32)
+    rows = rng.integers(-5, 5, (k, 3)).astype(np.int32)
+    got = table.copy()
+    lib.host_scatter(_p(got), _p(idx), _p(rows), k)
+    ref = t(table.copy())
+    residency.table_scatter(ref, idx, rows)
+    assert np.array_equal(got, ref.numpy())

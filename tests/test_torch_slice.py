@@ -83,7 +83,8 @@ def _seed_batch():
     return seed
 
 
-def _rand_tx(net, rng):
+def _rand_tx(net, rng, ranges=True):
+    """One signed envelope; ``ranges=False`` leaves out range queries."""
     r = rng.random()
     namespaces = ([CC_UNSAFE] if r < 0.15 else ["nosuchcc"] if r < 0.2
                   else [CC, CC_UNSAFE] if r < 0.25 else [CC])
@@ -104,12 +105,12 @@ def _rand_tx(net, rng):
             n.writes[f"w{rng.randrange(10)}"] = b"x%d" % rng.randrange(100)
         if rng.random() < 0.1:
             n.writes[f"{pre}{rng.randrange(8)}"] = None  # delete
-        if rng.random() < 0.15:
+        if ranges and rng.random() < 0.15:
             # committed range; sometimes a result is missing (phantom)
             results = [(f"{pre}{i}", (1, i)) for i in range(4)
                        if not (i == 2 and rng.random() < 0.4)]
             n.range_queries.append((f"{pre}0", f"{pre}4", results))
-        if rng.random() < 0.1:
+        if ranges and rng.random() < 0.1:
             n.range_queries.append(("w0", "w5", []))  # in-block writers phantom it
     rw = tx.to_proto().SerializeToString()
     c = rng.random()
@@ -136,10 +137,13 @@ def _rand_tx(net, rng):
     return env.SerializeToString()
 
 
-def _blocks(net):
-    rng = random.Random(20261017)
+def _blocks(net, seed=20261017, n_blocks=N_BLOCKS, range_blocks=None):
+    """Signed blocks; ``range_blocks``: the block indices whose
+    transactions may carry range queries (None: every block)."""
+    rng = random.Random(seed)
     blocks, pool = [], []
-    for b in range(N_BLOCKS):
+    for b in range(n_blocks):
+        ranges = range_blocks is None or b in range_blocks
         envs = []
         for _ in range(TXS_PER_BLOCK):
             r = rng.random()
@@ -152,7 +156,7 @@ def _blocks(net):
             elif r < 0.15 and pool:
                 envs.append(rng.choice(pool))        # cross-block duplicate
             else:
-                envs.append(_rand_tx(net, rng))
+                envs.append(_rand_tx(net, rng, ranges))
         pool.extend(e for e in envs if len(e) > 20)
         blk = pu.new_block(2 + b, b"prev-%d" % b)
         for e in envs:
