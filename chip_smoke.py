@@ -19,11 +19,7 @@ just before and read just after, checked against the filters the
 blocks were built to produce and against the same blocks validated
 through the plain versions on the CPU; a second run of the main path
 under ``torch.profiler`` gives the card's busy time and idle share.
-The resident-state kernels against their plain versions over the
-default 64 MB table (4,194,304 slots, 48 MiB): ``resident_verok`` at
-T = 1024, R = 2, Ub = 4096 with hit, miss, overlay and deleted lanes,
-each on >= 10% of the reads, and ``table_scatter`` at k = 16 and 2048
-beside ``index_copy_``.  The resident path: a world state of 1,000,000
+The resident path: a world state of 1,000,000
 keys warmed into the table, 6 bench-shaped blocks whose read-only keys
 are the same in every block (a hot working set) through
 ``CommitPipeline`` at depths 2 and 3 with ``state_resident=True``,
@@ -32,13 +28,21 @@ resident state (filters, update batches, history, final state), with
 one ``resident_verok`` launch per block, a hit rate >= 0.99 and no
 eviction; both paths' busy time under ``torch.profiler``; then a
 4,096-slot table under read keys that shift every block, which must
-evict and still agree.  The sign lane: ``p256_sign`` against its plain
-version at 4,096 and 256 lanes (edge nonces included), 256 lanes each
-against ``ec_ref``, fixed-nonce signatures against ``ec_ref`` and
-through ``p256_verify``, and 8 client threads signing 2,000 digests
-through ``SignBatcher(device_sign_backend(...))``, equal to
-``cpu_sign_backend``.  Each path's launch counts are reset just before
-it and read just after.  Then the kernels line (JSON),
+evict and still agree.  The resident-state kernels against their plain
+versions over the default 64 MB table (4,194,304 slots, 48 MiB):
+``resident_verok`` at T = 1024, R = 2, Ub = 4096 and at every pack
+size the resident path launched it with, hit, miss, overlay and
+deleted lanes each on >= 10% of the reads, and ``table_scatter`` at
+k = 16 and 2048 beside ``index_copy_``.  The sign lane: 8 client
+threads signing 2,000 digests through
+``SignBatcher(device_sign_backend(...))``, equal to
+``cpu_sign_backend``; then ``p256_sign`` against its plain version at
+4,096 and 256 (the default ``batch_max``) lanes (edge nonces included)
+and at every bucket the lane launched it with, up to 256 lanes of each
+against ``ec_ref``, and fixed-nonce signatures against ``ec_ref`` and
+through ``p256_verify``.  Each path's launch counts are reset just
+before it and read just after; a kernel's entry in the kernels line
+gives its time at the shape its path launched it with most often.  Then the kernels line (JSON),
 the card's name and power limit as nvidia-smi reports them, and the
 result line.  Any mismatch raises; there is no result without CUDA.
 Signatures come from a pool of RFC 6979 signatures per identity made
@@ -47,12 +51,14 @@ once with the port's pure-Python ``ec_ref`` from a fixed seed.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import subprocess
 import sys
 import threading
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -562,6 +568,25 @@ RESIDENT_KERNELS = ("p256_verify", "stage2_policy", "stage2_mvcc", "resident_ver
                     "table_scatter")
 
 
+@contextlib.contextmanager
+def launch_shapes(name, shape_of):
+    """Count the shapes kernel ``name`` is launched with inside the
+    block: a Counter of ``shape_of(*args)``."""
+    from fabric_tpu_torch import kernels
+
+    seen, fn = Counter(), getattr(kernels, name)
+
+    def wrapped(*a, **kw):
+        seen[shape_of(*a, **kw)] += 1
+        return fn(*a, **kw)
+
+    setattr(kernels, name, wrapped)
+    try:
+        yield seen
+    finally:
+        setattr(kernels, name, fn)
+
+
 # ---------------------------------------------------------------------------
 # Phase 6: the resident-state kernels
 
@@ -570,29 +595,29 @@ TABLE_SLOTS = 1 << 22  # the default 64 MB table: 4,194,304 slots, 48 MiB
 RES_T, RES_R, RES_UB = 1024, 2, 4096
 
 
-def resident_inputs(dev, seed=SEED + 5):
-    """``resident_verok`` operands at the main path's shapes over a full
-    64 MB table: every quarter of the 4096 pack rows is one lane kind —
-    hit (slot >= 0), miss (host lane from the state read), overlay
-    (host lane with an in-flight value) and deleted (a slot whose row
-    says absent) — and the 2048 reads pick rows at random, most of them
-    expecting the committed row, some stale or presence-flipped, a few
-    padding.  → (operands, reads per kind)."""
+def resident_inputs(dev, ub, seed=SEED + 5):
+    """``resident_verok`` operands at T = 1024, R = 2 and ``ub`` pack
+    rows over a full 64 MB table: every quarter of the pack rows is one
+    lane kind — hit (slot >= 0), miss (host lane from the state read),
+    overlay (host lane with an in-flight value) and deleted (a slot
+    whose row says absent) — and the 2048 reads pick rows at random,
+    most of them expecting the committed row, some stale or
+    presence-flipped, a few padding.  → (operands, reads per kind)."""
     rng = np.random.default_rng(seed)
     table = np.zeros((TABLE_SLOTS, 3), np.int32)
     table[:, 0] = 1
     table[:, 1:] = rng.integers(1, 1 << 20, (TABLE_SLOTS, 2))
-    kind = np.repeat(np.arange(4), RES_UB // 4)
+    kind = np.repeat(np.arange(4), ub // 4)
     rng.shuffle(kind)
-    u_pack = np.zeros((RES_UB, 4), np.int32)
-    slots = rng.choice(TABLE_SLOTS, RES_UB, replace=False)
+    u_pack = np.zeros((ub, 4), np.int32)
+    slots = rng.choice(TABLE_SLOTS, ub, replace=False)
     u_pack[:, 0] = np.where((kind == 0) | (kind == 3), slots, -1)
     table[slots[kind == 3], 0] = 0  # deleted: cached absence
     table[slots[kind == 3], 1:] = 0
-    u_pack[:, 1] = rng.random(RES_UB) < 0.8
-    u_pack[:, 2:] = rng.integers(1, 1 << 20, (RES_UB, 2))
+    u_pack[:, 1] = rng.random(ub) < 0.8
+    u_pack[:, 2:] = rng.integers(1, 1 << 20, (ub, 2))
     sp = np.full((RES_T, RES_R + 2 + 2), -1, np.int32)
-    sp[:, :RES_R] = rng.integers(0, RES_UB, (RES_T, RES_R))
+    sp[:, :RES_R] = rng.integers(0, ub, (RES_T, RES_R))
     sp[rng.random(RES_T) < 0.05, 1] = -1  # padding reads
     ids = sp[:, :RES_R].clip(0)
     slot = u_pack[ids, 0]
@@ -606,40 +631,50 @@ def resident_inputs(dev, seed=SEED + 5):
     return (t(sp), t(table), t(u_pack), t(rpv)), per_kind
 
 
-def phase_resident_kernels(dev):
+def phase_resident_kernels(dev, path_ubs: Counter):
+    """``path_ubs``: the pack sizes the resident path launched
+    ``resident_verok`` with; each is checked, and the kernels line gives
+    the time at the most frequent."""
     from fabric_tpu_torch import kernels
     from fabric_tpu_torch.peer import device_block as db
     from fabric_tpu_torch.state import residency
 
-    (sp, table, u_pack, rpv), per_kind = resident_inputs(dev)
-    if min(per_kind.values()) < RES_T * RES_R // 10:
-        raise AssertionError(f"resident lanes per kind below 10%: {per_kind}")
-    lv = torch.zeros((RES_T, 3), dtype=torch.int32, device=dev)
-    db.resident_ver_ok(sp, table, u_pack, rpv, RES_R, lv)
-    want = db.resident_ver_ok_ref(sp, table, u_pack, rpv, RES_R)
-    torch.cuda.synchronize()
-    got = lv[:, 2] != 0
-    mism = int((got != want).sum())
-    err = int((got.int() - want.int()).abs().max())
-    if mism:
-        raise AssertionError(f"resident_verok: {mism} transactions differ from the plain version")
-    ms = cuda_ms(lambda: kernels.resident_verok(sp, RES_R, table, u_pack, rpv, lv), 50)
-    plain_ms = cuda_ms(lambda: db.resident_ver_ok_ref(sp, table, u_pack, rpv, RES_R), 10)
-    # bytes this run's data needs: the read-key columns, the pack rows and
-    # table rows the reads reach, the expected rows, the verdict column
-    ids = sp[:, :RES_R][sp[:, :RES_R] >= 0].unique()
-    hit_slots = u_pack[ids.long(), 0]
-    n_rows = int(hit_slots[hit_slots >= 0].unique().numel())
-    b_ms, b_by = bound(RES_T * RES_R * 4 + ids.numel() * 16 + n_rows * 12 + nbytes(rpv)
-                       + RES_T * 4, 0)
-    log("resident_verok", T=RES_T, R=RES_R, Ub=RES_UB, table_slots=TABLE_SLOTS,
-        table_mib=nbytes(table) / 2 ** 20, reads_per_kind=per_kind, mismatches=mism,
-        valid=int(got.sum()), ms=ms, plain_ms=plain_ms)
-    recs = [{"name": "resident_verok", "route": "cuda",
-             "source": "fabric_tpu_torch/kernels/csrc/resident.cu",
-             "replaces": "fabric_tpu/peer/device_block.py:87", "max_abs_err": err,
-             "mismatches": mism, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-             "bound_by": b_by, "library_ms": None}]
+    path_ub = path_ubs.most_common(1)[0][0]
+    rec = None
+    for ub in sorted({RES_UB, *path_ubs}, reverse=True):
+        (sp, table, u_pack, rpv), per_kind = resident_inputs(dev, ub)
+        if min(per_kind.values()) < RES_T * RES_R // 10:
+            raise AssertionError(f"resident lanes per kind below 10%: {per_kind}")
+        lv = torch.zeros((RES_T, 3), dtype=torch.int32, device=dev)
+        db.resident_ver_ok(sp, table, u_pack, rpv, RES_R, lv)
+        want = db.resident_ver_ok_ref(sp, table, u_pack, rpv, RES_R)
+        torch.cuda.synchronize()
+        got = lv[:, 2] != 0
+        mism = int((got != want).sum())
+        err = int((got.int() - want.int()).abs().max())
+        if mism:
+            raise AssertionError(f"resident_verok at Ub = {ub}: {mism} transactions differ "
+                                 "from the plain version")
+        ms = cuda_ms(lambda: kernels.resident_verok(sp, RES_R, table, u_pack, rpv, lv), 50)
+        plain_ms = cuda_ms(lambda: db.resident_ver_ok_ref(sp, table, u_pack, rpv, RES_R), 10)
+        # bytes this run's data needs: the read-key columns, the pack rows and
+        # table rows the reads reach, the expected rows, the verdict column
+        ids = sp[:, :RES_R][sp[:, :RES_R] >= 0].unique()
+        hit_slots = u_pack[ids.long(), 0]
+        n_rows = int(hit_slots[hit_slots >= 0].unique().numel())
+        b_ms, b_by = bound(RES_T * RES_R * 4 + ids.numel() * 16 + n_rows * 12 + nbytes(rpv)
+                           + RES_T * 4, 0)
+        log("resident_verok", T=RES_T, R=RES_R, Ub=ub, path_launches=path_ubs[ub],
+            table_slots=TABLE_SLOTS, table_mib=nbytes(table) / 2 ** 20,
+            reads_per_kind=per_kind, mismatches=mism, valid=int(got.sum()), ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms)
+        if ub == path_ub:
+            rec = {"name": "resident_verok", "route": "cuda",
+                   "source": "fabric_tpu_torch/kernels/csrc/resident.cu",
+                   "replaces": "fabric_tpu/peer/device_block.py:87", "max_abs_err": err,
+                   "mismatches": mism, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "library_ms": None}
+    recs = [rec]
 
     rng = np.random.default_rng(SEED + 6)
     for k in (16, 2048):
@@ -763,6 +798,7 @@ def phase_resident_path(net: Net):
     log("host_path_hot", depth=2, blocks=len(hot), seconds=host_s,
         per_block_ms=1e3 * host_s / len(hot), stage_ms_per_block=host_v.stage_ms_per_block)
     counts = None
+    ubs = Counter()
     for depth in (2, 3):
         v = world.validator(state_resident=True)
         t1 = time.perf_counter()
@@ -770,8 +806,11 @@ def phase_resident_path(net: Net):
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t1
         kernels.reset_counts()
-        res, secs, marks = timed(hot, v, depth)
+        with launch_shapes("resident_verok", lambda sp, R, table, u_pack, *_: u_pack.shape[0]
+                           ) as seen:
+            res, secs, marks = timed(hot, v, depth)
         c = dict(kernels.launches)
+        ubs += seen
         st = v.resident.stats()
         _check_filters(f"resident depth {depth}", res, hot_want)
         _same_runs(f"resident depth {depth}", res, host, v.state, host_v.state)
@@ -785,8 +824,8 @@ def phase_resident_path(net: Net):
             raise AssertionError(f"kernels not launched on the resident path: {zero}")
         log("resident_path", depth=depth, blocks=len(hot), warmed=warmed, warm_seconds=warm_s,
             seconds=secs, per_block_ms=1e3 * secs / len(hot), completion_s=marks,
-            stage_ms_per_block=v.stage_ms_per_block, launches=c, stats=st,
-            equal_to_host_path=True)
+            stage_ms_per_block=v.stage_ms_per_block, launches=c, pack_rows=dict(seen),
+            stats=st, equal_to_host_path=True)
         if depth == 2:
             counts = c
             busy_v = world.validator(state_resident=True)
@@ -816,7 +855,7 @@ def phase_resident_path(net: Net):
         raise AssertionError(f"the churn table never evicted: {st}")
     log("resident_churn", blocks=len(churn), slots=CHURN_SLOTS, seconds=secs, stats=st,
         equal_to_host_path=True)
-    return counts
+    return counts, ubs
 
 
 # ---------------------------------------------------------------------------
@@ -828,11 +867,14 @@ SIGN_LANES = (4096, 256)  # the last is the batcher's default batch_max
 
 
 def sign_scalars(n, rng):
+    """``n`` nonces: the edge scalars first when ``n`` holds them all,
+    then random ones (as RFC 6979 gives the sign lane)."""
     from fabric_tpu_torch.crypto import ec_ref
 
     N = ec_ref.N
     ks = [1, 2, N - 1, N - 2, 15, 16, 16 ** 63, 0xF << 128, (1 << 255) | 1, N >> 1]
     ks += [16 ** j for j in range(1, 63, 7)]
+    ks = ks if n >= len(ks) else []
     return ks + [int.from_bytes(rng.bytes(32), "big") % (N - 1) + 1
                  for _ in range(n - len(ks))]
 
@@ -844,50 +886,7 @@ def phase_sign(net: Net, dev):
 
     ec = net.ec
     rng = np.random.default_rng(SEED + 7)
-    rec = None
-    for lanes in SIGN_LANES:
-        ks = sign_scalars(lanes, rng)
-        limbs = torch.from_numpy(p256v3._limbs16(ks)).to(dev)
-        got = p256sign.sign_batch_limbs(limbs)
-        want = p256sign.sign_batch_ref(limbs)
-        torch.cuda.synchronize()
-        mism = int((got != want).any(dim=2).any(dim=1).sum())
-        err = int((got.long() - want.long()).abs().max())
-        if mism:
-            raise AssertionError(f"p256_sign at {lanes} lanes: {mism} lanes differ")
-        out = got.cpu().numpy().view(np.uint32)
-        sample = rng.choice(lanes, 256, replace=False) if lanes > 256 else np.arange(lanes)
-        xs, zs = p256sign._to_ints(out[sample, 0]), p256sign._to_ints(out[sample, 1])
-        oracle_mism = sum(X * pow(Z, -1, ec.P) % ec.P != ec.pt_mul(ks[i], ec.G)[0]
-                          for i, X, Z in zip(sample.tolist(), xs, zs))
-        if oracle_mism:
-            raise AssertionError(f"p256_sign: {oracle_mism} sampled lanes differ from ec_ref")
-        ms = cuda_ms(lambda: kernels.p256_sign(limbs, *p256sign._kernel_tables(dev)), 20)
-        plain_ms = cuda_ms(lambda: p256sign.sign_batch_ref(limbs), 2)
-        # 13 Montgomery products per nonzero digit, 128 multiply-adds each
-        nonzero = int((p256v3.recode_windows(limbs) != 0).sum())
-        b_ms, b_by = bound(nbytes(limbs, got) + 64 + 64 * 16 * 64, nonzero * 13 * 128 * 2)
-        log("sign_kernel", lanes=lanes, mismatches=mism, oracle_lanes=len(sample),
-            oracle_mismatches=oracle_mism, ms=ms, plain_ms=plain_ms, bound_ms=b_ms)
-        if lanes == SIGN_LANES[-1]:  # the sign lane's batch shape
-            rec = {"name": "p256_sign", "route": "cuda",
-                   "source": "fabric_tpu_torch/kernels/csrc/p256_sign.cu",
-                   "replaces": "fabric_tpu/ops/p256sign.py:129", "max_abs_err": err,
-                   "mismatches": mism, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                   "bound_by": b_by, "library_ms": None}
-    # whole signatures, edge nonces, and the round trip through p256_verify
     d = net.keys[1].d
-    digests = [int.from_bytes(rng.bytes(32), "big") for _ in range(256)]
-    fixed = sign_scalars(256, rng)
-    sigs = p256sign.sign_digests(digests, d, ks=fixed, device=dev)
-    if sigs != [ec.SigningKey(d).sign_digest(e, k=k) for e, k in zip(digests, fixed)]:
-        raise AssertionError("p256_sign: fixed-nonce signatures differ from ec_ref")
-    qx, qy = ec.SigningKey(d).public
-    ok = p256v3.verify_launch([(e, r, s, qx, qy) for e, (r, s) in zip(digests, sigs)],
-                              device=dev).fetch()
-    if not all(ok):
-        raise AssertionError("signatures from the card rejected by p256_verify")
-    log("sign_roundtrip", lanes=len(sigs), edge_nonces=True, verified=sum(ok))
 
     # the sign lane: 8 clients through SignBatcher(device_sign_backend(...))
     msgs = [b"proposal-%d" % i for i in range(SIGN_DIGESTS)]
@@ -905,14 +904,15 @@ def phase_sign(net: Net, dev):
 
     threads = [threading.Thread(target=client, args=(msgs[i::SIGN_CLIENTS],))
                for i in range(SIGN_CLIENTS)]
-    with batcher:
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=300)
-        secs = time.perf_counter() - t0
-        st = batcher.stats()
+    with launch_shapes("p256_sign", lambda limbs, *_: limbs.shape[0]) as lane_shapes:
+        with batcher:
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            secs = time.perf_counter() - t0
+            st = batcher.stats()
     counts = dict(kernels.launches)
     if errors or len(got) != SIGN_DIGESTS:
         raise AssertionError(f"sign lane: {len(got)} of {SIGN_DIGESTS} signed, errors {errors[:3]}")
@@ -925,8 +925,58 @@ def phase_sign(net: Net, dev):
     log("sign_lane", clients=SIGN_CLIENTS, digests=SIGN_DIGESTS, seconds=secs,
         signatures_per_s=SIGN_DIGESTS / secs, batches=st["batches_total"],
         occupancy=st["occupancy"], wait_ms=st["wait_ms"], launches=counts,
-        equal_to_cpu_backend=True)
-    rec["launches"] = counts["p256_sign"]
+        lanes=dict(lane_shapes), equal_to_cpu_backend=True)
+
+    # the kernel against its plain version at every bucket the lane
+    # launched and at the batcher's largest; the kernels line gives the
+    # lane's most frequent bucket
+    lane_bucket = lane_shapes.most_common(1)[0][0]
+    rec = None
+    for lanes in sorted({*SIGN_LANES, *lane_shapes}, reverse=True):
+        ks = sign_scalars(lanes, rng)
+        limbs = torch.from_numpy(p256v3._limbs16(ks)).to(dev)
+        out = p256sign.sign_batch_limbs(limbs)
+        want = p256sign.sign_batch_ref(limbs)
+        torch.cuda.synchronize()
+        mism = int((out != want).any(dim=2).any(dim=1).sum())
+        err = int((out.long() - want.long()).abs().max())
+        if mism:
+            raise AssertionError(f"p256_sign at {lanes} lanes: {mism} lanes differ")
+        xz = out.cpu().numpy().view(np.uint32)
+        sample = rng.choice(lanes, 256, replace=False) if lanes > 256 else np.arange(lanes)
+        xs, zs = p256sign._to_ints(xz[sample, 0]), p256sign._to_ints(xz[sample, 1])
+        oracle_mism = sum(X * pow(Z, -1, ec.P) % ec.P != ec.pt_mul(ks[i], ec.G)[0]
+                          for i, X, Z in zip(sample.tolist(), xs, zs))
+        if oracle_mism:
+            raise AssertionError(f"p256_sign: {oracle_mism} sampled lanes differ from ec_ref")
+        ms = cuda_ms(lambda: kernels.p256_sign(limbs, *p256sign._kernel_tables(dev)), 20)
+        plain_ms = cuda_ms(lambda: p256sign.sign_batch_ref(limbs), 2)
+        # 13 Montgomery products per nonzero digit, 128 multiply-adds each
+        nonzero = int((p256v3.recode_windows(limbs) != 0).sum())
+        b_ms, b_by = bound(nbytes(limbs, out) + 64 + 64 * 16 * 64, nonzero * 13 * 128 * 2)
+        log("sign_kernel", lanes=lanes, lane_launches=lane_shapes[lanes], mismatches=mism,
+            oracle_lanes=len(sample), oracle_mismatches=oracle_mism, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms)
+        if lanes == lane_bucket:
+            rec = {"name": "p256_sign", "route": "cuda",
+                   "source": "fabric_tpu_torch/kernels/csrc/p256_sign.cu",
+                   "replaces": "fabric_tpu/ops/p256sign.py:129", "max_abs_err": err,
+                   "mismatches": mism, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "library_ms": None,
+                   "launches": counts["p256_sign"]}
+
+    # whole signatures, edge nonces, and the round trip through p256_verify
+    digests = [int.from_bytes(rng.bytes(32), "big") for _ in range(256)]
+    fixed = sign_scalars(256, rng)
+    sigs = p256sign.sign_digests(digests, d, ks=fixed, device=dev)
+    if sigs != [ec.SigningKey(d).sign_digest(e, k=k) for e, k in zip(digests, fixed)]:
+        raise AssertionError("p256_sign: fixed-nonce signatures differ from ec_ref")
+    qx, qy = ec.SigningKey(d).public
+    ok = p256v3.verify_launch([(e, r, s, qx, qy) for e, (r, s) in zip(digests, sigs)],
+                              device=dev).fetch()
+    if not all(ok):
+        raise AssertionError("signatures from the card rejected by p256_verify")
+    log("sign_roundtrip", lanes=len(sigs), edge_nonces=True, verified=sum(ok))
     return rec
 
 
@@ -958,8 +1008,8 @@ def main() -> int:
     counts = phase_main_path(net)
     for r in recs:
         r["launches"] = counts[r["name"]]
-    res_recs = phase_resident_kernels(dev)
-    counts = phase_resident_path(net)
+    counts, path_ubs = phase_resident_path(net)
+    res_recs = phase_resident_kernels(dev, path_ubs)
     for r in res_recs:
         r["launches"] = counts[r["name"]]
     recs += res_recs

@@ -167,9 +167,6 @@ class StaticBlock:
     # without range reads): read key ids 0..U-1 index ``u_pairs``
     u_pairs: list | None = None   # [U] (ns, key) per unique read key id
     u_index: dict | None = None   # (ns, key) → id
-    r_rows: np.ndarray | None = None  # [nr] tx row of each read
-    r_cols: np.ndarray | None = None  # [nr] read slot of each read
-    r_uid: np.ndarray | None = None   # [nr] unique-key id of each read
 
     def fill_committed(self, committed: dict):
         """→ (comm_present [T, R] bool, comm_vers [T, R, 2] uint32)."""
@@ -215,14 +212,16 @@ class StaticBlock:
         """[T] bool from per-unique-key committed (present [U] bool,
         versions [U, 2] uint32): the plain form of the resident compare."""
         T = self.read_keys.shape[0]
-        if not len(self.r_rows):
+        rows, cols = np.nonzero(self.read_keys >= 0)
+        if not len(rows):
             return np.ones(T, bool)
-        rp = self.read_present[self.r_rows, self.r_cols]
-        rv = self.read_vers[self.r_rows, self.r_cols]
-        cp = up[self.r_uid]
-        ver_eq = (rv == uv[self.r_uid]).all(axis=1)
+        uid = self.read_keys[rows, cols]
+        rp = self.read_present[rows, cols]
+        rv = self.read_vers[rows, cols]
+        cp = up[uid]
+        ver_eq = (rv == uv[uid]).all(axis=1)
         okr = np.where(rp & cp, ver_eq, rp == cp)
-        return np.bincount(self.r_rows[~okr], minlength=T) == 0
+        return np.bincount(rows[~okr], minlength=T) == 0
 
     def device_args(self, committed: dict, device) -> tuple:
         """``mvcc_validate`` arguments (minus pre_ok) as tensors on ``device``."""
@@ -241,10 +240,10 @@ def prepare_block_static(txs: list[TxRWSet], bucketed: bool = False,
 
     ``unique`` (the resident-state path) on a block without range reads
     numbers the read keys first, 0..U-1 in key order, then the keys only
-    written, and fills the unique-key form (``u_pairs``, ``u_index``,
-    ``r_rows``/``r_cols``/``r_uid``).  Without range reads only id
-    equality matters, so the order changes no verdict (the reference's
-    flat path interns keys in hash order for the same reason)."""
+    written, and fills the unique-key form (``u_pairs``, ``u_index``).
+    Without range reads only id equality matters, so the order changes
+    no verdict (the reference's flat path interns keys in hash order for
+    the same reason)."""
     universe = set()
     read_key_set = set()
     for tx in txs:
@@ -298,9 +297,6 @@ def prepare_block_static(txs: list[TxRWSet], bucketed: bool = False,
     if unique:
         static.u_pairs = [(k[1], k[2]) for k in rkeys]
         static.u_index = {pr: i for i, pr in enumerate(static.u_pairs)}
-        rows, cols = np.nonzero(read_keys >= 0)
-        static.r_rows, static.r_cols = rows, cols
-        static.r_uid = read_keys[rows, cols]
     return static
 
 

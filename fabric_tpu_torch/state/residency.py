@@ -77,6 +77,10 @@ SLOT_BYTES = 12
 #: smallest table the capacity knob can produce
 MIN_SLOTS = 256
 
+#: per-apply_batch cap on brand-new ranges a write set may open (free
+#: slots only, never evicting); the reference's default
+WRITE_ADMIT_BUDGET = 2
+
 #: the smallest u_pack bucket (pow2 rows)
 _MIN_PACK = 16
 
@@ -192,13 +196,11 @@ class ResidencyManager:
     (default ``"cuda"``; ``"cpu"`` runs the plain versions)."""
 
     def __init__(self, capacity_mb: int = 64, range_bits: int = 12,
-                 slots: int | None = None, write_admit_budget: int = 2, device="cuda"):
+                 slots: int | None = None, device="cuda"):
         if capacity_mb < 1:
             raise ValueError("state_resident_mb must be >= 1")
         if not (1 <= int(range_bits) <= 24):
             raise ValueError("state_resident_range_bits must be in [1, 24]")
-        if int(write_admit_budget) < 0:
-            raise ValueError("write_admit_budget must be >= 0")
         if slots is not None:
             # an explicit slot count: the test seam for eviction churn
             if slots < 4:
@@ -208,9 +210,6 @@ class ResidencyManager:
             want = (int(capacity_mb) * (1 << 20)) // SLOT_BYTES
             self.capacity = max(MIN_SLOTS, 1 << (max(want, 1).bit_length() - 1))
         self.range_bits = int(range_bits)
-        # per-apply_batch cap on brand-new ranges a write set may open
-        # (free slots only, never evicting)
-        self.write_admit_budget = int(write_admit_budget)
         self.device = resolve_device(device)
         self._lock = threading.Lock()
         self._stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
@@ -424,7 +423,7 @@ class ResidencyManager:
         updated in place (a delete scatters present = 0).  A written key
         without a slot is admitted into a free slot when its range is
         resident; a brand-new range opens only within
-        ``write_admit_budget`` per call and never evicts.  Returns the
+        ``WRITE_ADMIT_BUDGET`` per call and never evicts.  Returns the
         bytes scattered; replaying a batch scatters the same values."""
         if batch is None or not batch.updates:
             return 0
@@ -440,7 +439,7 @@ class ResidencyManager:
                         continue  # pool dry: stays a miss
                     rid = self.range_of(ns, key)
                     if rid not in self._ranges:
-                        if len(new_rids) >= self.write_admit_budget:
+                        if len(new_rids) >= WRITE_ADMIT_BUDGET:
                             continue
                         new_rids.add(rid)
                         self._ranges[rid] = []
@@ -506,7 +505,7 @@ class ResidencyManager:
                 "hit_rate": round(wh / wt, 4) if wt else None,
                 "evictions_total": self._evictions_total,
                 "write_admits_total": self._write_admits_total,
-                "write_admit_budget": self.write_admit_budget,
+                "write_admit_budget": WRITE_ADMIT_BUDGET,
                 "h2d_bytes_total": self._h2d_bytes_total,
                 "host_path_oversize_total": self._host_path["oversize"],
                 "host_path_range_total": self._host_path["range"],

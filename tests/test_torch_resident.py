@@ -64,8 +64,7 @@ def _batch(cls, puts=(), deletes=()):
 
 
 def test_manager_ctor_checks_and_capacity():
-    for kw in ({"capacity_mb": 0}, {"range_bits": 0}, {"range_bits": 25}, {"slots": 2},
-               {"write_admit_budget": -1}):
+    for kw in ({"capacity_mb": 0}, {"range_bits": 0}, {"range_bits": 25}, {"slots": 2}):
         with pytest.raises(ValueError):
             ResidencyManager(device="cpu", **kw)
     assert ResidencyManager(slots=100, device="cpu").capacity == 64
