@@ -40,7 +40,19 @@ threads signing 2,000 digests through
 4,096 and 256 (the default ``batch_max``) lanes (edge nonces included)
 and at every bucket the lane launched it with, up to 256 lanes of each
 against ``ec_ref``, and fixed-nonce signatures against ``ec_ref`` and
-through ``p256_verify``.  Each path's launch counts are reset just
+through ``p256_verify``.  The wire path: 4 bench-shaped 1000-tx blocks
+in wire format, built with the port's cryptogen and
+``build_envelopes`` and signed on the card (12,000 digests, 64 checked
+against ``ec_ref``), every 20th transaction invalid in one of nine
+ways, through ``CommitPipeline(depth=2)`` with the port's MSP, checked
+against construction and against the same blocks decoded by
+``decode_block`` through the ``DecodedBlock`` entry, with the front
+end's decode time per block and the card's busy share.  SHA-256:
+``sha256_host`` on the bench shape (4,096 x 200 B), the padding
+boundaries, a ragged M = 8 batch and the first wire block's signed
+messages against ``hashlib`` (its launches counted), then
+``sha256_blocks`` against its plain version at each, timed at the bench
+shape beside serial ``hashlib``.  Each path's launch counts are reset just
 before it and read just after; a kernel's entry in the kernels line
 gives its time at the shape its path launched it with most often.  Then the kernels line (JSON),
 the card's name and power limit as nvidia-smi reports them, and the
@@ -110,10 +122,11 @@ class Net:
     def __init__(self, seed: int):
         from fabric_tpu_torch.crypto import ec_ref
         from fabric_tpu_torch.crypto.identity import Identity
+        from fabric_tpu_torch.protos.messages import SerializedIdentity
 
         rng = np.random.default_rng(seed)
         self.ec = ec_ref
-        self.keys, self.idents, self.pools = [], [], []
+        self.keys, self.idents, self.pools, self.serialized = [], [], [], []
         names = [("Org1MSP", "client"), ("Org1MSP", "peer"), ("Org2MSP", "peer"),
                  ("Org3MSP", "peer")]
         for msp, role in names:
@@ -122,6 +135,10 @@ class Net:
             qx, qy = key.public
             self.keys.append(key)
             self.idents.append(Identity(msp, role, qx, qy, True))
+            # the endorsers' deduplication key; the point stands in for a certificate
+            self.serialized.append(SerializedIdentity(
+                mspid=msp, id_bytes=b"\x04" + qx.to_bytes(32, "big") + qy.to_bytes(32, "big"))
+                .serialize())
             pool = []
             for j in range(POOL):
                 e = int.from_bytes(rng.bytes(32), "big")
@@ -442,7 +459,7 @@ def build_blocks(net: Net, n_blocks: int = N_BLOCKS, unsafe: bool = True,
             ends = []
             for k in (i % 3, (i + 1) % 3):
                 ee, rr, ss = net.sig(1 + k, n)
-                ends.append(DecodedEndorsement(net.peers[k], ee, rr, ss))
+                ends.append(DecodedEndorsement(net.peers[k], ee, rr, ss, net.serialized[1 + k]))
             txs.append(DecodedTx(txid=f"tx{b}_{i:05d}", creator=net.client,
                                  creator_sig=(e, r, s), endorsements=ends, rwset=rw))
             want.append(int(C.MVCC_READ_CONFLICT) if stale
@@ -509,23 +526,31 @@ def device_busy(blocks, seed_rows=None, validator=None):
     """A second run of the main path (or of ``validator`` over
     ``blocks``) under ``torch.profiler`` → (the union of the card's
     kernel and copy intervals in ms, that run's wall seconds, the number
-    of device events).  0 events means the profiler saw no device
-    activity: the busy time is then unknown."""
+    of device events, their count by name).  The busy time is None when
+    the trace is incomplete: no device event at all, or fewer
+    ``p256_verify`` kernels in it than the run launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from fabric_tpu_torch import kernels
+
+    before = kernels.launches["p256_verify"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         if validator is None:
             _, secs, _ = run_pipeline(blocks, seed_rows, "cuda")
         else:
             _, secs, _ = run_validator(blocks, validator)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    launched = kernels.launches["p256_verify"] - before
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    names = Counter(e.name[:40] for e in dev_events)
+    traced = sum(n for name, n in names.items() if "p256_verify" in name)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
     busy_us, end = 0.0, float("-inf")
     for a, b in spans:
         busy_us += max(0.0, b - max(a, end))
         end = max(end, b)
-    return busy_us / 1e3, secs, len(spans)
+    complete = bool(spans) and traced >= launched
+    return (busy_us / 1e3 if complete else None), secs, len(spans), names
 
 
 def phase_main_path(net: Net):
@@ -545,12 +570,12 @@ def phase_main_path(net: Net):
     log("main_path", blocks=len(blocks), txs=n_tx, depth=2, seconds=secs,
         per_block_ms=1e3 * secs / len(blocks), tx_per_s=n_tx / secs,
         completion_s=marks, valid=[r.n_valid for r in res], launches=counts)
-    busy_ms, psecs_prof, n_ev = device_busy(blocks, seed_rows)
-    log("device_busy", profiled_seconds=psecs_prof, device_events=n_ev,
-        busy_ms=busy_ms if n_ev else None,
-        busy_ms_per_block=busy_ms / len(blocks) if n_ev else None,
-        idle_share_profiled=1 - busy_ms / (1e3 * psecs_prof) if n_ev else None,
-        idle_share_vs_unprofiled=1 - busy_ms / (1e3 * secs) if n_ev else None)
+    busy_ms, psecs_prof, n_ev, names = device_busy(blocks, seed_rows)
+    ok = busy_ms is not None
+    log("device_busy", profiled_seconds=psecs_prof, device_events=n_ev, by_name=names,
+        busy_ms=busy_ms, busy_ms_per_block=busy_ms / len(blocks) if ok else None,
+        idle_share_profiled=1 - busy_ms / (1e3 * psecs_prof) if ok else None,
+        idle_share_vs_unprofiled=1 - busy_ms / (1e3 * secs) if ok else None)
     plain, psecs, _ = run_pipeline(blocks, seed_rows, "cpu", depth=1)
     for a, b in zip(res, plain):
         rows = lambda x: sorted((k, vv.value, vv.version) for k, vv in x.batch.items())
@@ -837,10 +862,11 @@ def phase_resident_path(net: Net):
         per_block_ms=1e3 * host3_s / len(hot), stage_ms_per_block=host3_v.stage_ms_per_block)
     for name, v in (("resident", busy_v), ("host", world.validator())):
         gc.collect()
-        busy_ms, psecs, n_ev = device_busy(hot, validator=v)
+        busy_ms, psecs, n_ev, _ = device_busy(hot, validator=v)
+        ok = busy_ms is not None
         log("device_busy_hot", path=name, profiled_seconds=psecs, device_events=n_ev,
-            busy_ms_per_block=busy_ms / len(hot) if n_ev else None,
-            idle_share_profiled=1 - busy_ms / (1e3 * psecs) if n_ev else None)
+            busy_ms_per_block=busy_ms / len(hot) if ok else None,
+            idle_share_profiled=1 - busy_ms / (1e3 * psecs) if ok else None)
 
     # churn: a 4,096-slot table under read keys that shift every block
     host_v = world.validator()
@@ -980,11 +1006,277 @@ def phase_sign(net: Net, dev):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: real wire-format blocks on the commit path
+
+
+WIRE_KINDS = ("bad_creator_sig", "stale_read", "nil_envelope", "truncated_payload",
+              "unbound_txid", "duplicate_txid", "expired_creator", "unknown_ca_creator",
+              "outside_endorser")
+WIRE_NOW = 1_790_000_000  # the certificates' "now": valid from a day before, ten years on
+
+
+def card_signer(digests, keys):
+    """The builder's batch signer on the card (``ops/p256sign.sign_digests``)."""
+    from fabric_tpu_torch.ops import p256sign
+
+    return p256sign.sign_digests(digests, keys, device="cuda")
+
+
+class WireNet:
+    """3 policy orgs, an Org4 outside the policy, an Org1 client, an
+    expired Org1 client and an 'Org1MSP' client from an unknown CA; every
+    certificate signed on the card."""
+
+    def __init__(self, seed: int):
+        from fabric_tpu_torch.crypto import cryptogen, msp
+
+        rng = np.random.default_rng(seed)
+        self.orgs = [cryptogen.generate_org(f"Org{i}MSP", f"org{i}.smoke.example.com", rng,
+                                            now=WIRE_NOW, sign_batch=card_signer)
+                     for i in (1, 2, 3, 4)]
+        rogue = cryptogen.generate_org("Org1MSP", "rogue.smoke.example.com", rng,
+                                       now=WIRE_NOW, sign_batch=card_signer)
+        d, pem = self.orgs[0].ca.issue("old@org1.smoke.example.com", "client",
+                                       not_before=WIRE_NOW - 20 * 86400,
+                                       not_after=WIRE_NOW - 86400, sign_batch=card_signer)
+        self.msp = msp.MSPManager({o.msp_id: o.msp() for o in self.orgs})
+        self.client = self.orgs[0].users["User1@org1.smoke.example.com"]
+        self.peers = [o.nodes[f"peer0.org{i}.smoke.example.com"]
+                      for i, o in zip((1, 2, 3, 4), self.orgs)]
+        self.expired = cryptogen.SigningIdentity("Org1MSP", d, pem)
+        self.rogue = rogue.users["User1@rogue.smoke.example.com"]
+
+
+def build_wire_blocks(wn: WireNet, n_blocks: int = N_BLOCKS, n_tx: int = BLOCK_TXS,
+                      sign_batch=None):
+    """Bench-shaped wire blocks (rotating endorser pairs, 2 reads and 2
+    writes per tx), every 20th tx invalid in one of WIRE_KINDS in turn,
+    all signatures from one batched build → (Blocks, expected filters,
+    seed rows, (digests, keys, signatures) of the build's first batch)."""
+    from fabric_tpu_torch.ledger.rwset import TxRWSet
+    from fabric_tpu_torch.peer import txassembly as txa
+    from fabric_tpu_torch.peer.txcodes import TxValidationCode as C
+    from fabric_tpu_torch.protos import messages as m
+
+    want_code = {"bad_creator_sig": C.BAD_CREATOR_SIGNATURE,
+                 "stale_read": C.MVCC_READ_CONFLICT, "nil_envelope": C.NIL_ENVELOPE,
+                 "truncated_payload": C.BAD_PAYLOAD, "unbound_txid": C.BAD_PROPOSAL_TXID,
+                 "duplicate_txid": C.DUPLICATE_TXID,
+                 "expired_creator": C.BAD_CREATOR_SIGNATURE,
+                 "unknown_ca_creator": C.BAD_CREATOR_SIGNATURE,
+                 "outside_endorser": C.ENDORSEMENT_POLICY_FAILURE}
+    specs, kinds, seed_rows = [], [], []
+    for b in range(n_blocks):
+        for i in range(n_tx):
+            kind = WIRE_KINDS[(b * n_tx + i) // 20 % len(WIRE_KINDS)] if i % 20 == 10 else None
+            seed_rows += [(CC, f"seed{b}_{i:05d}", b"genesis", (1, 0)),
+                          (CC, f"ro{b}_{i:05d}", b"genesis", (1, 0))]
+            rw = TxRWSet()
+            ns = rw.ns_rwset(CC)
+            ns.reads[f"seed{b}_{i:05d}"] = (9, 9) if kind == "stale_read" else (1, 0)
+            ns.reads[f"ro{b}_{i:05d}"] = (1, 0)
+            ns.writes[f"w{b}_{i:05d}"] = b"value-%d" % i
+            ns.writes[f"seed{b}_{i:05d}"] = b"updated"
+            creator = {"expired_creator": wn.expired,
+                       "unknown_ca_creator": wn.rogue}.get(kind, wn.client)
+            ends = ([wn.peers[i % 3], wn.peers[3]] if kind == "outside_endorser"
+                    else [wn.peers[i % 3], wn.peers[(i + 1) % 3]])
+            specs.append(txa.TxSpec(creator, ends, rw.to_bytes(), CC, channel_id="smokechan"))
+            kinds.append(kind)
+    seen = []
+
+    def recording(digests, keys):
+        out = (sign_batch or card_signer)(digests, keys)
+        if not seen:
+            seen.append((digests, keys, out))
+        return out
+
+    envs = txa.build_envelopes(specs, recording)
+    blocks, expected = [], []
+    for b in range(n_blocks):
+        part, want = envs[b * n_tx:(b + 1) * n_tx], []
+        for i, kind in enumerate(kinds[b * n_tx:(b + 1) * n_tx]):
+            if kind == "bad_creator_sig":
+                env = m.Envelope.parse(part[i])  # the previous tx's signature: valid DER
+                env.signature = m.Envelope.parse(part[i - 1]).signature
+                part[i] = env.serialize()
+            elif kind == "unbound_txid":  # a tx id that is not sha256(nonce ‖ creator)
+                env = m.Envelope.parse(part[i])
+                payload = m.Payload.parse(env.payload)
+                ch = m.ChannelHeader.parse(payload.header.channel_header)
+                ch.tx_id = "0" * 64
+                payload.header.channel_header = ch.serialize()
+                env.payload = payload.serialize()
+                part[i] = env.serialize()
+            elif kind == "nil_envelope":
+                part[i] = b""
+            elif kind == "truncated_payload":
+                part[i] = part[i][:len(part[i]) // 2]
+            elif kind == "duplicate_txid":
+                part[i] = part[i - 1]
+            want.append(int(want_code[kind]) if kind else int(C.VALID))
+        blocks.append(txa.build_block(2 + b, b"prev-%d" % b, part))
+        expected.append(bytes(want))
+    return blocks, expected, seed_rows, seen[0]
+
+
+WIRE_NAMESPACES = {CC: NAMESPACES[CC]}
+
+
+def phase_wire_path(dev):
+    """Wire blocks built and signed on the card through CommitPipeline
+    with the port's MSP → (launch counts, blocks)."""
+    from fabric_tpu_torch import carry, kernels
+    from fabric_tpu_torch.crypto import ec_ref
+    from fabric_tpu_torch.peer import frontend
+    from fabric_tpu_torch.peer.validator import BlockValidator
+    from fabric_tpu_torch.protos import messages as m
+
+    t0 = time.perf_counter()
+    wn = WireNet(SEED + 9)
+    blocks, expected, seed_rows, (digests, keys, sigs) = build_wire_blocks(wn)
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 10)
+    sample = rng.choice(len(digests), 64, replace=False).tolist()
+    bad = sum(ec_ref.SigningKey(keys[j]).sign_digest(digests[j]) != tuple(sigs[j])
+              for j in sample)
+    if bad:
+        raise AssertionError(f"wire path: {bad} of 64 card signatures differ from ec_ref")
+    raw = [blk.serialize() for blk in blocks]
+    n_tx = sum(len(b.data.data) for b in blocks)
+    log("wire_build", blocks=len(blocks), txs=n_tx, signed_on_card=len(digests) + n_tx,
+        seconds=build_s,
+        block_bytes=[len(r) for r in raw], ec_ref_checked=len(sample))
+
+    def validator():
+        state, prov, _ = carry.from_reference(seed_rows, WIRE_NAMESPACES, [])
+        return BlockValidator(prov, state, device=dev, msp=wn.msp)
+
+    wire = [m.Block.parse(r) for r in raw]
+    v = validator()
+    kernels.reset_counts()
+    res, secs, marks = run_validator(wire, v, depth=2)
+    counts = dict(kernels.launches)
+    got = [r.tx_filter for r in res]
+    if got != expected:
+        bad = [(b, i, g[i], w[i]) for b, (g, w) in enumerate(zip(got, expected))
+               for i in range(len(w)) if g[i] != w[i]]
+        raise AssertionError(f"wire path filters differ from construction at {bad[:10]}")
+    zero = [k for k in ("p256_verify", "stage2_policy", "stage2_mvcc") if counts[k] == 0]
+    if zero:
+        raise AssertionError(f"kernels not launched on the wire path: {zero}")
+    decode_ms, decoded = [], []
+    for blk in wire:
+        t1 = time.perf_counter()
+        decoded.append(frontend.decode_block(blk, wn.msp))
+        decode_ms.append(1e3 * (time.perf_counter() - t1))
+    res2, _, _ = run_validator(decoded, validator(), depth=2)
+    for a, b in zip(res, res2):
+        rows = lambda x: sorted((k, vv.value, vv.version) for k, vv in x.batch.items())
+        if a.tx_filter != b.tx_filter or rows(a) != rows(b) or a.history != b.history:
+            raise AssertionError(f"block {a.block.number}: the wire entry differs from "
+                                 "the DecodedBlock entry")
+    codes = Counter(c for f in got for c in f)
+    log("wire_path", blocks=len(wire), txs=n_tx, depth=2, seconds=secs,
+        per_block_ms=1e3 * secs / len(wire), tx_per_s=n_tx / secs, completion_s=marks,
+        decode_ms_per_block=decode_ms, codes={int(k): n for k, n in sorted(codes.items())},
+        equal_to_construction=True, equal_to_decoded_entry=True, launches=counts)
+    busy_ms, psecs, n_ev, names = device_busy(wire, validator=validator())
+    ok = busy_ms is not None
+    log("device_busy_wire", profiled_seconds=psecs, device_events=n_ev, by_name=names,
+        busy_ms_per_block=busy_ms / len(wire) if ok else None,
+        idle_share_profiled=1 - busy_ms / (1e3 * psecs) if ok else None)
+    return counts, wire
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the SHA-256 kernel
+
+SHA_B, SHA_LEN, SHA_M = 4096, 200, 4  # bench.py's sha256 scenario: 4,096 x 200 B
+# INT32 instructions per compression at the ISA level, where a 3-input
+# logical op (LOP3) or a 3-input add (IADD3) is one: schedule 48 x (2 sigmas
+# of 3 shifts + 1 LOP3, then 4 terms summed by 2 IADD3) + rounds 64 x (2 Sigmas
+# of 3 rotations + 1 LOP3, ch 1, maj 1, T1 of 5 terms 2, a = T1 + Sigma0 + maj
+# 1, e = d + T1 1) + 8 final adds
+SHA_OPS = 48 * 10 + 64 * 14 + 8
+
+
+def phase_sha256(dev, first_block):
+    """``sha256_blocks`` against its plain version and hashlib at the
+    bench shape, the padding boundaries, a ragged M = 8 batch and every
+    signed message of the first wire block; ``sha256_host`` counted on
+    its own run → the kernels-line record."""
+    import hashlib
+
+    from fabric_tpu_torch import kernels
+    from fabric_tpu_torch.ops import sha256 as sha
+    from fabric_tpu_torch.protos import messages as m
+
+    rng = np.random.default_rng(SEED + 11)
+    bench = [rng.bytes(SHA_LEN) for _ in range(SHA_B)]
+    signed = []
+    for raw in first_block.data.data:
+        try:
+            env = m.Envelope.parse(raw)
+            payload = m.Payload.parse(env.payload)
+            tx = m.Transaction.parse(payload.data)
+            cap = m.ChaincodeActionPayload.parse(tx.actions[0].payload)
+        except (ValueError, IndexError):
+            continue
+        signed.append(env.payload)
+        prp = cap.action.proposal_response_payload
+        signed += [prp + e.endorser for e in cap.action.endorsements]
+    sets = {"bench": (bench, SHA_M),
+            "boundaries": ([rng.bytes(n) for n in (0, 55, 56, 63, 64, 119, 120)], 4),
+            "ragged": ([rng.bytes(int(n)) for n in rng.integers(0, 8 * 64 - 9, 1000)], 8),
+            "wire_block": (signed, None)}
+    kernels.reset_counts()
+    for msgs, _ in sets.values():
+        if sha.sha256_host(msgs, device=dev) != [hashlib.sha256(x).digest() for x in msgs]:
+            raise AssertionError("sha256_host differs from hashlib")
+    counts = dict(kernels.launches)
+    checks, rec = {}, None
+    for name, (msgs, M) in sets.items():
+        blocks, nb = sha.pad_messages(msgs, M)
+        b = torch.from_numpy(blocks.view(np.int32)).to(dev)
+        n = torch.from_numpy(nb).to(dev)
+        got, want = sha.sha256_blocks(b, n), sha.sha256_blocks_ref(b, n)
+        torch.cuda.synchronize()
+        mism = int((got != want).any(dim=1).sum())
+        err = int((got.long() - want.long()).abs().max())
+        if mism or sha.digests_to_bytes(got) != [hashlib.sha256(x).digest() for x in msgs]:
+            raise AssertionError(f"sha256_blocks at {name}: {mism} digests differ")
+        checks[name] = {"B": len(msgs), "M": int(blocks.shape[1]), "mismatches": mism}
+        if name == "bench":
+            ms = cuda_ms(lambda: kernels.sha256_blocks(b, n), 20)
+            plain_ms = cuda_ms(lambda: sha.sha256_blocks_ref(b, n), 2)
+            t0 = time.perf_counter()
+            for x in msgs:
+                hashlib.sha256(x).digest()
+            hashlib_ms = 1e3 * (time.perf_counter() - t0)
+            comps = int(nb.sum())
+            b_ms, b_by = bound(nbytes(b, n) + 32 * len(msgs), comps * SHA_OPS)
+            rec = {"name": "sha256_blocks", "route": "cuda",
+                   "source": "fabric_tpu_torch/kernels/csrc/sha256.cu",
+                   "replaces": "fabric_tpu/ops/sha256.py:76", "max_abs_err": err,
+                   "mismatches": mism, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "library_ms": None, "launches": counts["sha256_blocks"]}
+            log("sha256_bench", B=len(msgs), M=int(blocks.shape[1]), compressions=comps,
+                ms=ms, plain_ms=plain_ms, hashlib_serial_ms=hashlib_ms, bound_ms=b_ms,
+                hashes_per_s=len(msgs) / (ms / 1e3))
+    log("sha256", checks=checks, launches=counts, equal_to_hashlib=True)
+    if counts["sha256_blocks"] == 0:
+        raise AssertionError("sha256_blocks not launched by sha256_host")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from fabric_tpu_torch import kernels
 
@@ -1014,9 +1306,12 @@ def main() -> int:
         r["launches"] = counts[r["name"]]
     recs += res_recs
     recs.append(phase_sign(net, dev))
+    _, wire = phase_wire_path(dev)
+    recs.append(phase_sha256(dev, wire[0]))
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "mismatches",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in order} for r in recs]}), flush=True)
+    log("total", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

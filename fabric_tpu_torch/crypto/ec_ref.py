@@ -146,23 +146,47 @@ def der_encode_sig(r: int, s: int) -> bytes:
     return b"\x30" + bytes([len(body)]) + body
 
 
+def _der_tlv(der: bytes, pos: int, end: int, tag: int):
+    """The TLV at ``pos`` with tag ``tag`` → (content start, end);
+    definite lengths in their shortest form only."""
+    if end - pos < 2 or der[pos] != tag:
+        raise ValueError("bad DER tag")
+    ln = der[pos + 1]
+    pos += 2
+    if ln & 0x80:
+        k = ln & 0x7F
+        if k == 0 or k > 4 or end - pos < k or der[pos] == 0:
+            raise ValueError("bad DER length")
+        ln = int.from_bytes(der[pos:pos + k], "big")
+        if ln < 0x80:
+            raise ValueError("DER length not in its shortest form")
+        pos += k
+    if ln > end - pos:
+        raise ValueError("DER length past the end")
+    return pos, pos + ln
+
+
 def der_decode_sig(der: bytes) -> tuple[int, int]:
-    """DER ECDSA-Sig-Value → (r, s); strict short-form parse."""
-    if len(der) < 8 or der[0] != 0x30 or der[1] != len(der) - 2:
-        raise ValueError("bad DER signature envelope")
-    out = []
-    off = 2
-    for _ in range(2):
-        if off + 2 > len(der) or der[off] != 0x02:
-            raise ValueError("bad DER integer tag")
-        ln = der[off + 1]
-        off += 2
-        if ln == 0 or off + ln > len(der) or ln > 33:
-            raise ValueError("bad DER integer length")
-        out.append(int.from_bytes(der[off:off + ln], "big"))
-        off += ln
-    if off != len(der):
+    """DER ECDSA-Sig-Value → (r, s), accepting exactly what
+    ``cryptography``'s ``decode_dss_signature`` accepts (the reference's
+    decoder): one SEQUENCE of two minimal, non-negative INTEGERs of any
+    size, nothing after it.  Range checks are the verifier's."""
+    der = bytes(der)
+    s, e = _der_tlv(der, 0, len(der), 0x30)
+    if e != len(der):
         raise ValueError("trailing DER bytes")
+    out = []
+    for _ in range(2):
+        a, b = _der_tlv(der, s, e, 0x02)
+        raw = der[a:b]
+        if not raw or raw[0] >= 0x80:
+            raise ValueError("empty or negative DER integer")
+        if len(raw) > 1 and raw[0] == 0 and raw[1] < 0x80:
+            raise ValueError("DER integer not minimal")
+        out.append(int.from_bytes(raw, "big"))
+        s = b
+    if s != e:
+        raise ValueError("extra DER elements")
     return out[0], out[1]
 
 
@@ -201,13 +225,15 @@ def digest_int(msg: bytes) -> int:
     return int.from_bytes(hashlib.sha256(msg).digest(), "big")
 
 
-def verify_digest(pub, e: int, r: int, s: int) -> bool:
-    """Reference verify incl. Fabric's low-S rule."""
+def verify_digest(pub, e: int, r: int, s: int, low_s: bool = True) -> bool:
+    """Reference verify incl. Fabric's low-S rule; ``low_s=False`` is
+    plain ECDSA (X.509 certificate signatures, which OpenSSL and other
+    CAs make without normalizing s)."""
     if pub is INF or not (0 <= pub[0] < P and 0 <= pub[1] < P) or not is_on_curve(pub):
         return False
     if not (1 <= r < N and 1 <= s < N):
         return False
-    if s > HALF_N:  # low-S enforcement per bccsp/sw/ecdsa.go:41-58
+    if low_s and s > HALF_N:  # low-S enforcement per bccsp/sw/ecdsa.go:41-58
         return False
     w = pow(s, -1, N)
     u1 = (e * w) % N

@@ -31,12 +31,12 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("p256_verify", "stage2", "resident", "p256_sign")
+SOURCES = ("p256_verify", "stage2", "resident", "p256_sign", "sha256")
 ARCH_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a",)
 
 launches = {"p256_verify": 0, "stage2_policy": 0, "stage2_mvcc": 0,
             "mvcc_validate": 0, "resident_verok": 0, "table_scatter": 0,
-            "p256_sign": 0}
+            "p256_sign": 0, "sha256_blocks": 0}
 # nvcc's -Xptxas=-v report per source (registers, spills), for logs
 build_log: dict = {}
 
@@ -62,6 +62,9 @@ _SIGS = {
     },
     "p256_sign": {
         "fab_p256_sign": [_P, _I, _P, _P, _P, _P],
+    },
+    "sha256": {
+        "fab_sha256_blocks": [_P, _P, _I, _I, _P, _P],
     },
 }
 
@@ -281,4 +284,16 @@ def p256_sign(limbs, consts, comb) -> torch.Tensor:
     _call("p256_sign", "fab_p256_sign", limbs.data_ptr(), limbs.shape[0], consts.data_ptr(),
           comb.data_ptr(), out.data_ptr(), _stream(limbs))
     _count("p256_sign")
+    return out
+
+
+def sha256_blocks(blocks, nblocks) -> torch.Tensor:
+    """[B, M, 16] int32 padded big-endian words, [B] int32 block counts
+    → [B, 8] int32 digest words (uint32 bit patterns)."""
+    _cuda(blocks, nblocks)
+    B, M = blocks.shape[0], blocks.shape[1]
+    out = torch.empty((B, 8), dtype=torch.int32, device=blocks.device)
+    _call("sha256", "fab_sha256_blocks", blocks.data_ptr(), nblocks.data_ptr(), B, M,
+          out.data_ptr(), _stream(blocks))
+    _count("sha256_blocks")
     return out

@@ -1,9 +1,10 @@
-"""The block validator over decoded blocks (counterpart:
-``fabric_tpu/peer/validator.py``).
+"""The block validator (counterpart: ``fabric_tpu/peer/validator.py``).
 
-The port's entry takes a block already decoded by its front end (the
-protobuf and x509 decoding is a later slice): per transaction the txid,
-the creator identity and signature, the endorsements, and the read/write
+The port's entry takes a wire-format ``protos.messages.Block``, which
+``preprocess`` decodes with the front end (``peer/frontend.py``) and the
+validator's MSP (``msp=``), or a block its caller decoded already
+(``peer/decoded.py::DecodedBlock``): per transaction the txid, the
+creator identity and signature, the endorsements, and the read/write
 set.  Each signature arrives as (digest, r, s), the digest being the
 SHA-256 the reference hashes (the payload for the creator, the proposal
 response payload plus the endorser for an endorsement).
@@ -47,57 +48,23 @@ import numpy as np
 import torch
 
 from fabric_tpu_torch.crypto import policy as pol
-from fabric_tpu_torch.crypto.identity import Identity
 from fabric_tpu_torch.device import resolve_device
 from fabric_tpu_torch.ledger.rwset import TxRWSet
 from fabric_tpu_torch.ledger.statedb import UpdateBatch
 from fabric_tpu_torch.ops import mvcc as mvcc_ops
 from fabric_tpu_torch.ops import p256v3
+from fabric_tpu_torch.peer import frontend
+from fabric_tpu_torch.peer.decoded import DecodedBlock, DecodedEndorsement, DecodedTx
 from fabric_tpu_torch.peer.device_block import DeviceBlockPipeline, resident_ver_ok
 from fabric_tpu_torch.peer.txcodes import TxValidationCode as C
+from fabric_tpu_torch.protos.messages import Block
 from fabric_tpu_torch.state.residency import ResidencyManager, build_launch_pack
 from fabric_tpu_torch.utils.batching import next_pow2
 
 _NV = int(C.NOT_VALIDATED)
 
-
-# ---------------------------------------------------------------------------
-# Decoded block form
-
-
-@dataclass
-class DecodedEndorsement:
-    endorser: Identity
-    digest: int  # sha256(proposal_response_payload || serialized endorser)
-    r: int
-    s: int
-
-
-@dataclass
-class DecodedTx:
-    """One envelope as the front end decoded it.  ``code`` stays
-    NOT_VALIDATED unless the front end failed on the envelope (e.g.
-    NIL_ENVELOPE, BAD_PAYLOAD, BAD_PROPOSAL_TXID, BAD_CREATOR_SIGNATURE
-    for an undeserializable creator, BAD_RWSET).  ``txid_bound``: the
-    header parsed as an endorser transaction whose tx_id equals
-    sha256(nonce || creator) — such a transaction claims its txid for the
-    in-block duplicate check even if a later decoding step failed."""
-
-    txid: str = ""
-    code: int = _NV
-    txid_bound: bool = True
-    creator: Identity | None = None
-    creator_sig: tuple | None = None  # (digest, r, s); digest = sha256(payload)
-    endorsements: list = field(default_factory=list)  # [DecodedEndorsement]
-    rwset: TxRWSet | None = None
-    is_config: bool = False
-
-
-@dataclass
-class DecodedBlock:
-    number: int
-    txs: list  # [DecodedTx]
-
+__all__ = ["BlockValidator", "DecodedBlock", "DecodedEndorsement", "DecodedTx",
+           "NamespaceInfo", "PolicyProvider"]
 
 # ---------------------------------------------------------------------------
 # Policies
@@ -153,6 +120,7 @@ class DevicePre:
 
 @dataclass
 class Preprocessed:
+    block: DecodedBlock
     txs: list
     items: list           # [(digest, r, s, qx, qy)]
     handle: object        # ops.p256v3.VerifyHandle
@@ -202,11 +170,14 @@ def _refuse_unsupported(block: DecodedBlock, policies: PolicyProvider) -> None:
 
 
 class BlockValidator:
-    """validate(block) → (tx_filter bytes, UpdateBatch, history)."""
+    """validate(block) → (tx_filter bytes, UpdateBatch, history).
+    ``block``: a wire ``Block`` (decoded with ``msp``, a
+    ``crypto.msp.MSPManager``) or a ``DecodedBlock``."""
 
     def __init__(self, policy_provider: PolicyProvider, state_db, block_store=None,
                  device="cuda", state_resident: bool = False, state_resident_mb: int = 64,
-                 state_resident_range_bits: int = 12):
+                 state_resident_range_bits: int = 12, msp=None):
+        self.msp = msp
         self.policies = policy_provider
         self.state = state_db
         self.blocks = block_store  # anything with tx_exists(txid)
@@ -245,14 +216,17 @@ class BlockValidator:
                 continue
             ptx.creator_item_idx = len(items)
             items.append((*dtx.creator_sig, cr.qx, cr.qy))
-            # a repeated endorser counts once (policy.go:360-363); an
-            # endorser without an EC key contributes nothing
+            # a repeated endorser counts once (policy.go:360-363), keyed
+            # by its serialized bytes as the reference's is
+            # (validator.py:1085-1095): two encodings of one identity
+            # count twice.  An endorser without an EC key contributes
+            # nothing.
             seen_endorsers = set()
             for end in dtx.endorsements:
                 ident = end.endorser
-                if ident in seen_endorsers or not ident.has_ec_key:
+                if end.serialized in seen_endorsers or not ident.has_ec_key:
                     continue
-                seen_endorsers.add(ident)
+                seen_endorsers.add(end.serialized)
                 ptx.endo_item_idx.append(len(items))
                 items.append((end.digest, end.r, end.s, ident.qx, ident.qy))
                 ptx.endorsers.append(ident)
@@ -311,21 +285,33 @@ class BlockValidator:
         return DevicePre(groups=groups, group_entries=group_entries, static=static,
                          static_t=static_t, has_range=has_range, read_pv=read_pv)
 
-    def preprocess(self, block: DecodedBlock) -> Preprocessed:
-        """Parse, launch the block's signature verify without waiting,
-        and build the state-independent stage-2 inputs.  Touches no
-        ledger state, so it may run while the predecessor commits."""
+    def decode(self, block) -> DecodedBlock:
+        """A wire ``Block`` through the front end with this validator's
+        MSP; a ``DecodedBlock`` as it is."""
+        if isinstance(block, DecodedBlock):
+            return block
+        if not isinstance(block, Block):
+            raise TypeError(f"expected a Block or DecodedBlock, got {type(block).__name__}")
+        if self.msp is None:
+            raise ValueError("a wire Block needs the validator's msp= (an MSPManager)")
+        return frontend.decode_block(block, self.msp)
+
+    def preprocess(self, block) -> Preprocessed:
+        """Decode, parse, launch the block's signature verify without
+        waiting, and build the state-independent stage-2 inputs.  Touches
+        no ledger state, so it may run while the predecessor commits."""
+        block = self.decode(block)
         txs, items = self._parse(block)
         handle = p256v3.verify_launch(items, device=self.device)
-        return Preprocessed(txs=txs, items=items, handle=handle,
+        return Preprocessed(block=block, txs=txs, items=items, handle=handle,
                             dpre=self._device_preprocess(txs))
 
     # -- launch -------------------------------------------------------------
 
-    def validate(self, block: DecodedBlock):
+    def validate(self, block):
         return self.validate_finish(self.validate_launch(block))
 
-    def validate_launch(self, block: DecodedBlock, pre: Preprocessed | None = None,
+    def validate_launch(self, block, pre: Preprocessed | None = None,
                         overlay=None, extra_txids=None) -> PendingBlock:
         """Everything up to the stage-2 dispatch.  ``overlay``: the
         merged UpdateBatch of in-flight predecessors whose commits may not
@@ -340,7 +326,7 @@ class BlockValidator:
                         (extra_txids is not None and ptx.txid in extra_txids)
                         or (self.blocks is not None and self.blocks.tx_exists(ptx.txid))):
                     ptx.code = int(C.DUPLICATE_TXID)
-        pending = PendingBlock(block=block, txs=txs, items=pre.items, handle=pre.handle,
+        pending = PendingBlock(block=pre.block, txs=txs, items=pre.items, handle=pre.handle,
                                dpre=pre.dpre, overlay=overlay)
         if txs:
             pending.fetch2, pending.range_phantom = self._launch_device(

@@ -1,0 +1,151 @@
+"""Wire-format helpers over the port's messages (counterpart:
+``fabric_tpu/protoutil.py``): the nonce and transaction id, the block
+header and data hashes, block assembly, action extraction with its
+validation codes, and the TRANSACTIONS_FILTER helpers."""
+
+from __future__ import annotations
+
+import hashlib
+import os
+
+from fabric_tpu_torch.peer.txcodes import TxValidationCode as C
+from fabric_tpu_torch.protos import messages as m
+from fabric_tpu_torch.protos.wire import DecodeError
+
+# ---------------------------------------------------------------------------
+# Minimal DER (only what the header hash needs)
+
+
+def _der_len(n: int) -> bytes:
+    if n < 0x80:
+        return bytes([n])
+    body = n.to_bytes((n.bit_length() + 7) // 8, "big")
+    return bytes([0x80 | len(body)]) + body
+
+
+def _der_int(x: int) -> bytes:
+    if x == 0:
+        body = b"\x00"
+    else:
+        body = x.to_bytes((x.bit_length() + 8) // 8, "big")  # leading 0 if MSB set
+        if body[0] == 0 and len(body) > 1 and body[1] < 0x80:
+            body = body[1:]
+    return b"\x02" + _der_len(len(body)) + body
+
+
+def _der_octets(b: bytes) -> bytes:
+    return b"\x04" + _der_len(len(b)) + b
+
+
+def block_header_bytes(header: m.BlockHeader) -> bytes:
+    """ASN.1 DER of (number, previous_hash, data_hash)."""
+    body = (_der_int(header.number) + _der_octets(header.previous_hash)
+            + _der_octets(header.data_hash))
+    return b"\x30" + _der_len(len(body)) + body
+
+
+def block_header_hash(header: m.BlockHeader) -> bytes:
+    return hashlib.sha256(block_header_bytes(header)).digest()
+
+
+def block_data_hash(data: m.BlockData) -> bytes:
+    """SHA-256 over the concatenated serialized envelopes."""
+    return hashlib.sha256(b"".join(data.data)).digest()
+
+
+# ---------------------------------------------------------------------------
+# IDs and blocks
+
+
+def random_nonce() -> bytes:
+    return os.urandom(24)
+
+
+def compute_tx_id(nonce: bytes, creator: bytes) -> str:
+    return hashlib.sha256(nonce + creator).hexdigest()
+
+
+def new_block(number: int, previous_hash: bytes) -> m.Block:
+    """An empty block with the five metadata slots."""
+    return m.Block(header=m.BlockHeader(number=number, previous_hash=previous_hash),
+                   data=m.BlockData(),
+                   metadata=m.BlockMetadata(metadata=[b""] * m.N_METADATA))
+
+
+def finalize_block(blk: m.Block) -> m.Block:
+    blk.header.data_hash = block_data_hash(blk.data)
+    return blk
+
+
+# ---------------------------------------------------------------------------
+# Transaction extraction
+
+
+class TxParseError(Exception):
+    def __init__(self, code: int, msg: str):
+        super().__init__(msg)
+        self.code = code
+
+
+def extract_action(env: m.Envelope, parsed=None):
+    """Envelope → (channel header, signature header,
+    ChaincodeActionPayload, ProposalResponsePayload, ChaincodeAction)
+    of an endorser transaction.  ``parsed``: the already-decoded
+    (payload, channel header, signature header).  Raises
+    ``TxParseError`` with the reference's code on a malformed structure.
+    An absent sub-message reads as an empty one, as in protobuf."""
+    if not env.payload:
+        raise TxParseError(C.NIL_ENVELOPE, "empty payload")
+    try:
+        if parsed is not None:
+            payload, ch, sh = parsed
+        else:
+            payload = m.Payload.parse(env.payload)
+            hdr = payload.header or m.Header()
+            ch = m.ChannelHeader.parse(hdr.channel_header)
+            sh = m.SignatureHeader.parse(hdr.signature_header)
+    except DecodeError as e:
+        raise TxParseError(C.BAD_PAYLOAD, f"bad payload: {e}") from e
+    if ch.type != m.HEADER_ENDORSER_TRANSACTION:
+        raise TxParseError(C.UNKNOWN_TX_TYPE, f"type {ch.type}")
+    try:
+        tx = m.Transaction.parse(payload.data)
+        if not tx.actions:
+            raise TxParseError(C.NIL_TXACTION, "no actions")
+        cap = m.ChaincodeActionPayload.parse(tx.actions[0].payload)
+        if cap.action is None:
+            cap.action = m.ChaincodeEndorsedAction()
+        prp = m.ProposalResponsePayload.parse(cap.action.proposal_response_payload)
+        cca = m.ChaincodeAction.parse(prp.extension)
+    except DecodeError as e:
+        raise TxParseError(C.BAD_PAYLOAD, f"bad tx: {e}") from e
+    return ch, sh, cap, prp, cca
+
+
+# ---------------------------------------------------------------------------
+# TRANSACTIONS_FILTER
+
+
+def new_tx_filter(n: int) -> bytearray:
+    return bytearray([C.NOT_VALIDATED] * n)
+
+
+def set_tx_filter(block: m.Block, flags: bytes) -> None:
+    if block.metadata is None:
+        block.metadata = m.BlockMetadata()
+    md = block.metadata.metadata
+    while len(md) <= m.META_TRANSACTIONS_FILTER:
+        md.append(b"")
+    md[m.META_TRANSACTIONS_FILTER] = bytes(flags)
+
+
+def get_tx_filter(block: m.Block) -> bytes:
+    md = block.metadata.metadata if block.metadata is not None else []
+    if len(md) > m.META_TRANSACTIONS_FILTER and md[m.META_TRANSACTIONS_FILTER]:
+        return md[m.META_TRANSACTIONS_FILTER]
+    n = len(block.data.data) if block.data is not None else 0
+    return bytes(new_tx_filter(n))
+
+
+def tx_flag_is_valid(flags: bytes, i: int) -> bool:
+    return flags[i] == C.VALID

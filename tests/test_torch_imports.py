@@ -72,7 +72,8 @@ def test_entry_points_raise_without_cuda():
         pytest.skip("this host has a CUDA device; the check is for hosts without one")
     from fabric_tpu_torch import resolve_device
     from fabric_tpu_torch.ledger.statedb import MemVersionedDB
-    from fabric_tpu_torch.ops import mvcc, p256sign, p256v3
+    from fabric_tpu_torch.crypto.msp import MSPManager
+    from fabric_tpu_torch.ops import mvcc, p256sign, p256v3, sha256
     from fabric_tpu_torch.peer import signlane
     from fabric_tpu_torch.peer.validator import BlockValidator, PolicyProvider
     from fabric_tpu_torch.state import ResidencyManager
@@ -93,6 +94,13 @@ def test_entry_points_raise_without_cuda():
         p256sign.sign_launch([1], 5)
     with pytest.raises(RuntimeError, match="CUDA"):
         signlane.device_sign_backend(5)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sha256.sha256_host([b"abc"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BlockValidator(PolicyProvider({}), MemVersionedDB(), msp=MSPManager())
     v = BlockValidator(PolicyProvider({}), MemVersionedDB(), device="cpu", state_resident=True)
     assert v.resident.device.type == "cpu"
     assert BlockValidator(PolicyProvider({}), MemVersionedDB(), device="cpu").device.type == "cpu"
+    assert BlockValidator(PolicyProvider({}), MemVersionedDB(), device="cpu",
+                          msp=MSPManager()).device.type == "cpu"
+    assert sha256.sha256_host([b"abc"], device="cpu")[0].hex().startswith("ba7816bf")

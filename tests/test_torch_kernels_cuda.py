@@ -238,3 +238,23 @@ def test_p256_sign_kernel_matches_plain_and_oracle(cuda):
     digests = [int.from_bytes(rng.bytes(32), "big") for _ in range(40)]
     sigs = p256sign.sign_digests(digests, d, device=cuda, verify_after=True)
     assert sigs == [ec_ref.SigningKey(d).sign_digest(e) for e in digests]
+
+
+def test_sha256_kernel_matches_plain_and_hashlib(cuda):
+    import hashlib
+
+    from fabric_tpu_torch.ops import sha256 as psha
+
+    rng = np.random.default_rng(9)
+    for msgs, M in (([rng.bytes(200) for _ in range(4096)], 4),
+                    ([rng.bytes(n) for n in (0, 55, 56, 63, 64, 119, 120)], 4),
+                    ([rng.bytes(int(n)) for n in rng.integers(0, 8 * 64 - 9, 300)], 8)):
+        blocks, nb = psha.pad_messages(msgs, max_blocks=M)
+        b = torch.from_numpy(blocks.view(np.int32)).to(cuda)
+        n = torch.from_numpy(nb).to(cuda)
+        got = psha.sha256_blocks(b, n)
+        want = psha.sha256_blocks_ref(b, n)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert psha.digests_to_bytes(got) == [hashlib.sha256(m).digest() for m in msgs]
+    assert psha.sha256_host([b"abc"]) == [hashlib.sha256(b"abc").digest()]

@@ -11,10 +11,12 @@ every transaction.  The shared ``p256_field.cuh`` is inlined where a
 source includes it.  That checks each kernel's arithmetic and indexing
 — the 256-bit Montgomery product, the point formulas, the window
 recoding, the comb ladder, the policy gate walk, the bitsets, the
-fixpoint, the resident-table compare and the table scatter — bit for
-bit, before a card ever sees it."""
+fixpoint, the resident-table compare, the table scatter and the SHA-256
+compression (against ``hashlib``) — bit for bit, before a card ever
+sees it."""
 
 import ctypes
+import hashlib
 import pathlib
 import shutil
 import subprocess
@@ -27,6 +29,7 @@ from fabric_tpu_torch.crypto import ec_ref
 from fabric_tpu_torch.crypto import policy as pol
 from fabric_tpu_torch.ops import mvcc
 from fabric_tpu_torch.ops import p256sign
+from fabric_tpu_torch.ops import sha256 as psha
 from fabric_tpu_torch.ops import p256v3 as v3
 from fabric_tpu_torch.peer import device_block as db
 from fabric_tpu_torch.state import residency
@@ -45,6 +48,11 @@ using std::min;
 #define __restrict__
 #define __shared__ static
 #define __ldg(p) (*(p))
+#define __constant__
+static inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, unsigned s) {
+  s &= 31;
+  return s ? (lo >> s) | (hi << (32 - s)) : lo;
+}
 #define __syncthreads() do {} while (0)
 struct Dim { unsigned x = 0, y = 0, z = 0; };
 static Dim blockIdx, threadIdx, blockDim;
@@ -97,6 +105,13 @@ extern "C" void host_verok(const int32_t* sp, int T, int cols, int R, const int3
 extern "C" void host_scatter(int32_t* table, const int32_t* idx, const int32_t* rows, int k) {
   blockDim.x = 1;
   for (int i = 0; i < k; ++i) { blockIdx.x = i; table_scatter_kernel(table, idx, rows, k); }
+}
+""",
+    "sha256": r"""
+extern "C" void host_sha256(const uint32_t* blocks, const int32_t* nb, int B, int M,
+                            uint32_t* out) {
+  blockDim.x = 1;
+  for (int i = 0; i < B; ++i) { blockIdx.x = i; sha256_blocks_kernel(blocks, nb, B, M, out); }
 }
 """,
     "p256_sign": r"""
@@ -345,3 +360,18 @@ def test_resident_kernel_sources_match_plain(host_kernels, seed):
     ref = t(table.copy())
     residency.table_scatter(ref, idx, rows)
     assert np.array_equal(got, ref.numpy())
+
+
+def test_sha256_kernel_source_matches_hashlib(host_kernels):
+    rng = np.random.default_rng(8)
+    lengths = [0, 55, 56, 63, 64, 119, 120, 200, *rng.integers(0, 8 * 64 - 9, 40).tolist()]
+    msgs = [rng.bytes(int(n)) for n in lengths]
+    blocks, nb = psha.pad_messages(msgs, max_blocks=8)
+    nb[-1] = 0  # no block: the initial state
+    out = np.zeros((len(msgs), 8), np.uint32)
+    host_kernels["sha256"].host_sha256(_p(blocks), _p(nb), len(msgs), 8, _p(out))
+    plain = psha.sha256_blocks(torch.from_numpy(blocks.view(np.int32)), torch.from_numpy(nb))
+    assert np.array_equal(out, plain.numpy().view(np.uint32))
+    want = [hashlib.sha256(m).digest() for m in msgs[:-1]]
+    assert psha.digests_to_bytes(out)[:-1] == want
+    assert out[-1].tolist() == psha.H0.tolist()

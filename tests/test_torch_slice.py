@@ -239,7 +239,8 @@ def _decode(blk, parser, mgr, known):
                 except Exception:
                     continue
                 digest = int.from_bytes(hashlib.sha256(prp + end.endorser).digest(), "big")
-                dtx.endorsements.append(pv.DecodedEndorsement(ident(j), digest, r, s))
+                dtx.endorsements.append(pv.DecodedEndorsement(ident(j), digest, r, s,
+                                                              end.endorser))
         txs.append(dtx)
     return pv.DecodedBlock(number=blk.header.number, txs=txs)
 
