@@ -52,7 +52,20 @@ end's decode time per block and the card's busy share.  SHA-256:
 boundaries, a ragged M = 8 batch and the first wire block's signed
 messages against ``hashlib`` (its launches counted), then
 ``sha256_blocks`` against its plain version at each, timed at the bench
-shape beside serial ``hashlib``.  Each path's launch counts are reset just
+shape beside serial ``hashlib``.  The comparison verifiers: the main
+path's 4 bench-shaped blocks through ``CommitPipeline(depth=2)`` over
+``BlockValidator(kernel="v1")`` and then ``"v2"`` (no stage 2, host
+policy, ``mvcc_validate``), equal to the v3 main path; then each kernel
+(``p256_verify_v1``, ``p256_verify_v2``) against its plain version at
+3072 lanes of the adversarial mix with Q = G and Q = -G lanes, 64
+random lanes plus 4 of each kind against ``ec_ref``, timed at the
+shape its path launched.  The sidecar: a ``SidecarServer`` on
+127.0.0.1 (coalesce 4, 8 queued blocks per tenant) serving 3 tenants of
+weights 1, 1 and 2 at once, each a ``SidecarValidator`` under
+``CommitPipeline(depth=2)`` over its own copy of the 4 blocks, equal to
+the main path, one ``p256_verify`` launch per dispatch; then one
+block's batch through a ``SidecarLink`` to a v1 and a v2 server, equal
+to the in-process v3 verdicts.  Each path's launch counts are reset just
 before it and read just after; a kernel's entry in the kernels line
 gives its time at the shape its path launched it with most often.  Then the kernels line (JSON),
 the card's name and power limit as nvidia-smi reports them, and the
@@ -585,7 +598,7 @@ def phase_main_path(net: Net):
     zero = [k for k in MAIN_PATH_KERNELS if counts[k] == 0]
     if zero:
         raise AssertionError(f"kernels not launched on the main path: {zero}")
-    return counts
+    return counts, res
 
 
 MAIN_PATH_KERNELS = ("p256_verify", "stage2_policy", "stage2_mvcc", "mvcc_validate")
@@ -1270,6 +1283,329 @@ def phase_sha256(dev, first_block):
         raise AssertionError("sha256_blocks not launched by sha256_host")
     return rec
 
+# ---------------------------------------------------------------------------
+# Phase 10: the comparison verifiers v1 and v2, and the comparison path
+
+
+# INT32 operations per v1 Montgomery product (CIOS over eight 32-bit limbs:
+# 64 + 64 32x32->64 multiply-adds, 2 INT32 operations each), and v1's
+# products per lane, the same for every lane: 8,226 mod p (2 to Montgomery
+# form, 3 on-curve, 24 for G + Q, 256 steps x (8 doubling + 24 complete
+# add), 5 final) and 428 mod n (1 + 256 squarings + 169 at the set bits of
+# n - 2 + 2 for u1, u2)
+V1_PRODUCT_OPS = 128 * 2
+V1_PRODUCTS = 8226 + 428
+# INT32 operations of one v2 digit product: 43^2 convolution + 126 x 43
+# reduction multiply-adds; of one settle: 3 rounds x (3 passes x 43 x
+# (mask, shift, add) + 43 x 3 fold multiply-adds) + the tidy pass 43 x 3 +
+# 43; of a canonical form beyond its settle: 4 sweeps x 43 x 3, 3 folds x
+# 43, 4 compares x 43 x 4 and 4 conditional subtractions x 43
+V2_MUL_OPS = 43 * 43 + 126 * 43
+V2_SETTLE_OPS = 3 * (3 * 43 * 3 + 43 * 3) + 43 * 3 + 43
+V2_CANON_OPS = 4 * 43 * 3 + 3 * 43 + 4 * 43 * 4 + 4 * 43
+COMPARISON = (("v1", "p256_verify_v1", "fabric_tpu_torch/kernels/csrc/p256_v1.cu",
+               "fabric_tpu/ops/p256.py:307"),
+              ("v2", "p256_verify_v2", "fabric_tpu_torch/kernels/csrc/p256_v2.cu",
+               "fabric_tpu/ops/p256v2.py:279"))
+
+
+def comparison_items(net: Net, n: int):
+    """``adversarial_items`` with up to 32 lanes of Q = G and as many of
+    Q = -G in place of valid lanes (half of them at most), every other
+    one of each tampered."""
+    ec = net.ec
+    items, kinds = adversarial_items(net, n)
+    kinds = kinds.copy()
+    valid = np.flatnonzero(kinds == 0)
+    m = min(32, len(valid) // 4)
+    for j, i in enumerate(valid[:2 * m]):
+        key = ec.SigningKey(d=1 if j < m else ec.N - 1)
+        e = int.from_bytes(np.random.default_rng(SEED + 20 + j).bytes(32), "big")
+        r, s = key.sign_digest(e)
+        items[i] = (e ^ (j % 2), r, s, *key.public)
+        kinds[i] = 10 if j < m else 11
+    return items, kinds
+
+
+def _v2_schedule_counts(fn):
+    """Run ``fn`` counting the plain v2's DigitMod calls → (result,
+    {"mul", "settle", "canonical"}); the counts are per lane (the plain
+    version runs every lane in each call)."""
+    from fabric_tpu_torch.ops import digits as dg
+
+    seen = Counter()
+    orig = {k: getattr(dg.DigitMod, k) for k in ("mul", "settle", "canonical")}
+
+    def counted(name):
+        def f(self, *a, **kw):
+            seen[name] += 1
+            return orig[name](self, *a, **kw)
+        return f
+
+    for k in orig:
+        setattr(dg.DigitMod, k, counted(k))
+    try:
+        out = fn()
+    finally:
+        for k, f in orig.items():
+            setattr(dg.DigitMod, k, f)
+    return out, dict(seen)
+
+
+def comparison_path(net: Net, kernel: str, name: str, main_res):
+    """The main path's 4 bench-shaped blocks through CommitPipeline(depth=2)
+    over BlockValidator(kernel=...) → (launch counts, the lane shape the
+    path launched ``name`` with most often)."""
+    from fabric_tpu_torch import carry, kernels
+    from fabric_tpu_torch.peer.validator import BlockValidator
+
+    blocks, expected, seed_rows = build_blocks(net, unsafe=False)
+    state, prov, _ = carry.from_reference(seed_rows, NAMESPACES, [])
+    v = BlockValidator(prov, state, device="cuda", kernel=kernel)
+    kernels.reset_counts()
+    with launch_shapes(name, lambda frame, consts: int(frame.shape[0])) as shapes:
+        res, secs, marks = run_validator(blocks, v, depth=2)
+    counts = dict(kernels.launches)
+    rows = lambda x: sorted((k, vv.value, vv.version) for k, vv in x.batch.items())
+    for a, b in zip(res, main_res):
+        if a.tx_filter != b.tx_filter or rows(a) != rows(b) or a.history != b.history:
+            raise AssertionError(f"comparison path {kernel}: block {a.block.number} differs "
+                                 "from the v3 main path")
+    if len(res) != len(blocks) or [r.tx_filter for r in res] != expected:
+        raise AssertionError(f"comparison path {kernel}: filters differ from construction")
+    others = {k: n for k, n in counts.items() if k != name and k != "mvcc_validate" and n}
+    if counts[name] != len(blocks) or counts["mvcc_validate"] != len(blocks) or others:
+        raise AssertionError(f"comparison path {kernel}: launches {counts}")
+    n_tx = sum(len(b.txs) for b in blocks)
+    log("comparison_path", kernel=kernel, blocks=len(blocks), txs=n_tx, depth=2, seconds=secs,
+        per_block_ms=1e3 * secs / len(blocks), tx_per_s=n_tx / secs, completion_s=marks,
+        lanes=dict(shapes), equal_to_main_path=True, launches=counts)
+    return counts, shapes.most_common(1)[0][0]
+
+
+def comparison_kernel(net: Net, dev, kernel: str, name: str, source: str, replaces: str,
+                      shape: int):
+    """The kernel against its plain version at 3072 lanes and 64 random
+    lanes plus 4 of each kind against ec_ref; then its time, the plain
+    version's and the bound at ``shape`` lanes → the kernels-line record."""
+    from fabric_tpu_torch.ops import p256, p256v2
+
+    stage, run, ref = ((p256.stage_frame, p256.verify_batch_v1, p256.verify_batch_v1_ref)
+                       if kernel == "v1" else
+                       (p256v2.stage_frame, p256v2.verify_batch_v2, p256v2.verify_batch_v2_ref))
+    items, kinds = comparison_items(net, VERIFY_LANES)
+    frame = torch.from_numpy(stage(items, VERIFY_LANES)).to(dev)
+    got, want = run(frame), ref(frame)
+    torch.cuda.synchronize()
+    mism = int((got != want).sum())
+    err = int((got.int() - want.int()).abs().max())
+    if mism:
+        raise AssertionError(f"{name}: {mism} lanes differ from its plain version")
+    rng = np.random.default_rng(SEED + 21)
+    sample = set(rng.choice(len(items), 64, replace=False).tolist())
+    for k in range(12):
+        sample.update(np.flatnonzero(kinds == k)[:4].tolist())
+    g = got.cpu().numpy()
+    oracle_mism = sum(bool(g[i]) != net.ec.verify_digest(items[i][3:], *items[i][:3])
+                      for i in sorted(sample))
+    if oracle_mism:
+        raise AssertionError(f"{name}: {oracle_mism} sampled lanes disagree with ec_ref")
+    kind_names = KINDS + ("q_eq_g", "q_eq_minus_g")
+    accepted = {kn: int(g[kinds == k].sum()) for k, kn in enumerate(kind_names)}
+    if not (accepted["q_eq_g"] and accepted["q_eq_minus_g"]
+            and 0 < accepted["x_wrapped"] < int((kinds == 9).sum())):
+        raise AssertionError(f"{name}: edge lanes not split as expected: {accepted}")
+    # time, plain time and bound at the path's shape: the same lanes, padded
+    tframe = torch.from_numpy(stage(items, max(shape, len(items)))).to(dev)
+    out = run(tframe)
+    ms = cuda_ms(lambda: run(tframe), 10 if kernel == "v1" else 3)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    if kernel == "v1":
+        plain = ref(tframe)
+        sched = {"products": V1_PRODUCTS}
+        ops = tframe.shape[0] * V1_PRODUCTS * V1_PRODUCT_OPS
+        const_bytes = 80 * 4
+    else:
+        plain, sched = _v2_schedule_counts(lambda: ref(tframe))
+        ops = tframe.shape[0] * (sched["mul"] * (V2_MUL_OPS + V2_SETTLE_OPS)
+                                 + (sched["settle"] - sched["mul"]) * V2_SETTLE_OPS
+                                 + sched["canonical"] * V2_CANON_OPS)
+        const_bytes = p256v2.kernel_consts(dev).numel() * 4
+    b.record()
+    torch.cuda.synchronize()
+    plain_ms = a.elapsed_time(b)
+    if not torch.equal(out, plain):
+        raise AssertionError(f"{name}: differs from its plain version at {shape} lanes")
+    b_ms, b_by = bound(nbytes(tframe, out) + const_bytes, ops)
+    log(f"verify_{kernel}", lanes=frame.shape[0], accepted=int(got.sum()), mismatches=mism,
+        lanes_per_kind={kn: int((kinds == k).sum()) for k, kn in enumerate(kind_names)},
+        accepted_per_kind=accepted, oracle_lanes=len(sample), oracle_mismatches=oracle_mism,
+        timed_lanes=int(tframe.shape[0]), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        schedule_per_lane=sched, int32_ops=ops)
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "max_abs_err": err, "mismatches": mism, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def phase_comparison(net: Net, dev, main_res):
+    """Each comparison verifier: its path, then its kernel checks and
+    timing at the shape the path launched → kernels-line records."""
+    recs = []
+    for kernel, name, source, replaces in COMPARISON:
+        counts, shape = comparison_path(net, kernel, name, main_res)
+        rec = comparison_kernel(net, dev, kernel, name, source, replaces, shape)
+        rec["launches"] = counts[name]
+        recs.append(rec)
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the validation sidecar
+
+
+SIDECAR_TENANTS = (("t1", 1.0), ("t2", 1.0), ("t3", 2.0))
+
+
+def sidecar_kernel_check(frames, shapes):
+    """``p256_verify`` against its plain version on the first frame the
+    sidecar launched at each of its shapes (a coalesced group pads to
+    ``_bucket(sum of buckets)``, so the shapes differ from the main
+    path's) → per shape: launches, mismatches (0, or it raises), the
+    kernel's and the plain version's ms.  These launches come after the
+    path's counts were read."""
+    from fabric_tpu_torch.ops import p256v3 as v3
+
+    out = {"most_frequent": shapes.most_common(1)[0][0], "largest": max(shapes)}
+    for lanes, frame in sorted(frames.items()):
+        got = v3.verify_batch_packed(frame)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        want = v3.verify_batch_ref(frame)
+        b.record()
+        torch.cuda.synchronize()
+        mism = int((got != want).sum())
+        if mism:
+            raise AssertionError(f"sidecar: p256_verify differs from verify_batch_ref on {mism} "
+                                 f"of {lanes} lanes at the sidecar's shape")
+        out[str(lanes)] = {"launches": shapes[lanes], "accepted": int(got.sum()),
+                           "mismatches": mism,
+                           "ms": cuda_ms(lambda: v3.verify_batch_packed(frame), 5),
+                           "plain_ms": a.elapsed_time(b)}
+    return out
+
+
+def phase_sidecar(net: Net, main_res):
+    """A SidecarServer on localhost serving 3 concurrent tenants, each a
+    SidecarValidator under CommitPipeline(depth=2) over its own copy of
+    the 4 bench blocks, with ``p256_verify`` then held against its plain
+    version at every shape the server launched it with; then one block's
+    batch through a SidecarLink to a v1 and a v2 server against the
+    in-process v3 verdicts."""
+    from fabric_tpu_torch import carry, kernels
+    from fabric_tpu_torch.ops import p256
+    from fabric_tpu_torch.peer.validator import BlockValidator
+    from fabric_tpu_torch.sidecar import SidecarLink, SidecarServer
+    from fabric_tpu_torch.sidecar.validator import SidecarValidator
+    from fabric_tpu_torch.utils.stats import nearest_rank
+
+    tenants = []
+    for name, weight in SIDECAR_TENANTS:
+        blocks, expected, seed_rows = build_blocks(net, unsafe=False)
+        state, prov, _ = carry.from_reference(seed_rows, NAMESPACES, [])
+        tenants.append((name, weight, blocks, state, prov))
+    srv = SidecarServer("127.0.0.1", 0, coalesce=4, queue_blocks=8).start_background()
+    out, errors = {}, []
+    try:
+        validators = {name: SidecarValidator(prov, state, device="cuda", tenant=name,
+                                             sidecar_weight=weight,
+                                             sidecar_endpoint=f"127.0.0.1:{srv.port}")
+                      for name, weight, _, state, prov in tenants}
+
+        def drive(name, blocks):
+            try:
+                out[name] = run_validator(blocks, validators[name], depth=2)
+            except BaseException as e:  # re-raised below, on the main thread
+                errors.append(e)
+
+        frames = {}  # lanes → a copy of the first frame the path launched at that shape
+
+        def first_frame(frame, consts):
+            n = int(frame.shape[0])
+            if n not in frames:
+                frames[n] = frame.clone()
+            return n
+
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with launch_shapes("p256_verify", first_frame) as shapes:
+            threads = [threading.Thread(target=drive, args=(name, blocks))
+                       for name, _, blocks, _, _ in tenants]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(kernels.launches)
+        st = srv.stats()
+        for v in validators.values():
+            v.close()
+    finally:
+        srv.stop_background()
+    if errors:
+        raise errors[0]
+    rows = lambda x: sorted((k, vv.value, vv.version) for k, vv in x.batch.items())
+    for name, (res, _, _) in out.items():
+        for a, b in zip(res, main_res):
+            if a.tx_filter != b.tx_filter or rows(a) != rows(b) or a.history != b.history:
+                raise AssertionError(f"sidecar tenant {name}: block {a.block.number} differs "
+                                     "from the main path")
+        if len(res) != N_BLOCKS:
+            raise AssertionError(f"sidecar tenant {name}: {len(res)} blocks committed")
+    if counts["p256_verify"] != st["dispatches"] or st["dispatches"] == 0:
+        raise AssertionError(f"sidecar: {counts['p256_verify']} p256_verify launches for "
+                             f"{st['dispatches']} dispatches")
+    if any(counts[k] for k in ("stage2_policy", "stage2_mvcc")):
+        raise AssertionError(f"sidecar: stage 2 launched on the host path: {counts}")
+    kernel_check = sidecar_kernel_check(frames, shapes)
+    total = sorted(x for t in st["latency_s"].values() for x in t["total"])
+    n_tx = {name: sum(len(b.txs) for b in blocks) for name, _, blocks, _, _ in tenants}
+    sigs = sum(st["coalesce"]["signatures"])
+    busy = sum(r.get("busy", 0) for r in st["requests"].values())
+    log("sidecar", tenants={n: w for n, w, *_ in tenants}, coalesce=4, queue_blocks=8,
+        requests=st["requests"], dispatches=st["dispatches"],
+        coalesce_requests=st["coalesce"]["requests"],
+        coalesce_signatures=st["coalesce"]["signatures"], busy_answers=busy,
+        request_ms_p50=1e3 * nearest_rank(total, 50), request_ms_p99=1e3 * nearest_rank(total, 99),
+        seconds=wall, tx_per_s={n: n_tx[n] / out[n][1] for n in out},
+        tx_per_s_all=sum(n_tx.values()) / wall, signatures_per_s=sigs / wall,
+        equal_to_main_path=True, launches=counts, p256_verify_lanes=kernel_check)
+
+    # one block's batch through a v1 and a v2 server
+    blocks, _, seed_rows = build_blocks(net, n_blocks=1, unsafe=False)
+    state, prov, _ = carry.from_reference(seed_rows, NAMESPACES, [])
+    _, items = BlockValidator(prov, state, device="cuda")._parse(blocks[0])
+    want = p256.verify_host(items, kernel="v3")
+    for kernel, name, _, _ in COMPARISON:
+        srv = SidecarServer("127.0.0.1", 0, kernel=kernel).start_background()
+        link = SidecarLink("127.0.0.1", srv.port, tenant=f"cmp_{kernel}")
+        try:
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            got = link.submit(items).fetch()
+            secs = time.perf_counter() - t0
+            counts = dict(kernels.launches)
+        finally:
+            link.close()
+            srv.stop_background()
+        if got != want or counts[name] != 1:
+            raise AssertionError(f"sidecar under {kernel}: verdicts equal to v3: {got == want}, "
+                                 f"launches {counts}")
+        log("sidecar_kernel", kernel=kernel, signatures=len(items), accepted=sum(got),
+            seconds=secs, equal_to_v3=True, launches={name: counts[name]})
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1287,8 +1623,8 @@ def main() -> int:
     log("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
         torch=torch.__version__, cuda=torch.version.cuda)
     secs = kernels.build()
-    regs = [ln.strip() for text in kernels.build_log.values() for ln in text.splitlines()
-            if "registers" in ln or "spill" in ln]
+    regs = {n: [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
+            for n, text in kernels.build_log.items()}
     log("build", seconds=secs, ptxas=regs)
     t0 = time.perf_counter()
     net = Net(SEED)
@@ -1297,7 +1633,7 @@ def main() -> int:
     dev = torch.device("cuda")
     recs = [phase_verify(net, dev)]
     recs += phase_stage2(dev)
-    counts = phase_main_path(net)
+    counts, main_res = phase_main_path(net)
     for r in recs:
         r["launches"] = counts[r["name"]]
     counts, path_ubs = phase_resident_path(net)
@@ -1308,6 +1644,8 @@ def main() -> int:
     recs.append(phase_sign(net, dev))
     _, wire = phase_wire_path(dev)
     recs.append(phase_sha256(dev, wire[0]))
+    recs += phase_comparison(net, dev, main_res)
+    phase_sidecar(net, main_res)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "mismatches",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in order} for r in recs]}), flush=True)

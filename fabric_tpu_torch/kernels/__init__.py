@@ -31,16 +31,17 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("p256_verify", "stage2", "resident", "p256_sign", "sha256")
+SOURCES = ("p256_verify", "stage2", "resident", "p256_sign", "sha256", "p256_v1", "p256_v2")
 ARCH_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a",)
 
 launches = {"p256_verify": 0, "stage2_policy": 0, "stage2_mvcc": 0,
             "mvcc_validate": 0, "resident_verok": 0, "table_scatter": 0,
-            "p256_sign": 0, "sha256_blocks": 0}
+            "p256_sign": 0, "sha256_blocks": 0, "p256_verify_v1": 0, "p256_verify_v2": 0}
 # nvcc's -Xptxas=-v report per source (registers, spills), for logs
 build_log: dict = {}
 
 _libs: dict = {}
+_v2_tables: set = set()  # devices whose p256_v2 __constant__ tables are loaded
 _lock = threading.Lock()
 _count_lock = threading.Lock()
 
@@ -65,6 +66,13 @@ _SIGS = {
     },
     "sha256": {
         "fab_sha256_blocks": [_P, _P, _I, _I, _P, _P],
+    },
+    "p256_v1": {
+        "fab_p256_verify_v1": [_P, _I, _P, _P, _P],
+    },
+    "p256_v2": {
+        "fab_p256_verify_v2": [_P, _I, _P, _P, _P],
+        "fab_p256_v2_tables": [_P, _P],
     },
 }
 
@@ -296,4 +304,32 @@ def sha256_blocks(blocks, nblocks) -> torch.Tensor:
     _call("sha256", "fab_sha256_blocks", blocks.data_ptr(), nblocks.data_ptr(), B, M,
           out.data_ptr(), _stream(blocks))
     _count("sha256_blocks")
+    return out
+
+
+def p256_verify_v1(frame, consts) -> torch.Tensor:
+    """[B, 80] int32 frame of 16-bit limbs → [B] bool (``ops/p256.py``, v1)."""
+    _cuda(frame, consts)
+    out = torch.empty(frame.shape[0], dtype=torch.bool, device=frame.device)
+    _call("p256_v1", "fab_p256_verify_v1", frame.data_ptr(), frame.shape[0], consts.data_ptr(),
+          out.data_ptr(), _stream(frame))
+    _count("p256_verify_v1")
+    return out
+
+
+def p256_verify_v2(frame, consts) -> torch.Tensor:
+    """[B, 260] int32 digit frame → [B] bool (``ops/p256v2.py``).  The
+    first call on a device copies ``consts``' tables into the kernel's
+    ``__constant__`` memory there; they are a constant of the curve."""
+    _cuda(frame, consts)
+    _fn("p256_v2", "fab_p256_v2_tables")  # build outside the lock
+    with _lock:
+        if consts.device not in _v2_tables:
+            with torch.cuda.device(consts.device):
+                _call("p256_v2", "fab_p256_v2_tables", consts.data_ptr(), _stream(consts))
+            _v2_tables.add(consts.device)
+    out = torch.empty(frame.shape[0], dtype=torch.bool, device=frame.device)
+    _call("p256_v2", "fab_p256_verify_v2", frame.data_ptr(), frame.shape[0], consts.data_ptr(),
+          out.data_ptr(), _stream(frame))
+    _count("p256_verify_v2")
     return out

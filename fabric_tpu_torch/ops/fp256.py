@@ -123,6 +123,12 @@ def _carry_cyclic(u: torch.Tensor) -> torch.Tensor:
     return u + c[..., -1:] * fold
 
 
+def reduce(x: torch.Tensor) -> torch.Tensor:
+    """A sum of up to 15 reduced-form values back to reduced form (two
+    cyclic carry passes; the value mod p is kept)."""
+    return _carry_cyclic(_carry_cyclic(x))
+
+
 def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a * b * 2^-256 mod p in reduced form (see the module docstring)."""
     S, K, _, _ = _tables(a.device)
@@ -135,7 +141,7 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         col = col & MASK
         col[..., 1:] += c[..., :-1]
     u = (col.to(torch.float64) @ K).to(torch.int64)
-    return _carry_cyclic(_carry_cyclic(u))
+    return reduce(u)
 
 
 def mul_many(pairs) -> list[torch.Tensor]:
@@ -162,7 +168,7 @@ def canon(x: torch.Tensor) -> torch.Tensor:
     """Canonical limbs (each in [0, 2^16)) of the value mod p, for
     inputs of up to 15 summed reduced-form values."""
     _, _, _, p17 = _tables(x.device)
-    u = _carry_cyclic(_carry_cyclic(x))
+    u = reduce(x)
     # value now in (-2^248, 2^256 * 1.002); adding p makes it positive
     u = _ripple(torch.nn.functional.pad(u, (0, 1)) + p17)
     for _ in range(3):  # value < 3p: three conditional subtractions

@@ -33,6 +33,12 @@ commit) scatters each committed write set into the table.  Blocks with
 range queries, and working sets larger than the table, keep the host
 read.  Errors of the resident path raise; nothing falls back.
 
+``kernel`` selects the verify kernel through the facade ``ops/p256.py``
+(None: ``FABRIC_TPU_P256``, default v3).  Under the comparison kernels
+"v1" and "v2" a block builds no ``DevicePre`` and launches no stage 2:
+it finishes on ``_validate_host``, as the reference's does
+(``validator.py:1798``).
+
 A block carrying what this slice lacks raises ``NotImplementedError``
 naming the later slice: config transactions, idemix creators, key-level
 endorsement metadata writes, private-collection (hashed) read/write
@@ -52,7 +58,7 @@ from fabric_tpu_torch.device import resolve_device
 from fabric_tpu_torch.ledger.rwset import TxRWSet
 from fabric_tpu_torch.ledger.statedb import UpdateBatch
 from fabric_tpu_torch.ops import mvcc as mvcc_ops
-from fabric_tpu_torch.ops import p256v3
+from fabric_tpu_torch.ops import p256
 from fabric_tpu_torch.peer import frontend
 from fabric_tpu_torch.peer.decoded import DecodedBlock, DecodedEndorsement, DecodedTx
 from fabric_tpu_torch.peer.device_block import DeviceBlockPipeline, resident_ver_ok
@@ -123,8 +129,8 @@ class Preprocessed:
     block: DecodedBlock
     txs: list
     items: list           # [(digest, r, s, qx, qy)]
-    handle: object        # ops.p256v3.VerifyHandle
-    dpre: DevicePre
+    handle: object        # VerifyHandle (or the sidecar's RemoteVerifyHandle)
+    dpre: DevicePre | None  # None: the block takes the host path
 
 
 @dataclass
@@ -135,7 +141,7 @@ class PendingBlock:
     txs: list
     items: list
     handle: object
-    dpre: DevicePre
+    dpre: DevicePre | None
     overlay: object = None
     fetch2: object = None
     range_phantom: frozenset = frozenset()
@@ -176,8 +182,9 @@ class BlockValidator:
 
     def __init__(self, policy_provider: PolicyProvider, state_db, block_store=None,
                  device="cuda", state_resident: bool = False, state_resident_mb: int = 64,
-                 state_resident_range_bits: int = 12, msp=None):
+                 state_resident_range_bits: int = 12, msp=None, kernel: str | None = None):
         self.msp = msp
+        self.kernel = p256.selected(kernel)
         self.policies = policy_provider
         self.state = state_db
         self.blocks = block_store  # anything with tx_exists(txid)
@@ -302,9 +309,15 @@ class BlockValidator:
         no ledger state, so it may run while the predecessor commits."""
         block = self.decode(block)
         txs, items = self._parse(block)
-        handle = p256v3.verify_launch(items, device=self.device)
-        return Preprocessed(block=block, txs=txs, items=items, handle=handle,
-                            dpre=self._device_preprocess(txs))
+        handle = self.verify_launch(items)
+        # the fused stage 2 reads v3's verdicts on this device; under v1,
+        # v2 or a remote verify (kernel None) the block takes the host path
+        dpre = self._device_preprocess(txs) if self.kernel == "v3" else None
+        return Preprocessed(block=block, txs=txs, items=items, handle=handle, dpre=dpre)
+
+    def verify_launch(self, items):
+        """Launch the block's signature verify without waiting."""
+        return p256.verify_launch(items, kernel=self.kernel, device=self.device)
 
     # -- launch -------------------------------------------------------------
 
@@ -328,7 +341,7 @@ class BlockValidator:
                     ptx.code = int(C.DUPLICATE_TXID)
         pending = PendingBlock(block=pre.block, txs=txs, items=pre.items, handle=pre.handle,
                                dpre=pre.dpre, overlay=overlay)
-        if txs:
+        if txs and pre.dpre is not None:
             pending.fetch2, pending.range_phantom = self._launch_device(
                 txs, pre.handle, pre.dpre, overlay)
         return pending

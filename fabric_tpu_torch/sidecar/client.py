@@ -1,0 +1,224 @@
+"""Client side of the validation sidecar (counterpart:
+``fabric_tpu/sidecar/client.py``, without trace stitching and metrics;
+its counters are attributes).
+
+``SidecarLink`` owns one connection per tenant: a daemon thread runs a
+private asyncio loop with the ``comm.rpc`` client, one ``validate``
+bidi stream, and a reader task that matches responses to requests by
+``seq``.  ``submit(tuples)`` returns a ``RemoteVerifyHandle`` at once;
+the verdicts arrive at ``fetch()``.
+
+* a BUSY answer is retried with capped exponential backoff
+  (``utils.backoff.Backoff``) up to ``busy_retries`` times, then
+  ``SidecarUnavailable``;
+* connection loss, an ERROR answer, a timeout or a verdict vector of
+  the wrong length raise ``SidecarUnavailable`` from ``fetch()``;
+* a ``submit`` while detached connects anew, so the next block after a
+  sidecar restart re-attaches.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import threading
+
+from fabric_tpu_torch.comm.rpc import RpcClient, RpcError
+from fabric_tpu_torch.sidecar import wire
+from fabric_tpu_torch.utils.backoff import Backoff
+
+#: seconds granted to connect + hello before a submit gives up
+CONNECT_TIMEOUT_S = 5.0
+
+
+class SidecarUnavailable(RuntimeError):
+    """The sidecar could not serve this batch: down, saturated past the
+    busy-retry budget, errored, or answered a malformed verdict vector."""
+
+
+def parse_endpoint(endpoint: str) -> tuple[str, int]:
+    """'host:port' (or ':port' / 'port') → (host, port)."""
+    host, _, port = str(endpoint).rpartition(":")
+    if not port.isdigit():
+        raise ValueError(f"sidecar endpoint {endpoint!r}: expected 'host:port'")
+    return host or "127.0.0.1", int(port)
+
+
+class RemoteVerifyHandle:
+    """One in-flight batch's verdicts; ``fetch()`` blocks until the
+    response lands or raises ``SidecarUnavailable``.  It has no
+    ``device_out``: a sidecar-verified block takes the host path."""
+
+    __slots__ = ("_fut", "_timeout", "n_real")
+
+    def __init__(self, fut, timeout_s: float, n_real: int = 0):
+        self._fut = fut
+        self._timeout = timeout_s
+        self.n_real = n_real
+
+    def fetch(self) -> list:
+        try:
+            return self._fut.result(timeout=self._timeout)
+        except SidecarUnavailable:
+            raise
+        except Exception as e:  # timeout, cancelled, loop torn down
+            raise SidecarUnavailable(f"sidecar fetch failed: {e}") from e
+
+    def __call__(self) -> list:
+        return self.fetch()
+
+
+class SidecarLink:
+    """See module docstring."""
+
+    def __init__(self, host: str, port: int, tenant: str, weight: float = 1.0, ssl_ctx=None,
+                 timeout_s: float = 30.0, busy_retries: int = 6, backoff: Backoff | None = None):
+        self.host, self.port = host, int(port)
+        self.tenant = tenant
+        self.weight = float(weight)
+        self.ssl_ctx = ssl_ctx
+        self.timeout_s = float(timeout_s)
+        self.busy_retries = int(busy_retries)
+        self._backoff_proto = backoff
+        self.busy_total = 0    # BUSY answers absorbed by backoff
+        self.attach_total = 0  # stream (re)attachments
+        self._client: RpcClient | None = None
+        self._stream = None
+        self._reader_task: asyncio.Task | None = None
+        self._conn_lock: asyncio.Lock | None = None  # created on the loop
+        self._pending: dict[int, asyncio.Future] = {}
+        self._seq = 0
+        self._closed = False
+        self._loop = asyncio.new_event_loop()
+        self._thread = threading.Thread(target=self._run_loop, name=f"fabtorch-sidecar-{tenant}",
+                                        daemon=True)
+        self._thread.start()
+
+    def _run_loop(self) -> None:
+        asyncio.set_event_loop(self._loop)
+        try:
+            self._loop.run_forever()
+        finally:
+            self._loop.close()
+
+    # -- sync surface (validator threads) ------------------------------------
+
+    def submit(self, tuples) -> RemoteVerifyHandle:
+        """Queue one signature batch; raises ``SidecarUnavailable`` only
+        when the link is closed (transport errors surface at fetch)."""
+        if self._closed or not self._thread.is_alive():
+            raise SidecarUnavailable("sidecar link is closed")
+        tuples = list(tuples)
+        fut = asyncio.run_coroutine_threadsafe(self._asubmit(tuples), self._loop)
+        # worst case: every attempt burns its timeout, plus the backoff
+        bound = (self.busy_retries + 1) * self.timeout_s + 10.0
+        return RemoteVerifyHandle(fut, bound, n_real=len(tuples))
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        if self._thread.is_alive():
+            asyncio.run_coroutine_threadsafe(self._aclose(), self._loop).result(timeout=5.0)
+            self._loop.call_soon_threadsafe(self._loop.stop)
+        self._thread.join(timeout=5.0)
+
+    # -- async internals (link loop only) -------------------------------------
+
+    async def _asubmit(self, tuples: list) -> list:
+        bo = self._backoff_proto or Backoff(base=0.02, cap=0.5, jitter=0.5)
+        busy = 0
+        while True:
+            st = await self._ensure_attached()
+            self._seq += 1
+            seq = self._seq
+            fut = self._loop.create_future()
+            self._pending[seq] = fut
+            try:
+                await st.send(wire.encode_request(seq, tuples))
+                hdr, verdicts = await asyncio.wait_for(fut, self.timeout_s)
+            except (RpcError, ConnectionError, OSError, asyncio.TimeoutError,
+                    asyncio.IncompleteReadError) as e:
+                self._pending.pop(seq, None)
+                self._detach()
+                raise SidecarUnavailable(f"sidecar {self.host}:{self.port}: {e}") from e
+            finally:
+                self._pending.pop(seq, None)
+            status = hdr.get("status")
+            if status == "BUSY":
+                busy += 1
+                self.busy_total += 1
+                if busy > self.busy_retries:
+                    raise SidecarUnavailable(f"sidecar still BUSY after {busy} attempts")
+                await asyncio.sleep(bo.next())
+                continue
+            if status is not None:
+                raise SidecarUnavailable(f"sidecar dispatch error: {hdr.get('error', status)}")
+            if len(verdicts) != len(tuples):
+                # a remote trust boundary: a short (or long) vector is refused
+                raise SidecarUnavailable(f"sidecar answered {len(verdicts)} verdicts for a "
+                                         f"{len(tuples)}-signature batch")
+            return verdicts
+
+    async def _ensure_attached(self):
+        if self._conn_lock is None:
+            self._conn_lock = asyncio.Lock()
+        async with self._conn_lock:
+            if self._stream is not None:
+                return self._stream
+            cli = RpcClient(self.host, self.port, ssl_ctx=self.ssl_ctx)
+            try:
+                await asyncio.wait_for(cli.connect(), CONNECT_TIMEOUT_S)
+                st = await cli.open_stream("validate")
+                await st.send(wire.encode_hello(self.tenant, self.weight))
+                welcome = json.loads(await asyncio.wait_for(st.__anext__(), CONNECT_TIMEOUT_S))
+            except (RpcError, ConnectionError, OSError, asyncio.TimeoutError,
+                    StopAsyncIteration, asyncio.IncompleteReadError, ValueError) as e:
+                await self._close_client(cli)
+                raise SidecarUnavailable(f"sidecar {self.host}:{self.port} unreachable: {e}") from e
+            if not welcome.get("ok"):
+                await self._close_client(cli)
+                raise SidecarUnavailable(f"sidecar refused hello: {welcome}")
+            self._client, self._stream = cli, st
+            self._reader_task = asyncio.ensure_future(self._reader(st))
+            self.attach_total += 1
+            return st
+
+    async def _reader(self, st) -> None:
+        try:
+            async for payload in st:
+                hdr, verdicts = wire.decode_response(payload)
+                fut = self._pending.pop(int(hdr.get("seq", -1)), None)
+                if fut is not None and not fut.done():
+                    fut.set_result((hdr, verdicts))
+        except (RpcError, ConnectionError, OSError, asyncio.IncompleteReadError):
+            pass  # the connection is gone; _detach fails what is in flight
+        finally:
+            if self._stream is st:
+                self._detach()
+
+    def _detach(self) -> None:
+        """Drop the dead connection and fail everything in flight; the
+        next submit reconnects."""
+        cli, self._client = self._client, None
+        self._stream = None
+        task, self._reader_task = self._reader_task, None
+        if task is not None and not task.done():
+            task.cancel()
+        pending, self._pending = dict(self._pending), {}
+        for fut in pending.values():
+            if not fut.done():
+                fut.set_exception(SidecarUnavailable("sidecar connection lost"))
+        if cli is not None:
+            t = asyncio.ensure_future(self._close_client(cli))
+            t.add_done_callback(lambda _t: None)
+
+    @staticmethod
+    async def _close_client(cli) -> None:
+        try:
+            await cli.close()
+        except (OSError, RuntimeError):
+            pass  # transport already gone
+
+    async def _aclose(self) -> None:
+        self._detach()

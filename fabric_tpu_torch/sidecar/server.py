@@ -1,0 +1,293 @@
+"""The validation sidecar service: one card, many peers (counterpart:
+``fabric_tpu/sidecar/server.py``).
+
+Flow per connection: the client's first frame (hello) registers a
+tenant with a weight and the server answers a welcome; every later
+frame is one block's signature batch (``sidecar/wire.py``), admitted to
+the tenant's bounded queue in the weighted-deficit-round-robin
+scheduler, or answered BUSY when the queue is full.  One dispatcher
+task drains up to ``coalesce`` cross-tenant requests at a time into ONE
+``ops.p256.verify_launch_many`` call on a single executor thread (the
+card serializes dispatches anyway) and streams each request's verdict
+vector back on its tenant's stream.  A dispatch failure answers each
+request of the group with a typed ERROR frame; the streams survive.
+``set_coalesce`` is applied at the next drain boundary, never between a
+group's pop and its dispatch.
+
+``stats()`` holds what the reference puts in its metrics registry:
+requests by tenant and status, the per-stage latency samples
+(queue_wait, dispatch, total), coalesce occupancy in requests and in
+signatures, and the dispatch count.  Left out: mesh and topology
+resolution, ``verify_chunk``, device recoding, the autopilot, tracer
+spans and ``remote`` trace payloads, and the fault-injection hooks.
+
+``verify_fn(itemsets) -> list[list[bool]]`` replaces the card dispatch
+(tests); ``kernel`` and ``device`` select the facade's kernel and card.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import logging
+import threading
+import time
+from collections import Counter, deque
+from concurrent.futures import ThreadPoolExecutor
+
+from fabric_tpu_torch.comm.rpc import RpcServer
+from fabric_tpu_torch.device import resolve_device
+from fabric_tpu_torch.ops import p256
+from fabric_tpu_torch.sidecar import wire
+from fabric_tpu_torch.sidecar.scheduler import Request, WeightedScheduler
+
+_log = logging.getLogger("fabric_tpu_torch.sidecar")
+
+#: suggested client backoff base when BUSY (the client's Backoff decides)
+BUSY_RETRY_MS = 20.0
+#: suggested retry-after while a tenant is shed
+SHED_RETRY_MS = 250.0
+#: latency samples kept per tenant and stage
+SAMPLES = 4096
+
+
+class SidecarServer:
+    """See module docstring."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0, *, queue_blocks: int = 8,
+                 coalesce: int = 4, quantum: int | None = None, ssl_ctx=None, verify_fn=None,
+                 kernel: str | None = None, device="cuda"):
+        self.host, self.port = host, port
+        self.coalesce = max(1, int(coalesce))
+        self.kernel = kernel
+        self.device = resolve_device(device)
+        self._verify_fn = verify_fn
+        self._rpc = RpcServer(host, port, ssl_ctx=ssl_ctx)
+        kw = {} if quantum is None else {"quantum": int(quantum)}
+        self.scheduler = WeightedScheduler(queue_limit=queue_blocks, **kw)
+        self._device = ThreadPoolExecutor(1, thread_name_prefix="fabtorch-sidecar-dev")
+        self._work: asyncio.Event | None = None
+        self._dispatcher: asyncio.Task | None = None
+        self._conns = 0
+        self._stopped = False
+        self._knob_lock = threading.Lock()
+        self._pending_coalesce: int | None = None
+        self._stats_lock = threading.Lock()
+        self._requests: Counter = Counter()  # (tenant, status) → n
+        self._latency: dict = {}             # tenant → stage → deque of seconds
+        self._occupancy = {"requests": [], "signatures": []}
+        self._dispatches = 0
+        self._thread: threading.Thread | None = None
+        self._loop: asyncio.AbstractEventLoop | None = None
+
+    # -- knobs ---------------------------------------------------------------
+
+    def set_coalesce(self, n: int) -> None:
+        """A new cross-tenant coalescing cap (>= 1), applied at the next
+        drain boundary."""
+        with self._knob_lock:
+            self._pending_coalesce = max(1, int(n))
+
+    def _apply_pending_knobs(self) -> None:
+        with self._knob_lock:
+            c, self._pending_coalesce = self._pending_coalesce, None
+        if c is not None:
+            self.coalesce = c
+
+    # -- lifecycle -------------------------------------------------------------
+
+    async def start(self) -> "SidecarServer":
+        self._work = asyncio.Event()
+        self._rpc.register("validate", self._on_validate)
+        await self._rpc.start()
+        self.port = self._rpc.port
+        self._stopped = False
+        self._dispatcher = asyncio.ensure_future(self._dispatch_loop())
+        return self
+
+    async def stop(self) -> None:
+        self._stopped = True
+        if self._dispatcher is not None:
+            self._dispatcher.cancel()
+            await asyncio.gather(self._dispatcher, return_exceptions=True)
+            self._dispatcher = None
+        await self._rpc.stop()
+        self._device.shutdown(wait=False)
+
+    def start_background(self) -> "SidecarServer":
+        """Serve from a daemon thread running its own event loop; returns
+        once the port is bound."""
+        ready = threading.Event()
+        failed: list = []
+
+        def run():
+            loop = asyncio.new_event_loop()
+            asyncio.set_event_loop(loop)
+            self._loop = loop
+            try:
+                loop.run_until_complete(self.start())
+            except BaseException as e:  # reported to the starting thread
+                failed.append(e)
+                ready.set()
+                loop.close()
+                return
+            ready.set()
+            try:
+                loop.run_forever()
+            finally:
+                loop.close()
+
+        self._thread = threading.Thread(target=run, name="fabtorch-sidecar", daemon=True)
+        self._thread.start()
+        ready.wait()
+        if failed:
+            raise failed[0]
+        return self
+
+    def stop_background(self) -> None:
+        loop, thread = self._loop, self._thread
+        if loop is None or thread is None:
+            return
+        asyncio.run_coroutine_threadsafe(self.stop(), loop).result(timeout=10.0)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(timeout=10.0)
+        self._loop = self._thread = None
+
+    def health_check(self):
+        """None while serving, else a reason; a tenant pinned at its
+        queue bound is reported."""
+        if self._stopped or self._rpc._server is None:
+            return "sidecar rpc server down"
+        limit = self.scheduler.queue_limit
+        pinned = [name for name, s in self.scheduler.stats().items() if s["depth"] >= limit]
+        if pinned:
+            return (f"tenant queue(s) full ({', '.join(pinned)}): the card is saturated "
+                    "or wedged; affected tenants are answered BUSY")
+        return None
+
+    def stats(self) -> dict:
+        """requests {tenant: {status: n}}, latency_s {tenant: {stage:
+        [seconds]}}, coalesce {"requests": [...], "signatures": [...]},
+        dispatches, connections, tenants (the scheduler's stats)."""
+        with self._stats_lock:
+            req: dict = {}
+            for (tenant, status), n in sorted(self._requests.items()):
+                req.setdefault(tenant, {})[status] = n
+            lat = {t: {s: list(v) for s, v in st.items()} for t, st in self._latency.items()}
+            occ = {k: list(v) for k, v in self._occupancy.items()}
+            disp = self._dispatches
+        return {"requests": req, "latency_s": lat, "coalesce": occ, "dispatches": disp,
+                "connections": self._conns, "tenants": self.scheduler.stats()}
+
+    def _count(self, tenant: str, status: str) -> None:
+        with self._stats_lock:
+            self._requests[(tenant, status)] += 1
+
+    # -- the validate stream ---------------------------------------------------
+
+    async def _on_validate(self, stream) -> None:
+        try:
+            hello_raw = await stream.__anext__()
+        except StopAsyncIteration:
+            return
+        try:
+            hello = json.loads(hello_raw)
+            tenant = str(hello["tenant"])
+            weight = float(hello.get("weight", 1.0))
+            self.scheduler.register(tenant, weight)  # raises on weight <= 0
+        except (ValueError, KeyError, TypeError) as e:
+            await stream.error(f"bad hello: {e}")
+            return
+        self._conns += 1
+        try:
+            await stream.send(wire.encode_welcome(tenant, self.coalesce))
+            async for payload in stream:
+                try:
+                    hdr, items = wire.decode_request(payload)
+                except (ValueError, KeyError) as e:
+                    await stream.error(f"bad request: {e}")
+                    return
+                seq = int(hdr["seq"])
+                req = Request(tenant=tenant, seq=seq, items=items, stream=stream,
+                              t_enqueue=time.perf_counter())
+                if not self.scheduler.submit(req):
+                    shed = self.scheduler.is_shed(tenant)
+                    self._count(tenant, "shed" if shed else "busy")
+                    await stream.send(wire.encode_busy(seq, SHED_RETRY_MS if shed
+                                                       else BUSY_RETRY_MS))
+                    continue
+                self._work.set()
+        finally:
+            self._conns -= 1
+            for req in self.scheduler.unregister(tenant):
+                self._count(req.tenant, "dropped")  # their reply stream is gone
+
+    # -- the dispatcher ----------------------------------------------------------
+
+    async def _dispatch_loop(self) -> None:
+        loop = asyncio.get_running_loop()
+        while True:
+            await self._work.wait()
+            self._work.clear()
+            while True:
+                self._apply_pending_knobs()  # the drain boundary
+                batch = self.scheduler.next_batch(self.coalesce)
+                if not batch:
+                    break
+                with self._stats_lock:
+                    self._occupancy["requests"].append(len(batch))
+                    self._occupancy["signatures"].append(sum(r.cost for r in batch))
+                    self._dispatches += 1
+                t0 = time.perf_counter()
+                try:
+                    verdicts = await loop.run_in_executor(
+                        self._device, self._verify_batch, [r.items for r in batch])
+                    if len(verdicts) != len(batch):
+                        raise ValueError(f"verify returned {len(verdicts)} verdict vectors "
+                                         f"for {len(batch)} requests")
+                    await self._answer(batch, verdicts, t0, time.perf_counter())
+                except asyncio.CancelledError:
+                    raise
+                except Exception as e:
+                    # typed errors; the dispatcher itself must survive
+                    _log.warning("sidecar dispatch of %d request(s) failed: %s", len(batch), e)
+                    try:
+                        await self._answer_error(batch, e)
+                    except asyncio.CancelledError:
+                        raise
+                    except Exception as e2:
+                        _log.warning("sidecar error answers failed too: %s", e2)
+                        for req in batch:
+                            self._count(req.tenant, "dropped")
+
+    def _verify_batch(self, itemsets: list) -> list:
+        if self._verify_fn is not None:
+            return self._verify_fn(itemsets)
+        handles = p256.verify_launch_many(itemsets, kernel=self.kernel, device=self.device)
+        return [h.fetch() for h in handles]
+
+    async def _answer(self, batch: list, verdicts: list, t0: float, t1: float) -> None:
+        for req, ok in zip(batch, verdicts):
+            with self._stats_lock:
+                st = self._latency.setdefault(
+                    req.tenant, {s: deque(maxlen=SAMPLES) for s in ("queue_wait", "dispatch",
+                                                                     "total")})
+                st["queue_wait"].append(t0 - req.t_enqueue)
+                st["dispatch"].append(t1 - t0)
+                st["total"].append(t1 - req.t_enqueue)
+            sent = await self._send(req, wire.encode_response(req.seq, ok))
+            self._count(req.tenant, "ok" if sent else "dropped")
+
+    async def _answer_error(self, batch: list, err: Exception) -> None:
+        msg = f"{type(err).__name__}: {err}"
+        for req in batch:
+            await self._send(req, wire.encode_error(req.seq, msg))
+            self._count(req.tenant, "error")
+
+    @staticmethod
+    async def _send(req: Request, payload: bytes) -> bool:
+        try:
+            await req.stream.send(payload)
+            return True
+        except (ConnectionError, OSError, RuntimeError, EOFError):
+            return False  # the tenant went away first

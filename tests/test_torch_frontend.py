@@ -60,6 +60,7 @@ from fabric_tpu_torch.crypto import cryptogen as pcryptogen
 from fabric_tpu_torch.crypto import ec_ref
 from fabric_tpu_torch.crypto import msp as pmsp
 from fabric_tpu_torch.ledger.rwset import TxRWSet
+from fabric_tpu_torch.ops import p256v3
 from fabric_tpu_torch.peer import frontend
 from fabric_tpu_torch.peer import txassembly as ptxa
 from fabric_tpu_torch.peer import validator as pv
@@ -135,7 +136,7 @@ def pverify():
 
 @pytest.mark.parametrize("depth", [1, 2, 3])
 def test_wire_blocks_through_pipeline_match_reference(stream, pverify, monkeypatch, depth):
-    monkeypatch.setattr(pv.p256v3, "verify_launch", pverify)
+    monkeypatch.setattr(p256v3, "verify_launch", pverify)  # the facade's v3 launch
     blocks, want, rows, pmgr = stream
     state, prov, _ = carry.from_reference(rows, POLICIES, [])
     store = _Store()

@@ -51,6 +51,7 @@ def test_import_brings_in_no_reference_package():
 
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "fabric_tpu_torch.ops.p256v3" in loaded
+    assert "fabric_tpu_torch.sidecar.server" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -73,9 +74,10 @@ def test_entry_points_raise_without_cuda():
     from fabric_tpu_torch import resolve_device
     from fabric_tpu_torch.ledger.statedb import MemVersionedDB
     from fabric_tpu_torch.crypto.msp import MSPManager
-    from fabric_tpu_torch.ops import mvcc, p256sign, p256v3, sha256
+    from fabric_tpu_torch.ops import mvcc, p256, p256sign, p256v3, sha256
     from fabric_tpu_torch.peer import signlane
     from fabric_tpu_torch.peer.validator import BlockValidator, PolicyProvider
+    from fabric_tpu_torch.sidecar import SidecarServer
     from fabric_tpu_torch.state import ResidencyManager
 
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -98,6 +100,13 @@ def test_entry_points_raise_without_cuda():
         sha256.sha256_host([b"abc"])
     with pytest.raises(RuntimeError, match="CUDA"):
         BlockValidator(PolicyProvider({}), MemVersionedDB(), msp=MSPManager())
+    for kernel in ("v1", "v2"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            p256.verify_host([(1, 1, 1, 1, 1)], kernel=kernel)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            BlockValidator(PolicyProvider({}), MemVersionedDB(), kernel=kernel)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SidecarServer()
     v = BlockValidator(PolicyProvider({}), MemVersionedDB(), device="cpu", state_resident=True)
     assert v.resident.device.type == "cpu"
     assert BlockValidator(PolicyProvider({}), MemVersionedDB(), device="cpu").device.type == "cpu"

@@ -258,3 +258,44 @@ def test_sha256_kernel_matches_plain_and_hashlib(cuda):
         assert torch.equal(got, want)
         assert psha.digests_to_bytes(got) == [hashlib.sha256(m).digest() for m in msgs]
     assert psha.sha256_host([b"abc"]) == [hashlib.sha256(b"abc").digest()]
+
+
+def _comparison_items():
+    items = _items(120)
+    e = 0x1234567
+    items.append((e, *ec_ref.SigningKey(d=1).sign_digest(e), ec_ref.GX, ec_ref.GY))
+    neg = ec_ref.SigningKey(d=ec_ref.N - 1)
+    items.append((e ^ 1, *neg.sign_digest(e ^ 1), *neg.public))
+    return items
+
+
+def test_p256_verify_v1_kernel_matches_plain(cuda):
+    from fabric_tpu_torch.ops import p256
+
+    items = _comparison_items()
+    frame = torch.from_numpy(p256.stage_frame(items, p256.bucket(len(items)))).to(cuda)
+    got = p256.verify_batch_v1(frame)
+    assert torch.equal(got, p256.verify_batch_v1_ref(frame))
+    want = [ec_ref.verify_digest((x, y), e, r, s) for e, r, s, x, y in items]
+    assert got[:len(items)].tolist() == want and want[-2:] == [True, True] and not all(want)
+    assert p256.verify_host(items, kernel="v1") == want
+
+
+def test_p256_verify_v2_kernel_matches_plain(cuda):
+    from fabric_tpu_torch.ops import p256, p256v2
+
+    items = _comparison_items()
+    frame = torch.from_numpy(p256v2.stage_frame(items, p256v2.bucket(len(items)))).to(cuda)
+    got = p256v2.verify_batch_v2(frame)
+    assert torch.equal(got, p256v2.verify_batch_v2_ref(frame))
+    want = [ec_ref.verify_digest((x, y), e, r, s) for e, r, s, x, y in items]
+    assert got[:len(items)].tolist() == want and want[-2:] == [True, True] and not all(want)
+    assert p256.verify_host(items, kernel="v2") == want
+    # the tables went to __constant__ memory once; a launch on another
+    # stream reads the same ones
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        again = p256v2.verify_batch_v2(frame)
+    side.synchronize()
+    assert torch.equal(again, got)

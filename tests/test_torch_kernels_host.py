@@ -12,8 +12,11 @@ source includes it.  That checks each kernel's arithmetic and indexing
 — the 256-bit Montgomery product, the point formulas, the window
 recoding, the comb ladder, the policy gate walk, the bitsets, the
 fixpoint, the resident-table compare, the table scatter and the SHA-256
-compression (against ``hashlib``) — bit for bit, before a card ever
-sees it."""
+compression (against ``hashlib``), the v1 verifier's mod-n product,
+complete Jacobian ladder step and whole verify, and the v2 verifier's
+digit product and settle (against Python ints at the largest legal
+magnitudes) and whole verify — bit for bit, before a card ever sees
+it."""
 
 import ctypes
 import hashlib
@@ -27,8 +30,12 @@ import torch
 
 from fabric_tpu_torch.crypto import ec_ref
 from fabric_tpu_torch.crypto import policy as pol
+from fabric_tpu_torch.ops import digits as dg
+from fabric_tpu_torch.ops import fp256
 from fabric_tpu_torch.ops import mvcc
+from fabric_tpu_torch.ops import p256 as v1
 from fabric_tpu_torch.ops import p256sign
+from fabric_tpu_torch.ops import p256v2 as v2
 from fabric_tpu_torch.ops import sha256 as psha
 from fabric_tpu_torch.ops import p256v3 as v3
 from fabric_tpu_torch.peer import device_block as db
@@ -40,10 +47,13 @@ SHIM = r"""
 #include <algorithm>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
+using std::max;
 using std::min;
 #define __global__
 #define __device__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(x)
 #define __restrict__
 #define __shared__ static
@@ -112,6 +122,44 @@ extern "C" void host_sha256(const uint32_t* blocks, const int32_t* nb, int B, in
                             uint32_t* out) {
   blockDim.x = 1;
   for (int i = 0; i < B; ++i) { blockIdx.x = i; sha256_blocks_kernel(blocks, nb, B, M, out); }
+}
+""",
+    "p256_v1": r"""
+extern "C" void host_v1(const int32_t* f, int B, const uint32_t* c, uint8_t* out) {
+  blockDim.x = 1;
+  for (int i = 0; i < B; ++i) { blockIdx.x = i; p256_v1_kernel(f, B, c, out); }
+}
+// one ladder step: acc = 2 acc + t (Jacobian, Montgomery form, 24 words each)
+extern "C" void host_v1_step(const uint32_t* acc, const uint32_t* t, uint32_t* out) {
+  Pt a, b;
+  std::memcpy(&a, acc, sizeof(Pt));
+  std::memcpy(&b, t, sizeof(Pt));
+  jac_double(a);
+  jac_add(a, a, b);
+  std::memcpy(out, &a, sizeof(Pt));
+}
+""",
+    "p256_v2": r"""
+extern "C" void host_v2(const int32_t* f, int B, const int32_t* c, uint8_t* out) {
+  std::memcpy(&cT, c, sizeof(Tables));
+  const int32_t* tg = c + kTableWords;
+  blockDim.x = 1;
+  for (int i = 0; i < B; ++i) { blockIdx.x = i; p256_v2_kernel(f, B, tg, tg + 32 * K, out); }
+}
+extern "C" void host_v2_mul(const int32_t* c, int mod, const int32_t* a, const int32_t* b,
+                            int32_t* out, int n) {
+  std::memcpy(&cT, c, sizeof(Tables));
+  for (int i = 0; i < n; ++i) {
+    if (mod) dm_mul<1>(out + i * K, a + i * K, b + i * K);
+    else dm_mul<0>(out + i * K, a + i * K, b + i * K);
+  }
+}
+extern "C" void host_v2_settle(const int32_t* c, int mod, const int32_t* in, int32_t* out, int n) {
+  std::memcpy(&cT, c, sizeof(Tables));
+  for (int i = 0; i < n; ++i) {
+    if (mod) dm_settle<1>(out + i * K, in + i * K);
+    else dm_settle<0>(out + i * K, in + i * K);
+  }
 }
 """,
     "p256_sign": r"""
@@ -375,3 +423,97 @@ def test_sha256_kernel_source_matches_hashlib(host_kernels):
     want = [hashlib.sha256(m).digest() for m in msgs[:-1]]
     assert psha.digests_to_bytes(out)[:-1] == want
     assert out[-1].tolist() == psha.H0.tolist()
+
+
+def _v1_v2_items():
+    """Lanes of every kind for the comparison verifiers, Q = +-G included."""
+    items = _items(40, seed=4)
+    e = 0x1234567
+    items += [(e, *ec_ref.SigningKey(d=1).sign_digest(e), ec_ref.GX, ec_ref.GY)]
+    neg = ec_ref.SigningKey(d=ec_ref.N - 1)
+    items += [(e ^ 1, *neg.sign_digest(e ^ 1), *neg.public)]
+    return items
+
+
+def test_v1_kernel_source_matches_plain_and_oracle(host_kernels):
+    items = _v1_v2_items()
+    frame = v1.stage_frame(items, v1.bucket(len(items)))
+    consts = v1.kernel_consts(torch.device("cpu")).numpy().view(np.uint32)
+    out = np.zeros(len(frame), np.uint8)
+    host_kernels["p256_v1"].host_v1(_p(frame), len(frame), _p(consts), _p(out))
+    plain = v1.verify_batch_v1_ref(torch.from_numpy(frame)).numpy()
+    assert np.array_equal(out.astype(bool), plain)
+    want = [ec_ref.verify_digest((x, y), e, r, s) for e, r, s, x, y in items]
+    assert out[:len(items)].astype(bool).tolist() == want
+    assert want[-2:] == [True, True] and any(want) and not all(want)
+
+
+def test_v1_ladder_step_matches_oracle(host_kernels):
+    """acc = 2 acc + t from the kernel's jac_double and jac_add, at
+    infinity, at t = acc, at t = -2 acc and on random points."""
+    P, R = ec_ref.P, 1 << 256
+    rng = np.random.default_rng(12)
+    q = ec_ref.pt_mul(99991, ec_ref.G)
+    q2 = ec_ref.pt_double(q)
+    cases = [(None, q), (q, None), (None, None), (q, q2), (q, (q2[0], P - q2[1]))]
+    for _ in range(6):
+        ks = [int(x) for x in rng.integers(1, 1 << 62, 2)]
+        cases.append((ec_ref.pt_mul(ks[0], ec_ref.G), ec_ref.pt_mul(ks[1], ec_ref.G)))
+
+    def jac(pt):
+        if pt is None:
+            return [0, 0, 0]
+        z = int(rng.integers(2, 1 << 62))
+        return [pt[0] * z * z % P * R % P, pt[1] * z ** 3 % P * R % P, z * R % P]
+
+    def words(vals):
+        return np.frombuffer(b"".join(v.to_bytes(32, "little") for v in vals), np.uint32).copy()
+
+    for a, t in cases:
+        out = np.zeros(24, np.uint32)
+        host_kernels["p256_v1"].host_v1_step(_p(words(jac(a))), _p(words(jac(t))), _p(out))
+        X, Y, Z = (int.from_bytes(out[8 * i:8 * i + 8].tobytes(), "little") * pow(R, -1, P) % P
+                   for i in range(3))
+        got = None if Z == 0 else (X * pow(Z, -2, P) % P, Y * pow(Z, -3, P) % P)
+        assert got == ec_ref.pt_add(ec_ref.pt_double(a), t)
+
+
+@pytest.mark.parametrize("mod", ["p", "n"])
+def test_v2_digit_product_and_settle_match_python_ints(host_kernels, mod):
+    dm = v2.MODP if mod == "p" else v2.MODN
+    lib = host_kernels["p256_v2"]
+    consts = v2.kernel_consts(torch.device("cpu")).numpy()
+    side = v2.MAX_SIDE
+    rng = np.random.default_rng(13)
+    rows = [np.full(dg.K, side), np.full(dg.K, -side),
+            np.array([side if i % 2 else -side for i in range(dg.K)]),
+            np.array([(-1) ** i * (side - i) for i in range(dg.K)])]
+    rows += [rng.integers(-side, side + 1, dg.K) for _ in range(8)]
+    a = np.ascontiguousarray(np.stack(rows), np.int32)
+    b = np.ascontiguousarray(a[::-1], np.int32)
+    out = np.zeros_like(a)
+    lib.host_v2_mul(_p(consts), int(mod == "n"), _p(a), _p(b), _p(out), len(a))
+    assert np.abs(out).max() <= dg.SETTLED_MAX
+    for o, x, y in zip(out, a, b):
+        assert dg.digits_to_int(o) % dm.m == dg.digits_to_int(x) * dg.digits_to_int(y) % dm.m
+    assert np.array_equal(out, dm.mul(torch.from_numpy(a).long(), torch.from_numpy(b).long()))
+    t = np.ascontiguousarray(rng.integers(-(1 << 24) + 1, 1 << 24, (12, dg.K)), np.int32)
+    t[0], t[1] = (1 << 24) - 1, -(1 << 24) + 1
+    st = np.zeros_like(t)
+    lib.host_v2_settle(_p(consts), int(mod == "n"), _p(t), _p(st), len(t))
+    assert np.abs(st).max() <= dg.SETTLED_MAX
+    assert [dg.digits_to_int(r) % dm.m for r in st] == [dg.digits_to_int(r) % dm.m for r in t]
+    assert np.array_equal(st, dm.settle(torch.from_numpy(t).long()))
+
+
+def test_v2_kernel_source_matches_plain_and_oracle(host_kernels):
+    items = _v1_v2_items()[:30] + _v1_v2_items()[-2:]
+    frame = v2.stage_frame(items, v2.bucket(len(items)))
+    consts = v2.kernel_consts(torch.device("cpu")).numpy()
+    out = np.zeros(len(frame), np.uint8)
+    host_kernels["p256_v2"].host_v2(_p(frame), len(frame), _p(consts), _p(out))
+    plain = v2.verify_batch_v2_ref(torch.from_numpy(frame)).numpy()
+    assert np.array_equal(out.astype(bool), plain)
+    want = [ec_ref.verify_digest((x, y), e, r, s) for e, r, s, x, y in items]
+    assert out[:len(items)].astype(bool).tolist() == want
+    assert want[-2:] == [True, True] and any(want) and not all(want)

@@ -398,7 +398,7 @@ def test_mutation_corpus_matches_reference(net, jverify, monkeypatch):
     want = [jv.validate(b) for b in blocks]
 
     cache = _CachedVerify()
-    monkeypatch.setattr(pv.p256v3, "verify_launch", cache)
+    monkeypatch.setattr(p256v3, "verify_launch", cache)  # the facade's v3 launch
     v = pv.BlockValidator(_prov(), _state(), device="cpu", msp=net["pmgr"])
     wire_blocks = [M.Block.parse(b.SerializeToString()) for b in blocks]
     items = []
