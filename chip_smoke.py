@@ -3,11 +3,14 @@
 
     python3 chip_smoke.py
 
-Phases, one line each: the device; the kernel build; the P-256 verify
-kernel against its plain version at 3072 lanes (each rejected or edge
-kind on at least 10% of them, x(R) >= n lanes that only the r + n
-compare accepts included) and 64 random lanes plus 4 of each kind
-against the pure-Python oracle; the stage-2
+Phases, one line each: the device; the kernel build (ptxas registers,
+spills and static shared memory); the P-256 verify kernel against its
+plain version at 3072 lanes (each rejected or edge kind on at least 10%
+of them, x(R) >= n lanes that only the r + n compare accepts included)
+and 64 random lanes plus 4 of each kind against the pure-Python oracle,
+then against its plain version at the sidecar's 6,144 and 12,288 lanes
+(the kernel picks its team size by batch: 8 threads a lane up to 6,144,
+4 above), with two bounds each; the stage-2
 kernels against their plain versions at T = 1024, Eb = 1024, S = 4,
 P = 3 (a 20-deep conflict chain, range phantoms, both creator
 sentinels, consumption-unsafe rows) and the ``mvcc_validate`` entry;
@@ -33,7 +36,8 @@ versions over the default 64 MB table (4,194,304 slots, 48 MiB):
 ``resident_verok`` at T = 1024, R = 2, Ub = 4096 and at every pack
 size the resident path launched it with, hit, miss, overlay and
 deleted lanes each on >= 10% of the reads, and ``table_scatter`` at
-k = 16 and 2048 beside ``index_copy_``.  The sign lane: 8 client
+k = 16 and 2048 beside ``index_copy_`` (8 alternating turns, medians)
+with the wrapper's host microseconds per call.  The sign lane: 8 client
 threads signing 2,000 digests through
 ``SignBatcher(device_sign_backend(...))``, equal to
 ``cpu_sign_backend``; then ``p256_sign`` against its plain version at
@@ -79,6 +83,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -215,6 +220,30 @@ def adversarial_items(net: Net, n: int):
     return items, kinds
 
 
+def verify_bound(v3, frame, got):
+    """``p256_verify``'s bound, two ways → (ms, by, needed ms).  The
+    first, which the kernels line gives, counts the reference schedule's
+    Montgomery products — 2 to_mont + 3 on-curve + 14 table adds x 14 +
+    per step 4 doublings x 13 + add 14 + mixed add 13 (only at nonzero
+    u1 digits) + 4 final — at 128 32x32->64 multiply-adds each (64 for
+    a*b, 64 for m*p), 2 INT32 ops per, so that it reads the same work as
+    PR 1's.  The second counts what the function needs: 64 wide products
+    a product (36 for a square: 3 a doubling, 2 in the on-curve check)
+    and none for the reduction, which for P-256 is limb-aligned adds."""
+    w1 = v3.recode_windows(frame[:, 64:80]).cpu().numpy()
+    nonzero = int((w1 != 0).sum())
+    B = frame.shape[0]
+    products = B * (5 + 14 * 14 + 64 * (4 * 13 + 14) + 4) + 13 * nonzero
+    squares = B * (2 + 64 * 4 * 3)
+    moved = nbytes(frame, got) + 24 * 4 + 16 * 64
+    ms, by = bound(moved, products * 128 * 2)
+    needed_ms, _ = bound(moved, ((products - squares) * 64 + squares * 36) * 2)
+    return ms, by, needed_ms
+
+
+VERIFY_SHAPES = (6144, 12288)  # the sidecar's coalesced launches
+
+
 def phase_verify(net: Net, dev):
     from fabric_tpu_torch.ops import p256v3 as v3
 
@@ -247,17 +276,26 @@ def phase_verify(net: Net, dev):
     accepted = int(got.sum())
     ms = cuda_ms(lambda: v3.verify_batch_packed(frame), 10)
     plain_ms = cuda_ms(lambda: v3.verify_batch_ref(frame), 1)
-    # products: 2 to_mont + 3 on-curve + 14 table adds x 14 + per step
-    # 4 doublings x 13 + add 14 + mixed add 13 (only at nonzero u1
-    # digits) + 4 final; 128 32x32->64 multiply-adds each, 2 INT32 ops per
-    w1 = v3.recode_windows(frame[:, 64:80]).cpu().numpy()
-    nonzero = int((w1 != 0).sum())
-    products = frame.shape[0] * (5 + 14 * 14 + 64 * (4 * 13 + 14) + 4) + 13 * nonzero
-    b_ms, b_by = bound(nbytes(frame, got) + 24 * 4 + 16 * 64, products * 128 * 2)
+    b_ms, b_by, needed_ms = verify_bound(v3, frame, got)
     log("verify", lanes=frame.shape[0], accepted=accepted, mismatches=mism,
         lanes_per_kind={k: int((kinds == i).sum()) for i, k in enumerate(KINDS)},
         x_wrapped_accepted=wrapped_accepted, oracle_lanes=len(sample),
-        oracle_mismatches=oracle_mism, ms=ms, plain_ms=plain_ms)
+        oracle_mismatches=oracle_mism, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_needed_ms=needed_ms)
+    for lanes in VERIFY_SHAPES:
+        its, _ = adversarial_items(net, lanes)
+        f = torch.from_numpy(v3.stage_frame(its, v3._bucket(len(its)))).to(dev)
+        o = v3.verify_batch_packed(f)
+        w = v3.verify_batch_ref(f)
+        torch.cuda.synchronize()
+        m = int((o != w).sum())
+        if m:
+            raise AssertionError(f"p256_verify at {lanes} lanes: {m} lanes differ from "
+                                 "verify_batch_ref")
+        sb_ms, _, s_needed = verify_bound(v3, f, o)
+        log("verify_shape", lanes=f.shape[0], accepted=int(o.sum()), mismatches=m,
+            ms=cuda_ms(lambda: v3.verify_batch_packed(f), 5), bound_ms=sb_ms,
+            bound_needed_ms=s_needed)
     return {"name": "p256_verify", "route": "cuda",
             "source": "fabric_tpu_torch/kernels/csrc/p256_verify.cu",
             "replaces": "fabric_tpu/ops/p256v3.py:183", "max_abs_err": err,
@@ -384,11 +422,14 @@ def phase_stage2(dev):
     rel_ops = T * (T - 1) // 2 * W * (R + 2 * Q)  # compares below the diagonal
     recs = []
     b_ms, b_by = bound(nbytes(sv, gp, pt, pk, sk), Eb * S * P * 2)
+    # the launch alone: the path allocates the outputs once a block, not per launch
+    pok_t, safe_t = torch.ones_like(pk), torch.empty_like(sk)
     recs.append({"name": "stage2_policy", "route": "cuda",
                  "source": "fabric_tpu_torch/kernels/csrc/stage2.cu",
                  "replaces": "fabric_tpu/peer/device_block.py:64", "max_abs_err": perr,
                  "mismatches": pmism,
-                 "ms": cuda_ms(policy_kernel, 20), "plain_ms": cuda_ms(policy_plain, 3),
+                 "ms": cuda_ms(lambda: kernels.stage2_policy(sv, gp, S, P, pt, pok_t, safe_t), 20),
+                 "plain_ms": cuda_ms(policy_plain, 3),
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     b_ms, b_by = bound(nbytes(sp, lv, sv, pok, out), rel_ops + 2 * words)
     recs.append({"name": "stage2_mvcc", "route": "cuda",
@@ -727,13 +768,27 @@ def phase_resident_kernels(dev, path_ubs: Counter):
         serr = int((a.long() - b.long()).abs().max())
         if smism:
             raise AssertionError(f"table_scatter at k = {k}: {smism} rows differ")
-        ms = cuda_ms(lambda: kernels.table_scatter(a, it, rt), 50)
-        plain_ms = cuda_ms(lambda: residency.table_scatter_ref(b, it, rt), 50)
         ilong = it.long()
-        lib_ms = cuda_ms(lambda: b.index_copy_(0, ilong, rt), 50)
+        # both are host launch paths at these sizes, and the host is shared:
+        # kernel and yardstick in 8 turns of 100 calls, ABBA ABBA, medians
+        turns = {"kernel": [], "index_copy_": []}
+        for side in ("kernel", "index_copy_", "index_copy_", "kernel") * 2:
+            fn = ((lambda: kernels.table_scatter(a, it, rt)) if side == "kernel"
+                  else (lambda: b.index_copy_(0, ilong, rt)))
+            turns[side].append(cuda_ms(fn, 100))
+        ms, lib_ms = (float(np.median(turns[k])) for k in ("kernel", "index_copy_"))
+        plain_ms = cuda_ms(lambda: residency.table_scatter_ref(b, it, rt), 50)
+        # the wrapper's host cost: wall time over 1,000 calls, then one synchronize
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            kernels.table_scatter(a, it, rt)
+        torch.cuda.synchronize()
+        host_us = (time.perf_counter() - t0) * 1e3
         b_ms, b_by = bound(k * (4 + 12) + k * 12, 0)
-        log("table_scatter", k=k, mismatches=smism, ms=ms, plain_ms=plain_ms,
-            index_copy_ms=lib_ms, bound_ms=b_ms)
+        log("table_scatter", k=k, mismatches=smism, ms=ms, ms_turns=turns["kernel"],
+            plain_ms=plain_ms, index_copy_ms=lib_ms, index_copy_turns=turns["index_copy_"],
+            host_us_per_call=host_us, bound_ms=b_ms)
     # the main path scatters a block's ~2,000-key write set: k = 2048
     recs.append({"name": "table_scatter", "route": "cuda",
                  "source": "fabric_tpu_torch/kernels/csrc/resident.cu",
@@ -1625,7 +1680,10 @@ def main() -> int:
     secs = kernels.build()
     regs = {n: [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
             for n, text in kernels.build_log.items()}
-    log("build", seconds=secs, ptxas=regs)
+    # static shared memory per block of each kernel, as ptxas reports it
+    smem = {n: [int(m) for m in re.findall(r"(\d+) bytes smem", text)]
+            for n, text in kernels.build_log.items()}
+    log("build", seconds=secs, ptxas=regs, static_smem_bytes=smem)
     t0 = time.perf_counter()
     net = Net(SEED)
     log("signatures", identities=len(net.keys), per_identity=POOL,

@@ -9,6 +9,13 @@ includes PyTorch's headers: the wrappers pass ``data_ptr()`` integers
 and PyTorch's current stream, and each C entry point returns
 ``cudaGetLastError()`` after its launches, which the wrapper raises on.
 
+A launch's host path is kept short, since at the commit path's small
+shapes it is most of a kernel's time: each C entry point is resolved
+once, when its library loads (``_Entry``); the stream is PyTorch's
+current one as a raw handle, with no ``torch.cuda.Stream`` object; the
+operand checks are ``is_cuda`` and ``is_contiguous()``.
+``fabric_tpu_torch/tools/launch_steps.py`` times each of these steps.
+
 ``launches`` counts the wrappers' kernel launches by name; a wrapper
 adds one where it launches and nowhere else.  One count is one call of
 the named kernel: ``stage2_mvcc`` is two CUDA launches (bitsets, then
@@ -77,6 +84,34 @@ _SIGS = {
 }
 
 
+class _Entry:
+    """One C entry point: its ctypes function ``fn`` is looked up once,
+    when its library loads (until then a stub that builds the library).
+    A call launches and raises on a non-zero ``cudaError_t``."""
+
+    __slots__ = ("lib_name", "name", "fn", "lib")
+
+    def __init__(self, lib_name: str, name: str):
+        self.lib_name, self.name, self.lib = lib_name, name, None
+        self.fn = self._load
+
+    def _load(self, *args) -> int:
+        build((self.lib_name,))
+        return self.fn(*args)
+
+    def __call__(self, *args) -> None:
+        rc = self.fn(*args)
+        if rc:
+            raise RuntimeError(f"{self.name}: CUDA error {rc}: "
+                               f"{self.lib.fab_error_string(rc).decode()}")
+
+
+_entries = {fn: _Entry(lib, fn) for lib, fns in _SIGS.items() for fn in fns}
+# PyTorch's current stream as a raw handle, without a torch.cuda.Stream
+# object (CUDA builds of torch only; a CPU tensor never reaches it)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def reset_counts() -> None:
     with _count_lock:
         for k in launches:
@@ -142,37 +177,26 @@ def build(names=SOURCES) -> float:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         for n in todo:
             lib = ctypes.CDLL(str(_lib_path(n)))
+            lib.fab_error_string.argtypes = [ctypes.c_int]
+            lib.fab_error_string.restype = ctypes.c_char_p
             for fn, argtypes in _SIGS[n].items():
                 f = getattr(lib, fn)
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
-            lib.fab_error_string.argtypes = [ctypes.c_int]
-            lib.fab_error_string.restype = ctypes.c_char_p
+                _entries[fn].lib = lib
+                _entries[fn].fn = f
             _libs[n] = lib
     return time.perf_counter() - t0
 
 
-def _fn(lib_name: str, fn: str):
-    if lib_name not in _libs:
-        build((lib_name,))
-    return _libs[lib_name], getattr(_libs[lib_name], fn)
-
-
-def _call(lib_name: str, fn: str, *args) -> None:
-    lib, f = _fn(lib_name, fn)
-    rc = f(*args)
-    if rc != 0:
-        raise RuntimeError(f"{fn}: CUDA error {rc}: "
-                           f"{lib.fab_error_string(rc).decode()}")
-
-
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current stream on ``t``'s device, as a raw handle."""
+    return _raw_stream(t.get_device())
 
 
 def _cuda(*ts) -> None:
     for t in ts:
-        if t is not None and (t.device.type != "cuda" or not t.is_contiguous()):
+        if not (t.is_cuda and t.is_contiguous()):
             raise ValueError("kernel operands must be contiguous CUDA tensors")
 
 
@@ -184,8 +208,8 @@ def p256_verify(frame: torch.Tensor, consts: torch.Tensor) -> torch.Tensor:
     """[B, cols] int16 frame → [B] bool (``ops/p256v3.py``)."""
     _cuda(frame, consts)
     out = torch.empty(frame.shape[0], dtype=torch.bool, device=frame.device)
-    _call("p256_verify", "fab_p256_verify", frame.data_ptr(), frame.shape[0],
-          consts.data_ptr(), out.data_ptr(), _stream(frame))
+    _entries["fab_p256_verify"](frame.data_ptr(), frame.shape[0], consts.data_ptr(),
+                                out.data_ptr(), _stream(frame))
     _count("p256_verify")
     return out
 
@@ -194,9 +218,9 @@ def stage2_policy(sig_valid, gp, S: int, P: int, plan, policy_ok, safe_out) -> N
     """One policy group: safe bits into ``safe_out`` (int8 [Eb]) and
     ``atomicMin`` of each entry's verdict into ``policy_ok`` (int32 [T+1])."""
     _cuda(sig_valid, gp, plan, policy_ok, safe_out)
-    _call("stage2", "fab_stage2_policy", sig_valid.data_ptr(), sig_valid.shape[0],
-          gp.data_ptr(), gp.shape[0], S, P, plan.data_ptr(), policy_ok.data_ptr(),
-          policy_ok.shape[0] - 1, safe_out.data_ptr(), _stream(gp))
+    _entries["fab_stage2_policy"](sig_valid.data_ptr(), sig_valid.shape[0], gp.data_ptr(),
+                                  gp.shape[0], S, P, plan.data_ptr(), policy_ok.data_ptr(),
+                                  policy_ok.shape[0] - 1, safe_out.data_ptr(), _stream(gp))
     _count("stage2_policy")
 
 
@@ -220,11 +244,11 @@ def stage2_mvcc(static_p, R: int, W: int, Q: int, launch_vec, sig_valid,
     T = static_p.shape[0]
     direct, phantom = _bitsets(static_p, R, W, Q)
     s = _stream(static_p)
-    _call("stage2", "fab_mvcc_bitsets", static_p.data_ptr(), T, R, W, Q,
-          direct.data_ptr(), phantom.data_ptr(), s)
-    _call("stage2", "fab_mvcc_fixpoint", T, direct.data_ptr(), phantom.data_ptr(),
-          None, None, launch_vec.data_ptr(), sig_valid.data_ptr(), sig_valid.shape[0],
-          policy_ok.data_ptr(), out.data_ptr(), s)
+    _entries["fab_mvcc_bitsets"](static_p.data_ptr(), T, R, W, Q,
+                                 direct.data_ptr(), phantom.data_ptr(), s)
+    _entries["fab_mvcc_fixpoint"](T, direct.data_ptr(), phantom.data_ptr(), None, None,
+                                  launch_vec.data_ptr(), sig_valid.data_ptr(), sig_valid.shape[0],
+                                  policy_ok.data_ptr(), out.data_ptr(), s)
     _count("stage2_mvcc")
 
 
@@ -235,10 +259,10 @@ def mvcc_hostver(static_p, R: int, W: int, Q: int, ver_ok, pre_ok, out) -> None:
     T = static_p.shape[0]
     direct, phantom = _bitsets(static_p, R, W, Q)
     s = _stream(static_p)
-    _call("stage2", "fab_mvcc_bitsets", static_p.data_ptr(), T, R, W, Q,
-          direct.data_ptr(), phantom.data_ptr(), s)
-    _call("stage2", "fab_mvcc_fixpoint", T, direct.data_ptr(), phantom.data_ptr(),
-          ver_ok.data_ptr(), pre_ok.data_ptr(), None, None, 0, None, out.data_ptr(), s)
+    _entries["fab_mvcc_bitsets"](static_p.data_ptr(), T, R, W, Q,
+                                 direct.data_ptr(), phantom.data_ptr(), s)
+    _entries["fab_mvcc_fixpoint"](T, direct.data_ptr(), phantom.data_ptr(), ver_ok.data_ptr(),
+                                  pre_ok.data_ptr(), None, None, 0, None, out.data_ptr(), s)
     _count("stage2_mvcc")
 
 
@@ -252,13 +276,13 @@ def mvcc_validate(read_keys, read_present, read_vers, comm_present, comm_vers,
     ver_ok = torch.empty(T, dtype=torch.bool, device=static_p.device)
     direct, phantom = _bitsets(static_p, R, W, Q)
     s = _stream(static_p)
-    _call("stage2", "fab_mvcc_verok", read_keys.data_ptr(), read_present.data_ptr(),
-          read_vers.data_ptr(), comm_present.data_ptr(), comm_vers.data_ptr(),
-          T, read_keys.shape[1], ver_ok.data_ptr(), s)
-    _call("stage2", "fab_mvcc_bitsets", static_p.data_ptr(), T, R, W, Q,
-          direct.data_ptr(), phantom.data_ptr(), s)
-    _call("stage2", "fab_mvcc_fixpoint", T, direct.data_ptr(), phantom.data_ptr(),
-          ver_ok.data_ptr(), pre_ok.data_ptr(), None, None, 0, None, out.data_ptr(), s)
+    _entries["fab_mvcc_verok"](read_keys.data_ptr(), read_present.data_ptr(),
+                               read_vers.data_ptr(), comm_present.data_ptr(), comm_vers.data_ptr(),
+                               T, read_keys.shape[1], ver_ok.data_ptr(), s)
+    _entries["fab_mvcc_bitsets"](static_p.data_ptr(), T, R, W, Q,
+                                 direct.data_ptr(), phantom.data_ptr(), s)
+    _entries["fab_mvcc_fixpoint"](T, direct.data_ptr(), phantom.data_ptr(), ver_ok.data_ptr(),
+                                  pre_ok.data_ptr(), None, None, 0, None, out.data_ptr(), s)
     _count("mvcc_validate")
 
 
@@ -269,9 +293,9 @@ def resident_verok(static_p, R: int, table, u_pack, read_pv, launch_vec) -> None
     T, cols = static_p.shape
     if read_pv.shape != (T, R, 3) or launch_vec.shape != (T, 3) or u_pack.shape[1] != 4:
         raise ValueError("resident_verok: operand shapes disagree")
-    _call("resident", "fab_resident_verok", static_p.data_ptr(), T, cols, R,
-          table.data_ptr(), table.shape[0], u_pack.data_ptr(), u_pack.shape[0],
-          read_pv.data_ptr(), launch_vec.data_ptr(), _stream(table))
+    _entries["fab_resident_verok"](static_p.data_ptr(), T, cols, R, table.data_ptr(),
+                                   table.shape[0], u_pack.data_ptr(), u_pack.shape[0],
+                                   read_pv.data_ptr(), launch_vec.data_ptr(), _stream(table))
     _count("resident_verok")
 
 
@@ -279,8 +303,8 @@ def table_scatter(table, idx, rows) -> None:
     """table[idx[i]] = rows[i] for int32 [k] ``idx`` (checked in range
     by the caller) and int32 [k, 3] ``rows``."""
     _cuda(table, idx, rows)
-    _call("resident", "fab_table_scatter", table.data_ptr(), idx.data_ptr(), rows.data_ptr(),
-          idx.shape[0], _stream(table))
+    _entries["fab_table_scatter"](table.data_ptr(), idx.data_ptr(), rows.data_ptr(), idx.shape[0],
+                                  _stream(table))
     _count("table_scatter")
 
 
@@ -289,8 +313,8 @@ def p256_sign(limbs, consts, comb) -> torch.Tensor:
     of the projective X and Z of k·G, Montgomery form)."""
     _cuda(limbs, consts, comb)
     out = torch.empty((limbs.shape[0], 2, 8), dtype=torch.int32, device=limbs.device)
-    _call("p256_sign", "fab_p256_sign", limbs.data_ptr(), limbs.shape[0], consts.data_ptr(),
-          comb.data_ptr(), out.data_ptr(), _stream(limbs))
+    _entries["fab_p256_sign"](limbs.data_ptr(), limbs.shape[0], consts.data_ptr(),
+                              comb.data_ptr(), out.data_ptr(), _stream(limbs))
     _count("p256_sign")
     return out
 
@@ -301,8 +325,8 @@ def sha256_blocks(blocks, nblocks) -> torch.Tensor:
     _cuda(blocks, nblocks)
     B, M = blocks.shape[0], blocks.shape[1]
     out = torch.empty((B, 8), dtype=torch.int32, device=blocks.device)
-    _call("sha256", "fab_sha256_blocks", blocks.data_ptr(), nblocks.data_ptr(), B, M,
-          out.data_ptr(), _stream(blocks))
+    _entries["fab_sha256_blocks"](blocks.data_ptr(), nblocks.data_ptr(), B, M,
+                                  out.data_ptr(), _stream(blocks))
     _count("sha256_blocks")
     return out
 
@@ -311,8 +335,8 @@ def p256_verify_v1(frame, consts) -> torch.Tensor:
     """[B, 80] int32 frame of 16-bit limbs → [B] bool (``ops/p256.py``, v1)."""
     _cuda(frame, consts)
     out = torch.empty(frame.shape[0], dtype=torch.bool, device=frame.device)
-    _call("p256_v1", "fab_p256_verify_v1", frame.data_ptr(), frame.shape[0], consts.data_ptr(),
-          out.data_ptr(), _stream(frame))
+    _entries["fab_p256_verify_v1"](frame.data_ptr(), frame.shape[0], consts.data_ptr(),
+                                   out.data_ptr(), _stream(frame))
     _count("p256_verify_v1")
     return out
 
@@ -322,14 +346,14 @@ def p256_verify_v2(frame, consts) -> torch.Tensor:
     first call on a device copies ``consts``' tables into the kernel's
     ``__constant__`` memory there; they are a constant of the curve."""
     _cuda(frame, consts)
-    _fn("p256_v2", "fab_p256_v2_tables")  # build outside the lock
+    build(("p256_v2",))  # outside the lock
     with _lock:
         if consts.device not in _v2_tables:
             with torch.cuda.device(consts.device):
-                _call("p256_v2", "fab_p256_v2_tables", consts.data_ptr(), _stream(consts))
+                _entries["fab_p256_v2_tables"](consts.data_ptr(), _stream(consts))
             _v2_tables.add(consts.device)
     out = torch.empty(frame.shape[0], dtype=torch.bool, device=frame.device)
-    _call("p256_v2", "fab_p256_verify_v2", frame.data_ptr(), frame.shape[0], consts.data_ptr(),
-          out.data_ptr(), _stream(frame))
+    _entries["fab_p256_verify_v2"](frame.data_ptr(), frame.shape[0], consts.data_ptr(),
+                                   out.data_ptr(), _stream(frame))
     _count("p256_verify_v2")
     return out

@@ -103,7 +103,7 @@ def _ver_i32(block: int, txnum: int) -> tuple[int, int]:
 
 def table_scatter_ref(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> None:
     """Plain ``table_scatter``: ``table[idx] = rows`` in place."""
-    table.index_copy_(0, idx.long(), rows)
+    table[idx.long()] = rows
 
 
 def table_scatter(table: torch.Tensor, idx: np.ndarray, rows: np.ndarray) -> None:

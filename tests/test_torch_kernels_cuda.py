@@ -70,6 +70,24 @@ def test_p256_verify_kernel_matches_plain(cuda):
     assert got[:len(items)].tolist() == want and any(want) and not all(want)
 
 
+# the largest batch p256_verify.cu runs at 8 threads a lane (FAB_TEAM8_LANES)
+TEAM8_LANES = 6144
+
+
+@pytest.mark.parametrize("lanes", [1, 33, 3071, TEAM8_LANES, TEAM8_LANES + 1])
+def test_p256_verify_kernel_ragged_and_large(cuda, lanes):
+    """Unpadded batches that fill no whole block (1, 33, 3,071 lanes: a
+    partial last block, its spare teams on a dummy row), and one batch on
+    each side of the team-size switch: 6,144 lanes (a sidecar shape) at
+    8 threads a lane, 6,145 at 4."""
+    from fabric_tpu_torch import kernels
+
+    frame = torch.from_numpy(v3.stage_frame(_items(lanes), lanes)).to(cuda)
+    got = kernels.p256_verify(frame, v3._kernel_consts(cuda))
+    torch.cuda.synchronize()
+    assert got.shape == (lanes,) and torch.equal(got, v3.verify_batch_ref(frame))
+
+
 def _stage2_operands(dev, T=256, n_sig=512, S=4, seed=5):
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -167,17 +185,20 @@ def test_table_scatter_kernel_matches_plain(cuda):
     from fabric_tpu_torch.state import residency
 
     rng = np.random.default_rng(17)
-    base = torch.from_numpy(rng.integers(-9, 9, (4096, 3)).astype(np.int32)).to(cuda)
+    cap = 4096
+    base = torch.from_numpy(rng.integers(-9, 9, (cap, 3)).astype(np.int32)).to(cuda)
     for k in (1, 16, 2048):
-        idx = rng.choice(4096, k, replace=False).astype(np.int32)
+        idx = rng.choice(cap - 1, k, replace=False).astype(np.int32)
+        idx[-1] = cap - 1  # the table's last row
         rows = rng.integers(-(1 << 31), 1 << 31, (k, 3)).astype(np.int32)
         got, want = base.clone(), base.clone()
         residency.table_scatter(got, idx, rows)
         residency.table_scatter_ref(want, torch.from_numpy(idx).to(cuda),
                                     torch.from_numpy(rows).to(cuda))
         assert torch.equal(got, want)
+        assert torch.equal(got[cap - 1], torch.from_numpy(rows[-1]).to(cuda))
     with pytest.raises(IndexError):
-        residency.table_scatter(base, np.array([4096]), np.zeros((1, 3)))
+        residency.table_scatter(base, np.array([cap]), np.zeros((1, 3)))
 
 
 def test_resident_manager_on_card_matches_cpu(cuda):

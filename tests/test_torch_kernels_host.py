@@ -1,15 +1,23 @@
-"""The CUDA kernel sources' device code, compiled as host C++ and run
-one thread per block, against the plain versions on the CPU (and the
-sign kernel against ``ec_ref``).
+"""The CUDA kernel sources' device code, compiled as host C++ (g++,
+-std=c++20 -pthread) and run against the plain versions on the CPU (and
+the sign kernel against ``ec_ref``).
 
 The sm_90a kernels themselves run only on the card
-(tests/test_torch_kernels_cuda.py, chip_smoke.py).  Here a few shim
-macros turn ``__global__``/``__device__`` functions into plain C++ and
-a loop over ``blockIdx`` plays the grid; with one thread per block the
-fixpoint kernel's barriers are no-ops and its grid-stride loops cover
-every transaction.  The shared ``p256_field.cuh`` is inlined where a
-source includes it.  That checks each kernel's arithmetic and indexing
-— the 256-bit Montgomery product, the point formulas, the window
+(tests/test_torch_kernels_cuda.py, chip_smoke.py).  Here shim macros
+turn ``__global__``/``__device__`` functions into plain C++.  Kernels of
+one thread per lane run one thread per block, a loop over ``blockIdx``
+playing the grid; with one thread per block the fixpoint kernel's
+barriers are no-ops and its grid-stride loops cover every transaction.
+The team kernel of ``p256_verify.cu`` runs each block's ``blockDim.x``
+threads as ``std::thread``s (``threadIdx`` and ``blockIdx`` are
+``thread_local``): ``__syncthreads``, ``__syncwarp``, the shuffles,
+``__ballot_sync`` and ``__any_sync`` go through a per-block exchange
+array and a C++20 ``std::barrier``, at TPI = 8 and 4, in full warps of
+teams.  The shared ``p256_field.cuh`` and ``p256_team.cuh`` are inlined
+where a source includes them.  The kernels use no inline PTX, so
+nothing here is skipped on the CPU.  That checks each kernel's
+arithmetic and indexing — the team Montgomery product (against Python
+ints), the team carry-lookahead votes, the point formulas, the window
 recoding, the comb ladder, the policy gate walk, the bitsets, the
 fixpoint, the resident-table compare, the table scatter and the SHA-256
 compression (against ``hashlib``), the v1 verifier's mod-n product,
@@ -45,9 +53,14 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "fabric_tpu_torch" / "kerne
 
 SHIM = r"""
 #include <algorithm>
+#include <barrier>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
+#include <functional>
+#include <memory>
+#include <thread>
+#include <vector>
 using std::max;
 using std::min;
 #define __global__
@@ -56,6 +69,7 @@ using std::min;
 #define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(x)
 #define __restrict__
+#define __align__(n) alignas(n)
 #define __shared__ static
 #define __ldg(p) (*(p))
 #define __constant__
@@ -63,19 +77,145 @@ static inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, unsigned s) {
   s &= 31;
   return s ? (lo >> s) | (hi << (32 - s)) : lo;
 }
-#define __syncthreads() do {} while (0)
+static inline uint32_t __umulhi(uint32_t a, uint32_t b) { return ((uint64_t)a * b) >> 32; }
 struct Dim { unsigned x = 0, y = 0, z = 0; };
-static Dim blockIdx, threadIdx, blockDim;
+static thread_local Dim blockIdx, threadIdx, blockDim;
 template <class T> static T atomicOr(T* p, T v) { T o = *p; *p |= v; return o; }
 template <class T> static T atomicMin(T* p, T v) { T o = *p; if (v < o) *p = v; return o; }
 static uint32_t host_smem[1 << 16];
+
+// One block of threads: a std::thread per CUDA thread, a barrier, a
+// double-buffered exchange array for the warp collectives and the
+// block's shared memory.  Every thread of a block makes the same
+// sequence of collective calls, so one barrier per call suffices: a
+// buffer is written again only two calls later, after every thread has
+// passed the barrier of the call in between.
+struct HostBlock {
+  explicit HostBlock(int n) : bar(n) {}
+  std::barrier<> bar;
+  uint64_t xch[2][1024];
+  alignas(16) uint32_t smem[1 << 14];
+};
+static thread_local HostBlock* host_block = nullptr;  // null: one-thread launchers
+static thread_local unsigned host_calls = 0;
+static uint32_t* host_block_smem() { return host_block->smem; }
+static void __syncthreads() {
+  if (host_block) host_block->bar.arrive_and_wait();
+}
+static void __syncwarp(unsigned = 0xFFFFFFFFu) { __syncthreads(); }
+static const uint64_t* host_exchange(uint64_t w) {
+  uint64_t* buf = host_block->xch[host_calls++ & 1];
+  buf[threadIdx.x] = w;
+  host_block->bar.arrive_and_wait();
+  return buf;
+}
+template <class T> static T host_read(const uint64_t* buf, int tid) {
+  T r;
+  std::memcpy(&r, &buf[tid], sizeof(T));
+  return r;
+}
+template <class T> static uint64_t host_word(T v) {
+  uint64_t w = 0;
+  std::memcpy(&w, &v, sizeof(T));
+  return w;
+}
+// lane l of a width-w segment reads lane src of the same segment
+template <class T> static T __shfl_sync(unsigned, T v, int src, int width = 32) {
+  const uint64_t* buf = host_exchange(host_word(v));
+  const int lane = threadIdx.x & 31;
+  const int seg = (int)threadIdx.x - lane + (lane & ~(width - 1));
+  return host_read<T>(buf, seg + (src & (width - 1)));
+}
+template <class T> static T __shfl_up_sync(unsigned, T v, unsigned d, int width = 32) {
+  const uint64_t* buf = host_exchange(host_word(v));
+  const int i = threadIdx.x & (width - 1);
+  return i < (int)d ? v : host_read<T>(buf, threadIdx.x - d);
+}
+template <class T> static T __shfl_down_sync(unsigned, T v, unsigned d, int width = 32) {
+  const uint64_t* buf = host_exchange(host_word(v));
+  const int i = threadIdx.x & (width - 1);
+  return i + (int)d >= width ? v : host_read<T>(buf, threadIdx.x + d);
+}
+static unsigned __ballot_sync(unsigned, bool pred) {
+  const uint64_t* buf = host_exchange(pred ? 1u : 0u);
+  const unsigned base = threadIdx.x & ~31u;
+  unsigned m = 0;
+  for (unsigned l = 0; l < 32 && base + l < blockDim.x; ++l) m |= (unsigned)buf[base + l] << l;
+  return m;
+}
+static bool __any_sync(unsigned mask, bool pred) { return __ballot_sync(mask, pred) != 0; }
+
+// the grid, `concurrent` blocks at a time
+static void host_launch(int grid, int block, int concurrent, const std::function<void()>& k) {
+  for (int b0 = 0; b0 < grid; b0 += concurrent) {
+    const int nb = std::min(concurrent, grid - b0);
+    std::vector<std::unique_ptr<HostBlock>> blocks;
+    std::vector<std::thread> threads;
+    for (int b = 0; b < nb; ++b) blocks.emplace_back(new HostBlock(block));
+    for (int b = 0; b < nb; ++b)
+      for (int t = 0; t < block; ++t)
+        threads.emplace_back([&, b, t] {
+          blockIdx.x = b0 + b;
+          threadIdx.x = t;
+          blockDim.x = block;
+          host_block = blocks[b].get();
+          k();
+        });
+    for (auto& th : threads) th.join();
+  }
+}
 """
 
 LAUNCHERS = {
     "p256_verify": r"""
-extern "C" void host_p256(const int16_t* f, int B, const uint32_t* c, uint8_t* out) {
-  blockDim.x = 1;
-  for (int i = 0; i < B; ++i) { blockIdx.x = i; p256_verify_kernel(f, B, c, out); }
+// the team kernel at TPI threads per lane, `teams` lanes per block
+template <int TPI>
+static void host_p256_tpi(const int16_t* f, int B, const uint32_t* c, uint8_t* out, int teams,
+                          int concurrent) {
+  host_launch((B + teams - 1) / teams, teams * TPI, concurrent,
+              [&] { p256_verify_kernel<TPI>(f, B, c, out); });
+}
+extern "C" void host_p256(const int16_t* f, int B, const uint32_t* c, uint8_t* out, int tpi,
+                          int teams, int concurrent) {
+  if (tpi == 8) host_p256_tpi<8>(f, B, c, out, teams, concurrent);
+  if (tpi == 4) host_p256_tpi<4>(f, B, c, out, teams, concurrent);
+}
+// n team products r = a * b * 2^-256 mod p (8 little-endian words each),
+// one team per group of G products run together through fe_mul_n
+template <int TPI, int G>
+static void host_mul_group(const uint32_t* a, const uint32_t* b, uint32_t* r, int n) {
+  host_launch((n + G - 1) / G, TPI, 8, [&] {
+    const Team<TPI> tm;
+    const int i = blockIdx.x * G;
+    Fe<TPI> x[G], y[G], z[G];
+    Fe<TPI>* rz[G];
+    const Fe<TPI>* rx[G];
+    const Fe<TPI>* ry[G];
+    for (int k = 0; k < G; ++k) {
+      for (int l = 0; l < Fe<TPI>::L; ++l) {
+        const int j = std::min(i + k, n - 1) * 8 + tm.t * Fe<TPI>::L + l;
+        x[k].v[l] = a[j];
+        y[k].v[l] = b[j];
+      }
+      rz[k] = &z[k];
+      rx[k] = &x[k];
+      ry[k] = &y[k];
+    }
+    fe_mul_n<TPI, G>(tm, rz, rx, ry);
+    for (int k = 0; k < G && i + k < n; ++k)
+      for (int l = 0; l < Fe<TPI>::L; ++l) r[(i + k) * 8 + tm.t * Fe<TPI>::L + l] = z[k].v[l];
+  });
+}
+template <int TPI>
+static void host_mul_tpi(const uint32_t* a, const uint32_t* b, uint32_t* r, int n, int group) {
+  if (group == 1) host_mul_group<TPI, 1>(a, b, r, n);
+  if (group == 2) host_mul_group<TPI, 2>(a, b, r, n);
+  if (group == 6) host_mul_group<TPI, 6>(a, b, r, n);
+}
+extern "C" void host_team_mul(const uint32_t* a, const uint32_t* b, uint32_t* r, int n, int tpi,
+                              int group) {
+  if (tpi == 8) host_mul_tpi<8>(a, b, r, n, group);
+  if (tpi == 4) host_mul_tpi<4>(a, b, r, n, group);
 }
 """,
     "stage2": r"""
@@ -114,7 +254,7 @@ extern "C" void host_verok(const int32_t* sp, int T, int cols, int R, const int3
 }
 extern "C" void host_scatter(int32_t* table, const int32_t* idx, const int32_t* rows, int k) {
   blockDim.x = 1;
-  for (int i = 0; i < k; ++i) { blockIdx.x = i; table_scatter_kernel(table, idx, rows, k); }
+  for (int i = 0; i < 3 * k; ++i) { blockIdx.x = i; table_scatter_kernel(table, idx, rows, k); }
 }
 """,
     "sha256": r"""
@@ -189,16 +329,19 @@ def host_kernels(tmp_path_factory):
     d = tmp_path_factory.mktemp("host_kernels")
     for name, launcher in LAUNCHERS.items():
         src = (CSRC / f"{name}.cu").read_text()
-        header = (CSRC / "p256_field.cuh").read_text().replace("#pragma once", "")
-        src = src.replace('#include "p256_field.cuh"', header)
+        for header in ("p256_field.cuh", "p256_team.cuh"):
+            text = (CSRC / header).read_text().replace("#pragma once", "")
+            src = src.replace(f'#include "{header}"', text)
         device_code = src.split("}  // namespace")[0]
         device_code = device_code.replace("#include <cuda_runtime.h>", "").replace(
-            "extern __shared__ uint32_t sm[];", "uint32_t* sm = host_smem;")
+            "extern __shared__ uint32_t sm[];", "uint32_t* sm = host_smem;").replace(
+            "__shared__ __align__(16) uint32_t smem[kSmemWords];",
+            "uint32_t* smem = host_block_smem();")
         cpp = d / f"{name}.cpp"
         cpp.write_text(SHIM + device_code + "}  // namespace\n" + launcher)
         so = d / f"{name}.so"
-        subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-w", "-o", str(so),
-                        str(cpp)], check=True, timeout=300)
+        subprocess.run([cxx, "-O2", "-std=c++20", "-pthread", "-shared", "-fPIC", "-w", "-o",
+                        str(so), str(cpp)], check=True, timeout=300)
         out[name] = ctypes.CDLL(str(so))
     return out
 
@@ -244,18 +387,47 @@ def _items(n, seed=3):
     return out
 
 
-def test_verify_kernel_source_matches_plain_and_oracle(host_kernels):
-    items = _items(120)
-    frame = v3.stage_frame(items, v3._bucket(len(items)))
+@pytest.mark.parametrize("tpi", [8, 4])
+def test_verify_kernel_source_matches_plain_and_oracle(host_kernels, tpi):
+    """The team kernel, one std::thread per CUDA thread, at TPI = 8 and 4,
+    on every adversarial kind; B is not a multiple of the block, so the
+    last block's spare teams run a dummy row with their stores masked.
+    ``_items`` repeats with period 30 (15 base signatures x 10 kinds), so
+    30 lanes hold every distinct (signature, kind) pair."""
+    items = _items(30)
+    frame = v3.stage_frame(items, len(items) + 1)
     consts = v3._kernel_consts(torch.device("cpu")).numpy().view(np.uint32)
     out = np.zeros(len(frame), np.uint8)
-    host_kernels["p256_verify"].host_p256(_p(frame), len(frame), _p(consts), _p(out))
+    # full warps: 32 / TPI teams a block, so the votes mix teams
+    host_kernels["p256_verify"].host_p256(_p(frame), len(frame), _p(consts), _p(out), tpi,
+                                          32 // tpi, 2)
     plain = v3.verify_batch_ref(torch.from_numpy(frame)).numpy()
     assert np.array_equal(out.astype(bool), plain)
     want = [ec_ref.verify_digest((x, y), e, r, s) for e, r, s, x, y in items]
     assert out[:len(items)].astype(bool).tolist() == want
     assert any(want) and not all(want)
     assert all(want[i] == (i % 10 == 7) for i in range(len(items)) if i % 10 in (7, 8))
+
+
+@pytest.mark.parametrize("tpi", [8, 4])
+def test_team_product_matches_python_ints(host_kernels, tpi):
+    """The team Montgomery product, alone and interleaved in groups of 2
+    and 6 (at TPI = 4 the 6 run as three pairs), at 0, 1, p - 1, p - 2,
+    2^255 mod p, R mod p and random values."""
+    P, R = ec_ref.P, 1 << 256
+    rng = np.random.default_rng(14)
+    edge = [0, 1, P - 1, P - 2, (1 << 255) % P, R % P, (1 << 224) - 1, 1 << 192]
+    rand = [int.from_bytes(rng.bytes(32), "big") % P for _ in range(24)]
+    pairs = [(a, b) for a in edge for b in edge] + list(zip(rand, rand[::-1]))
+    words = lambda xs: np.frombuffer(b"".join(x.to_bytes(32, "little") for x in xs),
+                                     np.uint32).copy()
+    a, b = words([x for x, _ in pairs]), words([y for _, y in pairs])
+    want = [x * y * pow(R, -1, P) % P for x, y in pairs]
+    for group in (1, 2, 6):
+        r = np.zeros_like(a)
+        host_kernels["p256_verify"].host_team_mul(_p(a), _p(b), _p(r), len(pairs), tpi, group)
+        got = [int.from_bytes(r[8 * i:8 * i + 8].tobytes(), "little") for i in range(len(pairs))]
+        assert got == want
 
 
 def _stage2(seed, T=96, n_sig=160, S=4):
