@@ -377,10 +377,9 @@ def phase_stage2(dev):
         raise AssertionError(f"stage2 packed output differs: {mism} bytes")
     unsafe = int((want[5 * T + n_sig:] == 0).sum())
     valid = want[:T].bool()
-    log("stage2", T=T, n_sig=n_sig, groups=len(groups), mismatches=mism,
-        valid=int(valid.sum()), conflict=int(want[T:2 * T].sum()),
-        phantom=int(want[2 * T:3 * T].sum()), unsafe_rows=unsafe,
-        chain_valid=valid[100:121].int().tolist())
+    counts = {"valid": int(valid.sum()), "conflict": int(want[T:2 * T].sum()),
+              "phantom": int(want[2 * T:3 * T].sum()), "unsafe_rows": unsafe,
+              "chain_valid": valid[100:121].int().tolist()}
 
     # per-kernel timings at the main path's shapes (first group)
     plan, gp, Eb, S = groups[0]
@@ -418,6 +417,15 @@ def phase_stage2(dev):
     mmism = int((out[:3 * T] != torch.cat([v, c, ph]).to(torch.int8)).sum())
     if pmism or mmism:
         raise AssertionError(f"stage2 kernels differ alone: policy {perr}, mvcc {merr}")
+    # each MVCC kernel alone on the device (a CUDA graph of 200 launches)
+    from fabric_tpu_torch.tools.launch_steps import graph_us, mvcc_launches, mvcc_rounds
+
+    bits, fix, _ = mvcc_launches(kernels._entries["fab_mvcc_bitsets"].fn,
+                                 kernels._entries["fab_mvcc_fixpoint"].fn, sp, dims, lv, sv,
+                                 pok, out.clone())
+    log("stage2", T=T, n_sig=n_sig, groups=len(groups), mismatches=mism, **counts,
+        rounds=mvcc_rounds(sp, dims, lv, sv, pok), fixpoint_in_smem=kernels.mvcc_fixpoint_in_smem(T),
+        bitsets_device_us=graph_us(bits), fixpoint_device_us=graph_us(fix))
     words = T * ((T + 31) // 32)
     rel_ops = T * (T - 1) // 2 * W * (R + 2 * Q)  # compares below the diagonal
     recs = []
@@ -1043,14 +1051,20 @@ def phase_sign(net: Net, dev):
                           for i, X, Z in zip(sample.tolist(), xs, zs))
         if oracle_mism:
             raise AssertionError(f"p256_sign: {oracle_mism} sampled lanes differ from ec_ref")
-        ms = cuda_ms(lambda: kernels.p256_sign(limbs, *p256sign._kernel_tables(dev)), 20)
+        chains = p256sign.sign_chains(lanes)
+        ms = cuda_ms(lambda: kernels.p256_sign(limbs, *p256sign._kernel_tables(dev), chains), 20)
         plain_ms = cuda_ms(lambda: p256sign.sign_batch_ref(limbs), 2)
-        # 13 Montgomery products per nonzero digit, 128 multiply-adds each
+        # 13 Montgomery products per nonzero digit: the reference's 128
+        # multiply-adds each, or, as the work needed, 64 wide products
+        # (none for P-256's reduction); neither counts the chains' combine
         nonzero = int((p256v3.recode_windows(limbs) != 0).sum())
-        b_ms, b_by = bound(nbytes(limbs, out) + 64 + 64 * 16 * 64, nonzero * 13 * 128 * 2)
+        moved = nbytes(limbs, out) + 64 + 64 * 16 * 64
+        b_ms, b_by = bound(moved, nonzero * 13 * 128 * 2)
+        b_need_ms, _ = bound(moved, nonzero * 13 * 64 * 2)
         log("sign_kernel", lanes=lanes, lane_launches=lane_shapes[lanes], mismatches=mism,
             oracle_lanes=len(sample), oracle_mismatches=oracle_mism, ms=ms,
-            plain_ms=plain_ms, bound_ms=b_ms)
+            plain_ms=plain_ms, bound_ms=b_ms, bound_needed_ms=b_need_ms,
+            tpi=kernels.p256_sign_tpi(lanes), chains=chains)
         if lanes == lane_bucket:
             rec = {"name": "p256_sign", "route": "cuda",
                    "source": "fabric_tpu_torch/kernels/csrc/p256_sign.cu",
@@ -1663,13 +1677,20 @@ def phase_sidecar(net: Net, main_res):
 
 
 def main() -> int:
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    try:
+        from fabric_tpu_torch import kernels
+    except ModuleNotFoundError as e:
+        if e.name != "fabric_tpu_torch":
+            raise
+        print(f"chip_smoke: cannot import fabric_tpu_torch ({e}) — run it from the root of "
+              f"the repository", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from fabric_tpu_torch import kernels
 
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(

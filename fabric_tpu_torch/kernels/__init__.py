@@ -63,13 +63,15 @@ _SIGS = {
         "fab_mvcc_verok": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
         "fab_mvcc_bitsets": [_P, _I, _I, _I, _I, _P, _P, _P],
         "fab_mvcc_fixpoint": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
+        "fab_mvcc_fixpoint_in_smem": [_I],
     },
     "resident": {
         "fab_resident_verok": [_P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P],
         "fab_table_scatter": [_P, _P, _P, _I, _P],
     },
     "p256_sign": {
-        "fab_p256_sign": [_P, _I, _P, _P, _P, _P],
+        "fab_p256_sign": [_P, _I, _I, _P, _P, _P, _P],
+        "fab_p256_sign_tpi": [_I],
     },
     "sha256": {
         "fab_sha256_blocks": [_P, _P, _I, _I, _P, _P],
@@ -224,15 +226,20 @@ def stage2_policy(sig_valid, gp, S: int, P: int, plan, policy_ok, safe_out) -> N
     _count("stage2_policy")
 
 
+def mvcc_fixpoint_in_smem(T: int) -> bool:
+    """Whether ``fab_mvcc_fixpoint`` stages direct | phantom in shared
+    memory at T transactions (else its rounds read global memory)."""
+    return bool(_entries["fab_mvcc_fixpoint_in_smem"].fn(T))
+
+
 def _bitsets(static_p, R: int, W: int, Q: int):
+    """The direct and phantom words, [T, ceil(T/32)] each, in one allocation."""
     if static_p.shape[1] != R + W + 2 * Q:
         raise ValueError(f"static frame has {static_p.shape[1]} columns, "
                          f"expected R + W + 2Q = {R + W + 2 * Q}")
     T = static_p.shape[0]
-    nw = (T + 31) // 32
-    direct = torch.empty((T, nw), dtype=torch.int32, device=static_p.device)
-    phantom = torch.empty_like(direct)
-    return direct, phantom
+    both = torch.empty((2, T, (T + 31) // 32), dtype=torch.int32, device=static_p.device)
+    return both[0], both[1]
 
 
 def stage2_mvcc(static_p, R: int, W: int, Q: int, launch_vec, sig_valid,
@@ -308,15 +315,21 @@ def table_scatter(table, idx, rows) -> None:
     _count("table_scatter")
 
 
-def p256_sign(limbs, consts, comb) -> torch.Tensor:
+def p256_sign(limbs, consts, comb, chains: int) -> torch.Tensor:
     """[B, 16] int16 nonce limbs → [B, 2, 8] int32 (uint32 bit patterns
-    of the projective X and Z of k·G, Montgomery form)."""
+    of the projective X and Z of k·G, Montgomery form), each lane's
+    digits summed in ``chains`` chains (1, 2, 4, 8 or 16)."""
     _cuda(limbs, consts, comb)
     out = torch.empty((limbs.shape[0], 2, 8), dtype=torch.int32, device=limbs.device)
-    _entries["fab_p256_sign"](limbs.data_ptr(), limbs.shape[0], consts.data_ptr(),
+    _entries["fab_p256_sign"](limbs.data_ptr(), limbs.shape[0], chains, consts.data_ptr(),
                               comb.data_ptr(), out.data_ptr(), _stream(limbs))
     _count("p256_sign")
     return out
+
+
+def p256_sign_tpi(B: int) -> int:
+    """The threads a chain ``p256_sign`` runs a B-lane batch with (8 or 4)."""
+    return _entries["fab_p256_sign_tpi"].fn(B)
 
 
 def sha256_blocks(blocks, nblocks) -> torch.Tensor:

@@ -1,5 +1,6 @@
-// P-256 field and point arithmetic shared by p256_verify.cu and
-// p256_sign.cu: eight little-endian 32-bit limbs, Montgomery form with
+// P-256 field and point arithmetic of one thread per lane, used by
+// p256_v1.cu (p256_verify.cu and p256_sign.cu run teams of threads over
+// p256_team.cuh): eight little-endian 32-bit limbs, Montgomery form with
 // R = 2^256 (CIOS product), every value fully reduced into [0, p) after
 // each operation, and the Renes-Costello-Batina complete formulas with
 // a = -3 (pt_add, pt_add_mixed, pt_double) in the schedule of

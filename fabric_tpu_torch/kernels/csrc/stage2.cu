@@ -14,11 +14,14 @@
 //   the transaction's int32 policy slot with atomicMin (there are no
 //   int8 atomics).  Bound: a few bytes per entry; launch latency.
 //
-// mvcc_bitsets — one thread per (transaction j, 32-transaction word w):
+// mvcc_bitsets — one warp per (transaction j, 32-transaction word w):
 //   the direct-conflict (read key == earlier write key) and phantom
 //   (earlier write key inside a read range [lo, hi)) relations as
-//   strictly lower-triangular [T, ceil(T/32)] uint32 bitsets.  Bound:
+//   strictly lower-triangular [T, ceil(T/32)] uint32 bitsets, lane l
+//   testing row i = 32w + l, the words formed by __ballot_sync.  Bound:
 //   T^2 (R + Q) W compares of small ints, a few million at T = 1024.
+//   The first design gave each thread a whole (j, w) word: 32 rows one
+//   after another, each row's keys a separate, uncoalesced read.
 //
 // mvcc_fixpoint — ONE thread block: pre_ok = structural & creator &
 //   policy, then the validity fixpoint valid[j] = ver_ok[j] &
@@ -26,11 +29,19 @@
 //   shared-memory bitset until it stops changing (the reference's
 //   while_loop, never returning to the host), then the conflict and
 //   phantom flags against the final vector, written as the packed int8
-//   output.  Grid-stride over transactions handles T > blockDim.  Bound:
-//   (chain depth + 1) rounds of T * ceil(T/32) word ANDs from L1/L2.
+//   output.  Bound: (chain depth + 1) rounds of T * ceil(T/32) / 2
+//   word ANDs.  Where T * ceil(T/32) words fit the 227 KiB a block may
+//   opt in to (T <= 1,348; 132 KiB at T = 1024), direct | phantom is
+//   staged once in dynamic shared memory, rows padded to an odd stride;
+//   above, the rounds read both matrices from global memory.  A round's
+//   scan of a row is a straight OR over its words.  The first design
+//   read every row from global memory in every round and left the scan
+//   at the first hit, so a row's loads ran one after another, ~20
+//   rounds of up to 32 dependent L2 round trips on one SM.
 //
 // mvcc_verok — the per-read committed-version compare of mvcc_validate.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -39,6 +50,9 @@ namespace {
 constexpr int kMaxP = 32;      // principal columns per policy
 constexpr int kMaxSlots = 64;  // leaves + gates per policy
 constexpr int kFixThreads = 1024;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+// the most dynamic shared memory a block may opt in to on sm_90 (227 KiB)
+constexpr size_t kFixSmemBytes = 232448;
 
 __device__ __forceinline__ bool sig_bit(const uint8_t* sv, int n_sig, int idx) {
   return idx >= 0 && idx < n_sig && sv[idx] != 0;
@@ -91,21 +105,25 @@ __global__ void stage2_policy_kernel(const uint8_t* __restrict__ sv, int n_sig,
   if (tx >= 0 && tx < T) atomicMin(policy_ok + tx, ok);
 }
 
+// One warp per (transaction j, 32-transaction word w): lane l tests
+// i = 32w + l, reading row i's W write keys (neighbouring lanes on
+// neighbouring rows) against j's R read keys and Q ranges (the same
+// address in every lane, one broadcast load); two warp ballots form the
+// words and lane 0 stores them.  Rows i >= j give 0 bits: the relations
+// are strictly lower-triangular.
 // static_p row: read_keys[R] | write_keys[W] | rq_lo[Q] | rq_hi[Q]
 __global__ void mvcc_bitsets_kernel(const int32_t* __restrict__ sp, int T, int R, int W, int Q,
                                     int nw, uint32_t* __restrict__ direct,
                                     uint32_t* __restrict__ phantom) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)T * nw) return;
-  const int j = (int)(idx / nw), w = (int)(idx % nw);
+  const long long word = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (word >= (long long)T * nw) return;  // whole warps
+  const int j = (int)(word / nw), w = (int)(word % nw);
+  const int i = 32 * w + (int)(threadIdx.x & 31);
   const int cols = R + W + 2 * Q;
-  const int32_t* rj = sp + (size_t)j * cols;
-  uint32_t d = 0u, ph = 0u;
-  const int i0 = 32 * w;
-  const int i1 = min(i0 + 32, j);
-  for (int i = i0; i < i1; ++i) {
+  bool dh = false, phh = false;
+  if (i < j) {
+    const int32_t* rj = sp + (size_t)j * cols;
     const int32_t* wk = sp + (size_t)i * cols + R;
-    bool dh = false, phh = false;
     for (int b = 0; b < W; ++b) {
       const int k = wk[b];
       if (k < 0) continue;
@@ -115,13 +133,13 @@ __global__ void mvcc_bitsets_kernel(const int32_t* __restrict__ sp, int T, int R
         phh |= (lo >= 0) && (k >= lo) && (k < hi);
       }
     }
-    d |= (uint32_t)dh << (i - i0);
-    ph |= (uint32_t)phh << (i - i0);
   }
-  direct[idx] = d;
-  phantom[idx] = ph;
+  const uint32_t d = __ballot_sync(kFull, dh), ph = __ballot_sync(kFull, phh);
+  if ((threadIdx.x & 31) == 0) {
+    direct[word] = d;
+    phantom[word] = ph;
+  }
 }
-
 __global__ void mvcc_verok_kernel(const int32_t* __restrict__ rk, const uint8_t* __restrict__ rp,
                                   const uint32_t* __restrict__ rv, const uint8_t* __restrict__ cp,
                                   const uint32_t* __restrict__ cv, int T, int R,
@@ -143,12 +161,20 @@ __device__ __forceinline__ bool bit(const uint32_t* s, int t) {
   return (s[t >> 5] >> (t & 31)) & 1u;
 }
 
+// words of one conflict row in shared memory: odd, so the rows of a
+// warp's 32 transactions fall on 32 different banks
+__host__ __device__ inline int fix_row_words(int nw) { return nw | 1; }
+
 // Stage-2 mode (launch_vec != null): launch_vec [T,3] = creator_idx |
 // structural | ver_ok, creator sentinels -1 → false, -2 → true; writes
 // valid | conflict | phantom | creator_ok | policy_ok | sig_valid.
 // MVCC mode: ver_ok & pre_ok given; writes valid | conflict | phantom.
+// ld > 0: direct | phantom staged in shared memory as [T][ld] words;
+// ld == 0: the rounds read both matrices from global memory.  blockDim
+// is a multiple of 32: warp k handles the transactions of words k,
+// k + blockDim/32, ..., one per lane, and a ballot forms each word.
 __global__ void __launch_bounds__(kFixThreads)
-mvcc_fixpoint_kernel(int T, int nw, const uint32_t* __restrict__ direct,
+mvcc_fixpoint_kernel(int T, int nw, int ld, const uint32_t* __restrict__ direct,
                      const uint32_t* __restrict__ phantom, const uint8_t* __restrict__ ver_ok,
                      const uint8_t* __restrict__ pre_ok, const int32_t* __restrict__ launch_vec,
                      const uint8_t* __restrict__ sv, int n_sig,
@@ -157,65 +183,91 @@ mvcc_fixpoint_kernel(int T, int nw, const uint32_t* __restrict__ direct,
   uint32_t* vok = sm;
   uint32_t* cur = sm + nw;
   uint32_t* nxt = sm + 2 * nw;
-  __shared__ int changed;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int w = tid; w < nw; w += nt) vok[w] = 0u;
-  __syncthreads();
-  for (int t = tid; t < T; t += nt) {
-    bool v;
-    if (launch_vec != nullptr) {
-      const int ci = launch_vec[3 * t];
-      const bool cok = ci >= 0 ? sig_bit(sv, n_sig, ci) : (ci == -2);
-      const bool pok = policy_ok[t] != 0;
-      out[3 * T + t] = cok;
-      out[4 * T + t] = pok;
-      v = launch_vec[3 * t + 2] != 0 && launch_vec[3 * t + 1] != 0 && cok && pok;
-    } else {
-      v = ver_ok[t] != 0 && pre_ok[t] != 0;
+  uint32_t* conf = sm + 3 * nw;
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+  for (int base = tid - lane; base < T; base += nt) {
+    const int t = base + lane;
+    bool v = false;
+    if (t < T) {
+      if (launch_vec != nullptr) {
+        const int ci = launch_vec[3 * t];
+        const bool cok = ci >= 0 ? sig_bit(sv, n_sig, ci) : (ci == -2);
+        const bool pok = policy_ok[t] != 0;
+        out[3 * T + t] = cok;
+        out[4 * T + t] = pok;
+        v = launch_vec[3 * t + 2] != 0 && launch_vec[3 * t + 1] != 0 && cok && pok;
+      } else {
+        v = ver_ok[t] != 0 && pre_ok[t] != 0;
+      }
     }
-    if (v) atomicOr(vok + (t >> 5), 1u << (t & 31));
+    const uint32_t m = __ballot_sync(kFull, v);
+    if (lane == 0) vok[base >> 5] = cur[base >> 5] = m;
   }
   if (launch_vec != nullptr)
     for (int i = tid; i < n_sig; i += nt) out[5 * T + i] = sv[i] != 0;
+  if (ld > 0) {
+    // a warp per row, its lanes over the row's words below the diagonal
+    // (the rest are 0 and never read): coalesced loads, rows independent
+    const int warp = tid >> 5, warps = nt >> 5;
+#pragma unroll 4
+    for (int t = warp; t < T; t += warps)
+      for (int w = lane; w <= (t >> 5); w += 32)
+        conf[(size_t)t * ld + w] = direct[(size_t)t * nw + w] | phantom[(size_t)t * nw + w];
+  }
   __syncthreads();
-  for (int w = tid; w < nw; w += nt) cur[w] = vok[w];
-  __syncthreads();
+
+  // Jacobi rounds: valid[t] = vok[t] & !any(conflict row t & cur), a
+  // straight OR over the row's words; the system is strictly
+  // lower-triangular, so it settles after (chain depth + 1) rounds
   for (int it = 0; it <= T + 1; ++it) {
-    for (int w = tid; w < nw; w += nt) nxt[w] = 0u;
-    if (tid == 0) changed = 0;
-    __syncthreads();
-    for (int t = tid; t < T; t += nt) {
-      if (!bit(vok, t)) continue;
-      const uint32_t* dr = direct + (size_t)t * nw;
-      const uint32_t* pr = phantom + (size_t)t * nw;
-      bool hit = false;
-      for (int w = 0; w <= (t >> 5) && !hit; ++w) hit = ((dr[w] | pr[w]) & cur[w]) != 0u;
-      if (!hit) atomicOr(nxt + (t >> 5), 1u << (t & 31));
+    int moved = 0;
+    for (int base = tid - lane; base < T; base += nt) {
+      const int t = base + lane;
+      bool ok = false;
+      if (t < T && bit(vok, t)) {
+        uint32_t hit = 0u;
+        const int n = (t >> 5) + 1;
+        if (ld > 0) {
+          const uint32_t* row = conf + (size_t)t * ld;
+          for (int w = 0; w < n; ++w) hit |= row[w] & cur[w];
+        } else {
+          const uint32_t* dr = direct + (size_t)t * nw;
+          const uint32_t* pr = phantom + (size_t)t * nw;
+          for (int w = 0; w < n; ++w) hit |= (dr[w] | pr[w]) & cur[w];
+        }
+        ok = hit == 0u;
+      }
+      const uint32_t m = __ballot_sync(kFull, ok);
+      if (lane == 0) {
+        nxt[base >> 5] = m;
+        moved |= m != cur[base >> 5];
+      }
     }
-    __syncthreads();
-    for (int w = tid; w < nw; w += nt)
-      if (nxt[w] != cur[w]) changed = 1;
-    __syncthreads();
-    const bool again = changed != 0;
-    for (int w = tid; w < nw; w += nt) cur[w] = nxt[w];
-    __syncthreads();
+    const int again = __syncthreads_or(moved);
+    uint32_t* s = cur;
+    cur = nxt;
+    nxt = s;
     if (!again) break;
   }
+  // the flags: only a transaction that passed the version check and is
+  // not valid at the fixpoint has a conflict among valid ones, so only
+  // its rows are read again
   for (int t = tid; t < T; t += nt) {
-    const bool vo = bit(vok, t);
-    const uint32_t* dr = direct + (size_t)t * nw;
-    const uint32_t* pr = phantom + (size_t)t * nw;
-    bool dh = false, ph = false;
-    for (int w = 0; w <= (t >> 5); ++w) {
-      dh |= (dr[w] & cur[w]) != 0u;
-      ph |= (pr[w] & cur[w]) != 0u;
+    const bool v = bit(cur, t);
+    uint32_t dh = 0u, ph = 0u;
+    if (bit(vok, t) && !v) {
+      const uint32_t* dr = direct + (size_t)t * nw;
+      const uint32_t* pr = phantom + (size_t)t * nw;
+      for (int w = 0; w <= (t >> 5); ++w) {
+        dh |= dr[w] & cur[w];
+        ph |= pr[w] & cur[w];
+      }
     }
-    out[t] = bit(cur, t);
-    out[T + t] = dh && vo;
-    out[2 * T + t] = ph && vo;
+    out[t] = v;
+    out[T + t] = dh != 0u;
+    out[2 * T + t] = ph != 0u;
   }
 }
-
 }  // namespace
 
 extern "C" int fab_stage2_policy(const uint8_t* sv, int n_sig, const int32_t* gp, int Eb,
@@ -233,7 +285,7 @@ extern "C" int fab_stage2_policy(const uint8_t* sv, int n_sig, const int32_t* gp
 extern "C" int fab_mvcc_bitsets(const int32_t* sp, int T, int R, int W, int Q,
                                 uint32_t* direct, uint32_t* phantom, void* stream) {
   const int nw = (T + 31) / 32;
-  const long long n = (long long)T * nw;
+  const long long n = 32LL * T * nw;  // a warp per word
   if (n > 0) {
     const int threads = 256;
     mvcc_bitsets_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
@@ -253,17 +305,39 @@ extern "C" int fab_mvcc_verok(const int32_t* rk, const uint8_t* rp, const uint32
   return (int)cudaGetLastError();
 }
 
+// whether the fixpoint of T transactions stages direct | phantom in
+// shared memory: its 3 state words and T rows of fix_row_words fit
+extern "C" int fab_mvcc_fixpoint_in_smem(int T) {
+  const size_t nw = (size_t)(T + 31) / 32;
+  return (3 * nw + (size_t)T * fix_row_words((int)nw)) * 4 <= kFixSmemBytes;
+}
+
 extern "C" int fab_mvcc_fixpoint(int T, const uint32_t* direct, const uint32_t* phantom,
                                  const uint8_t* ver_ok, const uint8_t* pre_ok,
                                  const int32_t* launch_vec, const uint8_t* sv, int n_sig,
                                  const int32_t* policy_ok, int8_t* out, void* stream) {
   const int nw = (T + 31) / 32;
-  const size_t smem = 3 * (size_t)nw * sizeof(uint32_t);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const bool in_smem = fab_mvcc_fixpoint_in_smem(T) != 0;
+  const size_t smem = (3 * (size_t)nw + (in_smem ? (size_t)T * fix_row_words(nw) : 0)) * 4;
+  if (smem > kFixSmemBytes) return (int)cudaErrorInvalidValue;
   if (T > 0) {
+    if (smem > 48 * 1024) {
+      // past 48 KiB a kernel must opt in, once per device
+      static std::atomic<uint64_t> opted{0};
+      int dev = 0;
+      cudaGetDevice(&dev);
+      const uint64_t m = 1ull << (dev & 63);
+      if (!(opted.load() & m)) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            mvcc_fixpoint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFixSmemBytes);
+        if (e != cudaSuccess) return (int)e;
+        opted.fetch_or(m);
+      }
+    }
     const int threads = T < kFixThreads ? ((T + 31) / 32) * 32 : kFixThreads;
     mvcc_fixpoint_kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
-        T, nw, direct, phantom, ver_ok, pre_ok, launch_vec, sv, n_sig, policy_ok, out);
+        T, nw, in_smem ? fix_row_words(nw) : 0, direct, phantom, ver_ok, pre_ok, launch_vec, sv,
+        n_sig, policy_ok, out);
   }
   return (int)cudaGetLastError();
 }

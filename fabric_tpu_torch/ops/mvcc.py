@@ -52,15 +52,22 @@ def _relations(read_keys, write_keys, rq_lo, rq_hi):
     return direct & order, phantom & order
 
 
-def _fixpoint(direct, phantom, ver_ok):
+def jacobi(direct, phantom, ver_ok):
     """Jacobi iteration of the validity fixpoint from the optimistic
-    assignment (the reference's while_loop), then the flags."""
+    assignment (the reference's while_loop) → (valid, rounds): the
+    rounds the kernel runs, the last one finding no change."""
     T = ver_ok.shape[0]
     conflict = direct | phantom
     v, prev, it = ver_ok, ~ver_ok, 0
     while it <= T + 1 and bool((v != prev).any()):
         hit = (conflict & v[None, :]).any(dim=1)
         v, prev, it = ver_ok & ~hit, v, it + 1
+    return v, it
+
+
+def _fixpoint(direct, phantom, ver_ok):
+    """The validity fixpoint, then the flags."""
+    v, _ = jacobi(direct, phantom, ver_ok)
     return (v, (direct & v[None, :]).any(dim=1) & ver_ok,
             (phantom & v[None, :]).any(dim=1) & ver_ok)
 

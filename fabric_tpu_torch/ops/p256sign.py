@@ -3,9 +3,11 @@
 
 R = k·G is a fixed-base scalar multiplication: over a comb table
 ``T[j][d] = d · 16^(63−j) · G`` (affine, Montgomery form with R = 2^256,
-the verify kernel's domain) the ladder is 64 complete mixed adds, one
-per 4-bit digit of k, with no doublings; a digit-0 step keeps the
-running point, which starts at infinity.  Per batch of B digests:
+the verify kernel's domain) the ladder is complete mixed adds, one per
+nonzero 4-bit digit of k, with no doublings, so the 64 digits may be
+summed in C chains whose partial points are then added (``sign_chains``
+picks C per batch size; C changes the projective representative, not
+the point).  Per batch of B digests:
 
     host:    k = RFC 6979(d, e); k⁻¹ by one batch inversion mod n;
              k → [B, 16] int16 big-endian limbs (pad lanes k = 1)
@@ -104,35 +106,77 @@ def _words(x: torch.Tensor) -> torch.Tensor:
     return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
 
 
-def sign_batch_ref(limbs: torch.Tensor) -> torch.Tensor:
+# the chain counts the kernel takes
+CHAINS = (1, 2, 4, 8, 16)
+
+
+def sign_chains(B: int) -> int:
+    """Chains per lane for a B-lane batch: small batches split each
+    lane's 64 digit steps to shorten the dependent chain, larger ones
+    split less as the card fills.  The kernel runs TPI = 8 threads a
+    chain up to 3,072 lanes and 4 above, where 4 chains again lead.
+    The switch points come from card runs (``tools/launch_steps.py
+    --phase sign_shapes``, PERF.md §6)."""
+    if B <= 256:
+        return 16
+    if B <= 768:
+        return 8
+    if B <= 1664:
+        return 4
+    if B <= 3072:
+        return 2
+    return 4
+
+
+def sign_batch_ref(limbs: torch.Tensor, chains: int | None = None) -> torch.Tensor:
     """Plain ``p256_sign``: [B, 16] int16 big-endian nonce limbs →
-    [B, 2, 8] int32 (X̃, Z̃ of k·G, canonical Montgomery form)."""
-    dev = limbs.device
-    w = p256v3.recode_windows(limbs)  # [B, 64]
-    b_c, one_c, comb = _plain_tables(dev)
+    [B, 2, 8] int32 (X̃, Z̃ of k·G, canonical Montgomery form), in the
+    kernel's schedule at ``chains`` chains (``sign_chains(B)`` when
+    None): chain c takes digits c·64/C .. (c+1)·64/C − 1, starts from
+    its first digit's comb entry (infinity for a zero digit) and mixed-
+    adds the rest, a zero digit keeping the point; then adjacent
+    partials are summed pairwise by complete adds, log2(C) levels."""
     B = limbs.shape[0]
-    b = b_c.expand(B, -1)
-    zero = torch.zeros(B, fp256.LIMBS, dtype=torch.int64, device=dev)
-    X, Y, Z = zero, one_c.expand(B, -1), zero
-    for i in range(STEPS):
-        d = w[:, i]
-        g = comb[i][d]  # [B, 2, 16]
+    C = sign_chains(B) if chains is None else int(chains)
+    if C not in CHAINS:
+        raise ValueError(f"chains must be one of {CHAINS}, got {C}")
+    dev = limbs.device
+    S = STEPS // C
+    w = p256v3.recode_windows(limbs).reshape(B * C, S)  # row = lane·C + chain
+    b_c, one_c, comb = _plain_tables(dev)
+    n = B * C
+    step0 = (torch.arange(n, device=dev) % C) * S  # each row's first comb step
+    b = b_c.expand(n, -1)
+    zero = torch.zeros(n, fp256.LIMBS, dtype=torch.int64, device=dev)
+    one = one_c.expand(n, -1)
+    g = comb[step0, w[:, 0]]  # [n, 2, 16]
+    live = (w[:, 0] != 0).unsqueeze(-1)
+    X, Y, Z = (torch.where(live, a, c) for a, c in ((g[:, 0], zero), (g[:, 1], one), (one, zero)))
+    for s in range(1, S):
+        d = w[:, s]
+        g = comb[step0 + s, d]
         Rg = p256v3.pt_add_mixed((X, Y, Z), g[:, 0], g[:, 1], b)
         skip = (d == 0).unsqueeze(-1)
         X, Y, Z = (torch.where(skip, a, c) for a, c in zip((X, Y, Z), Rg))
+    while C > 1:  # adjacent partials, pairwise
+        pairs = [t.reshape(-1, 2, fp256.LIMBS) for t in (X, Y, Z)]
+        C //= 2
+        X, Y, Z = p256v3.pt_add(tuple(t[:, 0] for t in pairs), tuple(t[:, 1] for t in pairs),
+                                b_c.expand(B * C, -1))
     return torch.stack([_words(fp256.canon(X)), _words(fp256.canon(Z))], dim=1)
 
 
 def sign_batch_limbs(limbs: torch.Tensor) -> torch.Tensor:
-    """[B, 16] int16 nonce limbs → [B, 2, 8] int32.  A CPU tensor runs
-    ``sign_batch_ref``; a CUDA tensor launches the kernel."""
+    """[B, 16] int16 nonce limbs → [B, 2, 8] int32, at ``sign_chains(B)``
+    chains.  A CPU tensor runs ``sign_batch_ref``; a CUDA tensor
+    launches the kernel."""
     if limbs.dtype != torch.int16 or limbs.dim() != 2 or limbs.shape[1] != 16:
         raise ValueError(f"expected int16 [B, 16] nonce limbs, got {limbs.dtype} "
                          f"{tuple(limbs.shape)}")
     if limbs.device.type == "cpu":
         return sign_batch_ref(limbs)
     consts, comb = _kernel_tables(limbs.device)
-    return kernels.p256_sign(limbs.contiguous(), consts, comb)
+    return kernels.p256_sign(limbs.contiguous(), consts, comb, sign_chains(limbs.shape[0]))
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,37 @@
-"""Where a kernel's time goes: ``p256_verify`` at each team size, and the
-launch path's steps one at a time against the device's time alone.
+"""Where a kernel's time goes: ``p256_verify`` at each team size,
+``p256_sign`` at each team size and chain count, the stage-2 MVCC
+kernels alone and as one launch, and the launch path's steps one at a
+time against the device's time alone.
 
     python3 -m fabric_tpu_torch.tools.launch_steps [--parent-csrc DIR]
-        [--phase all|team_sizes|scatter|small] [--team-lanes 3072,6144,12288]
+        [--phase all|team_sizes|sign_shapes|stage2|scatter|small]
+        [--team-lanes 3072,6144,12288]
+        [--sign-lanes 16,32,64,128,256,512,1024,4096]
 
 Run from the repository root on a CUDA host: it reuses ``chip_smoke.py``'s
-operand builders.  One JSON line per measurement.
+operand builders.  One JSON line per measurement.  ``--parent-csrc``
+names another ``csrc`` directory (an older commit's, unpacked with
+``git archive``) whose kernels run beside this tree's.
 
 - ``team_sizes``: ``p256_verify`` built twice more with
   ``FAB_TEAM8_LANES`` set so that every batch runs at TPI = 8, or at 4,
   beside the wrapper (which picks by batch), on ``chip_smoke.py``'s
   adversarial frames at each of ``--team-lanes``; each build is checked
   against ``verify_batch_ref`` first.
+- ``sign_shapes``: ``p256_sign`` built twice more with
+  ``FAB_SIGN_TEAM8_LANES`` set so that every batch runs at TPI = 8, or
+  at 4, at every chain count (1, 2, 4, 8, 16), beside the wrapper
+  (``sign_chains`` and the source's TPI rule) and the parent's kernel,
+  on ``chip_smoke.py``'s nonces (edge nonces first) at each of
+  ``--sign-lanes``; each (TPI, C) is checked bit for bit against
+  ``sign_batch_ref(chains=C)``, the parent's on the affine x of 16 lanes.
+- ``stage2``: ``mvcc_bitsets`` and ``mvcc_fixpoint`` each alone on the
+  device (a CUDA graph) and the ``stage2_mvcc`` wrapper as one launch
+  (card clock, its allocation included), this tree's and the parent's
+  kernels, at two sets of operands: ``chip_smoke.stage2_inputs``
+  (T = 1024, a 20-deep chain) and the first block of ``chip_smoke.py``'s
+  main path, captured at its ``stage2_mvcc`` call; with the Jacobi round
+  count of each and the packed outputs checked equal.
 - ``scatter``: ``table_scatter`` on the 48 MiB resident table at k = 16
   and 2,048.  The wrapper's host microseconds per call (wall time over
   1,000 calls, then one synchronize) with the launch path as it was
@@ -21,11 +41,11 @@ operand builders.  One JSON line per measurement.
   wrappers have it (one checked call of the entry point), and with the
   error check written out in the wrapper; beside ``index_copy_``.  With
   ``--parent-csrc``, the older path also launches the kernel built from
-  that directory's ``resident.cu`` (one thread per row).  Then the same
-  variants' time per call on the card's clock (CUDA events around 100
-  calls), as ``chip_smoke.py`` reports ``ms``, and the device's time
-  alone per launch (200 launches captured in one CUDA graph, replayed)
-  of the kernel, ``index_copy_`` and the older kernel.
+  that directory's ``resident.cu``.  Then the same variants' time per
+  call on the card's clock (CUDA events around 100 calls), as
+  ``chip_smoke.py`` reports ``ms``, and the device's time alone per
+  launch (200 launches captured in one CUDA graph, replayed) of the
+  kernel, ``index_copy_`` and the older kernel.
 - ``small``: ``stage2_policy`` and ``resident_verok`` at their
   ``chip_smoke.py`` shapes, outputs allocated once: device alone, host
   microseconds and event time per call.
@@ -37,6 +57,7 @@ round (ABBA); the lines give medians and the rounds.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import subprocess
@@ -113,9 +134,10 @@ def abba(variants: dict, measure) -> dict:
 
 
 def _build_libs(specs: dict) -> dict:
-    """{tag: (source .cu, extra nvcc flags, entry)} → {tag: ctypes library},
-    each built by its own nvcc, all started together, with the flags
-    ``kernels.build`` uses; ``entry`` is bound with the wrapper's types."""
+    """{tag: (source .cu, extra nvcc flags, entries)} → {tag: ctypes
+    library}, each built by its own nvcc, all started together, with the
+    flags ``kernels.build`` uses.  ``entries`` is one entry point's name,
+    bound with the wrapper's types, or {name: argtypes}."""
     from fabric_tpu_torch import kernels
 
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -130,14 +152,22 @@ def _build_libs(specs: dict) -> dict:
         if proc.wait() != 0:
             raise RuntimeError(f"nvcc failed for {tag}")
         lib = ctypes.CDLL(str(out))
-        entry = specs[tag][2]
-        lib_name = next(n for n, fns in kernels._SIGS.items() if entry in fns)
-        getattr(lib, entry).argtypes = kernels._SIGS[lib_name][entry]
-        getattr(lib, entry).restype = ctypes.c_int
+        entries = specs[tag][2]
+        if isinstance(entries, str):
+            lib_name = next(n for n, fns in kernels._SIGS.items() if entries in fns)
+            entries = {entries: kernels._SIGS[lib_name][entries]}
+        for name, argtypes in entries.items():
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
         lib.fab_error_string.argtypes = [ctypes.c_int]
         lib.fab_error_string.restype = ctypes.c_char_p
         libs[tag] = lib
     return libs
+
+
+def _check(rc: int) -> None:
+    if rc:
+        raise RuntimeError(f"CUDA error {rc}")
 
 
 def scatter_variants(parent_lib):
@@ -268,10 +298,8 @@ def phase_team_sizes(dev, shapes) -> None:
                         "tpi4": (src, ["-DFAB_TEAM8_LANES=0"], "fab_p256_verify")})
 
     def launch(lib, frame, consts, out):
-        rc = lib.fab_p256_verify(frame.data_ptr(), frame.shape[0], consts.data_ptr(),
-                                 out.data_ptr(), kernels._stream(frame))
-        if rc:
-            raise RuntimeError(f"CUDA error {rc}")
+        _check(lib.fab_p256_verify(frame.data_ptr(), frame.shape[0], consts.data_ptr(),
+                                   out.data_ptr(), kernels._stream(frame)))
 
     net = cs.Net(cs.SEED)
     consts = v3._kernel_consts(dev)
@@ -292,15 +320,187 @@ def phase_team_sizes(dev, shapes) -> None:
         log("team_sizes", lanes=lanes, **abba(calls, lambda fn: event_ms(fn, 5)))
 
 
+def phase_sign_shapes(dev, shapes, parent_csrc) -> None:
+    """p256_sign at each team size alone (builds of p256_sign.cu whose
+    FAB_SIGN_TEAM8_LANES sends every batch to one size) and each chain
+    count, at each of ``shapes`` lanes, beside the wrapper's own choice
+    and the parent's kernel."""
+    import chip_smoke as cs
+    from fabric_tpu_torch import kernels
+    from fabric_tpu_torch.crypto import ec_ref
+    from fabric_tpu_torch.ops import p256sign
+    from fabric_tpu_torch.ops import p256v3 as v3
+
+    src = kernels.CSRC / "p256_sign.cu"
+    sig = {"fab_p256_sign": kernels._SIGS["p256_sign"]["fab_p256_sign"]}
+    specs = {"tpi8": (src, ["-DFAB_SIGN_TEAM8_LANES=2147483647"], sig),
+             "tpi4": (src, ["-DFAB_SIGN_TEAM8_LANES=0"], sig)}
+    if parent_csrc is not None:  # one thread a lane: (limbs, B, consts, comb, out, stream)
+        P, I = ctypes.c_void_p, ctypes.c_int
+        specs["parent"] = (parent_csrc / "p256_sign.cu", [],
+                           {"fab_p256_sign": [P, I, P, P, P, P]})
+    libs = _build_libs(specs)
+    consts, comb = p256sign._kernel_tables(dev)
+    rng = np.random.default_rng(cs.SEED + 7)
+    for lanes in shapes:
+        ks = cs.sign_scalars(lanes, rng)
+        limbs = torch.from_numpy(v3._limbs16(ks)).to(dev)
+        out = torch.empty((lanes, 2, 8), dtype=torch.int32, device=dev)
+        calls = {}
+        for tpi in (8, 4):
+            fn = libs[f"tpi{tpi}"].fab_p256_sign
+            for C in p256sign.CHAINS:
+                call = (lambda fn=fn, C=C: _check(fn(
+                    limbs.data_ptr(), lanes, C, consts.data_ptr(), comb.data_ptr(),
+                    out.data_ptr(), kernels._stream(limbs))))
+                call()
+                if not torch.equal(out, p256sign.sign_batch_ref(limbs, chains=C)):
+                    raise AssertionError(f"p256_sign TPI = {tpi}, C = {C}, {lanes} lanes differs")
+                calls[f"tpi{tpi}_c{C}"] = call
+        chains = p256sign.sign_chains(lanes)
+        calls["wrapper"] = lambda chains=chains: kernels.p256_sign(limbs, consts, comb, chains)
+        if "parent" in libs:
+            fn = libs["parent"].fab_p256_sign
+            calls["parent"] = lambda fn=fn: _check(fn(
+                limbs.data_ptr(), lanes, consts.data_ptr(), comb.data_ptr(), out.data_ptr(),
+                kernels._stream(limbs)))
+            calls["parent"]()
+            xz = out.cpu().numpy().view(np.uint32)[:16]
+            xs, zs = p256sign._to_ints(xz[:, 0]), p256sign._to_ints(xz[:, 1])
+            if any(X * pow(Z, -1, ec_ref.P) % ec_ref.P != ec_ref.pt_mul(k, ec_ref.G)[0]
+                   for k, X, Z in zip(ks, xs, zs)):
+                raise AssertionError(f"the parent's p256_sign differs at {lanes} lanes")
+        log("sign_shapes", lanes=lanes, wrapper_tpi=kernels.p256_sign_tpi(lanes),
+            wrapper_chains=chains, **abba(calls, lambda fn: event_ms(fn, 10)))
+
+
+@contextlib.contextmanager
+def capture_mvcc():
+    """The operands of the first ``kernels.stage2_mvcc`` call inside the
+    block, cloned on the launching stream: [(static_p, (R, W, Q),
+    launch_vec, sig_valid, policy_ok, out)]."""
+    from fabric_tpu_torch import kernels
+
+    seen, fn = [], kernels.stage2_mvcc
+
+    def wrapped(static_p, R, W, Q, launch_vec, sig_valid, policy_ok, out):
+        if not seen:
+            seen.append((static_p.clone(), (R, W, Q), launch_vec.clone(), sig_valid.clone(),
+                         policy_ok.clone(), out.clone()))
+        return fn(static_p, R, W, Q, launch_vec, sig_valid, policy_ok, out)
+
+    kernels.stage2_mvcc = wrapped
+    try:
+        yield seen
+    finally:
+        kernels.stage2_mvcc = fn
+
+
+def mvcc_launches(bitsets, fixpoint, sp, dims, lv, sv, pok, out):
+    """Over one block's stage-2 operands and C entry points (``kernels``'
+    or another build's): (bitsets alone, fixpoint alone, both as the
+    ``stage2_mvcc`` wrapper runs them, its allocation included).  The
+    first two share one direct / phantom allocation."""
+    from fabric_tpu_torch import kernels
+
+    T = sp.shape[0]
+    R, W, Q = dims
+    d0, p0 = kernels._bitsets(sp, R, W, Q)
+
+    def bits(d=d0, ph=p0):
+        _check(bitsets(sp.data_ptr(), T, R, W, Q, d.data_ptr(), ph.data_ptr(),
+                       kernels._stream(sp)))
+
+    bits()  # the words the fixpoint alone reads
+
+    def fix(d=d0, ph=p0):
+        _check(fixpoint(T, d.data_ptr(), ph.data_ptr(), None, None, lv.data_ptr(),
+                        sv.data_ptr(), sv.shape[0], pok.data_ptr(), out.data_ptr(),
+                        kernels._stream(sp)))
+
+    def both():
+        d, ph = kernels._bitsets(sp, R, W, Q)
+        bits(d, ph)
+        fix(d, ph)
+
+    return bits, fix, both
+
+
+def mvcc_rounds(sp, dims, lv, sv, pok) -> int:
+    """The Jacobi rounds of one block's fixpoint (its plain version)."""
+    from fabric_tpu_torch.ops import mvcc
+    from fabric_tpu_torch.peer import device_block as db
+
+    R, W, Q = dims
+    T = sp.shape[0]
+    direct, phantom = mvcc._relations(sp[:, :R], sp[:, R:R + W], sp[:, R + W:R + W + Q],
+                                      sp[:, R + W + Q:])
+    pre = (lv[:, 1] != 0) & db.creator_ok_ref(sv, lv[:, 0]) & (pok[:T] != 0)
+    return mvcc.jacobi(direct, phantom, (lv[:, 2] != 0) & pre)[1]
+
+
+def phase_stage2(dev, parent_csrc) -> None:
+    """The MVCC kernels alone and as one launch, this tree's and the
+    parent's, at ``stage2_inputs`` and at the main path's first block."""
+    import chip_smoke as cs
+    from fabric_tpu_torch import kernels
+    from fabric_tpu_torch.peer import device_block as db
+
+    entries = {"tree": (kernels._entries["fab_mvcc_bitsets"].fn,
+                        kernels._entries["fab_mvcc_fixpoint"].fn)}
+    if parent_csrc is not None:
+        sigs = kernels._SIGS["stage2"]
+        lib = _build_libs({"parent": (parent_csrc / "stage2.cu", [],
+                                      {n: sigs[n] for n in ("fab_mvcc_bitsets",
+                                                            "fab_mvcc_fixpoint")})})["parent"]
+        entries["parent"] = (lib.fab_mvcc_bitsets, lib.fab_mvcc_fixpoint)
+
+    operands = {}
+    sv, lv, groups, sp, dims = cs.stage2_inputs(dev)
+    with capture_mvcc() as seen:
+        db.stage2(sv, lv, groups, sp, dims)
+    operands["stage2_inputs"] = seen[0]
+    blocks, _, seed_rows = cs.build_blocks(cs.Net(cs.SEED))
+    with capture_mvcc() as seen:
+        cs.run_pipeline(blocks, seed_rows, "cuda")
+    operands["main_block"] = seen[0]
+    torch.cuda.synchronize()
+
+    for name, (sp, dims, lv, sv, pok, out) in operands.items():
+        calls, outs = {}, {}
+        for tag, (b, f) in entries.items():
+            o = out.clone()
+            bits, fix, both = mvcc_launches(b, f, sp, dims, lv, sv, pok, o)
+            both()
+            torch.cuda.synchronize()
+            outs[tag] = o.clone()
+            calls[f"{tag}_bitsets_device_us"] = lambda fn=bits: graph_us(fn)
+            calls[f"{tag}_fixpoint_device_us"] = lambda fn=fix: graph_us(fn)
+            calls[f"{tag}_wrapper_event_ms"] = lambda fn=both: event_ms(fn)
+        want = outs["tree"]
+        for tag, o in outs.items():
+            if not torch.equal(o, want):
+                raise AssertionError(f"stage2 {name}: the {tag} kernels differ from the tree's")
+        kernels.stage2_mvcc(sp, *dims, lv, sv, pok, out)
+        if not torch.equal(out, want):
+            raise AssertionError(f"stage2 {name}: the wrapper differs")
+        T = sp.shape[0]
+        log("stage2_kernels", operands=name, T=T, dims=list(dims),
+            rounds=mvcc_rounds(sp, dims, lv, sv, pok),
+            smem=kernels.mvcc_fixpoint_in_smem(T), **abba(calls, lambda m: m()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("launch_steps: needs a CUDA device", file=sys.stderr)
         return 2
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-csrc", type=Path, default=None,
-                    help="a csrc directory whose resident.cu is the older table_scatter")
-    ap.add_argument("--phase", choices=("all", "team_sizes", "scatter", "small"), default="all")
+                    help="an older csrc directory whose kernels run beside this tree's")
+    ap.add_argument("--phase", default="all",
+                    choices=("all", "team_sizes", "sign_shapes", "stage2", "scatter", "small"))
     ap.add_argument("--team-lanes", default="3072,6144,12288")
+    ap.add_argument("--sign-lanes", default="16,32,64,128,256,512,1024,4096")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     from fabric_tpu_torch import kernels
@@ -308,17 +508,22 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     log("device", nvidia_smi=smi, torch=torch.__version__)
-    kernels.build(("resident", "stage2", "p256_verify"))
-    parent = None
-    if args.parent_csrc:
-        parent = _build_libs({"parent": (args.parent_csrc / "resident.cu", [],
-                                         "fab_table_scatter")})["parent"]
+    kernels.build(("resident", "stage2", "p256_verify", "p256_sign"))
     dev = torch.device("cuda")
-    if args.phase in ("all", "team_sizes"):
+    run = lambda phase: args.phase in ("all", phase)
+    if run("team_sizes"):
         phase_team_sizes(dev, [int(x) for x in args.team_lanes.split(",")])
-    if args.phase in ("all", "scatter"):
+    if run("sign_shapes"):
+        phase_sign_shapes(dev, [int(x) for x in args.sign_lanes.split(",")], args.parent_csrc)
+    if run("stage2"):
+        phase_stage2(dev, args.parent_csrc)
+    if run("scatter"):
+        parent = None
+        if args.parent_csrc:
+            parent = _build_libs({"parent": (args.parent_csrc / "resident.cu", [],
+                                             "fab_table_scatter")})["parent"]
         phase_scatter(dev, parent)
-    if args.phase in ("all", "small"):
+    if run("small"):
         phase_small_kernels(dev)
     return 0
 

@@ -113,3 +113,21 @@ def test_entry_points_raise_without_cuda():
     assert BlockValidator(PolicyProvider({}), MemVersionedDB(), device="cpu",
                           msp=MSPManager()).device.type == "cpu"
     assert sha256.sha256_host([b"abc"], device="cpu")[0].hex().startswith("ba7816bf")
+
+
+def test_chip_smoke_without_the_package_exits_2_with_one_line(tmp_path):
+    """``chip_smoke.py`` in a directory that holds nothing else of the
+    repository: exit 2, one line on stderr that names the missing
+    package, no traceback and no result on stdout."""
+    import os
+    import shutil
+
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 2
+    assert out.stdout == ""
+    lines = out.stderr.strip().splitlines()
+    assert len(lines) == 1 and "fabric_tpu_torch" in lines[0], out.stderr
+    assert "Traceback" not in out.stderr

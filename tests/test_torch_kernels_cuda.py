@@ -261,6 +261,115 @@ def test_p256_sign_kernel_matches_plain_and_oracle(cuda):
     assert sigs == [ec_ref.SigningKey(d).sign_digest(e) for e in digests]
 
 
+# the chain-count switch points of sign_chains, and the source's
+# FAB_SIGN_TEAM8_LANES (the TPI switch)
+SIGN_SWITCHES = (256, 768, 1664, 3072)
+
+
+@pytest.mark.parametrize("lanes", sorted({1, 15, 16, 17, 256, 4096,
+                                          *(b + d for b in SIGN_SWITCHES for d in (-1, 0, 1))}))
+def test_p256_sign_kernel_at_lane_counts(cuda, lanes):
+    """Unpadded batches on each side of every chain-count and team-size
+    switch: bit-equal to the plain version at the chain count the
+    wrapper picks, and X / Z of a few lanes equal to ``ec_ref``'s x."""
+    from fabric_tpu_torch import kernels
+    from fabric_tpu_torch.ops import p256sign
+
+    N = ec_ref.N
+    rng = np.random.default_rng(lanes)
+    ks = [1, N - 1, 0xFFFFFFFF << 224, (1 << 128) - 1, 7 << 252][:lanes]
+    ks += [int.from_bytes(rng.bytes(32), "big") % (N - 1) + 1 for _ in range(lanes - len(ks))]
+    lt = torch.from_numpy(v3._limbs16(ks)).to(cuda)
+    C = p256sign.sign_chains(lanes)
+    got = kernels.p256_sign(lt, *p256sign._kernel_tables(cuda), C)
+    torch.cuda.synchronize()
+    assert torch.equal(got, p256sign.sign_batch_ref(lt, chains=C))
+    assert torch.equal(got, p256sign.sign_batch_limbs(lt))
+    xz = got.cpu().numpy().view(np.uint32)
+    for i in {0, lanes // 2, lanes - 1}:
+        X, Z = p256sign._to_ints(xz[i:i + 1, 0])[0], p256sign._to_ints(xz[i:i + 1, 1])[0]
+        assert X * pow(Z, -1, ec_ref.P) % ec_ref.P == ec_ref.pt_mul(ks[i], ec_ref.G)[0]
+
+
+@pytest.mark.parametrize("chains", [1, 2, 4, 8, 16])
+def test_p256_sign_kernel_at_every_chain_count(cuda, chains):
+    from fabric_tpu_torch import kernels
+    from fabric_tpu_torch.ops import p256sign
+
+    rng = np.random.default_rng(29)
+    ks = [int.from_bytes(rng.bytes(32), "big") % (ec_ref.N - 1) + 1 for _ in range(37)]
+    lt = torch.from_numpy(v3._limbs16(ks)).to(cuda)
+    got = kernels.p256_sign(lt, *p256sign._kernel_tables(cuda), chains)
+    torch.cuda.synchronize()
+    assert torch.equal(got, p256sign.sign_batch_ref(lt, chains=chains))
+
+
+def _mvcc_operands(dev, T, seed=31):
+    """Random keys, a conflict chain up to 60 deep across the words, and
+    range reads holding phantoms; a stage-2 launch vector."""
+    rng = np.random.default_rng(seed)
+    R, W, Q = 2, 2, 1
+    sp = np.full((T, R + W + 2 * Q), -1, np.int32)
+    sp[:, :R + W] = rng.integers(-1, max(4, T), (T, R + W))
+    depth = min(T - 1, 60)
+    for i in range(depth):
+        j = T - depth + i
+        sp[j, 0], sp[j - 1, R] = 10 * T + i, 10 * T + i
+    nq = max(1, T // 8)
+    rq = rng.choice(T, nq, replace=False)
+    sp[rq, R + W] = rng.integers(0, max(4, T), nq)
+    sp[rq, R + W + Q] = sp[rq, R + W] + rng.integers(1, 12, nq)
+    n_sig = 2 * T + 8
+    sv = rng.random(n_sig) < 0.9
+    lv = np.zeros((T, 3), np.int32)
+    lv[:, 0] = rng.integers(-2, n_sig, T)
+    lv[:, 1] = rng.random(T) < 0.95
+    lv[:, 2] = rng.random(T) < 0.9
+    lv[T - depth - 1:, :] = (-2, 1, 1)
+    pok = (rng.random(T + 1) < 0.95).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return t(sp), (R, W, Q), t(sv), t(lv), t(pok)
+
+
+def _largest_smem_t():
+    from fabric_tpu_torch import kernels
+
+    T = 1
+    while kernels.mvcc_fixpoint_in_smem(T + 1):
+        T += 1
+    return T
+
+
+@pytest.mark.parametrize("where", ["1", "33", "1024", "smem_max", "smem_max+1"])
+def test_mvcc_kernels_at_sizes(cuda, where):
+    """``stage2_mvcc`` and ``mvcc_validate_hostver`` at T = 1, 33, 1024,
+    the largest T whose fixpoint stages its rows in shared memory, and
+    one past it (the rounds read global memory), bit-equal to the plain
+    relations and fixpoint."""
+    from fabric_tpu_torch import kernels
+
+    T = _largest_smem_t() + where.endswith("+1") if where.startswith("smem") else int(where)
+    assert kernels.mvcc_fixpoint_in_smem(T) == (where != "smem_max+1")
+    sp, (R, W, Q), sv, lv, pok = _mvcc_operands(cuda, T)
+    cols = lambda a, b: sp[:, a:b].contiguous()
+    n_sig = sv.shape[0]
+    out = torch.zeros(5 * T + n_sig, dtype=torch.int8, device=cuda)
+    kernels.stage2_mvcc(sp, R, W, Q, lv, sv, pok, out)
+    direct, phantom = mvcc._relations(cols(0, R), cols(R, R + W), cols(R + W, R + W + Q),
+                                      cols(R + W + Q, R + W + 2 * Q))
+    cok = db.creator_ok_ref(sv, lv[:, 0])
+    pre = (lv[:, 1] != 0) & cok & (pok[:T] != 0)
+    v, c, ph = mvcc._fixpoint(direct, phantom, (lv[:, 2] != 0) & pre)
+    want = torch.cat([v, c, ph, cok, pok[:T] != 0, sv]).to(torch.int8)
+    assert torch.equal(out, want)
+    hv = (cols(0, R), lv[:, 2] != 0, cols(R, R + W), cols(R + W, R + W + Q),
+          cols(R + W + Q, R + W + 2 * Q), pre)
+    for a, b in zip(mvcc.mvcc_validate_hostver(*hv), mvcc.mvcc_validate_hostver_ref(*hv)):
+        assert torch.equal(a, b)
+    if T > 64:
+        assert 0 < int(v.sum()) < T and bool(c.any()) and bool(ph.any())
+
+
 def test_sha256_kernel_matches_plain_and_hashlib(cuda):
     import hashlib
 

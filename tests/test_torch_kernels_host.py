@@ -65,6 +65,7 @@ using std::max;
 using std::min;
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(x)
@@ -84,30 +85,47 @@ template <class T> static T atomicOr(T* p, T v) { T o = *p; *p |= v; return o; }
 template <class T> static T atomicMin(T* p, T v) { T o = *p; if (v < o) *p = v; return o; }
 static uint32_t host_smem[1 << 16];
 
-// One block of threads: a std::thread per CUDA thread, a barrier, a
-// double-buffered exchange array for the warp collectives and the
-// block's shared memory.  Every thread of a block makes the same
-// sequence of collective calls, so one barrier per call suffices: a
-// buffer is written again only two calls later, after every thread has
-// passed the barrier of the call in between.
+// One block of threads: a std::thread per CUDA thread, a barrier for
+// the block and one for each warp, a double-buffered exchange array for
+// the collectives and the block's shared memory.  The threads of a warp
+// make the same sequence of warp collectives (shuffles, votes), and the
+// threads of a block the same sequence of block barriers, so one
+// barrier per call suffices: a buffer is written again only two calls
+// later, after every thread concerned has passed the barrier of the
+// call in between.  A warp's collectives wait for its own threads only,
+// as on the card, so warps may run loops of different lengths.
 struct HostBlock {
-  explicit HostBlock(int n) : bar(n) {}
+  explicit HostBlock(int n) : bar(n) {
+    for (int w = 0; w < n; w += 32) warp_bar.emplace_back(new std::barrier<>(std::min(32, n - w)));
+  }
   std::barrier<> bar;
+  std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
   uint64_t xch[2][1024];
+  uint64_t bxch[2][1024];
   alignas(16) uint32_t smem[1 << 14];
 };
 static thread_local HostBlock* host_block = nullptr;  // null: one-thread launchers
-static thread_local unsigned host_calls = 0;
+static thread_local unsigned host_calls = 0, host_block_calls = 0;
 static uint32_t* host_block_smem() { return host_block->smem; }
 static void __syncthreads() {
   if (host_block) host_block->bar.arrive_and_wait();
 }
-static void __syncwarp(unsigned = 0xFFFFFFFFu) { __syncthreads(); }
+static void __syncwarp(unsigned = 0xFFFFFFFFu) {
+  if (host_block) host_block->warp_bar[threadIdx.x / 32]->arrive_and_wait();
+}
 static const uint64_t* host_exchange(uint64_t w) {
   uint64_t* buf = host_block->xch[host_calls++ & 1];
   buf[threadIdx.x] = w;
-  host_block->bar.arrive_and_wait();
+  host_block->warp_bar[threadIdx.x / 32]->arrive_and_wait();
   return buf;
+}
+static int __syncthreads_or(int pred) {
+  uint64_t* buf = host_block->bxch[host_block_calls++ & 1];
+  buf[threadIdx.x] = pred ? 1u : 0u;
+  host_block->bar.arrive_and_wait();
+  int r = 0;
+  for (unsigned t = 0; t < blockDim.x; ++t) r |= (int)buf[t];
+  return r;
 }
 template <class T> static T host_read(const uint64_t* buf, int tid) {
   T r;
@@ -225,23 +243,27 @@ extern "C" void host_policy(const uint8_t* sv, int n_sig, const int32_t* gp, int
   for (int e = 0; e < Eb; ++e) { blockIdx.x = e;
     stage2_policy_kernel(sv, n_sig, gp, Eb, S, P, plan, pok, T, safe); }
 }
+// one warp per word, two warps a block
 extern "C" void host_bitsets(const int32_t* sp, int T, int R, int W, int Q, uint32_t* d,
                              uint32_t* p) {
   const int nw = (T + 31) / 32;
-  blockDim.x = 1;
-  for (long i = 0; i < (long)T * nw; ++i) { blockIdx.x = i;
-    mvcc_bitsets_kernel(sp, T, R, W, Q, nw, d, p); }
+  host_launch((T * nw + 1) / 2, 64, 8, [&] { mvcc_bitsets_kernel(sp, T, R, W, Q, nw, d, p); });
 }
 extern "C" void host_verok(const int32_t* rk, const uint8_t* rp, const uint32_t* rv,
                            const uint8_t* cp, const uint32_t* cv, int T, int R, uint8_t* vo) {
   blockDim.x = 1;
   for (int t = 0; t < T; ++t) { blockIdx.x = t; mvcc_verok_kernel(rk, rp, rv, cp, cv, T, R, vo); }
 }
+// one block of `threads` (a multiple of 32); in_smem: direct | phantom
+// staged in shared memory, else read from global memory in each round
 extern "C" void host_fixpoint(int T, const uint32_t* d, const uint32_t* p, const uint8_t* vo,
                               const uint8_t* po, const int32_t* lv, const uint8_t* sv, int n_sig,
-                              const int32_t* pok, int8_t* out) {
-  blockDim.x = 1;
-  mvcc_fixpoint_kernel(T, (T + 31) / 32, d, p, vo, po, lv, sv, n_sig, pok, out);
+                              const int32_t* pok, int8_t* out, int threads, int in_smem) {
+  const int nw = (T + 31) / 32;
+  host_launch(1, threads, 1, [&] {
+    mvcc_fixpoint_kernel(T, nw, in_smem ? fix_row_words(nw) : 0, d, p, vo, po, lv, sv, n_sig,
+                         pok, out);
+  });
 }
 """,
     "resident": r"""
@@ -303,10 +325,18 @@ extern "C" void host_v2_settle(const int32_t* c, int mod, const int32_t* in, int
 }
 """,
     "p256_sign": r"""
-extern "C" void host_sign(const int16_t* limbs, int B, const uint32_t* c, const uint32_t* comb,
-                          uint32_t* out) {
-  blockDim.x = 1;
-  for (int i = 0; i < B; ++i) { blockIdx.x = i; p256_sign_kernel(limbs, B, c, comb, out); }
+// the team kernel at TPI threads per chain, `chains` chains per lane
+template <int TPI>
+static void host_sign_tpi(const int16_t* limbs, int B, int chains, const uint32_t* c,
+                          const uint32_t* comb, uint32_t* out, int concurrent) {
+  const int teams = sign_block_teams(chains);
+  host_launch((B * chains + teams - 1) / teams, teams * TPI, concurrent,
+              [&] { p256_sign_kernel<TPI>(limbs, B, chains, c, comb, out); });
+}
+extern "C" void host_sign(const int16_t* limbs, int B, int chains, const uint32_t* c,
+                          const uint32_t* comb, uint32_t* out, int tpi, int concurrent) {
+  if (tpi == 8) host_sign_tpi<8>(limbs, B, chains, c, comb, out, concurrent);
+  if (tpi == 4) host_sign_tpi<4>(limbs, B, chains, c, comb, out, concurrent);
 }
 """,
 }
@@ -483,7 +513,8 @@ def test_stage2_kernel_sources_match_plain(host_kernels, seed):
     nw = (T + 31) // 32
     d, ph = np.zeros((T, nw), np.uint32), np.zeros((T, nw), np.uint32)
     lib.host_bitsets(_p(sp), T, R, W, Q, _p(d), _p(ph))
-    lib.host_fixpoint(T, _p(d), _p(ph), None, None, _p(lv), _p(svb), n_sig, _p(pok), _p(out))
+    lib.host_fixpoint(T, _p(d), _p(ph), None, None, _p(lv), _p(svb), n_sig, _p(pok), _p(out),
+                      64, 1)
     assert np.array_equal(out, want)
     assert 0 < want[:T].sum() < T
 
@@ -500,7 +531,7 @@ def test_stage2_kernel_sources_match_plain(host_kernels, seed):
                    T, R, _p(vo))
     o3 = np.zeros(3 * T, np.int8)
     lib.host_fixpoint(T, _p(d), _p(ph), _p(vo), _p(pre.astype(np.uint8)), None, None, 0,
-                      None, _p(o3))
+                      None, _p(o3), 64, 1)
     c = lambda a: t(np.ascontiguousarray(a))
     ref = mvcc.mvcc_validate_ref(c(rk), c(rp), c(rv.view(np.int32)), c(cp), c(cv.view(np.int32)),
                                  c(sp[:, R:R + W]), c(sp[:, R + W:R + W + Q]),
@@ -508,25 +539,115 @@ def test_stage2_kernel_sources_match_plain(host_kernels, seed):
     assert np.array_equal(o3.astype(bool), torch.cat(ref).numpy())
 
 
-def _sign_limbs(ks):
-    limbs = np.zeros((v3._bucket(len(ks)), 16), np.int16)
-    limbs[:len(ks)] = v3._limbs16(ks)
-    limbs[len(ks):, -1] = 1
-    return limbs
+def _mvcc_operands(seed, T):
+    """Random keys, a conflict chain as deep as T allows (crossing the
+    32-transaction words), and range reads holding phantoms."""
+    rng = np.random.default_rng(seed)
+    R, W, Q = 2, 2, 1
+    sp = np.full((T, R + W + 2 * Q), -1, np.int32)
+    sp[:, :R + W] = rng.integers(-1, max(4, T), (T, R + W))
+    depth = min(T - 1, 60)
+    for i in range(depth):  # T - 1 - depth .. T - 1: each reads the one before's write
+        j = T - depth + i
+        sp[j, 0], sp[j - 1, R] = 10_000 + i, 10_000 + i
+    nq = max(1, T // 8)
+    rq = rng.choice(T, nq, replace=False)
+    sp[rq, R + W] = rng.integers(0, max(4, T), nq)
+    sp[rq, R + W + Q] = sp[rq, R + W] + rng.integers(1, 12, nq)
+    n_sig = 2 * T + 8
+    sv = rng.random(n_sig) < 0.9
+    lv = np.zeros((T, 3), np.int32)
+    lv[:, 0] = rng.integers(-2, n_sig, T)
+    lv[:, 1] = rng.random(T) < 0.95
+    lv[:, 2] = rng.random(T) < 0.9
+    lv[T - depth - 1:, :] = (-2, 1, 1)  # the chain starts valid
+    pok = (rng.random(T + 1) < 0.95).astype(np.int32)
+    return sp, (R, W, Q), sv, lv, pok
 
 
-def test_sign_kernel_source_matches_plain_and_oracle(host_kernels):
+def _words_of(rel):
+    """[T, T] bool → [T, ceil(T/32)] uint32, bit i % 32 of word i // 32."""
+    T = rel.shape[0]
+    pad = np.zeros((T, -(-T // 32) * 32), bool)
+    pad[:, :T] = rel
+    return np.packbits(pad.reshape(T, -1, 32)[..., ::-1], axis=-1,
+                       bitorder="big").view(">u4").astype(np.uint32).reshape(T, -1)
+
+
+@pytest.mark.parametrize("T", [1, 31, 33, 160])
+@pytest.mark.parametrize("in_smem", [1, 0])
+def test_mvcc_kernel_sources_match_plain_at_word_edges(host_kernels, T, in_smem):
+    """The warp-ballot bitsets and the fixpoint (direct | phantom staged
+    in shared memory, or read from global memory in each round) at T on
+    each side of a 32-transaction word and past a 64-thread block, with a
+    chain up to 60 deep; stage-2 and MVCC modes, bit-equal to the plain
+    relations and fixpoint."""
+    lib = host_kernels["stage2"]
+    sp, (R, W, Q), sv, lv, pok = _mvcc_operands(T, T)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    direct, phantom = mvcc._relations(t(sp[:, :R]), t(sp[:, R:R + W]), t(sp[:, R + W:R + W + Q]),
+                                      t(sp[:, R + W + Q:]))
+    nw = (T + 31) // 32
+    d, ph = np.zeros((T, nw), np.uint32), np.zeros((T, nw), np.uint32)
+    lib.host_bitsets(_p(sp), T, R, W, Q, _p(d), _p(ph))
+    assert np.array_equal(d, _words_of(direct.numpy()))
+    assert np.array_equal(ph, _words_of(phantom.numpy()))
+    threads = min(64, nw * 32)
+
+    n_sig = len(sv)
+    out = np.zeros(5 * T + n_sig, np.int8)
+    svb = sv.astype(np.uint8)
+    lib.host_fixpoint(T, _p(d), _p(ph), None, None, _p(lv), _p(svb), n_sig, _p(pok), _p(out),
+                      threads, in_smem)
+    cok = db.creator_ok_ref(t(sv), t(lv[:, 0])).numpy()
+    pre = (lv[:, 1] != 0) & cok & (pok[:T] != 0)
+    v, c, p_ = mvcc._fixpoint(direct, phantom, t((lv[:, 2] != 0) & pre))
+    want = np.concatenate([v, c, p_, cok, pok[:T] != 0, sv]).astype(np.int8)
+    assert np.array_equal(out, want)
+
+    vo = (lv[:, 2] != 0).astype(np.uint8)
+    pre8 = pre.astype(np.uint8)
+    o3 = np.zeros(3 * T, np.int8)
+    lib.host_fixpoint(T, _p(d), _p(ph), _p(vo), _p(pre8), None, None, 0, None, _p(o3),
+                      threads, in_smem)
+    ref = mvcc.mvcc_validate_hostver_ref(t(sp[:, :R]), t(vo != 0), t(sp[:, R:R + W]),
+                                         t(sp[:, R + W:R + W + Q]), t(sp[:, R + W + Q:]),
+                                         t(pre))
+    assert np.array_equal(o3.astype(bool), torch.cat(ref).numpy())
+    if T > 64:
+        assert 0 < v.sum() < T and c.any() and p_.any()
+
+
+def _sign_nonces():
+    """Today's edge nonces, nonces whose digits all lie in one chain at
+    every C (one nonzero digit, or a few adjacent ones), chains of
+    all-15 digits, and random nonces: 27 lanes, so the last block of
+    every C below 8 has masked lanes."""
     N = ec_ref.N
     rng = np.random.default_rng(11)
     ks = [1, 2, N - 1, N - 2, 16, 16 ** 63, 0x0F << 200, (1 << 255) | 1]
+    ks += [0x9 << 128, 0xABCD << 132, 7 << 252]  # all chains zero but one
+    ks += [0xFFFFFFFF << 224, (1 << 128) - 1, (1 << 16) - 1, 0xFFFF << 64]  # all-15 runs
     ks += [int.from_bytes(rng.bytes(32), "big") % (N - 1) + 1 for _ in range(12)]
-    limbs = _sign_limbs(ks)
+    return ks
+
+
+@pytest.mark.parametrize("tpi", [8, 4])
+@pytest.mark.parametrize("chains", [1, 2, 8, 16])
+def test_sign_kernel_source_matches_plain_and_oracle(host_kernels, tpi, chains):
+    """The team sign kernel, one std::thread per CUDA thread, bit-equal to
+    ``sign_batch_ref`` at the same chain count, and X / Z equal to the
+    affine x of k·G from ``ec_ref``; the batch is not padded, so the
+    last block's spare teams run the last row with their stores masked."""
+    ks = _sign_nonces()
+    limbs = v3._limbs16(ks)
     consts, comb = (t.numpy().view(np.uint32)
                     for t in p256sign._kernel_tables(torch.device("cpu")))
     out = np.zeros((len(limbs), 2, 8), np.uint32)
-    host_kernels["p256_sign"].host_sign(_p(limbs), len(limbs), _p(consts), _p(comb), _p(out))
-    plain = p256sign.sign_batch_ref(torch.from_numpy(limbs)).numpy().view(np.uint32)
-    assert np.array_equal(out, plain)
+    host_kernels["p256_sign"].host_sign(_p(limbs), len(limbs), chains, _p(consts), _p(comb),
+                                        _p(out), tpi, 4)
+    plain = p256sign.sign_batch_ref(torch.from_numpy(limbs), chains=chains)
+    assert np.array_equal(out, plain.numpy().view(np.uint32))
     xs, zs = p256sign._to_ints(out[:, 0]), p256sign._to_ints(out[:, 1])
     for k, X, Z in zip(ks, xs, zs):
         assert X * pow(Z, -1, ec_ref.P) % ec_ref.P == ec_ref.pt_mul(k, ec_ref.G)[0]

@@ -116,6 +116,34 @@ def test_edge_scalars_and_low_s(ref_sign):
         assert X * pow(Z, -1, P) % P == ec_ref.pt_mul(k, ec_ref.G)[0]
 
 
+@pytest.fixture(scope="module")
+def edge_ref(ref_sign):
+    """The JAX lane's signatures over the edge scalars, once per module."""
+    ks = _edge_scalars()
+    digests = _digests(len(ks), 8)
+    return digests, ks, ref_sign(digests, D, ks=ks)
+
+
+@pytest.mark.parametrize("chains", p256sign.CHAINS)
+def test_plain_sign_at_every_chain_count_matches_oracles(edge_ref, monkeypatch, chains):
+    """``sign_batch_ref`` at each chain count (forced through
+    ``sign_chains``): the signatures equal ``ec_ref``'s and the JAX
+    lane's, and X / Z give the affine x of k·G."""
+    digests, ks, want_jax = edge_ref
+    monkeypatch.setattr(p256sign, "sign_chains", lambda B: chains)
+    got = p256sign.sign_digests(digests, D, ks=ks, device="cpu")
+    assert got == [ec_ref.SigningKey(D).sign_digest(e, k=k) for e, k in zip(digests, ks)]
+    assert got == want_jax
+    limbs = torch.from_numpy(p256v3._limbs16(ks))
+    out = p256sign.sign_batch_ref(limbs, chains=chains).numpy().view(np.uint32)
+    xs, zs = p256sign._to_ints(out[:, 0]), p256sign._to_ints(out[:, 1])
+    for k, X, Z in zip(ks, xs, zs):
+        assert X < P and 0 < Z < P
+        assert X * pow(Z, -1, P) % P == ec_ref.pt_mul(k, ec_ref.G)[0]
+    with pytest.raises(ValueError):
+        p256sign.sign_batch_ref(limbs, chains=3)
+
+
 def test_signatures_verify_through_verify_launch(monkeypatch):
     digests = _digests(9, 6)
     sigs = p256sign.sign_digests(digests, D, device="cpu")
