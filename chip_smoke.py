@@ -60,11 +60,15 @@ shape beside serial ``hashlib``.  The comparison verifiers: the main
 path's 4 bench-shaped blocks through ``CommitPipeline(depth=2)`` over
 ``BlockValidator(kernel="v1")`` and then ``"v2"`` (no stage 2, host
 policy, ``mvcc_validate``), equal to the v3 main path; then each kernel
-(``p256_verify_v1``, ``p256_verify_v2``) against its plain version at
-3072 lanes of the adversarial mix with Q = G and Q = -G lanes, 64
-random lanes plus 4 of each kind against ``ec_ref``, timed at the
-shape its path launched.  The sidecar: a ``SidecarServer`` on
-127.0.0.1 (coalesce 4, 8 queued blocks per tenant) serving 3 tenants of
+(``p256_verify_v1``, ``p256_verify_v2``, both teams of threads a lane)
+against its plain version at 3072 lanes of the adversarial mix with
+Q = G and Q = -G lanes, 64 random lanes plus 4 of each kind against
+``ec_ref``, timed at the shape its path launched, with the launched
+kernel's team size, registers and local bytes (stack frame and spills,
+``cudaFuncGetAttributes``), and two bounds (the kernels
+line's, and ``bound_needed_ms``, the yardstick ``p256_verify``
+shares).  The sidecar: a ``SidecarServer`` on 127.0.0.1 (coalesce 4, 8
+queued blocks per tenant) serving 3 tenants of
 weights 1, 1 and 2 at once, each a ``SidecarValidator`` under
 ``CommitPipeline(depth=2)`` over its own copy of the 4 blocks, equal to
 the main path, one ``p256_verify`` launch per dispatch; then one
@@ -1358,24 +1362,47 @@ def phase_sha256(dev, first_block):
 
 # INT32 operations per v1 Montgomery product (CIOS over eight 32-bit limbs:
 # 64 + 64 32x32->64 multiply-adds, 2 INT32 operations each), and v1's
-# products per lane, the same for every lane: 8,226 mod p (2 to Montgomery
-# form, 3 on-curve, 24 for G + Q, 256 steps x (8 doubling + 24 complete
-# add), 5 final) and 428 mod n (1 + 256 squarings + 169 at the set bits of
-# n - 2 + 2 for u1, u2)
+# products per lane in the reference schedule, the same for every lane:
+# 8,226 mod p (2 to Montgomery form, 3 on-curve, 24 for G + Q, 256 steps x
+# (8 doubling + 24 complete add), 5 final) and 428 mod n (1 + 256
+# squarings + 169 at the set bits of n - 2 + 2 for u1, u2).  The kernels
+# line's bound counts these.
 V1_PRODUCT_OPS = 128 * 2
 V1_PRODUCTS = 8226 + 428
-# INT32 operations of one v2 digit product: 43^2 convolution + 126 x 43
-# reduction multiply-adds; of one settle: 3 rounds x (3 passes x 43 x
-# (mask, shift, add) + 43 x 3 fold multiply-adds) + the tidy pass 43 x 3 +
-# 43; of a canonical form beyond its settle: 4 sweeps x 43 x 3, 3 folds x
-# 43, 4 compares x 43 x 4 and 4 conditional subtractions x 43
-V2_MUL_OPS = 43 * 43 + 126 * 43
+# What v1 needs (bound_needed_ms): the complete add's doubling case only
+# where it is taken, so 6,170 products mod p (2 + 3 + 16 for G + Q + 256 x
+# (8 + 16) + 5), 2,311 of them squares (2 on-curve, 4 in G + Q, 256 x (5 in
+# the doubling + 4 in the add), 1 final), and the 428 mod n, 256 squares
+V1_NEEDED = {"p": (6170, 2311), "n": (428, 256)}
+# INT32 operations of one v2 digit product's convolution (43^2
+# multiply-adds); of one settle: 3 rounds x (3 passes x 43 x (mask, shift,
+# add) + 43 x 3 fold multiply-adds) + the tidy pass 43 x 3 + 43; of a
+# canonical form beyond its settle: 4 sweeps x 43 x 3, 3 folds x 43, 4
+# compares x 43 x 4 and 4 conditional subtractions x 43.  The reduction
+# runs on the int8 tensor cores: [lo | mid | hi & 63 | hi >> 6] x R, 168
+# rows of 43 multiply-adds, 2 operations each.
+V2_CONV_OPS = 43 * 43
 V2_SETTLE_OPS = 3 * (3 * 43 * 3 + 43 * 3) + 43 * 3 + 43
 V2_CANON_OPS = 4 * 43 * 3 + 3 * 43 + 4 * 43 * 4 + 4 * 43
+V2_REDUCE_INT8_OPS = 2 * 168 * 43
+# H100 SXM dense int8 tensor-core peak (NVIDIA's data sheet)
+PEAK_INT8_S = 1979e12
 COMPARISON = (("v1", "p256_verify_v1", "fabric_tpu_torch/kernels/csrc/p256_v1.cu",
                "fabric_tpu/ops/p256.py:307"),
               ("v2", "p256_verify_v2", "fabric_tpu_torch/kernels/csrc/p256_v2.cu",
                "fabric_tpu/ops/p256v2.py:279"))
+
+
+def needed_ms(moved: int, lanes: int, counts: dict) -> float:
+    """The verifiers' shared yardstick (``verify_bound``'s second bound):
+    per 256-bit modular product 64 wide 32x32 products (36 for a square),
+    none for P-256's reduction mod p (limb-aligned adds) and 64 more for
+    the reduction mod n; 2 INT32 operations each.  ``counts``: {"p" | "n":
+    (products, squares)} per lane."""
+    wide = 0
+    for mod, (prods, squares) in counts.items():
+        wide += (prods - squares) * 64 + squares * 36 + (64 * prods if mod == "n" else 0)
+    return bound(moved, lanes * wide * 2)[0]
 
 
 def comparison_items(net: Net, n: int):
@@ -1398,12 +1425,15 @@ def comparison_items(net: Net, n: int):
 
 def _v2_schedule_counts(fn):
     """Run ``fn`` counting the plain v2's DigitMod calls → (result,
-    {"mul", "settle", "canonical"}); the counts are per lane (the plain
-    version runs every lane in each call)."""
+    {"mul", "settle", "canonical", "p", "n"}) per lane (the plain version
+    runs every lane in each call); "p" and "n" are (products, squares)
+    of each modulus, from ``FV.__mul__``."""
     from fabric_tpu_torch.ops import digits as dg
+    from fabric_tpu_torch.ops import p256v2
 
     seen = Counter()
     orig = {k: getattr(dg.DigitMod, k) for k in ("mul", "settle", "canonical")}
+    fv_mul = p256v2.FV.__mul__
 
     def counted(name):
         def f(self, *a, **kw):
@@ -1411,14 +1441,24 @@ def _v2_schedule_counts(fn):
             return orig[name](self, *a, **kw)
         return f
 
+    def counted_mul(a, b):
+        mod = "p" if a.mod is p256v2.MODP else "n"
+        seen[mod] += 1
+        seen[mod + "_sq"] += a is b
+        return fv_mul(a, b)
+
     for k in orig:
         setattr(dg.DigitMod, k, counted(k))
+    p256v2.FV.__mul__ = counted_mul
     try:
         out = fn()
     finally:
         for k, f in orig.items():
             setattr(dg.DigitMod, k, f)
-    return out, dict(seen)
+        p256v2.FV.__mul__ = fv_mul
+    sched = {k: seen[k] for k in ("mul", "settle", "canonical")}
+    sched.update({m: (seen[m], seen[m + "_sq"]) for m in ("p", "n")})
+    return out, sched
 
 
 def comparison_path(net: Net, kernel: str, name: str, main_res):
@@ -1448,6 +1488,7 @@ def comparison_path(net: Net, kernel: str, name: str, main_res):
     n_tx = sum(len(b.txs) for b in blocks)
     log("comparison_path", kernel=kernel, blocks=len(blocks), txs=n_tx, depth=2, seconds=secs,
         per_block_ms=1e3 * secs / len(blocks), tx_per_s=n_tx / secs, completion_s=marks,
+        after_first_ms=1e3 * (marks[-1] - marks[0]) / (len(marks) - 1),
         lanes=dict(shapes), equal_to_main_path=True, launches=counts)
     return counts, shapes.most_common(1)[0][0]
 
@@ -1456,7 +1497,8 @@ def comparison_kernel(net: Net, dev, kernel: str, name: str, source: str, replac
                       shape: int):
     """The kernel against its plain version at 3072 lanes and 64 random
     lanes plus 4 of each kind against ec_ref; then its time, the plain
-    version's and the bound at ``shape`` lanes → the kernels-line record."""
+    version's and the bounds at ``shape`` lanes → the kernels-line record."""
+    from fabric_tpu_torch import kernels
     from fabric_tpu_torch.ops import p256, p256v2
 
     stage, run, ref = ((p256.stage_frame, p256.verify_batch_v1, p256.verify_batch_v1_ref)
@@ -1484,34 +1526,47 @@ def comparison_kernel(net: Net, dev, kernel: str, name: str, source: str, replac
     if not (accepted["q_eq_g"] and accepted["q_eq_minus_g"]
             and 0 < accepted["x_wrapped"] < int((kinds == 9).sum())):
         raise AssertionError(f"{name}: edge lanes not split as expected: {accepted}")
-    # time, plain time and bound at the path's shape: the same lanes, padded
+    # time, plain time and bounds at the path's shape: the same lanes, padded
     tframe = torch.from_numpy(stage(items, max(shape, len(items)))).to(dev)
+    lanes = int(tframe.shape[0])
     out = run(tframe)
-    ms = cuda_ms(lambda: run(tframe), 10 if kernel == "v1" else 3)
+    ms = cuda_ms(lambda: run(tframe), 10)
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
     if kernel == "v1":
         plain = ref(tframe)
-        sched = {"products": V1_PRODUCTS}
-        ops = tframe.shape[0] * V1_PRODUCTS * V1_PRODUCT_OPS
+        sched = {"products": V1_PRODUCTS, **V1_NEEDED}
         const_bytes = 80 * 4
     else:
         plain, sched = _v2_schedule_counts(lambda: ref(tframe))
-        ops = tframe.shape[0] * (sched["mul"] * (V2_MUL_OPS + V2_SETTLE_OPS)
-                                 + (sched["settle"] - sched["mul"]) * V2_SETTLE_OPS
-                                 + sched["canonical"] * V2_CANON_OPS)
         const_bytes = p256v2.kernel_consts(dev).numel() * 4
     b.record()
     torch.cuda.synchronize()
     plain_ms = a.elapsed_time(b)
     if not torch.equal(out, plain):
         raise AssertionError(f"{name}: differs from its plain version at {shape} lanes")
-    b_ms, b_by = bound(nbytes(tframe, out) + const_bytes, ops)
+    moved = nbytes(tframe, out) + const_bytes
+    if kernel == "v1":
+        ops = {"int32": lanes * V1_PRODUCTS * V1_PRODUCT_OPS}
+        b_ms, b_by = bound(moved, ops["int32"])
+    else:
+        # each unit at its own peak, the slowest bounds: the convolution,
+        # settles and canonical forms on the CUDA cores, the reduction on
+        # the int8 tensor cores
+        ops = {"int32": lanes * (sched["mul"] * V2_CONV_OPS + sched["settle"] * V2_SETTLE_OPS
+                                 + sched["canonical"] * V2_CANON_OPS),
+               "int8_tensor": lanes * sched["mul"] * V2_REDUCE_INT8_OPS}
+        t_bytes, t_int32, t_int8 = (moved / PEAK_BYTES_S, ops["int32"] / PEAK_INT32_S,
+                                    ops["int8_tensor"] / PEAK_INT8_S)
+        b_ms = 1e3 * max(t_bytes, t_int32, t_int8)
+        b_by = "bytes" if t_bytes >= max(t_int32, t_int8) else "operations"
+    need_ms = needed_ms(moved, lanes, {m: sched[m] for m in ("p", "n")})
     log(f"verify_{kernel}", lanes=frame.shape[0], accepted=int(got.sum()), mismatches=mism,
         lanes_per_kind={kn: int((kinds == k).sum()) for k, kn in enumerate(kind_names)},
         accepted_per_kind=accepted, oracle_lanes=len(sample), oracle_mismatches=oracle_mism,
-        timed_lanes=int(tframe.shape[0]), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        schedule_per_lane=sched, int32_ops=ops)
+        timed_lanes=lanes, **kernels.verify_attrs(name, lanes), ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bound_needed_ms=need_ms,
+        schedule_per_lane=sched, ops=ops)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "max_abs_err": err, "mismatches": mism, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}

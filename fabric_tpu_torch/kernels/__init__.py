@@ -48,7 +48,6 @@ launches = {"p256_verify": 0, "stage2_policy": 0, "stage2_mvcc": 0,
 build_log: dict = {}
 
 _libs: dict = {}
-_v2_tables: set = set()  # devices whose p256_v2 __constant__ tables are loaded
 _lock = threading.Lock()
 _count_lock = threading.Lock()
 
@@ -78,10 +77,11 @@ _SIGS = {
     },
     "p256_v1": {
         "fab_p256_verify_v1": [_P, _I, _P, _P, _P],
+        "fab_p256_verify_v1_attrs": [_I, _P],
     },
     "p256_v2": {
         "fab_p256_verify_v2": [_P, _I, _P, _P, _P],
-        "fab_p256_v2_tables": [_P, _P],
+        "fab_p256_verify_v2_attrs": [_I, _P],
     },
 }
 
@@ -355,18 +355,20 @@ def p256_verify_v1(frame, consts) -> torch.Tensor:
 
 
 def p256_verify_v2(frame, consts) -> torch.Tensor:
-    """[B, 260] int32 digit frame → [B] bool (``ops/p256v2.py``).  The
-    first call on a device copies ``consts``' tables into the kernel's
-    ``__constant__`` memory there; they are a constant of the curve."""
+    """[B, 260] int32 digit frame → [B] bool (``ops/p256v2.py``)."""
     _cuda(frame, consts)
-    build(("p256_v2",))  # outside the lock
-    with _lock:
-        if consts.device not in _v2_tables:
-            with torch.cuda.device(consts.device):
-                _entries["fab_p256_v2_tables"](consts.data_ptr(), _stream(consts))
-            _v2_tables.add(consts.device)
     out = torch.empty(frame.shape[0], dtype=torch.bool, device=frame.device)
     _entries["fab_p256_verify_v2"](frame.data_ptr(), frame.shape[0], consts.data_ptr(),
                                    out.data_ptr(), _stream(frame))
     _count("p256_verify_v2")
     return out
+
+
+def verify_attrs(name: str, B: int) -> dict:
+    """The kernel ``p256_verify_v1`` or ``p256_verify_v2`` (``name``) runs a
+    B-lane batch with: its threads a lane (``tpi``), registers a thread and
+    local bytes a thread (stack frame, spills included), as
+    ``cudaFuncGetAttributes`` reports them."""
+    out = (ctypes.c_int * 3)()
+    _entries[f"fab_{name}_attrs"](B, out)
+    return {"tpi": out[0], "registers": out[1], "local_bytes": out[2]}

@@ -13,7 +13,7 @@
 // launches 16 lanes at a time (one flush of at most 8 digests, padded),
 // so the work is tiny and the time is the length of one lane's chain.
 //
-// What the first design (one thread per lane, p256_field.cuh) lost: a
+// What the first design (one thread per lane) lost: a
 // lane was one thread running all 64 adds, ~830 products one after
 // another, each a generic CIOS with 64-bit signed borrows (121
 // registers); 16 lanes were one warp on one SM, and the time stayed at

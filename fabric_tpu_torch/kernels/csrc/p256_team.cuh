@@ -1,13 +1,12 @@
 // P-256 field and point arithmetic for a team of TPI threads per
 // signature (TPI = 8: one 32-bit limb per thread; TPI = 4: two).  Used by
-// p256_verify.cu and p256_sign.cu.  A field element is eight
+// p256_verify.cu, p256_sign.cu and p256_v1.cu.  A field element is eight
 // little-endian 32-bit limbs in Montgomery form (R = 2^256); rank t of
 // the team holds limbs t*L .. t*L + L - 1 (L = 8 / TPI).  Every value is
 // fully reduced into [0, p) after each operation, so equality is limb
-// equality, and the
-// point functions are the Renes-Costello-Batina complete formulas with
-// a = -3 in the schedule of p256_field.cuh (which p256_v1.cu keeps
-// using).
+// equality, and the point functions are the Renes-Costello-Batina
+// complete formulas with a = -3 in the schedule of
+// fabric_tpu/ops/p256v3.py.
 //
 // The product is CIOS over the team.  Macro-round j takes b's limbs
 // j*L .. j*L + L - 1, broadcast from rank j with __shfl_sync(width =

@@ -374,16 +374,49 @@ def verify_batch_v2_ref(frame: torch.Tensor) -> torch.Tensor:
 # Kernel wrapper
 
 
+# the kernel's reduction matrix: row c*48 + q (c: lo, mid, hi & 63, hi >> 6)
+# holds R's row of chunk kind min(c, 2) for the high column the kernel
+# keeps at position q of its chunk tiles, 48 + q (h = q + 5) for q < 37 and
+# 43..47 (h = q - 43) for q >= 43; the rows of q = 37..42 hold no column
+CHUNK_POS = [q + 5 if q < 37 else (q - 43 if q >= 43 else None) for q in range(48)]
+
+
+def chunk_matrix(mod: dg.DigitMod) -> np.ndarray:
+    """The int8 [192, 48] reduction matrix of ``mod`` as the kernel reads
+    it, row c*48 + q: see ``CHUNK_POS``."""
+    m = np.zeros((4 * 48, 48), np.int8)
+    for q, h in enumerate(CHUNK_POS):
+        if h is not None:
+            for c in range(4):
+                m[c * 48 + q, :K] = mod.R_np[min(c, 2) * dg.H + h]
+    return m
+
+
+def _tiles(m: np.ndarray) -> np.ndarray:
+    """[192, 48] → [12 k-tiles][3 n-tiles][16][16], flat."""
+    return np.ascontiguousarray(m.reshape(12, 16, 3, 16).transpose(0, 2, 1, 3)).reshape(-1)
+
+
+def _pad48(a) -> np.ndarray:
+    a = np.asarray(a, np.int64)
+    return np.concatenate([a, np.zeros(a.shape[:-1] + (48 - a.shape[-1],), np.int64)], axis=-1)
+
+
 @lru_cache(maxsize=None)
 def kernel_consts(device: torch.device) -> torch.Tensor:
-    """The kernel's int32 constant block: the settled bounds of mod p
-    and mod n, R_p, R_n, F_p, F_n, the digits of p and n (the part the
-    kernel copies into ``__constant__`` memory), then TG[16][2][K] and
-    the digits of b."""
-    parts = [np.array([SETTLED[P], SETTLED[N]]), MODP.R_np, MODN.R_np, MODP.F_np, MODN.F_np,
-             MODP.digits_np, MODN.digits_np, _TG, dg.int_to_digits(B_COEF)]
-    flat = np.concatenate([np.asarray(a, np.int64).reshape(-1) for a in parts])
-    return torch.from_numpy(flat.astype(np.int32)).to(device)
+    """The kernel's int32 constant block: the settled bounds of mod p and
+    mod n (and two zero words), then the tables each block copies into
+    shared memory — the int8 reduction matrices of mod p and mod n as
+    16 x 16 tiles, F_p and F_n, the digits of p and n (int32, padded to
+    48), TG[16][2][48] (int8) and the digits of b (int32)."""
+    parts = [np.array([SETTLED[P], SETTLED[N], 0, 0], np.int32),
+             _tiles(chunk_matrix(MODP)), _tiles(chunk_matrix(MODN)),
+             _pad48(np.stack([MODP.F_np, MODN.F_np])).astype(np.int32),
+             _pad48(np.stack([MODP.digits_np, MODN.digits_np])).astype(np.int32),
+             _pad48(_TG).astype(np.int8),
+             _pad48(dg.int_to_digits(B_COEF)).astype(np.int32)]
+    raw = b"".join(np.ascontiguousarray(a).tobytes() for a in parts)
+    return torch.from_numpy(np.frombuffer(raw, np.int32).copy()).to(device)
 
 
 def verify_batch_v2(frame: torch.Tensor) -> torch.Tensor:

@@ -171,7 +171,7 @@ class SidecarServer:
         dispatches, connections, tenants (the scheduler's stats)."""
         with self._stats_lock:
             req: dict = {}
-            for (tenant, status), n in sorted(self._requests.items()):
+            for (tenant, status), n in sorted((+self._requests).items()):  # n > 0
                 req.setdefault(tenant, {})[status] = n
             lat = {t: {s: list(v) for s, v in st.items()} for t, st in self._latency.items()}
             occ = {k: list(v) for k, v in self._occupancy.items()}
@@ -275,14 +275,19 @@ class SidecarServer:
                 st["queue_wait"].append(t0 - req.t_enqueue)
                 st["dispatch"].append(t1 - t0)
                 st["total"].append(t1 - req.t_enqueue)
-            sent = await self._send(req, wire.encode_response(req.seq, ok))
-            self._count(req.tenant, "ok" if sent else "dropped")
+                # counted before the send, so a tenant holding its answer
+                # finds it counted; moved to "dropped" if the send fails
+                self._requests[(req.tenant, "ok")] += 1
+            if not await self._send(req, wire.encode_response(req.seq, ok)):
+                with self._stats_lock:
+                    self._requests[(req.tenant, "ok")] -= 1
+                    self._requests[(req.tenant, "dropped")] += 1
 
     async def _answer_error(self, batch: list, err: Exception) -> None:
         msg = f"{type(err).__name__}: {err}"
         for req in batch:
-            await self._send(req, wire.encode_error(req.seq, msg))
             self._count(req.tenant, "error")
+            await self._send(req, wire.encode_error(req.seq, msg))
 
     @staticmethod
     async def _send(req: Request, payload: bytes) -> bool:

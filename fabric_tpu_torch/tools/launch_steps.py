@@ -1,12 +1,16 @@
 """Where a kernel's time goes: ``p256_verify`` at each team size,
 ``p256_sign`` at each team size and chain count, the stage-2 MVCC
-kernels alone and as one launch, and the launch path's steps one at a
-time against the device's time alone.
+kernels alone and as one launch, the launch path's steps one at a
+time against the device's time alone, the comparison verifiers at each
+team size, and the comparison path with this tree's or the parent's
+verifier.
 
     python3 -m fabric_tpu_torch.tools.launch_steps [--parent-csrc DIR]
-        [--phase all|team_sizes|sign_shapes|stage2|scatter|small]
+        [--phase all|team_sizes|sign_shapes|stage2|scatter|small|comparison|
+                 comparison_path]
         [--team-lanes 3072,6144,12288]
         [--sign-lanes 16,32,64,128,256,512,1024,4096]
+        [--comparison-lanes 16,4096,12288] [--path-blocks 12]
 
 Run from the repository root on a CUDA host: it reuses ``chip_smoke.py``'s
 operand builders.  One JSON line per measurement.  ``--parent-csrc``
@@ -49,6 +53,22 @@ names another ``csrc`` directory (an older commit's, unpacked with
 - ``small``: ``stage2_policy`` and ``resident_verok`` at their
   ``chip_smoke.py`` shapes, outputs allocated once: device alone, host
   microseconds and event time per call.
+- ``comparison``: ``p256_verify_v1`` built twice more with
+  ``FAB_V1_TEAM8_LANES`` set so that every batch runs at TPI = 8, or at
+  4, beside the wrapper (v1 picks its team size by batch, v2 runs at
+  TPI = 8) and (with ``--parent-csrc``) the parent's kernels (the
+  one-thread v2 with its constant block in ``__constant__`` memory), on
+  ``chip_smoke.comparison_items`` at each of ``--comparison-lanes``
+  (below 3,072 lanes a random sample of its 3,072);
+  each variant checked against the plain version, timed on the card's
+  clock (events around 3 calls).
+- ``comparison_path`` (needs ``--parent-csrc``): ``chip_smoke.py``'s
+  comparison path (``BlockValidator(kernel="v1"|"v2")`` under
+  ``CommitPipeline(depth=2)``) over ``--path-blocks`` bench-shaped
+  blocks, with this tree's verifier and with the parent's swapped into
+  the wrapper's entry point, in turns parent, tree, tree, parent: wall ms
+  a block over all blocks and over the blocks after the first (the
+  first holds the pipeline's fill and the run's first launches).
 
 Every variant runs in each of 8 rounds, the order reversed every other
 round (ABBA); the lines give medians and the rounds.
@@ -490,6 +510,135 @@ def phase_stage2(dev, parent_csrc) -> None:
             smem=kernels.mvcc_fixpoint_in_smem(T), **abba(calls, lambda m: m()))
 
 
+def parent_v2_consts(dev) -> torch.Tensor:
+    """The one-thread v2 kernel's constant block (int32): the settled bounds,
+    R_p, R_n, F_p, F_n, the digits of p and n (its ``__constant__`` part,
+    copied by ``fab_p256_v2_tables``), then TG and the digits of b."""
+    from fabric_tpu_torch.ops import digits as dg
+    from fabric_tpu_torch.ops import p256v2 as v2
+
+    parts = [np.array([v2.SETTLED[v2.P], v2.SETTLED[v2.N]]), v2.MODP.R_np, v2.MODN.R_np,
+             v2.MODP.F_np, v2.MODN.F_np, v2.MODP.digits_np, v2.MODN.digits_np, v2._TG,
+             dg.int_to_digits(v2.B_COEF)]
+    flat = np.concatenate([np.asarray(a, np.int64).reshape(-1) for a in parts])
+    return torch.from_numpy(flat.astype(np.int32)).to(dev)
+
+
+def phase_comparison(dev, shapes, parent_csrc) -> None:
+    """``p256_verify_v1`` at each team size alone (builds whose
+    FAB_V1_TEAM8_LANES sends every batch to one size) and
+    ``p256_verify_v2``, beside the wrapper and the parent's kernel, on
+    ``chip_smoke.comparison_items`` at each of ``shapes`` lanes; every
+    variant checked against the plain version."""
+    import chip_smoke as cs
+    from fabric_tpu_torch import kernels
+    from fabric_tpu_torch.ops import p256, p256v2
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    sig = [P, I, P, P, P]
+    specs = {}
+    for kernel, src, sizes in (
+            ("v1", "p256_v1.cu", {8: "-DFAB_V1_TEAM8_LANES=2147483647",
+                                  4: "-DFAB_V1_TEAM8_LANES=0"}),
+            ("v2", "p256_v2.cu", {})):
+        entry = f"fab_p256_verify_{kernel}"
+        for tpi, flag in sizes.items():
+            specs[f"{kernel}_tpi{tpi}"] = (kernels.CSRC / src, [flag], {entry: sig})
+        if parent_csrc is not None:
+            entries = {entry: sig}
+            if kernel == "v2":
+                entries["fab_p256_v2_tables"] = [P, P]
+            specs[f"{kernel}_parent"] = (parent_csrc / src, [], entries)
+    libs = _build_libs(specs)
+    net = cs.Net(cs.SEED)
+    consts = {"v1": p256.kernel_consts(dev), "v2": p256v2.kernel_consts(dev)}
+    if parent_csrc is not None:
+        pc = parent_v2_consts(dev)
+        _check(libs["v2_parent"].fab_p256_v2_tables(pc.data_ptr(), kernels._stream(pc)))
+    for kernel, stage, wrap, ref in (
+            ("v1", p256.stage_frame, p256.verify_batch_v1, p256.verify_batch_v1_ref),
+            ("v2", p256v2.stage_frame, p256v2.verify_batch_v2, p256v2.verify_batch_v2_ref)):
+        entry = f"fab_p256_verify_{kernel}"
+        for lanes in shapes:
+            items, _ = cs.comparison_items(net, max(lanes, cs.VERIFY_LANES))
+            if lanes < len(items):  # a mixed sample of the kinds
+                pick = np.random.default_rng(cs.SEED + lanes).permutation(len(items))[:lanes]
+                items = [items[i] for i in sorted(pick)]
+            frame = torch.from_numpy(stage(items, lanes)).to(dev)
+            want = ref(frame)
+            out = torch.empty(lanes, dtype=torch.bool, device=dev)
+            calls = {}
+            for tag in (f"{kernel}_tpi8", f"{kernel}_tpi4", f"{kernel}_parent"):
+                if tag not in libs:
+                    continue
+                c = consts[kernel] if tag != "v2_parent" else pc
+                fn = getattr(libs[tag], entry)
+                call = (lambda fn=fn, c=c: _check(fn(frame.data_ptr(), lanes, c.data_ptr(),
+                                                     out.data_ptr(), kernels._stream(frame))))
+                call()
+                if not torch.equal(out, want):
+                    raise AssertionError(f"{kernel} built {tag}, {lanes} lanes: differs")
+                calls[tag.split("_", 1)[1]] = call
+            calls["wrapper"] = lambda wrap=wrap: wrap(frame)
+            if not torch.equal(wrap(frame), want):
+                raise AssertionError(f"{kernel} at {lanes} lanes: the wrapper differs")
+            log("comparison_kernels", kernel=kernel, lanes=lanes,
+                wrapper_tpi=kernels.verify_attrs(f"p256_verify_{kernel}", lanes)["tpi"],
+                **abba(calls, lambda fn: event_ms(fn, 3)))
+
+
+def phase_comparison_path(dev, parent_csrc, n_blocks: int) -> None:
+    """The comparison path over ``n_blocks`` blocks under v1 and v2, with
+    this tree's verifier and the parent's, in turns parent, tree, tree,
+    parent (the parent's v2 reads its own constant block); every run's
+    filters equal the construction's.  Beside it, the host ms of each
+    kernel's frame staging over ``chip_smoke.VERIFY_LANES`` signatures."""
+    import chip_smoke as cs
+    from fabric_tpu_torch import carry, kernels
+    from fabric_tpu_torch.ops import p256, p256v2
+    from fabric_tpu_torch.peer.validator import BlockValidator
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    sig = [P, I, P, P, P]
+    libs = _build_libs({
+        "v1": (parent_csrc / "p256_v1.cu", [], {"fab_p256_verify_v1": sig}),
+        "v2": (parent_csrc / "p256_v2.cu", [], {"fab_p256_verify_v2": sig,
+                                                "fab_p256_v2_tables": [P, P]})})
+    pc = parent_v2_consts(dev)
+    _check(libs["v2"].fab_p256_v2_tables(pc.data_ptr(), kernels._stream(pc)))
+    v2_fn = libs["v2"].fab_p256_verify_v2
+    parent_fn = {"v1": libs["v1"].fab_p256_verify_v1,
+                 "v2": lambda f, B, c, o, s: v2_fn(f, B, pc.data_ptr(), o, s)}
+    net = cs.Net(cs.SEED)
+    blocks, expected, seed_rows = cs.build_blocks(net, n_blocks, unsafe=False)
+    items, _ = cs.comparison_items(net, cs.VERIFY_LANES)
+    stages = {"v1": lambda: p256.stage_frame(items, p256.bucket(len(items))),
+              "v2": lambda: p256v2.stage_frame(items, p256v2.bucket(len(items)))}
+    for kernel in ("v1", "v2"):
+        entry = kernels._entries[f"fab_p256_verify_{kernel}"]
+        tree_fn = entry.fn
+        runs = {"parent": [], "tree": []}
+        for tag in ("parent", "tree", "tree", "parent"):
+            state, prov, _ = carry.from_reference(seed_rows, cs.NAMESPACES, [])
+            v = BlockValidator(prov, state, device="cuda", kernel=kernel)
+            entry.fn = parent_fn[kernel] if tag == "parent" else tree_fn
+            try:
+                res, secs, marks = cs.run_validator(blocks, v, depth=2)
+            finally:
+                entry.fn = tree_fn
+            if [r.tx_filter for r in res] != expected:
+                raise AssertionError(f"comparison path {kernel}, {tag}'s kernel: filters differ")
+            runs[tag].append({"per_block_ms": 1e3 * secs / len(blocks),
+                              "after_first_ms": 1e3 * (marks[-1] - marks[0]) / (len(marks) - 1)})
+        stage_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            stages[kernel]()
+            stage_ms.append(1e3 * (time.perf_counter() - t0))
+        log("comparison_path", kernel=kernel, blocks=len(blocks), depth=2, **runs,
+            stage_items=len(items), stage_ms=float(np.median(stage_ms)))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("launch_steps: needs a CUDA device", file=sys.stderr)
@@ -498,9 +647,12 @@ def main() -> int:
     ap.add_argument("--parent-csrc", type=Path, default=None,
                     help="an older csrc directory whose kernels run beside this tree's")
     ap.add_argument("--phase", default="all",
-                    choices=("all", "team_sizes", "sign_shapes", "stage2", "scatter", "small"))
+                    choices=("all", "team_sizes", "sign_shapes", "stage2", "scatter", "small",
+                             "comparison", "comparison_path"))
     ap.add_argument("--team-lanes", default="3072,6144,12288")
     ap.add_argument("--sign-lanes", default="16,32,64,128,256,512,1024,4096")
+    ap.add_argument("--comparison-lanes", default="16,4096,12288")
+    ap.add_argument("--path-blocks", type=int, default=12)
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     from fabric_tpu_torch import kernels
@@ -508,7 +660,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     log("device", nvidia_smi=smi, torch=torch.__version__)
-    kernels.build(("resident", "stage2", "p256_verify", "p256_sign"))
+    kernels.build(("resident", "stage2", "p256_verify", "p256_sign", "p256_v1", "p256_v2"))
     dev = torch.device("cuda")
     run = lambda phase: args.phase in ("all", phase)
     if run("team_sizes"):
@@ -525,6 +677,11 @@ def main() -> int:
         phase_scatter(dev, parent)
     if run("small"):
         phase_small_kernels(dev)
+    if run("comparison"):
+        phase_comparison(dev, [int(x) for x in args.comparison_lanes.split(",")],
+                         args.parent_csrc)
+    if run("comparison_path") and args.parent_csrc is not None:
+        phase_comparison_path(dev, args.parent_csrc, args.path_blocks)
     return 0
 
 

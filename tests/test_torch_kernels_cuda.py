@@ -421,11 +421,33 @@ def test_p256_verify_v2_kernel_matches_plain(cuda):
     want = [ec_ref.verify_digest((x, y), e, r, s) for e, r, s, x, y in items]
     assert got[:len(items)].tolist() == want and want[-2:] == [True, True] and not all(want)
     assert p256.verify_host(items, kernel="v2") == want
-    # the tables went to __constant__ memory once; a launch on another
-    # stream reads the same ones
+    # a launch on another stream gives the same verdicts
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         again = p256v2.verify_batch_v2(frame)
     side.synchronize()
     assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("kernel", ["v1", "v2"])
+@pytest.mark.parametrize("lanes", [16, 33, 4096, 6144])
+def test_comparison_kernels_at_lane_counts(cuda, kernel, lanes):
+    """Each comparison verifier on unpadded batches of 16 and 33 lanes (33
+    leaves spare teams in its last block) and 4,096 and 6,144 (the
+    comparison path's bucket and a sidecar shape), bit-equal to its plain
+    version, with Q = G and Q = -G lanes, and 24 lanes against ec_ref."""
+    from fabric_tpu_torch.ops import p256, p256v2
+
+    stage, run, ref = ((p256.stage_frame, p256.verify_batch_v1, p256.verify_batch_v1_ref)
+                       if kernel == "v1" else
+                       (p256v2.stage_frame, p256v2.verify_batch_v2, p256v2.verify_batch_v2_ref))
+    items = _comparison_items()[-2:] + _items(lanes - 2)
+    frame = torch.from_numpy(stage(items, lanes)).to(cuda)
+    got = run(frame)
+    torch.cuda.synchronize()
+    assert got.shape == (lanes,) and torch.equal(got, ref(frame))
+    sample = sorted(set(range(12)) | set(range(lanes - 12, lanes)))
+    assert [bool(got[i]) for i in sample] == [
+        ec_ref.verify_digest(items[i][3:], *items[i][:3]) for i in sample]
+    assert bool(got[0]) and bool(got[1])

@@ -8,23 +8,27 @@ turn ``__global__``/``__device__`` functions into plain C++.  Kernels of
 one thread per lane run one thread per block, a loop over ``blockIdx``
 playing the grid; with one thread per block the fixpoint kernel's
 barriers are no-ops and its grid-stride loops cover every transaction.
-The team kernel of ``p256_verify.cu`` runs each block's ``blockDim.x``
-threads as ``std::thread``s (``threadIdx`` and ``blockIdx`` are
-``thread_local``): ``__syncthreads``, ``__syncwarp``, the shuffles,
-``__ballot_sync`` and ``__any_sync`` go through a per-block exchange
-array and a C++20 ``std::barrier``, at TPI = 8 and 4, in full warps of
-teams.  The shared ``p256_field.cuh`` and ``p256_team.cuh`` are inlined
-where a source includes them.  The kernels use no inline PTX, so
-nothing here is skipped on the CPU.  That checks each kernel's
-arithmetic and indexing — the team Montgomery product (against Python
-ints), the team carry-lookahead votes, the point formulas, the window
-recoding, the comb ladder, the policy gate walk, the bitsets, the
-fixpoint, the resident-table compare, the table scatter and the SHA-256
-compression (against ``hashlib``), the v1 verifier's mod-n product,
-complete Jacobian ladder step and whole verify, and the v2 verifier's
-digit product and settle (against Python ints at the largest legal
-magnitudes) and whole verify — bit for bit, before a card ever sees
-it."""
+The team kernels (``p256_verify``, ``p256_sign``, ``p256_v1``,
+``p256_v2``) run each block's ``blockDim.x`` threads as ``std::thread``s
+(``threadIdx`` and ``blockIdx`` are ``thread_local``):
+``__syncthreads``, ``__syncwarp``, the shuffles, ``__ballot_sync`` and
+``__any_sync`` go through a per-block exchange array and a C++20
+``std::barrier``, in full warps of teams, at the team sizes each
+kernel launches (8 and 4; ``p256_v2`` 8).
+``nvcuda::wmma``'s int8 tiles (``p256_v2``) are whole tiles in every
+thread, multiplied in lane 0, which makes the warp's store.  The shared
+``p256_team.cuh`` is inlined where a source includes it.  The kernels
+use no inline PTX, so nothing here is skipped on the CPU.  That checks
+each kernel's arithmetic and indexing — the team Montgomery products
+mod p and mod n (against Python ints), the team carry-lookahead votes,
+the point formulas, the window recoding, the comb ladder, the policy
+gate walk, the bitsets, the fixpoint, the resident-table compare, the
+table scatter and the SHA-256 compression (against ``hashlib``), the v1
+verifier's team ladder step (the doubling case taken by one team of a
+warp) and whole verify, and the v2 verifier's team digit product (the
+convolution across the team, the split int8 reduction) and settle
+(against ``DigitMod`` at the largest legal magnitudes) and whole verify
+— bit for bit, before a card ever sees it."""
 
 import ctypes
 import hashlib
@@ -102,7 +106,7 @@ struct HostBlock {
   std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
   uint64_t xch[2][1024];
   uint64_t bxch[2][1024];
-  alignas(16) uint32_t smem[1 << 14];
+  alignas(128) uint32_t smem[1 << 15];
 };
 static thread_local HostBlock* host_block = nullptr;  // null: one-thread launchers
 static thread_local unsigned host_calls = 0, host_block_calls = 0;
@@ -182,6 +186,59 @@ static void host_launch(int grid, int block, int concurrent, const std::function
     for (auto& th : threads) th.join();
   }
 }
+
+// nvcuda::wmma for the int8 tiles of p256_v2.cu: each thread holds the
+// whole 16 x 16 tile; lane 0 computes the warp's products and makes its
+// store, between two warp barriers (the collective's).
+namespace nvcuda {
+namespace wmma {
+struct matrix_a {};
+struct matrix_b {};
+struct accumulator {};
+struct row_major {};
+enum layout_t { mem_row_major };
+template <class Use, int M, int N, int Kd, class T, class Layout = void>
+struct fragment {
+  static constexpr int num_elements = 256;
+  T x[256];
+};
+template <class Use, class T>
+static void load_matrix_sync(fragment<Use, 16, 16, 16, T, row_major>& f, const T* p, unsigned ldm) {
+  for (int r = 0; r < 16; ++r)
+    for (int c = 0; c < 16; ++c) f.x[r * 16 + c] = p[r * ldm + c];
+}
+static void load_matrix_sync(fragment<accumulator, 16, 16, 16, int>& f, const int* p, unsigned ldm,
+                             layout_t) {
+  for (int r = 0; r < 16; ++r)
+    for (int c = 0; c < 16; ++c) f.x[r * 16 + c] = p[r * ldm + c];
+}
+static void fill_fragment(fragment<accumulator, 16, 16, 16, int>& f, int v) {
+  for (int i = 0; i < 256; ++i) f.x[i] = v;
+}
+static void mma_sync(fragment<accumulator, 16, 16, 16, int>& d,
+                     const fragment<matrix_a, 16, 16, 16, signed char, row_major>& a,
+                     const fragment<matrix_b, 16, 16, 16, signed char, row_major>& b,
+                     const fragment<accumulator, 16, 16, 16, int>& c) {
+  if ((threadIdx.x & 31) != 0) return;
+  int out[256];
+  for (int i = 0; i < 16; ++i)
+    for (int j = 0; j < 16; ++j) {
+      int s = c.x[i * 16 + j];
+      for (int k = 0; k < 16; ++k) s += (int)a.x[i * 16 + k] * (int)b.x[k * 16 + j];
+      out[i * 16 + j] = s;
+    }
+  std::memcpy(d.x, out, sizeof(out));
+}
+static void store_matrix_sync(int* p, const fragment<accumulator, 16, 16, 16, int>& f,
+                              unsigned ldm, layout_t) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0)
+    for (int r = 0; r < 16; ++r)
+      for (int c = 0; c < 16; ++c) p[r * ldm + c] = f.x[r * 16 + c];
+  __syncwarp();
+}
+}  // namespace wmma
+}  // namespace nvcuda
 """
 
 LAUNCHERS = {
@@ -287,41 +344,104 @@ extern "C" void host_sha256(const uint32_t* blocks, const int32_t* nb, int B, in
 }
 """,
     "p256_v1": r"""
-extern "C" void host_v1(const int32_t* f, int B, const uint32_t* c, uint8_t* out) {
-  blockDim.x = 1;
-  for (int i = 0; i < B; ++i) { blockIdx.x = i; p256_v1_kernel(f, B, c, out); }
+// the team kernel at TPI threads per lane, 8 lanes a block
+template <int TPI>
+static void host_v1_tpi(const int32_t* f, int B, const uint32_t* c, uint8_t* out, int concurrent) {
+  host_launch((B + kTeams - 1) / kTeams, kTeams * TPI, concurrent,
+              [&] { p256_v1_kernel<TPI>(f, B, c, out); });
 }
-// one ladder step: acc = 2 acc + t (Jacobian, Montgomery form, 24 words each)
-extern "C" void host_v1_step(const uint32_t* acc, const uint32_t* t, uint32_t* out) {
-  Pt a, b;
-  std::memcpy(&a, acc, sizeof(Pt));
-  std::memcpy(&b, t, sizeof(Pt));
-  jac_double(a);
-  jac_add(a, a, b);
-  std::memcpy(out, &a, sizeof(Pt));
+extern "C" void host_v1(const int32_t* f, int B, const uint32_t* c, uint8_t* out, int tpi,
+                        int concurrent) {
+  if (tpi == 8) host_v1_tpi<8>(f, B, c, out, concurrent);
+  if (tpi == 4) host_v1_tpi<4>(f, B, c, out, concurrent);
+}
+// n ladder steps, a team a lane: out = 2 acc + t (Jacobian, Montgomery
+// form, 24 words a lane: X | Y | Z)
+template <int TPI>
+static void host_v1_step_tpi(const uint32_t* acc, const uint32_t* t, uint32_t* out, int n) {
+  host_launch((n + kTeams - 1) / kTeams, kTeams * TPI, 2, [&] {
+    const Team<TPI> tm;
+    const int lane = blockIdx.x * kTeams + threadIdx.x / TPI;
+    const int i = std::min(lane, n - 1);
+    TPt<TPI> a, b;
+    load_const_fe(a.x, acc + i * 24, tm.t);
+    load_const_fe(a.y, acc + i * 24 + 8, tm.t);
+    load_const_fe(a.z, acc + i * 24 + 16, tm.t);
+    load_const_fe(b.x, t + i * 24, tm.t);
+    load_const_fe(b.y, t + i * 24 + 8, tm.t);
+    load_const_fe(b.z, t + i * 24 + 16, tm.t);
+    jac_double(tm, a);
+    jac_add(tm, a, a, b);
+    if (lane < n)
+      for (int l = 0; l < Fe<TPI>::L; ++l) {
+        const int k = tm.t * Fe<TPI>::L + l;
+        out[i * 24 + k] = a.x.v[l];
+        out[i * 24 + 8 + k] = a.y.v[l];
+        out[i * 24 + 16 + k] = a.z.v[l];
+      }
+  });
+}
+extern "C" void host_v1_step(const uint32_t* acc, const uint32_t* t, uint32_t* out, int n,
+                             int tpi) {
+  if (tpi == 8) host_v1_step_tpi<8>(acc, t, out, n);
+  if (tpi == 4) host_v1_step_tpi<4>(acc, t, out, n);
+}
+// n team products r = a * b * 2^-256 mod n (8 little-endian words each)
+template <int TPI>
+static void host_fn_mul_tpi(const uint32_t* a, const uint32_t* b, const uint32_t* nw, uint32_t* r,
+                            int n) {
+  host_launch((n + kTeams - 1) / kTeams, kTeams * TPI, 2, [&] {
+    const Team<TPI> tm;
+    const int lane = blockIdx.x * kTeams + threadIdx.x / TPI;
+    const int i = std::min(lane, n - 1);
+    Fe<TPI> x, y, z;
+    uint32_t nl[Fe<TPI>::L];
+    load_const_fe(x, a + i * 8, tm.t);
+    load_const_fe(y, b + i * 8, tm.t);
+    for (int l = 0; l < Fe<TPI>::L; ++l) nl[l] = nw[tm.t * Fe<TPI>::L + l];
+    fn_mul(tm, z, x, y, nl);
+    if (lane < n)
+      for (int l = 0; l < Fe<TPI>::L; ++l) r[i * 8 + tm.t * Fe<TPI>::L + l] = z.v[l];
+  });
+}
+extern "C" void host_fn_mul(const uint32_t* a, const uint32_t* b, const uint32_t* nw, uint32_t* r,
+                            int n, int tpi) {
+  if (tpi == 8) host_fn_mul_tpi<8>(a, b, nw, r, n);
+  if (tpi == 4) host_fn_mul_tpi<4>(a, b, nw, r, n);
 }
 """,
     "p256_v2": r"""
-extern "C" void host_v2(const int32_t* f, int B, const int32_t* c, uint8_t* out) {
-  std::memcpy(&cT, c, sizeof(Tables));
-  const int32_t* tg = c + kTableWords;
-  blockDim.x = 1;
-  for (int i = 0; i < B; ++i) { blockIdx.x = i; p256_v2_kernel(f, B, tg, tg + 32 * K, out); }
+// the team kernel, 16 lanes a block
+extern "C" void host_v2(const int32_t* f, int B, const int32_t* c, uint8_t* out, int concurrent) {
+  host_launch((B + kLanes - 1) / kLanes, kLanes * kTPI, concurrent,
+              [&] { p256_v2_kernel<kTPI>(f, B, c, out); });
 }
-extern "C" void host_v2_mul(const int32_t* c, int mod, const int32_t* a, const int32_t* b,
-                            int32_t* out, int n) {
-  std::memcpy(&cT, c, sizeof(Tables));
-  for (int i = 0; i < n; ++i) {
-    if (mod) dm_mul<1>(out + i * K, a + i * K, b + i * K);
-    else dm_mul<0>(out + i * K, a + i * K, b + i * K);
-  }
-}
-extern "C" void host_v2_settle(const int32_t* c, int mod, const int32_t* in, int32_t* out, int n) {
-  std::memcpy(&cT, c, sizeof(Tables));
-  for (int i = 0; i < n; ++i) {
-    if (mod) dm_settle<1>(out + i * K, in + i * K);
-    else dm_settle<0>(out + i * K, in + i * K);
-  }
+// one team per lane, 16 lanes a block: op 0 out = a * b mod m (dm_mul),
+// op 1 out = settle(a); a, b 43 digits a lane, out 48 (the padding too)
+extern "C" void host_v2_op(const int32_t* c, int mod, int op, const int32_t* a, const int32_t* b,
+                           int32_t* out, int n) {
+  host_launch((n + kLanes - 1) / kLanes, kLanes * kTPI, 2, [&] {
+    uint8_t* sm = (uint8_t*)host_block_smem();
+    for (int i = threadIdx.x; i < kTableBytes / 4; i += blockDim.x)
+      ((int32_t*)sm)[i] = c[kHeader + i];
+    const Lane<kTPI> ln(sm, c);
+    constexpr int L = Lane<kTPI>::L;
+    const int lane = blockIdx.x * kLanes + ln.row;
+    const int i = std::min(lane, n - 1);
+    __syncthreads();
+    int32_t x[L], y[L];
+    for (int l = 0; l < L; ++l) {
+      const int k = ln.t * L + l;
+      x[l] = k < K ? a[i * K + k] : 0;
+      y[l] = k < K ? b[i * K + k] : 0;
+    }
+    if (op == 0 && mod == 0) dm_mul<kTPI, 0>(ln, x, x, y);
+    if (op == 0 && mod == 1) dm_mul<kTPI, 1>(ln, x, x, y);
+    if (op == 1 && mod == 0) settle<kTPI, 0>(ln, x);
+    if (op == 1 && mod == 1) settle<kTPI, 1>(ln, x);
+    if (lane < n)
+      for (int l = 0; l < L; ++l) out[lane * KP + ln.t * L + l] = x[l];
+  });
 }
 """,
     "p256_sign": r"""
@@ -359,12 +479,15 @@ def host_kernels(tmp_path_factory):
     d = tmp_path_factory.mktemp("host_kernels")
     for name, launcher in LAUNCHERS.items():
         src = (CSRC / f"{name}.cu").read_text()
-        for header in ("p256_field.cuh", "p256_team.cuh"):
+        for header in ("p256_team.cuh",):
             text = (CSRC / header).read_text().replace("#pragma once", "")
             src = src.replace(f'#include "{header}"', text)
         device_code = src.split("}  // namespace")[0]
         device_code = device_code.replace("#include <cuda_runtime.h>", "").replace(
             "extern __shared__ uint32_t sm[];", "uint32_t* sm = host_smem;").replace(
+            "extern __shared__ __align__(128) uint8_t v2_smem[];",
+            "uint8_t* v2_smem = (uint8_t*)host_block_smem();").replace(
+            "#include <mma.h>", "").replace(
             "__shared__ __align__(16) uint32_t smem[kSmemWords];",
             "uint32_t* smem = host_block_smem();")
         cpp = d / f"{name}.cpp"
@@ -728,12 +851,24 @@ def _v1_v2_items():
     return items
 
 
-def test_v1_kernel_source_matches_plain_and_oracle(host_kernels):
+def _words(vals):
+    return np.frombuffer(b"".join(int(v).to_bytes(32, "little") for v in vals), np.uint32).copy()
+
+
+def _ints(words):
+    return [int.from_bytes(words[8 * i:8 * i + 8].tobytes(), "little")
+            for i in range(len(words) // 8)]
+
+
+@pytest.mark.parametrize("tpi", [8, 4])
+def test_v1_kernel_source_matches_plain_and_oracle(host_kernels, tpi):
+    """The team kernel on every kind, Q = G and Q = -G included, 44 lanes
+    (the last a padding lane), so the last block runs spare teams."""
     items = _v1_v2_items()
-    frame = v1.stage_frame(items, v1.bucket(len(items)))
+    frame = v1.stage_frame(items, len(items) + 1)
     consts = v1.kernel_consts(torch.device("cpu")).numpy().view(np.uint32)
     out = np.zeros(len(frame), np.uint8)
-    host_kernels["p256_v1"].host_v1(_p(frame), len(frame), _p(consts), _p(out))
+    host_kernels["p256_v1"].host_v1(_p(frame), len(frame), _p(consts), _p(out), tpi, 2)
     plain = v1.verify_batch_v1_ref(torch.from_numpy(frame)).numpy()
     assert np.array_equal(out.astype(bool), plain)
     want = [ec_ref.verify_digest((x, y), e, r, s) for e, r, s, x, y in items]
@@ -741,9 +876,12 @@ def test_v1_kernel_source_matches_plain_and_oracle(host_kernels):
     assert want[-2:] == [True, True] and any(want) and not all(want)
 
 
-def test_v1_ladder_step_matches_oracle(host_kernels):
-    """acc = 2 acc + t from the kernel's jac_double and jac_add, at
-    infinity, at t = acc, at t = -2 acc and on random points."""
+@pytest.mark.parametrize("tpi", [8, 4])
+def test_v1_ladder_step_matches_oracle(host_kernels, tpi):
+    """acc = 2 acc + t from the team's jac_double and jac_add, all cases in
+    one launch: acc or t or both at infinity, 2 acc = t (the doubling
+    case, in a warp where no other team takes it), 2 acc = -t (infinity)
+    and random points."""
     P, R = ec_ref.P, 1 << 256
     rng = np.random.default_rng(12)
     q = ec_ref.pt_mul(99991, ec_ref.G)
@@ -759,20 +897,42 @@ def test_v1_ladder_step_matches_oracle(host_kernels):
         z = int(rng.integers(2, 1 << 62))
         return [pt[0] * z * z % P * R % P, pt[1] * z ** 3 % P * R % P, z * R % P]
 
-    def words(vals):
-        return np.frombuffer(b"".join(v.to_bytes(32, "little") for v in vals), np.uint32).copy()
-
-    for a, t in cases:
-        out = np.zeros(24, np.uint32)
-        host_kernels["p256_v1"].host_v1_step(_p(words(jac(a))), _p(words(jac(t))), _p(out))
-        X, Y, Z = (int.from_bytes(out[8 * i:8 * i + 8].tobytes(), "little") * pow(R, -1, P) % P
-                   for i in range(3))
+    acc = _words([v for a, _ in cases for v in jac(a)])
+    t = _words([v for _, b in cases for v in jac(b)])
+    out = np.zeros_like(acc)
+    host_kernels["p256_v1"].host_v1_step(_p(acc), _p(t), _p(out), len(cases), tpi)
+    vals = _ints(out)
+    for i, (a, b) in enumerate(cases):
+        X, Y, Z = (v * pow(R, -1, P) % P for v in vals[3 * i:3 * i + 3])
         got = None if Z == 0 else (X * pow(Z, -2, P) % P, Y * pow(Z, -3, P) % P)
-        assert got == ec_ref.pt_add(ec_ref.pt_double(a), t)
+        assert got == ec_ref.pt_add(ec_ref.pt_double(a), b), i
+
+
+@pytest.mark.parametrize("tpi", [8, 4])
+def test_v1_mod_n_product_matches_python_ints(host_kernels, tpi):
+    """The team's Montgomery product mod n (rank 0's multipliers, n's
+    limbs as real products) at 0, 1, n - 1, n - 2, 2^255 mod n, R mod n,
+    R^2 mod n and random values."""
+    N, R = ec_ref.N, 1 << 256
+    rng = np.random.default_rng(15)
+    edge = [0, 1, N - 1, N - 2, (1 << 255) % N, R % N, R * R % N]
+    rand = [int.from_bytes(rng.bytes(32), "big") % N for _ in range(24)]
+    pairs = [(a, b) for a in edge for b in edge] + list(zip(rand, rand[::-1]))
+    a, b = _words([x for x, _ in pairs]), _words([y for _, y in pairs])
+    r = np.zeros_like(a)
+    host_kernels["p256_v1"].host_fn_mul(_p(a), _p(b), _p(_words([N])), _p(r), len(pairs), tpi)
+    assert _ints(r) == [x * y * pow(R, -1, N) % N for x, y in pairs]
 
 
 @pytest.mark.parametrize("mod", ["p", "n"])
 def test_v2_digit_product_and_settle_match_python_ints(host_kernels, mod):
+    """The team product (convolution across the team, the int8 chunk
+    reduction through the tensor-core tiles, the team settle) and the
+    team settle alone, digit for digit against ``DigitMod.mul`` and
+    ``settle``, at the largest legal magnitudes (|a| = |b| = 624, inputs
+    to settle up to 2^24 - 1), with carries crossing every rank
+    boundary; 20 lanes, so the second block runs 12 spare lanes.  The
+    padding digits 43..47 stay zero."""
     dm = v2.MODP if mod == "p" else v2.MODN
     lib = host_kernels["p256_v2"]
     consts = v2.kernel_consts(torch.device("cpu")).numpy()
@@ -781,30 +941,37 @@ def test_v2_digit_product_and_settle_match_python_ints(host_kernels, mod):
     rows = [np.full(dg.K, side), np.full(dg.K, -side),
             np.array([side if i % 2 else -side for i in range(dg.K)]),
             np.array([(-1) ** i * (side - i) for i in range(dg.K)])]
-    rows += [rng.integers(-side, side + 1, dg.K) for _ in range(8)]
+    rows += [rng.integers(-side, side + 1, dg.K) for _ in range(16)]
     a = np.ascontiguousarray(np.stack(rows), np.int32)
     b = np.ascontiguousarray(a[::-1], np.int32)
-    out = np.zeros_like(a)
-    lib.host_v2_mul(_p(consts), int(mod == "n"), _p(a), _p(b), _p(out), len(a))
+    out = np.zeros((len(a), 48), np.int32)
+    lib.host_v2_op(_p(consts), int(mod == "n"), 0, _p(a), _p(b), _p(out), len(a))
+    assert not out[:, dg.K:].any()
+    out = out[:, :dg.K]
     assert np.abs(out).max() <= dg.SETTLED_MAX
     for o, x, y in zip(out, a, b):
         assert dg.digits_to_int(o) % dm.m == dg.digits_to_int(x) * dg.digits_to_int(y) % dm.m
     assert np.array_equal(out, dm.mul(torch.from_numpy(a).long(), torch.from_numpy(b).long()))
-    t = np.ascontiguousarray(rng.integers(-(1 << 24) + 1, 1 << 24, (12, dg.K)), np.int32)
+    t = np.ascontiguousarray(rng.integers(-(1 << 24) + 1, 1 << 24, (20, dg.K)), np.int32)
     t[0], t[1] = (1 << 24) - 1, -(1 << 24) + 1
-    st = np.zeros_like(t)
-    lib.host_v2_settle(_p(consts), int(mod == "n"), _p(t), _p(st), len(t))
+    t[2] = [(1 << 24) - 1 if i % 2 else 63 for i in range(dg.K)]
+    st = np.zeros((len(t), 48), np.int32)
+    lib.host_v2_op(_p(consts), int(mod == "n"), 1, _p(t), _p(t), _p(st), len(t))
+    assert not st[:, dg.K:].any()
+    st = st[:, :dg.K]
     assert np.abs(st).max() <= dg.SETTLED_MAX
     assert [dg.digits_to_int(r) % dm.m for r in st] == [dg.digits_to_int(r) % dm.m for r in t]
     assert np.array_equal(st, dm.settle(torch.from_numpy(t).long()))
 
 
 def test_v2_kernel_source_matches_plain_and_oracle(host_kernels):
+    """The team kernel on 32 lanes of every kind (two blocks of 16), Q = G
+    and Q = -G included."""
     items = _v1_v2_items()[:30] + _v1_v2_items()[-2:]
     frame = v2.stage_frame(items, v2.bucket(len(items)))
     consts = v2.kernel_consts(torch.device("cpu")).numpy()
     out = np.zeros(len(frame), np.uint8)
-    host_kernels["p256_v2"].host_v2(_p(frame), len(frame), _p(consts), _p(out))
+    host_kernels["p256_v2"].host_v2(_p(frame), len(frame), _p(consts), _p(out), 2)
     plain = v2.verify_batch_v2_ref(torch.from_numpy(frame)).numpy()
     assert np.array_equal(out.astype(bool), plain)
     want = [ec_ref.verify_digest((x, y), e, r, s) for e, r, s, x, y in items]
