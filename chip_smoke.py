@@ -20,8 +20,11 @@ invalid) and one block with a consumption-unsafe namespace through
 ``CommitPipeline(depth=2)`` on the card, with the launch counts reset
 just before and read just after, checked against the filters the
 blocks were built to produce and against the same blocks validated
-through the plain versions on the CPU; a second run of the main path
-under ``torch.profiler`` gives the card's busy time and idle share.
+through the plain versions on the CPU, with the validator's phase
+timers (``BlockValidator.timings``, ms a block by the reference's
+phase keys, plus ``ledger_commit`` around the commit); a second run of
+the main path under ``torch.profiler`` gives the card's busy time and
+idle share.
 The resident path: a world state of 1,000,000
 keys warmed into the table, 6 bench-shaped blocks whose read-only keys
 are the same in every block (a hot working set) through
@@ -44,14 +47,26 @@ threads signing 2,000 digests through
 4,096 and 256 (the default ``batch_max``) lanes (edge nonces included)
 and at every bucket the lane launched it with, up to 256 lanes of each
 against ``ec_ref``, and fixed-nonce signatures against ``ec_ref`` and
-through ``p256_verify``.  The wire path: 4 bench-shaped 1000-tx blocks
+through ``p256_verify``.  The wire path: 13 bench-shaped 1000-tx blocks
 in wire format, built with the port's cryptogen and
-``build_envelopes`` and signed on the card (12,000 digests, 64 checked
+``build_envelopes`` and signed on the card (39,000 digests, 64 checked
 against ``ec_ref``), every 20th transaction invalid in one of nine
-ways, through ``CommitPipeline(depth=2)`` with the port's MSP, checked
-against construction and against the same blocks decoded by
-``decode_block`` through the ``DecodedBlock`` entry, with the front
-end's decode time per block and the card's busy share.  SHA-256:
+ways, through ``CommitPipeline(depth=2)`` with the port's MSP (the
+columnar parse: one ``native/blockparse.cpp``, one
+``native/ecprep.cpp`` and one ``native/mvccprep.cpp`` call a block),
+the first block alone and then the other 12, each with the phase
+timers; checked against construction and against the same blocks
+decoded by ``decode_block`` through the ``DecodedBlock`` entry
+(filters, update batches, history), with the front end's decode time
+per block beside ``host_parse``, the envelopes the front end decoded,
+the read/write sets parsed in Python, and the card's busy share.  The
+host stage, on one block each, every result byte-equal to the plain
+Python it replaces: ``stage_frame`` against ``stage_frame_ref`` at the
+main path's 3,072 lanes (a decoded block's tuples and a wire block's
+columns), ``prepare_block_from_flat`` against ``prepare_block_static``
+(both forms), and ``parse_envelopes`` and the whole columnar parse
+beside ``decode_block``; the build line gives g++'s version and
+seconds beside nvcc's.  SHA-256:
 ``sha256_host`` on the bench shape (4,096 x 200 B), the padding
 boundaries, a ragged M = 8 batch and the first wire block's signed
 messages against ``hashlib`` (its launches counted), then
@@ -93,6 +108,7 @@ import sys
 import threading
 import time
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -539,35 +555,45 @@ NAMESPACES = {CC: "OutOf(2, 'Org1MSP.peer', 'Org2MSP.peer', 'Org3MSP.peer')",
               UNSAFE_CC: "OutOf(1, 'Org1MSP.peer', 'Org1MSP.member')"}
 
 
-def run_pipeline(blocks, seed_rows, device, depth=2):
+def run_pipeline(blocks, seed_rows, device, depth=2, timings=None):
     """→ ([CommittedBlock], seconds, per-block completion seconds)."""
     from fabric_tpu_torch import carry
     from fabric_tpu_torch.peer.validator import BlockValidator
 
     state, prov, _ = carry.from_reference(seed_rows, NAMESPACES, [])
-    return run_validator(blocks, BlockValidator(prov, state, device=device), depth)
+    return run_validator(blocks, BlockValidator(prov, state, device=device), depth,
+                         timings=timings)
 
 
-def run_validator(blocks, v, depth=2):
+class TxidStore:
+    def __init__(self):
+        self.txids = set()
+
+    def tx_exists(self, txid):
+        return txid in self.txids
+
+
+def run_validator(blocks, v, depth=2, timings=None):
     """Commit ``blocks`` through ``CommitPipeline`` with the validator
-    ``v`` (its ``state`` receives the commits, a txid store is attached)
-    → ([CommittedBlock], seconds, per-block completion seconds)."""
+    ``v`` (its ``state`` receives the commits; a txid store is attached
+    unless it has one) → ([CommittedBlock], seconds, per-block
+    completion seconds).  ``timings``: a dict that receives the
+    validator's phase seconds (``BlockValidator.timings``) and the
+    commit's as ``ledger_commit``, summed over the blocks."""
     from fabric_tpu_torch.peer.pipeline import CommitPipeline
 
-    class Store:
-        def __init__(self):
-            self.txids = set()
-
-        def tx_exists(self, txid):
-            return txid in self.txids
-
-    store = v.blocks = Store()
+    if not isinstance(v.blocks, TxidStore):
+        v.blocks = TxidStore()
+    store = v.blocks
     state = v.state
     device = v.device.type
+    v.timings = timings
 
     def commit(res):
+        t0 = time.perf_counter()
         state.apply_updates(res.batch)
         store.txids.update(t for t, _ in res.txids)
+        v._t("ledger_commit", t0)
 
     out, marks = [], []
     if device == "cuda":
@@ -624,7 +650,8 @@ def phase_main_path(net: Net):
 
     blocks, expected, seed_rows = build_blocks(net)
     kernels.reset_counts()
-    res, secs, marks = run_pipeline(blocks, seed_rows, "cuda")
+    timings = {}
+    res, secs, marks = run_pipeline(blocks, seed_rows, "cuda", timings=timings)
     counts = dict(kernels.launches)
     got = [r.tx_filter for r in res]
     if got != expected:
@@ -635,7 +662,8 @@ def phase_main_path(net: Net):
     n_tx = sum(len(b.txs) for b in blocks)
     log("main_path", blocks=len(blocks), txs=n_tx, depth=2, seconds=secs,
         per_block_ms=1e3 * secs / len(blocks), tx_per_s=n_tx / secs,
-        completion_s=marks, valid=[r.n_valid for r in res], launches=counts)
+        completion_s=marks, valid=[r.n_valid for r in res], launches=counts,
+        phase_ms_per_block={k: 1e3 * t / len(blocks) for k, t in sorted(timings.items())})
     busy_ms, psecs_prof, n_ev, names = device_busy(blocks, seed_rows)
     ok = busy_ms is not None
     log("device_busy", profiled_seconds=psecs_prof, device_events=n_ev, by_name=names,
@@ -1208,6 +1236,7 @@ def build_wire_blocks(wn: WireNet, n_blocks: int = N_BLOCKS, n_tx: int = BLOCK_T
 
 
 WIRE_NAMESPACES = {CC: NAMESPACES[CC]}
+WIRE_BLOCKS = 13  # the first block reported apart, then 12
 
 
 def phase_wire_path(dev):
@@ -1221,7 +1250,7 @@ def phase_wire_path(dev):
 
     t0 = time.perf_counter()
     wn = WireNet(SEED + 9)
-    blocks, expected, seed_rows, (digests, keys, sigs) = build_wire_blocks(wn)
+    blocks, expected, seed_rows, (digests, keys, sigs) = build_wire_blocks(wn, WIRE_BLOCKS)
     build_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED + 10)
     sample = rng.choice(len(digests), 64, replace=False).tolist()
@@ -1242,7 +1271,11 @@ def phase_wire_path(dev):
     wire = [m.Block.parse(r) for r in raw]
     v = validator()
     kernels.reset_counts()
-    res, secs, marks = run_validator(wire, v, depth=2)
+    # the first block alone (its set-up swamps a short run), then the rest
+    first_t, rest_t = {}, {}
+    res, first_s, _ = run_validator(wire[:1], v, depth=2, timings=first_t)
+    rest, secs, marks = run_validator(wire[1:], v, depth=2, timings=rest_t)
+    res += rest
     counts = dict(kernels.launches)
     got = [r.tx_filter for r in res]
     if got != expected:
@@ -1264,16 +1297,98 @@ def phase_wire_path(dev):
             raise AssertionError(f"block {a.block.number}: the wire entry differs from "
                                  "the DecodedBlock entry")
     codes = Counter(c for f in got for c in f)
-    log("wire_path", blocks=len(wire), txs=n_tx, depth=2, seconds=secs,
-        per_block_ms=1e3 * secs / len(wire), tx_per_s=n_tx / secs, completion_s=marks,
-        decode_ms_per_block=decode_ms, codes={int(k): n for k, n in sorted(codes.items())},
+    front_end = [r.pend.block.n_front_end for r in res]
+    rwset_parsed = [r.pend.block.n_rwset_parsed for r in res]
+    k = len(wire) - 1
+    phase_ms = {key: 1e3 * t / k for key, t in sorted(rest_t.items())}
+    log("wire_path", blocks=len(wire), txs=n_tx, depth=2, first_block_ms=1e3 * first_s,
+        first_block_phase_ms={key: 1e3 * t for key, t in sorted(first_t.items())},
+        after_first_blocks=k, seconds=secs, per_block_ms=1e3 * secs / k,
+        tx_per_s=(n_tx - len(wire[0].data.data)) / secs, completion_s=marks,
+        phase_ms_per_block=phase_ms,
+        phases_sum_ms_per_block=sum(phase_ms.values()),
+        host_parse_ms_per_block=phase_ms.get("host_parse"),
+        decode_ms_per_block_after_first=sum(decode_ms[1:]) / k,
+        decode_ms_per_block=decode_ms, front_end_envelopes=front_end,
+        rwset_parsed_txs=rwset_parsed, codes={int(c): n for c, n in sorted(codes.items())},
         equal_to_construction=True, equal_to_decoded_entry=True, launches=counts)
     busy_ms, psecs, n_ev, names = device_busy(wire, validator=validator())
     ok = busy_ms is not None
     log("device_busy_wire", profiled_seconds=psecs, device_events=n_ev, by_name=names,
         busy_ms_per_block=busy_ms / len(wire) if ok else None,
         idle_share_profiled=1 - busy_ms / (1e3 * psecs) if ok else None)
-    return counts, wire
+    return counts, wire, wn.msp
+
+
+def best_ms(fn, reps: int = 5) -> float:
+    """The least host wall time of ``reps`` calls of ``fn``, in ms."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return min(out)
+
+
+def phase_host_stage(net: Net, wire, msp):
+    """The commit path's host C++ at the main path's shape, each beside
+    the plain Python it replaces, byte for byte: ``stage_frame`` against
+    ``stage_frame_ref`` at 3,072 signatures (a main-path block's tuples
+    and a wire block's columns); ``prepare_block_from_flat`` against
+    ``prepare_block_static`` (both forms); ``parse_envelopes`` and the
+    whole columnar parse against ``decode_block``."""
+    from fabric_tpu_torch import carry, native
+    from fabric_tpu_torch.native import blockparse
+    from fabric_tpu_torch.ops import mvcc, p256v3
+    from fabric_tpu_torch.peer import frontend
+    from fabric_tpu_torch.peer.validator import BlockValidator
+
+    blocks, _, seed_rows = build_blocks(net, n_blocks=1, unsafe=False)
+    state, prov, _ = carry.from_reference(seed_rows, NAMESPACES, [])
+    v = BlockValidator(prov, state, device="cpu", msp=msp)  # host work only
+    _, tuples = v._parse(blocks[0])
+    blk = wire[1]
+    wb, txs, cols = v._parse_wire(blk)
+    out = {}
+    for name, items in (("tuples", tuples), ("columns", cols)):
+        lanes = p256v3._bucket(len(items))
+        got = p256v3.stage_frame(items, lanes)
+        want = p256v3.stage_frame_ref(list(items), lanes)
+        if got.tobytes() != want.tobytes():
+            raise AssertionError(f"host stage: stage_frame ({name}) differs from stage_frame_ref")
+        out[f"stage_frame_{name}"] = {
+            "signatures": len(items), "lanes": lanes, "admitted": int(got[:, -1].sum()),
+            "ms": best_ms(lambda: p256v3.stage_frame(items, lanes)),
+            "plain_ms": best_ms(lambda: p256v3.stage_frame_ref(list(items), lanes), 3),
+            "byte_equal": True}
+    inc = np.array([t.undetermined for t in txs]) & wb.flat
+    for unique in (False, True):
+        flat = lambda: mvcc.prepare_block_from_flat(wb.rwp, inc, wb.lex_rank, wb.keys,
+                                                    unique=unique)
+
+        def plain():
+            mt = []
+            for t, u in zip(txs, inc):
+                r, w, q = t.rwset.mvcc_form() if u and t.rwset is not None else ([], [], [])
+                mt.append(mvcc.TxRWSet(reads=r, writes=w, range_reads=q))
+            return mvcc.prepare_block_static(mt, bucketed=True, unique=unique)
+
+        a, b = flat(), plain()
+        if (a.packed_static().tobytes() != b.packed_static().tobytes()
+                or a.packed_read_pv().tobytes() != b.packed_read_pv().tobytes()):
+            raise AssertionError(f"host stage: prepare_block_from_flat (unique={unique}) "
+                                 "differs from prepare_block_static")
+        out[f"static_{'unique' if unique else 'bucketed'}"] = {
+            "txs": int(inc.sum()), "shape": list(a.packed_static().shape),
+            "ms": best_ms(flat), "plain_ms": best_ms(plain, 3), "byte_equal": True}
+    envs = list(blk.data.data)
+    out["parse"] = {
+        "envelopes": len(envs), "parse_envelopes_ms": best_ms(
+            lambda: blockparse.parse_envelopes(envs)),
+        "columnar_parse_ms": best_ms(lambda: v._parse_wire(blk)),
+        "decode_block_ms": best_ms(lambda: frontend.decode_block(blk, msp), 3),
+        "front_end_envelopes": wb.n_front_end, "rwset_parsed_txs": wb.n_rwset_parsed}
+    log("host_stage", gxx_build_s=dict(native.build_seconds), **out)
 
 
 # ---------------------------------------------------------------------------
@@ -1734,7 +1849,7 @@ def phase_sidecar(net: Net, main_res):
 def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
-        from fabric_tpu_torch import kernels
+        from fabric_tpu_torch import kernels, native
     except ModuleNotFoundError as e:
         if e.name != "fabric_tpu_torch":
             raise
@@ -1753,13 +1868,18 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
         torch=torch.__version__, cuda=torch.version.cuda)
-    secs = kernels.build()
+    with ThreadPoolExecutor(1) as pool:  # g++ beside nvcc
+        host = pool.submit(native.build)
+        secs = kernels.build()
+        host_secs = host.result()
     regs = {n: [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
             for n, text in kernels.build_log.items()}
     # static shared memory per block of each kernel, as ptxas reports it
     smem = {n: [int(m) for m in re.findall(r"(\d+) bytes smem", text)]
             for n, text in kernels.build_log.items()}
-    log("build", seconds=secs, ptxas=regs, static_smem_bytes=smem)
+    log("build", seconds=secs, ptxas=regs, static_smem_bytes=smem,
+        host_cpp={"compiler": native.compiler_version(), "seconds": host_secs,
+                  "per_library_s": dict(native.build_seconds)})
     t0 = time.perf_counter()
     net = Net(SEED)
     log("signatures", identities=len(net.keys), per_identity=POOL,
@@ -1776,7 +1896,8 @@ def main() -> int:
         r["launches"] = counts[r["name"]]
     recs += res_recs
     recs.append(phase_sign(net, dev))
-    _, wire = phase_wire_path(dev)
+    _, wire, msp = phase_wire_path(dev)
+    phase_host_stage(net, wire, msp)
     recs.append(phase_sha256(dev, wire[0]))
     recs += phase_comparison(net, dev, main_res)
     phase_sidecar(net, main_res)

@@ -168,7 +168,7 @@ class StaticBlock:
     write_keys: np.ndarray     # [T, W] int32
     rq_lo: np.ndarray          # [T, Q] int32
     rq_hi: np.ndarray          # [T, Q] int32
-    read_fill: list            # [(j, a, key)]
+    keys: list                 # [n_ids] the key of each id
     read_key_set: set
     # the unique-key form (``prepare_block_static(unique=True)``, blocks
     # without range reads): read key ids 0..U-1 index ``u_pairs``
@@ -180,11 +180,17 @@ class StaticBlock:
         T, R = self.read_keys.shape
         comm_present = np.zeros((T, R), bool)
         comm_vers = np.zeros((T, R, 2), np.uint32)
-        for j, a, k in self.read_fill:
-            cv = committed.get(k)
+        rows, cols = np.nonzero(self.read_keys >= 0)
+        ids = self.read_keys[rows, cols]
+        up = np.zeros(len(self.keys), bool)
+        uv = np.zeros((len(self.keys), 2), np.uint32)
+        for u in np.unique(ids).tolist():  # each read key looked up once
+            cv = committed.get(self.keys[u])
             if cv is not None:
-                comm_present[j, a] = True
-                comm_vers[j, a] = cv
+                up[u] = True
+                uv[u] = cv
+        comm_present[rows, cols] = up[ids]
+        comm_vers[rows, cols] = uv[ids]
         return comm_present, comm_vers
 
     def host_ver_ok(self, committed: dict) -> np.ndarray:
@@ -283,14 +289,12 @@ def prepare_block_static(txs: list[TxRWSet], bucketed: bool = False,
     write_keys = np.full((T, W), -1, np.int32)
     rq_lo = np.full((T, Q), -1, np.int32)
     rq_hi = np.full((T, Q), -1, np.int32)
-    read_fill: list = []
     for j, tx in enumerate(txs):
         for a, (k, ver) in enumerate(tx.reads):
             read_keys[j, a] = kid[k]
             if ver is not None:
                 read_present[j, a] = True
                 read_vers[j, a] = ver
-            read_fill.append((j, a, k))
         for a, k in enumerate(tx.writes):
             write_keys[j, a] = kid[k]
         for a, (lo, hi) in enumerate(tx.range_reads):
@@ -299,10 +303,66 @@ def prepare_block_static(txs: list[TxRWSet], bucketed: bool = False,
     static = StaticBlock(
         read_keys=read_keys, read_present=read_present, read_vers=read_vers,
         write_keys=write_keys, rq_lo=rq_lo, rq_hi=rq_hi,
-        read_fill=read_fill, read_key_set=read_key_set,
+        keys=skeys, read_key_set=read_key_set,
     )
     if unique:
         static.u_pairs = [(k[1], k[2]) for k in rkeys]
+        static.u_index = {pr: i for i, pr in enumerate(static.u_pairs)}
+    return static
+
+
+def prepare_block_from_flat(rwp, include: np.ndarray, lex_rank: np.ndarray, keys: list,
+                            unique: bool = False) -> StaticBlock:
+    """``prepare_block_static(txs, bucketed=True, unique=unique)`` from
+    the flat arrays of ``native.mvccprep`` (counterpart:
+    ``fabric_tpu/ops/mvcc.py::prepare_block_from_flat`` :426) with numpy
+    scatters, no loop over reads or writes.  ``include``: [n] bool, the
+    transactions whose sets count (status 0); every other row stays
+    empty.  ``lex_rank``: [n_keys] each interned key's rank in
+    (namespace, key) order; ``keys``: [n_keys] its ('pub', ns, key).
+    The arrays, so ``packed_static()`` and ``packed_read_pv()``, are
+    byte-equal to the decoded form's: key ids in lexicographic order
+    (read keys first under ``unique``), each transaction's reads and
+    writes in key order."""
+    n = len(include)
+    r_tx, r_row, rc = rwp.tx_rows("r", include, lex_rank)
+    w_tx, w_row, wc = rwp.tx_rows("w", include, lex_rank)
+    r_uid = rwp.r_uid[r_row].astype(np.int64)
+    w_uid = rwp.w_uid[w_row].astype(np.int64)
+    read_u = np.unique(r_uid)
+    all_u = np.unique(np.concatenate([r_uid, w_uid]))
+    if unique:
+        wonly = np.setdiff1d(all_u, read_u)
+        order = np.concatenate([read_u[np.argsort(lex_rank[read_u])],
+                                wonly[np.argsort(lex_rank[wonly])]])
+    else:
+        order = all_u[np.argsort(lex_rank[all_u])]
+    new_id = np.full(len(lex_rank), -1, np.int64)
+    new_id[order] = np.arange(len(order))
+
+    T = max(16, next_pow2(n))
+    R = next_pow2(max(1, int(rc.max()) if n else 1))
+    W = next_pow2(max(1, int(wc.max()) if n else 1))
+    col = lambda cnt: np.arange(cnt.sum()) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+    read_keys = np.full((T, R), -1, np.int32)
+    read_present = np.zeros((T, R), bool)
+    read_vers = np.zeros((T, R, 2), np.uint32)
+    write_keys = np.full((T, W), -1, np.int32)
+    rcol = col(rc)
+    read_keys[r_tx, rcol] = new_id[r_uid]
+    read_present[r_tx, rcol] = rwp.r_has_ver[r_row].astype(bool)
+    read_vers[r_tx, rcol] = rwp.r_ver[r_row].astype(np.uint32)
+    write_keys[w_tx, col(wc)] = new_id[w_uid]
+
+    id_keys = [keys[u] for u in order.tolist()]
+    static = StaticBlock(
+        read_keys=read_keys, read_present=read_present, read_vers=read_vers,
+        write_keys=write_keys, rq_lo=np.full((T, 1), -1, np.int32),
+        rq_hi=np.full((T, 1), -1, np.int32), keys=id_keys,
+        read_key_set=set(id_keys[:len(read_u)]) if unique else
+        {keys[u] for u in read_u.tolist()})
+    if unique:
+        static.u_pairs = [(k[1], k[2]) for k in id_keys[:len(read_u)]]
         static.u_index = {pr: i for i, pr in enumerate(static.u_pairs)}
     return static
 

@@ -9,14 +9,19 @@ the Renes-Costello-Batina complete formulas (a = -3), and the final
 X = r*Z or (r+n)*Z (mod p) compare.
 
 Host staging (admission checks, one Montgomery batch inversion for
-s^-1, u1/u2) is the JAX package's numpy/Python staging.  The launch
-frame is the port's own: it drops the TPU's RNS residues for 16-bit
-big-endian positional limbs, one int16 row per signature:
+s^-1, u1/u2) is one call into the port's copy of the reference's
+``native/ecprep.cpp`` (``stage_frame``); ``stage_frame_ref`` is its
+plain version, the JAX package's Python staging.  The launch frame is
+the port's own: it drops the TPU's RNS residues for 16-bit big-endian
+positional limbs, one int16 row per signature:
 
     qx | qy | r | r+n | u1 | u2   (16 limbs each)  | rpn_ok | pre_ok
 
 so ``FRAME_COLS`` = 98.  The kernel recodes the 4-bit windows from the
-u1/u2 limbs itself (``device_recode_windows`` in the reference).
+u1/u2 limbs itself (``device_recode_windows`` in the reference).  A
+batch arrives as (digest, r, s, qx, qy) int tuples, packed into 32-byte
+rows for the C call, or as ``SigColumns``, the rows the validator
+gathers from a wire block (the reference's ``ColumnarSigBatch``).
 
 ``verify_batch_packed`` is the kernel wrapper: a CPU frame runs the
 plain version ``verify_batch_ref`` (torch ops over ``ops/fp256.py``), a
@@ -30,7 +35,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from fabric_tpu_torch import kernels
+from fabric_tpu_torch import kernels, native
 from fabric_tpu_torch.crypto import ec_ref
 from fabric_tpu_torch.device import resolve_device
 from fabric_tpu_torch.ops import fp256
@@ -106,9 +111,120 @@ def admit(e: int, r: int, s: int, qx: int, qy: int) -> bool:
             and 0 <= qx < P and 0 <= qy < P and not (qx == 0 and qy == 0))
 
 
+_R256 = 1 << 256
+
+
+def pack256(vals) -> tuple[np.ndarray, np.ndarray]:
+    """Ints → ([n, 32] uint8 big-endian rows, [n] bool in [0, 2^256));
+    a value out of range packs as 0."""
+    vals = list(vals)
+    n = len(vals)
+    try:
+        raw = b"".join([v.to_bytes(32, "big") for v in vals])
+        ok = np.ones(n, bool)
+    except (OverflowError, AttributeError, TypeError):
+        vals = [int(v) for v in vals]
+        ok = np.array([0 <= v < _R256 for v in vals], bool)
+        raw = b"".join([(v if 0 <= v < _R256 else 0).to_bytes(32, "big") for v in vals])
+    return np.frombuffer(raw, np.uint8).reshape(n, 32), ok
+
+
+def q_admit(q_pool: np.ndarray) -> np.ndarray:
+    """[k, 64] public keys (qx || qy, big-endian) → [k] bool: both
+    coordinates below p and not (0, 0) (one C call)."""
+    q_pool = np.ascontiguousarray(q_pool, np.uint8)
+    ok = np.zeros(len(q_pool), np.uint8)
+    if len(q_pool):
+        native.lib("ecprep").ec_q_admit(native.ptr(q_pool), len(q_pool), native.ptr(ok))
+    return ok.astype(bool)
+
+
+class SigColumns:
+    """A signature batch in column form (the reference's
+    ``ColumnarSigBatch``): digest, r and s as [k, 32] big-endian rows,
+    each row's public key a row of ``q_pool`` ([u, 64], qx || qy) picked
+    by ``q_idx``, with that key's admission ``q_ok``; ``idents[u]`` is
+    the identity of pool row u.  The int tuples in ``extra`` follow the
+    rows (the validator's envelopes that took the front end).
+    Iterating gives (digest, r, s, qx, qy) int tuples, for the
+    comparison kernels and the sidecar."""
+
+    __slots__ = ("digest_b", "r_b", "s_b", "q_idx", "q_pool", "q_ok", "idents", "extra")
+
+    def __init__(self, digest_b, r_b, s_b, q_idx, q_pool, q_ok, idents):
+        self.digest_b, self.r_b, self.s_b = digest_b, r_b, s_b
+        self.q_idx, self.q_pool, self.q_ok, self.idents = q_idx, q_pool, q_ok, idents
+        self.extra: list = []
+
+    def __len__(self) -> int:
+        return len(self.digest_b) + len(self.extra)
+
+    def __iter__(self):
+        big = lambda a: [int.from_bytes(a[i].tobytes(), "big") for i in range(len(a))]
+        es, rs, ss = big(self.digest_b), big(self.r_b), big(self.s_b)
+        for j, u in enumerate(self.q_idx.tolist()):
+            ident = self.idents[u]
+            yield es[j], rs[j], ss[j], ident.qx, ident.qy
+        yield from self.extra
+
+    def columns(self):
+        """→ (digest, r, s [B, 32] uint8; q_idx [B] int32; q_pool
+        [u, 64] uint8; q_ok [u] uint8), the tuples appended."""
+        if not self.extra:
+            return (self.digest_b, self.r_b, self.s_b, self.q_idx, self.q_pool,
+                    self.q_ok.astype(np.uint8))
+        e, r, s, q, ok = _pack_tuples(self.extra)
+        u = len(self.q_pool)
+        return (np.concatenate([self.digest_b, e]), np.concatenate([self.r_b, r]),
+                np.concatenate([self.s_b, s]),
+                np.concatenate([self.q_idx, np.arange(u, u + len(e), dtype=np.int32)]),
+                np.concatenate([self.q_pool, q]),
+                np.concatenate([self.q_ok, ok]).astype(np.uint8))
+
+
+def _pack_tuples(items):
+    """Int tuples → (digest, r, s [B, 32]; q [B, 64]; q_ok [B] bool).
+    A digest outside [0, 2^256) packs reduced mod n (u1 is unchanged);
+    any other value out of range rejects its row through q_ok."""
+    es = [it[0] for it in items]
+    e_b, e_in = pack256(es)
+    if not e_in.all():
+        e_b, _ = pack256([int(v) % N for v in es])
+    r_b, r_in = pack256([it[1] for it in items])
+    s_b, s_in = pack256([it[2] for it in items])
+    qx_b, qx_in = pack256([it[3] for it in items])
+    qy_b, qy_in = pack256([it[4] for it in items])
+    q = np.concatenate([qx_b, qy_b], axis=1)
+    return e_b, r_b, s_b, q, q_admit(q) & r_in & s_in & qx_in & qy_in
+
+
 def stage_frame(items, pad_to: int | None = None) -> np.ndarray:
-    """(digest, r, s, qx, qy) int tuples → the [pad_to, 98] int16 launch
-    frame.  Rejected and padding rows stay all-zero (pre_ok 0)."""
+    """(digest, r, s, qx, qy) int tuples or ``SigColumns`` → the
+    [pad_to, 98] int16 launch frame, in one C call
+    (``native/ecprep.cpp``).  Rejected and padding rows stay all-zero
+    (pre_ok 0)."""
+    if isinstance(items, SigColumns):
+        e_b, r_b, s_b, q_idx, q_pool, q_ok = items.columns()
+    else:
+        items = list(items)
+        e_b, r_b, s_b, q_pool, ok = _pack_tuples(items)
+        q_idx = np.arange(len(items), dtype=np.int32)
+        q_ok = ok.astype(np.uint8)
+    n = len(e_b)
+    if pad_to is not None and pad_to < n:  # the C call writes every item's row
+        raise ValueError(f"pad_to={pad_to} is below the {n} items")
+    frame = np.zeros((n if pad_to is None else pad_to, FRAME_COLS), np.int16)
+    if n:
+        p = native.ptr
+        arrs = [np.ascontiguousarray(a) for a in (e_b, r_b, s_b, q_idx, q_pool, q_ok)]
+        native.lib("ecprep").ec_stage_frame(*(p(a) for a in arrs), n, p(frame),
+                                            FRAME_COLS)
+    return frame
+
+
+def stage_frame_ref(items, pad_to: int | None = None) -> np.ndarray:
+    """Plain version of ``stage_frame`` (int tuples only): admission,
+    ``_batch_inv_mod_n`` and the limbs with Python ints."""
     items = list(items)
     n = len(items)
     Bp = n if pad_to is None else pad_to
@@ -337,10 +453,12 @@ class VerifyHandle:
 
 
 def verify_launch(items, device="cuda") -> VerifyHandle:
-    """Stage (digest, r, s, qx, qy) tuples and launch the verify kernel
-    without waiting: one launch over the whole bucketed batch."""
+    """Stage (digest, r, s, qx, qy) tuples or ``SigColumns`` and launch
+    the verify kernel without waiting: one launch over the whole
+    bucketed batch."""
     dev = resolve_device(device)
-    items = list(items)
+    if not isinstance(items, SigColumns):
+        items = list(items)
     n = len(items)
     if not n:
         return VerifyHandle(torch.zeros(0, dtype=torch.bool, device=dev), 0)
@@ -354,7 +472,7 @@ def verify_launch_many(batches, device="cuda") -> list[VerifyHandle]:
     [off_b, off_b + _bucket(n_b)) — so each handle's ``device_out`` is a
     slice; the total pads out to ``_bucket(sum of buckets)``."""
     dev = resolve_device(device)
-    batches = [list(b) for b in batches]
+    batches = [b if isinstance(b, SigColumns) else list(b) for b in batches]
     offs, total = [], 0
     for b in batches:
         offs.append(total)

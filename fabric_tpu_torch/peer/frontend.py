@@ -35,9 +35,10 @@ codec and MSP, in the reference's check order and with its codes:
   sha256(proposal response payload ‖ endorser).
 
 Digests are hashed on the host with ``hashlib``, as the reference's
-``_sig_item`` (:2634) and SHA-NI path do.  ``BlockValidator.preprocess``
-runs this on ``CommitPipeline``'s prefetch thread, where the reference
-runs its ``_parse``.
+``_sig_item`` (:2634) does.  ``BlockValidator`` decodes with
+``decode_envelope`` the envelopes its C walk (``native/blockparse.cpp``)
+leaves to it, in block order, as the reference's ``_parse_one_py``
+lane; ``decode_block`` makes the ``DecodedBlock`` entry's form.
 """
 
 from __future__ import annotations

@@ -1,13 +1,39 @@
 """The block validator (counterpart: ``fabric_tpu/peer/validator.py``).
 
-The port's entry takes a wire-format ``protos.messages.Block``, which
-``preprocess`` decodes with the front end (``peer/frontend.py``) and the
+The port's entry takes a wire-format ``protos.messages.Block`` with the
 validator's MSP (``msp=``), or a block its caller decoded already
-(``peer/decoded.py::DecodedBlock``): per transaction the txid, the
+(``peer/decoded.py::DecodedBlock``: per transaction the txid, the
 creator identity and signature, the endorsements, and the read/write
-set.  Each signature arrives as (digest, r, s), the digest being the
-SHA-256 the reference hashes (the payload for the creator, the proposal
-response payload plus the endorser for an endorsement).
+set, each signature as (digest, r, s), the digest being the SHA-256 the
+reference hashes).
+
+A wire block takes the columnar parse (``_parse_wire``, the
+reference's ``_parse_columnar``, validator.py:716-957): one
+``native.blockparse`` call walks every envelope, hashes every signed
+message and splits every DER signature; each distinct serialized
+identity resolves once through the MSP; the tx id binding and the codes
+are array work, the in-block duplicates one ordered pass; the signature
+batch is column gathers (``ops/p256v3.SigColumns``: creators, then
+endorsers); one
+``native.mvccprep`` call flattens the read/write sets, from which
+``ops/mvcc.prepare_block_from_flat`` builds the static MVCC arrays and
+``_build_updates`` the update batch.  Envelopes the walk does not carry
+(config transactions, idemix creators, malformed bytes: ``ok == 0``)
+take the front end (``peer/frontend.py::decode_envelope``) one by one,
+in block order, sharing the duplicate registry, as the reference's
+``_parse_one_py`` lane; a set ``mvccprep`` does not cover (status 1: a
+range query, a hashed collection, a metadata write, bytes that do not
+parse) is parsed with ``TxRWSet.from_bytes``.  Other sets stay as bytes
+until a host path reads ``ParsedTx.rwset``.  The reference takes the
+native walk from 16 envelopes up (validator.py:658); the port takes it
+for every wire block.
+
+``timings`` (None: off) sums each phase's seconds over the blocks under
+the reference's keys (validator.py:460, :541-544): ``host_parse``,
+``sig_prepare_launch`` and ``device_pre`` on the prefetch thread;
+``state_fill``, ``stage2_dispatch``, ``device_wait`` and ``postprocess``
+on the caller's.  The reference's ``hd_frame`` frames the block for its
+block store, which the port does not have.
 
 Check order and codes are the reference's (creator signature → policy →
 MVCC / phantom; ``_finish_device``):
@@ -47,6 +73,8 @@ sets and custom validation plugins.
 
 from __future__ import annotations
 
+import threading
+import time
 from dataclasses import dataclass, field
 from functools import cached_property
 
@@ -57,13 +85,15 @@ from fabric_tpu_torch.crypto import policy as pol
 from fabric_tpu_torch.device import resolve_device
 from fabric_tpu_torch.ledger.rwset import TxRWSet
 from fabric_tpu_torch.ledger.statedb import UpdateBatch
+from fabric_tpu_torch.native import blockparse, mvccprep
 from fabric_tpu_torch.ops import mvcc as mvcc_ops
-from fabric_tpu_torch.ops import p256
+from fabric_tpu_torch.ops import p256, p256v3
 from fabric_tpu_torch.peer import frontend
 from fabric_tpu_torch.peer.decoded import DecodedBlock, DecodedEndorsement, DecodedTx
 from fabric_tpu_torch.peer.device_block import DeviceBlockPipeline, resident_ver_ok
 from fabric_tpu_torch.peer.txcodes import TxValidationCode as C
 from fabric_tpu_torch.protos.messages import Block
+from fabric_tpu_torch.protos.wire import DecodeError
 from fabric_tpu_torch.state.residency import ResidencyManager, build_launch_pack
 from fabric_tpu_torch.utils.batching import next_pow2
 
@@ -102,14 +132,53 @@ class ParsedTx:
     code: int = _NV
     txid: str = ""
     namespaces: tuple = ()
-    rwset: TxRWSet | None = None
     creator_item_idx: int = -1
     endo_item_idx: list = field(default_factory=list)
     endorsers: list = field(default_factory=list)  # [Identity], deduplicated
+    rwset_bytes: bytes | None = None  # a wire block's set, parsed at first use
+    _rwset: TxRWSet | None = None
 
     @property
     def undetermined(self) -> bool:
         return self.code == _NV
+
+    @property
+    def rwset(self) -> TxRWSet | None:
+        """The read/write set; a wire block's is parsed at first use
+        (the reference's lazy ``rwset``, validator.py:115-135).  The
+        walk accepted those bytes, so a parse failure is unreachable;
+        it fails closed (BAD_RWSET) all the same."""
+        if self._rwset is None and self.rwset_bytes is not None:
+            try:
+                self._rwset = TxRWSet.from_bytes(self.rwset_bytes)
+            except DecodeError:
+                if self.undetermined:
+                    self.code = int(C.BAD_RWSET)
+                self._rwset = TxRWSet()
+        return self._rwset
+
+    @rwset.setter
+    def rwset(self, value: TxRWSet | None) -> None:
+        self._rwset, self.rwset_bytes = value, None
+
+
+@dataclass
+class WireBlock:
+    """A wire block after the columnar parse: the C arrays the later
+    stages read.  ``flat[i]``: transaction i's set is in ``rwp``'s flat
+    arrays (status 0); ``keys``, ``lex_rank``: each interned key's
+    ('pub', ns, key) and its rank in that order.  ``n_front_end``:
+    envelopes the front end decoded; ``n_rwset_parsed``: sets parsed
+    with ``TxRWSet.from_bytes``."""
+
+    number: int
+    pb: blockparse.ParsedBlock
+    rwp: mvccprep.MvccPrep
+    flat: np.ndarray
+    keys: list
+    lex_rank: np.ndarray
+    n_front_end: int
+    n_rwset_parsed: int
 
 
 @dataclass
@@ -126,9 +195,9 @@ class DevicePre:
 
 @dataclass
 class Preprocessed:
-    block: DecodedBlock
+    block: object         # DecodedBlock or WireBlock
     txs: list
-    items: list           # [(digest, r, s, qx, qy)]
+    items: object         # [(digest, r, s, qx, qy)] or p256v3.SigColumns
     handle: object        # VerifyHandle (or the sidecar's RemoteVerifyHandle)
     dpre: DevicePre | None  # None: the block takes the host path
 
@@ -137,9 +206,9 @@ class Preprocessed:
 class PendingBlock:
     """A launched block between validate_launch and validate_finish."""
 
-    block: DecodedBlock
+    block: object
     txs: list
-    items: list
+    items: object
     handle: object
     dpre: DevicePre | None
     overlay: object = None
@@ -151,28 +220,35 @@ class PendingBlock:
         return {ptx.txid for ptx in self.txs if ptx.txid}
 
 
-def _refuse_unsupported(block: DecodedBlock, policies: PolicyProvider) -> None:
-    for dtx in block.txs:
-        if dtx.is_config:
+def _refuse_tx(dtx: DecodedTx, policies: PolicyProvider) -> None:
+    if dtx.is_config:
+        raise NotImplementedError(
+            "config transactions: a later slice of the port (config processing)")
+    if dtx.creator is not None and not dtx.creator.has_ec_key:
+        raise NotImplementedError(
+            "idemix creators: a later slice of the port (host-verified creators)")
+    if dtx.rwset is not None:
+        _refuse_rwset(dtx.rwset, policies)
+
+
+def _refuse_rwset(rwset: TxRWSet, policies: PolicyProvider) -> None:
+    for n in rwset.ns.values():
+        if n.metadata_writes:
             raise NotImplementedError(
-                "config transactions: a later slice of the port (config processing)")
-        if dtx.creator is not None and not dtx.creator.has_ec_key:
+                "key-level endorsement metadata writes: a later slice of the port (SBE)")
+        if n.hashed:
             raise NotImplementedError(
-                "idemix creators: a later slice of the port (host-verified creators)")
-        if dtx.rwset is None:
-            continue
-        for ns, n in dtx.rwset.ns.items():
-            if n.metadata_writes:
-                raise NotImplementedError(
-                    "key-level endorsement metadata writes: a later slice of the port (SBE)")
-            if n.hashed:
-                raise NotImplementedError(
-                    "private-collection read/write sets: a later slice of the port (pvtdata)")
-            info = policies.info(ns)
-            if info is not None and (info.plugin or "default") != "default":
-                raise NotImplementedError(
-                    f"validation plugin {info.plugin!r}: a later slice of the port "
-                    "(custom plugins)")
+                "private-collection read/write sets: a later slice of the port (pvtdata)")
+    _refuse_namespaces(rwset.ns, policies)
+
+
+def _refuse_namespaces(names, policies: PolicyProvider) -> None:
+    for ns in names:
+        info = policies.info(ns)
+        if info is not None and (info.plugin or "default") != "default":
+            raise NotImplementedError(
+                f"validation plugin {info.plugin!r}: a later slice of the port "
+                "(custom plugins)")
 
 
 class BlockValidator:
@@ -194,6 +270,22 @@ class BlockValidator:
         self.resident = (ResidencyManager(state_resident_mb, state_resident_range_bits,
                                           device=self.device)
                          if state_resident else None)
+        # seconds per phase, summed over blocks (validator.py:460); None: off
+        self.timings: dict | None = None
+        self._timings_lock = threading.Lock()
+
+    def _t(self, key: str, t0: float) -> float:
+        """Add the seconds since ``t0`` to ``timings[key]`` and return
+        now; with timers off, one attribute test and ``t0`` back.  The
+        prefetch thread (``preprocess``) and the caller's thread
+        (launch, finish) add to the dict at once, so each addition
+        takes ``_timings_lock``."""
+        if self.timings is None:
+            return t0
+        t1 = time.perf_counter()
+        with self._timings_lock:
+            self.timings[key] = self.timings.get(key, 0.0) + (t1 - t0)
+        return t1
 
     def _plan(self, policy) -> pol.BatchPlan:
         plan = self._plans.get(policy)
@@ -204,44 +296,203 @@ class BlockValidator:
     # -- preprocess (prefetch thread) ---------------------------------------
 
     def _parse(self, block: DecodedBlock):
-        _refuse_unsupported(block, self.policies)
+        for dtx in block.txs:
+            _refuse_tx(dtx, self.policies)
         txs, items, seen = [], [], set()
         for i, dtx in enumerate(block.txs):
-            ptx = ParsedTx(idx=i, code=int(dtx.code), txid=dtx.txid, rwset=dtx.rwset)
-            txs.append(ptx)
-            if dtx.txid_bound and dtx.txid:
-                # in-block duplicates (v20/validator.go:460-481)
-                if dtx.txid in seen:
-                    ptx.code = int(C.DUPLICATE_TXID)
-                    continue
-                seen.add(dtx.txid)
-            if not ptx.undetermined:
-                continue
-            cr = dtx.creator
-            if cr is None or not cr.is_valid or dtx.creator_sig is None:
-                ptx.code = int(C.BAD_CREATOR_SIGNATURE)
-                continue
-            ptx.creator_item_idx = len(items)
-            items.append((*dtx.creator_sig, cr.qx, cr.qy))
-            # a repeated endorser counts once (policy.go:360-363), keyed
-            # by its serialized bytes as the reference's is
-            # (validator.py:1085-1095): two encodings of one identity
-            # count twice.  An endorser without an EC key contributes
-            # nothing.
-            seen_endorsers = set()
-            for end in dtx.endorsements:
-                ident = end.endorser
-                if end.serialized in seen_endorsers or not ident.has_ec_key:
-                    continue
-                seen_endorsers.add(end.serialized)
-                ptx.endo_item_idx.append(len(items))
-                items.append((end.digest, end.r, end.s, ident.qx, ident.qy))
-                ptx.endorsers.append(ident)
-            if dtx.rwset is not None:
-                ptx.namespaces = tuple(sorted(dtx.rwset.ns))
+            txs.append(self._parse_tx(i, dtx, seen, items))
         return txs, items
 
-    def _device_preprocess(self, txs) -> DevicePre:
+    @staticmethod
+    def _parse_tx(i: int, dtx: DecodedTx, seen: set, items: list) -> ParsedTx:
+        """One decoded envelope → ``ParsedTx``; its signatures go onto
+        ``items``, its tx id into ``seen`` (the block's claimed ids)."""
+        ptx = ParsedTx(idx=i, code=int(dtx.code), txid=dtx.txid, _rwset=dtx.rwset)
+        if dtx.txid_bound and dtx.txid:
+            # in-block duplicates (v20/validator.go:460-481)
+            if dtx.txid in seen:
+                ptx.code = int(C.DUPLICATE_TXID)
+                return ptx
+            seen.add(dtx.txid)
+        if not ptx.undetermined:
+            return ptx
+        cr = dtx.creator
+        if cr is None or not cr.is_valid or dtx.creator_sig is None:
+            ptx.code = int(C.BAD_CREATOR_SIGNATURE)
+            return ptx
+        ptx.creator_item_idx = len(items)
+        items.append((*dtx.creator_sig, cr.qx, cr.qy))
+        # a repeated endorser counts once (policy.go:360-363), keyed by
+        # its serialized bytes as the reference's is
+        # (validator.py:1085-1095): two encodings of one identity count
+        # twice.  An endorser without an EC key contributes nothing.
+        seen_endorsers = set()
+        for end in dtx.endorsements:
+            ident = end.endorser
+            if end.serialized in seen_endorsers or not ident.has_ec_key:
+                continue
+            seen_endorsers.add(end.serialized)
+            ptx.endo_item_idx.append(len(items))
+            items.append((end.digest, end.r, end.s, ident.qx, ident.qy))
+            ptx.endorsers.append(ident)
+        if dtx.rwset is not None:
+            ptx.namespaces = tuple(sorted(dtx.rwset.ns))
+        return ptx
+
+    def _parse_wire(self, block: Block):
+        """The columnar parse of a wire block (see the module docstring)
+        → (WireBlock, [ParsedTx], SigColumns)."""
+        if self.msp is None:
+            raise ValueError("a wire Block needs the validator's msp= (an MSPManager)")
+        envs = list(block.data.data) if block.data is not None else []
+        number = block.header.number if block.header is not None else 0
+        n = len(envs)
+        pb = blockparse.parse_envelopes(envs)
+        blob = pb.blob
+
+        # -- each distinct serialized identity, once
+        n_ids = pb.n_ids
+        idents = [None] * n_ids
+        known, ivalid, has_ec, idemix = (np.zeros(n_ids + 1, bool) for _ in range(4))
+        for u, (o, ln) in enumerate(pb.ident_span[:n_ids].tolist()):
+            try:
+                ident = self.msp.deserialize_identity(blob[o:o + ln])
+            except ValueError:
+                continue
+            idents[u] = ident
+            known[u], ivalid[u], idemix[u] = True, ident.is_valid, ident.idemix
+            has_ec[u] = ident.has_ec_key
+        q_pool = np.zeros((n_ids, 64), np.uint8)
+        q_ok = np.zeros(n_ids, bool)
+        ec_u = np.flatnonzero(has_ec[:n_ids])
+        if len(ec_u):
+            qx, qx_in = p256v3.pack256([idents[u].qx for u in ec_u.tolist()])
+            qy, qy_in = p256v3.pack256([idents[u].qy for u in ec_u.tolist()])
+            q_pool[ec_u] = np.concatenate([qx, qy], axis=1)
+            q_ok[ec_u] = p256v3.q_admit(q_pool[ec_u]) & qx_in & qy_in
+
+        ok = pb.ok.astype(bool)
+        cu = pb.creator_uid.astype(np.int64)
+        cu_valid = cu >= 0
+        cuc = np.where(cu_valid, cu, n_ids)
+        front = ~ok | (cu_valid & idemix[cuc])  # decoded by the front end
+        col = ~front
+
+        # -- tx id binding: tx_id == hex(sha256(nonce || creator))
+        t_off, t_len = pb.txid_span[:, 0], pb.txid_span[:, 1]
+        blob_u8 = np.frombuffer(blob, np.uint8)
+        bind = np.zeros(n, bool)
+        rows = np.flatnonzero(col & (t_off >= 0) & (t_len == 64))
+        if len(rows):
+            txh = blob_u8[t_off[rows][:, None] + np.arange(64)]
+            dg = pb.txid_digest[rows]
+            hx = np.empty((len(rows), 64), np.uint8)
+            for k, nib in ((0, dg >> 4), (1, dg & 15)):
+                hx[:, k::2] = np.where(nib < 10, nib + 48, nib + 87)
+            bind[rows] = (txh == hx).all(axis=1)
+        txids = [""] * n
+        off_l, len_l = t_off.tolist(), t_len.tolist()
+        for i in np.flatnonzero(col & (t_off >= 0)).tolist():
+            txids[i] = blob[off_l[i]:off_l[i] + len_l[i]].decode()
+
+        # -- in-block duplicates, and the front end's envelopes, in block
+        # order: both claim tx ids in one registry
+        dup = np.zeros(n, bool)
+        txs: list = [None] * n
+        front_items: list = []
+        front_idx = np.flatnonzero(front).tolist()
+        seen: set = set()
+        for i, (fr, bd) in enumerate(zip(front.tolist(), bind.tolist())):
+            if fr:
+                dtx = frontend.decode_envelope(envs[i], self.msp)
+                _refuse_tx(dtx, self.policies)
+                txs[i] = self._parse_tx(i, dtx, seen, front_items)
+            elif bd:
+                if txids[i] in seen:
+                    dup[i] = True
+                else:
+                    seen.add(txids[i])
+
+        codes = np.full(n, _NV, np.int32)
+        codes[col & ~bind] = int(C.BAD_PROPOSAL_TXID)
+        codes[dup] = int(C.DUPLICATE_TXID)
+        cred = (cu_valid & known[cuc] & ivalid[cuc] & has_ec[cuc]
+                & pb.creator_sig_ok.astype(bool))
+        live = col & bind & ~dup
+        c_ok = live & cred
+        codes[live & ~cred] = int(C.BAD_CREATOR_SIGNATURE)
+        code_l = codes.tolist()
+        for i in np.flatnonzero(col).tolist():
+            txs[i] = ParsedTx(idx=i, code=code_l[i], txid=txids[i])
+
+        # -- the signature batch: creators, then endorsers, as column gathers
+        m = pb.n_endorsements
+        tx_of_e = np.repeat(np.arange(n), pb.endo_count)
+        eu = pb.e_uid[:m].astype(np.int64)
+        eu_valid = eu >= 0
+        euc = np.where(eu_valid, eu, n_ids)
+        mask_e = (c_ok[tx_of_e] & (pb.e_ok[:m] == 1) & (pb.e_dup[:m] == 0) & eu_valid
+                  & known[euc] & has_ec[euc])
+        c_rows, e_rows = np.flatnonzero(c_ok), np.flatnonzero(mask_e)
+        nc = len(c_rows)
+        items = p256v3.SigColumns(
+            np.concatenate([pb.payload_digest[c_rows], pb.e_digest[e_rows]]),
+            np.concatenate([pb.creator_r[c_rows], pb.e_r[e_rows]]),
+            np.concatenate([pb.creator_s[c_rows], pb.e_s[e_rows]]),
+            np.concatenate([cu[c_rows], eu[e_rows]]).astype(np.int32), q_pool, q_ok, idents)
+        e_tx = tx_of_e[e_rows]
+        lo = np.searchsorted(e_tx, c_rows, "left").tolist()
+        hi = np.searchsorted(e_tx, c_rows, "right").tolist()
+        eu_l = eu[e_rows].tolist()
+        for k, i in enumerate(c_rows.tolist()):
+            ptx = txs[i]
+            ptx.creator_item_idx = k
+            ptx.endo_item_idx = list(range(nc + lo[k], nc + hi[k]))
+            ptx.endorsers = [idents[u] for u in eu_l[lo[k]:hi[k]]]
+        base = len(items)
+        for i in front_idx:  # the front end's items follow the columns
+            ptx = txs[i]
+            if ptx.creator_item_idx >= 0:
+                ptx.creator_item_idx += base
+            ptx.endo_item_idx = [j + base for j in ptx.endo_item_idx]
+        items.extra = front_items
+
+        # -- read/write sets: one C call over the sets the front end would
+        # decode (duplicates included); the rest parse in Python
+        rw_use = col & bind & cred
+        rwp = mvccprep.prep(pb, rw_use)
+        ns_names, _, keys, lex_rank = rwp.key_table()
+        st = rwp.status.tolist()
+        ns_start, ns_count = rwp.tx_ns_start.tolist(), rwp.tx_ns_count.tolist()
+        ns_flat = rwp.ns_ids_flat.tolist()
+        res_span = pb.results_span.tolist()
+        n_parsed = 0
+        for i in np.flatnonzero(rw_use).tolist():
+            ptx = txs[i]
+            o, ln = res_span[i]
+            raw = blob[o:o + ln] if o >= 0 else b""
+            if st[i] == 0:
+                ptx.rwset_bytes = raw
+                ptx.namespaces = tuple(sorted(
+                    ns_names[j] for j in ns_flat[ns_start[i]:ns_start[i] + ns_count[i]]))
+                _refuse_namespaces(ptx.namespaces, self.policies)
+                continue
+            n_parsed += 1
+            try:
+                rw = TxRWSet.from_bytes(raw)
+            except DecodeError:
+                if ptx.undetermined:
+                    ptx.code = int(C.BAD_RWSET)
+                continue
+            _refuse_rwset(rw, self.policies)
+            ptx.rwset = rw
+            ptx.namespaces = tuple(sorted(rw.ns))
+        wb = WireBlock(number=number, pb=pb, rwp=rwp, flat=rw_use & (rwp.status == 0),
+                       keys=keys, lex_rank=lex_rank,
+                       n_front_end=len(front_idx), n_rwset_parsed=n_parsed)
+        return wb, txs, items
+
+    def _device_preprocess(self, txs, block=None) -> DevicePre:
         entries = []
         for ptx in txs:
             if not ptx.undetermined:
@@ -274,17 +525,26 @@ class BlockValidator:
                     gp[e, s * P:(s + 1) * P] = row
             groups.append((plan, torch.from_numpy(gp).to(self.device), E, S))
             group_entries.append(ents)
-        mvcc_txs, has_range = [], False
-        for ptx in txs:
-            if ptx.rwset is None or not ptx.undetermined:
-                mvcc_txs.append(mvcc_ops.TxRWSet(reads=[], writes=[], range_reads=[]))
-                continue
-            if any(n.range_queries for n in ptx.rwset.ns.values()):
-                has_range = True
-            reads, writes, rqs = ptx.rwset.mvcc_form()
-            mvcc_txs.append(mvcc_ops.TxRWSet(reads=reads, writes=writes, range_reads=rqs))
-        static = mvcc_ops.prepare_block_static(mvcc_txs, bucketed=True,
-                                               unique=self.resident is not None)
+        und = np.fromiter((ptx.undetermined for ptx in txs), bool, len(txs))
+        has_range = False
+        if isinstance(block, WireBlock) and not (und & ~block.flat).any():
+            # every live set is in the flat arrays: no range query
+            static = mvcc_ops.prepare_block_from_flat(block.rwp, und, block.lex_rank,
+                                                      block.keys,
+                                                      unique=self.resident is not None)
+        else:
+            mvcc_txs = []
+            for ptx in txs:
+                if ptx.rwset is None or not ptx.undetermined:
+                    mvcc_txs.append(mvcc_ops.TxRWSet(reads=[], writes=[], range_reads=[]))
+                    continue
+                if any(n.range_queries for n in ptx.rwset.ns.values()):
+                    has_range = True
+                reads, writes, rqs = ptx.rwset.mvcc_form()
+                mvcc_txs.append(mvcc_ops.TxRWSet(reads=reads, writes=writes,
+                                                 range_reads=rqs))
+            static = mvcc_ops.prepare_block_static(mvcc_txs, bucketed=True,
+                                                   unique=self.resident is not None)
         static_t = torch.from_numpy(static.packed_static()).to(self.device)
         read_pv = None
         if static.u_pairs is not None:
@@ -307,12 +567,21 @@ class BlockValidator:
         """Decode, parse, launch the block's signature verify without
         waiting, and build the state-independent stage-2 inputs.  Touches
         no ledger state, so it may run while the predecessor commits."""
-        block = self.decode(block)
-        txs, items = self._parse(block)
+        t0 = time.perf_counter()
+        if isinstance(block, Block):
+            block, txs, items = self._parse_wire(block)
+        else:
+            block = self.decode(block)
+            txs, items = self._parse(block)
+        t0 = self._t("host_parse", t0)
         handle = self.verify_launch(items)
+        t0 = self._t("sig_prepare_launch", t0)
         # the fused stage 2 reads v3's verdicts on this device; under v1,
         # v2 or a remote verify (kernel None) the block takes the host path
-        dpre = self._device_preprocess(txs) if self.kernel == "v3" else None
+        dpre = None
+        if self.kernel == "v3":
+            dpre = self._device_preprocess(txs, block)
+            self._t("device_pre", t0)
         return Preprocessed(block=block, txs=txs, items=items, handle=handle, dpre=dpre)
 
     def verify_launch(self, items):
@@ -347,6 +616,7 @@ class BlockValidator:
         return pending
 
     def _launch_device(self, txs, handle, dpre: DevicePre, overlay):
+        t0 = time.perf_counter()
         # committed-range phantoms: the code is assigned at finish, after
         # the policy verdict; here the tx only leaves the writer set
         range_phantom = set()
@@ -369,7 +639,9 @@ class BlockValidator:
             committed = self._committed_versions(static.read_key_set, overlay)
             launch_vec[:, 2] = static.host_ver_ok(committed)
             lv = torch.from_numpy(launch_vec).to(self.device)
+        t0 = self._t("state_fill", t0)
         fetch2 = self._stage2.run(handle, lv, dpre.groups, dpre.static_t, static.dims, T)
+        self._t("stage2_dispatch", t0)
         return fetch2, frozenset(range_phantom)
 
     # -- device-resident state ------------------------------------------------
@@ -418,7 +690,9 @@ class BlockValidator:
         """Codes from the packed stage-2 output; None sends the block to
         the exact host path (a consumption-unsafe policy row)."""
         txs, dpre = pending.txs, pending.dpre
+        t0 = time.perf_counter()
         out = pending.fetch2()
+        t0 = self._t("device_wait", t0)
         for safe_bits, ents in zip(out["safe"], dpre.group_entries):
             if not np.all(safe_bits[:len(ents)]):
                 return None
@@ -442,15 +716,18 @@ class BlockValidator:
         final[creator_fail] = int(C.BAD_CREATOR_SIGNATURE)
         for ptx, c in zip(txs, final.tolist()):
             ptx.code = c
-        batch, history = self._build_updates(pending.block.number, txs)
+        batch, history = self._build_updates(pending.block, txs)
+        self._t("postprocess", t0)
         return bytes(final.tolist()), batch, history
 
     def _validate_host(self, pending: PendingBlock):
         """The exact path: signature bits from the verify handle, the
         consumption interpreter per (tx, namespace), ``mvcc_validate``."""
         txs = pending.txs
+        t0 = time.perf_counter()
         sig_valid = (np.asarray(pending.handle.fetch(), bool) if pending.items
                      else np.zeros(0, bool))
+        self._t("device_wait", t0)
         for ptx in txs:
             if ptx.undetermined and ptx.creator_item_idx >= 0 \
                     and not sig_valid[ptx.creator_item_idx]:
@@ -480,7 +757,7 @@ class BlockValidator:
                 if ptx.undetermined:
                     ptx.code = int(C.VALID if v else
                                    C.PHANTOM_READ_CONFLICT if ph else C.MVCC_READ_CONFLICT)
-        batch, history = self._build_updates(pending.block.number, txs)
+        batch, history = self._build_updates(pending.block, txs)
         return bytes(ptx.code for ptx in txs), batch, history
 
     # -- state reads ----------------------------------------------------------
@@ -541,15 +818,42 @@ class BlockValidator:
                     return True
         return False
 
-    def _build_updates(self, block_num: int, txs):
+    def _build_updates(self, block, txs):
         """Update batch + history for the VALID transactions, in tx
-        order, namespaces and keys sorted; version (block, tx index)."""
+        order, namespaces and keys sorted; version (block, tx index).
+        A wire block's set in the flat arrays is read from them
+        (``_build_updates_flat``, validator.py:2292); any other from its
+        parsed ``rwset``."""
         batch = UpdateBatch()
         history = []
+        block_num = block.number
+        valid = np.fromiter((ptx.code == int(C.VALID) for ptx in txs), bool, len(txs))
+        flat = np.zeros(len(txs), bool)
+        if isinstance(block, WireBlock):
+            flat = valid & block.flat
+            rwp, blob, keys = block.rwp, block.pb.blob, block.keys
+            _, rows, wc = rwp.tx_rows("w", flat, block.lex_rank)
+            ends = np.cumsum(wc).tolist()
+            w_uid, w_del = rwp.w_uid[rows].tolist(), rwp.w_is_del[rows].tolist()
+            w_val = rwp.w_val_span[rows].tolist()
+        flat_l = flat.tolist()
         for ptx in txs:
-            if ptx.code != int(C.VALID) or ptx.rwset is None:
+            if ptx.code != int(C.VALID):
                 continue
-            ver = (block_num, ptx.idx)
+            i = ptx.idx
+            ver = (block_num, i)
+            if flat_l[i]:
+                for j in range(ends[i] - int(wc[i]), ends[i]):
+                    _, ns_name, key = keys[w_uid[j]]
+                    vo, vl = w_val[j]
+                    if w_del[j]:
+                        batch.delete(ns_name, key, ver)
+                    else:
+                        batch.put(ns_name, key, blob[vo:vo + vl] if vo >= 0 else b"", ver)
+                    history.append((ns_name, key, i))
+                continue
+            if ptx.rwset is None:
+                continue
             for ns_name in sorted(ptx.rwset.ns):
                 n = ptx.rwset.ns[ns_name]
                 for key in sorted(n.writes):
@@ -558,7 +862,7 @@ class BlockValidator:
                         batch.delete(ns_name, key, ver)
                     else:
                         batch.put(ns_name, key, val, ver)
-                    history.append((ns_name, key, ptx.idx))
+                    history.append((ns_name, key, i))
         return batch, history
 
 

@@ -2,12 +2,14 @@
 ``p256_sign`` at each team size and chain count, the stage-2 MVCC
 kernels alone and as one launch, the launch path's steps one at a
 time against the device's time alone, the comparison verifiers at each
-team size, and the comparison path with this tree's or the parent's
-verifier.
+team size, the comparison path with this tree's or the parent's
+verifier, and the wire commit path's phases with this tree's package or
+an older one.
 
     python3 -m fabric_tpu_torch.tools.launch_steps [--parent-csrc DIR]
+        [--parent-tree DIR]
         [--phase all|team_sizes|sign_shapes|stage2|scatter|small|comparison|
-                 comparison_path]
+                 comparison_path|wire_path]
         [--team-lanes 3072,6144,12288]
         [--sign-lanes 16,32,64,128,256,512,1024,4096]
         [--comparison-lanes 16,4096,12288] [--path-blocks 12]
@@ -69,6 +71,17 @@ names another ``csrc`` directory (an older commit's, unpacked with
   the wrapper's entry point, in turns parent, tree, tree, parent: wall ms
   a block over all blocks and over the blocks after the first (the
   first holds the pipeline's fill and the run's first launches).
+- ``wire_path`` (needs ``--parent-tree``, an older checkout unpacked
+  with ``git archive``): ``chip_smoke.py``'s wire blocks (one, then
+  ``--path-blocks``) through ``CommitPipeline(depth=2)`` with
+  ``BlockValidator.timings`` on, each run in a process of its own that
+  imports ``fabric_tpu_torch`` from that tree or from this one, in turns
+  parent, tree, tree, parent: wall ms a block over the blocks after the
+  first, ms a block by phase, and the front end's ``decode_block`` ms a
+  block on the same blocks; every run's filters equal the
+  construction's.  A package without phase timers gets them from
+  ``add_timers``, which wraps its validator's methods where this tree's
+  ``BlockValidator`` reads its clock.
 
 Every variant runs in each of 8 rounds, the order reversed every other
 round (ABBA); the lines give medians and the rounds.
@@ -79,9 +92,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import importlib.util
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -639,6 +654,129 @@ def phase_comparison_path(dev, parent_csrc, n_blocks: int) -> None:
             stage_items=len(items), stage_ms=float(np.median(stage_ms)))
 
 
+def add_timers(v) -> bool:
+    """Give a validator of a package without phase timers
+    ``BlockValidator.timings`` and ``_t`` (seconds per phase key, summed
+    under a lock), by wrapping the instance's methods where this tree's
+    validator reads its clock: ``decode`` and ``_parse`` → host_parse,
+    ``verify_launch`` → sig_prepare_launch, ``_device_preprocess`` →
+    device_pre, ``_launch_device`` less its ``_stage2.run`` → state_fill,
+    ``_stage2.run`` → stage2_dispatch, the ``fetch2`` that it returns →
+    device_wait, ``_finish_device`` less that wait → postprocess.  The
+    host redo (``_validate_host``) stays untimed: the wire path does not
+    take it.  A wrapper's time excludes that of the wrappers it calls
+    (per thread).  → False, touching nothing, when the validator's class
+    has timers of its own."""
+    if hasattr(type(v), "_t"):
+        return False
+    lock, local = threading.Lock(), threading.local()
+    v.timings = None
+
+    def add(key, dt):
+        if v.timings is not None:
+            with lock:
+                v.timings[key] = v.timings.get(key, 0.0) + dt
+
+    def _t(key, t0):
+        if v.timings is None:
+            return t0
+        t1 = time.perf_counter()
+        add(key, t1 - t0)
+        return t1
+
+    def timed(fn, key, result=lambda out: out):
+        def call(*a, **kw):
+            outer = getattr(local, "inner", None)
+            local.inner = 0.0
+            t0 = time.perf_counter()
+            try:
+                out = fn(*a, **kw)
+            finally:
+                dt = time.perf_counter() - t0
+                add(key, dt - local.inner)
+                local.inner = None if outer is None else outer + dt
+            return result(out)
+        return call
+
+    v._t = _t
+    for name, key in (("decode", "host_parse"), ("_parse", "host_parse"),
+                      ("verify_launch", "sig_prepare_launch"),
+                      ("_device_preprocess", "device_pre"), ("_launch_device", "state_fill"),
+                      ("_finish_device", "postprocess")):
+        setattr(v, name, timed(getattr(v, name), key))
+    v._stage2.run = timed(v._stage2.run, "stage2_dispatch",
+                          lambda fetch2: timed(fetch2, "device_wait"))
+    return True
+
+
+def wire_path_run(tree: Path, tag: str, n_blocks: int) -> None:
+    """One run of the wire path with ``fabric_tpu_torch`` imported from
+    ``tree`` (the process must not have imported it yet); logs one
+    ``wire_path`` line."""
+    sys.path.insert(0, str(tree))
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import fabric_tpu_torch
+    from fabric_tpu_torch import carry, kernels
+    from fabric_tpu_torch.peer import frontend
+    from fabric_tpu_torch.peer.validator import BlockValidator
+    from fabric_tpu_torch.protos import messages as m
+
+    pkg = Path(fabric_tpu_torch.__file__).resolve().parent
+    if pkg.parent != tree.resolve():
+        raise RuntimeError(f"{tag}: imported fabric_tpu_torch from {pkg}, not from {tree}")
+    t0 = time.perf_counter()
+    kernels.build(("p256_verify", "stage2", "p256_sign"))
+    if importlib.util.find_spec("fabric_tpu_torch.native") is not None:
+        from fabric_tpu_torch import native
+        native.build()
+    build_s = time.perf_counter() - t0
+    wn = cs.WireNet(cs.SEED + 9)
+    blocks, expected, seed_rows, _ = cs.build_wire_blocks(wn, 1 + n_blocks)
+    wire = [m.Block.parse(b.serialize()) for b in blocks]
+    state, prov, _ = carry.from_reference(seed_rows, cs.WIRE_NAMESPACES, [])
+    v = BlockValidator(prov, state, device=torch.device("cuda"), msp=wn.msp)
+    patched = add_timers(v)
+    first_t, rest_t = {}, {}
+    res, first_s, _ = cs.run_validator(wire[:1], v, depth=2, timings=first_t)
+    rest, secs, _ = cs.run_validator(wire[1:], v, depth=2, timings=rest_t)
+    if [r.tx_filter for r in res + rest] != expected:
+        raise AssertionError(f"wire path, {tag}: filters differ from construction")
+    decode_ms = []
+    for blk in wire[1:]:
+        t1 = time.perf_counter()
+        frontend.decode_block(blk, wn.msp)
+        decode_ms.append(1e3 * (time.perf_counter() - t1))
+    log("wire_path", tree=tag, package=str(pkg), timers_added=patched, build_s=build_s,
+        blocks=len(wire), first_block_ms=1e3 * first_s, after_first_blocks=n_blocks,
+        per_block_ms=1e3 * secs / n_blocks,
+        phase_ms_per_block={k: 1e3 * t / n_blocks for k, t in sorted(rest_t.items())},
+        first_block_phase_ms={k: 1e3 * t for k, t in sorted(first_t.items())},
+        decode_ms_per_block=float(np.mean(decode_ms)),
+        front_end_envelopes=[getattr(r.pend.block, "n_front_end", None) for r in rest])
+
+
+def phase_wire_path(parent_tree: Path, n_blocks: int) -> None:
+    """``wire_path_run`` in turns parent, tree, tree, parent, each in a
+    process of its own; then each tree's wall ms a block."""
+    runs = {"parent": [], "tree": []}
+    for tag in ("parent", "tree", "tree", "parent"):
+        tree = parent_tree.resolve() if tag == "parent" else ROOT
+        out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--wire-tree",
+                              str(tree), "--wire-tag", tag, "--path-blocks", str(n_blocks)],
+                             cwd=ROOT, capture_output=True, text=True)
+        sys.stderr.write(out.stderr[-4000:])
+        if out.returncode:
+            raise RuntimeError(f"wire path, {tag}: exit {out.returncode}")
+        line = out.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        runs[tag].append(json.loads(line)["per_block_ms"])
+    log("wire_path_turns", order=["parent", "tree", "tree", "parent"],
+        **{tag: {"per_block_ms": ms, "median_per_block_ms": float(np.median(ms))}
+           for tag, ms in runs.items()})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("launch_steps: needs a CUDA device", file=sys.stderr)
@@ -646,20 +784,32 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-csrc", type=Path, default=None,
                     help="an older csrc directory whose kernels run beside this tree's")
+    ap.add_argument("--parent-tree", type=Path, default=None,
+                    help="an older checkout whose package runs the wire path beside this one")
     ap.add_argument("--phase", default="all",
                     choices=("all", "team_sizes", "sign_shapes", "stage2", "scatter", "small",
-                             "comparison", "comparison_path"))
+                             "comparison", "comparison_path", "wire_path"))
     ap.add_argument("--team-lanes", default="3072,6144,12288")
     ap.add_argument("--sign-lanes", default="16,32,64,128,256,512,1024,4096")
     ap.add_argument("--comparison-lanes", default="16,4096,12288")
     ap.add_argument("--path-blocks", type=int, default=12)
+    ap.add_argument("--wire-tree", type=Path, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--wire-tag", default="tree", help=argparse.SUPPRESS)
     args = ap.parse_args()
-    sys.path.insert(0, str(ROOT))
-    from fabric_tpu_torch import kernels
-
+    if args.wire_tree is not None:  # one of phase_wire_path's runs
+        wire_path_run(args.wire_tree, args.wire_tag, args.path_blocks)
+        return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     log("device", nvidia_smi=smi, torch=torch.__version__)
+    if args.phase == "wire_path":
+        if args.parent_tree is None:
+            ap.error("--phase wire_path needs --parent-tree")
+        phase_wire_path(args.parent_tree, args.path_blocks)
+        return 0
+    sys.path.insert(0, str(ROOT))
+    from fabric_tpu_torch import kernels
+
     kernels.build(("resident", "stage2", "p256_verify", "p256_sign", "p256_v1", "p256_v2"))
     dev = torch.device("cuda")
     run = lambda phase: args.phase in ("all", phase)
@@ -682,6 +832,8 @@ def main() -> int:
                          args.parent_csrc)
     if run("comparison_path") and args.parent_csrc is not None:
         phase_comparison_path(dev, args.parent_csrc, args.path_blocks)
+    if run("wire_path") and args.parent_tree is not None:
+        phase_wire_path(args.parent_tree, args.path_blocks)
     return 0
 
 

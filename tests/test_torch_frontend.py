@@ -35,6 +35,7 @@ from test_torch_slice import (  # noqa: F401 — net is a fixture
     POLICIES,
     _blocks,
     _decode,
+    _rand_tx,
     _reference,
     _rows,
     _seed_batch,
@@ -53,14 +54,14 @@ from fabric_tpu.peer import validator as jvalidator
 from fabric_tpu.peer.validator import BlockValidator as JBlockValidator
 from fabric_tpu.peer.validator import NamespaceInfo as JNamespaceInfo
 from fabric_tpu.peer.validator import PolicyProvider as JPolicyProvider
-from fabric_tpu.protos import common_pb2
+from fabric_tpu.protos import common_pb2, transaction_pb2
 from fabric_tpu_torch import carry
 from fabric_tpu_torch import protoutil as ppu
 from fabric_tpu_torch.crypto import cryptogen as pcryptogen
 from fabric_tpu_torch.crypto import ec_ref
 from fabric_tpu_torch.crypto import msp as pmsp
 from fabric_tpu_torch.ledger.rwset import TxRWSet
-from fabric_tpu_torch.ops import p256v3
+from fabric_tpu_torch.ops import p256, p256v3
 from fabric_tpu_torch.peer import frontend
 from fabric_tpu_torch.peer import txassembly as ptxa
 from fabric_tpu_torch.peer import validator as pv
@@ -160,6 +161,111 @@ def test_wire_blocks_through_pipeline_match_reference(stream, pverify, monkeypat
         assert res.tx_filter == flt, res.block.number
         assert _rows(res.batch) == batch_rows, res.block.number
         assert res.history == hist, res.block.number
+
+
+def _run(v, blocks) -> list:
+    """``blocks`` through ``CommitPipeline(depth=2)`` over ``v``."""
+    store, got = _Store(), []
+    v.blocks = store
+
+    def commit(res):
+        v.state.apply_updates(res.batch)
+        store.txids.update(t for t, _ in res.txids)
+
+    with CommitPipeline(v, commit, depth=2) as pipe:
+        for blk in blocks:
+            res = pipe.submit(blk)
+            if res is not None:
+                got.append(res)
+        res = pipe.flush()
+        if res is not None:
+            got.append(res)
+    return got
+
+
+def _both_entries(blocks, rows, pmgr, kernel="v3"):
+    """(wire entry results, DecodedBlock entry results) of ``blocks``."""
+    def validator():
+        state, prov, _ = carry.from_reference(rows, POLICIES, [])
+        return pv.BlockValidator(prov, state, device="cpu", msp=pmgr, kernel=kernel)
+
+    return (_run(validator(), [_wire(b) for b in blocks]),
+            _run(validator(), [frontend.decode_block(_wire(b), pmgr) for b in blocks]))
+
+
+def _agree(wire, decoded, want):
+    for a, b, (flt, batch_rows, hist) in zip(wire, decoded, want, strict=True):
+        assert a.tx_filter == b.tx_filter == flt, a.block.number
+        assert _rows(a.batch) == _rows(b.batch) == batch_rows, a.block.number
+        assert a.history == b.history == hist, a.block.number
+
+
+@pytest.mark.parametrize("kernel", ["v3", "v1"])
+def test_wire_entry_matches_decoded_entry(net, stream, pverify, monkeypatch, kernel):
+    """The columnar wire entry and the ``DecodedBlock`` entry over the
+    same blocks give the reference's filter, update batch and history
+    under the same kernel: v3 (stage 2 and its consumption-unsafe host
+    redo) and v1 (the host path, where a ledger duplicate is found before
+    an unknown namespace, validator.py:1798).  Range queries take status
+    1 (their sets parsed in Python); the host path reads the other sets
+    parsed at first use."""
+    monkeypatch.setattr(p256, "verify_launch", pverify)
+    host = []
+    orig = pv.BlockValidator._validate_host
+    monkeypatch.setattr(pv.BlockValidator, "_validate_host",
+                        lambda self, p: host.append(p) or orig(self, p))
+    blocks, want, rows, pmgr = stream
+    if kernel != "v3":
+        monkeypatch.setattr(jvalidator.p256, "_KERNEL", kernel)
+        want = _reference(net, blocks)
+    wire, decoded = _both_entries(blocks, rows, pmgr, kernel)
+    _agree(wire, decoded, want)
+    assert sum(r.pend.block.n_rwset_parsed for r in wire) > 0
+    wire_host = [p for p in host if isinstance(p.block, pv.WireBlock)]
+    assert wire_host and len(wire_host) == (len(blocks) if kernel == "v1" else len(wire_host))
+    lazy = [ptx for p in wire_host for ptx in p.txs
+            if ptx.rwset_bytes is not None and ptx._rwset is not None]
+    assert lazy
+
+
+def _odd_endorsement(raw: bytes, client) -> bytes:
+    """The envelope with one more endorsement whose signature is not DER,
+    re-signed by its creator: the C walk leaves it to the front end,
+    which drops that endorsement."""
+    env = common_pb2.Envelope.FromString(raw)
+    payload = common_pb2.Payload.FromString(env.payload)
+    tx = transaction_pb2.Transaction.FromString(payload.data)
+    cap = transaction_pb2.ChaincodeActionPayload.FromString(tx.actions[0].payload)
+    end = cap.action.endorsements.add()
+    end.endorser, end.signature = cap.action.endorsements[0].endorser, b"\x30\x00"
+    tx.actions[0].payload = cap.SerializeToString()
+    payload.data = tx.SerializeToString()
+    env.payload = payload.SerializeToString()
+    env.signature = client.sign(env.payload)
+    return env.SerializeToString()
+
+
+def test_block_of_front_end_envelopes(net, stream, pverify, monkeypatch):
+    """A block none of whose envelopes the C walk carries (``ok == 0``):
+    transactions with an odd endorsement, one repeated, a nil envelope and
+    garbage bytes.  Every one takes the front end, in block order, and
+    the wire entry, the ``DecodedBlock`` entry and the reference agree."""
+    import random
+
+    monkeypatch.setattr(p256, "verify_launch", pverify)
+    _, _, rows, pmgr = stream
+    rng = random.Random(41)
+    envs = [_odd_endorsement(_rand_tx(net, rng, ranges=False), net["client"])
+            for _ in range(8)]
+    envs += [envs[2], b"", b"\x13garbage-bytes"]
+    blk = pu.new_block(2, b"prev")
+    for e in envs:
+        blk.data.data.append(e)
+    blk = pu.finalize_block(blk)
+    wire, decoded = _both_entries([blk], rows, pmgr)
+    _agree(wire, decoded, _reference(net, [blk]))
+    assert wire[0].pend.block.n_front_end == len(envs)
+    assert {C.VALID, C.DUPLICATE_TXID, C.NIL_ENVELOPE, C.BAD_PAYLOAD} <= set(wire[0].tx_filter)
 
 
 def test_reference_block_bytes_round_trip(stream):

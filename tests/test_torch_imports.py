@@ -1,7 +1,10 @@
 """The port stands alone: importing every module of fabric_tpu_torch
 brings in neither JAX, the JAX package, protobuf nor cryptography, no
-source file names them, and an entry point asked for the default CUDA
-device on a host without one raises instead of falling back."""
+source file names them, no file of its host C++ (``native/``) names the
+JAX package's, and an entry point asked for the default CUDA device on a
+host without one raises instead of falling back.  A host C++ build that
+fails raises too: the wire block is not decoded in Python instead.  The
+validator's phase timers fill the reference's keys."""
 
 import ast
 import pathlib
@@ -131,3 +134,56 @@ def test_chip_smoke_without_the_package_exits_2_with_one_line(tmp_path):
     lines = out.stderr.strip().splitlines()
     assert len(lines) == 1 and "fabric_tpu_torch" in lines[0], out.stderr
     assert "Traceback" not in out.stderr
+
+
+def test_host_cpp_names_no_reference_file():
+    files = sorted((PKG / "native").glob("*.[cp][py]*"))
+    assert {f.suffix for f in files} == {".py", ".cpp"}
+    for f in files:
+        text = f.read_text()
+        assert "fabric_tpu/native" not in text and "fabric_tpu.native" not in text, f.name
+
+
+def _wire_block():
+    from fabric_tpu_torch.peer import txassembly
+
+    return txassembly.build_block(3, b"prev", [b"", b"\x13garbage-bytes"])
+
+
+def test_failed_host_build_raises(tmp_path, monkeypatch):
+    """A compiler that fails: the first wire block's validation raises
+    with the compiler's name and output, and nothing reaches the front
+    end's Python decode."""
+    from fabric_tpu_torch import native
+    from fabric_tpu_torch.crypto.msp import MSPManager
+    from fabric_tpu_torch.ledger.statedb import MemVersionedDB
+    from fabric_tpu_torch.peer import frontend
+    from fabric_tpu_torch.peer.validator import BlockValidator, PolicyProvider
+
+    monkeypatch.setattr(native, "CXX", "/bin/false")
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native, "_libs", {})
+    decoded = []
+    monkeypatch.setattr(frontend, "decode_envelope", lambda *a: decoded.append(a))
+    v = BlockValidator(PolicyProvider({}), MemVersionedDB(), device="cpu", msp=MSPManager())
+    with pytest.raises(RuntimeError, match="/bin/false failed"):
+        v.validate(_wire_block())
+    assert decoded == [] and list(tmp_path.iterdir()) == []
+
+
+def test_timers_fill_the_reference_keys():
+    """``timings = {}``: one wire block through the device path fills
+    each phase key of the reference's that the path passes through."""
+    from fabric_tpu_torch.crypto.msp import MSPManager
+    from fabric_tpu_torch.ledger.statedb import MemVersionedDB
+    from fabric_tpu_torch.peer.validator import BlockValidator, PolicyProvider, WireBlock
+
+    v = BlockValidator(PolicyProvider({}), MemVersionedDB(), device="cpu", msp=MSPManager())
+    v.timings = {}
+    pend = v.validate_launch(_wire_block())
+    flt, _, _ = v.validate_finish(pend)
+    assert isinstance(pend.block, WireBlock) and pend.block.n_front_end == 2
+    assert flt == bytes([1, 2])  # NIL_ENVELOPE, BAD_PAYLOAD
+    assert set(v.timings) == {"host_parse", "sig_prepare_launch", "device_pre", "state_fill",
+                              "stage2_dispatch", "device_wait", "postprocess"}
+    assert all(t >= 0.0 for t in v.timings.values())
