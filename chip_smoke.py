@@ -60,11 +60,16 @@ decoded by ``decode_block`` through the ``DecodedBlock`` entry
 (filters, update batches, history), with the front end's decode time
 per block beside ``host_parse``, the envelopes the front end decoded,
 the read/write sets parsed in Python, and the card's busy share.  The
+coalesced path: the same 13 blocks through
+``CommitPipeline(coalesce_blocks=4).submit_many`` (one ``p256_verify``
+launch a group of 4, 12,288 lanes), with a host staging pool of one
+worker a core and without, each block equal to the wire path's.  The
 host stage, on one block each, every result byte-equal to the plain
 Python it replaces: ``stage_frame`` against ``stage_frame_ref`` at the
 main path's 3,072 lanes (a decoded block's tuples and a wire block's
 columns), ``prepare_block_from_flat`` against ``prepare_block_static``
-(both forms), and ``parse_envelopes`` and the whole columnar parse
+(both forms), the columnar policy groups against the entry-by-entry
+ones, and ``parse_envelopes`` and the whole columnar parse
 beside ``decode_block``; the build line gives g++'s version and
 seconds beside nvcc's.  SHA-256:
 ``sha256_host`` on the bench shape (4,096 x 200 B), the padding
@@ -102,6 +107,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -573,13 +579,15 @@ class TxidStore:
         return txid in self.txids
 
 
-def run_validator(blocks, v, depth=2, timings=None):
+def run_validator(blocks, v, depth=2, timings=None, coalesce=0):
     """Commit ``blocks`` through ``CommitPipeline`` with the validator
     ``v`` (its ``state`` receives the commits; a txid store is attached
     unless it has one) → ([CommittedBlock], seconds, per-block
     completion seconds).  ``timings``: a dict that receives the
     validator's phase seconds (``BlockValidator.timings``) and the
-    commit's as ``ledger_commit``, summed over the blocks."""
+    commit's as ``ledger_commit``, summed over the blocks.  ``coalesce``:
+    ``CommitPipeline(coalesce_blocks=)``, the blocks fed by one
+    ``submit_many``."""
     from fabric_tpu_torch.peer.pipeline import CommitPipeline
 
     if not isinstance(v.blocks, TxidStore):
@@ -599,12 +607,18 @@ def run_validator(blocks, v, depth=2, timings=None):
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with CommitPipeline(v, commit, depth=depth) as pipe:
-        for blk in blocks:
-            r = pipe.submit(blk)
-            if r is not None:
-                out.append(r)
-                marks.append(time.perf_counter() - t0)
+    # an older package's pipeline has no coalesce_blocks
+    kw = {"coalesce_blocks": coalesce} if coalesce else {}
+    with CommitPipeline(v, commit, depth=depth, **kw) as pipe:
+        if coalesce:  # one mark for the blocks submit_many completed
+            out += pipe.submit_many(blocks)
+            marks += [time.perf_counter() - t0] * len(out)
+        else:
+            for blk in blocks:
+                r = pipe.submit(blk)
+                if r is not None:
+                    out.append(r)
+                    marks.append(time.perf_counter() - t0)
         r = pipe.flush()
         if r is not None:
             out.append(r)
@@ -614,7 +628,7 @@ def run_validator(blocks, v, depth=2, timings=None):
     return out, time.perf_counter() - t0, marks
 
 
-def device_busy(blocks, seed_rows=None, validator=None):
+def device_busy(blocks, seed_rows=None, validator=None, coalesce=0):
     """A second run of the main path (or of ``validator`` over
     ``blocks``) under ``torch.profiler`` → (the union of the card's
     kernel and copy intervals in ms, that run's wall seconds, the number
@@ -631,7 +645,7 @@ def device_busy(blocks, seed_rows=None, validator=None):
         if validator is None:
             _, secs, _ = run_pipeline(blocks, seed_rows, "cuda")
         else:
-            _, secs, _ = run_validator(blocks, validator)
+            _, secs, _ = run_validator(blocks, validator, coalesce=coalesce)
     launched = kernels.launches["p256_verify"] - before
     dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     names = Counter(e.name[:40] for e in dev_events)
@@ -1317,7 +1331,85 @@ def phase_wire_path(dev):
     log("device_busy_wire", profiled_seconds=psecs, device_events=n_ev, by_name=names,
         busy_ms_per_block=busy_ms / len(wire) if ok else None,
         idle_share_profiled=1 - busy_ms / (1e3 * psecs) if ok else None)
-    return counts, wire, wn.msp
+    return {"wire": wire, "msp": wn.msp, "expected": expected, "seed_rows": seed_rows,
+            "res": res, "per_block_ms": 1e3 * secs / k,
+            "tx_per_s": (n_tx - len(wire[0].data.data)) / secs}
+
+
+COALESCE = 4  # blocks a group on the coalesced path
+
+
+def phase_coalesced_path(dev, wired):
+    """The wire path's blocks through ``CommitPipeline(coalesce_blocks=4)``
+    (``submit_many``: one ``preprocess_many``, so one ``p256_verify``
+    launch, a group), with a staging pool of one worker a core and
+    without: the first block (a group of one) apart, then the other 12
+    in three groups of 4; filters, update batches and history equal to
+    the construction's and the single-block wire path's, block by
+    block; then the pooled run's busy time under the profiler."""
+    from fabric_tpu_torch import carry, kernels
+    from fabric_tpu_torch.ops.p256v3 import _bucket as bucket
+    from fabric_tpu_torch.peer.validator import BlockValidator
+
+    wire, single = wired["wire"], wired["res"]
+
+    def validator(workers):
+        state, prov, _ = carry.from_reference(wired["seed_rows"], WIRE_NAMESPACES, [])
+        return BlockValidator(prov, state, device=dev, msp=wired["msp"],
+                              host_stage_workers=workers)
+
+    rows = lambda x: sorted((k, vv.value, vv.version) for k, vv in x.batch.items())
+    n_tx = sum(len(b.data.data) for b in wire[1:])
+    for workers in (-1, 0):
+        v = validator(workers)
+        try:
+            kernels.reset_counts()
+            first_t, rest_t = {}, {}
+            with launch_shapes("p256_verify", lambda frame, consts: frame.shape[0]) as lanes:
+                res, first_s, _ = run_validator(wire[:1], v, timings=first_t,
+                                                coalesce=COALESCE)
+                rest, secs, _ = run_validator(wire[1:], v, timings=rest_t, coalesce=COALESCE)
+            counts = dict(kernels.launches)
+            res += rest
+            if [r.tx_filter for r in res] != wired["expected"]:
+                raise AssertionError(f"coalesced path (workers {workers}): filters differ "
+                                     "from construction")
+            for a, b in zip(res, single, strict=True):
+                if a.tx_filter != b.tx_filter or rows(a) != rows(b) or a.history != b.history:
+                    raise AssertionError(f"coalesced path (workers {workers}): block "
+                                         f"{a.block.number} differs from the wire path")
+            bk = [bucket(len(r.pend.items)) for r in res]
+            want = Counter([bk[0]] + [bucket(sum(bk[g:g + COALESCE]))
+                                      for g in range(1, len(bk), COALESCE)])
+            if counts["p256_verify"] != 4 or lanes != want:
+                raise AssertionError(f"coalesced path: p256_verify launches {lanes}, "
+                                     f"want {dict(want)}")
+            zero = [k for k in ("stage2_policy", "stage2_mvcc") if counts[k] == 0]
+            if zero:
+                raise AssertionError(f"kernels not launched on the coalesced path: {zero}")
+            k = len(wire) - 1
+            phase_ms = {key: 1e3 * t / k for key, t in sorted(rest_t.items())}
+            log("coalesced_path", host_stage_workers=workers, cpu_count=os.cpu_count(),
+                pool_workers=v.host_pool.workers if v.host_pool else 0,
+                pool_stats=v.host_pool.stats() if v.host_pool else None,
+                blocks=len(wire), coalesce_blocks=COALESCE, first_block_ms=1e3 * first_s,
+                first_block_phase_ms={key: 1e3 * t for key, t in sorted(first_t.items())},
+                after_first_blocks=k, seconds=secs, per_block_ms=1e3 * secs / k,
+                tx_per_s=n_tx / secs, wire_path_per_block_ms=wired["per_block_ms"],
+                wire_path_tx_per_s=wired["tx_per_s"], phase_ms_per_block=phase_ms,
+                p256_verify_lanes={int(n): c for n, c in sorted(lanes.items())},
+                equal_to_construction=True, equal_to_wire_path=True, launches=counts)
+        finally:
+            v.close()
+    v = validator(-1)
+    try:
+        busy_ms, psecs, n_ev, names = device_busy(wire, validator=v, coalesce=COALESCE)
+    finally:
+        v.close()
+    ok = busy_ms is not None
+    log("device_busy_coalesced", profiled_seconds=psecs, device_events=n_ev, by_name=names,
+        busy_ms_per_block=busy_ms / len(wire) if ok else None,
+        idle_share_profiled=1 - busy_ms / (1e3 * psecs) if ok else None)
 
 
 def best_ms(fn, reps: int = 5) -> float:
@@ -1381,6 +1473,30 @@ def phase_host_stage(net: Net, wire, msp):
         out[f"static_{'unique' if unique else 'bucketed'}"] = {
             "txs": int(inc.sum()), "shape": list(a.packed_static().shape),
             "ms": best_ms(flat), "plain_ms": best_ms(plain, 3), "byte_equal": True}
+    # the policy groups: columnar against entry by entry (on the lists
+    # _materialize_for_host fills), each on a fresh parse of the block;
+    # both also build the same static MVCC arrays
+    t_col, t_mat, t_gen = [], [], []
+    for _ in range(5):
+        (wa, ta, _), (wg, tg, _) = v._parse_wire(blk), v._parse_wire(blk)
+        t0 = time.perf_counter()
+        col = v._device_pre_columnar(ta, wa)
+        t1 = time.perf_counter()
+        v._materialize_for_host(tg, wg)
+        t2 = time.perf_counter()
+        gen = v._device_preprocess(tg, wg)
+        t_col.append(1e3 * (t1 - t0))
+        t_mat.append(1e3 * (t2 - t1))
+        t_gen.append(1e3 * (time.perf_counter() - t2))
+    if col is None or [t.code for t in ta] != [t.code for t in tg] or \
+            [g.cpu().numpy().tobytes() for _, g, _, _ in col.groups] != \
+            [g.cpu().numpy().tobytes() for _, g, _, _ in gen.groups] or \
+            col.static.packed_static().tobytes() != gen.static.packed_static().tobytes():
+        raise AssertionError("host stage: _device_pre_columnar differs from _device_preprocess")
+    out["policy_groups"] = {
+        "txs": len(ta), "groups": len(col.groups), "entries": [len(e) for e in col.group_entries],
+        "columnar_ms": min(t_col), "entry_by_entry_ms": min(t_gen),
+        "materialize_ms": min(t_mat), "equal_codes_and_gp": True}
     envs = list(blk.data.data)
     out["parse"] = {
         "envelopes": len(envs), "parse_envelopes_ms": best_ms(
@@ -1896,7 +2012,9 @@ def main() -> int:
         r["launches"] = counts[r["name"]]
     recs += res_recs
     recs.append(phase_sign(net, dev))
-    _, wire, msp = phase_wire_path(dev)
+    wired = phase_wire_path(dev)
+    wire, msp = wired["wire"], wired["msp"]
+    phase_coalesced_path(dev, wired)
     phase_host_stage(net, wire, msp)
     recs.append(phase_sha256(dev, wire[0]))
     recs += phase_comparison(net, dev, main_res)

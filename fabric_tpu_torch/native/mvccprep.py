@@ -71,6 +71,17 @@ class MvccPrep:
         row = np.arange(len(tx)) - first + np.repeat(start[:n], cnt)
         return tx, row[np.lexsort((lex_rank[uid[row]], tx))], cnt
 
+    def tx_ns(self, include: np.ndarray):
+        """The (transaction, namespace) pairs of the included
+        transactions, in transaction order and each transaction's order
+        → (transaction [k], namespace id [k])."""
+        n = len(include)
+        cnt = np.where(include, self.tx_ns_count[:n], 0)
+        tx = np.repeat(np.arange(n), cnt)
+        first = np.repeat(np.cumsum(cnt) - cnt, cnt)
+        row = np.arange(len(tx)) - first + np.repeat(self.tx_ns_start[:n], cnt)
+        return tx, self.ns_ids_flat[row]
+
     def key_table(self):
         """→ (namespace names, key strings, [n_keys] ('pub', ns, key),
         [n_keys] each key's rank in that tuple's order)."""

@@ -1,0 +1,136 @@
+"""Host staging worker pool (counterpart: ``fabric_tpu/parallel/hostpool.py``).
+
+The host side of a block (the envelope walk, the signature frame, the
+policy groups and static MVCC arrays) runs ahead of the card on one
+thread unless a pool shares it out.  This is that pool:
+
+* threads: the hot loops are the port's C calls
+  (``native/blockparse.cpp``, ``ecprep.cpp``, ``mvccprep.cpp``, which
+  ctypes calls with the GIL released) and numpy, so threads overlap
+  them without pickling block-sized arrays, and the validator's tasks
+  are bound methods over shared blocks;
+* one task a block: the validator submits each block's parse and its
+  device preprocessing (``BlockValidator.preprocess_many``);
+* per-task accounting: ``stats()`` holds the tasks and seconds per
+  stage and worker.  The reference's registry histogram and tracer
+  spans come with the port's observe hooks.
+
+The knob (``BlockValidator(host_stage_workers=)``) resolves as the
+reference's: 0 is off (serial staging), -1 is one worker per core, n is
+n workers (at most the core count); below 2 gives None, since a pool of
+one worker is only queue overhead.  The size is set at construction.
+
+Left out of the reference's pool until a caller of the port needs them:
+its process mode, ``set_workers`` (a resize at an idle task boundary),
+``map`` and the row-slice helpers ``slice_bounds``/``map_slices``.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+
+
+def _label_task_error(e: BaseException, stage: str, worker: str) -> None:
+    """Name the failing stage and worker on a task's exception, in
+    place: its type stays (callers catch specific exceptions), the first
+    string argument gains a ``[host pool stage=… worker=…]`` suffix and
+    ``fab_stage``/``fab_worker`` are set.  A second call changes
+    nothing."""
+    if getattr(e, "fab_stage", None) is not None:
+        return
+    try:
+        e.fab_stage = stage
+        e.fab_worker = worker
+        if e.args and isinstance(e.args[0], str):
+            e.args = (f"{e.args[0]} [host pool stage={stage} worker={worker}]",) + e.args[1:]
+    except (AttributeError, TypeError):
+        pass  # an exception type without a __dict__ propagates unlabelled
+
+
+class HostStagePool:
+    """A persistent staging pool (see the module docstring); made once
+    per validator by ``resolve_host_pool`` and reused for every block."""
+
+    def __init__(self, workers: int):
+        if workers < 2:
+            raise ValueError("HostStagePool needs >= 2 workers "
+                             "(resolve_host_pool returns None below that)")
+        self.workers = int(workers)
+        self._ex = ThreadPoolExecutor(self.workers, thread_name_prefix="fabtorch-hoststage")
+        self._lock = threading.Lock()
+        self._durs: deque = deque(maxlen=1024)  # recent task seconds
+        self._tasks = 0
+        self._by: dict = {}  # (stage, worker) → [tasks, seconds]
+
+    # -- submission ------------------------------------------------------------
+
+    def _observe(self, stage: str, worker: str, dt: float) -> None:
+        with self._lock:
+            self._durs.append(dt)
+            self._tasks += 1
+            rec = self._by.setdefault((stage, worker), [0, 0.0])
+            rec[0] += 1
+            rec[1] += dt
+
+    def _timed(self, fn, stage: str):
+        """``fn`` timed inside its worker (so the worker label names the
+        thread that ran it); an exception is labelled there."""
+
+        def run(*args, **kwargs):
+            name = threading.current_thread().name
+            worker = name.rsplit("_", 1)[-1] if "_" in name else name
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            except BaseException as e:
+                _label_task_error(e, stage, worker)
+                raise
+            finally:
+                self._observe(stage, worker, time.perf_counter() - t0)
+
+        return run
+
+    def submit(self, fn, *args, stage: str = "task", **kwargs):
+        """One task → its Future, timed and labelled in its worker; a
+        failed task raises at ``result()`` and is never retried."""
+        return self._ex.submit(self._timed(fn, stage), *args, **kwargs)
+
+    # -- introspection and lifecycle ---------------------------------------------
+
+    def stats(self) -> dict:
+        """Workers, tasks, the median of recent task times, and
+        ``by_stage``: {stage: {worker: {"tasks", "seconds"}}}."""
+        with self._lock:
+            durs = sorted(self._durs)
+            by: dict = {}
+            for (stage, worker), (k, s) in sorted(self._by.items()):
+                by.setdefault(stage, {})[worker] = {"tasks": k, "seconds": s}
+            return {"workers": self.workers, "tasks": self._tasks,
+                    "per_shard_p50_ms": 1e3 * durs[len(durs) // 2] if durs else 0.0,
+                    "by_stage": by}
+
+    def shutdown(self) -> None:
+        self._ex.shutdown(wait=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.shutdown()
+        return False
+
+
+def resolve_host_pool(workers: int) -> HostStagePool | None:
+    """The ``host_stage_workers`` knob → a pool: 0 off, -1 one worker
+    per core, n that many (at most the core count); below 2 → None."""
+    if workers == 0:
+        return None
+    cores = os.cpu_count() or 1
+    n = cores if workers < 0 else min(workers, cores)
+    if n < 2:
+        return None
+    return HostStagePool(n)

@@ -17,6 +17,17 @@ launch → finish → commit order.  The port's policies are static (no
 config or lifecycle transactions in this slice), so no block forces a
 barrier.
 
+``coalesce_blocks=k`` (k >= 2) turns on the catch-up entry
+``submit_many(blocks)`` (the reference's, pipeline.py:580-664): the
+prefetch thread stages k waiting blocks at once with the validator's
+``preprocess_many`` (one ``p256_verify`` launch for all their
+signatures), and each block then takes the per-block launch, finish and
+commit on its own slice of that launch, so overlays and the duplicate
+txid window are those of ``submit``.  With k < 2, depth 1, or a
+validator without ``preprocess_many``, ``submit_many`` is one ``submit``
+a block.  A whole group is staged before its first block launches,
+which preprocessing allows: it reads no ledger state.
+
 Each commit runs ``commit_fn`` and then the validator's
 ``resident_commit`` (the device-resident state's write-set scatter,
 ``state/residency.py``), on the committer thread or inline, before the
@@ -52,6 +63,20 @@ class CommittedBlock:
         return sum(1 for c in self.tx_filter if c == 0)
 
 
+class _SliceFuture:
+    """Block ``i``'s part of a group's ``preprocess_many`` future, in
+    the shape ``_launch_next`` reads."""
+
+    __slots__ = ("fut", "i")
+
+    def __init__(self, fut, i: int):
+        self.fut = fut
+        self.i = i
+
+    def result(self):
+        return self.fut.result()[self.i]
+
+
 @dataclass
 class _InflightCommit:
     fut: object
@@ -67,12 +92,14 @@ class CommitPipeline:
     runs on the committer thread (inline at depth 1 and for the tail),
     serialized in block order, followed by the validator's
     ``resident_commit``.  A stage exception closes the pipe: it
-    surfaces once and later submits raise."""
+    surfaces once and later submits raise.  ``coalesce_blocks``: the
+    group size of ``submit_many`` (0: off)."""
 
-    def __init__(self, validator, commit_fn, depth: int = 2):
+    def __init__(self, validator, commit_fn, depth: int = 2, coalesce_blocks: int = 0):
         self.validator = validator
         self.commit_fn = commit_fn
         self.depth = max(1, int(depth))
+        self.coalesce_blocks = int(coalesce_blocks)
         self._prefetch = ThreadPoolExecutor(1, thread_name_prefix="fabtorch-prefetch")
         self._committer = ThreadPoolExecutor(1, thread_name_prefix="fabtorch-committer")
         self._pre = None        # (block, prefetch future)
@@ -132,6 +159,41 @@ class CommitPipeline:
         except BaseException:
             self._shutdown()
             raise
+
+    def submit_many(self, blocks) -> list:
+        """Feed height-ordered blocks in groups of ``coalesce_blocks``,
+        each group staged by one ``preprocess_many``; returns the
+        CommittedBlocks these submissions completed (the last block stays
+        in flight until the next submit or ``flush``).  One ``submit`` a
+        block when coalescing is off, the pipe is serial, or the
+        validator has no ``preprocess_many``."""
+        blocks = list(blocks)
+        if self._closed:
+            raise RuntimeError("pipeline is closed")
+        k = self.coalesce_blocks
+        many = getattr(self.validator, "preprocess_many", None)
+        if self.depth == 1 or k < 2 or len(blocks) < 2 or many is None:
+            return [r for r in (self.submit(b) for b in blocks) if r is not None]
+        try:
+            return self._submit_many_coalesced(blocks, k, many)
+        except BaseException:
+            self._shutdown()
+            raise
+
+    def _submit_many_coalesced(self, blocks, k: int, many) -> list:
+        """Each group: one prefetch call stages every block and launches
+        their signatures together; then each block finishes its
+        predecessor and launches on its own slice, as ``submit`` does."""
+        out = []
+        for g in range(0, len(blocks), k):
+            group = blocks[g:g + k]
+            fut = self._prefetch.submit(many, group)
+            for j, block in enumerate(group):
+                self._pre = (block, _SliceFuture(fut, j))
+                if self._launched is not None:
+                    out.append(self._finish_and_commit(self._launched))
+                self._launch_next()
+        return out
 
     def flush(self):
         """Finish and commit everything in flight; returns the last

@@ -28,9 +28,29 @@ until a host path reads ``ParsedTx.rwset``.  The reference takes the
 native walk from 16 envelopes up (validator.py:658); the port takes it
 for every wire block.
 
+A column row's endorsers stay in ``WireBlock``'s ``[n, S]`` matrices
+(``uid_mat``: the identity's row + 1, 0 for an empty slot;
+``endo_idx_mat``: the signature item, -1 empty; ``ecnt``), the
+reference's lazy shells (validator.py:880-978): ``_device_pre_columnar``
+(validator.py:1926-2039) builds each policy group from them with array
+gathers, and ``_materialize_for_host`` fills the per-tx ``endorsers``
+and ``endo_item_idx`` lists only for a reader that needs them (the host
+path, the generic ``_device_preprocess``).  A block whose every live
+transaction is a flat column row takes the columnar groups; any other
+takes ``_device_preprocess``.
+
+``host_stage_workers`` (0 off, -1 one a core, n; ``parallel/hostpool.py``)
+gives the validator a staging pool, on which ``preprocess_many``
+(validator.py:1265-1350) parses several blocks at once and starts each
+block's device preprocessing as its parse lands; all their signatures
+then go to the card in one ``verify_launch_many``, each block's frame
+staged by one C call.  Pool tasks that copy to the card do so on the
+stream of the thread that called ``preprocess_many``.
+
 ``timings`` (None: off) sums each phase's seconds over the blocks under
 the reference's keys (validator.py:460, :541-544): ``host_parse``,
-``sig_prepare_launch`` and ``device_pre`` on the prefetch thread;
+``sig_prepare_launch`` and ``device_pre`` on the prefetch thread (under
+``preprocess_many`` with a pool: the prefetch thread's wait for each);
 ``state_fill``, ``stage2_dispatch``, ``device_wait`` and ``postprocess``
 on the caller's.  The reference's ``hd_frame`` frames the block for its
 block store, which the port does not have.
@@ -88,6 +108,7 @@ from fabric_tpu_torch.ledger.statedb import UpdateBatch
 from fabric_tpu_torch.native import blockparse, mvccprep
 from fabric_tpu_torch.ops import mvcc as mvcc_ops
 from fabric_tpu_torch.ops import p256, p256v3
+from fabric_tpu_torch.parallel.hostpool import resolve_host_pool
 from fabric_tpu_torch.peer import frontend
 from fabric_tpu_torch.peer.decoded import DecodedBlock, DecodedEndorsement, DecodedTx
 from fabric_tpu_torch.peer.device_block import DeviceBlockPipeline, resident_ver_ok
@@ -167,9 +188,13 @@ class WireBlock:
     """A wire block after the columnar parse: the C arrays the later
     stages read.  ``flat[i]``: transaction i's set is in ``rwp``'s flat
     arrays (status 0); ``keys``, ``lex_rank``: each interned key's
-    ('pub', ns, key) and its rank in that order.  ``n_front_end``:
-    envelopes the front end decoded; ``n_rwset_parsed``: sets parsed
-    with ``TxRWSet.from_bytes``."""
+    ('pub', ns, key) and its rank in that order; ``ns_names``: ``rwp``'s
+    namespace table.  ``uid_mat``, ``endo_idx_mat`` [n, S] and ``ecnt``
+    [n]: each column row's endorsers (``idents[uid - 1]``) and their
+    signature items, slots 0..ecnt-1 (see the module docstring);
+    ``materialized``: ``_materialize_for_host`` filled the lists.
+    ``n_front_end``: envelopes the front end decoded;
+    ``n_rwset_parsed``: sets parsed with ``TxRWSet.from_bytes``."""
 
     number: int
     pb: blockparse.ParsedBlock
@@ -177,8 +202,14 @@ class WireBlock:
     flat: np.ndarray
     keys: list
     lex_rank: np.ndarray
+    ns_names: list
+    idents: list
+    uid_mat: np.ndarray
+    endo_idx_mat: np.ndarray
+    ecnt: np.ndarray
     n_front_end: int
     n_rwset_parsed: int
+    materialized: bool = False
 
 
 @dataclass
@@ -186,7 +217,7 @@ class DevicePre:
     """State-independent stage-2 inputs built at preprocess time."""
 
     groups: list          # [(plan, gp tensor [Eb, S*P+S+1], Eb, S)]
-    group_entries: list   # [[(ptx, info)]] per group
+    group_entries: list   # per group its E entries: [(ptx, info)] or [E] tx indices
     static: object        # ops.mvcc.StaticBlock
     static_t: torch.Tensor
     has_range: bool
@@ -254,11 +285,14 @@ def _refuse_namespaces(names, policies: PolicyProvider) -> None:
 class BlockValidator:
     """validate(block) → (tx_filter bytes, UpdateBatch, history).
     ``block``: a wire ``Block`` (decoded with ``msp``, a
-    ``crypto.msp.MSPManager``) or a ``DecodedBlock``."""
+    ``crypto.msp.MSPManager``) or a ``DecodedBlock``.
+    ``host_stage_workers``: the staging pool's size (0 off, -1 one
+    worker per core); ``close()`` shuts it down."""
 
     def __init__(self, policy_provider: PolicyProvider, state_db, block_store=None,
                  device="cuda", state_resident: bool = False, state_resident_mb: int = 64,
-                 state_resident_range_bits: int = 12, msp=None, kernel: str | None = None):
+                 state_resident_range_bits: int = 12, msp=None, kernel: str | None = None,
+                 host_stage_workers: int = 0):
         self.msp = msp
         self.kernel = p256.selected(kernel)
         self.policies = policy_provider
@@ -273,6 +307,15 @@ class BlockValidator:
         # seconds per phase, summed over blocks (validator.py:460); None: off
         self.timings: dict | None = None
         self._timings_lock = threading.Lock()
+        self.host_stage_workers = int(host_stage_workers)
+        self.host_pool = resolve_host_pool(self.host_stage_workers)
+
+    def close(self) -> None:
+        """Shut the staging pool down (its threads outlive the
+        validator otherwise).  Idempotent."""
+        pool, self.host_pool = self.host_pool, None
+        if pool is not None:
+            pool.shutdown()
 
     def _t(self, key: str, t0: float) -> float:
         """Add the seconds since ``t0`` to ``timings[key]`` and return
@@ -421,9 +464,6 @@ class BlockValidator:
         live = col & bind & ~dup
         c_ok = live & cred
         codes[live & ~cred] = int(C.BAD_CREATOR_SIGNATURE)
-        code_l = codes.tolist()
-        for i in np.flatnonzero(col).tolist():
-            txs[i] = ParsedTx(idx=i, code=code_l[i], txid=txids[i])
 
         # -- the signature batch: creators, then endorsers, as column gathers
         m = pb.n_endorsements
@@ -434,21 +474,27 @@ class BlockValidator:
         mask_e = (c_ok[tx_of_e] & (pb.e_ok[:m] == 1) & (pb.e_dup[:m] == 0) & eu_valid
                   & known[euc] & has_ec[euc])
         c_rows, e_rows = np.flatnonzero(c_ok), np.flatnonzero(mask_e)
-        nc = len(c_rows)
+        nc, ne = len(c_rows), len(e_rows)
         items = p256v3.SigColumns(
             np.concatenate([pb.payload_digest[c_rows], pb.e_digest[e_rows]]),
             np.concatenate([pb.creator_r[c_rows], pb.e_r[e_rows]]),
             np.concatenate([pb.creator_s[c_rows], pb.e_s[e_rows]]),
             np.concatenate([cu[c_rows], eu[e_rows]]).astype(np.int32), q_pool, q_ok, idents)
+        creator_item = np.full(n, -1, np.int64)
+        creator_item[c_rows] = np.arange(nc)
+        # each column row's endorsers in slots 0..ecnt-1 (validator.py:880-894)
         e_tx = tx_of_e[e_rows]
-        lo = np.searchsorted(e_tx, c_rows, "left").tolist()
-        hi = np.searchsorted(e_tx, c_rows, "right").tolist()
-        eu_l = eu[e_rows].tolist()
-        for k, i in enumerate(c_rows.tolist()):
-            ptx = txs[i]
-            ptx.creator_item_idx = k
-            ptx.endo_item_idx = list(range(nc + lo[k], nc + hi[k]))
-            ptx.endorsers = [idents[u] for u in eu_l[lo[k]:hi[k]]]
+        ecnt = np.bincount(e_tx, minlength=n)
+        S = max(4, next_pow2(int(ecnt.max()) if ne else 1))
+        uid_mat = np.zeros((n, S), np.int64)
+        endo_idx_mat = np.full((n, S), -1, np.int32)
+        if ne:
+            slot = np.arange(ne) - (np.cumsum(ecnt) - ecnt)[e_tx]
+            uid_mat[e_tx, slot] = eu[e_rows] + 1
+            endo_idx_mat[e_tx, slot] = nc + np.arange(ne)
+        code_l, ci_l = codes.tolist(), creator_item.tolist()
+        for i in np.flatnonzero(col).tolist():
+            txs[i] = ParsedTx(idx=i, code=code_l[i], txid=txids[i], creator_item_idx=ci_l[i])
         base = len(items)
         for i in front_idx:  # the front end's items follow the columns
             ptx = txs[i]
@@ -463,9 +509,14 @@ class BlockValidator:
         rwp = mvccprep.prep(pb, rw_use)
         ns_names, _, keys, lex_rank = rwp.key_table()
         st = rwp.status.tolist()
+        flat = rw_use & (rwp.status == 0)
+        # the block's distinct namespaces, refused once
+        _refuse_namespaces([ns_names[j] for j in np.unique(rwp.tx_ns(flat)[1]).tolist()],
+                           self.policies)
         ns_start, ns_count = rwp.tx_ns_start.tolist(), rwp.tx_ns_count.tolist()
         ns_flat = rwp.ns_ids_flat.tolist()
         res_span = pb.results_span.tolist()
+        ns_memo: dict = {}
         n_parsed = 0
         for i in np.flatnonzero(rw_use).tolist():
             ptx = txs[i]
@@ -473,9 +524,11 @@ class BlockValidator:
             raw = blob[o:o + ln] if o >= 0 else b""
             if st[i] == 0:
                 ptx.rwset_bytes = raw
-                ptx.namespaces = tuple(sorted(
-                    ns_names[j] for j in ns_flat[ns_start[i]:ns_start[i] + ns_count[i]]))
-                _refuse_namespaces(ptx.namespaces, self.policies)
+                ids = tuple(ns_flat[ns_start[i]:ns_start[i] + ns_count[i]])
+                names = ns_memo.get(ids)
+                if names is None:
+                    names = ns_memo[ids] = tuple(sorted(ns_names[j] for j in ids))
+                ptx.namespaces = names
                 continue
             n_parsed += 1
             try:
@@ -487,12 +540,42 @@ class BlockValidator:
             _refuse_rwset(rw, self.policies)
             ptx.rwset = rw
             ptx.namespaces = tuple(sorted(rw.ns))
-        wb = WireBlock(number=number, pb=pb, rwp=rwp, flat=rw_use & (rwp.status == 0),
-                       keys=keys, lex_rank=lex_rank,
-                       n_front_end=len(front_idx), n_rwset_parsed=n_parsed)
+        wb = WireBlock(number=number, pb=pb, rwp=rwp, flat=flat, keys=keys, lex_rank=lex_rank,
+                       ns_names=ns_names, idents=idents, uid_mat=uid_mat,
+                       endo_idx_mat=endo_idx_mat, ecnt=ecnt, n_front_end=len(front_idx),
+                       n_rwset_parsed=n_parsed)
         return wb, txs, items
 
+    @staticmethod
+    def _materialize_for_host(txs, wb: WireBlock) -> None:
+        """Fill the column rows' ``endorsers`` and ``endo_item_idx`` from
+        the block's matrices (validator.py:959-978), before any reader
+        of those lists; a second call does nothing."""
+        if wb.materialized:
+            return
+        ecnt, em, um, idents = wb.ecnt.tolist(), wb.endo_idx_mat, wb.uid_mat, wb.idents
+        for i in np.flatnonzero(wb.ecnt).tolist():
+            k = ecnt[i]
+            ptx = txs[i]
+            ptx.endo_item_idx = em[i, :k].tolist()
+            ptx.endorsers = [idents[u - 1] for u in um[i, :k].tolist()]
+        wb.materialized = True
+
+    def _device_pre(self, txs, block) -> DevicePre:
+        """The block's state-independent stage-2 inputs: the columnar
+        groups for a wire block whose every live transaction is a flat
+        column row, else ``_device_preprocess``."""
+        if isinstance(block, WireBlock):
+            dpre = self._device_pre_columnar(txs, block)
+            if dpre is not None:
+                return dpre
+        return self._device_preprocess(txs, block)
+
     def _device_preprocess(self, txs, block=None) -> DevicePre:
+        """Policy groups entry by entry from the per-tx lists (a wire
+        block's are filled first), then the static MVCC arrays."""
+        if isinstance(block, WireBlock):
+            self._materialize_for_host(txs, block)
         entries = []
         for ptx in txs:
             if not ptx.undetermined:
@@ -525,6 +608,68 @@ class BlockValidator:
                     gp[e, s * P:(s + 1) * P] = row
             groups.append((plan, torch.from_numpy(gp).to(self.device), E, S))
             group_entries.append(ents)
+        return self._static_pre(txs, block, groups, group_entries)
+
+    def _device_pre_columnar(self, txs, wb: WireBlock) -> DevicePre | None:
+        """The policy groups from the columnar arrays (validator.py:
+        1926-2039): entries from ``rwp``'s flat (tx, namespace) pairs,
+        each namespace's info looked up once, INVALID_CHAINCODE by array
+        masks, each group's gp array gathered from a per-identity
+        match-row pool through ``uid_mat`` and ``endo_idx_mat``; the
+        same layout, entry order and group order as
+        ``_device_preprocess``, one H2D copy a group.  None when a live
+        transaction is not a flat column row (a front-end envelope, a
+        set parsed in Python)."""
+        n = len(txs)
+        live = np.fromiter((ptx.code == _NV for ptx in txs), bool, n)
+        if (live & ~wb.flat).any():
+            return None
+        rwp, names = wb.rwp, wb.ns_names
+        etx, ens = rwp.tx_ns(live)
+        infos = [self.policies.info(nm) for nm in names]
+        unknown = np.array([i is None for i in infos], bool)
+        bad = live & (np.bincount(etx, minlength=n) == 0)  # no namespace
+        bad[etx[unknown[ens]]] = True  # an unknown one
+        for i in np.flatnonzero(bad).tolist():
+            txs[i].code = int(C.INVALID_CHAINCODE)
+        keep = ~bad[etx]
+        etx, ens = etx[keep], ens[keep]
+        # entries in tx order, each tx's namespaces by name; groups in
+        # the order their policy first appears
+        rank = np.empty(len(names), np.int64)
+        rank[sorted(range(len(names)), key=names.__getitem__)] = np.arange(len(names))
+        order = np.lexsort((rank[ens], etx))
+        etx, ens = etx[order], ens[order]
+        group_of: dict = {}  # id(policy) → group
+        ns_group = np.array([group_of.setdefault(id(i.policy), len(group_of))
+                             if i is not None else -1 for i in infos], np.int64)
+        policy_of = {group_of[id(i.policy)]: i.policy for i in infos if i is not None}
+        eg = ns_group[ens]
+        ecnt, um, em, idents = wb.ecnt, wb.uid_mat, wb.endo_idx_mat, wb.idents
+        groups, group_entries = [], []
+        for g in dict.fromkeys(eg.tolist()):
+            gtx = etx[eg == g]
+            plan = self._plan(policy_of[g])
+            P = len(plan.principals)
+            E = len(gtx)
+            S = max(4, next_pow2(max(int(ecnt[gtx].max()), 1)))
+            uids = um[gtx, :S]
+            row_pool = np.zeros((len(idents) + 1, P), np.int32)
+            for u in np.unique(uids[uids > 0]).tolist():
+                row_pool[u] = [p.matched_by(idents[u - 1]) for p in plan.principals]
+            Eb = max(16, next_pow2(E))
+            gp = np.zeros((Eb, S * P + S + 1), np.int32)
+            gp[:, S * P:] = -1
+            gp[:E, :S * P] = row_pool[uids].reshape(E, S * P)
+            gp[:E, S * P:S * P + S] = em[gtx, :S]
+            gp[:E, -1] = gtx
+            groups.append((plan, torch.from_numpy(gp).to(self.device), Eb, S))
+            group_entries.append(gtx)
+        return self._static_pre(txs, wb, groups, group_entries)
+
+    def _static_pre(self, txs, block, groups, group_entries) -> DevicePre:
+        """The static MVCC arrays (from the flat arrays when every live
+        set is there) and their H2D copies → ``DevicePre``."""
         und = np.fromiter((ptx.undetermined for ptx in txs), bool, len(txs))
         has_range = False
         if isinstance(block, WireBlock) and not (und & ~block.flat).any():
@@ -563,16 +708,20 @@ class BlockValidator:
             raise ValueError("a wire Block needs the validator's msp= (an MSPManager)")
         return frontend.decode_block(block, self.msp)
 
+    def _parse_any(self, block):
+        """A wire ``Block`` through the columnar parse, anything else
+        through ``decode`` and ``_parse`` → (block, txs, items)."""
+        if isinstance(block, Block):
+            return self._parse_wire(block)
+        block = self.decode(block)
+        return (block, *self._parse(block))
+
     def preprocess(self, block) -> Preprocessed:
         """Decode, parse, launch the block's signature verify without
         waiting, and build the state-independent stage-2 inputs.  Touches
         no ledger state, so it may run while the predecessor commits."""
         t0 = time.perf_counter()
-        if isinstance(block, Block):
-            block, txs, items = self._parse_wire(block)
-        else:
-            block = self.decode(block)
-            txs, items = self._parse(block)
+        block, txs, items = self._parse_any(block)
         t0 = self._t("host_parse", t0)
         handle = self.verify_launch(items)
         t0 = self._t("sig_prepare_launch", t0)
@@ -580,13 +729,93 @@ class BlockValidator:
         # v2 or a remote verify (kernel None) the block takes the host path
         dpre = None
         if self.kernel == "v3":
-            dpre = self._device_preprocess(txs, block)
+            dpre = self._device_pre(txs, block)
             self._t("device_pre", t0)
         return Preprocessed(block=block, txs=txs, items=items, handle=handle, dpre=dpre)
+
+    def preprocess_many(self, blocks) -> list:
+        """``preprocess`` over several blocks with ONE verify launch for
+        all their signatures (``verify_launch_many``; each handle a slice
+        with a solo launch's lane layout), so each result is a drop-in
+        ``pre`` for ``validate_launch``.  With a staging pool the blocks
+        parse at once (``_preprocess_many_pooled``)."""
+        blocks = list(blocks)
+        if len(blocks) <= 1:
+            return [self.preprocess(b) for b in blocks]
+        if self.host_pool is not None:
+            return self._preprocess_many_pooled(blocks)
+        parsed = []
+        for block in blocks:
+            t0 = time.perf_counter()
+            parsed.append(self._parse_any(block))
+            self._t("host_parse", t0)
+        t0 = time.perf_counter()
+        handles = self.verify_launch_many([items for _, _, items in parsed])
+        self._t("sig_prepare_launch", t0)
+        out = []
+        for (block, txs, items), handle in zip(parsed, handles):
+            dpre = None
+            if self.kernel == "v3":
+                t0 = time.perf_counter()
+                dpre = self._device_pre(txs, block)
+                self._t("device_pre", t0)
+            out.append(Preprocessed(block=block, txs=txs, items=items, handle=handle,
+                                    dpre=dpre))
+        return out
+
+    def _preprocess_many_pooled(self, blocks) -> list:
+        """``preprocess_many`` on the staging pool: every block's parse
+        at once, each block's ``_device_pre`` submitted as soon as its
+        parse lands, then the one verify launch.  Every task touches only its own block (the
+        shared memos, ``_plans`` and the MSP's identity caches, can at
+        worst compute an entry twice), so the result is the serial one.
+        The timers record the calling thread's wait for each stage, its
+        critical path; a failed task raises here, labelled with its
+        stage and worker."""
+        pool = self.host_pool
+        stream = (torch.cuda.current_stream(self.device) if self.device.type == "cuda"
+                  else None)
+        t0 = time.perf_counter()
+        parse_futs = [pool.submit(self._parse_any, b, stage="host_parse") for b in blocks]
+        parsed, pre_futs = [], []
+        for f in parse_futs:
+            block, txs, items = f.result()
+            parsed.append((block, txs, items))
+            if self.kernel == "v3":
+                pre_futs.append(pool.submit(self._device_pre_on, stream, txs, block,
+                                            stage="device_pre"))
+        self._t("host_parse", t0)
+        t0 = time.perf_counter()
+        handles = self.verify_launch_many([items for _, _, items in parsed])
+        self._t("sig_prepare_launch", t0)
+        out = []
+        for k, ((block, txs, items), handle) in enumerate(zip(parsed, handles)):
+            dpre = None
+            if pre_futs:
+                t0 = time.perf_counter()
+                dpre = pre_futs[k].result()
+                self._t("device_pre", t0)
+            out.append(Preprocessed(block=block, txs=txs, items=items, handle=handle,
+                                    dpre=dpre))
+        return out
+
+    def _device_pre_on(self, stream, txs, block) -> DevicePre:
+        """``_device_pre`` in a pool worker, its H2D copies on ``stream``
+        (the stream of the thread that submitted it), so a stage-2 launch
+        ordered after that thread's work reads them whole."""
+        if stream is None:
+            return self._device_pre(txs, block)
+        with torch.cuda.stream(stream):
+            return self._device_pre(txs, block)
 
     def verify_launch(self, items):
         """Launch the block's signature verify without waiting."""
         return p256.verify_launch(items, kernel=self.kernel, device=self.device)
+
+    def verify_launch_many(self, itemsets) -> list:
+        """Several blocks' signatures in one launch (v3; one launch a
+        block under v1 and v2) → one handle a block."""
+        return p256.verify_launch_many(itemsets, kernel=self.kernel, device=self.device)
 
     # -- launch -------------------------------------------------------------
 
@@ -724,6 +953,8 @@ class BlockValidator:
         """The exact path: signature bits from the verify handle, the
         consumption interpreter per (tx, namespace), ``mvcc_validate``."""
         txs = pending.txs
+        if isinstance(pending.block, WireBlock):
+            self._materialize_for_host(txs, pending.block)
         t0 = time.perf_counter()
         sig_valid = (np.asarray(pending.handle.fetch(), bool) if pending.items
                      else np.zeros(0, bool))

@@ -114,6 +114,10 @@ class SidecarLink:
         bound = (self.busy_retries + 1) * self.timeout_s + 10.0
         return RemoteVerifyHandle(fut, bound, n_real=len(tuples))
 
+    def submit_many(self, tuple_sets) -> list:
+        """One handle a batch; the server's scheduler coalesces them."""
+        return [self.submit(t) for t in tuple_sets]
+
     def close(self) -> None:
         if self._closed:
             return

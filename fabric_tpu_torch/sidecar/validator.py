@@ -41,5 +41,9 @@ class SidecarValidator(BlockValidator):
     def verify_launch(self, items):
         return self.link.submit(items)
 
+    def verify_launch_many(self, itemsets) -> list:
+        return self.link.submit_many(itemsets)
+
     def close(self) -> None:
+        super().close()
         self.link.close()

@@ -9,7 +9,7 @@ an older one.
     python3 -m fabric_tpu_torch.tools.launch_steps [--parent-csrc DIR]
         [--parent-tree DIR]
         [--phase all|team_sizes|sign_shapes|stage2|scatter|small|comparison|
-                 comparison_path|wire_path]
+                 comparison_path|wire_path|coalesced_path]
         [--team-lanes 3072,6144,12288]
         [--sign-lanes 16,32,64,128,256,512,1024,4096]
         [--comparison-lanes 16,4096,12288] [--path-blocks 12]
@@ -82,6 +82,22 @@ names another ``csrc`` directory (an older commit's, unpacked with
   construction's.  A package without phase timers gets them from
   ``add_timers``, which wraps its validator's methods where this tree's
   ``BlockValidator`` reads its clock.
+
+- ``main_path`` (needs ``--parent-tree``): ``chip_smoke.py``'s main
+  path (bench-shaped ``DecodedBlock``s of 1,000 transactions, one then
+  ``--path-blocks``, through ``CommitPipeline(depth=2)``) as the wire
+  path above, in turns parent, tree, tree, parent: wall ms a block over
+  the blocks after the first, and ms a block by phase, the first block
+  apart; every run's filters equal the construction's.
+
+- ``coalesced_path`` (needs ``--parent-tree``): the wire path as above
+  with the parent's package (one ``submit`` a block) and with this
+  tree's, one ``submit`` a block and coalesced (``submit_many`` with
+  ``coalesce_blocks=4`` over ``BlockValidator(host_stage_workers=-1)``:
+  the first block alone, then groups of 4, one ``p256_verify`` launch
+  a group), in turns parent, tree, tree, parent, each a process of its
+  own; this tree's two modes share a process, in the other order in the
+  second tree turn.
 
 Every variant runs in each of 8 rounds, the order reversed every other
 round (ABBA); the lines give medians and the rounds.
@@ -709,10 +725,15 @@ def add_timers(v) -> bool:
     return True
 
 
-def wire_path_run(tree: Path, tag: str, n_blocks: int) -> None:
-    """One run of the wire path with ``fabric_tpu_torch`` imported from
-    ``tree`` (the process must not have imported it yet); logs one
-    ``wire_path`` line."""
+def wire_path_run(tree: Path, tag: str, n_blocks: int, modes=("single",)) -> None:
+    """Runs of a path with ``fabric_tpu_torch`` imported from ``tree``
+    (the process must not have imported it yet), one line a mode, in the
+    order given: ``single`` (wire blocks, ``submit`` a block, the default
+    knobs), ``coalesced`` (wire blocks, ``submit_many`` with
+    ``coalesce_blocks=4`` over ``BlockValidator(host_stage_workers=-1)``:
+    the first block, then the others in groups of 4), ``decoded`` (the
+    main path's ``DecodedBlock``s, ``submit`` a block, a ``main_path``
+    line)."""
     sys.path.insert(0, str(tree))
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
@@ -732,49 +753,114 @@ def wire_path_run(tree: Path, tag: str, n_blocks: int) -> None:
         from fabric_tpu_torch import native
         native.build()
     build_s = time.perf_counter() - t0
-    wn = cs.WireNet(cs.SEED + 9)
-    blocks, expected, seed_rows, _ = cs.build_wire_blocks(wn, 1 + n_blocks)
-    wire = [m.Block.parse(b.serialize()) for b in blocks]
-    state, prov, _ = carry.from_reference(seed_rows, cs.WIRE_NAMESPACES, [])
-    v = BlockValidator(prov, state, device=torch.device("cuda"), msp=wn.msp)
-    patched = add_timers(v)
-    first_t, rest_t = {}, {}
-    res, first_s, _ = cs.run_validator(wire[:1], v, depth=2, timings=first_t)
-    rest, secs, _ = cs.run_validator(wire[1:], v, depth=2, timings=rest_t)
-    if [r.tx_filter for r in res + rest] != expected:
-        raise AssertionError(f"wire path, {tag}: filters differ from construction")
-    decode_ms = []
-    for blk in wire[1:]:
-        t1 = time.perf_counter()
-        frontend.decode_block(blk, wn.msp)
-        decode_ms.append(1e3 * (time.perf_counter() - t1))
-    log("wire_path", tree=tag, package=str(pkg), timers_added=patched, build_s=build_s,
-        blocks=len(wire), first_block_ms=1e3 * first_s, after_first_blocks=n_blocks,
-        per_block_ms=1e3 * secs / n_blocks,
-        phase_ms_per_block={k: 1e3 * t / n_blocks for k, t in sorted(rest_t.items())},
-        first_block_phase_ms={k: 1e3 * t for k, t in sorted(first_t.items())},
-        decode_ms_per_block=float(np.mean(decode_ms)),
-        front_end_envelopes=[getattr(r.pend.block, "n_front_end", None) for r in rest])
+    made = {}
+
+    def inputs(decoded: bool):
+        """(blocks, expected filters, seed rows, namespaces, msp, front
+        end ms a block), made once a kind."""
+        if decoded not in made:
+            if decoded:
+                blocks, expected, seed_rows = cs.build_blocks(cs.Net(cs.SEED), 1 + n_blocks,
+                                                              unsafe=False)
+                made[True] = (blocks, expected, seed_rows, cs.NAMESPACES, None, None)
+            else:
+                wn = cs.WireNet(cs.SEED + 9)
+                blocks, expected, seed_rows, _ = cs.build_wire_blocks(wn, 1 + n_blocks)
+                wire = [m.Block.parse(b.serialize()) for b in blocks]
+                decode_ms = []
+                for blk in wire[1:]:
+                    t1 = time.perf_counter()
+                    frontend.decode_block(blk, wn.msp)
+                    decode_ms.append(1e3 * (time.perf_counter() - t1))
+                made[False] = (wire, expected, seed_rows, cs.WIRE_NAMESPACES, wn.msp,
+                               float(np.mean(decode_ms)))
+        return made[decoded]
+
+    for mode in modes:
+        wire, expected, seed_rows, namespaces, msp, decode_ms = inputs(mode == "decoded")
+        state, prov, _ = carry.from_reference(seed_rows, namespaces, [])
+        kw, coalesce = ({"host_stage_workers": -1}, cs.COALESCE) if mode == "coalesced" \
+            else ({}, 0)
+        v = BlockValidator(prov, state, device=torch.device("cuda"), msp=msp, **kw)
+        patched = add_timers(v)
+        first_t, rest_t = {}, {}
+        before = kernels.launches["p256_verify"]
+        res, first_s, _ = cs.run_validator(wire[:1], v, depth=2, timings=first_t,
+                                           coalesce=coalesce)
+        rest, secs, _ = cs.run_validator(wire[1:], v, depth=2, timings=rest_t,
+                                         coalesce=coalesce)
+        if [r.tx_filter for r in res + rest] != expected:
+            raise AssertionError(f"{mode} path, {tag}: filters differ from construction")
+        pool = getattr(v, "host_pool", None)
+        log("main_path" if mode == "decoded" else "wire_path", tree=tag, mode=mode,
+            package=str(pkg), timers_added=patched, build_s=build_s, blocks=len(wire), first_block_ms=1e3 * first_s,
+            after_first_blocks=n_blocks, per_block_ms=1e3 * secs / n_blocks,
+            phase_ms_per_block={k: 1e3 * t / n_blocks for k, t in sorted(rest_t.items())},
+            first_block_phase_ms={k: 1e3 * t for k, t in sorted(first_t.items())},
+            decode_ms_per_block=decode_ms,
+            p256_verify_launches=kernels.launches["p256_verify"] - before,
+            pool_workers=pool.workers if pool is not None else 0,
+            front_end_envelopes=[getattr(r.pend.block, "n_front_end", None) for r in rest])
+        if pool is not None:
+            v.close()
 
 
-def phase_wire_path(parent_tree: Path, n_blocks: int) -> None:
-    """``wire_path_run`` in turns parent, tree, tree, parent, each in a
-    process of its own; then each tree's wall ms a block."""
+def phase_wire_path(parent_tree: Path, n_blocks: int, mode: str = "single") -> None:
+    """``wire_path_run`` of one mode (``single``: the wire path,
+    ``decoded``: the main path) in turns parent, tree, tree, parent, each
+    in a process of its own; then each tree's wall ms a block and
+    ``device_pre`` ms a block."""
+    name = "main_path" if mode == "decoded" else "wire_path"
     runs = {"parent": [], "tree": []}
+    pre = {"parent": [], "tree": []}
     for tag in ("parent", "tree", "tree", "parent"):
         tree = parent_tree.resolve() if tag == "parent" else ROOT
         out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--wire-tree",
-                              str(tree), "--wire-tag", tag, "--path-blocks", str(n_blocks)],
+                              str(tree), "--wire-tag", tag, "--wire-modes", mode,
+                              "--path-blocks", str(n_blocks)],
                              cwd=ROOT, capture_output=True, text=True)
         sys.stderr.write(out.stderr[-4000:])
         if out.returncode:
-            raise RuntimeError(f"wire path, {tag}: exit {out.returncode}")
+            raise RuntimeError(f"{name}, {tag}: exit {out.returncode}")
         line = out.stdout.strip().splitlines()[-1]
         print(line, flush=True)
-        runs[tag].append(json.loads(line)["per_block_ms"])
-    log("wire_path_turns", order=["parent", "tree", "tree", "parent"],
-        **{tag: {"per_block_ms": ms, "median_per_block_ms": float(np.median(ms))}
+        rec = json.loads(line)
+        runs[tag].append(rec["per_block_ms"])
+        pre[tag].append(rec["phase_ms_per_block"].get("device_pre"))
+    log(f"{name}_turns", order=["parent", "tree", "tree", "parent"],
+        **{tag: {"per_block_ms": ms, "median_per_block_ms": float(np.median(ms)),
+                 "device_pre_ms_per_block": pre[tag]}
            for tag, ms in runs.items()})
+
+
+def phase_coalesced_path(parent_tree: Path, n_blocks: int) -> None:
+    """The parent's single-block wire path and this tree's single-block
+    and coalesced wire paths (``wire_path_run``), in turns parent, tree,
+    tree, parent, each turn a process of its own (this tree's two modes
+    in one process, their order reversed in the second turn); then each
+    variant's wall ms a block."""
+    turns = (("parent", ("single",)), ("tree", ("single", "coalesced")),
+             ("tree", ("coalesced", "single")), ("parent", ("single",)))
+    runs: dict = {}
+    for tag, modes in turns:
+        tree = parent_tree.resolve() if tag == "parent" else ROOT
+        out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--wire-tree",
+                              str(tree), "--wire-tag", tag, "--wire-modes", ",".join(modes),
+                              "--path-blocks", str(n_blocks)],
+                             cwd=ROOT, capture_output=True, text=True)
+        sys.stderr.write(out.stderr[-4000:])
+        if out.returncode:
+            raise RuntimeError(f"coalesced path, {tag}: exit {out.returncode}")
+        lines = [ln for ln in out.stdout.strip().splitlines() if '"wire_path"' in ln]
+        for line in lines:
+            print(line, flush=True)
+            rec = json.loads(line)
+            runs.setdefault(f"{tag}_{rec.get('mode', 'single')}", []).append(
+                rec["per_block_ms"])
+    log("coalesced_path_turns",
+        order=[f"{tag}:{'+'.join(modes)}" for tag, modes in turns],
+        **{k: {"per_block_ms": ms, "median_per_block_ms": float(np.median(ms))}
+           for k, ms in runs.items()})
 
 
 def main() -> int:
@@ -788,24 +874,31 @@ def main() -> int:
                     help="an older checkout whose package runs the wire path beside this one")
     ap.add_argument("--phase", default="all",
                     choices=("all", "team_sizes", "sign_shapes", "stage2", "scatter", "small",
-                             "comparison", "comparison_path", "wire_path"))
+                             "comparison", "comparison_path", "main_path", "wire_path",
+                             "coalesced_path"))
     ap.add_argument("--team-lanes", default="3072,6144,12288")
     ap.add_argument("--sign-lanes", default="16,32,64,128,256,512,1024,4096")
     ap.add_argument("--comparison-lanes", default="16,4096,12288")
     ap.add_argument("--path-blocks", type=int, default=12)
     ap.add_argument("--wire-tree", type=Path, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--wire-tag", default="tree", help=argparse.SUPPRESS)
+    ap.add_argument("--wire-modes", default="single", help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.wire_tree is not None:  # one of phase_wire_path's runs
-        wire_path_run(args.wire_tree, args.wire_tag, args.path_blocks)
+    if args.wire_tree is not None:  # one run of a phase_wire_path or phase_coalesced_path turn
+        wire_path_run(args.wire_tree, args.wire_tag, args.path_blocks,
+                      args.wire_modes.split(","))
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     log("device", nvidia_smi=smi, torch=torch.__version__)
-    if args.phase == "wire_path":
+    if args.phase in ("main_path", "wire_path", "coalesced_path"):
         if args.parent_tree is None:
-            ap.error("--phase wire_path needs --parent-tree")
-        phase_wire_path(args.parent_tree, args.path_blocks)
+            ap.error(f"--phase {args.phase} needs --parent-tree")
+        if args.phase == "coalesced_path":
+            phase_coalesced_path(args.parent_tree, args.path_blocks)
+        else:
+            phase_wire_path(args.parent_tree, args.path_blocks,
+                            "decoded" if args.phase == "main_path" else "single")
         return 0
     sys.path.insert(0, str(ROOT))
     from fabric_tpu_torch import kernels
@@ -832,8 +925,12 @@ def main() -> int:
                          args.parent_csrc)
     if run("comparison_path") and args.parent_csrc is not None:
         phase_comparison_path(dev, args.parent_csrc, args.path_blocks)
+    if run("main_path") and args.parent_tree is not None:
+        phase_wire_path(args.parent_tree, args.path_blocks, "decoded")
     if run("wire_path") and args.parent_tree is not None:
         phase_wire_path(args.parent_tree, args.path_blocks)
+    if run("coalesced_path") and args.parent_tree is not None:
+        phase_coalesced_path(args.parent_tree, args.path_blocks)
     return 0
 
 

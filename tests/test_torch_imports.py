@@ -41,6 +41,7 @@ def _forbidden(name: str) -> bool:
 def test_import_brings_in_no_reference_package():
     mods = _modules()
     assert "fabric_tpu_torch.peer.validator" in mods
+    assert "fabric_tpu_torch.parallel.hostpool" in mods  # the reference's pool, copied
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -89,6 +90,10 @@ def test_entry_points_raise_without_cuda():
         BlockValidator(PolicyProvider({}), MemVersionedDB())
     with pytest.raises(RuntimeError, match="CUDA"):
         p256v3.verify_launch([(1, 1, 1, 1, 1)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        p256v3.verify_launch_many([[(1, 1, 1, 1, 1)], []])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BlockValidator(PolicyProvider({}), MemVersionedDB(), host_stage_workers=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         mvcc.mvcc_validate_block([mvcc.TxRWSet([("k", (1, 0))], ["k"], [])], {})
     with pytest.raises(RuntimeError, match="CUDA"):

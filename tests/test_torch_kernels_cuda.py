@@ -88,6 +88,27 @@ def test_p256_verify_kernel_ragged_and_large(cuda, lanes):
     assert got.shape == (lanes,) and torch.equal(got, v3.verify_batch_ref(frame))
 
 
+def test_p256_verify_launch_many_four_blocks(cuda):
+    """One ``verify_launch_many`` over four blocks' batches (4 x 3,072 =
+    12,288 lanes: the coalesced path's launch, at 4 threads a lane) gives
+    each block the bits of its own single launch and of the plain version
+    over the same frame, in one launch."""
+    from fabric_tpu_torch import kernels
+
+    base = _items(3000)
+    blocks = [base[7 * b:] + base[:7 * b] for b in range(4)]
+    before = kernels.launches["p256_verify"]
+    many = v3.verify_launch_many(blocks, device=cuda)
+    torch.cuda.synchronize()
+    assert kernels.launches["p256_verify"] - before == 1
+    frame = torch.from_numpy(np.concatenate([v3.stage_frame(b, 3072) for b in blocks])).to(cuda)
+    plain = v3.verify_batch_ref(frame)
+    for b, (items, h) in enumerate(zip(blocks, many)):
+        assert h.device_out.shape == (3072,) and h.n_real == 3000
+        assert torch.equal(h.device_out, plain[3072 * b:3072 * (b + 1)])
+        assert h.fetch() == v3.verify_launch(items, device=cuda).fetch()
+
+
 def _stage2_operands(dev, T=256, n_sig=512, S=4, seed=5):
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)

@@ -20,6 +20,11 @@ g++) on the CPU.
 * ``ops/mvcc.prepare_block_from_flat`` is byte-equal to
   ``prepare_block_static`` (``packed_static``, ``packed_read_pv``, read
   keys, unique pairs, host version check) in both forms.
+* On the corpus as wire blocks (less the envelopes the port refuses),
+  the validator's columnar policy groups (``_device_pre_columnar``)
+  equal its entry-by-entry groups (``_device_preprocess``) where a block
+  allows them, and the plain stage 2 gives the same verdicts over
+  either.
 
 Exact equality throughout."""
 
@@ -29,6 +34,7 @@ import types
 
 import numpy as np
 import pytest
+import torch
 from test_native_fuzz import _mutate
 
 from fabric_tpu import protoutil as pu
@@ -38,10 +44,15 @@ from fabric_tpu.native import blockparse as jbp
 from fabric_tpu.native import mvccprep_py as jmv
 from fabric_tpu.peer import txassembly as txa
 from fabric_tpu.protos import common_pb2
+from fabric_tpu_torch import carry
 from fabric_tpu_torch.crypto import ec_ref
+from fabric_tpu_torch.crypto import msp as pmsp
 from fabric_tpu_torch.ledger.rwset import TxRWSet
 from fabric_tpu_torch.native import blockparse, mvccprep
 from fabric_tpu_torch.ops import mvcc, p256v3
+from fabric_tpu_torch.peer import device_block
+from fabric_tpu_torch.peer import validator as pv
+from fabric_tpu_torch.protos import messages as M
 
 CHANNEL, CC = "nativechan", "nativecc"
 N_BLOCKS = 8
@@ -58,6 +69,8 @@ def net():
     org1 = cryptogen.generate_org("Org1MSP", "org1.native.example.com", peers=2, users=1)
     org2 = cryptogen.generate_org("Org2MSP", "org2.native.example.com", peers=1)
     return {
+        "pmgr": pmsp.MSPManager({o.msp_id: pmsp.MSP(o.msp_id, [o.ca.cert_pem])
+                                 for o in (org1, org2)}),
         "client": cryptogen.signing_identity(org1, "User1@org1.native.example.com"),
         "peers": [cryptogen.signing_identity(org1, "peer0.org1.native.example.com"),
                   cryptogen.signing_identity(org1, "peer1.org1.native.example.com"),
@@ -130,6 +143,105 @@ def corpus(net):
     rng.shuffle(envs)
     k = -(-len(envs) // N_BLOCKS)
     return [envs[i:i + k] for i in range(0, len(envs), k)]
+
+
+# ---------------------------------------------------------------------------
+# Columnar policy groups on the corpus
+
+CORPUS_POLICIES = {CC: "OutOf(2, 'Org1MSP.peer', 'Org2MSP.peer')",
+                   "other": "OutOf(1, 'Org1MSP.member', 'Org2MSP.peer')"}  # "ü-ns": unknown
+
+
+@pytest.fixture(scope="module")
+def corpus_blocks(net, corpus):
+    """The corpus as wire blocks, less the envelopes the port refuses
+    (the config envelope, and any mutation that became one): each is
+    parsed alone first."""
+    v = _corpus_validator(net)
+    out, refused = [], 0
+    for b, envs in enumerate(corpus):
+        keep = []
+        for e in envs:
+            try:
+                v._parse_wire(M.Block(header=M.BlockHeader(number=2 + b),
+                                      data=M.BlockData(data=[e])))
+            except NotImplementedError:
+                refused += 1
+                continue
+            keep.append(e)
+        out.append(M.Block(header=M.BlockHeader(number=2 + b), data=M.BlockData(data=keep)))
+    assert 1 <= refused <= 4
+    return out
+
+
+def _corpus_validator(net, state=None):
+    db, prov, _ = carry.from_reference([], CORPUS_POLICIES, [])
+    return pv.BlockValidator(prov, state or db, device="cpu", msp=net["pmgr"])
+
+
+def _stage2_verdicts(dpre, txs, n_items: int, seed: int) -> torch.Tensor:
+    """The plain stage 2 over ``dpre`` with seeded signature bits and
+    version checks: the packed verdicts (valid, conflict, phantom,
+    creator, policy, the safe bits)."""
+    rng = np.random.default_rng(seed)
+    sig = torch.from_numpy(rng.random(p256v3._bucket(max(n_items, 1))) < 0.85)
+    T = dpre.static_t.shape[0]
+    lv = np.zeros((T, 3), np.int32)
+    lv[:, 0] = -1
+    for t in txs:
+        if t.undetermined:
+            lv[t.idx] = (t.creator_item_idx, 1, rng.random() < 0.9)
+    return device_block.stage2_ref(sig, torch.from_numpy(lv), dpre.groups, dpre.static_t,
+                                   dpre.static.dims)
+
+
+@pytest.mark.parametrize("block", range(N_BLOCKS))
+def test_columnar_groups_match_entry_groups_on_corpus(net, corpus_blocks, block):
+    """``_device_pre_columnar`` gives ``_device_preprocess``'s codes,
+    gp arrays (the match row of every (tx, endorser) pair), static
+    arrays and stage-2 verdicts, or returns None exactly when a live
+    transaction is not a flat column row."""
+    blk = corpus_blocks[block]
+    v = _corpus_validator(net)
+    wb, txs, items = v._parse_wire(blk)
+    wb2, txs2, _ = v._parse_wire(blk)
+    live = np.array([t.undetermined for t in txs2])
+    col = v._device_pre_columnar(txs, wb)
+    gen = v._device_preprocess(txs2, wb2)
+    assert (col is None) == bool((live & ~wb2.flat).any())
+    if col is not None:
+        assert [t.code for t in txs] == [t.code for t in txs2]
+        assert [(p.principals, E, S) for p, _, E, S in col.groups] == \
+            [(p.principals, E, S) for p, _, E, S in gen.groups]
+        assert [g.numpy().tobytes() for _, g, _, _ in col.groups] == \
+            [g.numpy().tobytes() for _, g, _, _ in gen.groups]
+        assert col.static.packed_static().tobytes() == gen.static.packed_static().tobytes()
+        assert torch.equal(_stage2_verdicts(col, txs, len(items), block),
+                           _stage2_verdicts(gen, txs2, len(items), block))
+
+
+@pytest.mark.parametrize("block", range(N_BLOCKS))
+def test_columnar_groups_on_corpus_column_rows(net, corpus_blocks, block):
+    """The block's envelopes that the C walk carries and whose sets it
+    flattens (mutations included; random nonces make the rest of the
+    corpus take either path): the columnar groups are taken and
+    equal the entry-by-entry groups."""
+    envs = list(corpus_blocks[block].data.data)
+    pb = blockparse.parse_envelopes(envs)
+    ok = pb.ok.astype(bool)
+    flat = ok & (mvccprep.prep(pb, ok).status == 0)
+    blk = M.Block(header=M.BlockHeader(number=2 + block),
+                  data=M.BlockData(data=[e for e, f in zip(envs, flat) if f]))
+    v = _corpus_validator(net)
+    (wb, txs, items), (wb2, txs2, _) = v._parse_wire(blk), v._parse_wire(blk)
+    col, gen = v._device_pre_columnar(txs, wb), v._device_preprocess(txs2, wb2)
+    assert col is not None and flat.sum() >= 2
+    assert [t.code for t in txs] == [t.code for t in txs2]
+    assert [g.numpy().tobytes() for _, g, _, _ in col.groups] == \
+        [g.numpy().tobytes() for _, g, _, _ in gen.groups]
+    assert col.static.packed_static().tobytes() == gen.static.packed_static().tobytes()
+    assert torch.equal(_stage2_verdicts(col, txs, len(items), block),
+                       _stage2_verdicts(gen, txs2, len(items), block))
 
 
 def _same_parse(port, ref):
