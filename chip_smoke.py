@@ -1962,6 +1962,334 @@ def phase_sidecar(net: Net, main_res):
             seconds=secs, equal_to_v3=True, launches={name: counts[name]})
 
 
+# BASELINE config 4 (raft: 3 orderers / 4 peers, pvtdata chaincode, mixed
+# endorsement policies), its peer-side validation path
+CONFIG4_CHANNEL = "config4chan"
+CONFIG4_NS = {
+    "basic": "OutOf(2, 'Org1MSP.peer', 'Org2MSP.peer', 'Org3MSP.peer')",
+    "pvtcc": "OutOf(2, 'Org1MSP.peer', 'Org2MSP.peer', 'Org3MSP.peer', 'Org4MSP.peer')",
+    "sbecc": "OutOf(1, 'Org1MSP.peer', 'Org2MSP.peer', 'Org3MSP.peer', 'Org4MSP.peer')",
+}
+CONFIG4_BLOCKS = 13             # after the genesis block; the first reported apart
+CONFIG4_SBE_BLOCKS = (3, 6, 9, 12)  # writes to keys with a key-level policy
+CONFIG4_CONFIG_AT = {7: "majority", 10: "one_admin"}
+CONFIG4_STATE = {"public": 200_000, "hashed": 50_000, "sbecc": 20_000, "locked": 2_000}
+
+
+def _config4_key_hash(name: str) -> bytes:
+    import hashlib
+
+    return hashlib.sha256(name.encode()).digest()
+
+
+def build_config4(n_blocks=CONFIG4_BLOCKS, n_tx=BLOCK_TXS, state=CONFIG4_STATE,
+                  sign_batch=None, seed=SEED + 40):
+    """Config 4's channel and blocks, built with the port's cryptogen,
+    configtxgen and ``build_envelopes`` → dict: the genesis block, the
+    wire blocks 1..n_blocks, the seed state rows, the orgs, the
+    construction's expected code of every transaction whose code the
+    construction fixes (None for the rest)."""
+    from fabric_tpu_torch import channelconfig as cc
+    from fabric_tpu_torch.crypto import cryptogen
+    from fabric_tpu_torch.crypto import policy as pol
+    from fabric_tpu_torch.crypto.msp import policy_to_proto
+    from fabric_tpu_torch.ledger.rwset import VALIDATION_PARAMETER, TxRWSet, encode_metadata
+    from fabric_tpu_torch.peer import txassembly as txa
+    from fabric_tpu_torch.peer.txcodes import TxValidationCode as C
+    from fabric_tpu_torch.protos import messages as m
+    from fabric_tpu_torch.tools import configtxgen as cg
+
+    signer = sign_batch or card_signer
+    rng = np.random.default_rng(seed)
+    orgs = [cryptogen.generate_org(f"Org{i}MSP", f"org{i}.config4.example.com", rng,
+                                   now=WIRE_NOW, sign_batch=signer) for i in (1, 2, 3, 4)]
+    peers = [o.nodes[f"peer0.org{i}.config4.example.com"] for i, o in zip((1, 2, 3, 4), orgs)]
+    admins = [o.users[f"Admin@org{i}.config4.example.com"] for i, o in zip((1, 2, 3, 4), orgs)]
+    client = orgs[0].users["User1@org1.config4.example.com"]
+    profile = cg.Profile(CONFIG4_CHANNEL, application_orgs=[
+        cg.OrgProfile(o.msp_id, o.msp()) for o in orgs],
+        raft_consenters=[(f"orderer{i}.config4.example.com", 7050) for i in range(3)])
+    genesis = cg.genesis_block(profile)
+    bundle = cc.bundle_from_genesis(CONFIG4_CHANNEL, genesis)
+
+    key_policy = {i: policy_to_proto(pol.from_dsl(f"OutOf(1, 'Org{i + 1}MSP.peer')")).serialize()
+                  for i in range(4)}
+    rows = []
+    n_pub, n_hashed, n_sbe, n_locked = (state[k] for k in ("public", "hashed", "sbecc", "locked"))
+    for j in range(n_pub):
+        rows.append(("basic" if j % 2 else "pvtcc", f"k{j:07d}", b"genesis", (1, 0)))
+    for j in range(n_hashed):
+        rows.append(("pvtcc$collA#hashed", _config4_key_hash(f"h{j}").hex(),
+                     _config4_key_hash(f"hv{j}"), (1, 0)))
+    lock_org = {}
+    for j in range(n_sbe):
+        md = None
+        if j < n_locked:
+            lock_org[j] = j % 4
+            md = encode_metadata({VALIDATION_PARAMETER: key_policy[j % 4]})
+        rows.append(("sbecc", f"e{j:06d}", b"genesis", (1, 0), md))
+
+    def config_update(kind):
+        cur = bundle.config
+        new = cur.copy()
+        app = new.channel_group.groups["Application"]
+        if kind == "majority":
+            app.policies["Writers"] = cc.config_policy(
+                cc.ImplicitMeta(m.IMPLICIT_MAJORITY, "Writers"))
+            signers = admins[:3]
+        else:
+            app.policies["Readers"] = cc.config_policy(
+                cc.ImplicitMeta(m.IMPLICIT_MAJORITY, "Readers"))
+            signers = admins[:1]
+        env = cg.sign_update(cg.compute_update(CONFIG4_CHANNEL, cur, new), signers)
+        try:
+            proposed = cc.authorize_update(bundle, env)
+        except cc.ConfigUpdateError:
+            proposed = new.copy()
+            proposed.sequence = cur.sequence + 1
+        return cg.config_tx(CONFIG4_CHANNEL, proposed, env, signer=admins[0]).serialize(), proposed
+
+    specs, want, meta = [], [], []
+    next_pub, next_hashed, next_sbe, next_lock = 0, 0, n_locked, 0
+    for b in range(1, n_blocks + 1):
+        sbe_block = b in CONFIG4_SBE_BLOCKS
+        n_here = n_tx - (b in CONFIG4_CONFIG_AT)
+        for i in range(n_here):
+            r = (i * 37 + b) % 100
+            rw = TxRWSet()
+            code = C.VALID
+            if r < 45:
+                ns = "basic"
+                key = f"k{(2 * next_pub + 1) % n_pub:07d}"
+                next_pub += 1
+                n = rw.ns_rwset(ns)
+                n.reads[key] = (1, 0)
+                n.writes[key] = b"updated"
+                n.writes[f"new{b}_{i:05d}"] = b"value-%d" % i
+                ends = [peers[i % 3], peers[(i + 1) % 3]]
+            elif r < 80:
+                ns = "pvtcc"
+                key = f"k{(2 * next_pub) % n_pub:07d}"
+                next_pub += 1
+                kh = _config4_key_hash(f"h{next_hashed % n_hashed}")
+                next_hashed += 1
+                n = rw.ns_rwset(ns)
+                n.reads[key] = (1, 0)
+                n.writes[key] = b"updated"
+                n.hashed["collA"] = {"reads": {kh: (1, 0)},
+                                     "writes": {kh: (_config4_key_hash(f"nv{b}_{i}"), False)}}
+                ends = [peers[i % 4], peers[(i + 1) % 4]]
+            else:
+                ns = "sbecc"
+                n = rw.ns_rwset(ns)
+                ends = [peers[i % 4], peers[(i + 2) % 4]]
+                if sbe_block and i % 2:
+                    j = next_lock % n_locked
+                    next_lock += 1
+                    key = f"e{j:06d}"
+                    code = None  # the key's own policy decides
+                elif sbe_block and i % 50 == 0:
+                    # a metadata write: set a policy on an unlocked key
+                    # (2% of the namespace's transactions)
+                    key = f"e{next_sbe % n_sbe:06d}"
+                    next_sbe += 1
+                    n.metadata_writes[key] = {VALIDATION_PARAMETER: key_policy[i % 4]}
+                    code = None
+                else:
+                    key = f"e{next_sbe % n_sbe:06d}"
+                    next_sbe += 1
+                n.reads[key] = (1, 0)
+                n.writes[key] = b"updated"
+            if i % 20 == 10:
+                code = C.BAD_CREATOR_SIGNATURE
+            specs.append(txa.TxSpec(client, ends, rw.to_bytes(), ns, channel_id=CONFIG4_CHANNEL))
+            want.append(code)
+            meta.append((b, i))
+    envs = txa.build_envelopes(specs, signer)
+    blocks, expected, k = [], [], 0
+    for b in range(1, n_blocks + 1):
+        n_here = n_tx - (b in CONFIG4_CONFIG_AT)
+        part, codes = envs[k:k + n_here], want[k:k + n_here]
+        for i, c in enumerate(codes):
+            if c == C.BAD_CREATOR_SIGNATURE:  # the previous tx's signature: valid DER
+                env = m.Envelope.parse(part[i])
+                env.signature = m.Envelope.parse(part[i - 1]).signature
+                part[i] = env.serialize()
+        k += n_here
+        if b in CONFIG4_CONFIG_AT:
+            raw, proposed = config_update(CONFIG4_CONFIG_AT[b])
+            part.insert(0, raw)
+            codes = [C.VALID if CONFIG4_CONFIG_AT[b] == "majority"
+                     else C.INVALID_OTHER_REASON] + codes
+            if CONFIG4_CONFIG_AT[b] == "majority":
+                bundle = cc.Bundle(CONFIG4_CHANNEL, proposed)
+        blocks.append(txa.build_block(b, b"prev-%d" % b, part))
+        expected.append(codes)
+    return {"genesis": genesis, "blocks": blocks, "rows": rows, "expected": expected,
+            "n_signed": len(specs) * 3}
+
+
+def phase_config4_path(dev, built=None, check_launches=True):
+    """BASELINE config 4's validation path: the genesis block seeds the
+    bundle, then the blocks through ``CommitPipeline(depth=2)`` on
+    ``dev`` (fused blocks; the key-level-policy blocks on the host
+    dispatch path; a config update signed by a majority of the orgs'
+    admins that rotates the MSP manager at its barrier, and one signed by
+    one admin that must be invalid) → the launch counts.  Every block
+    equals the port's own ``_validate_host`` over the same blocks."""
+    from fabric_tpu_torch import carry, kernels
+    from fabric_tpu_torch import channelconfig as cc
+    from fabric_tpu_torch.crypto import policy as pol
+    from fabric_tpu_torch.ops import mvcc as mvcc_ops
+    from fabric_tpu_torch.peer.pipeline import CommitPipeline
+    from fabric_tpu_torch.peer.txcodes import TxValidationCode as C
+    from fabric_tpu_torch.peer.validator import BlockValidator, NamespaceInfo, PolicyProvider
+    from fabric_tpu_torch.protos import messages as m
+
+    t0 = time.perf_counter()
+    if built is None:
+        built = build_config4()
+    wire = [m.Block.parse(b.serialize()) for b in built["blocks"]]
+    genesis = m.Block.parse(built["genesis"].serialize())
+    log("config4_build", blocks=len(wire), txs=sum(len(b.data.data) for b in wire),
+        signed_on_card=built["n_signed"], seconds=time.perf_counter() - t0,
+        state_rows=len(built["rows"]), state=CONFIG4_STATE)
+
+    def validator():
+        state, _, _ = carry.from_reference(built["rows"], {}, [])
+        prov = PolicyProvider({ns: NamespaceInfo(policy=pol.from_dsl(d))
+                               for ns, d in CONFIG4_NS.items()})
+        proc = cc.ConfigTxProcessor(cc.bundle_from_genesis(CONFIG4_CHANNEL, genesis))
+        v = BlockValidator(prov, state, device=dev, msp=proc.bundle.msp_manager,
+                           config_processor=proc)
+        v.blocks = TxidStore()
+        flt, _, _ = v.validate(genesis)  # the channel's trust anchor
+        if bytes(flt) != bytes([C.VALID]):
+            raise AssertionError(f"config4: genesis block gave {list(flt)}")
+        return v
+
+    def run(v, blocks, timings=None, host_only=False):
+        host_blocks = []
+        orig = v._validate_host
+
+        def host(pending):
+            host_blocks.append(pending.block.number)
+            return orig(pending)
+
+        v._validate_host = host
+        if host_only:
+            v.validate_finish = host
+        v.timings = timings
+
+        def commit(res):
+            t1 = time.perf_counter()
+            v.state.apply_updates(res.batch)
+            v.blocks.txids.update(t for t, _ in res.txids)
+            cc.apply_committed_config(res, v)
+            v._t("ledger_commit", t1)
+
+        out, marks = [], []
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        try:
+            with CommitPipeline(v, commit, depth=2) as pipe:
+                for blk in blocks:
+                    r = pipe.submit(blk)
+                    if r is not None:
+                        out.append(r)
+                        marks.append(time.perf_counter() - t1)
+                r = pipe.flush()
+                if r is not None:
+                    out.append(r)
+                    marks.append(time.perf_counter() - t1)
+        finally:
+            del v._validate_host
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t1, host_blocks, pipe, marks
+
+    # one mvcc_validate call of the path held against its plain version
+    seen_mvcc = []
+    orig_mvcc = mvcc_ops.mvcc_validate
+
+    def capture(*args):
+        out = orig_mvcc(*args)
+        if not seen_mvcc and args[0].device.type == "cuda":
+            seen_mvcc.append(([a.clone() for a in args], [o.clone() for o in out]))
+        return out
+
+    v = validator()
+    msp0 = v.msp
+    kernels.reset_counts()
+    mvcc_ops.mvcc_validate = capture
+    try:
+        first_t, rest_t = {}, {}
+        res, first_s, host1, pipe1, _ = run(v, wire[:1], first_t)
+        rest, secs, host2, pipe2, marks = run(v, wire[1:], rest_t)
+    finally:
+        mvcc_ops.mvcc_validate = orig_mvcc
+    counts = dict(kernels.launches)
+    res += rest
+    host_route = set(host1 + host2)
+    rotated = v.msp is not msp0
+
+    href = run(validator(), wire, host_only=True)[0]
+    rows = lambda x: sorted((k, vv.value, vv.metadata, vv.version) for k, vv in x.batch.items())
+    for a, b in zip(res, href, strict=True):
+        if a.tx_filter != b.tx_filter or rows(a) != rows(b) or a.history != b.history:
+            raise AssertionError(f"config4 block {a.block.number}: the pipeline differs from "
+                                 "the port's host path")
+    bad = [(r.block.number, i, c, w) for r, want in zip(res, built["expected"])
+           for i, (c, w) in enumerate(zip(r.tx_filter, want)) if w is not None and c != int(w)]
+    if bad:
+        raise AssertionError(f"config4 filters differ from construction at {bad[:10]}")
+    routes = {r.block.number: "host" if r.block.number in host_route else "fused" for r in res}
+    want_host = set(CONFIG4_SBE_BLOCKS)
+    if {b for b, rt in routes.items() if rt == "host"} != want_host:
+        raise AssertionError(f"config4 routes {routes}: the key-level-policy blocks "
+                             f"{sorted(want_host)} must take the host path, the rest fused")
+    barriers = sorted(r.block.number for r in res if r.barrier)
+    if barriers != sorted(CONFIG4_CONFIG_AT) or not rotated:
+        raise AssertionError(f"config4 barriers {barriers}, MSP rotated {rotated}")
+    mism = None
+    if seen_mvcc:
+        args, outs = seen_mvcc[0]
+        ref = mvcc_ops.mvcc_validate_ref(*[a.cpu() for a in args])
+        mism = int(sum((o.cpu() != r).sum().item() for o, r in zip(outs, ref)))
+        if mism:
+            raise AssertionError(f"config4: mvcc_validate differs from its plain version "
+                                 f"in {mism} lanes")
+    if check_launches:
+        zero = [k for k in MAIN_PATH_KERNELS if counts[k] == 0]
+        if zero:
+            raise AssertionError(f"kernels not launched on the config4 path: {zero}")
+    k = len(wire) - 1
+    # ms between consecutive completions after the first block, by the
+    # route of the block completed: at depth 2 a gap holds that block's
+    # prefetch wait, launch and finish; the tail's (finish only) is left out
+    gaps = np.diff([0.0] + marks) * 1e3
+    by_route = {rt: [float(g) for g, r in zip(gaps[:-1], rest[:-1])
+                     if routes[r.block.number] == rt] for rt in ("fused", "host")}
+    log("config4_path", blocks=len(wire), txs=sum(len(b.data.data) for b in wire), depth=2,
+        routes=[routes[b] for b in sorted(routes)],
+        completion_gap_ms=[float(g) for g in gaps],
+        completion_gap_ms_by_route={rt: {"blocks": len(g), "mean": float(np.mean(g)),
+                                         "median": float(np.median(g))}
+                                    for rt, g in by_route.items() if g},
+        codes=[{int(c): n for c, n in sorted(Counter(r.tx_filter).items())} for r in res],
+        first_block_ms=1e3 * first_s,
+        first_block_phase_ms={key: 1e3 * t for key, t in sorted(first_t.items())},
+        per_block_ms=1e3 * secs / k, tx_per_s=sum(len(b.data.data) for b in wire[1:]) / secs,
+        phase_ms_per_block={key: 1e3 * t / k for key, t in sorted(rest_t.items())},
+        barrier_blocks=barriers, msp_rotated=rotated,
+        stale_reprocessed=pipe1.stale_prefetches + pipe2.stale_prefetches,
+        launches={n: counts[n] for n in MAIN_PATH_KERNELS},
+        mvcc_validate_checked_lanes=(int(seen_mvcc[0][0][0].shape[0]) if seen_mvcc else 0),
+        mvcc_validate_mismatches=mism, equal_to_host_path=True, equal_to_construction=True)
+    return counts
+
+
 def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
@@ -2019,6 +2347,7 @@ def main() -> int:
     recs.append(phase_sha256(dev, wire[0]))
     recs += phase_comparison(net, dev, main_res)
     phase_sidecar(net, main_res)
+    phase_config4_path(dev)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "mismatches",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in order} for r in recs]}), flush=True)

@@ -2,7 +2,10 @@
 policies and identities into the port's objects, so both packages
 validate against the same state.
 
-    state rows:  (ns, key, value, (block, txnum))
+    state rows:  (ns, key, value, (block, txnum)[, metadata])
+                 (a private collection's hashed keys as rows of the
+                 namespace ``ns$coll#hashed``; metadata: the encoded
+                 key metadata, None without)
     namespaces:  {ns: policy DSL string}
     identities:  (msp_id, role, qx, qy)
 """
@@ -20,8 +23,9 @@ def from_reference(state_rows, namespaces: dict, identities):
     taken as valid (the reference's MSP validated them)."""
     db = MemVersionedDB()
     seed = UpdateBatch()
-    for ns, key, value, version in state_rows:
-        seed.put(ns, key, value, (int(version[0]), int(version[1])))
+    for ns, key, value, version, *meta in state_rows:
+        seed.put(ns, key, value, (int(version[0]), int(version[1])),
+                 metadata=meta[0] if meta else None)
     db.apply_updates(seed)
     provider = PolicyProvider({ns: NamespaceInfo(policy=pol.from_dsl(dsl))
                                for ns, dsl in namespaces.items()})

@@ -30,21 +30,39 @@ an RSA issuer, or an EC issuer on another curve, raises
 ``NotImplementedError``.  A leaf whose key is not a P-256 point gets
 ``qx = qy = None`` ("no EC key").  The time is taken when an identity
 is first seen, and the result is cached, as in the reference.
+
+The channel config carries each org's MSP as a ``MSPConfig``
+(``MSP.from_proto`` / ``to_proto``, the reference's :95-132, NodeOU
+names included; an idemix config, type 1, marks its MSP id idemix).
+``verify_signature`` is the reference's ``Identity.verify``
+(identity.py:104-118): a DER ECDSA-SHA256 signature with Fabric's
+low-S rule, checked on the host with ``ec_ref`` (config-update
+signatures are few and rare).  ``principal_from_proto``,
+``policy_from_proto`` and ``policy_to_proto`` (:304-345) convert
+between the ``SignaturePolicyEnvelope`` message (a channel policy, a
+key's ``VALIDATION_PARAMETER``) and ``crypto/policy.py``'s AST.
 """
 
 from __future__ import annotations
 
 import hashlib
+import json
 import time
 
 from fabric_tpu_torch.crypto import der, ec_ref
+from fabric_tpu_torch.crypto import policy as pol
 from fabric_tpu_torch.crypto.identity import (
     ROLE_ADMIN, ROLE_CLIENT, ROLE_ORDERER, ROLE_PEER, Identity,
 )
+from fabric_tpu_torch.protos import messages as m
 from fabric_tpu_torch.protos.messages import SerializedIdentity
 
 # NodeOUs: the role OU values (cryptogen's config.yaml), named as the roles
 _ROLE_OUS = (ROLE_CLIENT, ROLE_PEER, ROLE_ADMIN, ROLE_ORDERER)
+_ROLE_BY_ENUM = {m.MSP_ROLE_MEMBER: pol.ROLE_MEMBER, m.MSP_ROLE_ADMIN: ROLE_ADMIN,
+                 m.MSP_ROLE_CLIENT: ROLE_CLIENT, m.MSP_ROLE_PEER: ROLE_PEER,
+                 m.MSP_ROLE_ORDERER: ROLE_ORDERER}
+_ENUM_BY_ROLE = {v: k for k, v in _ROLE_BY_ENUM.items()}
 
 
 def load_pem_certificate(pem: bytes) -> der.Certificate:
@@ -83,17 +101,49 @@ def verify_issued_by(cert: der.Certificate, issuer: der.Certificate) -> bool:
 
 
 class MSP:
-    """One organization's membership provider; certificates as PEM."""
+    """One organization's membership provider; certificates as PEM.
+    ``ou_identifiers``: role → the OU value that carries it under
+    NodeOUs (default: the role's own name)."""
 
     def __init__(self, msp_id: str, root_certs, intermediate_certs=(), admins=(),
-                 revoked_serials=None, node_ous: bool = True):
+                 revoked_serials=None, node_ous: bool = True, ou_identifiers=None):
         self.msp_id = msp_id
-        self.roots = [load_pem_certificate(c) for c in root_certs]
-        self.intermediates = [load_pem_certificate(c) for c in intermediate_certs or ()]
+        self.root_ders = [der.pem_certificate(c) for c in root_certs]
+        self.intermediate_ders = [der.pem_certificate(c) for c in intermediate_certs or ()]
+        self.roots = [der.parse_certificate(c) for c in self.root_ders]
+        self.intermediates = [der.parse_certificate(c) for c in self.intermediate_ders]
         self.admin_pems = {bytes(a) for a in admins or ()}
         self.revoked_serials = set(revoked_serials or ())
         self.node_ous = node_ous
+        self.ou_identifiers = dict(ou_identifiers or {r: r for r in _ROLE_OUS})
+        self._role_of_ou = {ou: r for r, ou in self.ou_identifiers.items()}
         self._cache: dict = {}
+
+    @classmethod
+    def from_proto(cls, cfg: m.MSPConfig) -> "MSP":
+        """An X.509 ``MSPConfig`` → MSP (the reference's ``from_proto``)."""
+        fab = m.FabricMSPConfig.parse(cfg.config)
+        nous = fab.fabric_node_ous or m.FabricNodeOUs()
+        ous = None
+        if nous.enable:
+            ous = {role: (getattr(nous, f"{role}_ou_identifier") or m.FabricOUIdentifier())
+                   .organizational_unit_identifier or role for role in _ROLE_OUS}
+        return cls(fab.name, root_certs=list(fab.root_certs),
+                   intermediate_certs=list(fab.intermediate_certs), admins=list(fab.admins),
+                   node_ous=nous.enable, ou_identifiers=ous)
+
+    def to_proto(self) -> m.MSPConfig:
+        """This MSP as the channel config's ``MSPConfig`` (certificates
+        re-encoded as PEM, admins sorted, the NodeOU names)."""
+        fab = m.FabricMSPConfig(
+            name=self.msp_id, root_certs=[der.pem_encode(c) for c in self.root_ders],
+            intermediate_certs=[der.pem_encode(c) for c in self.intermediate_ders],
+            admins=sorted(self.admin_pems),
+            fabric_node_ous=m.FabricNodeOUs(enable=self.node_ous, **{
+                f"{role}_ou_identifier": m.FabricOUIdentifier(
+                    organizational_unit_identifier=self.ou_identifiers[role])
+                for role in _ROLE_OUS}))
+        return m.MSPConfig(type=m.MSP_TYPE_FABRIC, config=fab.serialize())
 
     def _cert_ok(self, cert: der.Certificate, now: float) -> bool:
         return cert.not_before <= now <= cert.not_after \
@@ -126,7 +176,7 @@ class MSP:
         role, valid = ROLE_CLIENT, self._chain_ok(cert)
         if valid:
             if self.node_ous:
-                roles = [ou for ou in cert.ous() if ou in _ROLE_OUS]
+                roles = [self._role_of_ou[ou] for ou in cert.ous() if ou in self._role_of_ou]
                 if len(roles) != 1:
                     valid = False
                 else:
@@ -147,6 +197,17 @@ class MSPManager:
         self.idemix = frozenset(idemix)
         self._ident_cache: dict = {}
 
+    def add_config(self, cfg: m.MSPConfig) -> None:
+        """One org's ``MSPConfig`` from the channel config: X.509
+        (``MSP.from_proto``), or idemix (type 1: its MSP id joins
+        ``idemix``; the port does not read its credentials yet)."""
+        if cfg.type == m.MSP_TYPE_IDEMIX:
+            self.idemix = self.idemix | {json.loads(cfg.config)["msp_id"]}
+        else:
+            msp = MSP.from_proto(cfg)
+            self.msps[msp.msp_id] = msp
+        self._ident_cache.clear()
+
     def deserialize_identity(self, serialized: bytes) -> Identity:
         got = self._ident_cache.get(serialized)
         if got is not None:
@@ -164,3 +225,67 @@ class MSPManager:
             self._ident_cache.clear()
         self._ident_cache[serialized] = ident
         return ident
+
+
+def verify_signature(ident: Identity, message: bytes, der_sig: bytes) -> bool:
+    """A DER ECDSA-SHA256 signature of ``message`` by ``ident``, with
+    Fabric's low-S rule (the reference's ``Identity.verify``); False for
+    an identity without a P-256 key or bytes that are no DER
+    signature."""
+    if not ident.has_ec_key:
+        return False
+    try:
+        r, s = ec_ref.der_decode_sig(der_sig)
+    except ValueError:
+        return False
+    return ec_ref.verify_digest((ident.qx, ident.qy), ec_ref.digest_int(message), r, s)
+
+
+def principal_from_proto(p: m.MSPPrincipal) -> pol.Principal:
+    """A ROLE principal → the policy engine's ``Principal``; any other
+    classification or an unknown role raises ``ValueError``."""
+    if p.principal_classification != m.PRINCIPAL_ROLE:
+        raise ValueError("only ROLE principals map to policy.Principal")
+    role = m.MSPRole.parse(p.principal)
+    if role.role not in _ROLE_BY_ENUM:
+        raise ValueError(f"unknown MSP role {role.role}")
+    return pol.Principal(role.msp_identifier, _ROLE_BY_ENUM[role.role])
+
+
+def policy_from_proto(env: m.SignaturePolicyEnvelope):
+    """``SignaturePolicyEnvelope`` → policy AST (a rule with neither
+    member set is NOutOf(0) over nothing, as the reference reads it)."""
+
+    def walk(rule):
+        rule = rule or m.SignaturePolicy()
+        if rule.signed_by is not None:
+            return pol.SignedBy(principal_from_proto(env.identities[rule.signed_by]))
+        n = rule.n_out_of or m.SignaturePolicyNOutOf()
+        return pol.NOutOf(n.n, tuple(walk(r) for r in n.rules))
+
+    return walk(env.rule)
+
+
+def policy_to_proto(rule) -> m.SignaturePolicyEnvelope:
+    """Policy AST → ``SignaturePolicyEnvelope``: each distinct principal
+    once, ROLE-classified, numbered in first-use order."""
+    env = m.SignaturePolicyEnvelope(version=0)
+    pindex: dict = {}
+
+    def principal_idx(principal: pol.Principal) -> int:
+        if principal not in pindex:
+            pindex[principal] = len(env.identities)
+            role = m.MSPRole(msp_identifier=principal.msp_id,
+                             role=_ENUM_BY_ROLE[principal.role])
+            env.identities.append(m.MSPPrincipal(principal_classification=m.PRINCIPAL_ROLE,
+                                                 principal=role.serialize()))
+        return pindex[principal]
+
+    def walk(node):
+        if isinstance(node, pol.SignedBy):
+            return m.SignaturePolicy(signed_by=principal_idx(node.principal))
+        return m.SignaturePolicy(n_out_of=m.SignaturePolicyNOutOf(
+            n=node.n, rules=[walk(r) for r in node.rules]))
+
+    env.rule = walk(rule)
+    return env

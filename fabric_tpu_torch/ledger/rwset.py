@@ -4,9 +4,14 @@ A ``TxRWSet`` is the namespace-keyed dict of reads, writes and range
 queries that the front end decodes from a transaction's results
 (``from_bytes``, the wire form of ``rwset.TxReadWriteSet``) and the
 MVCC preparation (``ops/mvcc.prepare_block_static``) flattens into
-arrays.  ``metadata_writes`` (key-level endorsement) and ``hashed``
-(private-collection) entries are carried so the validator can refuse
-them: they belong to a later slice of the port.  The host form holds
+arrays.  ``metadata_writes`` carry key-level endorsement (a key's
+``VALIDATION_PARAMETER`` entry is a serialized
+``SignaturePolicyEnvelope``; ``encode_metadata`` / ``decode_metadata``
+are the state DB's form of an entry map, the reference's :33-53), and
+``hashed`` the private-collection reads and writes by key hash, which
+``mvcc_form`` gives as ``('pvt', ns, coll, key_hash)`` keys: they sort
+after every ``('pub', ...)`` key, a disjoint id range of one key table
+(the reference's :165-197).  The host form holds
 everything the reference's does, with the reference's losses: a range
 query keeps its raw reads only (a Merkle summary reads as no results),
 a repeated namespace merges into one entry, and a repeated key keeps
@@ -20,6 +25,25 @@ from dataclasses import dataclass, field
 from fabric_tpu_torch.protos import messages as pm
 
 Version = tuple[int, int]  # (block_num, tx_num)
+
+# the metadata entry that carries a key-level endorsement policy
+VALIDATION_PARAMETER = "VALIDATION_PARAMETER"
+
+
+def encode_metadata(entries: dict) -> bytes | None:
+    """{name: value} → the state DB's bytes (a ``KVMetadataWrite`` with
+    an empty key, entries by name); an empty map (metadata cleared) →
+    None."""
+    if not entries:
+        return None
+    return pm.KVMetadataWrite(key="", entries=[
+        pm.KVMetadataEntry(name=n, value=entries[n]) for n in sorted(entries)]).serialize()
+
+
+def decode_metadata(raw: bytes | None) -> dict:
+    if not raw:
+        return {}
+    return {e.name: e.value for e in pm.KVMetadataWrite.parse(raw).entries}
 
 
 def _version(ver):
@@ -112,9 +136,12 @@ class TxRWSet:
 
     def mvcc_form(self):
         """→ (reads, writes, range_reads) with composite keys
-        ``('pub', ns, key)`` for ``ops.mvcc.TxRWSet``.  An empty range
-        end is an unbounded scan: ``ns + "\\x00"`` sorts after every key
-        of the namespace, so the id interval covers all of it."""
+        ``('pub', ns, key)`` and ``('pvt', ns, coll, key_hash)`` for
+        ``ops.mvcc.TxRWSet``.  An empty range end is an unbounded scan:
+        ``ns + "\\x00"`` sorts after every key of the namespace, so the
+        id interval covers all of it.  Metadata-only writes are left
+        out: whether one writes depends on the state (the validator's
+        ``_mvcc_inputs``)."""
         reads, writes, rqs = [], [], []
         for name in sorted(self.ns):
             n = self.ns[name]
@@ -127,4 +154,10 @@ class TxRWSet:
                     reads.append((("pub", name, k), ver))
                 hi = ("pub", name, end) if end else ("pub", name + "\x00", "")
                 rqs.append((("pub", name, start), hi))
+            for coll in sorted(n.hashed):
+                cdata = n.hashed[coll]
+                for kh, ver in sorted(cdata.get("reads", {}).items()):
+                    reads.append((("pvt", name, coll, kh), ver))
+                for kh in sorted(cdata.get("writes", {})):
+                    writes.append(("pvt", name, coll, kh))
         return reads, writes, rqs

@@ -251,9 +251,14 @@ def prepare_block_static(txs: list[TxRWSet], bucketed: bool = False,
     universe, so range bounds map to id intervals; ``bucketed`` rounds
     T (to >= 16), R, W and Q up to powers of two (padding rows inert).
 
+    Keys are ``('pub', ns, key)`` and, for a private collection's hashed
+    keys, ``('pvt', ns, coll, key_hash)``: the two kinds sort apart, so
+    hashed keys take a disjoint id range of the same table.
+
     ``unique`` (the resident-state path) on a block without range reads
-    numbers the read keys first, 0..U-1 in key order, then the keys only
-    written, and fills the unique-key form (``u_pairs``, ``u_index``).
+    or hashed keys numbers the read keys first, 0..U-1 in key order,
+    then the keys only written, and fills the unique-key form
+    (``u_pairs``, ``u_index``: the state DB's (ns, key) of each).
     Without range reads only id equality matters, so the order changes
     no verdict (the reference's flat path interns keys in hash order for
     the same reason)."""
@@ -264,7 +269,8 @@ def prepare_block_static(txs: list[TxRWSet], bucketed: bool = False,
             universe.add(k)
             read_key_set.add(k)
         universe.update(tx.writes)
-    unique = unique and not any(tx.range_reads for tx in txs)
+    unique = (unique and not any(tx.range_reads for tx in txs)
+              and all(k[0] == "pub" for k in universe))
     for tx in txs:
         for lo, _ in tx.range_reads:
             universe.add(lo)

@@ -31,7 +31,10 @@ class DecodedTx:
     for an undeserializable creator, BAD_RWSET).  ``txid_bound``: the
     header parsed as an endorser transaction whose tx_id equals
     sha256(nonce || creator) — such a transaction claims its txid for the
-    in-block duplicate check even if a later decoding step failed."""
+    in-block duplicate check even if a later decoding step failed.  A
+    config envelope has ``is_config``, ``config_data``, and its creator
+    and ``creator_sig`` when they decode (no signature for a creator
+    that is invalid or has no P-256 key)."""
 
     txid: str = ""
     code: int = int(C.NOT_VALIDATED)
@@ -41,6 +44,7 @@ class DecodedTx:
     endorsements: list = field(default_factory=list)  # [DecodedEndorsement]
     rwset: TxRWSet | None = None
     is_config: bool = False
+    config_data: bytes = b""  # a config envelope's payload data (its ConfigEnvelope)
 
 
 @dataclass

@@ -9,8 +9,11 @@ codec and MSP, in the reference's check order and with its codes:
 * an empty envelope → NIL_ENVELOPE;
 * an envelope, payload, channel header or signature header that does
   not decode → BAD_PAYLOAD;
-* a config envelope sets ``is_config`` (the validator refuses it: a
-  later slice);
+* a config envelope sets ``is_config`` and keeps its payload data (the
+  ``ConfigEnvelope`` bytes, parsed when the validator judges it), its
+  creator and the creator's signature (digest sha256(payload)) when
+  they decode; the validator checks the creator unless the block is
+  the genesis block (the reference's :1005-1023);
 * a header type other than ENDORSER_TRANSACTION → UNKNOWN_TX_TYPE;
 * a tx id that is empty or not sha256(nonce ‖ creator) →
   BAD_PROPOSAL_TXID; every later envelope is bound (``txid_bound``) and
@@ -78,7 +81,15 @@ def decode_envelope(raw: bytes, msp) -> DecodedTx:
         return dtx
     dtx.txid = ch.tx_id
     if ch.type == m.HEADER_CONFIG:
-        dtx.is_config, dtx.txid_bound = True, False
+        dtx.is_config, dtx.txid_bound, dtx.config_data = True, False, payload.data
+        try:
+            creator = msp.deserialize_identity(sh.creator)
+            r, s = ec_ref.der_decode_sig(env.signature)
+        except ValueError:
+            return dtx
+        dtx.creator = creator
+        if creator.is_valid and creator.has_ec_key:
+            dtx.creator_sig = (_digest(env.payload), r, s)
         return dtx
     if ch.type != m.HEADER_ENDORSER_TRANSACTION:
         dtx.code, dtx.txid_bound = int(C.UNKNOWN_TX_TYPE), False

@@ -1,6 +1,5 @@
 """Depth-N commit pipeline (counterpart: ``fabric_tpu/peer/pipeline.py``,
-without its fault-injection, tracing, metrics and lifecycle-barrier
-machinery).
+without its fault-injection, tracing and metrics machinery).
 
     prefetch thread   preprocess(block n+1)     decode + verify launch
     caller thread     validate_finish(block n-1), validate_launch(block n)
@@ -13,9 +12,17 @@ committer thread while the newest block launches under the newest-wins
 merge of their update batches (``UpdateBatch.merged``) and a duplicate
 txid window spanning all of them, so a launch never waits for a
 predecessor's commit.  ``depth=1`` is the strict serial
-launch → finish → commit order.  The port's policies are static (no
-config or lifecycle transactions in this slice), so no block forces a
-barrier.
+launch → finish → commit order.
+
+A block that rotates validation inputs — one holding a config
+transaction (its commit may rotate the validator's MSP manager,
+``channelconfig.apply_committed_config``) or writing the ``_lifecycle``
+namespace — is a barrier (the reference's :163-168): every in-flight
+commit drains, the barrier block commits inline, and its successor
+launches with no overlay.  The successor was already staged on the
+prefetch thread against the pre-barrier inputs, so it is preprocessed
+again (``stale_prefetches`` counts these; ``barriers`` the barrier
+blocks).
 
 ``coalesce_blocks=k`` (k >= 2) turns on the catch-up entry
 ``submit_many(blocks)`` (the reference's, pipeline.py:580-664): the
@@ -26,7 +33,9 @@ commit on its own slice of that launch, so overlays and the duplicate
 txid window are those of ``submit``.  With k < 2, depth 1, or a
 validator without ``preprocess_many``, ``submit_many`` is one ``submit``
 a block.  A whole group is staged before its first block launches,
-which preprocessing allows: it reads no ledger state.
+which preprocessing allows: it reads no ledger state.  A barrier inside
+or just before a group makes every later block of the group stale
+(:622-657).
 
 Each commit runs ``commit_fn`` and then the validator's
 ``resident_commit`` (the device-resident state's write-set scatter,
@@ -43,6 +52,13 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 from fabric_tpu_torch.ledger.statedb import UpdateBatch
+from fabric_tpu_torch.peer.validator import LIFECYCLE_NS
+
+
+def _is_barrier(pend, batch) -> bool:
+    """The block rotates validation inputs: it commits fully, without
+    overlap, before its successor launches."""
+    return batch.touches_namespace(LIFECYCLE_NS) or any(p.is_config for p in pend.txs)
 
 
 @dataclass
@@ -52,6 +68,7 @@ class CommittedBlock:
     tx_filter: bytes
     batch: object
     history: list
+    barrier: bool = False
 
     @property
     def txids(self) -> list:
@@ -106,6 +123,11 @@ class CommitPipeline:
         self._launched = None   # PendingBlock in flight
         self._commits: deque = deque()
         self._closed = False
+        # the staged block was prefetched before a barrier predecessor
+        # committed: it is preprocessed again at its launch
+        self._stale_prefetch = False
+        self.barriers = 0
+        self.stale_prefetches = 0
 
     def __enter__(self):
         return self
@@ -188,10 +210,17 @@ class CommitPipeline:
         for g in range(0, len(blocks), k):
             group = blocks[g:g + k]
             fut = self._prefetch.submit(many, group)
+            # the whole group was staged at once: a barrier committing
+            # during this loop makes every remaining block of it stale
+            stale_group = False
             for j, block in enumerate(group):
                 self._pre = (block, _SliceFuture(fut, j))
                 if self._launched is not None:
                     out.append(self._finish_and_commit(self._launched))
+                if self._stale_prefetch:
+                    stale_group = True
+                elif stale_group:
+                    self._stale_prefetch = True
                 self._launch_next()
         return out
 
@@ -206,6 +235,7 @@ class CommitPipeline:
                 self._launch_next()
                 out = self._finish_and_commit(self._launched, tail=True)
             self._drain_commits(0)
+            self._stale_prefetch = False  # nothing is staged past this point
             return out
         except BaseException:
             self._shutdown()
@@ -215,6 +245,10 @@ class CommitPipeline:
         block, fut = self._pre
         self._pre = None
         pre = fut.result()
+        if self._stale_prefetch:
+            self._stale_prefetch = False
+            self.stale_prefetches += 1
+            pre = self.validator.preprocess(block)
         overlay, extra = self._launch_overlay()
         self._launched = self.validator.validate_launch(
             block, pre=pre, overlay=overlay, extra_txids=extra)
@@ -227,12 +261,17 @@ class CommitPipeline:
 
     def _finish_and_commit(self, pend, tail: bool = False) -> CommittedBlock:
         flt, batch, history = self.validator.validate_finish(pend)
-        # keep at most depth-2 older commits in flight beside this one
-        self._drain_commits(0 if tail else max(0, self.depth - 2))
+        barrier = _is_barrier(pend, batch)
+        # keep at most depth-2 older commits in flight beside this one;
+        # a barrier drains them all and commits inline
+        self._drain_commits(0 if tail or barrier else max(0, self.depth - 2))
         res = CommittedBlock(block=pend.block, pend=pend, tx_filter=flt, batch=batch,
-                             history=history)
+                             history=history, barrier=barrier)
         self._launched = None
-        if tail:
+        if barrier:
+            self.barriers += 1
+            self._stale_prefetch = True
+        if tail or barrier:
             self._run_commit(res)
         else:
             self._commits.append(_InflightCommit(

@@ -85,10 +85,48 @@ read.  Errors of the resident path raise; nothing falls back.
 it finishes on ``_validate_host``, as the reference's does
 (``validator.py:1798``).
 
-A block carrying what this slice lacks raises ``NotImplementedError``
-naming the later slice: config transactions, idemix creators, key-level
-endorsement metadata writes, private-collection (hashed) read/write
-sets and custom validation plugins.
+Config transactions (``is_config``; the reference's :1005-1023,
+:2454-2474) leave the endorsement pipeline: the genesis block's is
+VALID, a later one's creator signature rides the block's batch and the
+envelope goes to ``config_processor.validate_config_tx``
+(``channelconfig.py``; VALID without a processor).  A pipelined caller
+commits a config block fully before the next block launches
+(``peer/pipeline.py``'s barrier); a ``pre`` staged under an MSP
+manager or policy provider that has since rotated is preprocessed
+again at launch (:1393-1400).  ``last_parsed`` holds the last launched
+block's ``ParsedTx`` list.
+
+Validation plugins (``ValidationPlugin``, ``plugins={name: plugin}``;
+``NamespaceInfo.plugin``; :59-66, :1541-1583): on the host path every
+(transaction, namespace) pair goes to its namespace's plugin, and a
+transaction is valid only if every plugin approves it; a namespace
+naming an unregistered plugin makes the transaction
+INVALID_OTHER_REASON.  A block whose live transaction reaches a custom
+plugin takes the host path.
+
+Key-level endorsement (SBE, :1452-1790): a key whose committed (or
+in-flight predecessor's) metadata holds a ``VALIDATION_PARAMETER``
+policy is judged by that policy instead of its namespace's.  A block
+that writes such a key (the launch veto, ``_sbe_launch_veto``) or
+writes key metadata itself takes the host path, where ``_sbe_pass``
+walks the block in order, an earlier plugin-valid transaction's
+metadata update taking effect for later ones; the update batch then
+commits metadata writes (a metadata-only write re-puts the value with a
+new version, a no-op on an absent key), keeps a key's metadata across
+plain writes and clears it on deletes (``_build_updates(sbe=True)``).
+
+Private-collection read/write sets: hashed keys are MVCC keys
+``('pvt', ns, coll, key_hash)`` beside the public ones (a disjoint id
+range of the same key table), their committed versions read from the
+state namespace ``ns$coll#hashed`` under the hash's hex (through the
+overlay too), and a valid transaction's hashed writes enter the update
+batch there.  Such a block takes the fused path; under
+``state_resident=True`` its committed versions are read on the host, as
+the reference's resident path does.
+
+A block whose creator is an idemix identity raises
+``NotImplementedError``: host-verified creators are the next slice of
+the port.
 """
 
 from __future__ import annotations
@@ -103,7 +141,10 @@ import torch
 
 from fabric_tpu_torch.crypto import policy as pol
 from fabric_tpu_torch.device import resolve_device
-from fabric_tpu_torch.ledger.rwset import TxRWSet
+from fabric_tpu_torch.crypto.msp import policy_from_proto
+from fabric_tpu_torch.ledger.rwset import (
+    VALIDATION_PARAMETER, TxRWSet, decode_metadata, encode_metadata,
+)
 from fabric_tpu_torch.ledger.statedb import UpdateBatch
 from fabric_tpu_torch.native import blockparse, mvccprep
 from fabric_tpu_torch.ops import mvcc as mvcc_ops
@@ -113,6 +154,7 @@ from fabric_tpu_torch.peer import frontend
 from fabric_tpu_torch.peer.decoded import DecodedBlock, DecodedEndorsement, DecodedTx
 from fabric_tpu_torch.peer.device_block import DeviceBlockPipeline, resident_ver_ok
 from fabric_tpu_torch.peer.txcodes import TxValidationCode as C
+from fabric_tpu_torch.protos import messages as pm
 from fabric_tpu_torch.protos.messages import Block
 from fabric_tpu_torch.protos.wire import DecodeError
 from fabric_tpu_torch.state.residency import ResidencyManager, build_launch_pack
@@ -120,8 +162,10 @@ from fabric_tpu_torch.utils.batching import next_pow2
 
 _NV = int(C.NOT_VALIDATED)
 
-__all__ = ["BlockValidator", "DecodedBlock", "DecodedEndorsement", "DecodedTx",
-           "NamespaceInfo", "PolicyProvider"]
+__all__ = ["BlockValidationCtx", "BlockValidator", "DecodedBlock", "DecodedEndorsement",
+           "DecodedTx", "NamespaceInfo", "PolicyProvider", "ValidationPlugin"]
+
+LIFECYCLE_NS = "_lifecycle"
 
 # ---------------------------------------------------------------------------
 # Policies
@@ -143,6 +187,54 @@ class PolicyProvider:
         return self.infos.get(namespace)
 
 
+@dataclass
+class BlockValidationCtx:
+    txs: list              # [ParsedTx]
+    sig_valid: np.ndarray  # [n_items] bool: the block's signature batch
+    msp_manager: object
+    policy_provider: PolicyProvider
+
+
+class ValidationPlugin:
+    """A namespace's validation plugin (validation.Plugin,
+    api/validation.go:26-38), batch-shaped: ``validate_batch_group(ctx,
+    group)`` → one bool a (ParsedTx, namespace) pair of ``group``, or
+    the older ``validate_batch(ctx)`` → one bool a transaction of the
+    block.  ``ParsedTx.endorsers`` and ``endo_item_idx`` give a
+    transaction's endorsers and their signature items in
+    ``ctx.sig_valid``."""
+
+    def validate_batch(self, ctx: BlockValidationCtx) -> np.ndarray:
+        raise NotImplementedError
+
+
+class DefaultValidation(ValidationPlugin):
+    """The built-in plugin: each pair's namespace policy over the
+    transaction's verified endorsers (the exact interpreter)."""
+
+    def __init__(self):
+        self._plans: dict = {}
+
+    def validate_batch_group(self, ctx: BlockValidationCtx, group) -> list:
+        out = []
+        for ptx, ns in group:
+            policy = ctx.policy_provider.info(ns).policy
+            plan = self._plans.get(policy)
+            if plan is None:
+                plan = self._plans[policy] = pol.compile_plan(policy)
+            out.append(_endorsed(policy, plan, ptx, ctx.sig_valid))
+        return out
+
+
+def _endorsed(policy, plan, ptx, sig_valid) -> bool:
+    """``policy`` over the transaction's sig-valid endorsers."""
+    mat = np.zeros((len(ptx.endorsers), len(plan.principals)), bool)
+    for s, ident in enumerate(ptx.endorsers):
+        if sig_valid[ptx.endo_item_idx[s]]:
+            mat[s] = [p.matched_by(ident) for p in plan.principals]
+    return bool(pol.evaluate(policy, mat))
+
+
 # ---------------------------------------------------------------------------
 # Per-block state
 
@@ -158,6 +250,8 @@ class ParsedTx:
     endorsers: list = field(default_factory=list)  # [Identity], deduplicated
     rwset_bytes: bytes | None = None  # a wire block's set, parsed at first use
     _rwset: TxRWSet | None = None
+    is_config: bool = False
+    config_data: bytes = b""  # a config transaction's ConfigEnvelope bytes
 
     @property
     def undetermined(self) -> bool:
@@ -222,6 +316,7 @@ class DevicePre:
     static_t: torch.Tensor
     has_range: bool
     read_pv: torch.Tensor | None = None  # [T, R, 3] expected reads (resident path)
+    has_pvt: bool = False  # private-collection keys (host read under residency)
 
 
 @dataclass
@@ -231,6 +326,8 @@ class Preprocessed:
     items: object         # [(digest, r, s, qx, qy)] or p256v3.SigColumns
     handle: object        # VerifyHandle (or the sidecar's RemoteVerifyHandle)
     dpre: DevicePre | None  # None: the block takes the host path
+    msp: object = None      # the MSP manager and policy provider it was staged
+    policies: object = None  # under (a rotated one redoes the preprocess)
 
 
 @dataclass
@@ -251,35 +348,19 @@ class PendingBlock:
         return {ptx.txid for ptx in self.txs if ptx.txid}
 
 
-def _refuse_tx(dtx: DecodedTx, policies: PolicyProvider) -> None:
-    if dtx.is_config:
+def _refuse_tx(dtx: DecodedTx) -> None:
+    if not dtx.is_config and dtx.creator is not None and not dtx.creator.has_ec_key:
         raise NotImplementedError(
-            "config transactions: a later slice of the port (config processing)")
-    if dtx.creator is not None and not dtx.creator.has_ec_key:
-        raise NotImplementedError(
-            "idemix creators: a later slice of the port (host-verified creators)")
-    if dtx.rwset is not None:
-        _refuse_rwset(dtx.rwset, policies)
+            "idemix creators: a later slice of the port (the next one: host-verified "
+            "creators)")
 
 
-def _refuse_rwset(rwset: TxRWSet, policies: PolicyProvider) -> None:
-    for n in rwset.ns.values():
-        if n.metadata_writes:
-            raise NotImplementedError(
-                "key-level endorsement metadata writes: a later slice of the port (SBE)")
-        if n.hashed:
-            raise NotImplementedError(
-                "private-collection read/write sets: a later slice of the port (pvtdata)")
-    _refuse_namespaces(rwset.ns, policies)
+def _has_meta_writes(rwset) -> bool:
+    return rwset is not None and any(n.metadata_writes for n in rwset.ns.values())
 
 
-def _refuse_namespaces(names, policies: PolicyProvider) -> None:
-    for ns in names:
-        info = policies.info(ns)
-        if info is not None and (info.plugin or "default") != "default":
-            raise NotImplementedError(
-                f"validation plugin {info.plugin!r}: a later slice of the port "
-                "(custom plugins)")
+def _custom(info) -> bool:
+    return info is not None and (info.plugin or "default") != "default"
 
 
 class BlockValidator:
@@ -287,13 +368,19 @@ class BlockValidator:
     ``block``: a wire ``Block`` (decoded with ``msp``, a
     ``crypto.msp.MSPManager``) or a ``DecodedBlock``.
     ``host_stage_workers``: the staging pool's size (0 off, -1 one
-    worker per core); ``close()`` shuts it down."""
+    worker per core); ``close()`` shuts it down.  ``plugins``: {name:
+    ValidationPlugin} beside the built-in "default";
+    ``config_processor``: a ``channelconfig.ConfigTxProcessor``."""
 
     def __init__(self, policy_provider: PolicyProvider, state_db, block_store=None,
                  device="cuda", state_resident: bool = False, state_resident_mb: int = 64,
                  state_resident_range_bits: int = 12, msp=None, kernel: str | None = None,
-                 host_stage_workers: int = 0):
+                 host_stage_workers: int = 0, plugins: dict | None = None,
+                 config_processor=None):
         self.msp = msp
+        self.plugins = {"default": DefaultValidation(), **(plugins or {})}
+        self.config_processor = config_processor
+        self.last_parsed: list = []
         self.kernel = p256.selected(kernel)
         self.policies = policy_provider
         self.state = state_db
@@ -340,17 +427,31 @@ class BlockValidator:
 
     def _parse(self, block: DecodedBlock):
         for dtx in block.txs:
-            _refuse_tx(dtx, self.policies)
+            _refuse_tx(dtx)
         txs, items, seen = [], [], set()
         for i, dtx in enumerate(block.txs):
-            txs.append(self._parse_tx(i, dtx, seen, items))
+            txs.append(self._parse_tx(i, dtx, seen, items, block.number == 0))
         return txs, items
 
     @staticmethod
-    def _parse_tx(i: int, dtx: DecodedTx, seen: set, items: list) -> ParsedTx:
+    def _parse_tx(i: int, dtx: DecodedTx, seen: set, items: list,
+                  genesis: bool = False) -> ParsedTx:
         """One decoded envelope → ``ParsedTx``; its signatures go onto
-        ``items``, its tx id into ``seen`` (the block's claimed ids)."""
+        ``items``, its tx id into ``seen`` (the block's claimed ids).
+        A config transaction's creator is checked unless the block is
+        the genesis block (the channel's trust anchor)."""
         ptx = ParsedTx(idx=i, code=int(dtx.code), txid=dtx.txid, _rwset=dtx.rwset)
+        if dtx.is_config:
+            ptx.is_config, ptx.config_data = True, dtx.config_data
+            if genesis or not ptx.undetermined:
+                return ptx
+            cr = dtx.creator
+            if cr is None or not cr.is_valid or dtx.creator_sig is None:
+                ptx.code = int(C.BAD_CREATOR_SIGNATURE)
+            else:
+                ptx.creator_item_idx = len(items)
+                items.append((*dtx.creator_sig, cr.qx, cr.qy))
+            return ptx
         if dtx.txid_bound and dtx.txid:
             # in-block duplicates (v20/validator.go:460-481)
             if dtx.txid in seen:
@@ -448,8 +549,8 @@ class BlockValidator:
         for i, (fr, bd) in enumerate(zip(front.tolist(), bind.tolist())):
             if fr:
                 dtx = frontend.decode_envelope(envs[i], self.msp)
-                _refuse_tx(dtx, self.policies)
-                txs[i] = self._parse_tx(i, dtx, seen, front_items)
+                _refuse_tx(dtx)
+                txs[i] = self._parse_tx(i, dtx, seen, front_items, number == 0)
             elif bd:
                 if txids[i] in seen:
                     dup[i] = True
@@ -510,9 +611,6 @@ class BlockValidator:
         ns_names, _, keys, lex_rank = rwp.key_table()
         st = rwp.status.tolist()
         flat = rw_use & (rwp.status == 0)
-        # the block's distinct namespaces, refused once
-        _refuse_namespaces([ns_names[j] for j in np.unique(rwp.tx_ns(flat)[1]).tolist()],
-                           self.policies)
         ns_start, ns_count = rwp.tx_ns_start.tolist(), rwp.tx_ns_count.tolist()
         ns_flat = rwp.ns_ids_flat.tolist()
         res_span = pb.results_span.tolist()
@@ -537,7 +635,6 @@ class BlockValidator:
                 if ptx.undetermined:
                     ptx.code = int(C.BAD_RWSET)
                 continue
-            _refuse_rwset(rw, self.policies)
             ptx.rwset = rw
             ptx.namespaces = tuple(sorted(rw.ns))
         wb = WireBlock(number=number, pb=pb, rwp=rwp, flat=flat, keys=keys, lex_rank=lex_rank,
@@ -561,15 +658,36 @@ class BlockValidator:
             ptx.endorsers = [idents[u - 1] for u in um[i, :k].tolist()]
         wb.materialized = True
 
-    def _device_pre(self, txs, block) -> DevicePre:
+    def _device_pre(self, txs, block) -> DevicePre | None:
         """The block's state-independent stage-2 inputs: the columnar
         groups for a wire block whose every live transaction is a flat
-        column row, else ``_device_preprocess``."""
+        column row, else ``_device_preprocess``; None (the host path)
+        when a live transaction writes key metadata or reaches a custom
+        plugin (:1813-1827, :1976-1980)."""
+        if self._needs_host(txs):
+            return None
         if isinstance(block, WireBlock):
             dpre = self._device_pre_columnar(txs, block)
             if dpre is not None:
                 return dpre
         return self._device_preprocess(txs, block)
+
+    def _needs_host(self, txs) -> bool:
+        if type(self.plugins.get("default")) is not DefaultValidation:
+            return True
+        custom: dict = {}  # namespaces tuple → a custom plugin among them
+        for ptx in txs:
+            if not ptx.undetermined or ptx.is_config:
+                continue
+            if _has_meta_writes(ptx._rwset):
+                return True
+            c = custom.get(ptx.namespaces)
+            if c is None:
+                c = custom[ptx.namespaces] = any(
+                    _custom(self.policies.info(ns)) for ns in ptx.namespaces)
+            if c:
+                return True
+        return False
 
     def _device_preprocess(self, txs, block=None) -> DevicePre:
         """Policy groups entry by entry from the per-tx lists (a wire
@@ -578,7 +696,7 @@ class BlockValidator:
             self._materialize_for_host(txs, block)
         entries = []
         for ptx in txs:
-            if not ptx.undetermined:
+            if not ptx.undetermined or ptx.is_config:
                 continue
             infos = [self.policies.info(ns) for ns in ptx.namespaces]
             if not ptx.namespaces or any(i is None for i in infos):
@@ -621,7 +739,7 @@ class BlockValidator:
         transaction is not a flat column row (a front-end envelope, a
         set parsed in Python)."""
         n = len(txs)
-        live = np.fromiter((ptx.code == _NV for ptx in txs), bool, n)
+        live = np.fromiter((ptx.code == _NV and not ptx.is_config for ptx in txs), bool, n)
         if (live & ~wb.flat).any():
             return None
         rwp, names = wb.rwp, wb.ns_names
@@ -670,8 +788,9 @@ class BlockValidator:
     def _static_pre(self, txs, block, groups, group_entries) -> DevicePre:
         """The static MVCC arrays (from the flat arrays when every live
         set is there) and their H2D copies → ``DevicePre``."""
-        und = np.fromiter((ptx.undetermined for ptx in txs), bool, len(txs))
-        has_range = False
+        und = np.fromiter((ptx.undetermined and not ptx.is_config for ptx in txs), bool,
+                          len(txs))
+        has_range = has_pvt = False
         if isinstance(block, WireBlock) and not (und & ~block.flat).any():
             # every live set is in the flat arrays: no range query
             static = mvcc_ops.prepare_block_from_flat(block.rwp, und, block.lex_rank,
@@ -685,6 +804,7 @@ class BlockValidator:
                     continue
                 if any(n.range_queries for n in ptx.rwset.ns.values()):
                     has_range = True
+                has_pvt |= any(n.hashed for n in ptx.rwset.ns.values())
                 reads, writes, rqs = ptx.rwset.mvcc_form()
                 mvcc_txs.append(mvcc_ops.TxRWSet(reads=reads, writes=writes,
                                                  range_reads=rqs))
@@ -695,7 +815,8 @@ class BlockValidator:
         if static.u_pairs is not None:
             read_pv = torch.from_numpy(static.packed_read_pv()).to(self.device)
         return DevicePre(groups=groups, group_entries=group_entries, static=static,
-                         static_t=static_t, has_range=has_range, read_pv=read_pv)
+                         static_t=static_t, has_range=has_range, read_pv=read_pv,
+                         has_pvt=has_pvt)
 
     def decode(self, block) -> DecodedBlock:
         """A wire ``Block`` through the front end with this validator's
@@ -731,7 +852,8 @@ class BlockValidator:
         if self.kernel == "v3":
             dpre = self._device_pre(txs, block)
             self._t("device_pre", t0)
-        return Preprocessed(block=block, txs=txs, items=items, handle=handle, dpre=dpre)
+        return Preprocessed(block=block, txs=txs, items=items, handle=handle, dpre=dpre,
+                            msp=self.msp, policies=self.policies)
 
     def preprocess_many(self, blocks) -> list:
         """``preprocess`` over several blocks with ONE verify launch for
@@ -760,7 +882,7 @@ class BlockValidator:
                 dpre = self._device_pre(txs, block)
                 self._t("device_pre", t0)
             out.append(Preprocessed(block=block, txs=txs, items=items, handle=handle,
-                                    dpre=dpre))
+                                    dpre=dpre, msp=self.msp, policies=self.policies))
         return out
 
     def _preprocess_many_pooled(self, blocks) -> list:
@@ -796,7 +918,7 @@ class BlockValidator:
                 dpre = pre_futs[k].result()
                 self._t("device_pre", t0)
             out.append(Preprocessed(block=block, txs=txs, items=items, handle=handle,
-                                    dpre=dpre))
+                                    dpre=dpre, msp=self.msp, policies=self.policies))
         return out
 
     def _device_pre_on(self, stream, txs, block) -> DevicePre:
@@ -827,22 +949,170 @@ class BlockValidator:
         """Everything up to the stage-2 dispatch.  ``overlay``: the
         merged UpdateBatch of in-flight predecessors whose commits may not
         have landed (its entries override committed-state reads);
-        ``extra_txids``: their txids, for the duplicate check."""
-        if pre is None:
+        ``extra_txids``: their txids, for the duplicate check.
+
+        A caller commits a config block, or one that writes
+        ``_lifecycle``, before launching its successor with no overlay
+        (``peer/pipeline.py``'s barrier); an overlay that writes
+        ``_lifecycle`` raises.  A ``pre`` staged under an MSP manager or
+        policy provider that has since rotated is redone here."""
+        if overlay is not None and overlay.touches_namespace(LIFECYCLE_NS):
+            raise ValueError("pipelined launch across a lifecycle-writing block: "
+                             "commit the predecessor before launching this block")
+        if pre is None or pre.msp is not self.msp or (
+                pre.dpre is not None and pre.policies is not self.policies):
             pre = self.preprocess(block)
         txs = pre.txs
+        self.last_parsed = txs
         if self.blocks is not None or extra_txids:
             for ptx in txs:
-                if ptx.undetermined and (
+                if ptx.undetermined and not ptx.is_config and (
                         (extra_txids is not None and ptx.txid in extra_txids)
                         or (self.blocks is not None and self.blocks.tx_exists(ptx.txid))):
                     ptx.code = int(C.DUPLICATE_TXID)
         pending = PendingBlock(block=pre.block, txs=txs, items=pre.items, handle=pre.handle,
                                dpre=pre.dpre, overlay=overlay)
-        if txs and pre.dpre is not None:
+        if txs and pre.dpre is not None and not self._sbe_launch_veto(pending):
             pending.fetch2, pending.range_phantom = self._launch_device(
                 txs, pre.handle, pre.dpre, overlay)
         return pending
+
+    # -- key-level endorsement ------------------------------------------------
+
+    def _sbe_launch_veto(self, pending: PendingBlock) -> bool:
+        """A written key of the block carries key metadata in committed
+        state or the overlay: the fused program has no key-level lanes,
+        so the block takes the host path (:1452-1479).  Free while no
+        key carries metadata."""
+        overlay = pending.overlay
+        if not self._metaful(overlay):
+            return False
+        block = pending.block
+        flat = block.flat if isinstance(block, WireBlock) else np.zeros(len(pending.txs), bool)
+        if flat.any():
+            rwp = block.rwp
+            for u in np.unique(rwp.w_uid[:rwp.n_writes]).tolist():
+                _, ns, key = block.keys[u]
+                if self._committed_key_has_meta(ns, key, overlay):
+                    return True
+        for ptx in pending.txs:
+            if not ptx.undetermined or ptx.is_config or flat[ptx.idx] or ptx.rwset is None:
+                continue
+            for ns, n in ptx.rwset.ns.items():
+                for k in n.writes:
+                    if self._committed_key_has_meta(ns, k, overlay):
+                        return True
+        return False
+
+    def _sbe_active(self, txs, overlay) -> bool:
+        """Key-level endorsement applies to the block: a transaction
+        writes key metadata, or writes a key that carries metadata
+        (:1610-1639)."""
+        metaful = self._metaful(overlay)
+        for ptx in txs:
+            rw = ptx._rwset  # a set still in bytes carries no metadata write
+            if rw is None:
+                if not metaful:
+                    continue
+                rw = ptx.rwset
+                if rw is None:
+                    continue
+            for ns, n in rw.ns.items():
+                if n.metadata_writes:
+                    return True
+                if metaful:
+                    for k in n.writes:
+                        if self._committed_key_has_meta(ns, k, overlay):
+                            return True
+        return False
+
+    def _metaful(self, overlay) -> bool:
+        """Any key metadata the block could see: committed, or in the
+        in-flight predecessors' batches."""
+        return getattr(self.state, "meta_count", 0) > 0 or (
+            overlay is not None and overlay.has_meta)
+
+    def _committed_key_has_meta(self, ns: str, key: str, overlay) -> bool:
+        if overlay is not None:
+            vv = overlay.updates.get((ns, key))
+            if vv is not None:
+                return bool(vv.value is not None and vv.metadata)
+        vv = self.state.get_state(ns, key)
+        return vv is not None and bool(vv.metadata)
+
+    def _committed_key_policy(self, ns: str, key: str, overlay):
+        """The committed ``VALIDATION_PARAMETER`` of (ns, key), the
+        overlay overriding the state read; None without one."""
+        vv = None
+        if overlay is not None:
+            vv = overlay.updates.get((ns, key))
+        if vv is None:
+            vv = self.state.get_state(ns, key)
+        if vv is None or vv.value is None or not vv.metadata:
+            return None
+        return decode_metadata(vv.metadata).get(VALIDATION_PARAMETER)
+
+    def _sbe_pass(self, txs, sig_valid, ns_verdicts, overlay) -> None:
+        """Key-level endorsement in block order (:1675-1734): each
+        written key (value or metadata) of a transaction is judged by
+        the key policy in effect at its position — committed, or set by
+        an earlier plugin-valid transaction of the block, even one MVCC
+        later kills — and a key without one by its namespace's verdict;
+        a namespace with no written key by its namespace's verdict."""
+        pending: dict = {}     # (ns, key) → policy bytes | None (cleared)
+        pol_cache: dict = {}   # policy bytes → (ast, plan) | None
+        comm_cache: dict = {}  # (ns, key) → committed policy
+        for ptx in txs:
+            if not ptx.undetermined or ptx.is_config or ptx.rwset is None:
+                continue
+            tx_ok = True
+            for ns in ptx.namespaces:
+                n = ptx.rwset.ns.get(ns)
+                if n is None:
+                    continue
+                keys = sorted(set(n.writes) | set(n.metadata_writes))
+                if not keys:
+                    tx_ok = ns_verdicts.get((ptx.idx, ns), False)
+                else:
+                    for k in keys:
+                        if (ns, k) in pending:
+                            pb = pending[(ns, k)]
+                        elif (ns, k) in comm_cache:
+                            pb = comm_cache[(ns, k)]
+                        else:
+                            pb = comm_cache[(ns, k)] = self._committed_key_policy(ns, k, overlay)
+                        tx_ok = (ns_verdicts.get((ptx.idx, ns), False) if pb is None
+                                 else self._eval_key_policy(pb, ptx, sig_valid, pol_cache))
+                        if not tx_ok:
+                            break
+                if not tx_ok:
+                    break
+            if not tx_ok:
+                ptx.code = int(C.ENDORSEMENT_POLICY_FAILURE)
+                continue
+            for ns, n in ptx.rwset.ns.items():
+                for k, entries in n.metadata_writes.items():
+                    pending[(ns, k)] = entries.get(VALIDATION_PARAMETER)
+
+    def _eval_key_policy(self, policy_bytes, ptx, sig_valid, cache) -> bool:
+        """One key policy over the transaction's sig-valid endorsers; a
+        policy that does not parse fails closed."""
+        got = cache.get(policy_bytes, False)
+        if got is False:
+            try:
+                ast = policy_from_proto(pm.SignaturePolicyEnvelope.parse(policy_bytes))
+                got = (ast, pol.compile_plan(ast))
+            except NotImplementedError:
+                raise
+            except Exception:
+                got = None
+            cache[policy_bytes] = got
+        if got is None or not ptx.endorsers:
+            return False
+        ast, plan = got
+        valid = np.array([bool(sig_valid[i]) for i in ptx.endo_item_idx], bool)
+        mat = pol.match_matrix(ptx.endorsers, plan.principals) & valid[:, None]
+        return bool(pol.evaluate(ast, mat))
 
     def _launch_device(self, txs, handle, dpre: DevicePre, overlay):
         t0 = time.perf_counter()
@@ -851,7 +1121,7 @@ class BlockValidator:
         range_phantom = set()
         if dpre.has_range:
             for ptx in txs:
-                if ptx.undetermined and ptx.rwset is not None and (
+                if ptx.undetermined and not ptx.is_config and ptx.rwset is not None and (
                         self._committed_range_phantom(ptx, overlay)
                         or (overlay is not None and _overlay_range_phantom(ptx, overlay))):
                     range_phantom.add(ptx.idx)
@@ -860,7 +1130,7 @@ class BlockValidator:
         launch_vec = np.zeros((T, 3), np.int32)
         launch_vec[:, 0] = -1
         for ptx in txs:
-            if ptx.undetermined:
+            if ptx.undetermined and not ptx.is_config:
                 launch_vec[ptx.idx, 0] = ptx.creator_item_idx
                 launch_vec[ptx.idx, 1] = ptx.idx not in range_phantom
         lv = self._resident_launch_vec(launch_vec, dpre, overlay)
@@ -885,7 +1155,7 @@ class BlockValidator:
             return None
         static = dpre.static
         if static.u_pairs is None:
-            res.route_host("range")
+            res.route_host("hashed" if dpre.has_pvt and not dpre.has_range else "range")
             return None
         launch_vec[:, 2] = 0
         lv = torch.from_numpy(launch_vec).to(self.device)
@@ -930,6 +1200,7 @@ class BlockValidator:
         nT = len(txs)
         final = np.fromiter((ptx.code for ptx in txs), np.int32, nT)
         und = final == _NV
+        cfg = np.fromiter((ptx.is_config for ptx in txs), bool, nT)
         ci = np.fromiter((ptx.creator_item_idx for ptx in txs), np.int64, nT)
         svF = np.concatenate([sig_valid, [False]])
         creator_fail = und & (ci >= 0) & ~svF[np.where((ci >= 0) & (ci < n_sig), ci, n_sig)]
@@ -940,19 +1211,22 @@ class BlockValidator:
             [int(C.ENDORSEMENT_POLICY_FAILURE), int(C.PHANTOM_READ_CONFLICT),
              int(C.VALID), int(C.PHANTOM_READ_CONFLICT)],
             default=int(C.MVCC_READ_CONFLICT))
-        upd = und & ~creator_fail
+        upd = und & ~cfg & ~creator_fail
         final[upd] = sel[upd]
         final[creator_fail] = int(C.BAD_CREATOR_SIGNATURE)
+        for i in np.flatnonzero(cfg & und & ~creator_fail).tolist():
+            final[i] = self._validate_config(pending.block, txs[i])
         for ptx, c in zip(txs, final.tolist()):
             ptx.code = c
-        batch, history = self._build_updates(pending.block, txs)
+        batch, history = self._build_updates(pending.block, txs, pending.overlay)
         self._t("postprocess", t0)
         return bytes(final.tolist()), batch, history
 
     def _validate_host(self, pending: PendingBlock):
-        """The exact path: signature bits from the verify handle, the
-        consumption interpreter per (tx, namespace), ``mvcc_validate``."""
-        txs = pending.txs
+        """The exact path (:1516-1606): signature bits from the verify
+        handle, config transactions, the plugin dispatch per (tx,
+        namespace), the key-level endorsement pass, ``mvcc_validate``."""
+        txs, overlay = pending.txs, pending.overlay
         if isinstance(pending.block, WireBlock):
             self._materialize_for_host(txs, pending.block)
         t0 = time.perf_counter()
@@ -964,22 +1238,45 @@ class BlockValidator:
                     and not sig_valid[ptx.creator_item_idx]:
                 ptx.code = int(C.BAD_CREATOR_SIGNATURE)
         for ptx in txs:
-            if not ptx.undetermined:
+            if ptx.is_config and ptx.undetermined:
+                ptx.code = self._validate_config(pending.block, ptx)
+        # each (tx, namespace) to its namespace's plugin; a tx is valid
+        # only if every plugin approves it (dispatcher.go:190-217)
+        ctx = BlockValidationCtx(txs=txs, sig_valid=sig_valid, msp_manager=self.msp,
+                                 policy_provider=self.policies)
+        by_plugin: dict = {}
+        for ptx in txs:
+            if not ptx.undetermined or ptx.is_config:
                 continue
             infos = [self.policies.info(ns) for ns in ptx.namespaces]
             if not ptx.namespaces or any(i is None for i in infos):
                 ptx.code = int(C.INVALID_CHAINCODE)
                 continue
-            for info in infos:
-                plan = self._plan(info.policy)
-                m = np.zeros((len(ptx.endorsers), len(plan.principals)), bool)
-                for s, ident in enumerate(ptx.endorsers):
-                    if sig_valid[ptx.endo_item_idx[s]]:
-                        m[s] = [p.matched_by(ident) for p in plan.principals]
-                if not pol.evaluate(info.policy, m):
+            for ns, info in zip(ptx.namespaces, infos):
+                by_plugin.setdefault(info.plugin or "default", []).append((ptx, ns))
+        # under key-level endorsement the namespace verdicts become the
+        # per-key fallbacks of the SBE pass
+        sbe = self._sbe_active(txs, overlay)
+        ns_verdicts: dict | None = {} if sbe else None
+        for name, group in by_plugin.items():
+            plug = self.plugins.get(name)
+            if plug is None:
+                for ptx, _ in group:
+                    ptx.code = int(C.INVALID_OTHER_REASON)
+                continue
+            if hasattr(plug, "validate_batch_group"):
+                ok = plug.validate_batch_group(ctx, group)
+            else:
+                per_tx = plug.validate_batch(ctx)
+                ok = [per_tx[ptx.idx] for ptx, _ in group]
+            for (ptx, ns), good in zip(group, ok):
+                if ns_verdicts is not None:
+                    ns_verdicts[(ptx.idx, ns)] = bool(good)
+                elif not good and ptx.undetermined:
                     ptx.code = int(C.ENDORSEMENT_POLICY_FAILURE)
-                    break
-        mvcc_txs, committed = self._mvcc_inputs(txs, pending.overlay)
+        if sbe:
+            self._sbe_pass(txs, sig_valid, ns_verdicts, overlay)
+        mvcc_txs, committed = self._mvcc_inputs(txs, overlay)
         pre_ok = np.array([ptx.undetermined for ptx in txs], bool)
         if txs:
             valid, _, phantom = mvcc_ops.mvcc_validate_block(mvcc_txs, committed, pre_ok,
@@ -988,8 +1285,21 @@ class BlockValidator:
                 if ptx.undetermined:
                     ptx.code = int(C.VALID if v else
                                    C.PHANTOM_READ_CONFLICT if ph else C.MVCC_READ_CONFLICT)
-        batch, history = self._build_updates(pending.block, txs)
+        batch, history = self._build_updates(pending.block, txs, overlay, sbe=sbe)
         return bytes(ptx.code for ptx in txs), batch, history
+
+    def _validate_config(self, block, ptx) -> int:
+        """A config transaction's code (:2454-2474): its payload must be
+        a ConfigEnvelope (else BAD_PAYLOAD); the genesis block's is
+        VALID; a later one is the ``config_processor``'s verdict
+        (VALID without one)."""
+        try:
+            cfg_env = pm.ConfigEnvelope.parse(ptx.config_data)
+        except DecodeError:
+            return int(C.BAD_PAYLOAD)
+        if block.number == 0 or self.config_processor is None:
+            return int(C.VALID)
+        return int(self.config_processor.validate_config_tx(ptx, cfg_env))
 
     # -- state reads ----------------------------------------------------------
 
@@ -1006,24 +1316,40 @@ class BlockValidator:
                 mvcc_txs.append(empty())
                 continue
             reads, writes, rqs = ptx.rwset.mvcc_form()
+            # a metadata-only write writes iff it applies: the key
+            # exists (:2371-2381)
+            for ns, n in ptx.rwset.ns.items():
+                for k in n.metadata_writes:
+                    if k not in n.writes and self._key_exists(ns, k, overlay):
+                        writes.append(("pub", ns, k))
             mvcc_txs.append(mvcc_ops.TxRWSet(reads=reads, writes=writes, range_reads=rqs))
             all_read_keys.update(k for k, _ in reads)
         return mvcc_txs, self._committed_versions(all_read_keys, overlay)
 
+    def _key_exists(self, ns: str, key: str, overlay) -> bool:
+        if overlay is not None:
+            vv = overlay.updates.get((ns, key))
+            if vv is not None:
+                return vv.value is not None
+        return self.state.get_state(ns, key) is not None
+
     def _committed_versions(self, keys, overlay=None) -> dict:
-        """{('pub', ns, key): Version} for the present keys — the
-        in-flight predecessors' writes override the state read."""
+        """{mvcc key: Version} for the present keys — a hashed key
+        ('pvt', ns, coll, hash) read at (``ns$coll#hashed``, hex(hash)),
+        the in-flight predecessors' writes overriding the state read."""
         committed: dict = {}
         if not keys:
             return committed
-        vers = self.state.get_versions_bulk([(k[1], k[2]) for k in keys])
-        for k in keys:
-            v = vers.get((k[1], k[2]))
+        at = {k: (k[1], k[2]) if k[0] == "pub" else (f"{k[1]}${k[2]}#hashed", k[3].hex())
+              for k in keys}
+        vers = self.state.get_versions_bulk(list(at.values()))
+        for k, sk in at.items():
+            v = vers.get(sk)
             if v is not None:
                 committed[k] = v
         if overlay is not None:
-            for k in keys:
-                vv = overlay.updates.get((k[1], k[2]))
+            for k, sk in at.items():
+                vv = overlay.updates.get(sk)
                 if vv is None:
                     continue
                 if vv.value is None:
@@ -1049,18 +1375,23 @@ class BlockValidator:
                     return True
         return False
 
-    def _build_updates(self, block, txs):
+    def _build_updates(self, block, txs, overlay=None, sbe: bool = False):
         """Update batch + history for the VALID transactions, in tx
         order, namespaces and keys sorted; version (block, tx index).
         A wire block's set in the flat arrays is read from them
         (``_build_updates_flat``, validator.py:2292); any other from its
-        parsed ``rwset``."""
+        parsed ``rwset``, its hashed writes into ``ns$coll#hashed``.
+        With ``sbe`` every set is read parsed (:2476-2543): a metadata
+        write commits with the value written beside it, or alone
+        re-puts the key's value with a new version (nothing on an
+        absent key, and no history entry); a plain write keeps the
+        key's metadata, a delete clears it."""
         batch = UpdateBatch()
         history = []
         block_num = block.number
         valid = np.fromiter((ptx.code == int(C.VALID) for ptx in txs), bool, len(txs))
         flat = np.zeros(len(txs), bool)
-        if isinstance(block, WireBlock):
+        if isinstance(block, WireBlock) and not sbe:
             flat = valid & block.flat
             rwp, blob, keys = block.rwp, block.pb.blob, block.keys
             _, rows, wc = rwp.tx_rows("w", flat, block.lex_rank)
@@ -1068,6 +1399,13 @@ class BlockValidator:
             w_uid, w_del = rwp.w_uid[rows].tolist(), rwp.w_is_del[rows].tolist()
             w_val = rwp.w_val_span[rows].tolist()
         flat_l = flat.tolist()
+
+        def prev(ns, key):
+            vv = batch.updates.get((ns, key))
+            if vv is None and overlay is not None:
+                vv = overlay.updates.get((ns, key))
+            return vv if vv is not None else self.state.get_state(ns, key)
+
         for ptx in txs:
             if ptx.code != int(C.VALID):
                 continue
@@ -1087,13 +1425,35 @@ class BlockValidator:
                 continue
             for ns_name in sorted(ptx.rwset.ns):
                 n = ptx.rwset.ns[ns_name]
+                mws = n.metadata_writes if sbe else {}
                 for key in sorted(n.writes):
                     val = n.writes[key]
                     if val is None:
                         batch.delete(ns_name, key, ver)
-                    else:
+                    elif not sbe:
                         batch.put(ns_name, key, val, ver)
+                    else:
+                        if key in mws:
+                            md = encode_metadata(mws[key])
+                        else:
+                            pv = prev(ns_name, key)
+                            md = pv.metadata if pv is not None and pv.value is not None else None
+                        batch.put(ns_name, key, val, ver, metadata=md)
                     history.append((ns_name, key, i))
+                for key in sorted(mws):
+                    if key in n.writes:
+                        continue
+                    pv = prev(ns_name, key)
+                    if pv is None or pv.value is None:
+                        continue
+                    batch.put(ns_name, key, pv.value, ver, metadata=encode_metadata(mws[key]))
+                for coll in sorted(n.hashed):
+                    hns = f"{ns_name}${coll}#hashed"
+                    for kh, (vh, is_del) in sorted(n.hashed[coll].get("writes", {}).items()):
+                        if is_del:
+                            batch.delete(hns, kh.hex(), ver)
+                        else:
+                            batch.put(hns, kh.hex(), vh, ver)
         return batch, history
 
 

@@ -1,9 +1,14 @@
 """The message schemas the port reads and writes (counterparts:
 ``fabric_tpu/protos/common.proto``, ``proposal.proto``,
-``transaction.proto``, ``rwset.proto`` and ``timestamp.proto``; same
-field numbers, kinds and names; an enum field is its int32).
-``Block`` takes the place of ``common_pb2.Block`` on the port's
-entry."""
+``transaction.proto``, ``rwset.proto``, ``timestamp.proto``,
+``configtx.proto``, ``policies.proto`` and the channel-config part of
+``orderer.proto``; same field numbers, kinds and names; an enum field
+is its int32).  ``Block`` takes the place of ``common_pb2.Block`` on
+the port's entry.  A config tree's maps (``ConfigGroup.groups``,
+``values``, ``policies``) serialize in ``deterministic=True`` order, so
+the bytes a config hash or an update delta is taken over are the same
+in both packages; ``copy()`` is a deep copy (the reference's
+``CopyFrom``)."""
 
 from __future__ import annotations
 
@@ -253,3 +258,204 @@ class NsPvtReadWriteSet(Message):
 class TxPvtReadWriteSet(Message):
     FIELDS = (Field(1, "data_model", INT32),
               Field(2, "ns_pvt_rwset", MESSAGE, repeated=True, message=NsPvtReadWriteSet))
+
+
+# -- policies.proto -------------------------------------------------------------
+
+# Policy.PolicyType
+POLICY_SIGNATURE, POLICY_MSP, POLICY_IMPLICIT_META = 1, 2, 3
+# ImplicitMetaPolicy.Rule
+IMPLICIT_ANY, IMPLICIT_ALL, IMPLICIT_MAJORITY = 0, 1, 2
+# MSPPrincipal.Classification
+PRINCIPAL_ROLE, PRINCIPAL_ORGANIZATION_UNIT, PRINCIPAL_IDENTITY = 0, 1, 2
+# MSPRole.MSPRoleType
+MSP_ROLE_MEMBER, MSP_ROLE_ADMIN, MSP_ROLE_CLIENT, MSP_ROLE_PEER, MSP_ROLE_ORDERER = range(5)
+# MSPConfig.type
+MSP_TYPE_FABRIC, MSP_TYPE_IDEMIX = 0, 1
+# common.HeaderType.CONFIG_UPDATE
+HEADER_CONFIG_UPDATE = 2
+
+
+class Policy(Message):
+    FIELDS = (Field(1, "type", INT32), Field(2, "value", BYTES))
+
+
+class MSPPrincipal(Message):
+    FIELDS = (Field(1, "principal_classification", INT32), Field(2, "principal", BYTES))
+
+
+class MSPRole(Message):
+    FIELDS = (Field(1, "msp_identifier", STRING), Field(2, "role", INT32))
+
+
+class OrganizationUnit(Message):
+    FIELDS = (Field(1, "msp_identifier", STRING),
+              Field(2, "organizational_unit_identifier", STRING),
+              Field(3, "certifiers_identifier", BYTES))
+
+
+class SignaturePolicyNOutOf(Message):
+    """``SignaturePolicy.NOutOf``."""
+
+
+class SignaturePolicy(Message):
+    FIELDS = (Field(1, "signed_by", INT32, oneof="Type"),
+              Field(2, "n_out_of", MESSAGE, message=SignaturePolicyNOutOf, oneof="Type"))
+
+
+SignaturePolicyNOutOf.set_fields((Field(1, "n", INT32),
+                                  Field(2, "rules", MESSAGE, repeated=True,
+                                        message=SignaturePolicy)))
+
+
+class SignaturePolicyEnvelope(Message):
+    FIELDS = (Field(1, "version", INT32), Field(2, "rule", MESSAGE, message=SignaturePolicy),
+              Field(3, "identities", MESSAGE, repeated=True, message=MSPPrincipal))
+
+
+class ImplicitMetaPolicy(Message):
+    FIELDS = (Field(1, "sub_policy", STRING), Field(2, "rule", INT32))
+
+
+class ApplicationPolicy(Message):
+    FIELDS = (Field(1, "signature_policy", MESSAGE, message=SignaturePolicyEnvelope,
+                    oneof="Type"),
+              Field(2, "channel_config_policy_reference", STRING, oneof="Type"))
+
+
+# -- configtx.proto -------------------------------------------------------------
+
+
+class ConfigValue(Message):
+    FIELDS = (Field(1, "version", UINT64), Field(2, "value", BYTES),
+              Field(3, "mod_policy", STRING))
+
+
+class ConfigPolicy(Message):
+    FIELDS = (Field(1, "version", UINT64), Field(2, "policy", MESSAGE, message=Policy),
+              Field(3, "mod_policy", STRING))
+
+
+class ConfigGroup(Message):
+    """``groups`` holds ConfigGroups: the schema is completed below."""
+
+
+ConfigGroup.set_fields((Field(1, "version", UINT64),
+                        Field(2, "groups", MAP, message=ConfigGroup),
+                        Field(3, "values", MAP, message=ConfigValue),
+                        Field(4, "policies", MAP, message=ConfigPolicy),
+                        Field(5, "mod_policy", STRING)))
+
+
+class Config(Message):
+    FIELDS = (Field(1, "sequence", UINT64),
+              Field(2, "channel_group", MESSAGE, message=ConfigGroup))
+
+
+class ConfigEnvelope(Message):
+    FIELDS = (Field(1, "config", MESSAGE, message=Config),
+              Field(2, "last_update", MESSAGE, message=Envelope))
+
+
+class ConfigSignature(Message):
+    FIELDS = (Field(1, "signature_header", BYTES), Field(2, "signature", BYTES))
+
+
+class ConfigUpdateEnvelope(Message):
+    FIELDS = (Field(1, "config_update", BYTES),
+              Field(2, "signatures", MESSAGE, repeated=True, message=ConfigSignature))
+
+
+class ConfigUpdate(Message):
+    FIELDS = (Field(1, "channel_id", STRING),
+              Field(2, "read_set", MESSAGE, message=ConfigGroup),
+              Field(3, "write_set", MESSAGE, message=ConfigGroup),
+              Field(5, "isolated_data", MAP))
+
+
+class Capability(Message):
+    FIELDS = ()
+
+
+class Capabilities(Message):
+    FIELDS = (Field(1, "capabilities", MAP, message=Capability),)
+
+
+class MSPConfig(Message):
+    FIELDS = (Field(1, "type", INT32), Field(2, "config", BYTES))
+
+
+class FabricOUIdentifier(Message):
+    FIELDS = (Field(1, "certificate", BYTES),
+              Field(2, "organizational_unit_identifier", STRING))
+
+
+class FabricNodeOUs(Message):
+    FIELDS = (Field(1, "enable", BOOL),
+              Field(2, "client_ou_identifier", MESSAGE, message=FabricOUIdentifier),
+              Field(3, "peer_ou_identifier", MESSAGE, message=FabricOUIdentifier),
+              Field(4, "admin_ou_identifier", MESSAGE, message=FabricOUIdentifier),
+              Field(5, "orderer_ou_identifier", MESSAGE, message=FabricOUIdentifier))
+
+
+class FabricMSPConfig(Message):
+    FIELDS = (Field(1, "name", STRING), Field(2, "root_certs", BYTES, repeated=True),
+              Field(3, "intermediate_certs", BYTES, repeated=True),
+              Field(4, "admins", BYTES, repeated=True),
+              Field(5, "revocation_list", BYTES, repeated=True),
+              Field(6, "fabric_node_ous", MESSAGE, message=FabricNodeOUs),
+              Field(7, "tls_root_certs", BYTES, repeated=True),
+              Field(8, "tls_intermediate_certs", BYTES, repeated=True))
+
+
+class AnchorPeer(Message):
+    FIELDS = (Field(1, "host", STRING), Field(2, "port", INT32))
+
+
+class AnchorPeers(Message):
+    FIELDS = (Field(1, "anchor_peers", MESSAGE, repeated=True, message=AnchorPeer),)
+
+
+class OrdererAddresses(Message):
+    FIELDS = (Field(1, "addresses", STRING, repeated=True),)
+
+
+class BlockDataHashingStructure(Message):
+    FIELDS = (Field(1, "width", UINT32),)
+
+
+class HashingAlgorithm(Message):
+    FIELDS = (Field(1, "name", STRING),)
+
+
+# -- orderer.proto (the channel config's orderer values) ----------------------------
+
+
+class ConsensusType(Message):
+    FIELDS = (Field(1, "type", STRING), Field(2, "metadata", BYTES), Field(3, "state", INT32))
+
+
+class BatchSize(Message):
+    FIELDS = (Field(1, "max_message_count", UINT32), Field(2, "absolute_max_bytes", UINT32),
+              Field(3, "preferred_max_bytes", UINT32))
+
+
+class BatchTimeout(Message):
+    FIELDS = (Field(1, "timeout", STRING),)
+
+
+class RaftConsenter(Message):
+    FIELDS = (Field(1, "host", STRING), Field(2, "port", UINT32),
+              Field(3, "client_tls_cert", BYTES), Field(4, "server_tls_cert", BYTES),
+              Field(5, "identity", BYTES), Field(6, "id", STRING))
+
+
+class RaftOptions(Message):
+    FIELDS = (Field(1, "tick_interval_ms", UINT32), Field(2, "election_tick", UINT32),
+              Field(3, "heartbeat_tick", UINT32), Field(4, "max_inflight_blocks", UINT32),
+              Field(5, "snapshot_interval_size", UINT64))
+
+
+class RaftConfigMetadata(Message):
+    FIELDS = (Field(1, "consenters", MESSAGE, repeated=True, message=RaftConsenter),
+              Field(2, "options", MESSAGE, message=RaftOptions))

@@ -22,10 +22,14 @@ schema.  Decoding accepts exactly what upb accepts:
   second occurrence is parsed into the first), so two ``action``
   occurrences concatenate their endorsements; a oneof member clears
   the other members;
-* a map field (the schemas' are all string → bytes) is a repeated
-  entry message (key = 1, value = 2; the last entry of a key wins); an
-  entry carrying unknown fields stays out of the map and goes,
-  re-encoded, to the message's unknown fields, as in upb.
+* a oneof member may be a scalar (``SignaturePolicy.signed_by``): it is
+  None while unset, and set it is written even at its zero value;
+* a map field (string keys; bytes values, or sub-message values for a
+  field given ``message=``, as ``ConfigGroup.groups``) is a repeated
+  entry message (key = 1, value = 2; the last entry of a key wins; a
+  missing value is the empty bytes or message); an entry carrying
+  unknown fields stays out of the map and goes, re-encoded, to the
+  message's unknown fields, as in upb.
 
 Encoding is ``SerializeToString()``'s: fields in number order, proto3
 scalar defaults left out, a present sub-message written even when
@@ -64,13 +68,15 @@ class Field:
             raise ValueError(f"field {name}: unsupported kind {kind}")
         if repeated and kind in _VARINT_KINDS:
             raise ValueError(f"field {name}: repeated numeric fields (packed) are not supported")
-        if oneof is not None and (kind != MESSAGE or repeated):
-            raise ValueError(f"field {name}: only singular message fields may be oneof members")
+        if oneof is not None and (kind == MAP or repeated):
+            raise ValueError(f"field {name}: only singular fields may be oneof members")
         self.number, self.name, self.kind = number, name, kind
         self.repeated, self.message, self.oneof = repeated, message, oneof
         self.tag = (number << 3) | (0 if kind in _VARINT_KINDS else 2)
 
     def default(self):
+        if self.oneof is not None:
+            return None
         if self.repeated:
             return []
         if self.kind == MAP:
@@ -89,6 +95,14 @@ class Message:
 
     def __init_subclass__(cls, **kw):
         super().__init_subclass__(**kw)
+        cls.set_fields(cls.FIELDS)
+
+    @classmethod
+    def set_fields(cls, fields) -> None:
+        """Install the schema ``fields``; a recursive message (one whose
+        fields name its own class) is declared first and given its
+        fields after."""
+        cls.FIELDS = tuple(fields)
         cls._ORDER = tuple(sorted(cls.FIELDS, key=lambda f: f.number))
         cls._BY_TAG = {f.tag: f for f in cls.FIELDS}
         cls._NAMES = frozenset(f.name for f in cls.FIELDS)
@@ -139,6 +153,10 @@ class Message:
         out = bytearray()
         _encode(self, out)
         return bytes(out)
+
+    def copy(self) -> "Message":
+        """A deep copy (the reference's ``CopyFrom``)."""
+        return type(self).parse(self.serialize())
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +267,8 @@ def _merge(msg: Message, buf: bytes, pos: int, end: int, depth: int) -> None:
             msg._unknown.append(buf[start:pos])
             continue
         kind = f.kind
+        if f.oneof is not None:
+            _clear_peers(msg, f)
         if kind <= BOOL:
             v, pos = _varint(buf, pos, end)
             setattr(msg, f.name, _scalar(kind, v))
@@ -266,8 +286,6 @@ def _merge(msg: Message, buf: bytes, pos: int, end: int, depth: int) -> None:
                 _merge(sub, buf, pos, nxt, depth - 1)
                 getattr(msg, f.name).append(sub)
             else:
-                if f.oneof is not None:
-                    _clear_peers(msg, f)
                 sub = getattr(msg, f.name)
                 if sub is None:
                     sub = f.message()
@@ -278,7 +296,7 @@ def _merge(msg: Message, buf: bytes, pos: int, end: int, depth: int) -> None:
         else:  # MAP
             if depth <= 0:
                 raise DecodeError("nesting deeper than 100")
-            k, val, raw = _map_entry(buf, pos, nxt, depth - 1)
+            k, val, raw = _map_entry(buf, pos, nxt, depth - 1, f.message)
             if raw is None:
                 getattr(msg, f.name)[k] = val
             else:
@@ -297,11 +315,14 @@ def _clear_peers(msg: Message, f: Field) -> None:
         setattr(msg, name, None)
 
 
-def _map_entry(buf: bytes, pos: int, end: int, depth: int):
-    """One string → bytes map entry (key = 1, value = 2, both optional,
-    the last occurrence of each wins) → (key, value, None), or (None,
-    None, entry bytes re-encoded) for an entry with unknown fields."""
-    key, val, unknown = "", b"", []
+def _map_entry(buf: bytes, pos: int, end: int, depth: int, vmsg=None):
+    """One map entry (key = 1, value = 2, both optional; the last
+    occurrence of the key wins, a repeated message value merges) →
+    (key, value, None), or (None, None, entry bytes re-encoded) for an
+    entry with unknown fields.  ``vmsg``: the value's message class,
+    None for bytes."""
+    key, unknown = "", []
+    val = b"" if vmsg is None else vmsg()
     while pos < end:
         start = pos
         tag, pos = _tag(buf, pos, end)
@@ -310,7 +331,13 @@ def _map_entry(buf: bytes, pos: int, end: int, depth: int):
             key, pos = _utf8(buf[pos:nxt]), nxt
         elif tag == 0x12:
             pos, nxt = _length(buf, pos, end)
-            val, pos = buf[pos:nxt], nxt
+            if vmsg is None:
+                val = buf[pos:nxt]
+            else:
+                if depth <= 0:
+                    raise DecodeError("nesting deeper than 100")
+                _merge(val, buf, pos, nxt, depth - 1)
+            pos = nxt
         else:
             pos = _skip(buf, pos, end, tag, depth)
             unknown.append(buf[start:pos])
@@ -320,7 +347,10 @@ def _map_entry(buf: bytes, pos: int, end: int, depth: int):
     if key:
         entry += b"\x0a"
         _encode_value(STRING, key, entry)
-    if val:
+    if vmsg is not None:
+        entry += b"\x12"
+        _encode_value(MESSAGE, val, entry)
+    elif val:
         entry += b"\x12"
         _encode_value(BYTES, val, entry)
     return None, None, bytes(entry) + b"".join(unknown)
@@ -374,15 +404,16 @@ def _encode(msg: Message, out: bytearray) -> None:
                 _encode_value(kind, item, out)
         elif kind == MAP:
             t = varint(f.tag)
+            vkind = BYTES if f.message is None else MESSAGE
             for k in sorted(v, key=_map_order):
                 entry = bytearray(b"\x0a")
                 _encode_value(STRING, k, entry)
                 entry += b"\x12"
-                _encode_value(BYTES, v[k], entry)
+                _encode_value(vkind, v[k], entry)
                 out += t
                 out += varint(len(entry))
                 out += entry
-        elif kind == MESSAGE:
+        elif kind == MESSAGE or f.oneof is not None:
             if v is not None:
                 out += varint(f.tag)
                 _encode_value(kind, v, out)

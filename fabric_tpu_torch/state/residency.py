@@ -225,7 +225,7 @@ class ResidencyManager:
         self._evictions_total = 0
         self._write_admits_total = 0
         self._h2d_bytes_total = 0
-        self._host_path = {"oversize": 0, "range": 0}
+        self._host_path = {"oversize": 0, "range": 0, "hashed": 0}
 
     def range_of(self, ns: str, key: str) -> int:
         """Stable range id: the top ``range_bits`` bits of a 64-bit
@@ -322,7 +322,9 @@ class ResidencyManager:
 
     def route_host(self, reason: str) -> None:
         """Count a block routed to the host path: ``"oversize"`` (working
-        set larger than the table) or ``"range"`` (range queries)."""
+        set larger than the table), ``"range"`` (range queries) or
+        ``"hashed"`` (private-collection keys, which the reference's
+        resident path leaves to the host read too)."""
         with self._lock:
             self._host_path[reason] += 1
 
@@ -509,4 +511,5 @@ class ResidencyManager:
                 "h2d_bytes_total": self._h2d_bytes_total,
                 "host_path_oversize_total": self._host_path["oversize"],
                 "host_path_range_total": self._host_path["range"],
+                "host_path_hashed_total": self._host_path["hashed"],
             }

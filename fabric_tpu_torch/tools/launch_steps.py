@@ -52,9 +52,12 @@ names another ``csrc`` directory (an older commit's, unpacked with
   ``chip_smoke.py`` reports ``ms``, and the device's time alone per
   launch (200 launches captured in one CUDA graph, replayed) of the
   kernel, ``index_copy_`` and the older kernel.
-- ``small``: ``stage2_policy`` and ``resident_verok`` at their
-  ``chip_smoke.py`` shapes, outputs allocated once: device alone, host
-  microseconds and event time per call.
+- ``small``: ``stage2_policy``, ``resident_verok``, ``table_scatter``
+  and ``sha256_blocks``, each at its smallest shape (one entry, one
+  read, one row, one message) and at its path's (``chip_smoke.py``'s:
+  Eb = 1,024; T = 1,024 with 2,048 pack rows; k = 2,048 rows; 4,096 x
+  200 B): device alone (a CUDA graph), host microseconds and event time
+  per call, the launch floor of each.
 - ``comparison``: ``p256_verify_v1`` built twice more with
   ``FAB_V1_TEAM8_LANES`` set so that every batch runs at TPI = 8, or at
   4, beside the wrapper (v1 picks its team size by batch, v2 runs at
@@ -316,24 +319,68 @@ def phase_scatter(dev, parent_lib) -> None:
 
 
 def phase_small_kernels(dev) -> None:
+    """The four kernels that were never redesigned, each at its smallest
+    shape and at its path's, three ways: the device's time alone (a CUDA
+    graph), the wrapper's host microseconds and its card-clock time per
+    call.  Where the two shapes take the same device time, the kernel
+    costs its launch, whatever its shape."""
     import chip_smoke as cs
     from fabric_tpu_torch import kernels
+    from fabric_tpu_torch.ops import sha256
     from fabric_tpu_torch.peer import device_block as db
+    from fabric_tpu_torch.state import residency
 
     sv, lv, groups, sp, _ = cs.stage2_inputs(dev)
     T = lv.shape[0]
     plan, gp, Eb, S = groups[0]
     pt = torch.tensor(db.plan_vector(plan), dtype=torch.int32, device=dev)
     pok = torch.ones(T + 1, dtype=torch.int32, device=dev)
-    safe = torch.empty(Eb, dtype=torch.int8, device=dev)
-    policy = lambda: kernels.stage2_policy(sv, gp, S, len(plan.principals), pt, pok, safe)
+    P = len(plan.principals)
+
+    def policy(g):
+        safe = torch.empty(g.shape[0], dtype=torch.int8, device=dev)
+        return lambda: kernels.stage2_policy(sv, g, S, P, pt, pok, safe)
+
     (rsp, table, u_pack, rpv), _ = cs.resident_inputs(dev, 2048)
-    rlv = torch.zeros((cs.RES_T, 3), dtype=torch.int32, device=dev)
-    verok = lambda: kernels.resident_verok(rsp, cs.RES_R, table, u_pack, rpv, rlv)
-    for name, fn in (("stage2_policy", policy), ("resident_verok", verok)):
-        calls = {"device_us": lambda fn=fn: graph_us(fn), "host_us": lambda fn=fn: host_us(fn),
-                 "event_ms": lambda fn=fn: event_ms(fn)}
-        log("small_kernel", name=name, **abba(calls, lambda m: m()))
+    rsp1 = rsp[:1].clone()
+    rsp1[0, 0], rsp1[0, 1] = 0, -1
+
+    def verok(spk, up, pv):
+        rlv = torch.zeros((spk.shape[0], 3), dtype=torch.int32, device=dev)
+        return lambda: kernels.resident_verok(spk, cs.RES_R, table, up, pv, rlv)
+
+    rng = np.random.default_rng(cs.SEED + 6)
+
+    def scatter(k):
+        """(the kernel on device operands, the wrapper on host arrays
+        as the commit path calls it)"""
+        idx = rng.choice(cs.TABLE_SLOTS, k, replace=False).astype(np.int32)
+        rows = rng.integers(0, 1 << 20, (k, 3)).astype(np.int32)
+        it, rt = torch.from_numpy(idx).to(dev), torch.from_numpy(rows).to(dev)
+        return (lambda: kernels.table_scatter(table, it, rt),
+                lambda: residency.table_scatter(table, idx, rows))
+
+    def sha(msgs):
+        blocks, nb = sha256.pad_messages(msgs)
+        bt = torch.from_numpy(blocks.view(np.int32)).to(dev)
+        nt = torch.from_numpy(nb).to(dev)
+        return lambda: sha256.sha256_blocks(bt, nt)
+
+    msgs = [rng.bytes(200) for _ in range(4096)]
+    cases = (("stage2_policy", "one_entry", policy(gp[:1].contiguous())),
+             ("stage2_policy", f"path_Eb{Eb}_S{S}_P{P}", policy(gp)),
+             ("resident_verok", "one_read", verok(rsp1, u_pack[:1].contiguous(),
+                                                  rpv[:1].contiguous())),
+             ("resident_verok", f"path_T{T}_R{cs.RES_R}_Ub2048", verok(rsp, u_pack, rpv)),
+             ("table_scatter", "one_row", scatter(1)),
+             ("table_scatter", "path_k2048", scatter(2048)),
+             ("sha256_blocks", "one_message", sha([b"m"])),
+             ("sha256_blocks", "path_4096x200B", sha(msgs)))
+    for name, shape, fn in cases:
+        dev_fn, wrap = fn if isinstance(fn, tuple) else (fn, fn)
+        calls = {"device_us": lambda: graph_us(dev_fn), "host_us": lambda: host_us(wrap),
+                 "event_ms": lambda: event_ms(wrap)}
+        log("small_kernel", name=name, shape=shape, **abba(calls, lambda m: m()))
 
 
 def phase_team_sizes(dev, shapes) -> None:

@@ -420,9 +420,10 @@ def test_wire_entry_refusals(port_net):
         v.validate(blk.serialize())
     cfg = M.Envelope(payload=M.Payload(header=M.Header(
         channel_header=M.ChannelHeader(type=M.HEADER_CONFIG, tx_id="t").serialize())).serialize())
-    v.msp = port_net["pmgr"]
-    with pytest.raises(NotImplementedError, match="config"):
-        v.validate(ptxa.build_block(3, b"prev", [cfg.serialize()]))
+    # a config envelope is validated now: the reference's verdict (an
+    # unsigned, creatorless config update is BAD_CREATOR_SIGNATURE)
+    jflt, flt = _validate_both(port_net, [cfg.serialize()])
+    assert flt == jflt == bytes([C.BAD_CREATOR_SIGNATURE])
 
 
 def test_single_and_batched_assembly_agree(port_net, monkeypatch):

@@ -42,6 +42,7 @@ def test_import_brings_in_no_reference_package():
     mods = _modules()
     assert "fabric_tpu_torch.peer.validator" in mods
     assert "fabric_tpu_torch.parallel.hostpool" in mods  # the reference's pool, copied
+    assert {"fabric_tpu_torch.channelconfig", "fabric_tpu_torch.tools.configtxgen"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -56,6 +57,7 @@ def test_import_brings_in_no_reference_package():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "fabric_tpu_torch.ops.p256v3" in loaded
     assert "fabric_tpu_torch.sidecar.server" in loaded
+    assert "fabric_tpu_torch.channelconfig" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 

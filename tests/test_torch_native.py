@@ -20,11 +20,12 @@ g++) on the CPU.
 * ``ops/mvcc.prepare_block_from_flat`` is byte-equal to
   ``prepare_block_static`` (``packed_static``, ``packed_read_pv``, read
   keys, unique pairs, host version check) in both forms.
-* On the corpus as wire blocks (less the envelopes the port refuses),
-  the validator's columnar policy groups (``_device_pre_columnar``)
-  equal its entry-by-entry groups (``_device_preprocess``) where a block
+* On the corpus as wire blocks (config envelopes included), the
+  validator's columnar policy groups (``_device_pre_columnar``) equal
+  its entry-by-entry groups (``_device_preprocess``) where a block
   allows them, and the plain stage 2 gives the same verdicts over
-  either.
+  either; each config envelope of the corpus, alone in a block, gets the
+  JAX ``BlockValidator``'s code.
 
 Exact equality throughout."""
 
@@ -39,10 +40,14 @@ from test_native_fuzz import _mutate
 
 from fabric_tpu import protoutil as pu
 from fabric_tpu.crypto import cryptogen
+from fabric_tpu.crypto.msp import MSPManager as JMSPManager
+from fabric_tpu.ledger.statedb import MemVersionedDB as JMemDB
 from fabric_tpu.ledger.rwset import TxRWSet as JTxRWSet
 from fabric_tpu.native import blockparse as jbp
 from fabric_tpu.native import mvccprep_py as jmv
 from fabric_tpu.peer import txassembly as txa
+from fabric_tpu.peer.validator import BlockValidator as JBlockValidator
+from fabric_tpu.peer.validator import PolicyProvider as JPolicyProvider
 from fabric_tpu.protos import common_pb2
 from fabric_tpu_torch import carry
 from fabric_tpu_torch.crypto import ec_ref
@@ -71,6 +76,7 @@ def net():
     return {
         "pmgr": pmsp.MSPManager({o.msp_id: pmsp.MSP(o.msp_id, [o.ca.cert_pem])
                                  for o in (org1, org2)}),
+        "jmgr": JMSPManager({o.msp_id: o.msp() for o in (org1, org2)}),
         "client": cryptogen.signing_identity(org1, "User1@org1.native.example.com"),
         "peers": [cryptogen.signing_identity(org1, "peer0.org1.native.example.com"),
                   cryptogen.signing_identity(org1, "peer1.org1.native.example.com"),
@@ -154,24 +160,39 @@ CORPUS_POLICIES = {CC: "OutOf(2, 'Org1MSP.peer', 'Org2MSP.peer')",
 
 @pytest.fixture(scope="module")
 def corpus_blocks(net, corpus):
-    """The corpus as wire blocks, less the envelopes the port refuses
-    (the config envelope, and any mutation that became one): each is
-    parsed alone first."""
+    """The corpus as wire blocks: the port refuses none of its envelopes
+    now, and the config envelope (with any mutation that became one) is
+    kept — each is parsed alone first."""
     v = _corpus_validator(net)
-    out, refused = [], 0
+    out, refused, configs = [], 0, []
     for b, envs in enumerate(corpus):
         keep = []
         for e in envs:
+            blk = M.Block(header=M.BlockHeader(number=2 + b), data=M.BlockData(data=[e]))
             try:
-                v._parse_wire(M.Block(header=M.BlockHeader(number=2 + b),
-                                      data=M.BlockData(data=[e])))
+                _, txs, _ = v._parse_wire(blk)
             except NotImplementedError:
                 refused += 1
                 continue
+            if txs[0].is_config:
+                configs.append(e)
             keep.append(e)
         out.append(M.Block(header=M.BlockHeader(number=2 + b), data=M.BlockData(data=keep)))
-    assert 1 <= refused <= 4
+    assert refused == 0 and 1 <= len(configs) <= 4
+    net["configs"] = configs
     return out
+
+
+def test_corpus_config_envelopes_match_reference(net, corpus_blocks):
+    """Each config envelope the corpus keeps, alone in block 3: the
+    port's code is the JAX ``BlockValidator``'s (no config processor
+    on either side: the creator check, then the ConfigEnvelope parse)."""
+    for e in net["configs"]:
+        raw = M.Block(header=M.BlockHeader(number=3), data=M.BlockData(data=[e]))
+        jblk = common_pb2.Block.FromString(raw.serialize())
+        jflt, _, _ = JBlockValidator(net["jmgr"], JPolicyProvider({}), JMemDB()).validate(jblk)
+        flt, _, _ = _corpus_validator(net).validate(raw)
+        assert bytes(flt) == bytes(jflt)
 
 
 def _corpus_validator(net, state=None):
@@ -205,7 +226,7 @@ def test_columnar_groups_match_entry_groups_on_corpus(net, corpus_blocks, block)
     v = _corpus_validator(net)
     wb, txs, items = v._parse_wire(blk)
     wb2, txs2, _ = v._parse_wire(blk)
-    live = np.array([t.undetermined for t in txs2])
+    live = np.array([t.undetermined and not t.is_config for t in txs2])
     col = v._device_pre_columnar(txs, wb)
     gen = v._device_preprocess(txs2, wb2)
     assert (col is None) == bool((live & ~wb2.flat).any())

@@ -222,12 +222,15 @@ def _decode(blk, parser, mgr, known):
         dtx = pv.DecodedTx(txid=ptx.txid, code=int(ptx.code), txid_bound=bound,
                            rwset=_port_rwset(ptx.rwset) if ptx.rwset is not None else None,
                            is_config=ptx.is_config)
+        if ptx.is_config:
+            env = pu.unmarshal(common_pb2.Envelope, raw)
+            dtx.config_data = pu.unmarshal(common_pb2.Payload, env.payload).data
         tuples = items.tuples()
         if ptx.creator_item_idx >= 0:
             e, r, s, _, _ = tuples[ptx.creator_item_idx]
             dtx.creator = ident(mgr.deserialize_identity(ptx.creator))
             dtx.creator_sig = (e, r, s)
-        if ptx.code == C.NOT_VALIDATED:
+        if ptx.code == C.NOT_VALIDATED and not ptx.is_config:
             env = pu.unmarshal(common_pb2.Envelope, raw)
             _, _, cap, _, _ = pu.extract_action(env)
             prp = cap.action.proposal_response_payload
@@ -297,37 +300,71 @@ def test_pipeline_matches_reference(streams, depth, monkeypatch):
     assert host_redos, "no block took the consumption-unsafe host redo"
 
 
-def _unsupported_blocks():
-    ident = Identity("Org1MSP", "client", 1, 2)
+def _content_envelope(net, kind) -> bytes:
+    """One signed envelope (the reference's assembly) carrying what a
+    slice of the port added: a config transaction, a key-level policy
+    write, a hashed private-collection set, a namespace with an
+    unregistered plugin."""
+    if kind == "config":
+        from fabric_tpu.protos import configtx_pb2
+        from fabric_tpu.tools import configtxgen as jcg
 
-    def tx(**kw):
-        rw = TxRWSet()
-        rw.ns_rwset(CC).writes["k"] = b"v"
-        base = dict(txid="t", creator=ident, creator_sig=(1, 1, 1), rwset=rw)
-        base.update(kw)
-        return pv.DecodedTx(**base)
+        return jcg.config_tx(CHANNEL, configtx_pb2.Config(sequence=1),
+                             configtx_pb2.ConfigUpdateEnvelope(),
+                             signer=net["client"]).SerializeToString()
+    from fabric_tpu.crypto.msp import policy_to_proto
+    from fabric_tpu.ledger.rwset import VALIDATION_PARAMETER
 
-    meta, hashed = TxRWSet(), TxRWSet()
-    meta.ns_rwset(CC).metadata_writes["k"] = {"VALIDATION_PARAMETER": b"p"}
-    hashed.ns_rwset(CC).hashed["coll"] = {"reads": {}, "writes": {}}
-    plug = TxRWSet()
-    plug.ns_rwset("plugged").writes["k"] = b"v"
-    return {
-        "config": tx(is_config=True),
-        "idemix": tx(creator=Identity("IdemixMSP", "client", None, None)),
-        "sbe": tx(rwset=meta),
-        "pvtdata": tx(rwset=hashed),
-        "plugin": tx(rwset=plug),
-    }
+    tx = JTxRWSet()
+    ns = "plugged" if kind == "plugin" else CC
+    n = tx.ns_rwset(ns)
+    n.writes["k"] = b"v"
+    if kind == "sbe":
+        n.metadata_writes["k"] = {VALIDATION_PARAMETER: policy_to_proto(
+            jpol.from_dsl("OutOf(1, 'Org2MSP.peer')")).SerializeToString()}
+    if kind == "pvtdata":
+        n.hashed["coll"] = {"reads": {hashlib.sha256(b"r").digest(): None},
+                            "writes": {hashlib.sha256(b"w").digest():
+                                       (hashlib.sha256(b"v").digest(), False)}}
+    rw = tx.to_proto().SerializeToString()
+    _, _, prop = txa.create_signed_proposal(net["client"], CHANNEL, ns, [b"i"])
+    resps = [txa.create_proposal_response(prop, rw, e, ns) for e in net["peers"][:2]]
+    return txa.assemble_transaction(prop, resps, net["client"]).SerializeToString()
 
 
 @pytest.mark.parametrize("kind", ["config", "idemix", "sbe", "pvtdata", "plugin"])
-def test_unsupported_block_content_raises(kind):
+def test_unsupported_block_content_raises(net, kind):
+    """An idemix creator is the one block content the port still
+    refuses (the next slice); config transactions, key-level policy
+    writes, hashed sets and plugin namespaces now get the reference's
+    verdict and update batch on the same block."""
     prov = pv.PolicyProvider({
         CC: pv.NamespaceInfo(policy=pol.from_dsl(POLICIES[CC])),
         "plugged": pv.NamespaceInfo(policy=pol.from_dsl(POLICIES[CC]), plugin="vscc2"),
     })
     v = pv.BlockValidator(prov, MemVersionedDB(), device="cpu")
-    block = pv.DecodedBlock(number=3, txs=[_unsupported_blocks()[kind]])
-    with pytest.raises(NotImplementedError, match="later slice"):
-        v.validate(block)
+    if kind == "idemix":
+        rw = TxRWSet()
+        rw.ns_rwset(CC).writes["k"] = b"v"
+        dtx = pv.DecodedTx(txid="t", creator=Identity("IdemixMSP", "client", None, None),
+                           creator_sig=(1, 1, 1), rwset=rw)
+        with pytest.raises(NotImplementedError, match="later slice"):
+            v.validate(pv.DecodedBlock(number=3, txs=[dtx]))
+        return
+    blk = pu.new_block(3, b"prev")
+    blk.data.data.append(_content_envelope(net, kind))
+    blk = pu.finalize_block(blk)
+    jprov = JPolicyProvider({
+        CC: JNamespaceInfo(policy=jpol.from_dsl(POLICIES[CC])),
+        "plugged": JNamespaceInfo(policy=jpol.from_dsl(POLICIES[CC]), plugin="vscc2"),
+    })
+    jflt, jbatch, jhist = JBlockValidator(net["mgr"], jprov, JMemDB()).validate(blk)
+    parser = JBlockValidator(net["mgr"], jprov, JMemDB())
+    flt, batch, hist = v.validate(_decode(blk, parser, net["mgr"], {}))
+    assert bytes(flt) == bytes(jflt)
+    assert _meta_rows(batch) == _meta_rows(jbatch) and hist == list(jhist)
+    assert bytes(flt) == bytes([C.INVALID_OTHER_REASON if kind == "plugin" else C.VALID])
+
+
+def _meta_rows(batch):
+    return sorted((k, vv.value, vv.metadata, vv.version) for k, vv in batch.updates.items())
