@@ -41,26 +41,26 @@ size the resident path launched it with, hit, miss, overlay and
 deleted lanes each on >= 10% of the reads, and ``table_scatter`` at
 k = 16 and 2048 beside ``index_copy_`` (8 alternating turns, medians)
 with the wrapper's host microseconds per call.  The sign lane: 8 client
-threads signing 2,000 digests through
+threads signing 500 digests through
 ``SignBatcher(device_sign_backend(...))``, equal to
 ``cpu_sign_backend``; then ``p256_sign`` against its plain version at
 4,096 and 256 (the default ``batch_max``) lanes (edge nonces included)
 and at every bucket the lane launched it with, up to 256 lanes of each
 against ``ec_ref``, and fixed-nonce signatures against ``ec_ref`` and
-through ``p256_verify``.  The wire path: 13 bench-shaped 1000-tx blocks
+through ``p256_verify``.  The wire path: 9 bench-shaped 1000-tx blocks
 in wire format, built with the port's cryptogen and
-``build_envelopes`` and signed on the card (39,000 digests, 64 checked
+``build_envelopes`` and signed on the card (27,000 digests, 64 checked
 against ``ec_ref``), every 20th transaction invalid in one of nine
 ways, through ``CommitPipeline(depth=2)`` with the port's MSP (the
 columnar parse: one ``native/blockparse.cpp``, one
 ``native/ecprep.cpp`` and one ``native/mvccprep.cpp`` call a block),
-the first block alone and then the other 12, each with the phase
+the first block alone and then the other 8, each with the phase
 timers; checked against construction and against the same blocks
 decoded by ``decode_block`` through the ``DecodedBlock`` entry
 (filters, update batches, history), with the front end's decode time
 per block beside ``host_parse``, the envelopes the front end decoded,
 the read/write sets parsed in Python, and the card's busy share.  The
-coalesced path: the same 13 blocks through
+coalesced path: the same 9 blocks through
 ``CommitPipeline(coalesce_blocks=4).submit_many`` (one ``p256_verify``
 launch a group of 4, 12,288 lanes), with a host staging pool of one
 worker a core and without, each block equal to the wire path's.  The
@@ -77,7 +77,7 @@ boundaries, a ragged M = 8 batch and the first wire block's signed
 messages against ``hashlib`` (its launches counted), then
 ``sha256_blocks`` against its plain version at each, timed at the bench
 shape beside serial ``hashlib``.  The comparison verifiers: the main
-path's 4 bench-shaped blocks through ``CommitPipeline(depth=2)`` over
+path's bench-shaped blocks through ``CommitPipeline(depth=2)`` over
 ``BlockValidator(kernel="v1")`` and then ``"v2"`` (no stage 2, host
 policy, ``mvcc_validate``), equal to the v3 main path; then each kernel
 (``p256_verify_v1``, ``p256_verify_v2``, both teams of threads a lane)
@@ -90,10 +90,14 @@ line's, and ``bound_needed_ms``, the yardstick ``p256_verify``
 shares).  The sidecar: a ``SidecarServer`` on 127.0.0.1 (coalesce 4, 8
 queued blocks per tenant) serving 3 tenants of
 weights 1, 1 and 2 at once, each a ``SidecarValidator`` under
-``CommitPipeline(depth=2)`` over its own copy of the 4 blocks, equal to
+``CommitPipeline(depth=2)`` over its own copy of the main path's blocks, equal to
 the main path, one ``p256_verify`` launch per dispatch; then one
 block's batch through a ``SidecarLink`` to a v1 and a v2 server, equal
-to the in-process v3 verdicts.  Each path's launch counts are reset just
+to the in-process v3 verdicts.  BASELINE config 4's path
+(``config4_path``) and config 5's (``config5_path``: an idemix org
+beside three X.509 orgs, 2% anonymous creators whose proofs are checked
+on the host, an epoch-record rotation at a barrier); their functions
+say what each checks.  Each path's launch counts are reset just
 before it and read just after; a kernel's entry in the kernels line
 gives its time at the shape its path launched it with most often.  Then the kernels line (JSON),
 the card's name and power limit as nvidia-smi reports them, and the
@@ -121,7 +125,7 @@ import numpy as np
 import torch
 
 SEED = 20261017
-N_BLOCKS = 4
+N_BLOCKS = 2
 BLOCK_TXS = 1000
 POOL = 128
 VERIFY_LANES = 3072
@@ -130,8 +134,12 @@ PEAK_BYTES_S = 3.35e12
 PEAK_INT32_S = 132 * 64 * 1.98e9
 
 
+_T0 = time.perf_counter()
+
+
 def log(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line; ``at_s``: seconds since the script started."""
+    print(json.dumps({"phase": phase, **kw, "at_s": time.perf_counter() - _T0}), flush=True)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1010,7 +1018,7 @@ def phase_resident_path(net: Net):
 # Phase 8: the sign lane
 
 
-SIGN_CLIENTS, SIGN_DIGESTS = 8, 2000
+SIGN_CLIENTS, SIGN_DIGESTS = 8, 500
 SIGN_LANES = (4096, 256)  # the last is the batcher's default batch_max
 
 
@@ -1250,7 +1258,7 @@ def build_wire_blocks(wn: WireNet, n_blocks: int = N_BLOCKS, n_tx: int = BLOCK_T
 
 
 WIRE_NAMESPACES = {CC: NAMESPACES[CC]}
-WIRE_BLOCKS = 13  # the first block reported apart, then 12
+WIRE_BLOCKS = 9  # the first block reported apart, then 8
 
 
 def phase_wire_path(dev):
@@ -1343,8 +1351,8 @@ def phase_coalesced_path(dev, wired):
     """The wire path's blocks through ``CommitPipeline(coalesce_blocks=4)``
     (``submit_many``: one ``preprocess_many``, so one ``p256_verify``
     launch, a group), with a staging pool of one worker a core and
-    without: the first block (a group of one) apart, then the other 12
-    in three groups of 4; filters, update batches and history equal to
+    without: the first block (a group of one) apart, then the others in
+    groups of 4; filters, update batches and history equal to
     the construction's and the single-block wire path's, block by
     block; then the pooled run's busy time under the profiler."""
     from fabric_tpu_torch import carry, kernels
@@ -1381,7 +1389,7 @@ def phase_coalesced_path(dev, wired):
             bk = [bucket(len(r.pend.items)) for r in res]
             want = Counter([bk[0]] + [bucket(sum(bk[g:g + COALESCE]))
                                       for g in range(1, len(bk), COALESCE)])
-            if counts["p256_verify"] != 4 or lanes != want:
+            if counts["p256_verify"] != sum(want.values()) or lanes != want:
                 raise AssertionError(f"coalesced path: p256_verify launches {lanes}, "
                                      f"want {dict(want)}")
             zero = [k for k in ("stage2_policy", "stage2_mvcc") if counts[k] == 0]
@@ -1693,7 +1701,7 @@ def _v2_schedule_counts(fn):
 
 
 def comparison_path(net: Net, kernel: str, name: str, main_res):
-    """The main path's 4 bench-shaped blocks through CommitPipeline(depth=2)
+    """The main path's bench-shaped blocks through CommitPipeline(depth=2)
     over BlockValidator(kernel=...) → (launch counts, the lane shape the
     path launched ``name`` with most often)."""
     from fabric_tpu_torch import carry, kernels
@@ -1853,7 +1861,7 @@ def sidecar_kernel_check(frames, shapes):
 def phase_sidecar(net: Net, main_res):
     """A SidecarServer on localhost serving 3 concurrent tenants, each a
     SidecarValidator under CommitPipeline(depth=2) over its own copy of
-    the 4 bench blocks, with ``p256_verify`` then held against its plain
+    the bench blocks, with ``p256_verify`` then held against its plain
     version at every shape the server launched it with; then one block's
     batch through a SidecarLink to a v1 and a v2 server against the
     in-process v3 verdicts."""
@@ -1970,8 +1978,8 @@ CONFIG4_NS = {
     "pvtcc": "OutOf(2, 'Org1MSP.peer', 'Org2MSP.peer', 'Org3MSP.peer', 'Org4MSP.peer')",
     "sbecc": "OutOf(1, 'Org1MSP.peer', 'Org2MSP.peer', 'Org3MSP.peer', 'Org4MSP.peer')",
 }
-CONFIG4_BLOCKS = 13             # after the genesis block; the first reported apart
-CONFIG4_SBE_BLOCKS = (3, 6, 9, 12)  # writes to keys with a key-level policy
+CONFIG4_BLOCKS = 10             # after the genesis block; the first reported apart
+CONFIG4_SBE_BLOCKS = (3, 6, 9)  # writes to keys with a key-level policy
 CONFIG4_CONFIG_AT = {7: "majority", 10: "one_admin"}
 CONFIG4_STATE = {"public": 200_000, "hashed": 50_000, "sbecc": 20_000, "locked": 2_000}
 
@@ -2129,6 +2137,116 @@ def build_config4(n_blocks=CONFIG4_BLOCKS, n_tx=BLOCK_TXS, state=CONFIG4_STATE,
             "n_signed": len(specs) * 3}
 
 
+def channel_validator(dev, channel, genesis, rows, namespaces):
+    """A ``BlockValidator`` on ``dev`` over a channel's genesis block
+    (its bundle's MSP manager and ``ConfigTxProcessor``), the state
+    ``rows`` and the namespace policies; the genesis block validated."""
+    from fabric_tpu_torch import carry
+    from fabric_tpu_torch import channelconfig as cc
+    from fabric_tpu_torch.crypto import policy as pol
+    from fabric_tpu_torch.peer.txcodes import TxValidationCode as C
+    from fabric_tpu_torch.peer.validator import BlockValidator, NamespaceInfo, PolicyProvider
+
+    state, _, _ = carry.from_reference(rows, {}, [])
+    prov = PolicyProvider({ns: NamespaceInfo(policy=pol.from_dsl(d))
+                           for ns, d in namespaces.items()})
+    proc = cc.ConfigTxProcessor(cc.bundle_from_genesis(channel, genesis))
+    v = BlockValidator(prov, state, device=dev, msp=proc.bundle.msp_manager,
+                       config_processor=proc)
+    v.blocks = TxidStore()
+    flt, _, _ = v.validate(genesis)  # the channel's trust anchor
+    if bytes(flt) != bytes([C.VALID]):
+        raise AssertionError(f"{channel}: genesis block gave {list(flt)}")
+    return v
+
+
+def run_channel(v, blocks, dev, timings=None, host_only=False):
+    """``blocks`` through ``CommitPipeline(depth=2)``, each committed
+    config applied (``apply_committed_config``) → ([CommittedBlock],
+    seconds, the numbers of the blocks that took ``_validate_host``, the
+    pipeline, per-block completion seconds).  ``host_only``: every block
+    forced onto ``_validate_host``."""
+    from fabric_tpu_torch import channelconfig as cc
+    from fabric_tpu_torch.peer.pipeline import CommitPipeline
+
+    host_blocks = []
+    orig = v._validate_host
+
+    def host(pending):
+        host_blocks.append(pending.block.number)
+        return orig(pending)
+
+    v._validate_host = host
+    if host_only:
+        v.validate_finish = host
+    v.timings = timings
+
+    def commit(res):
+        t1 = time.perf_counter()
+        v.state.apply_updates(res.batch)
+        v.blocks.txids.update(t for t, _ in res.txids)
+        cc.apply_committed_config(res, v)
+        v._t("ledger_commit", t1)
+
+    out, marks = [], []
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    try:
+        with CommitPipeline(v, commit, depth=2) as pipe:
+            for blk in blocks:
+                r = pipe.submit(blk)
+                if r is not None:
+                    out.append(r)
+                    marks.append(time.perf_counter() - t1)
+            r = pipe.flush()
+            if r is not None:
+                out.append(r)
+                marks.append(time.perf_counter() - t1)
+    finally:
+        del v._validate_host
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t1, host_blocks, pipe, marks
+
+
+@contextlib.contextmanager
+def first_mvcc_validate():
+    """Inside, the first ``mvcc_validate`` call on the card is kept (its
+    operands and outputs, cloned) in the list this yields."""
+    from fabric_tpu_torch.ops import mvcc as mvcc_ops
+
+    seen, orig = [], mvcc_ops.mvcc_validate
+
+    def capture(*args):
+        out = orig(*args)
+        if not seen and args[0].device.type == "cuda":
+            seen.append(([a.clone() for a in args], [o.clone() for o in out]))
+        return out
+
+    mvcc_ops.mvcc_validate = capture
+    try:
+        yield seen
+    finally:
+        mvcc_ops.mvcc_validate = orig
+
+
+def mvcc_mismatches(seen, path: str):
+    """The kept ``mvcc_validate`` call against its plain version → the
+    mismatched lanes (0, or it raises), None when none was kept."""
+    from fabric_tpu_torch.ops import mvcc as mvcc_ops
+
+    if not seen:
+        return None
+    args, outs = seen[0]
+    ref = mvcc_ops.mvcc_validate_ref(*[a.cpu() for a in args])
+    mism = int(sum((o.cpu() != r).sum().item() for o, r in zip(outs, ref)))
+    if mism:
+        raise AssertionError(f"{path}: mvcc_validate differs from its plain version "
+                             f"in {mism} lanes")
+    return mism
+
+
 def phase_config4_path(dev, built=None, check_launches=True):
     """BASELINE config 4's validation path: the genesis block seeds the
     bundle, then the blocks through ``CommitPipeline(depth=2)`` on
@@ -2137,13 +2255,7 @@ def phase_config4_path(dev, built=None, check_launches=True):
     admins that rotates the MSP manager at its barrier, and one signed by
     one admin that must be invalid) → the launch counts.  Every block
     equals the port's own ``_validate_host`` over the same blocks."""
-    from fabric_tpu_torch import carry, kernels
-    from fabric_tpu_torch import channelconfig as cc
-    from fabric_tpu_torch.crypto import policy as pol
-    from fabric_tpu_torch.ops import mvcc as mvcc_ops
-    from fabric_tpu_torch.peer.pipeline import CommitPipeline
-    from fabric_tpu_torch.peer.txcodes import TxValidationCode as C
-    from fabric_tpu_torch.peer.validator import BlockValidator, NamespaceInfo, PolicyProvider
+    from fabric_tpu_torch import kernels
     from fabric_tpu_torch.protos import messages as m
 
     t0 = time.perf_counter()
@@ -2155,80 +2267,18 @@ def phase_config4_path(dev, built=None, check_launches=True):
         signed_on_card=built["n_signed"], seconds=time.perf_counter() - t0,
         state_rows=len(built["rows"]), state=CONFIG4_STATE)
 
-    def validator():
-        state, _, _ = carry.from_reference(built["rows"], {}, [])
-        prov = PolicyProvider({ns: NamespaceInfo(policy=pol.from_dsl(d))
-                               for ns, d in CONFIG4_NS.items()})
-        proc = cc.ConfigTxProcessor(cc.bundle_from_genesis(CONFIG4_CHANNEL, genesis))
-        v = BlockValidator(prov, state, device=dev, msp=proc.bundle.msp_manager,
-                           config_processor=proc)
-        v.blocks = TxidStore()
-        flt, _, _ = v.validate(genesis)  # the channel's trust anchor
-        if bytes(flt) != bytes([C.VALID]):
-            raise AssertionError(f"config4: genesis block gave {list(flt)}")
-        return v
-
-    def run(v, blocks, timings=None, host_only=False):
-        host_blocks = []
-        orig = v._validate_host
-
-        def host(pending):
-            host_blocks.append(pending.block.number)
-            return orig(pending)
-
-        v._validate_host = host
-        if host_only:
-            v.validate_finish = host
-        v.timings = timings
-
-        def commit(res):
-            t1 = time.perf_counter()
-            v.state.apply_updates(res.batch)
-            v.blocks.txids.update(t for t, _ in res.txids)
-            cc.apply_committed_config(res, v)
-            v._t("ledger_commit", t1)
-
-        out, marks = [], []
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        try:
-            with CommitPipeline(v, commit, depth=2) as pipe:
-                for blk in blocks:
-                    r = pipe.submit(blk)
-                    if r is not None:
-                        out.append(r)
-                        marks.append(time.perf_counter() - t1)
-                r = pipe.flush()
-                if r is not None:
-                    out.append(r)
-                    marks.append(time.perf_counter() - t1)
-        finally:
-            del v._validate_host
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        return out, time.perf_counter() - t1, host_blocks, pipe, marks
-
-    # one mvcc_validate call of the path held against its plain version
-    seen_mvcc = []
-    orig_mvcc = mvcc_ops.mvcc_validate
-
-    def capture(*args):
-        out = orig_mvcc(*args)
-        if not seen_mvcc and args[0].device.type == "cuda":
-            seen_mvcc.append(([a.clone() for a in args], [o.clone() for o in out]))
-        return out
+    validator = lambda: channel_validator(dev, CONFIG4_CHANNEL, genesis, built["rows"],
+                                          CONFIG4_NS)
+    run = lambda v, blocks, timings=None, host_only=False: run_channel(
+        v, blocks, dev, timings, host_only)
 
     v = validator()
     msp0 = v.msp
     kernels.reset_counts()
-    mvcc_ops.mvcc_validate = capture
-    try:
+    with first_mvcc_validate() as seen_mvcc:
         first_t, rest_t = {}, {}
         res, first_s, host1, pipe1, _ = run(v, wire[:1], first_t)
         rest, secs, host2, pipe2, marks = run(v, wire[1:], rest_t)
-    finally:
-        mvcc_ops.mvcc_validate = orig_mvcc
     counts = dict(kernels.launches)
     res += rest
     host_route = set(host1 + host2)
@@ -2252,14 +2302,7 @@ def phase_config4_path(dev, built=None, check_launches=True):
     barriers = sorted(r.block.number for r in res if r.barrier)
     if barriers != sorted(CONFIG4_CONFIG_AT) or not rotated:
         raise AssertionError(f"config4 barriers {barriers}, MSP rotated {rotated}")
-    mism = None
-    if seen_mvcc:
-        args, outs = seen_mvcc[0]
-        ref = mvcc_ops.mvcc_validate_ref(*[a.cpu() for a in args])
-        mism = int(sum((o.cpu() != r).sum().item() for o, r in zip(outs, ref)))
-        if mism:
-            raise AssertionError(f"config4: mvcc_validate differs from its plain version "
-                                 f"in {mism} lanes")
+    mism = mvcc_mismatches(seen_mvcc, "config4")
     if check_launches:
         zero = [k for k in MAIN_PATH_KERNELS if counts[k] == 0]
         if zero:
@@ -2285,6 +2328,336 @@ def phase_config4_path(dev, built=None, check_launches=True):
         barrier_blocks=barriers, msp_rotated=rotated,
         stale_reprocessed=pipe1.stale_prefetches + pipe2.stale_prefetches,
         launches={n: counts[n] for n in MAIN_PATH_KERNELS},
+        mvcc_validate_checked_lanes=(int(seen_mvcc[0][0][0].shape[0]) if seen_mvcc else 0),
+        mvcc_validate_mismatches=mism, equal_to_host_path=True, equal_to_construction=True)
+    return counts
+
+
+# BASELINE config 5 (integration/idemix: an idemix client org beside X.509
+# peer orgs, anonymous-credential creators), its peer-side validation path
+CONFIG5_CHANNEL = "config5chan"
+CONFIG5_IDX = "IdemixOrgMSP"
+CONFIG5_NS = {"basic": "OutOf(2, 'Org1MSP.peer', 'Org2MSP.peer', 'Org3MSP.peer')"}
+CONFIG5_BLOCKS = 9             # after the genesis block; the first reported apart
+CONFIG5_ROTATE_AT = 5          # the epoch-record rotation's config block
+CONFIG5_ANON_EVERY = 50        # one idemix creator in 50 transactions (2%)
+CONFIG5_HOLDERS = 4            # idemix clients; the last is revoked at the rotation
+CONFIG5_STATE = 200_000        # public keys
+CONFIG5_ISSUER_BITS = 2048     # the reference's default modulus
+
+
+class HostSigner:
+    """An idemix holder's signer (``IdemixSigningIdentity``) whose
+    serialized identity may disclose another ``role`` than its
+    credential holds (its proofs then fail), adding its signing seconds
+    and count to ``clock``."""
+
+    def __init__(self, signer, clock: dict, role: str | None = None):
+        self.signer, self.clock, self.role = signer, clock, role
+
+    @property
+    def serialized(self) -> bytes:
+        if self.role is None:
+            return self.signer.serialized
+        from fabric_tpu_torch.protos import messages as m
+
+        attrs = {"type": "idemix", "ou": self.signer.cred.ou, "role": self.role}
+        return m.SerializedIdentity(mspid=self.signer.msp_id, id_bytes=json.dumps(
+            attrs, sort_keys=True).encode()).serialize()
+
+    def sign(self, message: bytes) -> bytes:
+        t0 = time.perf_counter()
+        out = self.signer.sign(message)
+        self.clock["seconds"] += time.perf_counter() - t0
+        self.clock["presentations"] += 1
+        return out
+
+
+def build_config5(n_blocks=CONFIG5_BLOCKS, n_tx=BLOCK_TXS, state=CONFIG5_STATE,
+                  bits=CONFIG5_ISSUER_BITS, sign_batch=None, seed=SEED + 50):
+    """Config 5's channel and blocks → dict: the genesis block (Org1-3
+    X.509 with one peer each, and ``IdemixOrgMSP`` with its epoch-0
+    record), the wire blocks, the seed state rows, the construction's
+    code of every transaction, the signing clocks.  Each transaction
+    reads and writes 2 keys; one in 50 has an idemix creator, from
+    ``CONFIG5_HOLDERS`` holders (in each block the first one's proof is
+    tampered with and the second discloses the wrong role); one a block
+    has an idemix second endorser (dropped: the 2-of-3 policy fails);
+    5% of the X.509 creator signatures are bad.  Block
+    ``CONFIG5_ROTATE_AT`` replaces the idemix org's MSP config with the
+    epoch-1 record (the last holder revoked, the others re-issued),
+    signed by the Org1 and Org2 admins and an idemix admin's
+    presentation; after it the revoked holder's creators fail and the
+    others present epoch-1 credentials."""
+    import random
+
+    from fabric_tpu_torch import channelconfig as cc
+    from fabric_tpu_torch.crypto import cryptogen, idemix
+    from fabric_tpu_torch.ledger.rwset import TxRWSet
+    from fabric_tpu_torch.peer import txassembly as txa
+    from fabric_tpu_torch.peer.txcodes import TxValidationCode as C
+    from fabric_tpu_torch.protos import messages as m
+    from fabric_tpu_torch.tools import configtxgen as cg
+
+    signer = sign_batch or card_signer
+    rng = np.random.default_rng(seed)
+    prng = random.Random(seed)
+    t0 = time.perf_counter()
+    orgs = [cryptogen.generate_org(f"Org{i}MSP", f"org{i}.config5.example.com", rng,
+                                   now=WIRE_NOW, sign_batch=signer) for i in (1, 2, 3)]
+    peers = [o.nodes[f"peer0.org{i}.config5.example.com"] for i, o in zip((1, 2, 3), orgs)]
+    admins = [o.users[f"Admin@org{i}.config5.example.com"] for i, o in zip((1, 2, 3), orgs)]
+    client = orgs[0].users["User1@org1.config5.example.com"]
+    t1 = time.perf_counter()
+    iss = idemix.IdemixIssuer(CONFIG5_IDX, bits=bits, rng=prng)
+    keygen_s = time.perf_counter() - t1
+    holders, creds0 = {}, {}
+    names = [f"holder{k}" for k in range(CONFIG5_HOLDERS)] + ["admin"]
+    for name in names:
+        role = "admin" if name == "admin" else "client"
+        h = idemix.IdemixHolder(iss.ipk, prng)
+        U, proof = h.commitment()
+        creds0[name] = h.assemble(*iss.issue(U, proof, ou="org1", role=role, handle=name),
+                                  ou="org1", role=role, epoch=iss.epoch)
+        holders[name] = h
+    rec0 = iss.epoch_record
+    revoked = names[CONFIG5_HOLDERS - 1]
+    iss.revoke(revoked)
+    rec1 = iss.epoch_record
+    creds1 = {}
+    for name in names:
+        if name != revoked:
+            role = creds0[name].role
+            U, proof = holders[name].commitment()
+            creds1[name] = holders[name].assemble(
+                *iss.issue(U, proof, ou="org1", role=role, handle=name), ou="org1", role=role,
+                epoch=iss.epoch)
+    issue_s = time.perf_counter() - t1 - keygen_s
+    clock = {"seconds": 0.0, "presentations": 0}
+
+    def anon(name, epoch, role=None):
+        cred = (creds0 if epoch == 0 else creds1)[name]
+        return HostSigner(idemix.IdemixSigningIdentity(CONFIG5_IDX, iss.ipk, cred, prng),
+                          clock, role)
+
+    profile = cg.Profile(CONFIG5_CHANNEL, application_orgs=[
+        cg.OrgProfile(o.msp_id, o.msp()) for o in orgs] + [
+        cg.OrgProfile(CONFIG5_IDX, idemix.IdemixMSP(CONFIG5_IDX, iss.ipk, rec0))],
+        raft_consenters=[(f"orderer{i}.config5.example.com", 7050) for i in range(3)])
+    genesis = cg.genesis_block(profile)
+    bundle = cc.bundle_from_genesis(CONFIG5_CHANNEL, genesis)
+    rows = [("basic", f"k{j:07d}", b"genesis", (1, 0)) for j in range(state)]
+
+    def rotation():
+        cur = bundle.config
+        new = cur.copy()
+        new.channel_group.groups["Application"].groups[CONFIG5_IDX].values["MSP"].value = \
+            idemix.IdemixMSP(CONFIG5_IDX, iss.ipk, rec1).to_proto().serialize()
+        env = cg.sign_update(cg.compute_update(CONFIG5_CHANNEL, cur, new),
+                             [admins[0], admins[1], anon("admin", 0)])
+        proposed = cc.authorize_update(bundle, env)  # raises unless authorized
+        return cg.config_tx(CONFIG5_CHANNEL, proposed, env, signer=admins[0]).serialize()
+
+    specs, want, tamper = [], [], []
+    nxt = 0
+    for b in range(1, n_blocks + 1):
+        after = b > CONFIG5_ROTATE_AT
+        for i in range(n_tx - (b == CONFIG5_ROTATE_AT)):
+            rw = TxRWSet()
+            n = rw.ns_rwset("basic")
+            for _ in range(2):
+                key = f"k{nxt % state:07d}"
+                nxt += 1
+                n.reads[key] = (1, 0)
+                n.writes[key] = b"updated-%d" % b
+            creator, ends, code = client, [peers[i % 3], peers[(i + 1) % 3]], C.VALID
+            if i % CONFIG5_ANON_EVERY == CONFIG5_ANON_EVERY // 2:
+                k = i // CONFIG5_ANON_EVERY
+                name = names[k % CONFIG5_HOLDERS]
+                wrong_role = "peer" if k == 1 else None
+                creator = anon(name, 1 if after and name != revoked else 0, wrong_role)
+                if k <= 1 or (after and name == revoked):
+                    code = C.BAD_CREATOR_SIGNATURE
+            elif i == 7:
+                ends = [peers[i % 3], anon("admin", 1 if after else 0)]
+                code = C.ENDORSEMENT_POLICY_FAILURE
+            elif i % 20 == 10:
+                code = C.BAD_CREATOR_SIGNATURE
+            specs.append(txa.TxSpec(creator, ends, rw.to_bytes(), "basic",
+                                    channel_id=CONFIG5_CHANNEL))
+            want.append(code)
+            tamper.append(isinstance(creator, HostSigner) and
+                          i // CONFIG5_ANON_EVERY == 0)
+    t1 = time.perf_counter()
+    envs = txa.build_envelopes(specs, signer)
+    envelopes_s = time.perf_counter() - t1
+    host_signed, host_sign_s = clock["presentations"], clock["seconds"]
+    blocks, expected, k = [], [], 0
+    for b in range(1, n_blocks + 1):
+        n_here = n_tx - (b == CONFIG5_ROTATE_AT)
+        part, codes = envs[k:k + n_here], want[k:k + n_here]
+        for i, c in enumerate(codes):
+            if tamper[k + i]:  # a proof whose challenge no longer matches
+                env = m.Envelope.parse(part[i])
+                proof = json.loads(env.signature)
+                proof["c"] = hex(int(proof["c"], 16) ^ 1)
+                env.signature = json.dumps(proof).encode()
+                part[i] = env.serialize()
+            elif c == C.BAD_CREATOR_SIGNATURE and not isinstance(specs[k + i].creator,
+                                                                 HostSigner):
+                env = m.Envelope.parse(part[i])  # the previous tx's signature: valid DER
+                env.signature = m.Envelope.parse(part[i - 1]).signature
+                part[i] = env.serialize()
+        k += n_here
+        if b == CONFIG5_ROTATE_AT:
+            part.insert(0, rotation())
+            codes = [C.VALID] + codes
+        blocks.append(txa.build_block(b, b"prev-%d" % b, part))
+        expected.append(codes)
+    return {"genesis": genesis, "blocks": blocks, "rows": rows, "expected": expected,
+            "x509_signed": sum(len(sp.endorsers) + 1 for sp in specs) - host_signed,
+            "idemix_signed": host_signed, "idemix_sign_s": host_sign_s,
+            "idemix_creators": sum(isinstance(sp.creator, HostSigner) for sp in specs),
+            "issuer_bits": bits, "issuer_keygen_s": keygen_s, "issuance_s": issue_s,
+            "envelopes_s": envelopes_s,
+            "seconds": time.perf_counter() - t0, "revoked": revoked}
+
+
+def phase_config5_path(dev, built=None, check_launches=True):
+    """BASELINE config 5's validation path: the genesis block seeds the
+    bundle (with the idemix org), then the blocks through
+    ``CommitPipeline(depth=2)`` on ``dev``.  Every idemix creator's proof
+    is verified on the host and takes the creator lane -2; block
+    ``CONFIG5_ROTATE_AT`` rotates the idemix org's epoch record at its
+    barrier, so the successor staged before it is preprocessed again and
+    its proofs verified under the new record.  Every block equals the
+    port's own ``_validate_host`` over the same blocks and the
+    construction; one fused stage 2 of the path with -2 lanes is held
+    against ``stage2_ref`` → the launch counts."""
+    from fabric_tpu_torch import kernels
+    from fabric_tpu_torch.crypto import idemix
+    from fabric_tpu_torch.peer import device_block as db
+    from fabric_tpu_torch.protos import messages as m
+
+    if built is None:
+        built = build_config5()
+    wire = [m.Block.parse(b.serialize()) for b in built["blocks"]]
+    genesis = m.Block.parse(built["genesis"].serialize())
+    log("config5_build", blocks=len(wire), txs=sum(len(b.data.data) for b in wire),
+        seconds=built["seconds"], x509_signed_on_card=built["x509_signed"],
+        envelopes_s=built["envelopes_s"], idemix_presentations=built["idemix_signed"],
+        idemix_sign_s=built["idemix_sign_s"],
+        idemix_sign_ms_per_presentation=1e3 * built["idemix_sign_s"] / built["idemix_signed"],
+        issuer_bits=built["issuer_bits"], issuer_keygen_s=built["issuer_keygen_s"],
+        issuance_s=built["issuance_s"], state_rows=len(built["rows"]),
+        idemix_creators=built["idemix_creators"])
+    validator = lambda: channel_validator(dev, CONFIG5_CHANNEL, genesis, built["rows"],
+                                          CONFIG5_NS)
+
+    # the proof checks: count, seconds, and each proof's (epoch, verdict) pairs
+    proofs = {"n": 0, "seconds": 0.0, "by_sig": {}}
+    orig_verify = idemix.IdemixMSP.verify
+
+    def verify(self, ou, role, message, sig):
+        t1 = time.perf_counter()
+        ok = orig_verify(self, ou, role, message, sig)
+        proofs["seconds"] += time.perf_counter() - t1
+        proofs["n"] += 1
+        rec = self.epoch_record
+        proofs["by_sig"].setdefault(sig, set()).add((rec.epoch if rec else None, ok))
+        return ok
+
+    # one fused stage 2 of the path whose launch frame holds -2 lanes
+    seen_s2 = []
+    orig_stage2 = db.stage2
+
+    def capture_s2(sig_valid, launch_vec, groups, static_p, dims, plan_tensors=None):
+        out = orig_stage2(sig_valid, launch_vec, groups, static_p, dims, plan_tensors)
+        if not seen_s2 and bool((launch_vec[:, 0] == -2).any()):
+            seen_s2.append((sig_valid.clone(), launch_vec.clone(),
+                            [(p, gp.clone(), eb, s) for p, gp, eb, s in groups],
+                            static_p.clone(), dims, out.clone()))
+        return out
+
+    v = validator()
+    msp0 = v.msp
+    idemix.IdemixMSP.verify = verify
+    db.stage2 = capture_s2
+    kernels.reset_counts()
+    try:
+        first_t, rest_t = {}, {}
+        res, first_s, host1, pipe1, _ = run_channel(v, wire[:1], dev, first_t)
+        rest, secs, host2, pipe2, marks = run_channel(v, wire[1:], dev, rest_t)
+    finally:
+        idemix.IdemixMSP.verify = orig_verify
+        db.stage2 = orig_stage2
+    counts = dict(kernels.launches)
+    proofs_path = {"n": proofs["n"], "seconds": proofs["seconds"]}
+    res += rest
+    rotated = v.msp is not msp0
+    reverified = sum(1 for pairs in proofs["by_sig"].values()
+                     if {e for e, _ in pairs} >= {0, 1})
+
+    # the same blocks forced onto the host path
+    kernels.reset_counts()
+    with first_mvcc_validate() as seen_mvcc:
+        href, host_s, _, _, _ = run_channel(validator(), wire, dev, host_only=True)
+    host_counts = dict(kernels.launches)
+
+    rows = lambda x: sorted((k, vv.value, vv.version) for k, vv in x.batch.items())
+    for a, b in zip(res, href, strict=True):
+        if a.tx_filter != b.tx_filter or rows(a) != rows(b) or a.history != b.history:
+            raise AssertionError(f"config5 block {a.block.number}: the pipeline differs from "
+                                 "the port's host path")
+    bad = [(r.block.number, i, c, int(w)) for r, want in zip(res, built["expected"])
+           for i, (c, w) in enumerate(zip(r.tx_filter, want)) if c != int(w)]
+    if bad:
+        raise AssertionError(f"config5 filters differ from construction at {bad[:10]}")
+    host_route = sorted(set(host1 + host2))
+    barriers = sorted(r.block.number for r in res if r.barrier)
+    stale = pipe1.stale_prefetches + pipe2.stale_prefetches
+    if host_route or barriers != [CONFIG5_ROTATE_AT] or not rotated or stale < 1 \
+            or reverified == 0:
+        raise AssertionError(f"config5: host-route blocks {host_route}, barriers {barriers}, "
+                             f"MSP rotated {rotated}, stale re-preprocesses {stale}, proofs "
+                             f"verified under both records {reverified}")
+    if not seen_s2:
+        raise AssertionError("config5: no fused stage 2 launched with a -2 creator lane")
+    sv, lv, groups, sp, dims, got = seen_s2[0]
+    want = db.stage2_ref(sv.cpu(), lv.cpu(), [(p, gp.cpu(), eb, s) for p, gp, eb, s in groups],
+                         sp.cpu(), dims)
+    s2_mism = int((got.cpu() != want).sum())
+    if s2_mism:
+        raise AssertionError(f"config5: stage2 on a frame with -2 creator lanes differs from "
+                             f"stage2_ref in {s2_mism} bytes")
+    mism = mvcc_mismatches(seen_mvcc, "config5")
+    if check_launches:
+        zero = [k for k in ("p256_verify", "stage2_policy", "stage2_mvcc") if counts[k] == 0]
+        zero += [f"{k} (host path)" for k in ("p256_verify", "mvcc_validate")
+                 if host_counts[k] == 0]
+        if zero:
+            raise AssertionError(f"kernels not launched on the config5 path: {zero}")
+    k = len(wire) - 1
+    n_tx = sum(len(b.data.data) for b in wire[1:])
+    gaps = np.diff([0.0] + marks) * 1e3
+    log("config5_path", blocks=len(wire), txs=sum(len(b.data.data) for b in wire), depth=2,
+        routes=["fused"] * len(res), barrier_blocks=barriers, msp_rotated=rotated,
+        stale_reprocessed=stale, proofs_verified_under_both_records=reverified,
+        codes=[{int(c): n for c, n in sorted(Counter(r.tx_filter).items())} for r in res],
+        host_creator_lanes=[sum(p.host_creator_ok for p in r.pend.txs) for r in res],
+        first_block_ms=1e3 * first_s,
+        first_block_phase_ms={key: 1e3 * t for key, t in sorted(first_t.items())},
+        per_block_ms=1e3 * secs / k, tx_per_s=n_tx / secs,
+        phase_ms_per_block={key: 1e3 * t / k for key, t in sorted(rest_t.items())},
+        completion_gap_ms=[float(g) for g in gaps],
+        idemix_verifies=proofs_path["n"],
+        idemix_verify_ms_per_presentation=1e3 * proofs_path["seconds"] / proofs_path["n"],
+        idemix_verify_ms_per_block=1e3 * proofs_path["seconds"] / len(wire),
+        launches={n: counts[n] for n in MAIN_PATH_KERNELS},
+        host_path_launches={n: host_counts[n] for n in MAIN_PATH_KERNELS},
+        host_path_per_block_ms=1e3 * host_s / len(wire),
+        stage2_minus2_lanes=int((lv[:, 0] == -2).sum()), stage2_checked_T=int(lv.shape[0]),
+        stage2_mismatches=s2_mism,
         mvcc_validate_checked_lanes=(int(seen_mvcc[0][0][0].shape[0]) if seen_mvcc else 0),
         mvcc_validate_mismatches=mism, equal_to_host_path=True, equal_to_construction=True)
     return counts
@@ -2348,6 +2721,7 @@ def main() -> int:
     recs += phase_comparison(net, dev, main_res)
     phase_sidecar(net, main_res)
     phase_config4_path(dev)
+    phase_config5_path(dev)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "mismatches",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in order} for r in recs]}), flush=True)

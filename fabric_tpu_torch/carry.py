@@ -8,11 +8,17 @@ validate against the same state.
                  key metadata, None without)
     namespaces:  {ns: policy DSL string}
     identities:  (msp_id, role, qx, qy)
+    idemix MSPs: (msp_id, the issuer key's JSON, the epoch record's
+                 JSON or None), as the reference's ``IssuerPublicKey``
+                 and ``EpochRecord`` write them (``to_json``)
 """
 
 from __future__ import annotations
 
+import json
+
 from fabric_tpu_torch.crypto import policy as pol
+from fabric_tpu_torch.crypto.idemix import IdemixMSP
 from fabric_tpu_torch.crypto.identity import Identity
 from fabric_tpu_torch.ledger.statedb import MemVersionedDB, UpdateBatch
 from fabric_tpu_torch.peer.validator import NamespaceInfo, PolicyProvider
@@ -32,3 +38,12 @@ def from_reference(state_rows, namespaces: dict, identities):
     idents = [Identity(msp_id, role, int(qx), int(qy), True)
               for msp_id, role, qx, qy in identities]
     return db, provider, idents
+
+
+def idemix_msp(msp_id: str, ipk_json: str, epoch_record_json: str | None = None) -> IdemixMSP:
+    """The port's ``IdemixMSP`` over a reference MSP's issuer key and
+    epoch record, read as the channel config's payload is (a record that
+    does not verify against the key raises)."""
+    return IdemixMSP.from_config(json.dumps({
+        "msp_id": msp_id, "ipk": json.loads(ipk_json),
+        "epoch_record": json.loads(epoch_record_json) if epoch_record_json else None}))

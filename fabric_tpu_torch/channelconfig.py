@@ -18,7 +18,11 @@ Config-update signatures are checked on the host, one by one, with
 ``crypto/ec_ref.py`` (``crypto.msp.verify_signature``), where the
 reference checks them with ``cryptography``: config transactions are a
 few a channel's lifetime, so the pure-Python verify costs nothing that
-matters and keeps the port free of that package.
+matters and keeps the port free of that package.  An idemix admin's
+signature is its presentation proof (``crypto/idemix.py``), as in the
+reference.  The bundle's MSP manager reads X.509 and idemix (type-1)
+``MSPConfig``s; an update that replaces an idemix org's config with a
+newer epoch record rotates the manager like any MSP change.
 
 Deliberate differences from the reference: maps are serialized in
 ``deterministic=True`` order (the reference's ``SerializeToString()``

@@ -9,11 +9,11 @@ is_valid)``, memoized by the serialized bytes as the reference's is
 It raises where the reference raises: bytes that are no
 SerializedIdentity, PEM or certificate the reference cannot load, an
 unknown signature algorithm.  An unknown MSP id gives an invalid
-identity with the default role ``client``.  An identity of an MSP the
-manager was told is idemix (``idemix=``; the reference's
-``crypto/idemix.py::IdemixMSP``) gives an ``Identity`` marked
-``idemix``, without reading its credential.  Validation is the
-reference's:
+identity with the default role ``client``.  An identity of an idemix
+MSP (``crypto/idemix.py::IdemixMSP``, beside the X.509 ones in
+``msps``) is its ``IdemixIdentity``: valid when its ``id_bytes`` is the
+idemix JSON (type, OU, role), its proofs checked against the MSP's
+current key and epoch record.  X.509 validation is the reference's:
 
 * the validity window and the revoked serials apply to every
   certificate of the chain;
@@ -33,11 +33,12 @@ is first seen, and the result is cached, as in the reference.
 
 The channel config carries each org's MSP as a ``MSPConfig``
 (``MSP.from_proto`` / ``to_proto``, the reference's :95-132, NodeOU
-names included; an idemix config, type 1, marks its MSP id idemix).
+names included; an idemix config, type 1, is ``IdemixMSP.from_config``).
 ``verify_signature`` is the reference's ``Identity.verify``
 (identity.py:104-118): a DER ECDSA-SHA256 signature with Fabric's
 low-S rule, checked on the host with ``ec_ref`` (config-update
-signatures are few and rare).  ``principal_from_proto``,
+signatures are few and rare), or an idemix identity's presentation
+proof.  ``principal_from_proto``,
 ``policy_from_proto`` and ``policy_to_proto`` (:304-345) convert
 between the ``SignaturePolicyEnvelope`` message (a channel policy, a
 key's ``VALIDATION_PARAMETER``) and ``crypto/policy.py``'s AST.
@@ -46,11 +47,11 @@ key's ``VALIDATION_PARAMETER``) and ``crypto/policy.py``'s AST.
 from __future__ import annotations
 
 import hashlib
-import json
 import time
 
 from fabric_tpu_torch.crypto import der, ec_ref
 from fabric_tpu_torch.crypto import policy as pol
+from fabric_tpu_torch.crypto.idemix import IdemixMSP
 from fabric_tpu_torch.crypto.identity import (
     ROLE_ADMIN, ROLE_CLIENT, ROLE_ORDERER, ROLE_PEER, Identity,
 )
@@ -187,36 +188,36 @@ class MSP:
 
 
 class MSPManager:
-    """Channel-wide registry: msp_id → MSP; ``idemix``: the ids of the
-    channel's idemix MSPs."""
+    """Channel-wide registry: msp_id → MSP (X.509 ``MSP`` or
+    ``IdemixMSP``)."""
 
     CACHE_MAX = 4096
 
-    def __init__(self, msps: dict | None = None, idemix=()):
+    def __init__(self, msps: dict | None = None):
         self.msps = dict(msps or {})
-        self.idemix = frozenset(idemix)
         self._ident_cache: dict = {}
+
+    def add(self, msp) -> None:
+        self.msps[msp.msp_id] = msp
+        self._ident_cache.clear()
 
     def add_config(self, cfg: m.MSPConfig) -> None:
         """One org's ``MSPConfig`` from the channel config: X.509
-        (``MSP.from_proto``), or idemix (type 1: its MSP id joins
-        ``idemix``; the port does not read its credentials yet)."""
+        (``MSP.from_proto``) or idemix (type 1, ``IdemixMSP.from_config``,
+        which raises on a payload that does not parse or an epoch record
+        that does not verify)."""
         if cfg.type == m.MSP_TYPE_IDEMIX:
-            self.idemix = self.idemix | {json.loads(cfg.config)["msp_id"]}
+            self.add(IdemixMSP.from_config(cfg.config))
         else:
-            msp = MSP.from_proto(cfg)
-            self.msps[msp.msp_id] = msp
-        self._ident_cache.clear()
+            self.add(MSP.from_proto(cfg))
 
-    def deserialize_identity(self, serialized: bytes) -> Identity:
+    def deserialize_identity(self, serialized: bytes):
         got = self._ident_cache.get(serialized)
         if got is not None:
             return got
         sid = SerializedIdentity.parse(serialized)
         msp = self.msps.get(sid.mspid)
-        if sid.mspid in self.idemix:
-            ident = Identity(sid.mspid, ROLE_CLIENT, None, None, False, idemix=True)
-        elif msp is None:
+        if msp is None:
             key = load_pem_certificate(sid.id_bytes).public_key or (None, None)
             ident = Identity(sid.mspid, ROLE_CLIENT, key[0], key[1], False)
         else:
@@ -227,15 +228,18 @@ class MSPManager:
         return ident
 
 
-def verify_signature(ident: Identity, message: bytes, der_sig: bytes) -> bool:
-    """A DER ECDSA-SHA256 signature of ``message`` by ``ident``, with
-    Fabric's low-S rule (the reference's ``Identity.verify``); False for
-    an identity without a P-256 key or bytes that are no DER
+def verify_signature(ident, message: bytes, sig: bytes) -> bool:
+    """``ident``'s signature of ``message`` (the reference's
+    ``Identity.verify``): an idemix identity's presentation proof, else
+    a DER ECDSA-SHA256 signature with Fabric's low-S rule; False for an
+    X.509 identity without a P-256 key or bytes that are no DER
     signature."""
+    if ident.idemix:
+        return ident.verify(message, sig)
     if not ident.has_ec_key:
         return False
     try:
-        r, s = ec_ref.der_decode_sig(der_sig)
+        r, s = ec_ref.der_decode_sig(sig)
     except ValueError:
         return False
     return ec_ref.verify_digest((ident.qx, ident.qy), ec_ref.digest_int(message), r, s)

@@ -255,11 +255,14 @@ def compile_plan(rule) -> BatchPlan:
 # Exact interpreter (the reference's consumption semantics)
 
 
-def evaluate(rule, match) -> bool:
+def evaluate(rule, match, plan: "BatchPlan | None" = None) -> bool:
     """Evaluate with greedy signature consumption.
 
     match: [S, P_all] bool where columns follow ``compile_plan(rule)
-    .principals`` — use ``match_matrix`` to build it.  Mirrors
+    .principals`` — use ``match_matrix`` to build it.  ``plan``: that
+    compiled plan, when the caller holds it (the host path evaluates one
+    policy per transaction, and compiling it each time cost more than
+    the evaluation).  Mirrors
     cauthdsl.go:39-110: SignedBy consumes the first unused matching
     signature; NOutOf evaluates ALL children left-to-right (no
     short-circuit — every satisfied child consumes its signature) and
@@ -267,7 +270,8 @@ def evaluate(rule, match) -> bool:
     """
     import numpy as np
 
-    plan = compile_plan(rule)
+    if plan is None:
+        plan = compile_plan(rule)
     pindex = {p: i for i, p in enumerate(plan.principals)}
     m = np.asarray(match)
     S = m.shape[0] if m.size else 0

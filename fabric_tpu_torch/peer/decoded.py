@@ -34,13 +34,19 @@ class DecodedTx:
     in-block duplicate check even if a later decoding step failed.  A
     config envelope has ``is_config``, ``config_data``, and its creator
     and ``creator_sig`` when they decode (no signature for a creator
-    that is invalid or has no P-256 key)."""
+    that is invalid or has no P-256 key).  ``host_creator_ok``: the
+    creator is an idemix identity whose presentation proof over the
+    payload the front end verified on the host (the reference's
+    ``ParsedTx.host_creator_ok``); such a transaction has no
+    ``creator_sig``, and the validator gives it the always-true creator
+    lane."""
 
     txid: str = ""
     code: int = int(C.NOT_VALIDATED)
     txid_bound: bool = True
     creator: Identity | None = None
     creator_sig: tuple | None = None  # (digest, r, s); digest = sha256(payload)
+    host_creator_ok: bool = False
     endorsements: list = field(default_factory=list)  # [DecodedEndorsement]
     rwset: TxRWSet | None = None
     is_config: bool = False

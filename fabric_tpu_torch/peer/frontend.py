@@ -19,14 +19,14 @@ codec and MSP, in the reference's check order and with its codes:
   BAD_PROPOSAL_TXID; every later envelope is bound (``txid_bound``) and
   claims its tx id for the validator's duplicate check
   (DUPLICATE_TXID), whatever fails after;
-* a creator of one of the channel's idemix MSPs is kept as the
-  creator without a signature, and the validator refuses the block with
-  ``NotImplementedError`` (the reference verifies its proof on the host:
-  a later slice of the port);
-* an X.509 creator that does not deserialize, is invalid, has no P-256
-  key, or whose signature is no DER ECDSA-Sig-Value →
-  BAD_CREATOR_SIGNATURE, as in the reference; the digest is
-  sha256(payload);
+* a creator that does not deserialize → BAD_CREATOR_SIGNATURE;
+* an idemix creator (``crypto/idemix.py``): its presentation proof over
+  the payload is verified here, on the host, as the reference's
+  :1054-1069 does; an invalid identity or a proof that fails →
+  BAD_CREATOR_SIGNATURE, else ``host_creator_ok`` and no signature item;
+* an X.509 creator that is invalid, has no P-256 key, or whose
+  signature is no DER ECDSA-Sig-Value → BAD_CREATOR_SIGNATURE, as in the
+  reference; the digest is sha256(payload);
 * the action: no actions → NIL_TXACTION, a transaction, action
   payload, proposal response payload or chaincode action that does not
   decode → BAD_PAYLOAD, a read/write set that does not decode →
@@ -103,17 +103,20 @@ def decode_envelope(raw: bytes, msp) -> DecodedTx:
         dtx.code = int(C.BAD_CREATOR_SIGNATURE)
         return dtx
     if creator.idemix:
-        dtx.creator = creator  # the validator refuses it
-        return dtx
-    try:
-        r, s = ec_ref.der_decode_sig(env.signature)
-    except ValueError:
-        dtx.code = int(C.BAD_CREATOR_SIGNATURE)
-        return dtx
-    if not creator.is_valid or not creator.has_ec_key:
-        dtx.code = int(C.BAD_CREATOR_SIGNATURE)
-        return dtx
-    dtx.creator, dtx.creator_sig = creator, (_digest(env.payload), r, s)
+        if not creator.is_valid or not creator.verify(env.payload, env.signature):
+            dtx.code = int(C.BAD_CREATOR_SIGNATURE)
+            return dtx
+        dtx.creator, dtx.host_creator_ok = creator, True
+    else:
+        try:
+            r, s = ec_ref.der_decode_sig(env.signature)
+        except ValueError:
+            dtx.code = int(C.BAD_CREATOR_SIGNATURE)
+            return dtx
+        if not creator.is_valid or not creator.has_ec_key:
+            dtx.code = int(C.BAD_CREATOR_SIGNATURE)
+            return dtx
+        dtx.creator, dtx.creator_sig = creator, (_digest(env.payload), r, s)
     try:
         _, _, cap, _, cca = protoutil.extract_action(env, parsed=(payload, ch, sh))
         dtx.rwset = TxRWSet.from_bytes(cca.results)

@@ -9,8 +9,10 @@ reference's functions build, signing one message at a time with
 transactions at once and signs in two batches: every endorsement in one
 ``sign_batch(digests, keys)`` call, then every creator signature in
 another, so a signer on the card (``ops/p256sign.sign_digests``) signs a
-whole block's worth per launch.  As in the reference, every proposal
-takes a fresh random nonce and the current time.
+whole block's worth per launch.  A signer without an ECDSA scalar (an
+idemix holder, ``crypto/idemix.py::IdemixSigningIdentity``) signs its
+own messages on the host, one presentation each.  As in the reference,
+every proposal takes a fresh random nonce and the current time.
 """
 
 from __future__ import annotations
@@ -126,28 +128,48 @@ class TxSpec:
     args: tuple = (b"invoke",)
 
 
+def _batched(signer) -> bool:
+    return getattr(signer, "d", None) is not None
+
+
+def _sign_all(messages, signers, sign_batch) -> list[bytes]:
+    """Each message signed by its signer: the ECDSA ones in one
+    ``sign_batch`` call (DER), the others by their own ``sign``."""
+    rows = [k for k, s in enumerate(signers) if _batched(s)]
+    out = [None] * len(messages)
+    if rows:
+        rs = sign_batch([ec_ref.digest_int(messages[k]) for k in rows],
+                        [signers[k].d for k in rows])
+        for k, sig in zip(rows, rs):
+            out[k] = ec_ref.der_encode_sig(*sig)
+    for k, s in enumerate(signers):
+        if out[k] is None:
+            out[k] = s.sign(messages[k])
+    return out
+
+
 def build_envelopes(specs, sign_batch=ec_ref_signer) -> list[bytes]:
     """Serialized envelopes for ``specs``, signed in two batches:
     ``sign_batch(digests, keys) → [(r, s)]`` is called once for all
-    endorsements and once for all creator signatures."""
-    props, prps, digests, keys = [], [], [], []
+    endorsements and once for all creator signatures (each call left out
+    when it has nothing to sign); an idemix signer signs on the host."""
+    props, prps, msgs, signers = [], [], [], []
     for sp in specs:
         prop, _ = _proposal(sp.creator.serialized, sp.channel_id, sp.chaincode, sp.args)
         prp = _prp(prop, sp.rwset, sp.chaincode)
         props.append(prop)
         prps.append(prp)
         for e in sp.endorsers:
-            digests.append(ec_ref.digest_int(prp + e.serialized))
-            keys.append(e.d)
-    sigs = iter(sign_batch(digests, keys))
+            msgs.append(prp + e.serialized)
+            signers.append(e)
+    sigs = iter(_sign_all(msgs, signers, sign_batch))
     payloads = []
     for sp, prop, prp in zip(specs, props, prps):
-        ends = [m.Endorsement(endorser=e.serialized, signature=ec_ref.der_encode_sig(*next(sigs)))
+        ends = [m.Endorsement(endorser=e.serialized, signature=next(sigs))
                 for e in sp.endorsers]
         payloads.append(_payload(prop, prp, ends))
-    csigs = sign_batch([ec_ref.digest_int(p) for p in payloads], [sp.creator.d for sp in specs])
-    return [m.Envelope(payload=p, signature=ec_ref.der_encode_sig(*rs)).serialize()
-            for p, rs in zip(payloads, csigs)]
+    csigs = _sign_all(payloads, [sp.creator for sp in specs], sign_batch)
+    return [m.Envelope(payload=p, signature=sig).serialize() for p, sig in zip(payloads, csigs)]
 
 
 def build_block(number: int, previous_hash: bytes, envelopes) -> m.Block:

@@ -18,7 +18,7 @@ endorsers); one
 ``native.mvccprep`` call flattens the read/write sets, from which
 ``ops/mvcc.prepare_block_from_flat`` builds the static MVCC arrays and
 ``_build_updates`` the update batch.  Envelopes the walk does not carry
-(config transactions, idemix creators, malformed bytes: ``ok == 0``)
+(config transactions, malformed bytes, an odd endorsement: ``ok == 0``)
 take the front end (``peer/frontend.py::decode_envelope``) one by one,
 in block order, sharing the duplicate registry, as the reference's
 ``_parse_one_py`` lane; a set ``mvccprep`` does not cover (status 1: a
@@ -35,9 +35,13 @@ reference's lazy shells (validator.py:880-978): ``_device_pre_columnar``
 (validator.py:1926-2039) builds each policy group from them with array
 gathers, and ``_materialize_for_host`` fills the per-tx ``endorsers``
 and ``endo_item_idx`` lists only for a reader that needs them (the host
-path, the generic ``_device_preprocess``).  A block whose every live
-transaction is a flat column row takes the columnar groups; any other
-takes ``_device_preprocess``.
+path, the generic ``_device_preprocess``).  A live envelope the front
+end decoded joins them when the walk reached its set and that set is
+flat (an envelope the walk left at an odd endorsement, such as an idemix
+endorser's): its set goes into the one ``mvccprep`` call and its
+endorsers, identities the walk interned, into the matrices.  A block
+whose every live transaction is flat takes the columnar groups; any
+other takes ``_device_preprocess``.
 
 ``host_stage_workers`` (0 off, -1 one a core, n; ``parallel/hostpool.py``)
 gives the validator a staging pool, on which ``preprocess_many``
@@ -124,9 +128,22 @@ batch there.  Such a block takes the fused path; under
 ``state_resident=True`` its committed versions are read on the host, as
 the reference's resident path does.
 
-A block whose creator is an idemix identity raises
-``NotImplementedError``: host-verified creators are the next slice of
-the port.
+Idemix creators (``crypto/idemix.py``; the reference's :1054-1069,
+:1202-1208, :2082-2095) carry no EC key, so their signatures take no
+lane of the card's batch: each presentation proof is verified on the
+host while the block parses, a failure is BAD_CREATOR_SIGNATURE, and a
+verified creator (``host_creator_ok``) takes the creator sentinel -2,
+which ``stage2`` gathers as True.  A wire block keeps such rows in the
+columnar parse (the C walk parses them whole; the proof is checked over
+the envelope's payload and signature bytes), so a few anonymous
+creators keep the block on the columnar group builder; the front end
+verifies the ones it decodes (``DecodedBlock``s, ``ok == 0``
+envelopes).  The reference sends such rows to its Python parser
+instead; the verdicts are the same.  An idemix endorser contributes
+nothing, as in the reference.  The proofs are verified again whenever a
+block is preprocessed again (a rotated MSP manager, the pipeline's
+stale re-preprocess), so a block staged before an epoch-record rotation
+is judged under the new record.
 """
 
 from __future__ import annotations
@@ -232,7 +249,7 @@ def _endorsed(policy, plan, ptx, sig_valid) -> bool:
     for s, ident in enumerate(ptx.endorsers):
         if sig_valid[ptx.endo_item_idx[s]]:
             mat[s] = [p.matched_by(ident) for p in plan.principals]
-    return bool(pol.evaluate(policy, mat))
+    return bool(pol.evaluate(policy, mat, plan))
 
 
 # ---------------------------------------------------------------------------
@@ -252,10 +269,17 @@ class ParsedTx:
     _rwset: TxRWSet | None = None
     is_config: bool = False
     config_data: bytes = b""  # a config transaction's ConfigEnvelope bytes
+    host_creator_ok: bool = False  # an idemix creator, its proof verified on the host
 
     @property
     def undetermined(self) -> bool:
         return self.code == _NV
+
+    @property
+    def creator_lane(self) -> int:
+        """The creator's lane of stage 2's gather: its signature item,
+        -2 for a host-verified creator (always true), -1 for none."""
+        return -2 if self.host_creator_ok else self.creator_item_idx
 
     @property
     def rwset(self) -> TxRWSet | None:
@@ -284,7 +308,7 @@ class WireBlock:
     arrays (status 0); ``keys``, ``lex_rank``: each interned key's
     ('pub', ns, key) and its rank in that order; ``ns_names``: ``rwp``'s
     namespace table.  ``uid_mat``, ``endo_idx_mat`` [n, S] and ``ecnt``
-    [n]: each column row's endorsers (``idents[uid - 1]``) and their
+    [n]: each flat row's endorsers (``idents[uid - 1]``) and their
     signature items, slots 0..ecnt-1 (see the module docstring);
     ``materialized``: ``_materialize_for_host`` filled the lists.
     ``n_front_end``: envelopes the front end decoded;
@@ -346,13 +370,6 @@ class PendingBlock:
     @cached_property
     def txids(self) -> set:
         return {ptx.txid for ptx in self.txs if ptx.txid}
-
-
-def _refuse_tx(dtx: DecodedTx) -> None:
-    if not dtx.is_config and dtx.creator is not None and not dtx.creator.has_ec_key:
-        raise NotImplementedError(
-            "idemix creators: a later slice of the port (the next one: host-verified "
-            "creators)")
 
 
 def _has_meta_writes(rwset) -> bool:
@@ -426,8 +443,6 @@ class BlockValidator:
     # -- preprocess (prefetch thread) ---------------------------------------
 
     def _parse(self, block: DecodedBlock):
-        for dtx in block.txs:
-            _refuse_tx(dtx)
         txs, items, seen = [], [], set()
         for i, dtx in enumerate(block.txs):
             txs.append(self._parse_tx(i, dtx, seen, items, block.number == 0))
@@ -461,11 +476,15 @@ class BlockValidator:
         if not ptx.undetermined:
             return ptx
         cr = dtx.creator
-        if cr is None or not cr.is_valid or dtx.creator_sig is None:
+        if cr is None or not cr.is_valid or (dtx.creator_sig is None
+                                             and not dtx.host_creator_ok):
             ptx.code = int(C.BAD_CREATOR_SIGNATURE)
             return ptx
-        ptx.creator_item_idx = len(items)
-        items.append((*dtx.creator_sig, cr.qx, cr.qy))
+        if dtx.host_creator_ok:
+            ptx.host_creator_ok = True
+        else:
+            ptx.creator_item_idx = len(items)
+            items.append((*dtx.creator_sig, cr.qx, cr.qy))
         # a repeated endorser counts once (policy.go:360-363), keyed by
         # its serialized bytes as the reference's is
         # (validator.py:1085-1095): two encodings of one identity count
@@ -515,12 +534,11 @@ class BlockValidator:
             q_pool[ec_u] = np.concatenate([qx, qy], axis=1)
             q_ok[ec_u] = p256v3.q_admit(q_pool[ec_u]) & qx_in & qy_in
 
-        ok = pb.ok.astype(bool)
+        col = pb.ok.astype(bool)
+        front = ~col  # decoded by the front end
         cu = pb.creator_uid.astype(np.int64)
         cu_valid = cu >= 0
         cuc = np.where(cu_valid, cu, n_ids)
-        front = ~ok | (cu_valid & idemix[cuc])  # decoded by the front end
-        col = ~front
 
         # -- tx id binding: tx_id == hex(sha256(nonce || creator))
         t_off, t_len = pb.txid_span[:, 0], pb.txid_span[:, 1]
@@ -549,7 +567,6 @@ class BlockValidator:
         for i, (fr, bd) in enumerate(zip(front.tolist(), bind.tolist())):
             if fr:
                 dtx = frontend.decode_envelope(envs[i], self.msp)
-                _refuse_tx(dtx)
                 txs[i] = self._parse_tx(i, dtx, seen, front_items, number == 0)
             elif bd:
                 if txids[i] in seen:
@@ -563,8 +580,17 @@ class BlockValidator:
         cred = (cu_valid & known[cuc] & ivalid[cuc] & has_ec[cuc]
                 & pb.creator_sig_ok.astype(bool))
         live = col & bind & ~dup
-        c_ok = live & cred
-        codes[live & ~cred] = int(C.BAD_CREATOR_SIGNATURE)
+        # a live row's idemix creator: its proof over the payload, on the
+        # host (the walk reads the JSON proof as no DER signature)
+        host_ok = np.zeros(n, bool)
+        for i in np.flatnonzero(live & idemix[cuc] & ivalid[cuc]).tolist():
+            try:
+                env = pm.Envelope.parse(envs[i])
+            except DecodeError:
+                continue
+            host_ok[i] = idents[cu[i]].verify(env.payload, env.signature)
+        c_ok = live & (cred | host_ok)
+        codes[live & ~c_ok] = int(C.BAD_CREATOR_SIGNATURE)
 
         # -- the signature batch: creators, then endorsers, as column gathers
         m = pb.n_endorsements
@@ -574,7 +600,7 @@ class BlockValidator:
         euc = np.where(eu_valid, eu, n_ids)
         mask_e = (c_ok[tx_of_e] & (pb.e_ok[:m] == 1) & (pb.e_dup[:m] == 0) & eu_valid
                   & known[euc] & has_ec[euc])
-        c_rows, e_rows = np.flatnonzero(c_ok), np.flatnonzero(mask_e)
+        c_rows, e_rows = np.flatnonzero(live & cred), np.flatnonzero(mask_e)
         nc, ne = len(c_rows), len(e_rows)
         items = p256v3.SigColumns(
             np.concatenate([pb.payload_digest[c_rows], pb.e_digest[e_rows]]),
@@ -593,9 +619,10 @@ class BlockValidator:
             slot = np.arange(ne) - (np.cumsum(ecnt) - ecnt)[e_tx]
             uid_mat[e_tx, slot] = eu[e_rows] + 1
             endo_idx_mat[e_tx, slot] = nc + np.arange(ne)
-        code_l, ci_l = codes.tolist(), creator_item.tolist()
+        code_l, ci_l, hv_l = codes.tolist(), creator_item.tolist(), host_ok.tolist()
         for i in np.flatnonzero(col).tolist():
-            txs[i] = ParsedTx(idx=i, code=code_l[i], txid=txids[i], creator_item_idx=ci_l[i])
+            txs[i] = ParsedTx(idx=i, code=code_l[i], txid=txids[i], creator_item_idx=ci_l[i],
+                              host_creator_ok=hv_l[i])
         base = len(items)
         for i in front_idx:  # the front end's items follow the columns
             ptx = txs[i]
@@ -605,8 +632,15 @@ class BlockValidator:
         items.extra = front_items
 
         # -- read/write sets: one C call over the sets the front end would
-        # decode (duplicates included); the rest parse in Python
-        rw_use = col & bind & cred
+        # decode (duplicates included) and the sets of the live front-end
+        # rows the walk reached (it stops at an odd endorsement, such as
+        # an idemix endorser's); the rest parse in Python
+        front_live = np.zeros(n, bool)
+        for i in front_idx:
+            ptx = txs[i]
+            front_live[i] = ptx.undetermined and not ptx.is_config and ptx._rwset is not None
+        front_live &= pb.results_span[:, 0] >= 0
+        rw_use = (col & bind & (cred | host_ok)) | front_live
         rwp = mvccprep.prep(pb, rw_use)
         ns_names, _, keys, lex_rank = rwp.key_table()
         st = rwp.status.tolist()
@@ -628,6 +662,8 @@ class BlockValidator:
                     names = ns_memo[ids] = tuple(sorted(ns_names[j] for j in ids))
                 ptx.namespaces = names
                 continue
+            if front_live[i]:
+                continue  # the front end parsed it
             n_parsed += 1
             try:
                 rw = TxRWSet.from_bytes(raw)
@@ -637,6 +673,27 @@ class BlockValidator:
                 continue
             ptx.rwset = rw
             ptx.namespaces = tuple(sorted(rw.ns))
+        # a flat front-end row joins the endorser matrices (each endorser
+        # is an identity the walk interned), so the block keeps the
+        # columnar groups; a row whose endorser is not found stays off
+        # them, and the block takes the entry-by-entry builder
+        front_flat = [i for i in front_idx if flat[i]]
+        if front_flat:
+            uid_of = {id(x): u for u, x in enumerate(idents) if x is not None}
+            need = max(4, next_pow2(max(len(txs[i].endorsers) for i in front_flat) or 1))
+            if need > S:
+                uid_mat = np.pad(uid_mat, ((0, 0), (0, need - S)))
+                endo_idx_mat = np.pad(endo_idx_mat, ((0, 0), (0, need - S)), constant_values=-1)
+            for i in front_flat:
+                ptx = txs[i]
+                uids = [uid_of.get(id(x)) for x in ptx.endorsers]
+                if None in uids:
+                    flat[i] = False
+                    continue
+                k = len(uids)
+                uid_mat[i, :k] = np.asarray(uids, np.int64) + 1
+                endo_idx_mat[i, :k] = ptx.endo_item_idx
+                ecnt[i] = k
         wb = WireBlock(number=number, pb=pb, rwp=rwp, flat=flat, keys=keys, lex_rank=lex_rank,
                        ns_names=ns_names, idents=idents, uid_mat=uid_mat,
                        endo_idx_mat=endo_idx_mat, ecnt=ecnt, n_front_end=len(front_idx),
@@ -736,8 +793,8 @@ class BlockValidator:
         match-row pool through ``uid_mat`` and ``endo_idx_mat``; the
         same layout, entry order and group order as
         ``_device_preprocess``, one H2D copy a group.  None when a live
-        transaction is not a flat column row (a front-end envelope, a
-        set parsed in Python)."""
+        transaction is not flat (a set parsed in Python, a front-end
+        envelope the walk did not reach the set of)."""
         n = len(txs)
         live = np.fromiter((ptx.code == _NV and not ptx.is_config for ptx in txs), bool, n)
         if (live & ~wb.flat).any():
@@ -1112,7 +1169,7 @@ class BlockValidator:
         ast, plan = got
         valid = np.array([bool(sig_valid[i]) for i in ptx.endo_item_idx], bool)
         mat = pol.match_matrix(ptx.endorsers, plan.principals) & valid[:, None]
-        return bool(pol.evaluate(ast, mat))
+        return bool(pol.evaluate(ast, mat, plan))
 
     def _launch_device(self, txs, handle, dpre: DevicePre, overlay):
         t0 = time.perf_counter()
@@ -1131,7 +1188,7 @@ class BlockValidator:
         launch_vec[:, 0] = -1
         for ptx in txs:
             if ptx.undetermined and not ptx.is_config:
-                launch_vec[ptx.idx, 0] = ptx.creator_item_idx
+                launch_vec[ptx.idx, 0] = ptx.creator_lane
                 launch_vec[ptx.idx, 1] = ptx.idx not in range_phantom
         lv = self._resident_launch_vec(launch_vec, dpre, overlay)
         if lv is None:
@@ -1201,9 +1258,11 @@ class BlockValidator:
         final = np.fromiter((ptx.code for ptx in txs), np.int32, nT)
         und = final == _NV
         cfg = np.fromiter((ptx.is_config for ptx in txs), bool, nT)
-        ci = np.fromiter((ptx.creator_item_idx for ptx in txs), np.int64, nT)
-        svF = np.concatenate([sig_valid, [False]])
-        creator_fail = und & (ci >= 0) & ~svF[np.where((ci >= 0) & (ci < n_sig), ci, n_sig)]
+        ci = np.fromiter((ptx.creator_lane for ptx in txs), np.int64, nT)
+        # a lane's verdict as stage 2 gathered it: -2 true, -1 false
+        svF = np.concatenate([sig_valid, [False, True]])
+        cok = svF[np.where((ci >= 0) & (ci < n_sig), ci, np.where(ci == -2, n_sig + 1, n_sig))]
+        creator_fail = und & ~cok & ((ci != -1) | ~cfg)
         rp = np.zeros(nT, bool)
         rp[list(pending.range_phantom)] = True
         sel = np.select(
@@ -1233,9 +1292,12 @@ class BlockValidator:
         sig_valid = (np.asarray(pending.handle.fetch(), bool) if pending.items
                      else np.zeros(0, bool))
         self._t("device_wait", t0)
+        # a host-verified creator (-2) passed when the block parsed; a
+        # live endorser transaction always has a lane, so -1 fails closed
         for ptx in txs:
-            if ptx.undetermined and ptx.creator_item_idx >= 0 \
-                    and not sig_valid[ptx.creator_item_idx]:
+            lane = ptx.creator_lane
+            if ptx.undetermined and (not sig_valid[lane] if lane >= 0
+                                     else lane == -1 and not ptx.is_config):
                 ptx.code = int(C.BAD_CREATOR_SIGNATURE)
         for ptx in txs:
             if ptx.is_config and ptx.undetermined:

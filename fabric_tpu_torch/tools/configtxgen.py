@@ -8,7 +8,8 @@ Endorsement and LifecycleEndorsement MAJORITY policies and one group a
 org holding its MSP and its member, admin and peer policies; the
 Orderer group with its consensus, batch and BlockValidation values);
 its serialized bytes equal the reference's under
-``SerializeToString(deterministic=True)``.  ``compute_update`` is the
+``SerializeToString(deterministic=True)``, an idemix org's included (its
+``MSPConfig`` is ``IdemixMSP.to_proto``).  ``compute_update`` is the
 minimal read/write-set delta between two configs (configtxlator's
 compute-update), ``sign_update`` adds one ``ConfigSignature`` a signer
 over signature_header ‖ config_update, and ``config_tx`` wraps the new
@@ -31,7 +32,7 @@ from fabric_tpu_torch.protos import messages as m
 @dataclass
 class OrgProfile:
     msp_id: str
-    msp: object  # crypto.msp.MSP
+    msp: object  # crypto.msp.MSP, or crypto.idemix.IdemixMSP (a type-1 MSPConfig)
     anchor_peers: list = field(default_factory=list)  # (host, port)
 
 

@@ -9,7 +9,8 @@ an older one.
     python3 -m fabric_tpu_torch.tools.launch_steps [--parent-csrc DIR]
         [--parent-tree DIR]
         [--phase all|team_sizes|sign_shapes|stage2|scatter|small|comparison|
-                 comparison_path|wire_path|coalesced_path]
+                 comparison_path|main_path|wire_path|coalesced_path|sidecar|
+                 config5_path]
         [--team-lanes 3072,6144,12288]
         [--sign-lanes 16,32,64,128,256,512,1024,4096]
         [--comparison-lanes 16,4096,12288] [--path-blocks 12]
@@ -102,6 +103,25 @@ names another ``csrc`` directory (an older commit's, unpacked with
   own; this tree's two modes share a process, in the other order in the
   second tree turn.
 
+- ``sidecar`` (needs ``--parent-tree``): ``chip_smoke.py``'s sidecar
+  tenants (3 ``SidecarValidator``s of weights 1, 1 and 2, each over its
+  own ``--path-blocks`` bench-shaped ``DecodedBlock``s, under
+  ``CommitPipeline(depth=2)`` at once, one ``SidecarServer`` on
+  127.0.0.1 with coalesce 4 and 8 queued blocks a tenant) with the
+  parent's package and this tree's, in turns parent, tree, tree,
+  parent, each a process of its own: ``tx_per_s_all``, each tenant's
+  tx/s, the server's dispatches and coalesce occupancy, and the peers'
+  host-path phase ms a block; every tenant's filters equal the
+  construction's.
+
+- ``config5_path`` (needs ``--parent-tree``): ``chip_smoke.py``'s
+  config 5 blocks (built once, in this process, and handed to each turn
+  as bytes) through ``CommitPipeline(depth=2)`` with the parent's
+  package and this tree's, in turns parent, tree, tree, parent: wall ms
+  a block after the first, ms a block by phase, the idemix proof checks'
+  host ms; every turn's filters equal the construction's.  A package
+  that refuses idemix creators fails its turn.
+
 Every variant runs in each of 8 rounds, the order reversed every other
 round (ABBA); the lines give medians and the rounds.
 """
@@ -113,8 +133,10 @@ import contextlib
 import ctypes
 import importlib.util
 import json
+import pickle
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -772,6 +794,141 @@ def add_timers(v) -> bool:
     return True
 
 
+def _import_from(tree: Path, tag: str):
+    """``chip_smoke.py`` of this tree, with ``fabric_tpu_torch`` imported
+    from ``tree`` (the process must not have imported it yet) → (the
+    module, the package's directory)."""
+    sys.path.insert(0, str(tree))
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import fabric_tpu_torch
+
+    pkg = Path(fabric_tpu_torch.__file__).resolve().parent
+    if pkg.parent != tree.resolve():
+        raise RuntimeError(f"{tag}: imported fabric_tpu_torch from {pkg}, not from {tree}")
+    return cs, pkg
+
+
+def _build(kernel_names) -> float:
+    from fabric_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    kernels.build(kernel_names)
+    if importlib.util.find_spec("fabric_tpu_torch.native") is not None:
+        from fabric_tpu_torch import native
+        native.build()
+    return time.perf_counter() - t0
+
+
+def sidecar_run(tree: Path, tag: str, n_blocks: int) -> None:
+    """One run of ``chip_smoke.py``'s sidecar tenants with
+    ``fabric_tpu_torch`` imported from ``tree``: a ``sidecar`` line."""
+    cs, pkg = _import_from(tree, tag)
+    from fabric_tpu_torch import carry, kernels
+    from fabric_tpu_torch.sidecar import SidecarServer
+    from fabric_tpu_torch.sidecar.validator import SidecarValidator
+
+    build_s = _build(("p256_verify", "stage2"))
+    net = cs.Net(cs.SEED)
+    tenants = []
+    for name, weight in cs.SIDECAR_TENANTS:
+        blocks, expected, seed_rows = cs.build_blocks(net, n_blocks, unsafe=False)
+        state, prov, _ = carry.from_reference(seed_rows, cs.NAMESPACES, [])
+        tenants.append((name, weight, blocks, expected, state, prov))
+    srv = SidecarServer("127.0.0.1", 0, coalesce=4, queue_blocks=8).start_background()
+    out, errors, timings = {}, [], {}
+    try:
+        validators = {name: SidecarValidator(prov, state, device="cuda", tenant=name,
+                                             sidecar_weight=weight,
+                                             sidecar_endpoint=f"127.0.0.1:{srv.port}")
+                      for name, weight, _, _, state, prov in tenants}
+        patched = any([add_timers(v) for v in validators.values()])
+
+        def drive(name, blocks):
+            try:
+                timings[name] = {}
+                out[name] = cs.run_validator(blocks, validators[name], depth=2,
+                                             timings=timings[name])
+            except BaseException as e:  # re-raised below, on the main thread
+                errors.append(e)
+
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=drive, args=(name, blocks))
+                   for name, _, blocks, _, _, _ in tenants]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = srv.stats()
+        for v in validators.values():
+            v.close()
+    finally:
+        srv.stop_background()
+    if errors:
+        raise errors[0]
+    for name, _, _, expected, _, _ in tenants:
+        if [r.tx_filter for r in out[name][0]] != expected:
+            raise AssertionError(f"sidecar tenant {name}, {tag}: filters differ from "
+                                 "construction")
+    n_tx = {name: sum(len(b.txs) for b in blocks) for name, _, blocks, _, _, _ in tenants}
+    n_all = len(tenants) * n_blocks
+    phase = {}
+    for t in timings.values():
+        for key, sec in t.items():
+            phase[key] = phase.get(key, 0.0) + 1e3 * sec / n_all
+    log("sidecar", tree=tag, package=str(pkg), timers_added=patched, build_s=build_s,
+        blocks_per_tenant=n_blocks, seconds=wall, tx_per_s_all=sum(n_tx.values()) / wall,
+        tx_per_s={n: n_tx[n] / out[n][1] for n in out}, dispatches=st["dispatches"],
+        coalesce_requests=st["coalesce"]["requests"], p256_verify_launches=kernels.launches[
+            "p256_verify"], phase_ms_per_block=dict(sorted(phase.items())))
+
+
+def config5_run(tree: Path, tag: str, corpus: Path) -> None:
+    """One run of the config 5 blocks in ``corpus`` (pickled bytes) with
+    ``fabric_tpu_torch`` imported from ``tree``: a ``config5_path`` line."""
+    cs, pkg = _import_from(tree, tag)
+    from fabric_tpu_torch.crypto import idemix
+    from fabric_tpu_torch.protos import messages as m
+
+    build_s = _build(("p256_verify", "stage2"))
+    data = pickle.loads(corpus.read_bytes())
+    genesis = m.Block.parse(data["genesis"])
+    wire = [m.Block.parse(b) for b in data["blocks"]]
+    dev = torch.device("cuda")
+    v = cs.channel_validator(dev, cs.CONFIG5_CHANNEL, genesis, data["rows"], cs.CONFIG5_NS)
+    patched = add_timers(v)
+    proofs = {"n": 0, "seconds": 0.0}
+    orig = idemix.IdemixMSP.verify
+
+    def verify(self, *a):
+        t1 = time.perf_counter()
+        try:
+            return orig(self, *a)
+        finally:
+            proofs["seconds"] += time.perf_counter() - t1
+            proofs["n"] += 1
+
+    idemix.IdemixMSP.verify = verify
+    first_t, rest_t = {}, {}
+    res, first_s, _, _, _ = cs.run_channel(v, wire[:1], dev, first_t)
+    rest, secs, _, pipe, _ = cs.run_channel(v, wire[1:], dev, rest_t)
+    if [list(r.tx_filter) for r in res + rest] != data["expected"]:
+        raise AssertionError(f"config5 path, {tag}: filters differ from construction")
+    k = len(wire) - 1
+    log("config5_path", tree=tag, package=str(pkg), timers_added=patched, build_s=build_s,
+        blocks=len(wire), first_block_ms=1e3 * first_s, per_block_ms=1e3 * secs / k,
+        tx_per_s=sum(len(b.data.data) for b in wire[1:]) / secs,
+        phase_ms_per_block={key: 1e3 * t / k for key, t in sorted(rest_t.items())},
+        idemix_verifies=proofs["n"],
+        idemix_verify_ms_per_presentation=1e3 * proofs["seconds"] / max(proofs["n"], 1),
+        stale_reprocessed=pipe.stale_prefetches)
+
+
 def wire_path_run(tree: Path, tag: str, n_blocks: int, modes=("single",)) -> None:
     """Runs of a path with ``fabric_tpu_torch`` imported from ``tree``
     (the process must not have imported it yet), one line a mode, in the
@@ -781,25 +938,13 @@ def wire_path_run(tree: Path, tag: str, n_blocks: int, modes=("single",)) -> Non
     the first block, then the others in groups of 4), ``decoded`` (the
     main path's ``DecodedBlock``s, ``submit`` a block, a ``main_path``
     line)."""
-    sys.path.insert(0, str(tree))
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
-    import fabric_tpu_torch
+    cs, pkg = _import_from(tree, tag)
     from fabric_tpu_torch import carry, kernels
     from fabric_tpu_torch.peer import frontend
     from fabric_tpu_torch.peer.validator import BlockValidator
     from fabric_tpu_torch.protos import messages as m
 
-    pkg = Path(fabric_tpu_torch.__file__).resolve().parent
-    if pkg.parent != tree.resolve():
-        raise RuntimeError(f"{tag}: imported fabric_tpu_torch from {pkg}, not from {tree}")
-    t0 = time.perf_counter()
-    kernels.build(("p256_verify", "stage2", "p256_sign"))
-    if importlib.util.find_spec("fabric_tpu_torch.native") is not None:
-        from fabric_tpu_torch import native
-        native.build()
-    build_s = time.perf_counter() - t0
+    build_s = _build(("p256_verify", "stage2", "p256_sign"))
     made = {}
 
     def inputs(decoded: bool):
@@ -852,32 +997,59 @@ def wire_path_run(tree: Path, tag: str, n_blocks: int, modes=("single",)) -> Non
             v.close()
 
 
-def phase_wire_path(parent_tree: Path, n_blocks: int, mode: str = "single") -> None:
-    """``wire_path_run`` of one mode (``single``: the wire path,
-    ``decoded``: the main path) in turns parent, tree, tree, parent, each
-    in a process of its own; then each tree's wall ms a block and
-    ``device_pre`` ms a block."""
-    name = "main_path" if mode == "decoded" else "wire_path"
-    runs = {"parent": [], "tree": []}
-    pre = {"parent": [], "tree": []}
-    for tag in ("parent", "tree", "tree", "parent"):
-        tree = parent_tree.resolve() if tag == "parent" else ROOT
-        out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--wire-tree",
-                              str(tree), "--wire-tag", tag, "--wire-modes", mode,
-                              "--path-blocks", str(n_blocks)],
-                             cwd=ROOT, capture_output=True, text=True)
-        sys.stderr.write(out.stderr[-4000:])
-        if out.returncode:
-            raise RuntimeError(f"{name}, {tag}: exit {out.returncode}")
-        line = out.stdout.strip().splitlines()[-1]
-        print(line, flush=True)
-        rec = json.loads(line)
-        runs[tag].append(rec["per_block_ms"])
-        pre[tag].append(rec["phase_ms_per_block"].get("device_pre"))
-    log(f"{name}_turns", order=["parent", "tree", "tree", "parent"],
-        **{tag: {"per_block_ms": ms, "median_per_block_ms": float(np.median(ms)),
-                 "device_pre_ms_per_block": pre[tag]}
-           for tag, ms in runs.items()})
+_TURNS = {  # mode → (the run's phase name, the numbers its turns report)
+    "single": ("wire_path", ("per_block_ms",)),
+    "decoded": ("main_path", ("per_block_ms",)),
+    "sidecar": ("sidecar", ("tx_per_s_all", "dispatches")),
+    "config5": ("config5_path", ("per_block_ms", "tx_per_s",
+                                 "idemix_verify_ms_per_presentation")),
+}
+
+
+def phase_turns(parent_tree: Path, n_blocks: int, mode: str) -> None:
+    """One path's runs (``wire_path_run`` for ``single``, the wire path,
+    and ``decoded``, the main path; ``sidecar_run``; ``config5_run``) in
+    turns parent, tree, tree, parent, each in a process of its own; then
+    each tree's numbers by turn and its ``device_pre`` ms a block."""
+    name, keys = _TURNS[mode]
+    extra, tmp = [], None
+    if mode == "config5":  # the blocks are built once, here
+        sys.path.insert(0, str(ROOT))
+        import chip_smoke as cs
+
+        t0 = time.perf_counter()
+        built = cs.build_config5()
+        tmp = tempfile.NamedTemporaryFile(suffix=".pickle", delete=False)
+        tmp.write(pickle.dumps({"genesis": built["genesis"].serialize(),
+                                "blocks": [b.serialize() for b in built["blocks"]],
+                                "rows": built["rows"],
+                                "expected": [[int(c) for c in e] for e in built["expected"]]}))
+        tmp.close()
+        extra = ["--corpus", tmp.name]
+        log("config5_build", seconds=time.perf_counter() - t0, blocks=len(built["blocks"]))
+    runs: dict = {"parent": [], "tree": []}
+    try:
+        for tag in ("parent", "tree", "tree", "parent"):
+            tree = parent_tree.resolve() if tag == "parent" else ROOT
+            out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--wire-tree",
+                                  str(tree), "--wire-tag", tag, "--wire-modes", mode,
+                                  "--path-blocks", str(n_blocks), *extra],
+                                 cwd=ROOT, capture_output=True, text=True)
+            sys.stderr.write(out.stderr[-4000:])
+            if out.returncode:
+                raise RuntimeError(f"{name}, {tag}: exit {out.returncode}")
+            line = out.stdout.strip().splitlines()[-1]
+            print(line, flush=True)
+            runs[tag].append(json.loads(line))
+    finally:
+        if tmp is not None:
+            Path(tmp.name).unlink()
+    log(f"{name}_turns", order=["parent", "tree", "tree", "parent"], **{
+        tag: {**{k: [r[k] for r in rs] for k in keys},
+              f"median_{keys[0]}": float(np.median([r[keys[0]] for r in rs])),
+              "device_pre_ms_per_block": [r["phase_ms_per_block"].get("device_pre")
+                                          for r in rs]}
+        for tag, rs in runs.items()})
 
 
 def phase_coalesced_path(parent_tree: Path, n_blocks: int) -> None:
@@ -922,7 +1094,7 @@ def main() -> int:
     ap.add_argument("--phase", default="all",
                     choices=("all", "team_sizes", "sign_shapes", "stage2", "scatter", "small",
                              "comparison", "comparison_path", "main_path", "wire_path",
-                             "coalesced_path"))
+                             "coalesced_path", "sidecar", "config5_path"))
     ap.add_argument("--team-lanes", default="3072,6144,12288")
     ap.add_argument("--sign-lanes", default="16,32,64,128,256,512,1024,4096")
     ap.add_argument("--comparison-lanes", default="16,4096,12288")
@@ -930,22 +1102,29 @@ def main() -> int:
     ap.add_argument("--wire-tree", type=Path, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--wire-tag", default="tree", help=argparse.SUPPRESS)
     ap.add_argument("--wire-modes", default="single", help=argparse.SUPPRESS)
+    ap.add_argument("--corpus", type=Path, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.wire_tree is not None:  # one run of a phase_wire_path or phase_coalesced_path turn
-        wire_path_run(args.wire_tree, args.wire_tag, args.path_blocks,
-                      args.wire_modes.split(","))
+    if args.wire_tree is not None:  # one run of a turn of a path phase
+        if args.wire_modes == "sidecar":
+            sidecar_run(args.wire_tree, args.wire_tag, args.path_blocks)
+        elif args.wire_modes == "config5":
+            config5_run(args.wire_tree, args.wire_tag, args.corpus)
+        else:
+            wire_path_run(args.wire_tree, args.wire_tag, args.path_blocks,
+                          args.wire_modes.split(","))
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     log("device", nvidia_smi=smi, torch=torch.__version__)
-    if args.phase in ("main_path", "wire_path", "coalesced_path"):
+    if args.phase in ("main_path", "wire_path", "coalesced_path", "sidecar", "config5_path"):
         if args.parent_tree is None:
             ap.error(f"--phase {args.phase} needs --parent-tree")
         if args.phase == "coalesced_path":
             phase_coalesced_path(args.parent_tree, args.path_blocks)
         else:
-            phase_wire_path(args.parent_tree, args.path_blocks,
-                            "decoded" if args.phase == "main_path" else "single")
+            phase_turns(args.parent_tree, args.path_blocks, {
+                "main_path": "decoded", "wire_path": "single", "sidecar": "sidecar",
+                "config5_path": "config5"}[args.phase])
         return 0
     sys.path.insert(0, str(ROOT))
     from fabric_tpu_torch import kernels
@@ -973,9 +1152,9 @@ def main() -> int:
     if run("comparison_path") and args.parent_csrc is not None:
         phase_comparison_path(dev, args.parent_csrc, args.path_blocks)
     if run("main_path") and args.parent_tree is not None:
-        phase_wire_path(args.parent_tree, args.path_blocks, "decoded")
+        phase_turns(args.parent_tree, args.path_blocks, "decoded")
     if run("wire_path") and args.parent_tree is not None:
-        phase_wire_path(args.parent_tree, args.path_blocks)
+        phase_turns(args.parent_tree, args.path_blocks, "single")
     if run("coalesced_path") and args.parent_tree is not None:
         phase_coalesced_path(args.parent_tree, args.path_blocks)
     return 0

@@ -21,7 +21,8 @@ endorser lists (``_materialize_for_host``).
   history), with one verify launch a group.
 * ``_device_pre_columnar`` builds ``_device_preprocess``'s gp arrays
   byte for byte (so the same match row for every (tx, endorser) pair),
-  group order and static arrays, or hands a block with a live non-flat
+  group order and static arrays, a live envelope the front end decoded
+  included when its set is flat, or hands a block with a live non-flat
   transaction to it; the lazy lists, once filled, are the
   ``DecodedBlock`` entry's, and the host paths (v1, v2, the sidecar's
   validator) give the v3 verdicts.
@@ -466,7 +467,9 @@ def _same_pre(a: pv.DevicePre, b: pv.DevicePre):
 def test_columnar_groups_equal_entry_groups(stream):
     """Per block: the columnar gp arrays (match rows gathered through
     ``uid_mat``) are ``_device_preprocess``'s byte for byte, with the same
-    codes; blocks with a live non-flat transaction fall back."""
+    codes; the front-end block's live envelope (an odd endorsement) joins
+    the columnar arrays, and blocks with a live non-flat transaction fall
+    back."""
     v = _validator(stream)
     taken = []
     for blk in stream[1]:
@@ -482,8 +485,8 @@ def test_columnar_groups_equal_entry_groups(stream):
             assert torch.equal(_stage2_verdicts(col, txs, len(items), blk.header.number),
                                _stage2_verdicts(gen, txs2, len(items), blk.header.number))
         taken.append(col is not None)
-    # the front-end block and the range block fall back
-    assert taken[2 + FRONT_END_BLOCK] is False and taken[2 + RANGE_BLOCK] is False
+    # the front-end block stays columnar; the range block falls back
+    assert taken[2 + FRONT_END_BLOCK] is True and taken[2 + RANGE_BLOCK] is False
     assert sum(taken) >= 6
     # block 1's unknown namespace and empty set: INVALID_CHAINCODE by masks
     wb, txs, _ = v._parse_wire(stream[1][1])
@@ -504,7 +507,7 @@ def test_device_pre_picks_columnar_or_fallback(stream, monkeypatch):
         wb, txs, _ = v._parse_wire(blk)
         v._device_pre(txs, wb)
     gens = {n for kind, n in seen if kind == "gen"}
-    assert gens == {2 + 2 + FRONT_END_BLOCK, 2 + 2 + RANGE_BLOCK}
+    assert gens == {2 + 2 + RANGE_BLOCK}
 
 
 def test_materialize_for_host_fills_the_decoded_entrys_lists(stream):

@@ -21,6 +21,7 @@ on the CPU, against the reference.
 
 Exact equality throughout."""
 
+import random
 import types
 
 import numpy as np
@@ -45,7 +46,7 @@ from test_torch_slice import (  # noqa: F401 — net is a fixture
 
 from fabric_tpu import protoutil as pu
 from fabric_tpu.crypto import policy as jpol
-from fabric_tpu.crypto.idemix import IdemixMSP as JIdemixMSP
+from fabric_tpu.crypto import idemix as jidx
 from fabric_tpu.crypto.msp import MSP as JMSP
 from fabric_tpu.crypto.msp import MSPManager as JMSPManager
 from fabric_tpu.ledger.statedb import MemVersionedDB as JMemDB
@@ -59,6 +60,7 @@ from fabric_tpu_torch import carry
 from fabric_tpu_torch import protoutil as ppu
 from fabric_tpu_torch.crypto import cryptogen as pcryptogen
 from fabric_tpu_torch.crypto import ec_ref
+from fabric_tpu_torch.crypto import idemix as pidx
 from fabric_tpu_torch.crypto import msp as pmsp
 from fabric_tpu_torch.ledger.rwset import TxRWSet
 from fabric_tpu_torch.ops import p256, p256v3
@@ -490,28 +492,51 @@ def test_x509_creator_without_ec_key_is_bad_creator_signature(port_net):
 
 
 def test_idemix_creator_raises_and_idemix_endorser_is_dropped(port_net):
-    """An identity of one of the channel's idemix MSPs: as a creator the
-    port refuses the block (the reference verifies its proof on the
-    host); as an endorser it contributes nothing, as in the reference."""
-    anon = pcryptogen.SigningIdentity(
+    """Identities of the channel's idemix MSP (the same issuer key and
+    epoch record in both packages' managers): as a creator its
+    presentation is verified on the host and the transaction validates,
+    a tampered proof or an ECDSA signature under idemix id bytes is
+    BAD_CREATOR_SIGNATURE; as an endorser it contributes nothing.  The
+    port's verdicts equal the reference's, on the wire entry and through
+    the front end."""
+    rng = random.Random(7)
+    iss = pidx.IdemixIssuer("IdemixMSP", bits=1024, rng=rng)
+    holder = pidx.IdemixHolder(iss.ipk, rng)
+    U, proof = holder.commitment()
+    cred = holder.assemble(*iss.issue(U, proof, ou="org1", role="client"), ou="org1",
+                           role="client")
+    anon = pidx.IdemixSigningIdentity("IdemixMSP", iss.ipk, cred, rng)
+    ecdsa_anon = pcryptogen.SigningIdentity(
         "IdemixMSP", port_net["client"].d,
         b'{"type": "idemix", "ou": "org1", "role": "member"}')
     orgs = port_net["orgs"]
-    pmgr = pmsp.MSPManager({o.msp_id: o.msp() for o in orgs}, idemix={"IdemixMSP"})
-    jmgr = JMSPManager({**{o.msp_id: JMSP(o.msp_id, [o.ca.cert_pem]) for o in orgs},
-                        "IdemixMSP": JIdemixMSP("IdemixMSP", None)})
+    pmgr = pmsp.MSPManager({o.msp_id: o.msp() for o in orgs})
+    pmgr.add(pidx.IdemixMSP("IdemixMSP", iss.ipk, iss.epoch_record))
+    jmgr = JMSPManager({o.msp_id: JMSP(o.msp_id, [o.ca.cert_pem]) for o in orgs})
+    jmgr.add(jidx.IdemixMSP("IdemixMSP", jidx.IssuerPublicKey.from_json(iss.ipk.to_json()),
+                            jidx.EpochRecord.from_json(iss.epoch_record.to_json())))
     ident = pmgr.deserialize_identity(anon.serialized)
-    assert ident.idemix and not ident.has_ec_key and not ident.is_valid
+    assert ident.idemix and not ident.has_ec_key and ident.is_valid
+    assert pmgr.deserialize_identity(ecdsa_anon.serialized).is_valid  # the shape is idemix
     rw = TxRWSet()
     rw.ns_rwset(CC).writes["k"] = b"v"
     peers = port_net["peers"]
-    envs = ptxa.build_envelopes([ptxa.TxSpec(port_net["client"], [peers[0], anon],
-                                             rw.to_bytes(), CC),
-                                 ptxa.TxSpec(port_net["client"], peers[:2], rw.to_bytes(), CC)])
-    want = bytes([C.ENDORSEMENT_POLICY_FAILURE, C.VALID])
+    envs = ptxa.build_envelopes([
+        ptxa.TxSpec(port_net["client"], [peers[0], ecdsa_anon], rw.to_bytes(), CC),
+        ptxa.TxSpec(port_net["client"], peers[:2], rw.to_bytes(), CC),
+        ptxa.TxSpec(port_net["client"], [peers[1], anon], rw.to_bytes(), CC),
+        ptxa.TxSpec(anon, peers[:2], rw.to_bytes(), CC),
+        ptxa.TxSpec(anon, peers[:2], rw.to_bytes(), CC),
+        ptxa.TxSpec(ecdsa_anon, peers[:2], rw.to_bytes(), CC)])
+    env = M.Envelope.parse(envs[4])
+    env.signature = env.signature[:-6] + bytes(6)
+    envs[4] = env.serialize()
+    want = bytes([C.ENDORSEMENT_POLICY_FAILURE, C.VALID, C.ENDORSEMENT_POLICY_FAILURE,
+                  C.VALID, C.BAD_CREATOR_SIGNATURE, C.BAD_CREATOR_SIGNATURE])
     assert _validate_both(port_net, envs, jmgr=jmgr, pmgr=pmgr) == (want, want)
-    envs = ptxa.build_envelopes([ptxa.TxSpec(anon, peers[:2], rw.to_bytes(), CC)])
     v = pv.BlockValidator(carry.from_reference([], {CC: POLICY}, [])[1],
                           carry.from_reference([], {}, [])[0], device="cpu", msp=pmgr)
-    with pytest.raises(NotImplementedError, match="idemix"):
-        v.validate(ptxa.build_block(3, b"prev", envs))
+    blk = ptxa.build_block(3, b"prev", envs)
+    flt, _, _ = v.validate(v.decode(M.Block.parse(blk.serialize())))
+    assert bytes(flt) == want
+    assert [p.host_creator_ok for p in v.last_parsed] == [False] * 3 + [True] + [False] * 2

@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of fabric_tpu_torch
-brings in neither JAX, the JAX package, protobuf nor cryptography, no
-source file names them, no file of its host C++ (``native/``) names the
-JAX package's, and an entry point asked for the default CUDA device on a
+brings in neither JAX, the JAX package, protobuf nor cryptography (the
+idemix MSP, ``crypto/idemix.py``, included), no source file names them,
+no file of its host C++ (``native/``) names the JAX package's, and an entry point asked for the default CUDA device on a
 host without one raises instead of falling back.  A host C++ build that
 fails raises too: the wire block is not decoded in Python instead.  The
 validator's phase timers fill the reference's keys."""
@@ -42,7 +42,8 @@ def test_import_brings_in_no_reference_package():
     mods = _modules()
     assert "fabric_tpu_torch.peer.validator" in mods
     assert "fabric_tpu_torch.parallel.hostpool" in mods  # the reference's pool, copied
-    assert {"fabric_tpu_torch.channelconfig", "fabric_tpu_torch.tools.configtxgen"} <= set(mods)
+    assert {"fabric_tpu_torch.channelconfig", "fabric_tpu_torch.tools.configtxgen",
+            "fabric_tpu_torch.crypto.idemix"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -58,6 +59,7 @@ def test_import_brings_in_no_reference_package():
     assert "fabric_tpu_torch.ops.p256v3" in loaded
     assert "fabric_tpu_torch.sidecar.server" in loaded
     assert "fabric_tpu_torch.channelconfig" in loaded
+    assert "fabric_tpu_torch.crypto.idemix" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 

@@ -149,6 +149,27 @@ def test_stage2_kernels_match_plain(cuda):
     assert 0 < int(want[:T].sum()) < T
 
 
+@pytest.mark.parametrize("share", [0.02, 0.5])
+def test_stage2_host_verified_creator_lanes(cuda, share):
+    """The fused stage 2 (``stage2_policy`` then ``stage2_mvcc``) at a
+    block's shape with host-verified (idemix) creators: ``share`` of the
+    lanes -2, a few -1, against the plain version; every -2 lane's
+    creator bit is True, every -1 lane's False."""
+    sv, lv, groups, sp, dims = _stage2_operands(cuda, T=1024, n_sig=3072, seed=13)
+    rng = np.random.default_rng(17)
+    lanes = lv[:, 0].cpu().numpy()
+    lanes[:] = rng.integers(0, 3072, 1024)
+    lanes[rng.random(1024) < share] = -2
+    lanes[rng.choice(1024, 8, replace=False)] = -1
+    lv[:, 0] = torch.from_numpy(lanes).to(cuda)
+    got = db.stage2(sv, lv, groups, sp, dims)
+    want = db.stage2_ref(sv, lv, groups, sp, dims)
+    assert torch.equal(got, want)
+    creator_ok = got[3 * 1024:4 * 1024].cpu().numpy().astype(bool)
+    assert creator_ok[lanes == -2].all() and not creator_ok[lanes == -1].any()
+    assert (lanes == -2).sum() > 0
+
+
 def test_mvcc_validate_kernel_matches_plain(cuda):
     _, lv, _, sp, (R, W, Q) = _stage2_operands(cuda, seed=9)
     rng = np.random.default_rng(9)

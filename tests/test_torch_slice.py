@@ -230,6 +230,10 @@ def _decode(blk, parser, mgr, known):
             e, r, s, _, _ = tuples[ptx.creator_item_idx]
             dtx.creator = ident(mgr.deserialize_identity(ptx.creator))
             dtx.creator_sig = (e, r, s)
+        if ptx.host_creator_ok:  # an idemix creator whose proof the reference verified
+            j = mgr.deserialize_identity(ptx.creator)
+            dtx.creator = Identity(j.msp_id, j.role, None, None, True)
+            dtx.host_creator_ok = True
         if ptx.code == C.NOT_VALIDATED and not ptx.is_config:
             env = pu.unmarshal(common_pb2.Envelope, raw)
             _, _, cap, _, _ = pu.extract_action(env)
@@ -300,11 +304,28 @@ def test_pipeline_matches_reference(streams, depth, monkeypatch):
     assert host_redos, "no block took the consumption-unsafe host redo"
 
 
-def _content_envelope(net, kind) -> bytes:
+def _idemix_signer():
+    """A reference idemix signer over a seeded port issuer's key and
+    credential, and the reference MSP of that key."""
+    from fabric_tpu.crypto import idemix as jidx
+    from fabric_tpu_torch.crypto import idemix as pidx
+
+    rng = random.Random(11)
+    iss = pidx.IdemixIssuer("IdemixMSP", bits=1024, rng=rng)
+    holder = pidx.IdemixHolder(iss.ipk, rng)
+    U, proof = holder.commitment()
+    A, e, v = iss.issue(U, proof, ou="org1", role="client")
+    cred = holder.assemble(A, e, v, ou="org1", role="client")
+    ipk = jidx.IssuerPublicKey.from_json(iss.ipk.to_json())
+    jcred = jidx.Credential(cred.A, cred.e, cred.v, cred.sk, cred.ou, cred.role)
+    return jidx.IdemixSigningIdentity("IdemixMSP", ipk, jcred), jidx.IdemixMSP("IdemixMSP", ipk)
+
+
+def _content_envelope(net, kind, creator=None) -> bytes:
     """One signed envelope (the reference's assembly) carrying what a
     slice of the port added: a config transaction, a key-level policy
     write, a hashed private-collection set, a namespace with an
-    unregistered plugin."""
+    unregistered plugin, an idemix creator (``creator``)."""
     if kind == "config":
         from fabric_tpu.protos import configtx_pb2
         from fabric_tpu.tools import configtxgen as jcg
@@ -327,40 +348,38 @@ def _content_envelope(net, kind) -> bytes:
                             "writes": {hashlib.sha256(b"w").digest():
                                        (hashlib.sha256(b"v").digest(), False)}}
     rw = tx.to_proto().SerializeToString()
-    _, _, prop = txa.create_signed_proposal(net["client"], CHANNEL, ns, [b"i"])
+    creator = creator or net["client"]
+    _, _, prop = txa.create_signed_proposal(creator, CHANNEL, ns, [b"i"])
     resps = [txa.create_proposal_response(prop, rw, e, ns) for e in net["peers"][:2]]
-    return txa.assemble_transaction(prop, resps, net["client"]).SerializeToString()
+    return txa.assemble_transaction(prop, resps, creator).SerializeToString()
 
 
 @pytest.mark.parametrize("kind", ["config", "idemix", "sbe", "pvtdata", "plugin"])
 def test_unsupported_block_content_raises(net, kind):
-    """An idemix creator is the one block content the port still
-    refuses (the next slice); config transactions, key-level policy
-    writes, hashed sets and plugin namespaces now get the reference's
-    verdict and update batch on the same block."""
+    """Config transactions, key-level policy writes, hashed sets,
+    plugin namespaces and idemix creators get the reference's verdict
+    and update batch on the same block (the port refuses none of them
+    any more)."""
     prov = pv.PolicyProvider({
         CC: pv.NamespaceInfo(policy=pol.from_dsl(POLICIES[CC])),
         "plugged": pv.NamespaceInfo(policy=pol.from_dsl(POLICIES[CC]), plugin="vscc2"),
     })
     v = pv.BlockValidator(prov, MemVersionedDB(), device="cpu")
+    mgr, creator = net["mgr"], None
     if kind == "idemix":
-        rw = TxRWSet()
-        rw.ns_rwset(CC).writes["k"] = b"v"
-        dtx = pv.DecodedTx(txid="t", creator=Identity("IdemixMSP", "client", None, None),
-                           creator_sig=(1, 1, 1), rwset=rw)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            v.validate(pv.DecodedBlock(number=3, txs=[dtx]))
-        return
+        creator, idemix_msp = _idemix_signer()
+        mgr = MSPManager(dict(net["mgr"].msps))
+        mgr.add(idemix_msp)
     blk = pu.new_block(3, b"prev")
-    blk.data.data.append(_content_envelope(net, kind))
+    blk.data.data.append(_content_envelope(net, kind, creator))
     blk = pu.finalize_block(blk)
     jprov = JPolicyProvider({
         CC: JNamespaceInfo(policy=jpol.from_dsl(POLICIES[CC])),
         "plugged": JNamespaceInfo(policy=jpol.from_dsl(POLICIES[CC]), plugin="vscc2"),
     })
-    jflt, jbatch, jhist = JBlockValidator(net["mgr"], jprov, JMemDB()).validate(blk)
-    parser = JBlockValidator(net["mgr"], jprov, JMemDB())
-    flt, batch, hist = v.validate(_decode(blk, parser, net["mgr"], {}))
+    jflt, jbatch, jhist = JBlockValidator(mgr, jprov, JMemDB()).validate(blk)
+    parser = JBlockValidator(mgr, jprov, JMemDB())
+    flt, batch, hist = v.validate(_decode(blk, parser, mgr, {}))
     assert bytes(flt) == bytes(jflt)
     assert _meta_rows(batch) == _meta_rows(jbatch) and hist == list(jhist)
     assert bytes(flt) == bytes([C.INVALID_OTHER_REASON if kind == "plugin" else C.VALID])
