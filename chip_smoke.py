@@ -26,7 +26,7 @@ phase keys, plus ``ledger_commit`` around the commit); a second run of
 the main path under ``torch.profiler`` gives the card's busy time and
 idle share.
 The resident path: a world state of 1,000,000
-keys warmed into the table, 6 bench-shaped blocks whose read-only keys
+keys warmed into the table, 4 bench-shaped blocks whose read-only keys
 are the same in every block (a hot working set) through
 ``CommitPipeline`` at depths 2 and 3 with ``state_resident=True``,
 checked against construction and against the same blocks without
@@ -96,8 +96,12 @@ block's batch through a ``SidecarLink`` to a v1 and a v2 server, equal
 to the in-process v3 verdicts.  BASELINE config 4's path
 (``config4_path``) and config 5's (``config5_path``: an idemix org
 beside three X.509 orgs, 2% anonymous creators whose proofs are checked
-on the host, an epoch-record rotation at a barrier); their functions
-say what each checks.  Each path's launch counts are reset just
+on the host, an epoch-record rotation at a barrier), and the ledger
+and its catch-up paths (``ledger_path``: 12 chained wire blocks
+committed into a sqlite-backed ``KVLedger``, reopened, crashed and
+recovered on the card, replayed from its block store, and joined from
+a snapshot with the resident table warmed); their functions say what
+each checks.  Each path's launch counts are reset just
 before it and read just after; a kernel's entry in the kernels line
 gives its time at the shape its path launched it with most often.  Then the kernels line (JSON),
 the card's name and power limit as nvidia-smi reports them, and the
@@ -865,7 +869,7 @@ def phase_resident_kernels(dev, path_ubs: Counter):
 
 
 WORLD_KEYS = 1_000_000
-RES_BLOCKS = 6
+RES_BLOCKS = 4
 CHURN_SLOTS = 4096
 
 
@@ -1164,18 +1168,18 @@ class WireNet:
     expired Org1 client and an 'Org1MSP' client from an unknown CA; every
     certificate signed on the card."""
 
-    def __init__(self, seed: int):
+    def __init__(self, seed: int, sign_batch=card_signer):
         from fabric_tpu_torch.crypto import cryptogen, msp
 
         rng = np.random.default_rng(seed)
         self.orgs = [cryptogen.generate_org(f"Org{i}MSP", f"org{i}.smoke.example.com", rng,
-                                            now=WIRE_NOW, sign_batch=card_signer)
+                                            now=WIRE_NOW, sign_batch=sign_batch)
                      for i in (1, 2, 3, 4)]
         rogue = cryptogen.generate_org("Org1MSP", "rogue.smoke.example.com", rng,
-                                       now=WIRE_NOW, sign_batch=card_signer)
+                                       now=WIRE_NOW, sign_batch=sign_batch)
         d, pem = self.orgs[0].ca.issue("old@org1.smoke.example.com", "client",
                                        not_before=WIRE_NOW - 20 * 86400,
-                                       not_after=WIRE_NOW - 86400, sign_batch=card_signer)
+                                       not_after=WIRE_NOW - 86400, sign_batch=sign_batch)
         self.msp = msp.MSPManager({o.msp_id: o.msp() for o in self.orgs})
         self.client = self.orgs[0].users["User1@org1.smoke.example.com"]
         self.peers = [o.nodes[f"peer0.org{i}.smoke.example.com"]
@@ -1185,11 +1189,14 @@ class WireNet:
 
 
 def build_wire_blocks(wn: WireNet, n_blocks: int = N_BLOCKS, n_tx: int = BLOCK_TXS,
-                      sign_batch=None):
+                      sign_batch=None, chained: bool = False):
     """Bench-shaped wire blocks (rotating endorser pairs, 2 reads and 2
     writes per tx), every 20th tx invalid in one of WIRE_KINDS in turn,
     all signatures from one batched build → (Blocks, expected filters,
-    seed rows, (digests, keys, signatures) of the build's first batch)."""
+    seed rows, (digests, keys, signatures) of the build's first batch).
+    ``chained``: numbered from 0, each previous_hash the header hash of
+    the block before, as a block store takes them."""
+    from fabric_tpu_torch import protoutil
     from fabric_tpu_torch.ledger.rwset import TxRWSet
     from fabric_tpu_torch.peer import txassembly as txa
     from fabric_tpu_torch.peer.txcodes import TxValidationCode as C
@@ -1252,7 +1259,11 @@ def build_wire_blocks(wn: WireNet, n_blocks: int = N_BLOCKS, n_tx: int = BLOCK_T
             elif kind == "duplicate_txid":
                 part[i] = part[i - 1]
             want.append(int(want_code[kind]) if kind else int(C.VALID))
-        blocks.append(txa.build_block(2 + b, b"prev-%d" % b, part))
+        if chained:
+            prev = protoutil.block_header_hash(blocks[-1].header) if blocks else b""
+            blocks.append(txa.build_block(b, prev, part))
+        else:
+            blocks.append(txa.build_block(2 + b, b"prev-%d" % b, part))
         expected.append(bytes(want))
     return blocks, expected, seed_rows, seen[0]
 
@@ -2338,7 +2349,7 @@ def phase_config4_path(dev, built=None, check_launches=True):
 CONFIG5_CHANNEL = "config5chan"
 CONFIG5_IDX = "IdemixOrgMSP"
 CONFIG5_NS = {"basic": "OutOf(2, 'Org1MSP.peer', 'Org2MSP.peer', 'Org3MSP.peer')"}
-CONFIG5_BLOCKS = 9             # after the genesis block; the first reported apart
+CONFIG5_BLOCKS = 6             # after the genesis block; the first reported apart
 CONFIG5_ROTATE_AT = 5          # the epoch-record rotation's config block
 CONFIG5_ANON_EVERY = 50        # one idemix creator in 50 transactions (2%)
 CONFIG5_HOLDERS = 4            # idemix clients; the last is revoked at the rotation
@@ -2663,6 +2674,288 @@ def phase_config5_path(dev, built=None, check_launches=True):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The ledger and catch-up: KVLedger over a block store and sqlite state
+
+
+LEDGER_BLOCKS = 12     # bench.py::_bench_chain_replay's chain: 12 blocks of 1,000 txs
+LEDGER_CRASH_AT = 8    # ledger.apply.before fires as block 8 applies
+LEDGER_SNAP_AT = 6     # the snapshot's height
+LEDGER_KERNELS = ("p256_verify", "stage2_policy", "stage2_mvcc")
+
+
+def build_ledger(n_blocks=LEDGER_BLOCKS, n_tx=BLOCK_TXS, sign_batch=card_signer):
+    """The wire network's chained blocks 0..n-1 (``build_wire_blocks``:
+    3 orgs, a 2-of-3 policy, 2 reads and 2 writes a tx, every 20th tx
+    invalid) as bytes, their expected filters and the seed rows."""
+    wn = WireNet(SEED + 31, sign_batch=sign_batch)
+    blocks, expected, rows, _ = build_wire_blocks(wn, n_blocks, n_tx, sign_batch=sign_batch,
+                                                  chained=True)
+    return {"raw": [b.serialize() for b in blocks], "expected": expected, "rows": rows,
+            "msp": wn.msp, "roots": [(o.msp_id, o.ca.cert_pem) for o in wn.orgs],
+            "n_tx": n_blocks * n_tx}
+
+
+def _seeded_ledger(path, rows, async_commit):
+    """A ``KVLedger`` over sqlite with history, its state seeded (no
+    savepoint) before block 0, as the reference's bench seeds it."""
+    from fabric_tpu_torch.ledger.kvledger import KVLedger
+    from fabric_tpu_torch.ledger.statedb import UpdateBatch
+
+    lg = KVLedger(path, async_commit=async_commit)
+    seed = UpdateBatch()
+    for ns, key, value, ver in rows:
+        seed.put(ns, key, value, ver)
+    lg.state.apply_updates(seed)
+    lg.drain_state()
+    return lg
+
+
+def _ledger_validator(dev, lg, built, **kw):
+    from fabric_tpu_torch import carry
+    from fabric_tpu_torch.peer.validator import BlockValidator
+
+    _, prov, _ = carry.from_reference([], WIRE_NAMESPACES, [])
+    return BlockValidator(prov, lg.state, block_store=lg.blocks, device=dev, msp=built["msp"],
+                          **kw)
+
+
+def _ledger_commit(lg):
+    return lambda res: lg.commit_block(res.pend.wire, res.tx_filter, res.batch, res.history,
+                                       None, res.txids, res.pend.hd_bytes)
+
+
+def _commit_blocks(v, lg, raw) -> list:
+    """Wire blocks parsed from ``raw`` through ``CommitPipeline(depth=2)``
+    into ``lg`` → [CommittedBlock]."""
+    from fabric_tpu_torch.peer.pipeline import CommitPipeline
+    from fabric_tpu_torch.protos import messages as m
+
+    out = []
+    with CommitPipeline(v, _ledger_commit(lg), depth=2) as pipe:
+        for r in raw:
+            got = pipe.submit(m.Block.parse(r))
+            if got is not None:
+                out.append(got)
+        tail = pipe.flush()
+        if tail is not None:
+            out.append(tail)
+    return out
+
+
+def _ledger_view(lg) -> dict:
+    first = (lg.blocks.bootstrap_info() or (0,))[0]
+    return {"height": lg.height, "commit_hash": (lg.commit_hash or b"").hex(),
+            "digest": lg.state_digest(),
+            "blocks": [b.serialize() for b in lg.blocks.iter_blocks(first)]}
+
+
+def _same_ledger(name, got, want, keys=("height", "commit_hash", "digest")):
+    bad = [k for k in keys if got[k] != want[k]]
+    if bad:
+        raise AssertionError(f"ledger_path {name}: {bad} differ from the source ledger "
+                             f"({ {k: got[k] for k in bad if k != 'blocks'} } against "
+                             f"{ {k: want[k] for k in bad if k != 'blocks'} })")
+
+
+def _need_launches(name, counts, kernels_needed, check):
+    zero = [k for k in kernels_needed if counts.get(k, 0) == 0]
+    if check and zero:
+        raise AssertionError(f"ledger_path {name}: kernels not launched: {zero}")
+
+
+def _per_block_ms(d: dict, n: int) -> dict:
+    return {k: 1e3 * t / n for k, t in sorted(d.items())}
+
+
+def phase_ledger_path(dev, built=None, check_launches=True):
+    """The ledger and its catch-up paths on ``dev``: the chain through
+    ``CommitPipeline(depth=2)`` into a ``KVLedger`` (sqlite state,
+    history, the async applier), each filter equal to construction;
+    reopened equal; a ledger stopped by ``ledger.apply.before`` at block
+    8, reopened and recovered through a ``BlockValidator`` on ``dev``,
+    then given the rest, equal to the source; ``replay_into`` from the
+    source's block store into a fresh ledger, equal; a snapshot of the
+    chain at height 6, a ledger created from it, its resident table
+    warmed from the snapshot, and the suffix replayed, equal.  Every
+    check raises.  The ledgers live in a temporary directory removed at
+    the end."""
+    import itertools
+    import shutil
+    import tempfile
+
+    from fabric_tpu_torch import faults, kernels
+    from fabric_tpu_torch.ledger import snapshot
+    from fabric_tpu_torch.ledger.kvledger import KVLedger, validating_replayer
+    from fabric_tpu_torch.peer.replay import ReplayCheckpoint, ReplayDriver, replay_into
+
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    if built is None:
+        built = build_ledger()
+    raw, rows, n_tx = built["raw"], built["rows"], built["n_tx"]
+    n_blocks = len(raw)
+    log("ledger_build", blocks=n_blocks, txs=n_tx, seconds=time.perf_counter() - t0,
+        state_rows=len(rows), block_bytes=sum(len(r) for r in raw))
+    root = tempfile.mkdtemp(prefix="fabtorch-ledger-")
+    try:
+        # -- the source ledger -------------------------------------------------
+        src_dir = os.path.join(root, "source")
+        src = _seeded_ledger(src_dir, rows, async_commit=True)
+        v = _ledger_validator(dev, src, built)
+        v.timings = {}
+        kernels.reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        res = _commit_blocks(v, src, raw)
+        src.drain_state()
+        sync()
+        secs = time.perf_counter() - t0
+        counts = dict(kernels.launches)
+        got = [bytes(r.tx_filter) for r in res]
+        if got != built["expected"]:
+            bad = [(b, i, g[i], w[i]) for b, (g, w) in enumerate(zip(got, built["expected"]))
+                   for i in range(len(w)) if g[i] != w[i]]
+            raise AssertionError(f"ledger_path source: filters differ from construction at "
+                                 f"{bad[:10]}")
+        _need_launches("source", counts, LEDGER_KERNELS, check_launches)
+        want = _ledger_view(src)
+        if want["height"] != n_blocks:
+            raise AssertionError(f"ledger_path source: height {want['height']}")
+        log("ledger_source", blocks=n_blocks, txs=n_tx, depth=2, async_commit=True,
+            seconds=secs, per_block_ms=1e3 * secs / n_blocks,
+            phase_ms_per_block={**_per_block_ms(v.timings, n_blocks),
+                                **_per_block_ms(src.commit_seconds, n_blocks)},
+            fsyncs=src.blocks.stats()["fsyncs"], applier=src.engine.stats(),
+            equal_to_construction=True, launches=counts)
+        src.close()
+
+        # -- reopen ------------------------------------------------------------
+        src = KVLedger(src_dir)
+        again = _ledger_view(src)
+        _same_ledger("reopen", again, want, keys=("height", "commit_hash", "digest", "blocks"))
+        log("ledger_reopen", height=again["height"], commit_hash=again["commit_hash"],
+            digest=again["digest"], blocks_equal=True, equal=True)
+
+        # -- crash and recover ---------------------------------------------------
+        crash_dir = os.path.join(root, "crash")
+        lg = _seeded_ledger(crash_dir, rows, async_commit=True)
+        plan = faults.configure(f"ledger.apply.before:raise:after={LEDGER_CRASH_AT}:n=1")
+        try:
+            _commit_blocks(_ledger_validator(dev, lg, built), lg, raw)
+            lg.drain_state()
+        except RuntimeError as e:
+            if not isinstance(e.__cause__, faults.InjectedFault):
+                raise
+        else:
+            raise AssertionError("ledger_path crash: the armed fault did not stop the ledger")
+        finally:
+            faults.reset()
+        if plan.fired("ledger.apply.before") != 1:
+            raise AssertionError(f"ledger_path crash: fault plan {plan.stats()}")
+        stopped = lg.height
+        lg.abort()
+        lg = KVLedger(crash_dir)
+        sp = lg.state.savepoint()
+        if tuple(sp) != (LEDGER_CRASH_AT - 1, 0):
+            raise AssertionError(f"ledger_path crash: savepoint {sp} after reopen")
+        v = _ledger_validator(dev, lg, built)
+        kernels.reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        recovered = lg.recover(validating_replayer(v, lg.blocks))
+        sync()
+        rec_s = time.perf_counter() - t0
+        rec_counts = dict(kernels.launches)
+        _need_launches("recover", rec_counts, LEDGER_KERNELS, check_launches)
+        rest = raw[lg.height:]
+        _commit_blocks(_ledger_validator(dev, lg, built), lg, rest)
+        _same_ledger("crash and recover", _ledger_view(lg), want)
+        log("ledger_crash", fault="ledger.apply.before", at_block=LEDGER_CRASH_AT,
+            height_at_stop=stopped, savepoint_after_reopen=list(sp),
+            recovered_blocks=recovered, recover_ms=1e3 * rec_s,
+            recover_ms_per_block=1e3 * rec_s / max(recovered, 1), redelivered_blocks=len(rest),
+            launches=rec_counts, digest_equal=True, commit_hash_equal=True)
+        lg.close()
+
+        # -- replay from the source's block store ---------------------------------
+        dst = _seeded_ledger(os.path.join(root, "replay"), rows, async_commit=True)
+        v = _ledger_validator(dev, dst, built)
+        v.timings = {}
+        ckpt = os.path.join(root, "replay.ckpt")
+        kernels.reset_counts()
+        sync()
+        stats = replay_into(dst, v, src.blocks, depth=2, checkpoint=ckpt)
+        sync()
+        counts = dict(kernels.launches)
+        _need_launches("replay", counts, LEDGER_KERNELS, check_launches)
+        _same_ledger("replay", _ledger_view(dst), want, keys=("height", "commit_hash", "digest",
+                                                               "blocks"))
+        if ReplayCheckpoint(ckpt).load() != n_blocks:
+            raise AssertionError(f"ledger_path replay: checkpoint {ReplayCheckpoint(ckpt).load()}")
+        first_s, k = stats["first_commit_s"], stats["blocks"] - 1
+        log("ledger_replay", blocks=stats["blocks"], txs=n_tx, depth=2, seconds=stats["seconds"],
+            first_block_ms=1e3 * first_s,
+            per_block_ms_after_first=1e3 * (stats["seconds"] - first_s) / k,
+            per_block_ms=1e3 * stats["seconds"] / stats["blocks"],
+            tx_per_s=n_tx / stats["seconds"], valid_tx_per_s=stats["tx_per_s"],
+            phase_ms_per_block={**_per_block_ms(v.timings, stats["blocks"]),
+                                **_per_block_ms(dst.commit_seconds, stats["blocks"])},
+            fsyncs=dst.blocks.stats()["fsyncs"], applier=dst.engine.stats(),
+            checkpoint=ReplayCheckpoint(ckpt).load(), launches=counts,
+            digest_equal=True, commit_hash_equal=True, blocks_equal=True)
+        full_replay_s = stats["seconds"]
+        dst.close()
+
+        # -- snapshot join --------------------------------------------------------
+        six = _seeded_ledger(os.path.join(root, "six"), rows, async_commit=False)
+        ReplayDriver(_ledger_validator(dev, six, built), _ledger_commit(six), depth=2).run(
+            itertools.islice(src.blocks.iter_blocks(0), LEDGER_SNAP_AT))
+        if six.height != LEDGER_SNAP_AT:
+            raise AssertionError(f"ledger_path join: the snapshot ledger's height {six.height}")
+        snap_dir = os.path.join(root, "snapshot")
+        t0 = time.perf_counter()
+        meta = snapshot.generate_snapshot(six, snap_dir, channel_id="smokechan")
+        export_s = time.perf_counter() - t0
+        six.close()
+        t0 = time.perf_counter()
+        joined, _ = snapshot.create_from_snapshot(snap_dir, os.path.join(root, "joined"),
+                                                  async_commit=True)
+        import_s = time.perf_counter() - t0
+        v = _ledger_validator(dev, joined, built, state_resident=True)
+        t0 = time.perf_counter()
+        warmed = snapshot.warm_resident(v.resident, snap_dir)
+        warm_s = time.perf_counter() - t0
+        n_records = sum(1 for _ in snapshot.iter_state_records(snap_dir))
+        if warmed != n_records:
+            raise AssertionError(f"ledger_path join: warmed {warmed} of {n_records} keys")
+        kernels.reset_counts()
+        sync()
+        jstats = replay_into(joined, v, src.blocks, depth=2)
+        sync()
+        jcounts = dict(kernels.launches)
+        _need_launches("join", jcounts, LEDGER_KERNELS + ("resident_verok", "table_scatter"),
+                       check_launches)
+        _same_ledger("join", _ledger_view(joined), want)
+        if jstats["resumed_from"] != LEDGER_SNAP_AT:
+            raise AssertionError(f"ledger_path join: resumed from {jstats['resumed_from']}")
+        res_stats = v.resident.stats()
+        join_s = export_s + import_s + warm_s + jstats["seconds"]
+        log("ledger_join", snapshot_height=meta["height"], state_records=n_records,
+            keys_warmed=warmed, export_ms=1e3 * export_s, import_ms=1e3 * import_s,
+            warm_ms=1e3 * warm_s, suffix_blocks=jstats["blocks"],
+            suffix_ms=1e3 * jstats["seconds"],
+            suffix_ms_per_block=1e3 * jstats["seconds"] / jstats["blocks"],
+            join_ms=1e3 * join_s, full_replay_ms=1e3 * full_replay_s,
+            resident_hits=res_stats["hits_total"], resident_misses=res_stats["misses_total"],
+            launches=jcounts, digest_equal=True, commit_hash_equal=True)
+        joined.close()
+        src.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("ledger_path", blocks=n_blocks, txs=n_tx, equal=True)
+
+
 def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
@@ -2722,6 +3015,7 @@ def main() -> int:
     phase_sidecar(net, main_res)
     phase_config4_path(dev)
     phase_config5_path(dev)
+    phase_ledger_path(dev)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "mismatches",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in order} for r in recs]}), flush=True)

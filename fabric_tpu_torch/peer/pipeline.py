@@ -63,6 +63,10 @@ def _is_barrier(pend, batch) -> bool:
 
 @dataclass
 class CommittedBlock:
+    """One block through the pipeline: the validated triple and its
+    ``PendingBlock`` (``pend.wire`` and ``pend.hd_bytes`` are what
+    ``KVLedger.commit_block`` takes beside it)."""
+
     block: object
     pend: object
     tx_filter: bytes

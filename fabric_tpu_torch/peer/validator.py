@@ -56,8 +56,11 @@ the reference's keys (validator.py:460, :541-544): ``host_parse``,
 ``sig_prepare_launch`` and ``device_pre`` on the prefetch thread (under
 ``preprocess_many`` with a pool: the prefetch thread's wait for each);
 ``state_fill``, ``stage2_dispatch``, ``device_wait`` and ``postprocess``
-on the caller's.  The reference's ``hd_frame`` frames the block for its
-block store, which the port does not have.
+on the caller's; ``hd_frame`` on the prefetch thread serializes a wire
+block's header and data for the ledger commit (``PendingBlock.hd_bytes``,
+the reference's :1258) when its ``block_store`` is a ledger's
+``BlockStore`` (a tx-id index alone, as the smoke's runs attach, takes
+no frame).
 
 Check order and codes are the reference's (creator signature → policy →
 MVCC / phantom; ``_finish_device``):
@@ -156,9 +159,11 @@ from functools import cached_property
 import numpy as np
 import torch
 
+from fabric_tpu_torch import protoutil
 from fabric_tpu_torch.crypto import policy as pol
-from fabric_tpu_torch.device import resolve_device
 from fabric_tpu_torch.crypto.msp import policy_from_proto
+from fabric_tpu_torch.device import resolve_device
+from fabric_tpu_torch.ledger.blockstore import BlockStore
 from fabric_tpu_torch.ledger.rwset import (
     VALIDATION_PARAMETER, TxRWSet, decode_metadata, encode_metadata,
 )
@@ -352,6 +357,8 @@ class Preprocessed:
     dpre: DevicePre | None  # None: the block takes the host path
     msp: object = None      # the MSP manager and policy provider it was staged
     policies: object = None  # under (a rotated one redoes the preprocess)
+    wire: object = None     # the wire Block given (None for a DecodedBlock)
+    hd_bytes: bytes | None = None  # its header and data fields, serialized
 
 
 @dataclass
@@ -366,6 +373,8 @@ class PendingBlock:
     overlay: object = None
     fetch2: object = None
     range_phantom: frozenset = frozenset()
+    wire: object = None             # the wire Block (the ledger commits it)
+    hd_bytes: bytes | None = None   # protoutil.block_header_data_bytes(wire)
 
     @cached_property
     def txids(self) -> set:
@@ -899,6 +908,7 @@ class BlockValidator:
         waiting, and build the state-independent stage-2 inputs.  Touches
         no ledger state, so it may run while the predecessor commits."""
         t0 = time.perf_counter()
+        wire = block
         block, txs, items = self._parse_any(block)
         t0 = self._t("host_parse", t0)
         handle = self.verify_launch(items)
@@ -909,8 +919,24 @@ class BlockValidator:
         if self.kernel == "v3":
             dpre = self._device_pre(txs, block)
             self._t("device_pre", t0)
+        return self._staged(wire, block, txs, items, handle, dpre)
+
+    def _staged(self, wire, block, txs, items, handle, dpre) -> Preprocessed:
+        """The ``Preprocessed`` of a block, with the serialized header
+        and data of a wire block when a ledger's ``BlockStore`` is
+        attached (the reference's :1258, which builds it for every
+        block: the ledger commit splices the metadata on, off the
+        committer's time)."""
+        hd_bytes = None
+        if not isinstance(wire, Block):
+            wire = None
+        elif isinstance(self.blocks, BlockStore):
+            t0 = time.perf_counter()
+            hd_bytes = protoutil.block_header_data_bytes(wire)
+            self._t("hd_frame", t0)
         return Preprocessed(block=block, txs=txs, items=items, handle=handle, dpre=dpre,
-                            msp=self.msp, policies=self.policies)
+                            msp=self.msp, policies=self.policies, wire=wire,
+                            hd_bytes=hd_bytes)
 
     def preprocess_many(self, blocks) -> list:
         """``preprocess`` over several blocks with ONE verify launch for
@@ -932,14 +958,13 @@ class BlockValidator:
         handles = self.verify_launch_many([items for _, _, items in parsed])
         self._t("sig_prepare_launch", t0)
         out = []
-        for (block, txs, items), handle in zip(parsed, handles):
+        for wire, (block, txs, items), handle in zip(blocks, parsed, handles):
             dpre = None
             if self.kernel == "v3":
                 t0 = time.perf_counter()
                 dpre = self._device_pre(txs, block)
                 self._t("device_pre", t0)
-            out.append(Preprocessed(block=block, txs=txs, items=items, handle=handle,
-                                    dpre=dpre, msp=self.msp, policies=self.policies))
+            out.append(self._staged(wire, block, txs, items, handle, dpre))
         return out
 
     def _preprocess_many_pooled(self, blocks) -> list:
@@ -974,8 +999,7 @@ class BlockValidator:
                 t0 = time.perf_counter()
                 dpre = pre_futs[k].result()
                 self._t("device_pre", t0)
-            out.append(Preprocessed(block=block, txs=txs, items=items, handle=handle,
-                                    dpre=dpre, msp=self.msp, policies=self.policies))
+            out.append(self._staged(blocks[k], block, txs, items, handle, dpre))
         return out
 
     def _device_pre_on(self, stream, txs, block) -> DevicePre:
@@ -1028,7 +1052,8 @@ class BlockValidator:
                         or (self.blocks is not None and self.blocks.tx_exists(ptx.txid))):
                     ptx.code = int(C.DUPLICATE_TXID)
         pending = PendingBlock(block=pre.block, txs=txs, items=pre.items, handle=pre.handle,
-                               dpre=pre.dpre, overlay=overlay)
+                               dpre=pre.dpre, overlay=overlay, wire=pre.wire,
+                               hd_bytes=pre.hd_bytes)
         if txs and pre.dpre is not None and not self._sbe_launch_veto(pending):
             pending.fetch2, pending.range_phantom = self._launch_device(
                 txs, pre.handle, pre.dpre, overlay)

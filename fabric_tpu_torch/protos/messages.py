@@ -18,8 +18,9 @@ from fabric_tpu_torch.protos.wire import (
 
 # common.HeaderType values the front end tells apart
 HEADER_CONFIG, HEADER_ENDORSER_TRANSACTION = 1, 3
-# common.BlockMetadataIndex: five slots, TRANSACTIONS_FILTER the third
-META_TRANSACTIONS_FILTER, N_METADATA = 2, 5
+# common.BlockMetadataIndex: five slots, TRANSACTIONS_FILTER the third,
+# COMMIT_HASH the fifth
+META_TRANSACTIONS_FILTER, META_COMMIT_HASH, N_METADATA = 2, 4, 5
 # protos.ChaincodeSpec.Type
 CHAINCODE_EXTERNAL = 5
 

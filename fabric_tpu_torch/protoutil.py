@@ -149,3 +149,43 @@ def get_tx_filter(block: m.Block) -> bytes:
 
 def tx_flag_is_valid(flags: bytes, i: int) -> bool:
     return flags[i] == C.VALID
+
+
+# ---------------------------------------------------------------------------
+# The block's wire form without its metadata (the ledger commit)
+
+
+def _pb_varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        out.append(b | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def block_header_data_bytes(block: m.Block) -> bytes:
+    """The serialized header and data fields (1 and 2) of ``block``
+    without its metadata (the reference's :82): built off the commit
+    thread, so the committer only splices the final metadata on
+    (``append_block_metadata``).  The envelopes are framed as they
+    are, not re-encoded; an empty data field is left out."""
+    h = (block.header or m.BlockHeader()).serialize()
+    frames, n = [], 0
+    for env in (block.data.data if block.data is not None else ()):
+        tag = b"\x0a" + _pb_varint(len(env))
+        frames += (tag, env)
+        n += len(tag) + len(env)
+    head = [b"\x0a", _pb_varint(len(h)), h]
+    if n:
+        head += (b"\x12", _pb_varint(n))
+    return b"".join(head + frames)  # one copy of the envelopes
+
+
+def append_block_metadata(hd_bytes: bytes, block: m.Block) -> bytes:
+    """``block_header_data_bytes`` output and the block's current
+    metadata (field 3) → bytes that parse as ``block`` does (the
+    reference's :104)."""
+    md = (block.metadata or m.BlockMetadata()).serialize()
+    return hd_bytes + b"\x1a" + _pb_varint(len(md)) + md

@@ -10,7 +10,7 @@ an older one.
         [--parent-tree DIR]
         [--phase all|team_sizes|sign_shapes|stage2|scatter|small|comparison|
                  comparison_path|main_path|wire_path|coalesced_path|sidecar|
-                 config5_path]
+                 config5_path|ledger_path]
         [--team-lanes 3072,6144,12288]
         [--sign-lanes 16,32,64,128,256,512,1024,4096]
         [--comparison-lanes 16,4096,12288] [--path-blocks 12]
@@ -122,6 +122,18 @@ names another ``csrc`` directory (an older commit's, unpacked with
   host ms; every turn's filters equal the construction's.  A package
   that refuses idemix creators fails its turn.
 
+- ``ledger_path`` (needs ``--parent-tree``): ``chip_smoke.py``'s ledger
+  chain (12 wire blocks of 1,000 txs, built once here and handed to
+  each turn as bytes with the orgs' root certificates) committed into a
+  source ``KVLedger`` (sqlite state, history, the async applier), then
+  ``replay_into`` a fresh one at depth 2, with the parent's package and
+  this tree's, in turns parent, tree, tree, parent: the replay's wall
+  ms a block after the first, the first apart, tx/s, ms a block by
+  phase (the validator's timers, ``ledger_commit``, ``ledger_append``,
+  ``state_apply``) and the fsyncs by trigger; every turn's filters
+  equal the construction's and its replay the source's digest and
+  commit hash.  A package without the ledger fails its turn.
+
 Every variant runs in each of 8 rounds, the order reversed every other
 round (ABBA); the lines give medians and the rounds.
 """
@@ -133,6 +145,7 @@ import contextlib
 import ctypes
 import importlib.util
 import json
+import os
 import pickle
 import subprocess
 import sys
@@ -929,6 +942,50 @@ def config5_run(tree: Path, tag: str, corpus: Path) -> None:
         stale_reprocessed=pipe.stale_prefetches)
 
 
+def ledger_run(tree: Path, tag: str, corpus: Path) -> None:
+    """One catch-up run of the ledger chain in ``corpus`` (pickled
+    bytes) with ``fabric_tpu_torch`` imported from ``tree``: a
+    ``ledger_path`` line."""
+    import shutil
+
+    cs, pkg = _import_from(tree, tag)
+    from fabric_tpu_torch.crypto import msp
+    from fabric_tpu_torch.peer.replay import replay_into
+
+    build_s = _build(("p256_verify", "stage2"))
+    data = pickle.loads(corpus.read_bytes())
+    built = {**data, "msp": msp.MSPManager({mid: msp.MSP(mid, root_certs=[pem], node_ous=True)
+                                            for mid, pem in data["roots"]})}
+    dev = torch.device("cuda")
+    root = tempfile.mkdtemp(prefix="fabtorch-ledger-")
+    try:
+        src = cs._seeded_ledger(os.path.join(root, "source"), data["rows"], async_commit=True)
+        res = cs._commit_blocks(cs._ledger_validator(dev, src, built), src, data["raw"])
+        if [list(r.tx_filter) for r in res] != data["expected"]:
+            raise AssertionError(f"ledger path, {tag}: filters differ from construction")
+        want = cs._ledger_view(src)
+        dst = cs._seeded_ledger(os.path.join(root, "replay"), data["rows"], async_commit=True)
+        v = cs._ledger_validator(dev, dst, built)
+        patched = add_timers(v)
+        v.timings = {}
+        torch.cuda.synchronize()
+        stats = replay_into(dst, v, src.blocks, depth=2)
+        torch.cuda.synchronize()
+        cs._same_ledger(f"turn {tag}", cs._ledger_view(dst), want)
+        n, first_s = stats["blocks"], stats["first_commit_s"]
+        phase = {**v.timings, **dst.commit_seconds}
+        log("ledger_path", tree=tag, package=str(pkg), timers_added=patched, build_s=build_s,
+            blocks=n, first_block_ms=1e3 * first_s,
+            per_block_ms=1e3 * (stats["seconds"] - first_s) / (n - 1),
+            tx_per_s=data["n_tx"] / stats["seconds"],
+            phase_ms_per_block={k: 1e3 * t / n for k, t in sorted(phase.items())},
+            fsyncs=dst.blocks.stats()["fsyncs"])
+        dst.close()
+        src.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def wire_path_run(tree: Path, tag: str, n_blocks: int, modes=("single",)) -> None:
     """Runs of a path with ``fabric_tpu_torch`` imported from ``tree``
     (the process must not have imported it yet), one line a mode, in the
@@ -1003,6 +1060,7 @@ _TURNS = {  # mode → (the run's phase name, the numbers its turns report)
     "sidecar": ("sidecar", ("tx_per_s_all", "dispatches")),
     "config5": ("config5_path", ("per_block_ms", "tx_per_s",
                                  "idemix_verify_ms_per_presentation")),
+    "ledger": ("ledger_path", ("per_block_ms", "first_block_ms", "tx_per_s")),
 }
 
 
@@ -1027,6 +1085,19 @@ def phase_turns(parent_tree: Path, n_blocks: int, mode: str) -> None:
         tmp.close()
         extra = ["--corpus", tmp.name]
         log("config5_build", seconds=time.perf_counter() - t0, blocks=len(built["blocks"]))
+    if mode == "ledger":  # the chain is built once, here
+        sys.path.insert(0, str(ROOT))
+        import chip_smoke as cs
+
+        t0 = time.perf_counter()
+        built = cs.build_ledger()
+        tmp = tempfile.NamedTemporaryFile(suffix=".pickle", delete=False)
+        tmp.write(pickle.dumps({"raw": built["raw"], "rows": built["rows"],
+                                "roots": built["roots"], "n_tx": built["n_tx"],
+                                "expected": [[int(c) for c in e] for e in built["expected"]]}))
+        tmp.close()
+        extra = ["--corpus", tmp.name]
+        log("ledger_build", seconds=time.perf_counter() - t0, blocks=len(built["raw"]))
     runs: dict = {"parent": [], "tree": []}
     try:
         for tag in ("parent", "tree", "tree", "parent"):
@@ -1094,7 +1165,7 @@ def main() -> int:
     ap.add_argument("--phase", default="all",
                     choices=("all", "team_sizes", "sign_shapes", "stage2", "scatter", "small",
                              "comparison", "comparison_path", "main_path", "wire_path",
-                             "coalesced_path", "sidecar", "config5_path"))
+                             "coalesced_path", "sidecar", "config5_path", "ledger_path"))
     ap.add_argument("--team-lanes", default="3072,6144,12288")
     ap.add_argument("--sign-lanes", default="16,32,64,128,256,512,1024,4096")
     ap.add_argument("--comparison-lanes", default="16,4096,12288")
@@ -1109,6 +1180,8 @@ def main() -> int:
             sidecar_run(args.wire_tree, args.wire_tag, args.path_blocks)
         elif args.wire_modes == "config5":
             config5_run(args.wire_tree, args.wire_tag, args.corpus)
+        elif args.wire_modes == "ledger":
+            ledger_run(args.wire_tree, args.wire_tag, args.corpus)
         else:
             wire_path_run(args.wire_tree, args.wire_tag, args.path_blocks,
                           args.wire_modes.split(","))
@@ -1116,7 +1189,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     log("device", nvidia_smi=smi, torch=torch.__version__)
-    if args.phase in ("main_path", "wire_path", "coalesced_path", "sidecar", "config5_path"):
+    if args.phase in ("main_path", "wire_path", "coalesced_path", "sidecar", "config5_path",
+                      "ledger_path"):
         if args.parent_tree is None:
             ap.error(f"--phase {args.phase} needs --parent-tree")
         if args.phase == "coalesced_path":
@@ -1124,7 +1198,7 @@ def main() -> int:
         else:
             phase_turns(args.parent_tree, args.path_blocks, {
                 "main_path": "decoded", "wire_path": "single", "sidecar": "sidecar",
-                "config5_path": "config5"}[args.phase])
+                "config5_path": "config5", "ledger_path": "ledger"}[args.phase])
         return 0
     sys.path.insert(0, str(ROOT))
     from fabric_tpu_torch import kernels

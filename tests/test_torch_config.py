@@ -19,6 +19,15 @@
   config, update deltas), and the reference accepts the port's signed
   updates and config envelopes.
 
+The reference's config-transaction check compares the proposed config
+with the envelope's under ``google.protobuf``'s default serialization,
+whose map order follows a hash seeded anew in each process: in about
+one process in sixteen it rejects a config equal to the one its update
+authorizes.  ``_pinned_config_order`` (autouse here, and imported by
+every test file that takes the reference's config verdicts) makes that
+comparison in ``deterministic=True`` order, so the expected verdicts do
+not depend on the process that computed them.
+
 Exact equality throughout."""
 
 import hashlib
@@ -40,6 +49,28 @@ from fabric_tpu_torch.tools import configtxgen as cg
 
 JC = transaction_pb2.TxValidationCode
 CHANNEL = "confchan"
+
+
+def _pinned_validate_config_tx(self, ptx, cfg_env) -> int:
+    """``fabric_tpu/channelconfig.py``'s ``validate_config_tx`` (:485)
+    with both configs serialized in ``deterministic=True`` order."""
+    try:
+        proposed = self._authorized_config(cfg_env)
+    except Exception:
+        return JC.INVALID_OTHER_REASON
+    if proposed.SerializeToString(deterministic=True) != \
+            cfg_env.config.SerializeToString(deterministic=True):
+        return JC.INVALID_OTHER_REASON
+    return JC.VALID
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _pinned_config_order():
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jcc.ConfigTxProcessor, "validate_config_tx", _pinned_validate_config_tx)
+        yield
+
+
 DSLS = [
     "OutOf(2, 'Org1MSP.peer', 'Org2MSP.peer', 'Org3MSP.peer')",
     "AND('Org1MSP.member', OR('Org2MSP.admin', 'Org3MSP.client'))",

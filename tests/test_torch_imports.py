@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of fabric_tpu_torch
 brings in neither JAX, the JAX package, protobuf nor cryptography (the
-idemix MSP, ``crypto/idemix.py``, included), no source file names them,
+idemix MSP, ``crypto/idemix.py``, and the ledger and catch-up modules
+included), no source file names them,
 no file of its host C++ (``native/``) names the JAX package's, and an entry point asked for the default CUDA device on a
 host without one raises instead of falling back.  A host C++ build that
 fails raises too: the wire block is not decoded in Python instead.  The
@@ -17,6 +18,13 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "fabric_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "fabric_tpu", "google.protobuf", "cryptography")
+# the ledger and catch-up modules (each a copy of a jax-free reference module)
+LEDGER = ("fabric_tpu_torch.faults", "fabric_tpu_torch.faults.plan",
+          "fabric_tpu_torch.ledger.statedb", "fabric_tpu_torch.ledger.history",
+          "fabric_tpu_torch.ledger.confighistory", "fabric_tpu_torch.ledger.pvtdata",
+          "fabric_tpu_torch.ledger.blockstore", "fabric_tpu_torch.ledger.committer",
+          "fabric_tpu_torch.ledger.kvledger", "fabric_tpu_torch.ledger.snapshot",
+          "fabric_tpu_torch.peer.replay")
 
 
 def _sources():
@@ -44,6 +52,7 @@ def test_import_brings_in_no_reference_package():
     assert "fabric_tpu_torch.parallel.hostpool" in mods  # the reference's pool, copied
     assert {"fabric_tpu_torch.channelconfig", "fabric_tpu_torch.tools.configtxgen",
             "fabric_tpu_torch.crypto.idemix"} <= set(mods)
+    assert set(LEDGER) <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -60,6 +69,7 @@ def test_import_brings_in_no_reference_package():
     assert "fabric_tpu_torch.sidecar.server" in loaded
     assert "fabric_tpu_torch.channelconfig" in loaded
     assert "fabric_tpu_torch.crypto.idemix" in loaded
+    assert set(LEDGER) <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -180,7 +190,7 @@ def test_failed_host_build_raises(tmp_path, monkeypatch):
     assert decoded == [] and list(tmp_path.iterdir()) == []
 
 
-def test_timers_fill_the_reference_keys():
+def test_timers_fill_the_reference_keys(tmp_path):
     """``timings = {}``: one wire block through the device path fills
     each phase key of the reference's that the path passes through."""
     from fabric_tpu_torch.crypto.msp import MSPManager
@@ -196,3 +206,17 @@ def test_timers_fill_the_reference_keys():
     assert set(v.timings) == {"host_parse", "sig_prepare_launch", "device_pre", "state_fill",
                               "stage2_dispatch", "device_wait", "postprocess"}
     assert all(t >= 0.0 for t in v.timings.values())
+    assert pend.hd_bytes is None
+    # with a ledger's block store attached, the prefetch thread also
+    # frames the block's header and data for the commit
+    from fabric_tpu_torch import protoutil
+    from fabric_tpu_torch.ledger.blockstore import BlockStore
+
+    v.blocks = BlockStore(str(tmp_path / "chains"))
+    v.timings = {}
+    blk = _wire_block()
+    pend = v.validate_launch(blk)
+    v.validate_finish(pend)
+    v.blocks.close()
+    assert "hd_frame" in v.timings
+    assert pend.hd_bytes == protoutil.block_header_data_bytes(blk)

@@ -30,6 +30,7 @@ import random
 import pytest
 import torch
 from test_torch_coalesce import _RowVerify
+from test_torch_config import _pinned_config_order  # noqa: F401 — an autouse fixture
 from test_torch_wire import _CachedVerify
 
 from fabric_tpu import channelconfig as jcc
