@@ -13,12 +13,16 @@ then against its plain version at the sidecar's 6,144 and 12,288 lanes
 4 above), with two bounds each; the stage-2
 kernels against their plain versions at T = 1024, Eb = 1024, S = 4,
 P = 3 (a 20-deep conflict chain, range phantoms, both creator
-sentinels, consumption-unsafe rows) and the ``mvcc_validate`` entry;
+sentinels, consumption-unsafe rows), the block's one policy launch
+over its two groups and over a config-4-shaped block's three (S = 4,
+4, 8; P = 3, 4, 4), and the ``mvcc_validate`` entry; ptxas's stack
+frame and spills of the two redesigned kernels (0 or it fails);
 the main path — blocks of 1000 transactions (3 orgs, a 2-of-3 peer
 policy, rotating endorser pairs, 2 reads and 2 writes per tx, 5%
 invalid) and one block with a consumption-unsafe namespace through
 ``CommitPipeline(depth=2)`` on the card, with the launch counts reset
-just before and read just after, checked against the filters the
+just before and read just after (one ``stage2_policy`` launch a fused
+block, whatever its groups), checked against the filters the
 blocks were built to produce and against the same blocks validated
 through the plain versions on the CPU, with the validator's phase
 timers (``BlockValidator.timings``, ms a block by the reference's
@@ -400,6 +404,68 @@ def stage2_inputs(dev, T=1024, n_sig=3072, S=4, seed=SEED + 2):
     return t(sig_valid), t(lv), groups, t(sp), (R, W, Q)
 
 
+def config4_policy_groups(dev, T=1024, n_sig=3072, seed=SEED + 8):
+    """A block's policy groups shaped like config 4's: ``basic`` (2 of 3
+    peers, P = 3, S = 4, 450 entries), ``pvtcc`` (2 of 4, P = 4, S = 4,
+    350) and ``sbecc`` (1 of 4, P = 4, S = 8, 200), transactions in
+    order across the three, about 2% of the rows consumption-unsafe."""
+    from fabric_tpu_torch.crypto import policy as pol
+
+    rng = np.random.default_rng(seed)
+    groups, tx0 = [], 0
+    for ns, S, n_ent in (("basic", 4, 450), ("pvtcc", 4, 350), ("sbecc", 8, 200)):
+        plan = pol.compile_plan(pol.from_dsl(CONFIG4_NS[ns]))
+        P = len(plan.principals)
+        Eb = 1 << max(4, (n_ent - 1).bit_length())
+        gp = np.zeros((Eb, S * P + S + 1), np.int32)
+        gp[:, S * P:] = -1
+        for e in range(n_ent):
+            k = int(rng.integers(1, min(S, P) + 1))
+            m = np.zeros((S, P), np.int32)
+            m[np.arange(k), rng.choice(P, k, replace=False)] = 1
+            if rng.random() < 0.02:
+                m[0, :] = 1  # one signature matching every principal: unsafe
+            gp[e, :S * P] = m.reshape(-1)
+            gp[e, S * P:S * P + k] = rng.integers(0, n_sig, k)
+            gp[e, -1] = tx0 + e
+        tx0 += n_ent
+        groups.append((plan, torch.from_numpy(gp).to(dev), Eb, S))
+    return groups
+
+
+def policy_plain(sv, groups, T):
+    """Plain ``stage2_policy`` over a block's groups, from
+    ``policy_reduce_ref``: (fail_tx, safe) per entry, in frame order."""
+    from fabric_tpu_torch.peer import device_block as db
+
+    fails, safes = [], []
+    for plan, gp, _, S in groups:
+        ok, safe = db.policy_reduce_ref(sv, gp, S, len(plan.principals), plan)
+        tx = gp[:, -1]
+        fails.append(torch.where(~ok & (tx >= 0) & (tx < T), tx, -1).int())
+        safes.append(safe.to(torch.int8))
+    return torch.cat(fails), torch.cat(safes)
+
+
+def policy_launch(sv, groups, T):
+    """One ``stage2_policy`` launch over ``groups`` as the validator makes
+    it (the frames in one buffer, the table built once) → (the launch,
+    fail_tx, safe, the frames and table's bytes)."""
+    from fabric_tpu_torch import kernels
+    from fabric_tpu_torch.peer import device_block as db
+
+    dev = sv.device
+    frames = db.group_frames(groups).to(dev)
+    table = db.policy_table([(p, eb, s) for p, _, eb, s in groups], dev)
+    fail = torch.empty(table.n_entries, dtype=torch.int32, device=dev)
+    safe = torch.empty(table.n_entries, dtype=torch.int8, device=dev)
+
+    def launch():
+        kernels.stage2_policy(sv, frames, table.meta, table.n_cta, table.smem, T, safe, fail)
+
+    return launch, fail, safe, nbytes(frames, table.meta)
+
+
 def phase_stage2(dev):
     from fabric_tpu_torch import kernels
     from fabric_tpu_torch.ops import mvcc as mvcc_ops
@@ -407,77 +473,84 @@ def phase_stage2(dev):
 
     sv, lv, groups, sp, dims = stage2_inputs(dev)
     T, n_sig = lv.shape[0], sv.shape[0]
-    got = db.stage2(sv, lv, groups, sp, dims)
-    want = db.stage2_ref(sv, lv, groups, sp, dims)
-    torch.cuda.synchronize()
-    mism = int((got != want).sum())
-    if mism:
-        raise AssertionError(f"stage2 packed output differs: {mism} bytes")
+    # the whole stage 2 against stage2_ref, on stage2_inputs' two groups
+    # and on a config-4-shaped block's three; one policy launch each
+    c4 = config4_policy_groups(dev, T, n_sig)
+    mism, launches = {}, {}
+    for name, gs in (("stage2_inputs", groups), ("config4_groups", c4)):
+        kernels.reset_counts()
+        got = db.stage2(sv, lv, gs, sp, dims)
+        launches[name] = kernels.launches["stage2_policy"]
+        want = db.stage2_ref(sv, lv, gs, sp, dims)
+        torch.cuda.synchronize()
+        mism[name] = int((got != want).sum())
+        if name == "stage2_inputs":
+            want0 = want
+    if any(mism.values()) or set(launches.values()) != {1}:
+        raise AssertionError(f"stage2 packed output differs: {mism} bytes; policy launches "
+                             f"{launches}")
+    want = want0
     unsafe = int((want[5 * T + n_sig:] == 0).sum())
     valid = want[:T].bool()
     counts = {"valid": int(valid.sum()), "conflict": int(want[T:2 * T].sum()),
               "phantom": int(want[2 * T:3 * T].sum()), "unsafe_rows": unsafe,
               "chain_valid": valid[100:121].int().tolist()}
 
-    # per-kernel timings at the main path's shapes (first group)
-    plan, gp, Eb, S = groups[0]
-    P = len(plan.principals)
-    pt = torch.tensor(db.plan_vector(plan), dtype=torch.int32, device=dev)
+    # the policy launch alone against its plain version, at the main
+    # path's two groups and the config-4 block's three
     R, W, Q = dims
-
-    def policy_kernel():
-        pok = torch.ones(T + 1, dtype=torch.int32, device=dev)
-        safe = torch.empty(Eb, dtype=torch.int8, device=dev)
-        kernels.stage2_policy(sv, gp, S, P, pt, pok, safe)
-        return pok, safe
-
-    def policy_plain():
-        ok, safe = db.policy_reduce_ref(sv, gp, S, P, plan)
-        pok = torch.ones(T + 1, dtype=torch.int32, device=dev)
-        tx = gp[:, -1].long()
-        live = (tx >= 0) & (tx < T)
-        pok.scatter_reduce_(0, torch.where(live, tx, T),
-                            torch.where(live, ok, True).to(torch.int32), reduce="amin")
-        return pok, safe
-
-    (pk, sk), (pp, spl) = policy_kernel(), policy_plain()
-    perr = int(max((pk - pp).abs().max(), (sk.int() - spl.int()).abs().max()))
-    pmism = int((pk != pp).sum() + (sk != spl).sum())
-    pok = pk
+    pol_rec = {}
+    for name, gs in (("stage2_inputs", groups), ("config4_groups", c4)):
+        launch, fail, safe, table_bytes = policy_launch(sv, gs, T)
+        launch()
+        pf, ps = policy_plain(sv, gs, T)
+        torch.cuda.synchronize()
+        pm = int((fail != pf).sum() + (safe != ps).sum())
+        perr = int(max((fail - pf).abs().max(), (safe.int() - ps.int()).abs().max()))
+        if pm:
+            raise AssertionError(f"stage2_policy on {name} differs from its plain version "
+                                 f"in {pm} entries")
+        E = fail.shape[0]
+        ops = sum(eb * s * len(p.principals) * 2 for p, _, eb, s in gs)
+        b_ms, b_by = bound(nbytes(sv) + table_bytes + E * 5, ops)
+        pol_rec[name] = {"entries": E, "groups": len(gs), "mismatches": pm, "err": perr,
+                         "ms": cuda_ms(launch, 20),
+                         "plain_ms": cuda_ms(lambda gs=gs: policy_plain(sv, gs, T), 3),
+                         "bound_ms": b_ms, "bound_by": b_by}
+        if name == "stage2_inputs":
+            fail0 = fail.clone()
+    fail = fail0
     out = torch.empty(5 * T + n_sig, dtype=torch.int8, device=dev)
-    mvcc_kernel = lambda: kernels.stage2_mvcc(sp, R, W, Q, lv, sv, pok, out)
-    pre_ok = (lv[:, 1] != 0) & db.creator_ok_ref(sv, lv[:, 0]) & (pok[:T] != 0)
+    mvcc_kernel = lambda: kernels.stage2_mvcc(sp, R, W, Q, lv, sv, fail, out)
+    pre_ok = (lv[:, 1] != 0) & db.creator_ok_ref(sv, lv[:, 0]) & (want[4 * T:5 * T] != 0)
     mvcc_plain = lambda: mvcc_ops.mvcc_validate_hostver_ref(
         sp[:, :R], lv[:, 2] != 0, sp[:, R:R + W], sp[:, R + W:R + W + Q], sp[:, R + W + Q:], pre_ok)
     mvcc_kernel()
     v, c, ph = mvcc_plain()
     merr = int((out[:3 * T].int() - torch.cat([v, c, ph]).int()).abs().max())
     mmism = int((out[:3 * T] != torch.cat([v, c, ph]).to(torch.int8)).sum())
-    if pmism or mmism:
-        raise AssertionError(f"stage2 kernels differ alone: policy {perr}, mvcc {merr}")
+    if mmism:
+        raise AssertionError(f"stage2_mvcc differs alone: {merr}")
     # each MVCC kernel alone on the device (a CUDA graph of 200 launches)
     from fabric_tpu_torch.tools.launch_steps import graph_us, mvcc_launches, mvcc_rounds
 
     bits, fix, _ = mvcc_launches(kernels._entries["fab_mvcc_bitsets"].fn,
                                  kernels._entries["fab_mvcc_fixpoint"].fn, sp, dims, lv, sv,
-                                 pok, out.clone())
-    log("stage2", T=T, n_sig=n_sig, groups=len(groups), mismatches=mism, **counts,
-        rounds=mvcc_rounds(sp, dims, lv, sv, pok), fixpoint_in_smem=kernels.mvcc_fixpoint_in_smem(T),
+                                 fail, out.clone())
+    log("stage2", T=T, n_sig=n_sig, groups=len(groups), mismatches=mism,
+        policy_launches=launches, **counts, policy=pol_rec,
+        rounds=mvcc_rounds(sp, dims, lv, sv, fail), fixpoint_in_smem=kernels.mvcc_fixpoint_in_smem(T),
         bitsets_device_us=graph_us(bits), fixpoint_device_us=graph_us(fix))
     words = T * ((T + 31) // 32)
     rel_ops = T * (T - 1) // 2 * W * (R + 2 * Q)  # compares below the diagonal
     recs = []
-    b_ms, b_by = bound(nbytes(sv, gp, pt, pk, sk), Eb * S * P * 2)
-    # the launch alone: the path allocates the outputs once a block, not per launch
-    pok_t, safe_t = torch.ones_like(pk), torch.empty_like(sk)
+    pr = pol_rec["stage2_inputs"]  # the main path's block: its two groups, one launch
     recs.append({"name": "stage2_policy", "route": "cuda",
                  "source": "fabric_tpu_torch/kernels/csrc/stage2.cu",
-                 "replaces": "fabric_tpu/peer/device_block.py:64", "max_abs_err": perr,
-                 "mismatches": pmism,
-                 "ms": cuda_ms(lambda: kernels.stage2_policy(sv, gp, S, P, pt, pok_t, safe_t), 20),
-                 "plain_ms": cuda_ms(policy_plain, 3),
-                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-    b_ms, b_by = bound(nbytes(sp, lv, sv, pok, out), rel_ops + 2 * words)
+                 "replaces": "fabric_tpu/peer/device_block.py:64", "max_abs_err": pr["err"],
+                 "mismatches": pr["mismatches"], "ms": pr["ms"], "plain_ms": pr["plain_ms"],
+                 "bound_ms": pr["bound_ms"], "bound_by": pr["bound_by"], "library_ms": None})
+    b_ms, b_by = bound(nbytes(sp, lv, sv, fail, out), rel_ops + 2 * words)
     recs.append({"name": "stage2_mvcc", "route": "cuda",
                  "source": "fabric_tpu_torch/kernels/csrc/stage2.cu",
                  "replaces": "fabric_tpu/ops/mvcc.py:84", "max_abs_err": merr,
@@ -677,8 +750,10 @@ def phase_main_path(net: Net):
     blocks, expected, seed_rows = build_blocks(net)
     kernels.reset_counts()
     timings = {}
-    res, secs, marks = run_pipeline(blocks, seed_rows, "cuda", timings=timings)
+    with fused_blocks() as fused:
+        res, secs, marks = run_pipeline(blocks, seed_rows, "cuda", timings=timings)
     counts = dict(kernels.launches)
+    check_policy_launches("main path", counts, fused)
     got = [r.tx_filter for r in res]
     if got != expected:
         bad = [(b, i, g[i], w[i]) for b, (g, w) in enumerate(zip(got, expected))
@@ -689,7 +764,7 @@ def phase_main_path(net: Net):
     log("main_path", blocks=len(blocks), txs=n_tx, depth=2, seconds=secs,
         per_block_ms=1e3 * secs / len(blocks), tx_per_s=n_tx / secs,
         completion_s=marks, valid=[r.n_valid for r in res], launches=counts,
-        phase_ms_per_block={k: 1e3 * t / len(blocks) for k, t in sorted(timings.items())})
+        fused_blocks=fused, phase_ms_per_block={k: 1e3 * t / len(blocks) for k, t in sorted(timings.items())})
     busy_ms, psecs_prof, n_ev, names = device_busy(blocks, seed_rows)
     ok = busy_ms is not None
     log("device_busy", profiled_seconds=psecs_prof, device_events=n_ev, by_name=names,
@@ -711,6 +786,34 @@ def phase_main_path(net: Net):
 MAIN_PATH_KERNELS = ("p256_verify", "stage2_policy", "stage2_mvcc", "mvcc_validate")
 RESIDENT_KERNELS = ("p256_verify", "stage2_policy", "stage2_mvcc", "resident_verok",
                     "table_scatter")
+
+
+@contextlib.contextmanager
+def fused_blocks():
+    """Count the blocks that take the fused stage 2 inside the block:
+    ``blocks``, and ``with_entries`` (a policy entry at least, so one
+    ``stage2_policy`` launch each)."""
+    from fabric_tpu_torch.peer import device_block as db
+
+    seen, fn = {"blocks": 0, "with_entries": 0}, db.stage2
+
+    def wrapped(sig_valid, launch_vec, groups, *rest):
+        seen["blocks"] += 1
+        seen["with_entries"] += any(g[2] for g in groups)
+        return fn(sig_valid, launch_vec, groups, *rest)
+
+    db.stage2 = wrapped
+    try:
+        yield seen
+    finally:
+        db.stage2 = fn
+
+
+def check_policy_launches(path: str, counts, fused) -> None:
+    """A fused block's policy stage is one launch, whatever its groups."""
+    if counts["stage2_policy"] != fused["with_entries"]:
+        raise AssertionError(f"{path}: {counts['stage2_policy']} stage2_policy launches for "
+                             f"{fused['with_entries']} fused blocks with policy entries")
 
 
 @contextlib.contextmanager
@@ -2286,7 +2389,7 @@ def phase_config4_path(dev, built=None, check_launches=True):
     v = validator()
     msp0 = v.msp
     kernels.reset_counts()
-    with first_mvcc_validate() as seen_mvcc:
+    with first_mvcc_validate() as seen_mvcc, fused_blocks() as fused:
         first_t, rest_t = {}, {}
         res, first_s, host1, pipe1, _ = run(v, wire[:1], first_t)
         rest, secs, host2, pipe2, marks = run(v, wire[1:], rest_t)
@@ -2318,6 +2421,7 @@ def phase_config4_path(dev, built=None, check_launches=True):
         zero = [k for k in MAIN_PATH_KERNELS if counts[k] == 0]
         if zero:
             raise AssertionError(f"kernels not launched on the config4 path: {zero}")
+        check_policy_launches("config4 path", counts, fused)
     k = len(wire) - 1
     # ms between consecutive completions after the first block, by the
     # route of the block completed: at depth 2 a gap holds that block's
@@ -2338,7 +2442,7 @@ def phase_config4_path(dev, built=None, check_launches=True):
         phase_ms_per_block={key: 1e3 * t / k for key, t in sorted(rest_t.items())},
         barrier_blocks=barriers, msp_rotated=rotated,
         stale_reprocessed=pipe1.stale_prefetches + pipe2.stale_prefetches,
-        launches={n: counts[n] for n in MAIN_PATH_KERNELS},
+        launches={n: counts[n] for n in MAIN_PATH_KERNELS}, fused_blocks=fused,
         mvcc_validate_checked_lanes=(int(seen_mvcc[0][0][0].shape[0]) if seen_mvcc else 0),
         mvcc_validate_mismatches=mism, equal_to_host_path=True, equal_to_construction=True)
     return counts
@@ -2582,8 +2686,8 @@ def phase_config5_path(dev, built=None, check_launches=True):
     seen_s2 = []
     orig_stage2 = db.stage2
 
-    def capture_s2(sig_valid, launch_vec, groups, static_p, dims, plan_tensors=None):
-        out = orig_stage2(sig_valid, launch_vec, groups, static_p, dims, plan_tensors)
+    def capture_s2(sig_valid, launch_vec, groups, static_p, dims, *rest):
+        out = orig_stage2(sig_valid, launch_vec, groups, static_p, dims, *rest)
         if not seen_s2 and bool((launch_vec[:, 0] == -2).any()):
             seen_s2.append((sig_valid.clone(), launch_vec.clone(),
                             [(p, gp.clone(), eb, s) for p, gp, eb, s in groups],
@@ -2956,6 +3060,24 @@ def phase_ledger_path(dev, built=None, check_launches=True):
     log("ledger_path", blocks=n_blocks, txs=n_tx, equal=True)
 
 
+def kernel_frames(build_log: dict, names) -> dict:
+    """ptxas's report for the kernels whose mangled names hold one of
+    ``names``: {name: {stack, spill_stores, spill_loads, registers}}
+    (bytes and registers a thread); a name the log lacks (a library
+    loaded from the build cache) is left out."""
+    out = {}
+    for text in build_log.values():
+        for m in re.finditer(r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, "
+                             r"(\d+) bytes spill stores, (\d+) bytes spill loads"
+                             r"(?:\n.*?Used (\d+) registers)?", text):
+            for n in names:
+                if n in m.group(1):
+                    out[n] = {"stack": int(m.group(2)), "spill_stores": int(m.group(3)),
+                              "spill_loads": int(m.group(4)),
+                              "registers": int(m.group(5)) if m.group(5) else None}
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
@@ -2990,6 +3112,14 @@ def main() -> int:
     log("build", seconds=secs, ptxas=regs, static_smem_bytes=smem,
         host_cpp={"compiler": native.compiler_version(), "seconds": host_secs,
                   "per_library_s": dict(native.build_seconds)})
+    redesigned = {"stage2_policy_kernel": "stage2", "resident_verok_kernel": "resident"}
+    frames = kernel_frames(kernels.build_log, redesigned)
+    log("kernel_frames", **frames)
+    unread = [n for n, lib in redesigned.items() if lib in kernels.build_log and n not in frames]
+    if unread or any(v["stack"] or v["spill_stores"] or v["spill_loads"]
+                     for v in frames.values()):
+        raise AssertionError(f"a redesigned kernel keeps a stack frame or spills, or ptxas "
+                             f"did not report it: {frames}, unread {unread}")
     t0 = time.perf_counter()
     net = Net(SEED)
     log("signatures", identities=len(net.keys), per_identity=POOL,

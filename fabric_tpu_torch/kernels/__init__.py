@@ -58,10 +58,10 @@ _SIGS = {
         "fab_p256_verify": [_P, _I, _P, _P, _P],
     },
     "stage2": {
-        "fab_stage2_policy": [_P, _I, _P, _I, _I, _I, _P, _P, _I, _P, _P],
+        "fab_stage2_policy": [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P],
         "fab_mvcc_verok": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
         "fab_mvcc_bitsets": [_P, _I, _I, _I, _I, _P, _P, _P],
-        "fab_mvcc_fixpoint": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
+        "fab_mvcc_fixpoint": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P],
         "fab_mvcc_fixpoint_in_smem": [_I],
     },
     "resident": {
@@ -216,13 +216,27 @@ def p256_verify(frame: torch.Tensor, consts: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def stage2_policy(sig_valid, gp, S: int, P: int, plan, policy_ok, safe_out) -> None:
-    """One policy group: safe bits into ``safe_out`` (int8 [Eb]) and
-    ``atomicMin`` of each entry's verdict into ``policy_ok`` (int32 [T+1])."""
-    _cuda(sig_valid, gp, plan, policy_ok, safe_out)
-    _entries["fab_stage2_policy"](sig_valid.data_ptr(), sig_valid.shape[0], gp.data_ptr(),
-                                  gp.shape[0], S, P, plan.data_ptr(), policy_ok.data_ptr(),
-                                  policy_ok.shape[0] - 1, safe_out.data_ptr(), _stream(gp))
+# the policy kernel's sizes: stage2.cu's (rows, plan words), and the
+# entries a CTA the host gives it, at most its 128 threads (more CTAs,
+# fewer staged words and signature bits a thread)
+POLICY_ENTRIES = 32
+POLICY_ROW_BYTES = 32768  # a CTA's staged rows (dynamic shared memory)
+POLICY_PLAN_WORDS = 256   # a plan's int32 words
+
+
+def stage2_policy(sig_valid, frames, meta, n_cta: int, smem: int, T: int, safe_out,
+                  fail_tx) -> None:
+    """Every policy group of one block in one launch: ``frames`` (int32,
+    the groups' frames one after another), ``meta`` (int32, the CTA
+    table and plans, ``device_block.PolicyTable``) → the entries' safe
+    bits into ``safe_out`` (int8 [E]) and each entry's transaction into
+    ``fail_tx`` (int32 [E]) where its verdict is false, else -1."""
+    _cuda(sig_valid, frames, meta, safe_out, fail_tx)
+    if meta.data_ptr() % 16:
+        raise ValueError("stage2_policy: the table's CTA rows are read 16 bytes at a time")
+    _entries["fab_stage2_policy"](sig_valid.data_ptr(), sig_valid.shape[0], frames.data_ptr(),
+                                  meta.data_ptr(), n_cta, smem, T, safe_out.data_ptr(),
+                                  fail_tx.data_ptr(), _stream(frames))
     _count("stage2_policy")
 
 
@@ -243,11 +257,12 @@ def _bitsets(static_p, R: int, W: int, Q: int):
 
 
 def stage2_mvcc(static_p, R: int, W: int, Q: int, launch_vec, sig_valid,
-                policy_ok, out) -> None:
+                fail_tx, out) -> None:
     """Conflict bitsets + the validity fixpoint of one block, writing
     valid | conflict | phantom | creator_ok | policy_ok | sig_valid into
-    ``out`` (int8 [5T + n_sig + ...])."""
-    _cuda(static_p, launch_vec, sig_valid, policy_ok, out)
+    ``out`` (int8 [5T + n_sig + ...]); ``fail_tx`` (int32 [E]) names the
+    transactions whose policy failed (``stage2_policy``'s), -1 elsewhere."""
+    _cuda(static_p, launch_vec, sig_valid, fail_tx, out)
     T = static_p.shape[0]
     direct, phantom = _bitsets(static_p, R, W, Q)
     s = _stream(static_p)
@@ -255,7 +270,7 @@ def stage2_mvcc(static_p, R: int, W: int, Q: int, launch_vec, sig_valid,
                                  direct.data_ptr(), phantom.data_ptr(), s)
     _entries["fab_mvcc_fixpoint"](T, direct.data_ptr(), phantom.data_ptr(), None, None,
                                   launch_vec.data_ptr(), sig_valid.data_ptr(), sig_valid.shape[0],
-                                  policy_ok.data_ptr(), out.data_ptr(), s)
+                                  fail_tx.data_ptr(), fail_tx.shape[0], out.data_ptr(), s)
     _count("stage2_mvcc")
 
 
@@ -269,7 +284,7 @@ def mvcc_hostver(static_p, R: int, W: int, Q: int, ver_ok, pre_ok, out) -> None:
     _entries["fab_mvcc_bitsets"](static_p.data_ptr(), T, R, W, Q,
                                  direct.data_ptr(), phantom.data_ptr(), s)
     _entries["fab_mvcc_fixpoint"](T, direct.data_ptr(), phantom.data_ptr(), ver_ok.data_ptr(),
-                                  pre_ok.data_ptr(), None, None, 0, None, out.data_ptr(), s)
+                                  pre_ok.data_ptr(), None, None, 0, None, 0, out.data_ptr(), s)
     _count("stage2_mvcc")
 
 
@@ -289,7 +304,7 @@ def mvcc_validate(read_keys, read_present, read_vers, comm_present, comm_vers,
     _entries["fab_mvcc_bitsets"](static_p.data_ptr(), T, R, W, Q,
                                  direct.data_ptr(), phantom.data_ptr(), s)
     _entries["fab_mvcc_fixpoint"](T, direct.data_ptr(), phantom.data_ptr(), ver_ok.data_ptr(),
-                                  pre_ok.data_ptr(), None, None, 0, None, out.data_ptr(), s)
+                                  pre_ok.data_ptr(), None, None, 0, None, 0, out.data_ptr(), s)
     _count("mvcc_validate")
 
 
@@ -300,6 +315,8 @@ def resident_verok(static_p, R: int, table, u_pack, read_pv, launch_vec) -> None
     T, cols = static_p.shape
     if read_pv.shape != (T, R, 3) or launch_vec.shape != (T, 3) or u_pack.shape[1] != 4:
         raise ValueError("resident_verok: operand shapes disagree")
+    if u_pack.data_ptr() % 16:
+        raise ValueError("resident_verok: u_pack rows are read 16 bytes at a time")
     _entries["fab_resident_verok"](static_p.data_ptr(), T, cols, R, table.data_ptr(),
                                    table.shape[0], u_pack.data_ptr(), u_pack.shape[0],
                                    read_pv.data_ptr(), launch_vec.data_ptr(), _stream(table))

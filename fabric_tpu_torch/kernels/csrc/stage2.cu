@@ -5,14 +5,33 @@
 // mvcc_validate_hostver; with its per-read compare prologue it also
 // serves fabric_tpu/ops/mvcc.py::mvcc_validate.
 //
-// stage2_policy — one thread per endorsement entry of one policy group.
-//   The policy's gate tree arrives as data (leaf principal columns,
-//   leaf ranks, gate thresholds and child slots), so no kernel is built
-//   per policy.  Each thread gathers its S signature bits, counts
-//   principal matches, compares them with the leaf ranks, walks the
-//   gates, writes the consumption-safety bit and folds its verdict into
-//   the transaction's int32 policy slot with atomicMin (there are no
-//   int8 atomics).  Bound: a few bytes per entry; launch latency.
+// stage2_policy — ONE launch a block over every policy group.  The
+//   block's group frames ([Eb, S*P + S + 1] int32 each: match | endo_idx
+//   | tx_of) lie one after another in one buffer; a table of the CTAs
+//   (each CTA's rows, shape and plan) and the groups' plans (the gate
+//   tree as data: leaf principal columns, leaf ranks, gate thresholds
+//   and child slots, so no kernel is built per policy) lie in a second,
+//   built once per set of plans and shapes.  Each CTA of 128 threads
+//   takes up to 32 consecutive entries of one group (the host's choice:
+//   more CTAs, a few staged words a thread): it stages the plan and its
+//   rows in shared memory with coalesced asynchronous copies, then
+//   gathers every slot's signature bit at once (a thread per (entry,
+//   slot)), then a thread an
+//   entry turns each slot into a P-bit match mask ANDed with its
+//   signature bit (in place of the slot's first word), counts leaf l's
+//   matches as bit leaf_p[l] summed over the slots, compares with the
+//   leaf ranks and walks the gates, in registers and shared memory only
+//   (P <= 32: the masks are 32-bit, which the host's plan_vector
+//   checks).  It writes its consumption-safety bit and one int32: its
+//   transaction when its verdict is false, else -1; the fixpoint folds
+//   those into the policy set.  The chain is three dependent global
+//   round trips (the CTA's row; plan and rows; the signature bits)
+//   whatever S is.  Bound: a few bytes per entry.  The first design
+//   launched once per group after a fill of the policy vector, read the
+//   plan from global memory in every thread, kept a data-indexed count
+//   array in local memory, read a 68-byte row per lane (strided across
+//   the warp), gathered a lane's S signature bits one after another and
+//   folded verdicts with global atomicMin.
 //
 // mvcc_bitsets — one warp per (transaction j, 32-transaction word w):
 //   the direct-conflict (read key == earlier write key) and phantom
@@ -23,8 +42,9 @@
 //   The first design gave each thread a whole (j, w) word: 32 rows one
 //   after another, each row's keys a separate, uncoalesced read.
 //
-// mvcc_fixpoint — ONE thread block: pre_ok = structural & creator &
-//   policy, then the validity fixpoint valid[j] = ver_ok[j] &
+// mvcc_fixpoint — ONE thread block: the policy set (all ones, the bit
+//   of every transaction stage2_policy named cleared: a warp folds its
+//   entries per word, then one shared-memory atomic a word), pre_ok = structural & creator & policy, then the validity fixpoint valid[j] = ver_ok[j] &
 //   !any(conflict[j, i] & valid[i], i < j) by Jacobi iteration on a
 //   shared-memory bitset until it stops changing (the reference's
 //   while_loop, never returning to the host), then the conflict and
@@ -43,12 +63,15 @@
 
 #include <atomic>
 #include <cstdint>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxP = 32;      // principal columns per policy
-constexpr int kMaxSlots = 64;  // leaves + gates per policy
+constexpr int kPolicyThreads = 128;
+constexpr int kCtaCols = 8;  // a CTA's row of the policy table
+constexpr int kMaxPlanWords = 256;  // a plan's words (<= 64 leaves + gates)
+constexpr int kPolicyRowBytes = 32768;  // staged rows a CTA, under the 48 KiB default
 constexpr int kFixThreads = 1024;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 // the most dynamic shared memory a block may opt in to on sm_90 (227 KiB)
@@ -60,13 +83,44 @@ __device__ __forceinline__ bool sig_bit(const uint8_t* sv, int n_sig, int idx) {
 
 // plan: L | G | colmask | 0 | leaf_p[L] | leaf_rank[L] | gate_n[G] |
 //       gate_off[G+1] | children[...]
-__global__ void stage2_policy_kernel(const uint8_t* __restrict__ sv, int n_sig,
-                                     const int32_t* __restrict__ gp, int Eb, int S, int P,
-                                     const int32_t* __restrict__ plan,
-                                     int32_t* __restrict__ policy_ok, int T,
-                                     int8_t* __restrict__ safe_out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= Eb) return;
+// meta: a row of kCtaCols a CTA [frame offset of its first row, its
+//       entries n, S, P, plan offset, plan words, its first entry, 0]
+//       (two 16-byte loads) | the plans
+__global__ void __launch_bounds__(kPolicyThreads)
+stage2_policy_kernel(const uint8_t* __restrict__ sv, int n_sig,
+                     const int32_t* __restrict__ frames, const int32_t* __restrict__ meta,
+                     int T, int8_t* __restrict__ safe_out, int32_t* __restrict__ fail_tx) {
+  extern __shared__ int32_t policy_rows[];
+  __shared__ int32_t plan[kMaxPlanWords];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int4* cta = reinterpret_cast<const int4*>(meta) + (kCtaCols / 4) * blockIdx.x;
+  const int4 c0 = __ldg(cta), c1 = __ldg(cta + 1);
+  const int n = c0.y, S = c0.z, P = c0.w;
+  const int rw = S * P + S + 1;
+  // plan and rows by asynchronous copies (cp.async): every word of them
+  // in flight at once, none through a register
+  for (int i = tid; i < c1.y; i += nt) __pipeline_memcpy_async(plan + i, meta + c1.x + i, 4);
+  const int32_t* src = frames + c0.x;
+  for (int i = tid; i < n * rw; i += nt) __pipeline_memcpy_async(policy_rows + i, src + i, 4);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  // every slot's endorsement index becomes its signature bit: the CTA's
+  // n * S gathers are independent, so they are in flight together
+  const int top = n_sig - 1;
+#pragma unroll 4
+  for (int i = tid; i < n * S; i += nt) {
+    int32_t* endo = policy_rows + (i / S) * rw + S * P + i % S;
+    const int idx = *endo;
+    // the load does not wait on the range test: a clamped index, read always
+    const uint8_t v = top >= 0 ? __ldg(sv + min(max(idx, 0), top)) : 0;
+    *endo = idx >= 0 && idx <= top && v != 0;
+  }
+  __syncthreads();
+  if (tid >= n) return;
+
+  // rw is odd (S is a power of two), so a warp's rows fall on distinct banks
+  int32_t* row = policy_rows + tid * rw;
   const int L = plan[0], G = plan[1];
   const uint32_t colmask = (uint32_t)plan[2];
   const int32_t* leaf_p = plan + 4;
@@ -74,35 +128,33 @@ __global__ void stage2_policy_kernel(const uint8_t* __restrict__ sv, int n_sig,
   const int32_t* gate_n = leaf_rank + L;
   const int32_t* gate_off = gate_n + G;
   const int32_t* children = gate_off + G + 1;
-
-  const int32_t* row = gp + (size_t)e * (S * P + S + 1);
-  const int32_t* endo = row + S * P;
   const int tx = row[S * P + S];
-  int counts[kMaxP];
-  for (int p = 0; p < P; ++p) counts[p] = 0;
   bool safe = true;
+  // slot s's mask replaces row[s]: every word a later slot reads (its
+  // match words at s'P.., its signature bit at SP + s') lies past s
   for (int s = 0; s < S; ++s) {
-    if (!sig_bit(sv, n_sig, endo[s])) continue;
-    int leaf_cols = 0;
-    for (int p = 0; p < P; ++p) {
-      if (row[s * P + p] != 0) {
-        ++counts[p];
-        leaf_cols += (colmask >> p) & 1u;
-      }
-    }
-    if (leaf_cols > 1) safe = false;
+    uint32_t m = 0u;
+    if (row[S * P + s])
+      for (int p = 0; p < P; ++p) m |= (uint32_t)(row[s * P + p] != 0) << p;
+    safe &= __popc(m & colmask) <= 1;
+    row[s] = (int32_t)m;
   }
   uint64_t vals = 0;
-  for (int l = 0; l < L; ++l)
-    if (leaf_rank[l] < counts[leaf_p[l]]) vals |= 1ull << l;
+  for (int l = 0; l < L; ++l) {
+    const int p = leaf_p[l];
+    int c = 0;
+    for (int s = 0; s < S; ++s) c += (row[s] >> p) & 1;
+    if (leaf_rank[l] < c) vals |= 1ull << l;
+  }
   for (int g = 0; g < G; ++g) {
     int acc = 0;
     for (int c = gate_off[g]; c < gate_off[g + 1]; ++c) acc += (int)((vals >> children[c]) & 1ull);
     if (acc >= gate_n[g]) vals |= 1ull << (L + g);
   }
-  const int ok = (int)((vals >> (L + G - 1)) & 1ull);
+  const bool ok = (vals >> (L + G - 1)) & 1ull;
+  const int e = c1.z + tid;
   safe_out[e] = safe ? 1 : 0;
-  if (tx >= 0 && tx < T) atomicMin(policy_ok + tx, ok);
+  fail_tx[e] = (!ok && tx >= 0 && tx < T) ? tx : -1;
 }
 
 // One warp per (transaction j, 32-transaction word w): lane l tests
@@ -166,8 +218,11 @@ __device__ __forceinline__ bool bit(const uint32_t* s, int t) {
 __host__ __device__ inline int fix_row_words(int nw) { return nw | 1; }
 
 // Stage-2 mode (launch_vec != null): launch_vec [T,3] = creator_idx |
-// structural | ver_ok, creator sentinels -1 → false, -2 → true; writes
-// valid | conflict | phantom | creator_ok | policy_ok | sig_valid.
+// structural | ver_ok, creator sentinels -1 → false, -2 → true;
+// fail_tx [n_fail]: the transaction of each policy entry whose verdict
+// is false, else -1; writes valid | conflict | phantom | creator_ok |
+// policy_ok | sig_valid.  The policy set lives in `nxt`, which the
+// first Jacobi round writes before it reads.
 // MVCC mode: ver_ok & pre_ok given; writes valid | conflict | phantom.
 // ld > 0: direct | phantom staged in shared memory as [T][ld] words;
 // ld == 0: the rounds read both matrices from global memory.  blockDim
@@ -178,13 +233,34 @@ mvcc_fixpoint_kernel(int T, int nw, int ld, const uint32_t* __restrict__ direct,
                      const uint32_t* __restrict__ phantom, const uint8_t* __restrict__ ver_ok,
                      const uint8_t* __restrict__ pre_ok, const int32_t* __restrict__ launch_vec,
                      const uint8_t* __restrict__ sv, int n_sig,
-                     const int32_t* __restrict__ policy_ok, int8_t* __restrict__ out) {
+                     const int32_t* __restrict__ fail_tx, int n_fail,
+                     int8_t* __restrict__ out) {
   extern __shared__ uint32_t sm[];
   uint32_t* vok = sm;
   uint32_t* cur = sm + nw;
   uint32_t* nxt = sm + 2 * nw;
   uint32_t* conf = sm + 3 * nw;
   const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+  if (launch_vec != nullptr) {
+    for (int w = tid; w < nw; w += nt) nxt[w] = kFull;
+    __syncthreads();
+    // a warp's failing entries are folded per word first (their
+    // transactions mostly share one or two words), then one shared
+    // atomic a word: an atomic an entry serialises on the word
+    for (int base = tid - lane; base < n_fail; base += nt) {
+      const int t = base + lane < n_fail ? fail_tx[base + lane] : -1;
+      const bool hit = t >= 0 && t < T;
+      const int w = hit ? t >> 5 : -1;
+      for (unsigned todo = __ballot_sync(kFull, hit); todo;) {
+        const int lw = __shfl_sync(kFull, w, __ffs(todo) - 1);
+        const unsigned same = __ballot_sync(kFull, w == lw);
+        const unsigned bits = __reduce_or_sync(kFull, w == lw ? 1u << (t & 31) : 0u);
+        if (lane == __ffs(todo) - 1) atomicAnd(nxt + lw, ~bits);
+        todo &= ~same;
+      }
+    }
+    __syncthreads();
+  }
   for (int base = tid - lane; base < T; base += nt) {
     const int t = base + lane;
     bool v = false;
@@ -192,7 +268,7 @@ mvcc_fixpoint_kernel(int T, int nw, int ld, const uint32_t* __restrict__ direct,
       if (launch_vec != nullptr) {
         const int ci = launch_vec[3 * t];
         const bool cok = ci >= 0 ? sig_bit(sv, n_sig, ci) : (ci == -2);
-        const bool pok = policy_ok[t] != 0;
+        const bool pok = bit(nxt, t);
         out[3 * T + t] = cok;
         out[4 * T + t] = pok;
         v = launch_vec[3 * t + 2] != 0 && launch_vec[3 * t + 1] != 0 && cok && pok;
@@ -270,14 +346,15 @@ mvcc_fixpoint_kernel(int T, int nw, int ld, const uint32_t* __restrict__ direct,
 }
 }  // namespace
 
-extern "C" int fab_stage2_policy(const uint8_t* sv, int n_sig, const int32_t* gp, int Eb,
-                                 int S, int P, const int32_t* plan, int32_t* policy_ok, int T,
-                                 int8_t* safe_out, void* stream) {
-  if (P > kMaxP) return (int)cudaErrorInvalidValue;
-  if (Eb > 0) {
-    const int threads = 128;
-    stage2_policy_kernel<<<(Eb + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        sv, n_sig, gp, Eb, S, P, plan, policy_ok, T, safe_out);
+// every policy group of one block in one launch of n_cta CTAs, `smem`
+// bytes of staged rows a CTA (the caller sizes both from the group table)
+extern "C" int fab_stage2_policy(const uint8_t* sv, int n_sig, const int32_t* frames,
+                                 const int32_t* meta, int n_cta, int smem, int T,
+                                 int8_t* safe_out, int32_t* fail_tx, void* stream) {
+  if (smem < 0 || smem > kPolicyRowBytes) return (int)cudaErrorInvalidValue;
+  if (n_cta > 0) {
+    stage2_policy_kernel<<<n_cta, kPolicyThreads, smem, (cudaStream_t)stream>>>(
+        sv, n_sig, frames, meta, T, safe_out, fail_tx);
   }
   return (int)cudaGetLastError();
 }
@@ -315,7 +392,8 @@ extern "C" int fab_mvcc_fixpoint_in_smem(int T) {
 extern "C" int fab_mvcc_fixpoint(int T, const uint32_t* direct, const uint32_t* phantom,
                                  const uint8_t* ver_ok, const uint8_t* pre_ok,
                                  const int32_t* launch_vec, const uint8_t* sv, int n_sig,
-                                 const int32_t* policy_ok, int8_t* out, void* stream) {
+                                 const int32_t* fail_tx, int n_fail, int8_t* out,
+                                 void* stream) {
   const int nw = (T + 31) / 32;
   const bool in_smem = fab_mvcc_fixpoint_in_smem(T) != 0;
   const size_t smem = (3 * (size_t)nw + (in_smem ? (size_t)T * fix_row_words(nw) : 0)) * 4;
@@ -337,7 +415,7 @@ extern "C" int fab_mvcc_fixpoint(int T, const uint32_t* direct, const uint32_t* 
     const int threads = T < kFixThreads ? ((T + 31) / 32) * 32 : kFixThreads;
     mvcc_fixpoint_kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
         T, nw, in_smem ? fix_row_words(nw) : 0, direct, phantom, ver_ok, pre_ok, launch_vec, sv,
-        n_sig, policy_ok, out);
+        n_sig, fail_tx, n_fail, out);
   }
   return (int)cudaGetLastError();
 }

@@ -3,9 +3,9 @@ verify batch's device-resident output (counterpart:
 ``fabric_tpu/peer/device_block.py``).
 
 Per block the signature bits never leave the device: the creator gather,
-one policy reduction per policy group (counts of principal matches
-against leaf ranks, the n-of gate walk, the consumption-safety bit,
-a min-fold into each transaction), pre_ok = structural & creator &
+the policy reduction of every policy group (counts of principal
+matches against leaf ranks, the n-of gate walk, the consumption-safety
+bit, a min-fold into each transaction), pre_ok = structural & creator &
 policy, the MVCC conflict relations and validity fixpoint, and one
 packed int8 vector comes back:
 
@@ -16,11 +16,17 @@ Operands keep the reference's packing: ``launch_vec [T, 3]`` int32
 (creator_idx | structural | ver_ok; creator sentinels -1 → False,
 -2 → True), one ``[Eb, S*P + S + 1]`` int32 frame per group
 (match | endo_idx | tx_of) and ``static_packed [T, R + W + 2Q]``.
-The reference compiles one program per set of policy plans; here the
-gate tree goes to the kernel as data (``plan_vector``), so nothing is
-built per plan.  ``stage2`` is the wrapper: CPU tensors run
-``stage2_ref``, CUDA tensors launch ``stage2_policy`` once per group and
-``stage2_mvcc`` (two launches) from ``kernels/csrc/stage2.cu``.
+The validator lays a block's frames one after another in one buffer,
+copied to the device once (``frames``).  The reference compiles one
+program per set of policy plans; here the gate trees go to the kernel
+as data: ``policy_table`` packs the group table and the plans
+(``plan_vector``) into one int32 tensor, built once per set of plans
+and shapes, so nothing is built per plan.  ``stage2`` is the wrapper:
+CPU tensors run ``stage2_ref``, CUDA tensors launch ``stage2_policy``
+once for every group together and ``stage2_mvcc`` (two launches) from
+``kernels/csrc/stage2.cu``; the policy kernel names each failing
+entry's transaction and the fixpoint folds those into the policy set,
+so no policy vector is filled or min-folded in device memory.
 
 With device-resident state (``state/residency.py``) the ver_ok column is
 not filled on the host: ``resident_ver_ok`` computes it on the device
@@ -36,14 +42,18 @@ reuse a slot it reads (``state.build_launch_pack``).
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
+import numpy as np
 import torch
 
 from fabric_tpu_torch import kernels
 from fabric_tpu_torch.crypto import policy as pol
 from fabric_tpu_torch.ops import mvcc as mvcc_ops
 
-MAX_PRINCIPALS = 32   # the kernel's per-policy principal columns
+MAX_PRINCIPALS = 32   # the kernel's per-policy principal columns (32-bit masks)
 MAX_SLOTS = 64        # the kernel's leaves + gates per policy
+CTA_COLS = 8          # a CTA's row of the policy table
 
 
 def plan_vector(plan: pol.BatchPlan) -> list[int]:
@@ -63,8 +73,72 @@ def plan_vector(plan: pol.BatchPlan) -> list[int]:
     for _, ch in plan.gates:
         children += list(ch)
         offs.append(len(children))
-    return ([L, G, mask, 0] + list(plan.leaf_principal) + list(plan.leaf_rank)
-            + [n for n, _ in plan.gates] + offs + children)
+    vec = ([L, G, mask, 0] + list(plan.leaf_principal) + list(plan.leaf_rank)
+           + [n for n, _ in plan.gates] + offs + children)
+    if len(vec) > kernels.POLICY_PLAN_WORDS:
+        raise ValueError(f"policy plan of {len(vec)} words; the stage-2 kernel stages at most "
+                         f"{kernels.POLICY_PLAN_WORDS}")
+    return vec
+
+
+@dataclass(frozen=True)
+class PolicyTable:
+    """One launch of ``stage2_policy`` over a set of groups: ``meta``
+    (int32: a row of ``CTA_COLS`` a CTA — the frame offset of its first
+    row, its entries, S, P, its plan's offset and words, its first
+    entry, 0 — then the plans), its CTAs, the shared bytes of a CTA's
+    staged rows and the groups' entries in all."""
+
+    meta: torch.Tensor
+    n_cta: int
+    smem: int
+    n_entries: int
+
+
+def policy_meta(shapes) -> tuple[np.ndarray, int, int, int]:
+    """``shapes``: [(plan, Eb, S)] in frame order → (meta, n_cta, smem
+    bytes, entries) of ``PolicyTable``.  A CTA takes up to
+    ``POLICY_ENTRIES`` consecutive entries of one group, as many as fit
+    its ``POLICY_ROW_BYTES`` of staged rows."""
+    plans = [plan_vector(plan) for plan, _, _ in shapes]
+    ctas = []  # [frame offset, entries, S, P, group, first entry]
+    frame_off = ent_off = smem = 0
+    for g, (plan, Eb, S) in enumerate(shapes):
+        P = len(plan.principals)
+        rw = S * P + S + 1
+        epc = min(kernels.POLICY_ENTRIES, kernels.POLICY_ROW_BYTES // (4 * rw))
+        if epc == 0:
+            raise ValueError(f"a policy group row of {rw} words exceeds the stage-2 kernel's "
+                             f"{kernels.POLICY_ROW_BYTES} bytes of staged rows")
+        for e0 in range(0, Eb, epc):
+            n = min(epc, Eb - e0)
+            ctas.append((frame_off + e0 * rw, n, S, P, g, ent_off + e0))
+            smem = max(smem, 4 * rw * n)
+        frame_off += Eb * rw
+        ent_off += Eb
+    if frame_off >= 1 << 31:
+        raise ValueError("the block's policy frames exceed 2^31 words")
+    plan_off = [CTA_COLS * len(ctas)]
+    for v in plans:
+        plan_off.append(plan_off[-1] + len(v))
+    rows = [(fo, n, S, P, plan_off[g], len(plans[g]), e, 0) for fo, n, S, P, g, e in ctas]
+    meta = np.array([x for r in rows for x in r] + [x for v in plans for x in v], np.int32)
+    return meta, len(ctas), smem, ent_off
+
+
+def policy_table(shapes, dev) -> PolicyTable:
+    """``policy_meta`` with its table on ``dev``."""
+    meta, n_cta, smem, n = policy_meta(shapes)
+    return PolicyTable(torch.from_numpy(meta).to(dev), n_cta, smem, n)
+
+
+def group_frames(groups) -> torch.Tensor:
+    """The groups' frames one after another, as one int32 tensor (a copy:
+    the validator builds them in one buffer and passes it to ``stage2``)."""
+    gps = [g[1].reshape(-1) for g in groups]
+    if not gps:
+        return torch.empty(0, dtype=torch.int32)
+    return torch.cat(gps)
 
 
 def _sig_gather(sig_valid: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -160,59 +234,64 @@ def resident_ver_ok(static_p, table, u_pack, read_pv, R: int, launch_vec) -> Non
     kernels.resident_verok(static_p, R, table, u_pack, read_pv, launch_vec)
 
 
-def stage2(sig_valid, launch_vec, groups, static_p, dims, plan_tensors=None) -> torch.Tensor:
-    """The fused stage 2 → packed int8.  ``plan_tensors`` (CUDA only):
-    one ``plan_vector`` int32 tensor per group, built here when None."""
+def stage2(sig_valid, launch_vec, groups, static_p, dims, table=None,
+           frames=None) -> torch.Tensor:
+    """The fused stage 2 → packed int8.  CUDA only: ``table``, the
+    groups' ``PolicyTable`` (built here when None); ``frames``, their
+    frames in one int32 tensor (``group_frames`` when None)."""
     if sig_valid.device.type == "cpu":
         return stage2_ref(sig_valid, launch_vec, groups, static_p, dims)
     dev = sig_valid.device
     T, n_sig = launch_vec.shape[0], sig_valid.shape[0]
-    if plan_tensors is None:
-        plan_tensors = [torch.tensor(plan_vector(g[0]), dtype=torch.int32, device=dev)
-                        for g in groups]
-    out = torch.empty(5 * T + n_sig + sum(g[2] for g in groups), dtype=torch.int8,
-                      device=dev)
-    policy_ok = torch.ones(T + 1, dtype=torch.int32, device=dev)
-    off = 5 * T + n_sig
-    for (plan, gp, Eb, S), pt in zip(groups, plan_tensors):
-        kernels.stage2_policy(sig_valid, gp, S, len(plan.principals), pt, policy_ok,
-                              out[off:off + Eb])
-        off += Eb
+    if table is None:
+        table = policy_table([(g[0], g[2], g[3]) for g in groups], dev)
+    if frames is None:
+        frames = group_frames(groups).to(dev)
+    out = torch.empty(5 * T + n_sig + table.n_entries, dtype=torch.int8, device=dev)
+    fail_tx = torch.empty(table.n_entries, dtype=torch.int32, device=dev)
+    if table.n_cta:
+        kernels.stage2_policy(sig_valid, frames, table.meta, table.n_cta, table.smem, T,
+                              out[5 * T + n_sig:], fail_tx)
     R, W, Q = dims
-    kernels.stage2_mvcc(static_p, R, W, Q, launch_vec, sig_valid, policy_ok, out)
+    kernels.stage2_mvcc(static_p, R, W, Q, launch_vec, sig_valid, fail_tx, out)
     return out
 
 
 class DeviceBlockPipeline:
     """Runs the fused stage 2 of one block on the verify handle's
-    device and returns a fetch for the unpacked result.  Plan tensors
-    are built once per plan and device."""
+    device and returns a fetch for the unpacked result.  Policy tables
+    are built once per set of plans and shapes and device."""
+
+    MAX_TABLES = 256
 
     def __init__(self):
-        self._plans: dict = {}  # (id(plan), device) → (plan, tensor)
+        # ((id(plan), Eb, S) a group, device) → (plans, PolicyTable); the
+        # plans are held, so their ids stay theirs
+        self._tables: dict = {}
 
-    def _plan_tensor(self, plan, dev):
-        key = (id(plan), dev)
-        hit = self._plans.get(key)
-        if hit is None or hit[0] is not plan:
-            hit = self._plans[key] = (
-                plan, torch.tensor(plan_vector(plan), dtype=torch.int32, device=dev))
+    def _policy_table(self, groups, dev) -> PolicyTable:
+        key = (tuple((id(g[0]), g[2], g[3]) for g in groups), dev)
+        hit = self._tables.get(key)
+        if hit is None:
+            if len(self._tables) >= self.MAX_TABLES:
+                self._tables.clear()
+            hit = self._tables[key] = (
+                [g[0] for g in groups], policy_table([(g[0], g[2], g[3]) for g in groups], dev))
         return hit[1]
 
     def run(self, handle, launch_vec: torch.Tensor, groups, static_packed, static_dims,
-            t_bucket: int):
+            t_bucket: int, frames=None):
         """handle: ``ops.p256v3.VerifyHandle``; launch_vec [T, 3] int32
         tensor on the handle's device (its ver_ok column filled on the
         host or by ``resident_ver_ok``); groups [(plan, gp tensor, Eb,
-        S)]; static_packed [T, R+W+2Q] int32 tensor.  → zero-arg fetch
-        of a dict of numpy arrays (valid, conflict, phantom, creator_ok,
+        S)]; frames: their frames in one int32 tensor (``stage2``);
+        static_packed [T, R+W+2Q] int32 tensor.  → zero-arg fetch of a
+        dict of numpy arrays (valid, conflict, phantom, creator_ok,
         policy_ok, sig_valid, safe: [per-group arrays])."""
         sv = handle.device_out
         dev = sv.device
-        pts = None
-        if dev.type == "cuda":
-            pts = [self._plan_tensor(g[0], dev) for g in groups]
-        packed = stage2(sv, launch_vec, groups, static_packed, static_dims, pts)
+        table = self._policy_table(groups, dev) if dev.type == "cuda" else None
+        packed = stage2(sv, launch_vec, groups, static_packed, static_dims, table, frames)
         n_sig = int(sv.shape[0])
         e_sizes = [g[2] for g in groups]
 

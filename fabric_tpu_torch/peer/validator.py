@@ -339,13 +339,14 @@ class WireBlock:
 class DevicePre:
     """State-independent stage-2 inputs built at preprocess time."""
 
-    groups: list          # [(plan, gp tensor [Eb, S*P+S+1], Eb, S)]
+    groups: list          # [(plan, gp tensor [Eb, S*P+S+1], Eb, S)], views of frames
     group_entries: list   # per group its E entries: [(ptx, info)] or [E] tx indices
     static: object        # ops.mvcc.StaticBlock
     static_t: torch.Tensor
     has_range: bool
     read_pv: torch.Tensor | None = None  # [T, R, 3] expected reads (resident path)
     has_pvt: bool = False  # private-collection keys (host read under residency)
+    frames: torch.Tensor | None = None  # every group's frame, one after another
 
 
 @dataclass
@@ -790,7 +791,7 @@ class BlockValidator:
                     if row is None:
                         row = rows[ident] = [p.matched_by(ident) for p in plan.principals]
                     gp[e, s * P:(s + 1) * P] = row
-            groups.append((plan, torch.from_numpy(gp).to(self.device), E, S))
+            groups.append((plan, gp, E, S))
             group_entries.append(ents)
         return self._static_pre(txs, block, groups, group_entries)
 
@@ -801,7 +802,7 @@ class BlockValidator:
         masks, each group's gp array gathered from a per-identity
         match-row pool through ``uid_mat`` and ``endo_idx_mat``; the
         same layout, entry order and group order as
-        ``_device_preprocess``, one H2D copy a group.  None when a live
+        ``_device_preprocess``.  None when a live
         transaction is not flat (a set parsed in Python, a front-end
         envelope the walk did not reach the set of)."""
         n = len(txs)
@@ -847,13 +848,22 @@ class BlockValidator:
             gp[:E, :S * P] = row_pool[uids].reshape(E, S * P)
             gp[:E, S * P:S * P + S] = em[gtx, :S]
             gp[:E, -1] = gtx
-            groups.append((plan, torch.from_numpy(gp).to(self.device), Eb, S))
+            groups.append((plan, gp, Eb, S))
             group_entries.append(gtx)
         return self._static_pre(txs, wb, groups, group_entries)
 
     def _static_pre(self, txs, block, groups, group_entries) -> DevicePre:
         """The static MVCC arrays (from the flat arrays when every live
-        set is there) and their H2D copies → ``DevicePre``."""
+        set is there) and the H2D copies: the groups' host frames
+        ([(plan, gp array, Eb, S)]) in one buffer, one copy, each group's
+        tensor a view of it → ``DevicePre``."""
+        frames = torch.from_numpy(
+            np.concatenate([g[1].reshape(-1) for g in groups]) if groups
+            else np.zeros(0, np.int32)).to(self.device)
+        off, dev_groups = 0, []
+        for plan, gp, Eb, S in groups:
+            dev_groups.append((plan, frames[off:off + gp.size].view(gp.shape), Eb, S))
+            off += gp.size
         und = np.fromiter((ptx.undetermined and not ptx.is_config for ptx in txs), bool,
                           len(txs))
         has_range = has_pvt = False
@@ -880,9 +890,9 @@ class BlockValidator:
         read_pv = None
         if static.u_pairs is not None:
             read_pv = torch.from_numpy(static.packed_read_pv()).to(self.device)
-        return DevicePre(groups=groups, group_entries=group_entries, static=static,
+        return DevicePre(groups=dev_groups, group_entries=group_entries, static=static,
                          static_t=static_t, has_range=has_range, read_pv=read_pv,
-                         has_pvt=has_pvt)
+                         has_pvt=has_pvt, frames=frames)
 
     def decode(self, block) -> DecodedBlock:
         """A wire ``Block`` through the front end with this validator's
@@ -1221,7 +1231,8 @@ class BlockValidator:
             launch_vec[:, 2] = static.host_ver_ok(committed)
             lv = torch.from_numpy(launch_vec).to(self.device)
         t0 = self._t("state_fill", t0)
-        fetch2 = self._stage2.run(handle, lv, dpre.groups, dpre.static_t, static.dims, T)
+        fetch2 = self._stage2.run(handle, lv, dpre.groups, dpre.static_t, static.dims, T,
+                                  dpre.frames)
         self._t("stage2_dispatch", t0)
         return fetch2, frozenset(range_phantom)
 

@@ -56,9 +56,13 @@ names another ``csrc`` directory (an older commit's, unpacked with
 - ``small``: ``stage2_policy``, ``resident_verok``, ``table_scatter``
   and ``sha256_blocks``, each at its smallest shape (one entry, one
   read, one row, one message) and at its path's (``chip_smoke.py``'s:
-  Eb = 1,024; T = 1,024 with 2,048 pack rows; k = 2,048 rows; 4,096 x
-  200 B): device alone (a CUDA graph), host microseconds and event time
-  per call, the launch floor of each.
+  the main path's two policy groups, Eb = 1,024 + 16, and a config-4
+  block's three; T = 1,024 with 2,048 pack rows; k = 2,048 rows; 4,096
+  x 200 B): device alone (a CUDA graph), host microseconds and event
+  time per call, the launch floor of each.  With ``--parent-csrc`` the
+  older ``stage2.cu``'s policy stage (a ``torch.ones`` fill and one
+  launch a group) and ``resident.cu``'s ``resident_verok`` run beside
+  this tree's, in turns, each checked against the plain version.
 - ``comparison``: ``p256_verify_v1`` built twice more with
   ``FAB_V1_TEAM8_LANES`` set so that every batch runs at TPI = 8, or at
   4, beside the wrapper (v1 picks its team size by batch, v2 runs at
@@ -353,28 +357,94 @@ def phase_scatter(dev, parent_lib) -> None:
         log("scatter_device_us", k=k, **abba(dev_calls, graph_us))
 
 
-def phase_small_kernels(dev) -> None:
-    """The four kernels that were never redesigned, each at its smallest
-    shape and at its path's, three ways: the device's time alone (a CUDA
-    graph), the wrapper's host microseconds and its card-clock time per
-    call.  Where the two shapes take the same device time, the kernel
-    costs its launch, whatever its shape."""
+def swapped(entry: str, fn, call):
+    """``call`` with the wrapper's C entry point ``entry`` bound to
+    ``fn`` (another build's) for the call, so that two builds are timed
+    through one wrapper."""
+    from fabric_tpu_torch import kernels
+
+    e = kernels._entries[entry]
+
+    def run():
+        own, e.fn = e.fn, fn
+        try:
+            call()
+        finally:
+            e.fn = own
+
+    return run
+
+
+def phase_small_kernels(dev, parent_csrc=None) -> None:
+    """``stage2_policy`` and ``resident_verok`` (redesigned) beside the
+    parent's kernels (``parent_csrc``), and ``table_scatter`` and
+    ``sha256_blocks``, each at its smallest shape and at its path's,
+    three ways: the device's time alone (a CUDA graph), the host
+    microseconds and the card-clock time per call.  The policy stage is
+    timed as a block runs it: this tree's one launch over every group
+    (its fail list allocated), the parent's ``torch.ones`` fill and one
+    launch a group, at one entry, at ``stage2_inputs``' two groups and
+    at ``chip_smoke.config4_policy_groups``' three.  Each variant's
+    outputs are checked against the plain version first."""
     import chip_smoke as cs
     from fabric_tpu_torch import kernels
     from fabric_tpu_torch.ops import sha256
     from fabric_tpu_torch.peer import device_block as db
     from fabric_tpu_torch.state import residency
 
+    parent = None
+    if parent_csrc is not None:
+        libs = _build_libs({"parent": (parent_csrc / "stage2.cu", [], PARENT_STAGE2_SIGS),
+                            "parent_res": (parent_csrc / "resident.cu", [],
+                                           "fab_resident_verok")})
+        parent = (libs["parent"].fab_stage2_policy, libs["parent_res"].fab_resident_verok)
+
     sv, lv, groups, sp, _ = cs.stage2_inputs(dev)
     T = lv.shape[0]
     plan, gp, Eb, S = groups[0]
-    pt = torch.tensor(db.plan_vector(plan), dtype=torch.int32, device=dev)
-    pok = torch.ones(T + 1, dtype=torch.int32, device=dev)
     P = len(plan.principals)
 
-    def policy(g):
-        safe = torch.empty(g.shape[0], dtype=torch.int8, device=dev)
-        return lambda: kernels.stage2_policy(sv, g, S, P, pt, pok, safe)
+    def policy(gs):
+        """{variant: the block's policy stage} over ``gs``, each checked."""
+        launch, fail, safe, _ = cs.policy_launch(sv, gs, T)
+
+        def tree():
+            torch.empty(fail.shape[0], dtype=torch.int32, device=dev)
+            launch()
+
+        want_fail, want_safe = cs.policy_plain(sv, gs, T)
+        tree()
+        torch.cuda.synchronize()
+        if not (torch.equal(fail, want_fail) and torch.equal(safe, want_safe)):
+            raise AssertionError("stage2_policy differs from its plain version")
+        out = {"tree": tree}
+        if parent is not None:
+            pts = [torch.tensor(db.plan_vector(p), dtype=torch.int32, device=dev)
+                   for p, _, _, _ in gs]
+            psafe = torch.empty(safe.shape[0], dtype=torch.int8, device=dev)
+            got = {}
+
+            def older():
+                """The parent's stage 2 up to its MVCC launch: a fill,
+                then its wrapper (checks, launch, count) a group."""
+                pok = got["pok"] = torch.ones(T + 1, dtype=torch.int32, device=dev)
+                off = 0
+                for (p, g, eb, s), pt in zip(gs, pts):
+                    out = psafe[off:off + eb]
+                    kernels._cuda(sv, g, pt, pok, out)
+                    _check(parent[0](sv.data_ptr(), sv.shape[0], g.data_ptr(), eb, s,
+                                     len(p.principals), pt.data_ptr(), pok.data_ptr(), T,
+                                     out.data_ptr(), kernels._stream(g)))
+                    kernels._count("stage2_policy")
+                    off += eb
+
+            older()
+            torch.cuda.synchronize()
+            if not (torch.equal(got["pok"], policy_ok_of(want_fail, T))
+                    and torch.equal(psafe, want_safe)):
+                raise AssertionError("the parent's stage2_policy differs from the plain version")
+            out["parent"] = older
+        return out
 
     (rsp, table, u_pack, rpv), _ = cs.resident_inputs(dev, 2048)
     rsp1 = rsp[:1].clone()
@@ -382,7 +452,17 @@ def phase_small_kernels(dev) -> None:
 
     def verok(spk, up, pv):
         rlv = torch.zeros((spk.shape[0], 3), dtype=torch.int32, device=dev)
-        return lambda: kernels.resident_verok(spk, cs.RES_R, table, up, pv, rlv)
+        want = db.resident_ver_ok_ref(spk, table, up, pv, cs.RES_R)
+        call = lambda: kernels.resident_verok(spk, cs.RES_R, table, up, pv, rlv)
+        out = {"tree": call}
+        if parent is not None:  # the same wrapper, its entry point the parent's
+            out["parent"] = swapped("fab_resident_verok", parent[1], call)
+        for tag, fn in out.items():
+            rlv.zero_()
+            fn()
+            if not torch.equal(rlv[:, 2] != 0, want):
+                raise AssertionError(f"resident_verok ({tag}) differs from its plain version")
+        return out
 
     rng = np.random.default_rng(cs.SEED + 6)
 
@@ -402,8 +482,11 @@ def phase_small_kernels(dev) -> None:
         return lambda: sha256.sha256_blocks(bt, nt)
 
     msgs = [rng.bytes(200) for _ in range(4096)]
-    cases = (("stage2_policy", "one_entry", policy(gp[:1].contiguous())),
-             ("stage2_policy", f"path_Eb{Eb}_S{S}_P{P}", policy(gp)),
+    c4 = cs.config4_policy_groups(dev, T, sv.shape[0])
+    one = [(plan, gp[:1].contiguous(), 1, S)]
+    cases = (("stage2_policy", "one_entry", policy(one)),
+             ("stage2_policy", f"path_2_groups_Eb{Eb}+{groups[1][2]}_S{S}_P{P}", policy(groups)),
+             ("stage2_policy", "config4_3_groups_Eb512+512+256_S4,4,8_P3,4,4", policy(c4)),
              ("resident_verok", "one_read", verok(rsp1, u_pack[:1].contiguous(),
                                                   rpv[:1].contiguous())),
              ("resident_verok", f"path_T{T}_R{cs.RES_R}_Ub2048", verok(rsp, u_pack, rpv)),
@@ -411,10 +494,16 @@ def phase_small_kernels(dev) -> None:
              ("table_scatter", "path_k2048", scatter(2048)),
              ("sha256_blocks", "one_message", sha([b"m"])),
              ("sha256_blocks", "path_4096x200B", sha(msgs)))
-    for name, shape, fn in cases:
-        dev_fn, wrap = fn if isinstance(fn, tuple) else (fn, fn)
-        calls = {"device_us": lambda: graph_us(dev_fn), "host_us": lambda: host_us(wrap),
-                 "event_ms": lambda: event_ms(wrap)}
+    for name, shape, fns in cases:
+        if not isinstance(fns, dict):  # (on device operands, the wrapper) or one call
+            dev_fn, wrap = fns if isinstance(fns, tuple) else (fns, fns)
+            fns = {"tree": (dev_fn, wrap)}
+        calls = {}
+        for tag, fn in fns.items():
+            dev_fn, wrap = fn if isinstance(fn, tuple) else (fn, fn)
+            calls[f"{tag}_device_us"] = lambda f=dev_fn: graph_us(f)
+            calls[f"{tag}_host_us"] = lambda f=wrap: host_us(f)
+            calls[f"{tag}_event_ms"] = lambda f=wrap: event_ms(f)
         log("small_kernel", name=name, shape=shape, **abba(calls, lambda m: m()))
 
 
@@ -511,16 +600,16 @@ def phase_sign_shapes(dev, shapes, parent_csrc) -> None:
 def capture_mvcc():
     """The operands of the first ``kernels.stage2_mvcc`` call inside the
     block, cloned on the launching stream: [(static_p, (R, W, Q),
-    launch_vec, sig_valid, policy_ok, out)]."""
+    launch_vec, sig_valid, fail_tx, out)]."""
     from fabric_tpu_torch import kernels
 
     seen, fn = [], kernels.stage2_mvcc
 
-    def wrapped(static_p, R, W, Q, launch_vec, sig_valid, policy_ok, out):
+    def wrapped(static_p, R, W, Q, launch_vec, sig_valid, fail_tx, out):
         if not seen:
             seen.append((static_p.clone(), (R, W, Q), launch_vec.clone(), sig_valid.clone(),
-                         policy_ok.clone(), out.clone()))
-        return fn(static_p, R, W, Q, launch_vec, sig_valid, policy_ok, out)
+                         fail_tx.clone(), out.clone()))
+        return fn(static_p, R, W, Q, launch_vec, sig_valid, fail_tx, out)
 
     kernels.stage2_mvcc = wrapped
     try:
@@ -529,11 +618,33 @@ def capture_mvcc():
         kernels.stage2_mvcc = fn
 
 
-def mvcc_launches(bitsets, fixpoint, sp, dims, lv, sv, pok, out):
+def policy_ok_of(fail, T: int) -> torch.Tensor:
+    """The policy vector (int32 [T + 1], 1 = passes) that a fail list
+    (``stage2_policy``'s) stands for: what the fixpoint took before it
+    read a fail list."""
+    pok = torch.ones(T + 1, dtype=torch.int32, device=fail.device)
+    pok[fail[fail >= 0].long()] = 0
+    return pok
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the C entries of stage2.cu before the one-launch policy stage (``--parent-csrc``):
+# a policy launch a group over a filled policy vector, a fixpoint that
+# reads that vector; resident_verok's entry is unchanged
+PARENT_STAGE2_SIGS = {
+    "fab_stage2_policy": [_P, _I, _P, _I, _I, _I, _P, _P, _I, _P, _P],
+    "fab_mvcc_bitsets": [_P, _I, _I, _I, _I, _P, _P, _P],
+    "fab_mvcc_fixpoint": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
+}
+
+
+def mvcc_launches(bitsets, fixpoint, sp, dims, lv, sv, fail, out, parent=False):
     """Over one block's stage-2 operands and C entry points (``kernels``'
-    or another build's): (bitsets alone, fixpoint alone, both as the
-    ``stage2_mvcc`` wrapper runs them, its allocation included).  The
-    first two share one direct / phantom allocation."""
+    or another build's; ``parent``: the fixpoint before the fail list,
+    which takes a policy vector, made here from ``fail``): (bitsets
+    alone, fixpoint alone, both as the ``stage2_mvcc`` wrapper runs them,
+    its allocation included).  The first two share one direct / phantom
+    allocation."""
     from fabric_tpu_torch import kernels
 
     T = sp.shape[0]
@@ -546,9 +657,13 @@ def mvcc_launches(bitsets, fixpoint, sp, dims, lv, sv, pok, out):
 
     bits()  # the words the fixpoint alone reads
 
+    pok = policy_ok_of(fail, T) if parent else None
+
     def fix(d=d0, ph=p0):
+        # the closure holds pok itself: a freed vector's memory is reused
+        policy = (pok.data_ptr(),) if parent else (fail.data_ptr(), fail.shape[0])
         _check(fixpoint(T, d.data_ptr(), ph.data_ptr(), None, None, lv.data_ptr(),
-                        sv.data_ptr(), sv.shape[0], pok.data_ptr(), out.data_ptr(),
+                        sv.data_ptr(), sv.shape[0], *policy, out.data_ptr(),
                         kernels._stream(sp)))
 
     def both():
@@ -559,7 +674,7 @@ def mvcc_launches(bitsets, fixpoint, sp, dims, lv, sv, pok, out):
     return bits, fix, both
 
 
-def mvcc_rounds(sp, dims, lv, sv, pok) -> int:
+def mvcc_rounds(sp, dims, lv, sv, fail) -> int:
     """The Jacobi rounds of one block's fixpoint (its plain version)."""
     from fabric_tpu_torch.ops import mvcc
     from fabric_tpu_torch.peer import device_block as db
@@ -568,13 +683,15 @@ def mvcc_rounds(sp, dims, lv, sv, pok) -> int:
     T = sp.shape[0]
     direct, phantom = mvcc._relations(sp[:, :R], sp[:, R:R + W], sp[:, R + W:R + W + Q],
                                       sp[:, R + W + Q:])
-    pre = (lv[:, 1] != 0) & db.creator_ok_ref(sv, lv[:, 0]) & (pok[:T] != 0)
+    pre = (lv[:, 1] != 0) & db.creator_ok_ref(sv, lv[:, 0]) & (policy_ok_of(fail, T)[:T] != 0)
     return mvcc.jacobi(direct, phantom, (lv[:, 2] != 0) & pre)[1]
 
 
 def phase_stage2(dev, parent_csrc) -> None:
     """The MVCC kernels alone and as one launch, this tree's and the
-    parent's, at ``stage2_inputs`` and at the main path's first block."""
+    parent's (its fixpoint given the policy vector that the tree's fail
+    list stands for), at ``stage2_inputs`` and at the main path's first
+    block."""
     import chip_smoke as cs
     from fabric_tpu_torch import kernels
     from fabric_tpu_torch.peer import device_block as db
@@ -582,10 +699,8 @@ def phase_stage2(dev, parent_csrc) -> None:
     entries = {"tree": (kernels._entries["fab_mvcc_bitsets"].fn,
                         kernels._entries["fab_mvcc_fixpoint"].fn)}
     if parent_csrc is not None:
-        sigs = kernels._SIGS["stage2"]
         lib = _build_libs({"parent": (parent_csrc / "stage2.cu", [],
-                                      {n: sigs[n] for n in ("fab_mvcc_bitsets",
-                                                            "fab_mvcc_fixpoint")})})["parent"]
+                                      PARENT_STAGE2_SIGS)})["parent"]
         entries["parent"] = (lib.fab_mvcc_bitsets, lib.fab_mvcc_fixpoint)
 
     operands = {}
@@ -599,11 +714,12 @@ def phase_stage2(dev, parent_csrc) -> None:
     operands["main_block"] = seen[0]
     torch.cuda.synchronize()
 
-    for name, (sp, dims, lv, sv, pok, out) in operands.items():
+    for name, (sp, dims, lv, sv, fail, out) in operands.items():
         calls, outs = {}, {}
         for tag, (b, f) in entries.items():
             o = out.clone()
-            bits, fix, both = mvcc_launches(b, f, sp, dims, lv, sv, pok, o)
+            bits, fix, both = mvcc_launches(b, f, sp, dims, lv, sv, fail, o,
+                                            parent=tag == "parent")
             both()
             torch.cuda.synchronize()
             outs[tag] = o.clone()
@@ -614,12 +730,12 @@ def phase_stage2(dev, parent_csrc) -> None:
         for tag, o in outs.items():
             if not torch.equal(o, want):
                 raise AssertionError(f"stage2 {name}: the {tag} kernels differ from the tree's")
-        kernels.stage2_mvcc(sp, *dims, lv, sv, pok, out)
+        kernels.stage2_mvcc(sp, *dims, lv, sv, fail, out)
         if not torch.equal(out, want):
             raise AssertionError(f"stage2 {name}: the wrapper differs")
         T = sp.shape[0]
         log("stage2_kernels", operands=name, T=T, dims=list(dims),
-            rounds=mvcc_rounds(sp, dims, lv, sv, pok),
+            rounds=mvcc_rounds(sp, dims, lv, sv, fail),
             smem=kernels.mvcc_fixpoint_in_smem(T), **abba(calls, lambda m: m()))
 
 
@@ -1219,7 +1335,7 @@ def main() -> int:
                                              "fab_table_scatter")})["parent"]
         phase_scatter(dev, parent)
     if run("small"):
-        phase_small_kernels(dev)
+        phase_small_kernels(dev, args.parent_csrc)
     if run("comparison"):
         phase_comparison(dev, [int(x) for x in args.comparison_lanes.split(",")],
                          args.parent_csrc)

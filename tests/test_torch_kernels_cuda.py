@@ -170,6 +170,71 @@ def test_stage2_host_verified_creator_lanes(cuda, share):
     assert (lanes == -2).sum() > 0
 
 
+POLICY_DSL = ("OutOf(2, 'Org1MSP.peer', 'Org2MSP.peer', 'Org3MSP.peer')",
+              "OutOf(1, 'Org1MSP.peer', 'Org1MSP.member')",
+              "AND('Org1MSP.member', OR('Org2MSP.peer', 'Org3MSP.peer'))")
+
+
+def _policy_case(dev, case, T, seed=7):
+    """Operands whose MVCC part is empty, so that the policy launch
+    decides (as ``test_torch_kernels_host._policy_case``): ``empty``,
+    ``tx_range``, ``spread``, ``wide`` (S = 64) or ``random``."""
+    rng = np.random.default_rng(seed + T)
+    n_sig = 2 * T + 40
+    sv = rng.random(n_sig) < 0.85
+    lv = np.zeros((T, 3), np.int32)
+    lv[:, 0] = -2
+    lv[:, 1] = lv[:, 2] = 1
+    sp = np.full((T, 6), -1, np.int32)
+    S = 64 if case == "wide" else 4
+    sizes = {"empty": (64, 0, 32), "wide": (100, 16, 40)}.get(case, (128, 16, 32))
+    groups = []
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    for g, (dsl, eb) in enumerate(zip(POLICY_DSL, sizes)):
+        plan = pol.compile_plan(pol.from_dsl(dsl))
+        P = len(plan.principals)
+        gp = np.zeros((eb, S * P + S + 1), np.int32)
+        k = 2 if case == "wide" else S
+        idx = np.full((eb, S), -1, np.int32)
+        idx[:, :k] = np.where(rng.random((eb, k)) < 0.8, rng.integers(0, n_sig, (eb, k)), -1)
+        if case == "wide":
+            idx[::3, S - 1] = rng.integers(0, n_sig, len(idx[::3]))
+        gp[:, :S * P] = (rng.random((eb, S * P)) < 0.4) & np.repeat(idx >= 0, P, axis=1)
+        gp[:, S * P:S * P + S] = idx
+        gp[:, -1] = rng.integers(0, T, eb)
+        if case == "tx_range":
+            gp[::4, -1] = -1
+            gp[1::4, -1] = T
+            gp[2::8, -1] = T + 5 + g
+        if case == "spread":
+            gp[:, -1] = np.arange(eb) % T
+        groups.append((plan, t(gp), eb, S))
+    return t(sv), t(lv), groups, t(sp), (2, 2, 1)
+
+
+@pytest.mark.parametrize("case,T", [("empty", 96), ("tx_range", 96), ("spread", 48),
+                                    ("wide", 96), ("random", 1), ("random", 31),
+                                    ("random", 33), ("random", 1024)])
+def test_stage2_policy_at_edges(cuda, case, T):
+    """The one policy launch of a block at its edges (an empty group,
+    tx_of -1 and >= T, a transaction's entries across groups, 31
+    entries a CTA, T at the word edges and 1,024): the packed output
+    equal to ``stage2_ref``, one ``stage2_policy`` launch for all the
+    groups, with the frames in one buffer or given group by group."""
+    from fabric_tpu_torch import kernels
+
+    sv, lv, groups, sp, dims = _policy_case(cuda, case, T)
+    want = db.stage2_ref(sv, lv, groups, sp, dims)
+    kernels.reset_counts()
+    got = db.stage2(sv, lv, groups, sp, dims)
+    torch.cuda.synchronize()
+    assert kernels.launches["stage2_policy"] == 1
+    assert torch.equal(got, want)
+    frames = db.group_frames(groups)
+    table = db.policy_table([(p, e, s) for p, _, e, s in groups], cuda)
+    assert torch.equal(db.stage2(sv, lv, groups, sp, dims, table, frames), want)
+
+
 def test_mvcc_validate_kernel_matches_plain(cuda):
     _, lv, _, sp, (R, W, Q) = _stage2_operands(cuda, seed=9)
     rng = np.random.default_rng(9)
@@ -191,7 +256,7 @@ def test_mvcc_validate_kernel_matches_plain(cuda):
         assert torch.equal(a, b)
 
 
-def _resident_operands(dev, seed=13, T=512, R=2, U=600, cap=1024):
+def _resident_operands(dev, seed=13, T=512, R=2, U=600, cap=1024, bad=0.1):
     rng = np.random.default_rng(seed)
     Ub = 1024
     sp = np.full((T, R + 4), -1, np.int32)
@@ -208,8 +273,8 @@ def _resident_operands(dev, seed=13, T=512, R=2, U=600, cap=1024):
     slot = u_pack[ids, 0]
     read_pv = np.where((slot >= 0)[..., None], table[np.clip(slot, 0, cap - 1)],
                        u_pack[ids, 1:4]).astype(np.int32)
-    read_pv[rng.random((T, R)) < 0.1, 0] ^= 1
-    read_pv[rng.random((T, R)) < 0.1, 2] += 1
+    read_pv[rng.random((T, R)) < bad, 0] ^= 1
+    read_pv[rng.random((T, R)) < bad, 2] += 1
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     return t(sp), t(table), t(u_pack), t(read_pv), R
 
@@ -220,6 +285,21 @@ def test_resident_verok_kernel_matches_plain(cuda):
     db.resident_ver_ok(sp, table, u_pack, read_pv, R, lv)
     want = db.resident_ver_ok_ref(sp, table, u_pack, read_pv, R)
     assert torch.equal(lv[:, 2] != 0, want)
+    assert 0 < int(want.sum()) < want.shape[0]
+
+
+@pytest.mark.parametrize("R", [1, 2, 3, 5, 40])
+def test_resident_verok_at_read_counts(cuda, R):
+    """A thread per (transaction, read) at R = 1, 2, 3, 5 (lanes padded
+    to a power of two) and 40 (a warp a transaction walking its reads),
+    against the plain version; the other columns stay untouched."""
+    sp, table, u_pack, read_pv, _ = _resident_operands(cuda, seed=40 + R, T=700, R=R,
+                                                       bad=0.2 / R)
+    lv = torch.full((sp.shape[0], 3), 7, dtype=torch.int32, device=cuda)
+    db.resident_ver_ok(sp, table, u_pack, read_pv, R, lv)
+    want = db.resident_ver_ok_ref(sp, table, u_pack, read_pv, R)
+    assert torch.equal(lv[:, 2] != 0, want)
+    assert bool(((lv[:, 2] == 0) | (lv[:, 2] == 1)).all()) and bool((lv[:, :2] == 7).all())
     assert 0 < int(want.sum()) < want.shape[0]
 
 
@@ -396,7 +476,11 @@ def test_mvcc_kernels_at_sizes(cuda, where):
     cols = lambda a, b: sp[:, a:b].contiguous()
     n_sig = sv.shape[0]
     out = torch.zeros(5 * T + n_sig, dtype=torch.int8, device=cuda)
-    kernels.stage2_mvcc(sp, R, W, Q, lv, sv, pok, out)
+    # the policy verdicts as stage2_policy hands them over: each failing
+    # transaction named (twice, some), among -1 words
+    bad = torch.nonzero(pok[:T] == 0).flatten().int()
+    fail = torch.cat([bad, bad[:3], torch.full((5,), -1, dtype=torch.int32, device=cuda)])
+    kernels.stage2_mvcc(sp, R, W, Q, lv, sv, fail, out)
     direct, phantom = mvcc._relations(cols(0, R), cols(R, R + W), cols(R + W, R + W + Q),
                                       cols(R + W + Q, R + W + 2 * Q))
     cok = db.creator_ok_ref(sv, lv[:, 0])

@@ -6,19 +6,20 @@ The sm_90a kernels themselves run only on the card
 (tests/test_torch_kernels_cuda.py, chip_smoke.py).  Here shim macros
 turn ``__global__``/``__device__`` functions into plain C++.  Kernels of
 one thread per lane run one thread per block, a loop over ``blockIdx``
-playing the grid; with one thread per block the fixpoint kernel's
-barriers are no-ops and its grid-stride loops cover every transaction.
-The team kernels (``p256_verify``, ``p256_sign``, ``p256_v1``,
-``p256_v2``) run each block's ``blockDim.x`` threads as ``std::thread``s
+playing the grid.  The team kernels (``p256_verify``, ``p256_sign``,
+``p256_v1``, ``p256_v2``), the warp-ballot stage-2 kernels, the policy
+kernel and ``resident_verok`` run each block's ``blockDim.x`` threads
+as ``std::thread``s
 (``threadIdx`` and ``blockIdx`` are ``thread_local``):
 ``__syncthreads``, ``__syncwarp``, the shuffles, ``__ballot_sync`` and
 ``__any_sync`` go through a per-block exchange array and a C++20
 ``std::barrier``, in full warps of teams, at the team sizes each
 kernel launches (8 and 4; ``p256_v2`` 8).
 ``nvcuda::wmma``'s int8 tiles (``p256_v2``) are whole tiles in every
-thread, multiplied in lane 0, which makes the warp's store.  The shared
-``p256_team.cuh`` is inlined where a source includes it.  The kernels
-use no inline PTX, so nothing here is skipped on the CPU.  That checks
+thread, multiplied in lane 0, which makes the warp's store;
+``cuda_pipeline.h``'s asynchronous copies are copies made at once.  The
+shared ``p256_team.cuh`` is inlined where a source includes it.  The
+kernels use no inline PTX, so nothing here is skipped on the CPU.  That checks
 each kernel's arithmetic and indexing — the team Montgomery products
 mod p and mod n (against Python ints), the team carry-lookahead votes,
 the point formulas, the window recoding, the comb ladder, the policy
@@ -33,6 +34,7 @@ convolution across the team, the split int8 reduction) and settle
 import ctypes
 import hashlib
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -63,6 +65,7 @@ SHIM = r"""
 #include <cstring>
 #include <functional>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 using std::max;
@@ -87,6 +90,19 @@ struct Dim { unsigned x = 0, y = 0, z = 0; };
 static thread_local Dim blockIdx, threadIdx, blockDim;
 template <class T> static T atomicOr(T* p, T v) { T o = *p; *p |= v; return o; }
 template <class T> static T atomicMin(T* p, T v) { T o = *p; if (v < o) *p = v; return o; }
+static std::mutex host_atomic_mutex;  // shared-memory atomics of a block's threads
+template <class T> static T atomicAnd(T* p, T v) {
+  std::lock_guard<std::mutex> g(host_atomic_mutex);
+  T o = *p;
+  *p &= v;
+  return o;
+}
+static inline int __popc(uint32_t x) { return __builtin_popcount(x); }
+// cuda_pipeline.h's asynchronous copies: done at once
+#define __pipeline_memcpy_async(dst, src, n) std::memcpy((dst), (src), (n))
+#define __pipeline_commit()
+#define __pipeline_wait_prior(n)
+struct int4 { int x, y, z, w; };
 static uint32_t host_smem[1 << 16];
 
 // One block of threads: a std::thread per CUDA thread, a barrier for
@@ -166,6 +182,14 @@ static unsigned __ballot_sync(unsigned, bool pred) {
   return m;
 }
 static bool __any_sync(unsigned mask, bool pred) { return __ballot_sync(mask, pred) != 0; }
+static unsigned __reduce_or_sync(unsigned, unsigned v) {
+  const uint64_t* buf = host_exchange(v);
+  const unsigned base = threadIdx.x & ~31u;
+  unsigned r = 0;
+  for (unsigned l = 0; l < 32 && base + l < blockDim.x; ++l) r |= (unsigned)buf[base + l];
+  return r;
+}
+static inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 
 // the grid, `concurrent` blocks at a time
 static void host_launch(int grid, int block, int concurrent, const std::function<void()>& k) {
@@ -294,11 +318,12 @@ extern "C" void host_team_mul(const uint32_t* a, const uint32_t* b, uint32_t* r,
 }
 """,
     "stage2": r"""
-extern "C" void host_policy(const uint8_t* sv, int n_sig, const int32_t* gp, int Eb, int S,
-                            int P, const int32_t* plan, int32_t* pok, int T, int8_t* safe) {
-  blockDim.x = 1;
-  for (int e = 0; e < Eb; ++e) { blockIdx.x = e;
-    stage2_policy_kernel(sv, n_sig, gp, Eb, S, P, plan, pok, T, safe); }
+// every group in one launch: n_cta CTAs of kPolicyThreads threads, one
+// CTA at a time (the plan's static shared array is one per process here)
+extern "C" void host_policy(const uint8_t* sv, int n_sig, const int32_t* frames,
+                            const int32_t* meta, int n_cta, int T, int8_t* safe, int32_t* fail) {
+  host_launch(n_cta, kPolicyThreads, 1,
+              [&] { stage2_policy_kernel(sv, n_sig, frames, meta, T, safe, fail); });
 }
 // one warp per word, two warps a block
 extern "C" void host_bitsets(const int32_t* sp, int T, int R, int W, int Q, uint32_t* d,
@@ -315,21 +340,24 @@ extern "C" void host_verok(const int32_t* rk, const uint8_t* rp, const uint32_t*
 // staged in shared memory, else read from global memory in each round
 extern "C" void host_fixpoint(int T, const uint32_t* d, const uint32_t* p, const uint8_t* vo,
                               const uint8_t* po, const int32_t* lv, const uint8_t* sv, int n_sig,
-                              const int32_t* pok, int8_t* out, int threads, int in_smem) {
+                              const int32_t* fail, int n_fail, int8_t* out, int threads,
+                              int in_smem) {
   const int nw = (T + 31) / 32;
   host_launch(1, threads, 1, [&] {
     mvcc_fixpoint_kernel(T, nw, in_smem ? fix_row_words(nw) : 0, d, p, vo, po, lv, sv, n_sig,
-                         pok, out);
+                         fail, n_fail, out);
   });
 }
 """,
     "resident": r"""
+// a thread per (transaction, read lane), blocks of kThreads, two at a time
 extern "C" void host_verok(const int32_t* sp, int T, int cols, int R, const int32_t* table,
                            int cap, const int32_t* u_pack, int Ub, const int32_t* read_pv,
                            int32_t* lv) {
-  blockDim.x = 1;
-  for (int t = 0; t < T; ++t) { blockIdx.x = t;
-    resident_verok_kernel(sp, T, cols, R, table, cap, u_pack, Ub, read_pv, lv); }
+  const int shift = verok_shift(R);
+  host_launch(((T << shift) + kThreads - 1) / kThreads, kThreads, 2, [&] {
+    resident_verok_kernel(sp, T, cols, R, shift, table, cap, u_pack, Ub, read_pv, lv);
+  });
 }
 extern "C" void host_scatter(int32_t* table, const int32_t* idx, const int32_t* rows, int k) {
   blockDim.x = 1;
@@ -484,7 +512,10 @@ def host_kernels(tmp_path_factory):
             src = src.replace(f'#include "{header}"', text)
         device_code = src.split("}  // namespace")[0]
         device_code = device_code.replace("#include <cuda_runtime.h>", "").replace(
+            "#include <cuda_pipeline.h>", "").replace(
             "extern __shared__ uint32_t sm[];", "uint32_t* sm = host_smem;").replace(
+            "extern __shared__ int32_t policy_rows[];",
+            "int32_t* policy_rows = (int32_t*)host_block_smem();").replace(
             "extern __shared__ __align__(128) uint8_t v2_smem[];",
             "uint8_t* v2_smem = (uint8_t*)host_block_smem();").replace(
             "#include <mma.h>", "").replace(
@@ -614,32 +645,59 @@ def _stage2(seed, T=96, n_sig=160, S=4):
     return sv, lv, groups, sp, (R, W, Q)
 
 
+def _host_stage2(lib, sv, lv, groups, sp, dims, words=None):
+    """The fused stage 2 through the host-compiled kernels as the CUDA
+    path launches them: every group's frame in one buffer and the
+    ``policy_meta`` table, one policy launch, the bitsets (``words``:
+    given as (direct, phantom) or computed by the bitsets kernel), the
+    fixpoint over the failing entries → (packed out, fail list)."""
+    R, W, Q = dims
+    T, n_sig = lv.shape[0], sv.shape[0]
+    meta, n_cta, smem, n_ent = db.policy_meta([(p, e, s) for p, _, e, s in groups])
+    assert smem <= 4 * (1 << 15)  # the host block's shared memory
+    frames = (np.concatenate([g.reshape(-1) for _, g, _, _ in groups]) if groups
+              else np.zeros(0, np.int32))
+    out = np.zeros(5 * T + n_sig + n_ent, np.int8)
+    fail = np.full(n_ent, -7, np.int32)  # every entry must be written
+    svb = sv.astype(np.uint8)
+    safe = out[5 * T + n_sig:]
+    lib.host_policy(_p(svb), n_sig, _p(frames), _p(meta), n_cta, T, _p(safe), _p(fail))
+    nw = (T + 31) // 32
+    if words is None:
+        d, ph = np.zeros((T, nw), np.uint32), np.zeros((T, nw), np.uint32)
+        lib.host_bitsets(_p(sp), T, R, W, Q, _p(d), _p(ph))
+    else:
+        d, ph = words
+    lib.host_fixpoint(T, _p(d), _p(ph), None, None, _p(lv), _p(svb), n_sig, _p(fail), n_ent,
+                      _p(out), 64, 1)
+    return out, fail, (d, ph)
+
+
+def _stage2_want(sv, lv, groups, sp, dims):
+    t = torch.from_numpy
+    return db.stage2_ref(t(sv), t(lv), [(p, t(g), e, s) for p, g, e, s in groups], t(sp),
+                         dims).numpy()
+
+
 @pytest.mark.parametrize("seed", range(3))
 def test_stage2_kernel_sources_match_plain(host_kernels, seed):
+    """One policy launch over three groups, the bitsets and the fixpoint
+    folding the failing entries, bit-equal to ``stage2_ref``; each
+    entry's fail word names its transaction exactly when its verdict is
+    false and the transaction is in range."""
     lib = host_kernels["stage2"]
     sv, lv, groups, sp, (R, W, Q) = _stage2(seed)
-    T, n_sig = lv.shape[0], sv.shape[0]
+    T = lv.shape[0]
     t = torch.from_numpy
-    want = db.stage2_ref(t(sv), t(lv), [(p, t(g), e, s) for p, g, e, s in groups], t(sp),
-                         (R, W, Q)).numpy()
-    out = np.zeros_like(want)
-    pok = np.ones(T + 1, np.int32)
-    svb = sv.astype(np.uint8)
-    off = 5 * T + n_sig
-    for plan, gp, eb, S in groups:
-        vec = np.array(db.plan_vector(plan), np.int32)
-        safe = np.zeros(eb, np.int8)
-        lib.host_policy(_p(svb), n_sig, _p(gp), eb, S, len(plan.principals), _p(vec),
-                        _p(pok), T, _p(safe))
-        out[off:off + eb] = safe
-        off += eb
-    nw = (T + 31) // 32
-    d, ph = np.zeros((T, nw), np.uint32), np.zeros((T, nw), np.uint32)
-    lib.host_bitsets(_p(sp), T, R, W, Q, _p(d), _p(ph))
-    lib.host_fixpoint(T, _p(d), _p(ph), None, None, _p(lv), _p(svb), n_sig, _p(pok), _p(out),
-                      64, 1)
+    want = _stage2_want(sv, lv, groups, sp, (R, W, Q))
+    out, fail, (d, ph) = _host_stage2(lib, sv, lv, groups, sp, (R, W, Q))
     assert np.array_equal(out, want)
     assert 0 < want[:T].sum() < T
+    oks = [db.policy_reduce_ref(t(sv), t(g), s_, len(p.principals), p)[0].numpy()
+           for p, g, _, s_ in groups]
+    tx = np.concatenate([g[:, -1] for _, g, _, _ in groups])
+    assert np.array_equal(fail, np.where(~np.concatenate(oks) & (tx >= 0) & (tx < T), tx, -1))
+    assert (fail >= 0).any()
 
     # the mvcc_validate entry: per-read prologue + fixpoint in MVCC mode
     rng = np.random.default_rng(100 + seed)
@@ -654,12 +712,111 @@ def test_stage2_kernel_sources_match_plain(host_kernels, seed):
                    T, R, _p(vo))
     o3 = np.zeros(3 * T, np.int8)
     lib.host_fixpoint(T, _p(d), _p(ph), _p(vo), _p(pre.astype(np.uint8)), None, None, 0,
-                      None, _p(o3), 64, 1)
+                      None, 0, _p(o3), 64, 1)
     c = lambda a: t(np.ascontiguousarray(a))
     ref = mvcc.mvcc_validate_ref(c(rk), c(rp), c(rv.view(np.int32)), c(cp), c(cv.view(np.int32)),
                                  c(sp[:, R:R + W]), c(sp[:, R + W:R + W + Q]),
                                  c(sp[:, R + W + Q:]), c(pre))
     assert np.array_equal(o3.astype(bool), torch.cat(ref).numpy())
+
+
+POLICY_DSL = ("OutOf(2, 'Org1MSP.peer', 'Org2MSP.peer', 'Org3MSP.peer')",
+              "OutOf(1, 'Org1MSP.peer', 'Org1MSP.member')",
+              "AND('Org1MSP.member', OR('Org2MSP.peer', 'Org3MSP.peer'))")
+
+
+def _policy_case(case, T, seed=7):
+    """Stage-2 operands whose MVCC part is empty (no keys: every
+    conflict word 0), so that the policy launch decides: ``empty`` (a
+    group of no entries between two others), ``tx_range`` (tx_of -1, T
+    and past it), ``spread`` (each transaction's entries in all three
+    groups, a few failing in one only), ``wide`` (S = 64: 31 entries a
+    CTA, a group over several CTAs), ``random`` (three groups)."""
+    rng = np.random.default_rng(seed + T)
+    n_sig = 2 * T + 40
+    sv = rng.random(n_sig) < 0.85
+    lv = np.zeros((T, 3), np.int32)
+    lv[:, 0] = -2
+    lv[:, 1] = lv[:, 2] = 1
+    sp = np.full((T, 6), -1, np.int32)
+    S = 64 if case == "wide" else 4
+    sizes = {"empty": (64, 0, 32), "wide": (100, 16, 40)}.get(case, (128, 16, 32))
+    groups = []
+    for g, (dsl, eb) in enumerate(zip(POLICY_DSL, sizes)):
+        plan = pol.compile_plan(pol.from_dsl(dsl))
+        P = len(plan.principals)
+        gp = np.zeros((eb, S * P + S + 1), np.int32)
+        k = 2 if case == "wide" else S  # slots in use
+        idx = np.full((eb, S), -1, np.int32)
+        idx[:, :k] = np.where(rng.random((eb, k)) < 0.8, rng.integers(0, n_sig, (eb, k)), -1)
+        if case == "wide":
+            idx[::3, S - 1] = rng.integers(0, n_sig, len(idx[::3]))  # the last slot too
+        gp[:, :S * P] = (rng.random((eb, S * P)) < 0.4) & np.repeat(idx >= 0, P, axis=1)
+        gp[:, S * P:S * P + S] = idx
+        gp[:, -1] = rng.integers(0, T, eb)
+        if case == "tx_range":
+            gp[::4, -1] = -1
+            gp[1::4, -1] = T
+            gp[2::8, -1] = T + 5 + g
+        if case == "spread":
+            gp[:, -1] = np.arange(eb) % T  # every transaction in every group
+        groups.append((plan, gp, eb, S))
+    return sv, lv, groups, sp, (2, 2, 1)
+
+
+@pytest.mark.parametrize("case,T", [("empty", 96), ("tx_range", 96), ("spread", 48),
+                                    ("wide", 96), ("random", 1), ("random", 31),
+                                    ("random", 33), ("random", 1024)])
+def test_policy_kernel_source_at_edges(host_kernels, case, T):
+    """One policy launch over every group at its edges: an empty group,
+    tx_of of -1 and >= T, one transaction's entries spread across the
+    groups, rows wide enough that a CTA stages 31 entries, and T at the
+    32-transaction word edges and at a block's 1,024, each bit-equal to
+    ``stage2_ref`` through the fixpoint's policy set."""
+    lib = host_kernels["stage2"]
+    sv, lv, groups, sp, dims = _policy_case(case, T)
+    nw = (T + 31) // 32
+    zero = (np.zeros((T, nw), np.uint32), np.zeros((T, nw), np.uint32))
+    want = _stage2_want(sv, lv, groups, sp, dims)
+    out, fail, _ = _host_stage2(lib, sv, lv, groups, sp, dims, words=zero)
+    assert np.array_equal(out, want)
+    pok = want[4 * T:5 * T]
+    if T > 1:
+        assert 0 < pok.sum() < T  # some transactions fail their policy, some pass
+    assert ((fail >= -1) & (fail < T)).all()
+    if case == "spread":
+        # a transaction fails when any of its groups' entries fails
+        t = torch.from_numpy
+        bad = np.zeros(T, bool)
+        for p, g, _, s_ in groups:
+            ok = db.policy_reduce_ref(t(sv), t(g), s_, len(p.principals), p)[0].numpy()
+            bad[g[~ok, -1]] = True
+        assert np.array_equal(pok == 0, bad)
+
+
+def test_policy_table_sizes_match_the_source():
+    """The policy kernel's fixed sizes in ``kernels`` are stage2.cu's."""
+    from fabric_tpu_torch import kernels
+
+    src = (CSRC / "stage2.cu").read_text()
+    for name, value in (("kCtaCols", db.CTA_COLS),
+                        ("kPolicyRowBytes", kernels.POLICY_ROW_BYTES),
+                        ("kMaxPlanWords", kernels.POLICY_PLAN_WORDS)):
+        assert f"constexpr int {name} = {value};" in src
+    threads = int(re.search(r"constexpr int kPolicyThreads = (\d+);", src).group(1))
+    assert kernels.POLICY_ENTRIES <= threads  # a thread an entry
+    # 100 entries of 257-word rows take 4 CTAs (31, 31, 31, 7), an empty
+    # group none, 16 entries of 17 words one
+    plan = pol.compile_plan(pol.from_dsl(POLICY_DSL[0]))
+    meta, n_cta, smem, n = db.policy_meta([(plan, 100, 64), (plan, 0, 4), (plan, 16, 4)])
+    vec = db.plan_vector(plan)
+    po = [8 * 5, 8 * 5 + len(vec), 8 * 5 + 2 * len(vec)]
+    assert (n_cta, smem, n) == (5, 4 * 257 * 31, 116)
+    assert meta[:8 * n_cta].reshape(n_cta, 8).tolist() == [
+        [0, 31, 64, 3, po[0], len(vec), 0, 0], [31 * 257, 31, 64, 3, po[0], len(vec), 31, 0],
+        [62 * 257, 31, 64, 3, po[0], len(vec), 62, 0], [93 * 257, 7, 64, 3, po[0], len(vec), 93, 0],
+        [100 * 257, 16, 4, 3, po[2], len(vec), 100, 0]]
+    assert meta[8 * n_cta:].tolist() == vec * 3
 
 
 def _mvcc_operands(seed, T):
@@ -720,8 +877,13 @@ def test_mvcc_kernel_sources_match_plain_at_word_edges(host_kernels, T, in_smem)
     n_sig = len(sv)
     out = np.zeros(5 * T + n_sig, np.int8)
     svb = sv.astype(np.uint8)
-    lib.host_fixpoint(T, _p(d), _p(ph), None, None, _p(lv), _p(svb), n_sig, _p(pok), _p(out),
-                      threads, in_smem)
+    # the policy verdicts as the policy kernel hands them over: the
+    # failing transactions, some twice, among -1 words
+    fail = np.concatenate([np.flatnonzero(pok[:T] == 0), np.flatnonzero(pok[:T] == 0)[:3],
+                           [-1, -1]]).astype(np.int32)
+    np.random.default_rng(T).shuffle(fail)
+    lib.host_fixpoint(T, _p(d), _p(ph), None, None, _p(lv), _p(svb), n_sig, _p(fail), len(fail),
+                      _p(out), threads, in_smem)
     cok = db.creator_ok_ref(t(sv), t(lv[:, 0])).numpy()
     pre = (lv[:, 1] != 0) & cok & (pok[:T] != 0)
     v, c, p_ = mvcc._fixpoint(direct, phantom, t((lv[:, 2] != 0) & pre))
@@ -731,7 +893,7 @@ def test_mvcc_kernel_sources_match_plain_at_word_edges(host_kernels, T, in_smem)
     vo = (lv[:, 2] != 0).astype(np.uint8)
     pre8 = pre.astype(np.uint8)
     o3 = np.zeros(3 * T, np.int8)
-    lib.host_fixpoint(T, _p(d), _p(ph), _p(vo), _p(pre8), None, None, 0, None, _p(o3),
+    lib.host_fixpoint(T, _p(d), _p(ph), _p(vo), _p(pre8), None, None, 0, None, 0, _p(o3),
                       threads, in_smem)
     ref = mvcc.mvcc_validate_hostver_ref(t(sp[:, :R]), t(vo != 0), t(sp[:, R:R + W]),
                                          t(sp[:, R + W:R + W + Q]), t(sp[:, R + W + Q:]),
@@ -776,7 +938,7 @@ def test_sign_kernel_source_matches_plain_and_oracle(host_kernels, tpi, chains):
         assert X * pow(Z, -1, ec_ref.P) % ec_ref.P == ec_ref.pt_mul(k, ec_ref.G)[0]
 
 
-def _resident_operands(seed, T=64, R=2, U=40, cap=32):
+def _resident_operands(seed, T=64, R=2, U=40, cap=32, bad=0.1):
     rng = np.random.default_rng(seed)
     Ub = 64
     sp = np.full((T, R + 2 + 2), -1, np.int32)
@@ -795,9 +957,9 @@ def _resident_operands(seed, T=64, R=2, U=40, cap=32):
     row = np.where((slot >= 0)[..., None], table[np.clip(slot, 0, cap - 1)],
                    u_pack[ids, 1:4])
     read_pv[:] = row  # mostly matching reads ...
-    flip = rng.random((T, R)) < 0.1
+    flip = rng.random((T, R)) < bad
     read_pv[flip, 0] ^= 1  # ... some with presence flipped ...
-    bump = rng.random((T, R)) < 0.1
+    bump = rng.random((T, R)) < bad
     read_pv[bump, 2] += 1  # ... some stale
     return sp, table, u_pack, read_pv, R
 
@@ -824,6 +986,34 @@ def test_resident_kernel_sources_match_plain(host_kernels, seed):
     ref = t(table.copy())
     residency.table_scatter(ref, idx, rows)
     assert np.array_equal(got, ref.numpy())
+
+
+@pytest.mark.parametrize("R", [1, 2, 3, 5, 40])
+def test_resident_kernel_source_at_read_counts(host_kernels, R):
+    """A thread per (transaction, read): R = 1, 2, 3 and 5 (lanes padded
+    to 1, 2, 4 and 8, so a 256-thread block holds 256, 128, 64 and 32
+    transactions) and 40 (a warp a transaction, lanes walking reads j
+    and j + 32), each against the plain version, with a transaction
+    failing on its last read alone."""
+    lib = host_kernels["resident"]
+    sp, table, u_pack, read_pv, _ = _resident_operands(11 + R, T=70, R=R, bad=0.2 / R)
+    T = sp.shape[0]
+    # tx 5 reads R real keys, every one as committed but the last, whose
+    # presence is flipped
+    sp[5, :R] = np.arange(R) % 40
+    slot = u_pack[sp[5, :R], 0]
+    read_pv[5] = np.where((slot >= 0)[:, None], table[np.clip(slot, 0, table.shape[0] - 1)],
+                          u_pack[sp[5, :R], 1:4])
+    read_pv[5, R - 1, 0] ^= 1
+    t = torch.from_numpy
+    want = db.resident_ver_ok_ref(t(sp), t(table), t(u_pack), t(read_pv), R).numpy()
+    lv = np.full((T, 3), 7, np.int32)
+    lib.host_verok(_p(sp), T, sp.shape[1], R, _p(table), table.shape[0], _p(u_pack),
+                   u_pack.shape[0], _p(read_pv), _p(lv))
+    assert np.array_equal(lv[:, 2].astype(bool), want)
+    assert set(np.unique(lv[:, 2])) <= {0, 1} and (lv[:, :2] == 7).all()
+    assert not want[5]
+    assert 0 < want.sum() < T
 
 
 def test_sha256_kernel_source_matches_hashlib(host_kernels):
