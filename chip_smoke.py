@@ -79,8 +79,10 @@ seconds beside nvcc's.  SHA-256:
 ``sha256_host`` on the bench shape (4,096 x 200 B), the padding
 boundaries, a ragged M = 8 batch and the first wire block's signed
 messages against ``hashlib`` (its launches counted), then
-``sha256_blocks`` against its plain version at each, timed at the bench
-shape beside serial ``hashlib``.  The comparison verifiers: the main
+``sha256_blocks`` against its plain version at each (and at the wire
+block's messages as ``sha256_host`` buckets them), timed at the bench
+shape and at that bucketed wire block, each beside serial ``hashlib``,
+its bound and its chain floor (the round loop's SASS by pipe).  The comparison verifiers: the main
 path's bench-shaped blocks through ``CommitPipeline(depth=2)`` over
 ``BlockValidator(kernel="v1")`` and then ``"v2"`` (no stage 2, host
 policy, ``mvcc_validate``), equal to the v3 main path; then each kernel
@@ -140,6 +142,9 @@ VERIFY_LANES = 3072
 # H100 SXM: HBM3 bytes/s, and INT32 multiply-add lanes: 132 SMs x 64 x 1.98 GHz
 PEAK_BYTES_S = 3.35e12
 PEAK_INT32_S = 132 * 64 * 1.98e9
+# the INT32 and FMA pipes together: an SM's four sub-partitions issue one
+# warp instruction (32 lanes) a cycle each
+PEAK_ISSUE_S = 132 * 4 * 32 * 1.98e9
 
 
 _T0 = time.perf_counter()
@@ -1633,29 +1638,23 @@ def phase_host_stage(net: Net, wire, msp):
 # Phase 9: the SHA-256 kernel
 
 SHA_B, SHA_LEN, SHA_M = 4096, 200, 4  # bench.py's sha256 scenario: 4,096 x 200 B
-# INT32 instructions per compression at the ISA level, where a 3-input
-# logical op (LOP3) or a 3-input add (IADD3) is one: schedule 48 x (2 sigmas
-# of 3 shifts + 1 LOP3, then 4 terms summed by 2 IADD3) + rounds 64 x (2 Sigmas
-# of 3 rotations + 1 LOP3, ch 1, maj 1, T1 of 5 terms 2, a = T1 + Sigma0 + maj
-# 1, e = d + T1 1) + 8 final adds
+# INT32 instructions a compression, derived in sha256.cu's source note:
+# schedule 48 x 10 + rounds 64 x 14 + the 8 adds of the state; of them
+# the SHF and LOP3 (schedule 48 x 8, rounds 64 x 10), which only the
+# INT32 pipe runs (the adds may run on the FMA pipe as IMADs)
 SHA_OPS = 48 * 10 + 64 * 14 + 8
+SHA_ALU_OPS = 48 * 8 + 64 * 10
+SM_CLOCK_HZ = 1.98e9  # H100 SXM's boost clock, the chain floor's clock
 
 
-def phase_sha256(dev, first_block):
-    """``sha256_blocks`` against its plain version and hashlib at the
-    bench shape, the padding boundaries, a ragged M = 8 batch and every
-    signed message of the first wire block; ``sha256_host`` counted on
-    its own run → the kernels-line record."""
-    import hashlib
-
-    from fabric_tpu_torch import kernels
-    from fabric_tpu_torch.ops import sha256 as sha
+def signed_messages(block) -> list:
+    """The signed messages of a wire block in block order: a tx's
+    envelope payload, then per endorsement proposal_response_payload ‖
+    endorser (what the front end hashes)."""
     from fabric_tpu_torch.protos import messages as m
 
-    rng = np.random.default_rng(SEED + 11)
-    bench = [rng.bytes(SHA_LEN) for _ in range(SHA_B)]
-    signed = []
-    for raw in first_block.data.data:
+    out = []
+    for raw in block.data.data:
         try:
             env = m.Envelope.parse(raw)
             payload = m.Payload.parse(env.payload)
@@ -1663,9 +1662,133 @@ def phase_sha256(dev, first_block):
             cap = m.ChaincodeActionPayload.parse(tx.actions[0].payload)
         except (ValueError, IndexError):
             continue
-        signed.append(env.payload)
+        out.append(env.payload)
         prp = cap.action.proposal_response_payload
-        signed += [prp + e.endorser for e in cap.action.endorsements]
+        out += [prp + e.endorser for e in cap.action.endorsements]
+    return out
+
+
+# SASS opcodes by the pipe that issues them (a sub-partition's INT32 ALU
+# and FMA pipes have 16 lanes each: a warp's instruction holds one two
+# cycles); the rest are load/store or control
+SASS_ALU = {"IADD3", "LOP3", "SHF", "LEA", "ISETP", "SEL", "PRMT", "IMNMX", "VIADD", "MOV",
+            "IABS", "POPC", "FLO", "BMSK", "SGXT", "PLOP3", "P2R", "R2P", "VIMNMX"}
+SASS_FMA = {"IMAD", "FFMA", "FADD", "FMUL"}
+SASS_LSU = {"LDS", "STS", "LDG", "STG", "LDGSTS", "SYNCS", "LD", "ST", "ATOMS", "LDC", "ULDC"}
+
+
+def sass_blocks(so_path, kernel: str):
+    """The basic blocks of ``kernel``'s SASS in a built library
+    (``cuobjdump -sass``), each a list of opcodes (predicates dropped);
+    None where the toolkit has no cuobjdump."""
+    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+    if not tool.exists():
+        return None
+    text = subprocess.run([str(tool), "-sass", str(so_path)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs = re.split(r"\n\s*Function : ", text)
+    body = next((f for f in funcs if kernel in f.split("\n", 1)[0]), None)
+    if body is None:
+        return None
+    blocks, cur = [], []
+    for ln in body.splitlines():
+        if re.match(r"\s*\.L_x_\d+:", ln):
+            blocks.append(cur)
+            cur = []
+            continue
+        mt = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ln)
+        if mt:
+            cur.append(mt.group(1))
+            if mt.group(1).split(".")[0] in ("BRA", "EXIT", "RET", "BRX", "JMP", "CALL"):
+                blocks.append(cur)
+                cur = []
+    blocks.append(cur)
+    return [b for b in blocks if b]
+
+
+def sass_pipes(ops) -> dict:
+    """Opcodes counted by pipe, and the issue cycles one warp alone on
+    a sub-partition needs for them: at least two a pipe instruction and
+    one an instruction."""
+    c = {"alu": 0, "fma": 0, "lsu": 0, "other": 0}
+    for op in ops:
+        base = op.split(".")[0]
+        c["alu" if base in SASS_ALU else "fma" if base in SASS_FMA
+          else "lsu" if base in SASS_LSU else "other"] += 1
+    c["total"] = len(ops)
+    c["issue_cycles"] = max(2 * c["alu"], 2 * c["fma"], c["total"])
+    return c
+
+
+# funnel and plain shifts of a compression: 6 a round (Sigma0, Sigma1),
+# 6 a schedule word (sigma0, sigma1)
+SHA_ROUND_SHF, SHA_SCHEDULE_SHF = 64 * 6, 48 * 6
+
+
+def sha_sass(so_path) -> dict | None:
+    """A compression's instructions in ``sha256_blocks_kernel``'s SASS,
+    by pipe, scaled to one compression by their shifts (so that a loop
+    copied or rolled by the compiler reads the same): ``rounds_block``,
+    the blocks of rounds (40 or more shifts, no shared store), the
+    consumer's where they read W + K from shared memory, else (one
+    thread a message) the whole loop body with its schedule; and
+    ``schedule_block``, the producer's (the blocks that store to shared
+    memory), where there is one."""
+    blocks = sass_blocks(so_path, "sha256_blocks_kernel")
+    if not blocks:
+        return None
+    nshf = lambda ops: sum(o.startswith("SHF") for o in ops)
+    has = lambda b, op: any(o.startswith(op) for o in b)
+    rounds = [o for b in blocks if nshf(b) >= 40 and not has(b, "STS") for o in b]
+    schedule = [o for b in blocks if nshf(b) >= 40 and has(b, "STS") for o in b]
+    if not rounds:
+        return None
+    k = (SHA_ROUND_SHF if has(rounds, "LDS") else SHA_ROUND_SHF + SHA_SCHEDULE_SHF) / nshf(rounds)
+    out = {"rounds_block": {n: v * k for n, v in sass_pipes(rounds).items()},
+           "opcodes_per_round": {n: round(v * k / 64, 3) for n, v in
+                                 Counter(o.split(".")[0] for o in rounds).items()}}
+    if schedule:
+        ks = SHA_SCHEDULE_SHF / nshf(schedule)
+        out["schedule_block"] = {n: v * ks for n, v in sass_pipes(schedule).items()}
+    return out
+
+
+def sha_bound(nbytes: float, comps: int):
+    """``bound`` for ``comps`` SHA-256 compressions: their operations take
+    at least the larger of the SHF and LOP3 over the INT32 pipe's peak
+    and all of them over both pipes' issue peak."""
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = comps * max(SHA_ALU_OPS / PEAK_INT32_S, SHA_OPS / PEAK_ISSUE_S)
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def sha_chain_floor_ms(sass: dict | None, longest: int):
+    """One warp's issue cycles a compression (``sha_sass``) times the
+    longest message's compressions, at ``SM_CLOCK_HZ``."""
+    if sass is None:
+        return None
+    return 1e3 * longest * sass["rounds_block"]["issue_cycles"] / SM_CLOCK_HZ
+
+
+def phase_sha256(dev, first_block):
+    """``sha256_blocks`` against its plain version and hashlib at the
+    bench shape, the padding boundaries, a ragged M = 8 batch and every
+    signed message of the first wire block; ``sha256_host`` counted on
+    its own run → the kernels-line record.  Timed at the bench shape and
+    at the wire block's messages as ``sha256_host`` buckets them
+    (power-of-two batch and blocks), each beside serial ``hashlib`` of
+    the same messages, its bound (``sha_bound``: the bytes of the blocks
+    the messages need, and their compressions' operations by pipe) and
+    its chain floor."""
+    import hashlib
+
+    from fabric_tpu_torch import kernels
+    from fabric_tpu_torch.ops import sha256 as sha
+    from fabric_tpu_torch.utils.batching import next_pow2
+
+    rng = np.random.default_rng(SEED + 11)
+    bench = [rng.bytes(SHA_LEN) for _ in range(SHA_B)]
+    signed = signed_messages(first_block)
     sets = {"bench": (bench, SHA_M),
             "boundaries": ([rng.bytes(n) for n in (0, 55, 56, 63, 64, 119, 120)], 4),
             "ragged": ([rng.bytes(int(n)) for n in rng.integers(0, 8 * 64 - 9, 1000)], 8),
@@ -1675,6 +1798,12 @@ def phase_sha256(dev, first_block):
         if sha.sha256_host(msgs, device=dev) != [hashlib.sha256(x).digest() for x in msgs]:
             raise AssertionError("sha256_host differs from hashlib")
     counts = dict(kernels.launches)
+    sass = sha_sass(kernels._lib_path("sha256"))
+    log("sha256_kernel", sass=sass)
+    # the wire block's messages as sha256_host launches them
+    need = max((len(x) + 8) // 64 + 1 for x in signed)
+    wire_host = signed + [b""] * (next_pow2(len(signed)) - len(signed))
+    sets["wire_block_bucketed"] = (wire_host, next_pow2(need))
     checks, rec = {}, None
     for name, (msgs, M) in sets.items():
         blocks, nb = sha.pad_messages(msgs, M)
@@ -1687,23 +1816,28 @@ def phase_sha256(dev, first_block):
         if mism or sha.digests_to_bytes(got) != [hashlib.sha256(x).digest() for x in msgs]:
             raise AssertionError(f"sha256_blocks at {name}: {mism} digests differ")
         checks[name] = {"B": len(msgs), "M": int(blocks.shape[1]), "mismatches": mism}
+        if name not in ("bench", "wire_block_bucketed"):
+            continue
+        ms = cuda_ms(lambda: kernels.sha256_blocks(b, n), 20)
+        plain_ms = cuda_ms(lambda: sha.sha256_blocks_ref(b, n), 2)
+        real = msgs if name == "bench" else signed
+        t0 = time.perf_counter()
+        for x in real:
+            hashlib.sha256(x).digest()
+        hashlib_ms = 1e3 * (time.perf_counter() - t0)
+        comps = int(nb.sum())
+        b_ms, b_by = sha_bound(64 * comps + 4 * len(msgs) + 32 * len(msgs), comps)
+        log(f"sha256_{name.split('_bucketed')[0]}", B=len(msgs), messages=len(real),
+            M=int(blocks.shape[1]), compressions=comps, longest=int(nb.max()), ms=ms,
+            plain_ms=plain_ms, hashlib_serial_ms=hashlib_ms, bound_ms=b_ms, bound_by=b_by,
+            chain_floor_ms=sha_chain_floor_ms(sass, int(nb.max())),
+            hashes_per_s=len(real) / (ms / 1e3))
         if name == "bench":
-            ms = cuda_ms(lambda: kernels.sha256_blocks(b, n), 20)
-            plain_ms = cuda_ms(lambda: sha.sha256_blocks_ref(b, n), 2)
-            t0 = time.perf_counter()
-            for x in msgs:
-                hashlib.sha256(x).digest()
-            hashlib_ms = 1e3 * (time.perf_counter() - t0)
-            comps = int(nb.sum())
-            b_ms, b_by = bound(nbytes(b, n) + 32 * len(msgs), comps * SHA_OPS)
             rec = {"name": "sha256_blocks", "route": "cuda",
                    "source": "fabric_tpu_torch/kernels/csrc/sha256.cu",
                    "replaces": "fabric_tpu/ops/sha256.py:76", "max_abs_err": err,
                    "mismatches": mism, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                    "bound_by": b_by, "library_ms": None, "launches": counts["sha256_blocks"]}
-            log("sha256_bench", B=len(msgs), M=int(blocks.shape[1]), compressions=comps,
-                ms=ms, plain_ms=plain_ms, hashlib_serial_ms=hashlib_ms, bound_ms=b_ms,
-                hashes_per_s=len(msgs) / (ms / 1e3))
     log("sha256", checks=checks, launches=counts, equal_to_hashlib=True)
     if counts["sha256_blocks"] == 0:
         raise AssertionError("sha256_blocks not launched by sha256_host")
@@ -3112,7 +3246,8 @@ def main() -> int:
     log("build", seconds=secs, ptxas=regs, static_smem_bytes=smem,
         host_cpp={"compiler": native.compiler_version(), "seconds": host_secs,
                   "per_library_s": dict(native.build_seconds)})
-    redesigned = {"stage2_policy_kernel": "stage2", "resident_verok_kernel": "resident"}
+    redesigned = {"stage2_policy_kernel": "stage2", "resident_verok_kernel": "resident",
+                  "sha256_blocks_kernel": "sha256"}
     frames = kernel_frames(kernels.build_log, redesigned)
     log("kernel_frames", **frames)
     unread = [n for n, lib in redesigned.items() if lib in kernels.build_log and n not in frames]

@@ -353,6 +353,8 @@ def sha256_blocks(blocks, nblocks) -> torch.Tensor:
     """[B, M, 16] int32 padded big-endian words, [B] int32 block counts
     → [B, 8] int32 digest words (uint32 bit patterns)."""
     _cuda(blocks, nblocks)
+    if blocks.data_ptr() % 16:
+        raise ValueError("sha256_blocks: blocks are staged 16 bytes at a time")
     B, M = blocks.shape[0], blocks.shape[1]
     out = torch.empty((B, 8), dtype=torch.int32, device=blocks.device)
     _entries["fab_sha256_blocks"](blocks.data_ptr(), nblocks.data_ptr(), B, M,

@@ -10,7 +10,9 @@ it is (the reference's per-message mask).
 
 ``sha256_blocks`` is the kernel wrapper: a CPU tensor runs the plain
 version ``sha256_blocks_ref``, a CUDA tensor launches ``sha256_blocks``
-(``kernels/csrc/sha256.cu``, one thread per message).  ``sha256_host``
+(``kernels/csrc/sha256.cu``: producer warps stage the blocks and expand
+the message schedule into a shared-memory ring, consumer warps run the
+rounds, a thread a message).  ``sha256_host``
 is the entry: pad, hash on ``device``, digests as bytes, with the
 reference's power-of-two bucketing of the batch and block dimensions.
 

@@ -8,9 +8,9 @@ an older one.
 
     python3 -m fabric_tpu_torch.tools.launch_steps [--parent-csrc DIR]
         [--parent-tree DIR]
-        [--phase all|team_sizes|sign_shapes|stage2|scatter|small|comparison|
-                 comparison_path|main_path|wire_path|coalesced_path|sidecar|
-                 config5_path|ledger_path]
+        [--phase all|team_sizes|sign_shapes|stage2|scatter|small|sha256|
+                 comparison|comparison_path|main_path|wire_path|coalesced_path|
+                 sidecar|config5_path|ledger_path]
         [--team-lanes 3072,6144,12288]
         [--sign-lanes 16,32,64,128,256,512,1024,4096]
         [--comparison-lanes 16,4096,12288] [--path-blocks 12]
@@ -58,11 +58,19 @@ names another ``csrc`` directory (an older commit's, unpacked with
   read, one row, one message) and at its path's (``chip_smoke.py``'s:
   the main path's two policy groups, Eb = 1,024 + 16, and a config-4
   block's three; T = 1,024 with 2,048 pack rows; k = 2,048 rows; 4,096
-  x 200 B): device alone (a CUDA graph), host microseconds and event
-  time per call, the launch floor of each.  With ``--parent-csrc`` the
-  older ``stage2.cu``'s policy stage (a ``torch.ones`` fill and one
-  launch a group) and ``resident.cu``'s ``resident_verok`` run beside
-  this tree's, in turns, each checked against the plain version.
+  x 200 B, and the first wire block's signed messages as ``sha256_host``
+  buckets them): device alone (a CUDA graph), host microseconds and
+  event time per call, the launch floor of each.  With
+  ``--parent-csrc`` the older ``stage2.cu``'s policy stage (a
+  ``torch.ones`` fill and one launch a group), ``resident.cu``'s
+  ``resident_verok`` and ``sha256.cu``'s kernel, each where its source
+  differs from this tree's, run beside this tree's, in turns, each
+  checked against the plain version.
+- ``sha256``: ``sha256_blocks`` and, with ``--parent-csrc``, the older
+  kernel, each with ptxas's report and its round loop's SASS by pipe,
+  in turns alone on the device at one message, 4,096 x 200 B and the
+  first wire block's messages, beside the bound, serial ``hashlib`` and
+  each kernel's chain floor.
 - ``comparison``: ``p256_verify_v1`` built twice more with
   ``FAB_V1_TEAM8_LANES`` set so that every batch runs at TPI = 8, or at
   4, beside the wrapper (v1 picks its team size by batch, v2 runs at
@@ -226,6 +234,11 @@ def abba(variants: dict, measure) -> dict:
     return {k: {"median": float(np.median(v)), "rounds": v} for k, v in got.items()}
 
 
+# nvcc's output per tag of ``_build_libs`` (with ``-Xptxas=-v`` among a
+# tag's flags: registers, stack, spills and shared memory)
+BUILD_LOGS: dict = {}
+
+
 def _build_libs(specs: dict) -> dict:
     """{tag: (source .cu, extra nvcc flags, entries)} → {tag: ctypes
     library}, each built by its own nvcc, all started together, with the
@@ -239,11 +252,13 @@ def _build_libs(specs: dict) -> dict:
         out = kernels.BUILD_DIR / f"lib{Path(src).stem}-{tag}.so"
         procs[tag] = (out, subprocess.Popen(
             [kernels._nvcc(), *kernels.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-             "-Xcompiler", "-fPIC", *flags, "-o", str(out), str(src)]))
+             "-Xcompiler", "-fPIC", *flags, "-o", str(out), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for tag, (out, proc) in procs.items():
-        if proc.wait() != 0:
-            raise RuntimeError(f"nvcc failed for {tag}")
+        BUILD_LOGS[tag] = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {tag}:\n{BUILD_LOGS[tag]}")
         lib = ctypes.CDLL(str(out))
         entries = specs[tag][2]
         if isinstance(entries, str):
@@ -376,28 +391,36 @@ def swapped(entry: str, fn, call):
 
 
 def phase_small_kernels(dev, parent_csrc=None) -> None:
-    """``stage2_policy`` and ``resident_verok`` (redesigned) beside the
-    parent's kernels (``parent_csrc``), and ``table_scatter`` and
+    """``stage2_policy``, ``resident_verok``, ``table_scatter`` and
     ``sha256_blocks``, each at its smallest shape and at its path's,
-    three ways: the device's time alone (a CUDA graph), the host
-    microseconds and the card-clock time per call.  The policy stage is
-    timed as a block runs it: this tree's one launch over every group
-    (its fail list allocated), the parent's ``torch.ones`` fill and one
-    launch a group, at one entry, at ``stage2_inputs``' two groups and
-    at ``chip_smoke.config4_policy_groups``' three.  Each variant's
-    outputs are checked against the plain version first."""
+    beside the parent's kernels (``parent_csrc``) where their source
+    differs from this tree's, three ways: the device's time alone (a
+    CUDA graph), the host microseconds and the card-clock time per call.
+    The policy stage is timed as a block runs it: this tree's one launch
+    over every group (its fail list allocated), an older parent's
+    ``torch.ones`` fill and one launch a group, at one entry, at
+    ``stage2_inputs``' two groups and at
+    ``chip_smoke.config4_policy_groups``' three.  ``sha256_blocks`` at one
+    message, 4,096 x 200 B and the first wire block's signed messages.
+    Each variant's outputs are checked against the plain version first."""
     import chip_smoke as cs
     from fabric_tpu_torch import kernels
     from fabric_tpu_torch.ops import sha256
     from fabric_tpu_torch.peer import device_block as db
     from fabric_tpu_torch.state import residency
 
-    parent = None
-    if parent_csrc is not None:
-        libs = _build_libs({"parent": (parent_csrc / "stage2.cu", [], PARENT_STAGE2_SIGS),
-                            "parent_res": (parent_csrc / "resident.cu", [],
-                                           "fab_resident_verok")})
-        parent = (libs["parent"].fab_stage2_policy, libs["parent_res"].fab_resident_verok)
+    # the parent's kernels where its source differs from this tree's (a
+    # differing stage2.cu's policy entry taken with its one-launch-a-group
+    # signature): {tag: (source, ctypes entries, the entry called)}
+    older = {"policy": ("stage2.cu", PARENT_STAGE2_SIGS, "fab_stage2_policy"),
+             "verok": ("resident.cu", "fab_resident_verok", "fab_resident_verok"),
+             "sha": ("sha256.cu", "fab_sha256_blocks", "fab_sha256_blocks")}
+    older = {t: v for t, v in older.items() if parent_csrc is not None and
+             (parent_csrc / v[0]).read_bytes() != (kernels.CSRC / v[0]).read_bytes()}
+    libs = _build_libs({t: (parent_csrc / src, [], sigs)
+                        for t, (src, sigs, _) in older.items()}) if older else {}
+    parent = {t: getattr(libs[t], entry) for t, (_, _, entry) in older.items()}
+    log("small_parent", compared=sorted(parent))
 
     sv, lv, groups, sp, _ = cs.stage2_inputs(dev)
     T = lv.shape[0]
@@ -418,7 +441,7 @@ def phase_small_kernels(dev, parent_csrc=None) -> None:
         if not (torch.equal(fail, want_fail) and torch.equal(safe, want_safe)):
             raise AssertionError("stage2_policy differs from its plain version")
         out = {"tree": tree}
-        if parent is not None:
+        if "policy" in parent:
             pts = [torch.tensor(db.plan_vector(p), dtype=torch.int32, device=dev)
                    for p, _, _, _ in gs]
             psafe = torch.empty(safe.shape[0], dtype=torch.int8, device=dev)
@@ -432,7 +455,7 @@ def phase_small_kernels(dev, parent_csrc=None) -> None:
                 for (p, g, eb, s), pt in zip(gs, pts):
                     out = psafe[off:off + eb]
                     kernels._cuda(sv, g, pt, pok, out)
-                    _check(parent[0](sv.data_ptr(), sv.shape[0], g.data_ptr(), eb, s,
+                    _check(parent["policy"](sv.data_ptr(), sv.shape[0], g.data_ptr(), eb, s,
                                      len(p.principals), pt.data_ptr(), pok.data_ptr(), T,
                                      out.data_ptr(), kernels._stream(g)))
                     kernels._count("stage2_policy")
@@ -455,8 +478,8 @@ def phase_small_kernels(dev, parent_csrc=None) -> None:
         want = db.resident_ver_ok_ref(spk, table, up, pv, cs.RES_R)
         call = lambda: kernels.resident_verok(spk, cs.RES_R, table, up, pv, rlv)
         out = {"tree": call}
-        if parent is not None:  # the same wrapper, its entry point the parent's
-            out["parent"] = swapped("fab_resident_verok", parent[1], call)
+        if "verok" in parent:  # the same wrapper, its entry point the parent's
+            out["parent"] = swapped("fab_resident_verok", parent["verok"], call)
         for tag, fn in out.items():
             rlv.zero_()
             fn()
@@ -475,11 +498,19 @@ def phase_small_kernels(dev, parent_csrc=None) -> None:
         return (lambda: kernels.table_scatter(table, it, rt),
                 lambda: residency.table_scatter(table, idx, rows))
 
-    def sha(msgs):
-        blocks, nb = sha256.pad_messages(msgs)
-        bt = torch.from_numpy(blocks.view(np.int32)).to(dev)
-        nt = torch.from_numpy(nb).to(dev)
-        return lambda: sha256.sha256_blocks(bt, nt)
+    def sha(msgs, bucket=False):
+        """{variant: the wrapper on ``msgs``} (this tree's kernel and the
+        parent's, each checked against the plain version first)."""
+        bt, nt = sha_operands(dev, msgs, bucket)
+        call = lambda: sha256.sha256_blocks(bt, nt)
+        out = {"tree": call}
+        if "sha" in parent:
+            out["parent"] = swapped("fab_sha256_blocks", parent["sha"], call)
+        want = sha256.sha256_blocks_ref(bt, nt)
+        sha_check(None, bt, nt, want, "tree")
+        if "sha" in parent:
+            sha_check(parent["sha"], bt, nt, want, "parent")
+        return out
 
     msgs = [rng.bytes(200) for _ in range(4096)]
     c4 = cs.config4_policy_groups(dev, T, sv.shape[0])
@@ -493,7 +524,8 @@ def phase_small_kernels(dev, parent_csrc=None) -> None:
              ("table_scatter", "one_row", scatter(1)),
              ("table_scatter", "path_k2048", scatter(2048)),
              ("sha256_blocks", "one_message", sha([b"m"])),
-             ("sha256_blocks", "path_4096x200B", sha(msgs)))
+             ("sha256_blocks", "path_4096x200B", sha(msgs)),
+             ("sha256_blocks", "wire_block", sha(wire_block_messages(), bucket=True)))
     for name, shape, fns in cases:
         if not isinstance(fns, dict):  # (on device operands, the wrapper) or one call
             dev_fn, wrap = fns if isinstance(fns, tuple) else (fns, fns)
@@ -505,6 +537,94 @@ def phase_small_kernels(dev, parent_csrc=None) -> None:
             calls[f"{tag}_host_us"] = lambda f=wrap: host_us(f)
             calls[f"{tag}_event_ms"] = lambda f=wrap: event_ms(f)
         log("small_kernel", name=name, shape=shape, **abba(calls, lambda m: m()))
+
+
+def wire_block_messages() -> list:
+    """The signed messages of ``chip_smoke.py``'s first wire block (its
+    wire path's nine blocks, built the same way)."""
+    import chip_smoke as cs
+    from fabric_tpu_torch.protos import messages as m
+
+    blocks, _, _, _ = cs.build_wire_blocks(cs.WireNet(cs.SEED + 9), cs.WIRE_BLOCKS)
+    return cs.signed_messages(m.Block.parse(blocks[0].serialize()))
+
+
+def sha_operands(dev, msgs, bucket: bool):
+    """``msgs`` padded as device tensors: to their own longest message,
+    or (``bucket``) to ``sha256_host``'s power-of-two batch and blocks."""
+    from fabric_tpu_torch.ops import sha256
+    from fabric_tpu_torch.utils.batching import next_pow2
+
+    M = None
+    if bucket:
+        M = next_pow2(max((len(x) + 8) // 64 + 1 for x in msgs))
+        msgs = list(msgs) + [b""] * (next_pow2(len(msgs)) - len(msgs))
+    blocks, nb = sha256.pad_messages(msgs, M)
+    return (torch.from_numpy(blocks.view(np.int32)).to(dev), torch.from_numpy(nb).to(dev))
+
+
+def sha_check(entry_fn, bt, nt, want, what: str) -> None:
+    """One call of the ``sha256_blocks`` wrapper with its entry point
+    ``entry_fn`` (None: its own); raises unless it gives ``want``."""
+    from fabric_tpu_torch.ops import sha256
+
+    got = {}
+    run = lambda: got.setdefault("d", sha256.sha256_blocks(bt, nt))
+    (run if entry_fn is None else swapped("fab_sha256_blocks", entry_fn, run))()
+    if not torch.equal(got["d"], want):
+        raise AssertionError(f"sha256_blocks ({what}) differs from its plain version")
+
+
+def phase_sha256(dev, parent_csrc=None) -> None:
+    """``sha256_blocks`` (``tree``) and, with ``parent_csrc``, the
+    parent's (``parent``), each built with ``-Xptxas -v`` (registers,
+    stack, spills) and its round loop's SASS read by pipe
+    (``chip_smoke.sha_sass``), run through the wrapper (its entry point
+    swapped) in turns, alone on the device (a CUDA graph), at one
+    message, at 4,096 x 200 B and at the first wire block's signed
+    messages as ``sha256_host`` buckets them; each shape with its bound,
+    serial ``hashlib`` of the same messages, and each kernel's chain
+    floor."""
+    import hashlib
+
+    import chip_smoke as cs
+    from fabric_tpu_torch import kernels
+    from fabric_tpu_torch.ops import sha256
+
+    csrc = {"tree": kernels.CSRC, "parent": parent_csrc}
+    libs = _build_libs({tag: (d / "sha256.cu", ["-Xptxas=-v"], "fab_sha256_blocks")
+                        for tag, d in csrc.items() if d is not None})
+    sass = {}
+    for tag in libs:
+        sass[tag] = cs.sha_sass(kernels.BUILD_DIR / f"libsha256-{tag}.so")
+        log("sha256_build", tag=tag, frames=cs.kernel_frames({tag: BUILD_LOGS[tag]},
+                                                              ("sha256_blocks_kernel",)),
+            smem=[ln.strip() for ln in BUILD_LOGS[tag].splitlines() if "smem" in ln],
+            sass=sass[tag])
+    rng = np.random.default_rng(cs.SEED + 11)
+    shapes = {"one_message": ([b"m"], False),
+              "path_4096x200B": ([rng.bytes(200) for _ in range(4096)], False),
+              "wire_block": (wire_block_messages(), True)}
+    for shape, (msgs, bucket) in shapes.items():
+        bt, nt = sha_operands(dev, msgs, bucket)
+        want = sha256.sha256_blocks_ref(bt, nt)
+        calls = {}
+        for tag, lib in libs.items():
+            sha_check(lib.fab_sha256_blocks, bt, nt, want, f"{tag} at {shape}")
+            calls[tag] = swapped("fab_sha256_blocks", lib.fab_sha256_blocks,
+                                 lambda: sha256.sha256_blocks(bt, nt))
+        t0 = time.perf_counter()
+        for x in msgs:
+            hashlib.sha256(x).digest()
+        hashlib_ms = 1e3 * (time.perf_counter() - t0)
+        nb = nt.cpu().numpy()
+        comps, longest = int(nb.sum()), int(nb.max())
+        bound_ms, bound_by = cs.sha_bound(64 * comps + 36 * len(nb), comps)
+        log("sha256_shape", shape=shape, B=int(bt.shape[0]), M=int(bt.shape[1]),
+            messages=len(msgs), compressions=comps, longest=longest, bound_ms=bound_ms,
+            bound_by=bound_by, hashlib_serial_ms=hashlib_ms,
+            chain_floor_ms={t: cs.sha_chain_floor_ms(sass[t], longest) for t in libs},
+            device_us=abba(calls, graph_us))
 
 
 def phase_team_sizes(dev, shapes) -> None:
@@ -1281,7 +1401,8 @@ def main() -> int:
     ap.add_argument("--phase", default="all",
                     choices=("all", "team_sizes", "sign_shapes", "stage2", "scatter", "small",
                              "comparison", "comparison_path", "main_path", "wire_path",
-                             "coalesced_path", "sidecar", "config5_path", "ledger_path"))
+                             "coalesced_path", "sidecar", "config5_path", "ledger_path",
+                             "sha256"))
     ap.add_argument("--team-lanes", default="3072,6144,12288")
     ap.add_argument("--sign-lanes", default="16,32,64,128,256,512,1024,4096")
     ap.add_argument("--comparison-lanes", default="16,4096,12288")
@@ -1319,7 +1440,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from fabric_tpu_torch import kernels
 
-    kernels.build(("resident", "stage2", "p256_verify", "p256_sign", "p256_v1", "p256_v2"))
+    kernels.build(("sha256",) if args.phase == "sha256" else
+                  ("resident", "stage2", "p256_verify", "p256_sign", "p256_v1", "p256_v2"))
     dev = torch.device("cuda")
     run = lambda phase: args.phase in ("all", phase)
     if run("team_sizes"):
@@ -1336,6 +1458,8 @@ def main() -> int:
         phase_scatter(dev, parent)
     if run("small"):
         phase_small_kernels(dev, args.parent_csrc)
+    if run("sha256"):
+        phase_sha256(dev, args.parent_csrc)
     if run("comparison"):
         phase_comparison(dev, [int(x) for x in args.comparison_lanes.split(",")],
                          args.parent_csrc)

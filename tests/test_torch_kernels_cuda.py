@@ -516,6 +516,55 @@ def test_sha256_kernel_matches_plain_and_hashlib(cuda):
     assert psha.sha256_host([b"abc"]) == [hashlib.sha256(b"abc").digest()]
 
 
+def _sha_on_card(cuda, msgs, M, zero=()):
+    """``msgs`` padded to M blocks, the rows in ``zero`` given no block,
+    through the kernel → bit-equal to ``sha256_blocks_ref`` and hashlib."""
+    import hashlib
+
+    from fabric_tpu_torch.ops import sha256 as psha
+
+    blocks, nb = psha.pad_messages(msgs, max_blocks=M)
+    nb[list(zero)] = 0
+    b = torch.from_numpy(blocks.view(np.int32)).to(cuda)
+    n = torch.from_numpy(nb).to(cuda)
+    got = psha.sha256_blocks(b, n)
+    want = psha.sha256_blocks_ref(b, n)
+    torch.cuda.synchronize()
+    assert got.shape == (len(msgs), 8) and torch.equal(got, want)
+    h0 = psha.H0.astype(">u4").tobytes()
+    assert psha.digests_to_bytes(got) == [h0 if i in zero else hashlib.sha256(m).digest()
+                                          for i, m in enumerate(msgs)]
+
+
+@pytest.mark.parametrize("case", ["block_mix", "one_message", "zero_rows", "empty"])
+def test_sha256_kernel_at_block_shapes(cuda, case):
+    """A commit block's signed messages (1,000 envelope payloads of
+    3,285 B, 52 blocks, and 2,000 endorsement messages of 837 B, 14, in
+    the block's order, at M = 64), B = 1, rows with no block, B = 0."""
+    rng = np.random.default_rng(10)
+    if case == "block_mix":
+        msgs = [rng.bytes(n) for _ in range(1000) for n in (3285, 837, 837)]
+        _sha_on_card(cuda, msgs, 64)
+    elif case == "one_message":
+        _sha_on_card(cuda, [b"abc"], 1)
+    elif case == "zero_rows":
+        msgs = [rng.bytes(int(n)) for n in rng.integers(0, 200, 200)]
+        _sha_on_card(cuda, msgs, 4, zero=(0, 31, 32, 64, 127, 199))
+    else:
+        _sha_on_card(cuda, [], 1)
+
+
+def test_sha256_kernel_refuses_unaligned_blocks(cuda):
+    """The producers stage 16 bytes a copy: a view 4 bytes into its
+    storage raises instead of launching."""
+    from fabric_tpu_torch.ops import sha256 as psha
+
+    flat = torch.zeros(1 + 2 * 16, dtype=torch.int32, device=cuda)
+    blocks = flat[1:].view(2, 1, 16)
+    with pytest.raises(ValueError, match="16 bytes"):
+        psha.sha256_blocks(blocks, torch.ones(2, dtype=torch.int32, device=cuda))
+
+
 def _comparison_items():
     items = _items(120)
     e = 0x1234567

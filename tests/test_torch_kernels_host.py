@@ -8,8 +8,9 @@ turn ``__global__``/``__device__`` functions into plain C++.  Kernels of
 one thread per lane run one thread per block, a loop over ``blockIdx``
 playing the grid.  The team kernels (``p256_verify``, ``p256_sign``,
 ``p256_v1``, ``p256_v2``), the warp-ballot stage-2 kernels, the policy
-kernel and ``resident_verok`` run each block's ``blockDim.x`` threads
-as ``std::thread``s
+kernel, ``resident_verok`` and ``sha256_blocks`` (its producer and
+consumer warps) run each block's ``blockDim.x`` threads as
+``std::thread``s
 (``threadIdx`` and ``blockIdx`` are ``thread_local``):
 ``__syncthreads``, ``__syncwarp``, the shuffles, ``__ballot_sync`` and
 ``__any_sync`` go through a per-block exchange array and a C++20
@@ -17,9 +18,11 @@ as ``std::thread``s
 kernel launches (8 and 4; ``p256_v2`` 8).
 ``nvcuda::wmma``'s int8 tiles (``p256_v2``) are whole tiles in every
 thread, multiplied in lane 0, which makes the warp's store;
-``cuda_pipeline.h``'s asynchronous copies are copies made at once.  The
-shared ``p256_team.cuh`` is inlined where a source includes it.  The
-kernels use no inline PTX, so nothing here is skipped on the CPU.  That checks
+``cuda_pipeline.h``'s asynchronous copies are copies made at once;
+``sha256.cu``'s mbarriers (inline PTX on the card) are an atomic phase bit
+and arrival count waited on with C++20 ``atomic::wait``.  The shared
+``p256_team.cuh`` is inlined where a source includes it.  Nothing here
+is skipped on the CPU.  That checks
 each kernel's arithmetic and indexing — the team Montgomery products
 mod p and mod n (against Python ints), the team carry-lookahead votes,
 the point formulas, the window recoding, the comb ladder, the policy
@@ -59,6 +62,7 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "fabric_tpu_torch" / "kerne
 
 SHIM = r"""
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cstddef>
 #include <cstdint>
@@ -66,6 +70,7 @@ SHIM = r"""
 #include <functional>
 #include <memory>
 #include <mutex>
+#include <new>
 #include <thread>
 #include <vector>
 using std::max;
@@ -103,7 +108,38 @@ static inline int __popc(uint32_t x) { return __builtin_popcount(x); }
 #define __pipeline_commit()
 #define __pipeline_wait_prior(n)
 struct int4 { int x, y, z, w; };
+struct uint4 { uint32_t x, y, z, w; };
+static inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z, uint32_t w) {
+  return uint4{x, y, z, w};
+}
 static uint32_t host_smem[1 << 16];
+// mbarriers (sha256.cu's bar_* helpers): the 8-byte word holds the phase
+// bit (waited on with C++20 atomic wait) and the arrivals left in the
+// low half of its second word, the expected count in the high half; the
+// last arrival of a phase refills the count and flips the phase
+#define FAB_HOST_SHIM 1
+static std::atomic<uint32_t>* host_bar(uint64_t* bar) {
+  return reinterpret_cast<std::atomic<uint32_t>*>(bar);
+}
+static void bar_init(uint64_t* bar, uint32_t count) {
+  new (host_bar(bar)) std::atomic<uint32_t>(0);
+  new (host_bar(bar) + 1) std::atomic<uint32_t>((count << 16) | count);
+}
+static void bar_init_fence() {}
+static void bar_arrive(uint64_t* bar) {
+  std::atomic<uint32_t>* w = host_bar(bar);
+  const uint32_t old = w[1].fetch_sub(1);
+  if ((old & 0xFFFFu) == 1) {
+    w[1].store((old & 0xFFFF0000u) | (old >> 16));
+    w[0].fetch_xor(1);
+    w[0].notify_all();
+  }
+}
+// returns once the phase of parity `parity` has completed
+static void bar_wait(uint64_t* bar, uint32_t parity) {
+  std::atomic<uint32_t>* w = host_bar(bar);
+  for (uint32_t ph = w[0].load(); (ph & 1) == parity; ph = w[0].load()) w[0].wait(ph);
+}
 
 // One block of threads: a std::thread per CUDA thread, a barrier for
 // the block and one for each warp, a double-buffered exchange array for
@@ -187,6 +223,13 @@ static unsigned __reduce_or_sync(unsigned, unsigned v) {
   const unsigned base = threadIdx.x & ~31u;
   unsigned r = 0;
   for (unsigned l = 0; l < 32 && base + l < blockDim.x; ++l) r |= (unsigned)buf[base + l];
+  return r;
+}
+static int __reduce_max_sync(unsigned, int v) {
+  const uint64_t* buf = host_exchange((uint64_t)(uint32_t)v);
+  const unsigned base = threadIdx.x & ~31u;
+  int r = v;
+  for (unsigned l = 0; l < 32 && base + l < blockDim.x; ++l) r = std::max(r, (int)(uint32_t)buf[base + l]);
   return r;
 }
 static inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
@@ -365,10 +408,14 @@ extern "C" void host_scatter(int32_t* table, const int32_t* idx, const int32_t* 
 }
 """,
     "sha256": r"""
+// the launch's grid of CTAs (kConsumers consumer and as many producer
+// warps each, the barriers and the ring in the block's shared memory),
+// two CTAs at a time
 extern "C" void host_sha256(const uint32_t* blocks, const int32_t* nb, int B, int M,
                             uint32_t* out) {
-  blockDim.x = 1;
-  for (int i = 0; i < B; ++i) { blockIdx.x = i; sha256_blocks_kernel(blocks, nb, B, M, out); }
+  if (B > 0)
+    host_launch((B + kMsgs - 1) / kMsgs, kThreads, 2,
+                [&] { sha256_blocks_kernel(blocks, nb, B, M, out, 1u); });
 }
 """,
     "p256_v1": r"""
@@ -520,7 +567,9 @@ def host_kernels(tmp_path_factory):
             "uint8_t* v2_smem = (uint8_t*)host_block_smem();").replace(
             "#include <mma.h>", "").replace(
             "__shared__ __align__(16) uint32_t smem[kSmemWords];",
-            "uint32_t* smem = host_block_smem();")
+            "uint32_t* smem = host_block_smem();").replace(
+            "extern __shared__ __align__(16) uint32_t sha_smem[];",
+            "uint32_t* sha_smem = host_block_smem();")
         cpp = d / f"{name}.cpp"
         cpp.write_text(SHIM + device_code + "}  // namespace\n" + launcher)
         so = d / f"{name}.so"
@@ -1029,6 +1078,59 @@ def test_sha256_kernel_source_matches_hashlib(host_kernels):
     want = [hashlib.sha256(m).digest() for m in msgs[:-1]]
     assert psha.digests_to_bytes(out)[:-1] == want
     assert out[-1].tolist() == psha.H0.tolist()
+
+
+def _sha_check(lib, msgs, M, zero=()):
+    """``msgs`` padded to M blocks, the rows in ``zero`` given no block,
+    through the kernel's CTAs (producer and consumer warps, their
+    barriers) → equal to ``sha256_blocks_ref`` and to hashlib."""
+    blocks, nb = psha.pad_messages(msgs, max_blocks=M)
+    nb[list(zero)] = 0
+    out = np.zeros((len(msgs), 8), np.uint32)
+    lib.host_sha256(_p(blocks), _p(nb), len(msgs), M, _p(out))
+    plain = psha.sha256_blocks_ref(torch.from_numpy(blocks.view(np.int32)), torch.from_numpy(nb))
+    assert np.array_equal(out, plain.numpy().view(np.uint32))
+    want = [psha.H0.astype(">u4").tobytes() if i in zero else hashlib.sha256(m).digest()
+            for i, m in enumerate(msgs)]
+    assert psha.digests_to_bytes(out) == want
+
+
+# messages a CTA of sha256.cu (kMsgs: two consumer warps)
+SHA_CTA_MSGS = 64
+
+
+def _block_messages(n_tx, rng):
+    """A commit block's signed messages, tx by tx: the envelope payload
+    (3,285 B, 52 blocks) and two endorsement messages (837 B, 14)."""
+    return [rng.bytes(n) for _ in range(n_tx) for n in (3285, 837, 837)]
+
+
+@pytest.mark.parametrize("case", ["partial_cta", "mixed_52_14", "zero_rows", "one_message",
+                                  "mixed_over_ctas"])
+def test_sha256_kernel_cta_cases(host_kernels, case):
+    """The kernel's CTAs: a batch whose last CTA is not full, a warp
+    mixing 52- and 14-block messages at M = 64 (a commit block's), rows
+    with no block (one a whole warp's first lane, one its last), B = 1,
+    and a commit block's messages among short ones over two CTAs and a
+    partial third, rows with no block among them."""
+    lib = host_kernels["sha256"]
+    rng = np.random.default_rng(21)
+    if case == "partial_cta":
+        msgs = [rng.bytes(int(n)) for n in rng.integers(0, 8 * 64 - 9, SHA_CTA_MSGS + 37)]
+        _sha_check(lib, msgs, 8)
+    elif case == "mixed_52_14":
+        msgs = _block_messages(11, rng)
+        assert {(len(m) + 8) // 64 + 1 for m in msgs} == {52, 14}
+        _sha_check(lib, msgs, 64)
+    elif case == "zero_rows":
+        msgs = [rng.bytes(int(n)) for n in rng.integers(0, 3 * 64 - 9, 70)]
+        _sha_check(lib, msgs, 4, zero=(0, 5, 31, 32, 63, 69))
+    elif case == "one_message":
+        _sha_check(lib, [b"abc"], 1)
+    else:
+        msgs = _block_messages(4, rng)
+        msgs += [rng.bytes(int(n)) for n in rng.integers(0, 200, 2 * SHA_CTA_MSGS - len(msgs) + 3)]
+        _sha_check(lib, msgs, 64, zero=(1, SHA_CTA_MSGS, len(msgs) - 1))
 
 
 def _v1_v2_items():
