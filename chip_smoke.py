@@ -106,8 +106,12 @@ on the host, an epoch-record rotation at a barrier), and the ledger
 and its catch-up paths (``ledger_path``: 12 chained wire blocks
 committed into a sqlite-backed ``KVLedger``, reopened, crashed and
 recovered on the card, replayed from its block store, and joined from
-a snapshot with the resident table warmed); their functions say what
-each checks.  Each path's launch counts are reset just
+a snapshot with the resident table warmed), and the commit path under
+failure (``chaos_path``: the ledger's blocks through a guarded
+``BlockValidator`` under a seeded fault plan and the containment loop,
+equal to a fault-free run; the resident cache's disable latch; a
+sidecar stopped and restarted under the sidecar latch); their functions
+say what each checks.  Each path's launch counts are reset just
 before it and read just after; a kernel's entry in the kernels line
 gives its time at the shape its path launched it with most often.  Then the kernels line (JSON),
 the card's name and power limit as nvidia-smi reports them, and the
@@ -2161,12 +2165,18 @@ def phase_sidecar(net: Net, main_res):
         wall = time.perf_counter() - t0
         counts = dict(kernels.launches)
         st = srv.stats()
+        guards = {name: v.sidecar_guard.stats() for name, v in validators.items()}
         for v in validators.values():
             v.close()
     finally:
         srv.stop_background()
     if errors:
         raise errors[0]
+    # the latch is always on: a fallback that no fault caused fails the run
+    latched = {n: g for n, g in guards.items() if g["fallback_blocks_total"] or g["degraded"]
+               or g["failures_total"]}
+    if latched:
+        raise AssertionError(f"sidecar: tenants fell back to the peer's verify: {latched}")
     rows = lambda x: sorted((k, vv.value, vv.version) for k, vv in x.batch.items())
     for name, (res, _, _) in out.items():
         for a, b in zip(res, main_res):
@@ -2192,7 +2202,8 @@ def phase_sidecar(net: Net, main_res):
         request_ms_p50=1e3 * nearest_rank(total, 50), request_ms_p99=1e3 * nearest_rank(total, 99),
         seconds=wall, tx_per_s={n: n_tx[n] / out[n][1] for n in out},
         tx_per_s_all=sum(n_tx.values()) / wall, signatures_per_s=sigs / wall,
-        equal_to_main_path=True, launches=counts, p256_verify_lanes=kernel_check)
+        equal_to_main_path=True, launches=counts, p256_verify_lanes=kernel_check,
+        fallback_blocks={n: g["fallback_blocks_total"] for n, g in guards.items()})
 
     # one block's batch through a v1 and a v2 server
     blocks, _, seed_rows = build_blocks(net, n_blocks=1, unsafe=False)
@@ -2926,12 +2937,13 @@ def build_ledger(n_blocks=LEDGER_BLOCKS, n_tx=BLOCK_TXS, sign_batch=card_signer)
     """The wire network's chained blocks 0..n-1 (``build_wire_blocks``:
     3 orgs, a 2-of-3 policy, 2 reads and 2 writes a tx, every 20th tx
     invalid) as bytes, their expected filters and the seed rows."""
+    t0 = time.perf_counter()
     wn = WireNet(SEED + 31, sign_batch=sign_batch)
     blocks, expected, rows, _ = build_wire_blocks(wn, n_blocks, n_tx, sign_batch=sign_batch,
                                                   chained=True)
     return {"raw": [b.serialize() for b in blocks], "expected": expected, "rows": rows,
             "msp": wn.msp, "roots": [(o.msp_id, o.ca.cert_pem) for o in wn.orgs],
-            "n_tx": n_blocks * n_tx}
+            "n_tx": n_blocks * n_tx, "build_s": time.perf_counter() - t0}
 
 
 def _seeded_ledger(path, rows, async_commit):
@@ -3028,12 +3040,11 @@ def phase_ledger_path(dev, built=None, check_launches=True):
     from fabric_tpu_torch.peer.replay import ReplayCheckpoint, ReplayDriver, replay_into
 
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
-    t0 = time.perf_counter()
     if built is None:
         built = build_ledger()
     raw, rows, n_tx = built["raw"], built["rows"], built["n_tx"]
     n_blocks = len(raw)
-    log("ledger_build", blocks=n_blocks, txs=n_tx, seconds=time.perf_counter() - t0,
+    log("ledger_build", blocks=n_blocks, txs=n_tx, seconds=built["build_s"],
         state_rows=len(rows), block_bytes=sum(len(r) for r in raw))
     root = tempfile.mkdtemp(prefix="fabtorch-ledger-")
     try:
@@ -3194,6 +3205,326 @@ def phase_ledger_path(dev, built=None, check_launches=True):
     log("ledger_path", blocks=n_blocks, txs=n_tx, equal=True)
 
 
+# the commit path under failure (bench.py::_bench_block_commit_chaos :1042)
+CHAOS_SPEC = ("validator.verify_launch:raise:p=0.35;validator.stage2:raise:n=1:after=3;"
+              "hostpool.task:raise:n=1:after=6;pipeline.prefetch:disconnect:n=1:after=6;"
+              "pipeline.commit:raise:n=1:after=2")
+CHAOS_SEED = 20260803
+CHAOS_GUARD = {"device_fail_threshold": 2, "device_retries": 1,  # bench.py:1070-1072
+               "device_recovery_s": 0.2}
+CHAOS_COALESCE = 2          # groups of 2 through preprocess_many, so the pool's tasks run
+CHAOS_RESIDENT_BLOCKS = 6   # the resident variant's blocks; a commit scatter fails at the 2nd
+CHAOS_SIDECAR_BLOCKS = 8    # the sidecar variant's: stopped after block 3, back before 6
+CHAOS_SIDECAR_RECOVERY_S = 0.2
+# (a)'s kernels: a fault never sends a block to ``_validate_host`` (``mvcc_validate``)
+CHAOS_KERNELS = ("p256_verify", "stage2_policy", "stage2_mvcc")
+
+
+def _host_path_blocks(v) -> list:
+    """Record the numbers of the blocks that take ``v._validate_host``
+    (policy in Python, MVCC by ``mvcc_validate``) → the list it fills."""
+    host, orig = [], v._validate_host
+    v._validate_host = lambda p: host.append(p.block.number) or orig(p)
+    return host
+
+
+def _chaos_drive(v, lg, raw, coalesce, marks):
+    """The containment loop (``bench.py:1120-1140``): the wire blocks
+    from the ledger's height through a ``CommitPipeline(depth=2)``; a
+    stage exception of the plan's own types (``InjectedFault``, and the
+    ``ConnectionResetError`` of ``disconnect``) closes the pipe, and a
+    new one resumes from the committed height.  Any other exception
+    fails the run.  ``marks`` receives (block, pipe, commit time, took
+    the fallback) a commit.  → (restarts, [(block, stage)])."""
+    from fabric_tpu_torch import faults
+    from fabric_tpu_torch.peer.pipeline import CommitPipeline
+    from fabric_tpu_torch.peer.validator import _SyncedHandle
+    from fabric_tpu_torch.protos import messages as m
+
+    commit = _ledger_commit(lg)
+    pipes = [0]
+
+    def commit_fn(res):
+        commit(res)
+        h = res.pend.handle
+        marks.append((res.block.number, pipes[0], time.perf_counter(),
+                      isinstance(h, _SyncedHandle) or getattr(h, "fell_back", False)))
+
+    restarts, failures = 0, []
+    pipe = CommitPipeline(v, commit_fn, depth=2, coalesce_blocks=coalesce)
+    try:
+        while True:
+            try:
+                rest = [m.Block.parse(r) for r in raw[lg.height:]]
+                if coalesce:
+                    pipe.submit_many(rest)
+                else:
+                    for blk in rest:
+                        pipe.submit(blk)
+                pipe.flush()
+                break
+            except (faults.InjectedFault, ConnectionResetError):
+                restarts += 1
+                failures.append(pipe.last_failure)
+                if restarts > 50:
+                    raise AssertionError("chaos_path: the containment loop does not converge")
+                pipe.close(flush=False)
+                pipes[0] += 1
+                pipe = CommitPipeline(v, commit_fn, depth=2, coalesce_blocks=coalesce)
+    finally:
+        pipe.close(flush=False)
+    return restarts, failures
+
+
+def _block_walls(marks):
+    """Per-block wall ms: each commit after the previous one of the same
+    pipe (the first of a pipe is left out: it carries the restart) →
+    ({block: ms}, {block: took the fallback})."""
+    walls, lane = {}, {}
+    prev = None
+    for num, pipe, t, fallback in marks:
+        lane[num] = fallback
+        if prev is not None and prev[0] == pipe:
+            walls[num] = 1e3 * (t - prev[1])
+        prev = (pipe, t)
+    return walls, lane
+
+
+def _same_blocks(name, got, want):
+    """CommittedBlocks against the fault-free run's: filters, update
+    batches, history."""
+    rows = lambda r: sorted((k, vv.value, vv.version) for k, vv in r.batch.updates.items())
+    for a, b in zip(got, want):
+        if (a.tx_filter, rows(a), a.history) != (b.tx_filter, rows(b), b.history):
+            raise AssertionError(f"chaos_path {name}: block {a.block.number} differs from "
+                                 "the fault-free run")
+
+
+def phase_chaos_path(dev, built=None, check_launches=True):
+    """The commit path under failure, on ``dev``, at the ledger path's
+    blocks (12 chained wire blocks of 1,000 txs, 3 orgs, 2-of-3):
+    (a) the blocks through a ``BlockValidator`` with the reference chaos
+    bench's guard (threshold 2, 1 retry, a probe every 0.2 s) and a
+    2-worker staging pool, ``CommitPipeline(depth=2)`` in coalesced
+    groups of 2, under the seeded ``CHAOS_SPEC`` and the containment
+    loop, into a sqlite ``KVLedger``: its height, commit hash, digest
+    and blocks equal a fault-free run's, at least one restart and one
+    fallback block, the guard's failures equal to the faults fired at
+    its points, every main-path kernel launched, and no block on
+    ``_validate_host`` that the fault-free run did not put there (a
+    fallback block verifies on the card and keeps the fused stage 2);
+    (b) ``state_resident=True`` with the second commit scatter failing:
+    the cache ends disabled, no block reads the table after it, the
+    verdicts are the fault-free run's, no block on the host path; (c) one ``SidecarValidator`` tenant whose server
+    stops after block 3 and comes back on its port before block 6: the
+    latch engages, those blocks verify on this card, a probe
+    re-attaches, every failure falls between the stop and the restart,
+    the verdicts are the fault-free run's.  Every check raises."""
+    import shutil
+    import tempfile
+
+    from fabric_tpu_torch import carry, faults, kernels
+    from fabric_tpu_torch.sidecar import SidecarServer
+    from fabric_tpu_torch.sidecar.validator import SidecarValidator
+    from fabric_tpu_torch.utils.stats import nearest_rank
+
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    if built is None:
+        built = build_ledger()
+    raw, rows = built["raw"], built["rows"]
+    n_blocks = len(raw)
+    root = tempfile.mkdtemp(prefix="fabtorch-chaos-")
+    try:
+        # -- the fault-free run ---------------------------------------------------
+        lg = _seeded_ledger(os.path.join(root, "clean"), rows, async_commit=True)
+        v = _ledger_validator(dev, lg, built)
+        clean_host = _host_path_blocks(v)
+        sync()
+        t0 = time.perf_counter()
+        clean = _commit_blocks(v, lg, raw)
+        lg.drain_state()
+        sync()
+        clean_s = time.perf_counter() - t0
+        want = _ledger_view(lg)
+        lg.close()
+        if [bytes(r.tx_filter) for r in clean] != built["expected"]:
+            raise AssertionError("chaos_path: the fault-free run differs from construction")
+
+        # -- (a) the device lane under the plan --------------------------------------
+        lg = _seeded_ledger(os.path.join(root, "chaos"), rows, async_commit=True)
+        v = _ledger_validator(dev, lg, built, host_stage_workers=2, **CHAOS_GUARD)
+        chaos_host = _host_path_blocks(v)
+        plan = faults.FaultPlan(CHAOS_SPEC, seed=CHAOS_SEED)
+        marks: list = []
+        kernels.reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        faults.install(plan)
+        try:
+            restarts, failures = _chaos_drive(v, lg, raw, CHAOS_COALESCE, marks)
+        finally:
+            faults.reset()
+        lg.drain_state()
+        sync()
+        chaos_s = time.perf_counter() - t0
+        counts = dict(kernels.launches)
+        got = _ledger_view(lg)
+        lg.close()
+        v.close()
+        _same_ledger("chaos", got, want, keys=("height", "commit_hash", "digest", "blocks"))
+        gst = v.device_guard.stats()
+        injected = plan.fired("validator.verify_launch") + plan.fired("validator.stage2")
+        if gst["failures_total"] != injected:
+            raise AssertionError(f"chaos_path: the guard counted {gst['failures_total']} "
+                                 f"failures for {injected} injected faults: a real fault?")
+        if restarts < 1 or gst["fallback_blocks_total"] < 1:
+            raise AssertionError(f"chaos_path: {restarts} restarts, "
+                                 f"{gst['fallback_blocks_total']} fallback blocks")
+        _need_launches("chaos", counts, CHAOS_KERNELS, check_launches)
+        if set(chaos_host) != set(clean_host):
+            raise AssertionError(f"chaos_path: blocks {sorted(set(chaos_host))} took the host "
+                                 f"path, {sorted(set(clean_host))} without faults")
+        walls, lane = _block_walls(marks)
+        ms = sorted(walls.values())
+        by_lane = {k: [w for b, w in walls.items() if lane[b] == (k == "fallback")]
+                   for k in ("device", "fallback")}
+        device_lane = {
+            "blocks": n_blocks, "restarts": restarts, "failed_stages": failures,
+            "faults": plan.stats(), "faults_fired": plan.fired(),
+            "guard": gst, "launches": counts, "seconds": chaos_s,
+            "host_path_blocks": sorted(set(chaos_host)),
+            "block_ms_p50": nearest_rank(ms, 50), "block_ms_p99": nearest_rank(ms, 99),
+            "block_ms_mean_by_lane": {k: (sum(x) / len(x) if x else None)
+                                      for k, x in by_lane.items()},
+            "blocks_by_lane": {k: len(x) for k, x in by_lane.items()},
+            "fault_free_ms_per_block": 1e3 * clean_s / n_blocks,
+            "digest_equal": True, "commit_hash_equal": True, "blocks_equal": True}
+        log("chaos_device_lane", **device_lane)
+
+        # -- (b) the resident cache's latch ------------------------------------------
+        k_res = CHAOS_RESIDENT_BLOCKS
+        lg = _seeded_ledger(os.path.join(root, "resident"), rows, async_commit=True)
+        v = _ledger_validator(dev, lg, built, state_resident=True)
+        res_host = _host_path_blocks(v)
+        res = v.resident
+        real_scatter, real_apply, real_read = res._scatter, res.apply_batch, res.read
+        shot = {"applies": 0, "armed": False, "fired": 0}
+        reads = []
+
+        def scatter(idx, rows_):
+            if shot["armed"] and not shot["fired"]:
+                shot["fired"] += 1
+                raise RuntimeError("table_scatter failed (injected by the smoke)")
+            return real_scatter(idx, rows_)
+
+        def apply_batch(batch):
+            shot["applies"] += 1
+            shot["armed"] = shot["applies"] == 2
+            try:
+                return real_apply(batch)
+            finally:
+                shot["armed"] = False
+
+        res._scatter, res.apply_batch = scatter, apply_batch
+        res.read = lambda fn, u: reads.append(res.enabled) or real_read(fn, u)
+        kernels.reset_counts()
+        sync()
+        rgot = _commit_blocks(v, lg, raw[:k_res])
+        lg.drain_state()
+        sync()
+        rcounts = dict(kernels.launches)
+        rst = res.stats()
+        lg.close()
+        _same_blocks("resident", rgot, clean[:k_res])
+        if shot["fired"] != 1 or res.enabled or rst["enabled"] or not all(reads):
+            raise AssertionError(f"chaos_path resident: scatter failures {shot['fired']}, "
+                                 f"enabled {rst['enabled']}, reads while enabled {reads}")
+        if set(res_host) != set(clean_host) & {b.block.number for b in rgot}:
+            raise AssertionError(f"chaos_path resident: blocks {res_host} took the host path")
+        if len(reads) >= k_res or (check_launches and rcounts["resident_verok"] != len(reads)):
+            raise AssertionError(f"chaos_path resident: {len(reads)} table reads, "
+                                 f"{rcounts['resident_verok']} resident_verok launches")
+        log("chaos_resident", blocks=k_res, scatter_failed_at_commit=2,
+            table_reads=len(reads), blocks_on_host_reads=k_res - len(reads),
+            enabled=rst["enabled"], launches=rcounts, equal_to_fault_free=True)
+
+        # -- (c) the sidecar's latch and re-attach -----------------------------------
+        k_sc = CHAOS_SIDECAR_BLOCKS
+        srv = SidecarServer("127.0.0.1", 0, device=dev).start_background()
+        port = srv.port
+        lg = _seeded_ledger(os.path.join(root, "sidecar"), rows, async_commit=True)
+        _, prov, _ = carry.from_reference([], WIRE_NAMESPACES, [])
+        v = SidecarValidator(prov, lg.state, block_store=lg.blocks, device=dev,
+                             msp=built["msp"], tenant="chaos",
+                             sidecar_endpoint=f"127.0.0.1:{port}",
+                             sidecar_recovery_s=CHAOS_SIDECAR_RECOVERY_S)
+        guard = v.sidecar_guard
+        from fabric_tpu_torch.peer.pipeline import CommitPipeline
+        from fabric_tpu_torch.protos import messages as m
+
+        scgot = []
+        kernels.reset_counts()
+        try:
+            with CommitPipeline(v, _ledger_commit(lg), depth=2) as pipe:
+                def feed(lo, hi):
+                    for r in raw[lo:hi]:
+                        out = pipe.submit(m.Block.parse(r))
+                        if out is not None:
+                            scgot.append(out)
+                    out = pipe.flush()
+                    if out is not None:
+                        scgot.append(out)
+
+                feed(0, 4)
+                before_stop = guard.stats()
+                srv.stop_background()
+                t_stop = time.perf_counter()
+                feed(4, 6)
+                latched = guard.stats()
+                srv = SidecarServer("127.0.0.1", port, device=dev).start_background()
+                t_restart = time.perf_counter()
+                time.sleep(CHAOS_SIDECAR_RECOVERY_S)
+                feed(6, 7)  # the probe; the next block's launch then sees the re-armed lane
+                feed(7, k_sc)
+            sync()
+            after = guard.stats()
+            attached = v.link.attached
+            srv_stats = srv.stats()
+        finally:
+            v.close()
+            srv.stop_background()
+            lg.close()
+        sccounts = dict(kernels.launches)
+        _same_blocks("sidecar", scgot, clean[:k_sc])
+        if len(scgot) != k_sc:
+            raise AssertionError(f"chaos_path sidecar: {len(scgot)} blocks committed")
+        if (before_stop["failures_total"] or not latched["degraded"]
+                or after["failures_total"] != latched["failures_total"]
+                or after["degraded"] or not attached
+                or latched["fallback_blocks_total"] != 2
+                or after["fallback_blocks_total"] != 2):
+            raise AssertionError(f"chaos_path sidecar: before the stop {before_stop}, "
+                                 f"stopped {latched}, after the restart {after}, "
+                                 f"attached {attached}")
+        if check_launches and (sccounts["p256_verify"] < 1 or sccounts["mvcc_validate"] < k_sc):
+            raise AssertionError(f"chaos_path sidecar: launches {sccounts}")
+        log("chaos_sidecar", blocks=k_sc, stopped_after_block=3, restarted_before_block=6,
+            guard_before_stop=before_stop, guard_stopped=latched, guard_after=after,
+            latch_to_reattach_s=after["degraded_s"], stop_to_restart_s=t_restart - t_stop,
+            attached=attached, server_requests=srv_stats["requests"], launches=sccounts,
+            equal_to_fault_free=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("chaos_path", restarts=restarts, faults_fired=device_lane["faults"],
+        retries_total=gst["retries_total"], fallback_blocks_total=gst["fallback_blocks_total"],
+        degraded_s=gst["degraded_s"], launches=counts,
+        block_ms_p50=device_lane["block_ms_p50"], block_ms_p99=device_lane["block_ms_p99"],
+        block_ms_by_lane=device_lane["block_ms_mean_by_lane"],
+        fault_free_ms_per_block=device_lane["fault_free_ms_per_block"],
+        resident_enabled=rst["enabled"], sidecar_latch_to_reattach_s=after["degraded_s"],
+        equal=True)
+
+
 def kernel_frames(build_log: dict, names) -> dict:
     """ptxas's report for the kernels whose mangled names hold one of
     ``names``: {name: {stack, spill_stores, spill_loads, registers}}
@@ -3280,7 +3611,9 @@ def main() -> int:
     phase_sidecar(net, main_res)
     phase_config4_path(dev)
     phase_config5_path(dev)
-    phase_ledger_path(dev)
+    ledger_built = build_ledger()
+    phase_ledger_path(dev, ledger_built)
+    phase_chaos_path(dev, ledger_built)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "mismatches",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in order} for r in recs]}), flush=True)

@@ -1,5 +1,5 @@
 """Framed-message RPC over asyncio TCP with optional TLS (counterpart:
-``fabric_tpu/comm/rpc.py``, without its fault-injection hooks).
+``fabric_tpu/comm/rpc.py``).
 
 A minimal multiplexed-stream protocol with gRPC's shape (unary and
 bidi-streaming methods over one TCP connection):
@@ -13,7 +13,9 @@ bidi-streaming methods over one TCP connection):
 Handlers are ``async def handler(stream)``: iterate the stream for
 request payloads, ``await stream.send(...)`` to reply.  Frames longer
 than ``MAX_FRAME`` are refused on send (``FrameTooLargeError``) and on
-read.  ``ssl_ctx`` goes to ``asyncio``'s server and connection.
+read.  ``ssl_ctx`` goes to ``asyncio``'s server and connection.  Every
+frame sent passes the ``rpc.frame`` fault point by ``afire``, so an
+armed latency slows one stream and a ``disconnect`` cuts it.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from __future__ import annotations
 import asyncio
 import ssl
 import struct
+
+from fabric_tpu_torch import faults
 
 KIND_CALL = 1
 KIND_MSG = 2
@@ -43,6 +47,8 @@ async def _write_frame(writer, stream_id: int, kind: int, payload: bytes = b""):
     if len(payload) > MAX_FRAME:
         raise FrameTooLargeError(f"frame too large to send: {len(payload)} bytes exceeds "
                                  f"MAX_FRAME ({MAX_FRAME})")
+    if faults.plan() is not None:
+        await faults.afire("rpc.frame", kind=kind, stream=stream_id)
     writer.write(_HDR.pack(len(payload), stream_id, kind) + payload)
     await writer.drain()
 

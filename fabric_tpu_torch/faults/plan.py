@@ -1,21 +1,34 @@
 """Deterministic fault injection (counterpart: ``fabric_tpu/faults/plan.py``).
 
 A seedable :class:`FaultPlan` maps named injection points to fault
-kinds; the code that must survive calls ``fire(point, **ctx)`` there.
-The port places the ledger's four points:
+kinds; the code that must survive calls ``fire(point, **ctx)`` there
+(``afire`` on an event loop).  The port places these points:
 
-==========================  ==============================================
-injection point             fires
-==========================  ==============================================
-``ledger.fsync.before``     ``BlockStore``, right before ``os.fsync``
-``ledger.fsync.after``      ``BlockStore``, right after ``os.fsync``
-``ledger.apply.before``     ``AsyncApplyEngine``, before a block's apply
-``ledger.apply.after``      ``AsyncApplyEngine``, after it (and history)
-==========================  ==============================================
+==============================  ==============================================
+injection point                 fires
+==============================  ==============================================
+``p256v3.verify_launch``        the v3 verify dispatch (``ops/p256v3.py``)
+``validator.verify_launch``     each device-lane attempt of a
+                                ``DeviceLaneGuard`` (``peer/degrade.py``)
+``validator.stage2``            the fused stage-2 dispatch
+``hostpool.task``               inside every ``HostStagePool`` task
+``pipeline.prefetch``           ``CommitPipeline``'s prefetch stage
+``pipeline.launch``             its caller-thread launch stage
+``pipeline.commit``             its commit stage
+``ledger.fsync.before``         ``BlockStore``, right before ``os.fsync``
+``ledger.fsync.after``          ``BlockStore``, right after ``os.fsync``
+``ledger.apply.before``         ``AsyncApplyEngine``, before a block's apply
+``ledger.apply.after``          ``AsyncApplyEngine``, after it (and history)
+``rpc.frame``                   every framed-RPC frame sent (``afire``)
+``sidecar.request``             the sidecar server's admission (``afire``)
+``sidecar.dispatch``            the sidecar's coalesced dispatch
+==============================  ==============================================
 
-Kinds: ``raise`` (:class:`InjectedFault`) and ``latency`` (sleep
-``ms``).  A plan is armed by ``configure(spec)``, which returns it, and
-disarmed by ``reset()``; the spec string::
+Kinds: ``raise`` (:class:`InjectedFault`), ``latency`` (sleep ``ms``;
+``asyncio.sleep`` under ``afire``, so one stream slows and the loop
+runs on), ``disconnect`` and ``truncate`` (``ConnectionResetError``, a
+torn stream), ``crash`` (the crash hooks, then ``os._exit(86)``: the
+kill-mid-fsync tests run it in a child process).  The spec string::
 
     point:kind[:p=0.5][:n=3][:after=2][:ms=50] [; more specs]
 
@@ -23,21 +36,34 @@ disarmed by ``reset()``; the spec string::
 ``random.Random`` seeded by (seed, point, kind, position), so a seeded
 run replays whatever the interleaving of other points; ``n`` the
 trigger budget; ``after`` the arrivals skipped first (``after=8``: the
-ninth arrival fires); ``ms`` the sleep of ``latency``.  With no plan
-armed ``fire`` is one global read.  The reference's triggered-fault
-counter lives in its metrics registry; here ``stats()`` and ``fired()``
-report it.  The reference's ``disconnect``, ``truncate`` and ``crash``
-kinds, its environment variables, ``afire``, ``shield`` and crash
-hooks serve points the port has not placed.
+ninth arrival fires); ``ms`` the sleep of ``latency``.
+
+A plan is armed by ``configure(spec)`` (its seed defaults to
+``FABTPU_FAULTS_SEED``) or ``install(plan)``, disarmed by ``reset()``,
+and at import from ``FABTPU_FAULTS`` / ``FABTPU_FAULTS_SEED``, so a
+child process needs no plumbing.  With no plan armed ``fire`` is one
+global read.  ``shield()`` marks the current thread as a recovery path
+(the degraded lane's fallback): its arrivals never trigger, so a
+persistent fault cannot chase the fallback through shared entry points.
+The reference's triggered-fault counter lives in its metrics registry;
+here ``stats()`` and ``fired()`` report it.
 """
 
 from __future__ import annotations
 
+import asyncio
+import os
 import random
 import threading
 import time
 
-_KINDS = ("raise", "latency")
+_KINDS = ("raise", "latency", "disconnect", "truncate", "crash")
+
+ENV_SPEC = "FABTPU_FAULTS"
+ENV_SEED = "FABTPU_FAULTS_SEED"
+
+#: the exit code of a ``crash`` fault
+CRASH_EXIT = 86
 
 
 class FaultSpecError(ValueError):
@@ -128,10 +154,27 @@ class FaultPlan:
 
     def fire(self, point: str, **ctx) -> None:
         """An arrival at ``point``: trigger each rule its budget and
-        draw allow.  May raise or sleep."""
-        for rule in self._rules.get(point, ()):
+        draw allow.  May raise, sleep or end the process.  A shielded
+        thread's arrivals are not counted."""
+        rules = self._rules.get(point)
+        if not rules or _shielded():
+            return
+        for rule in rules:
             if self._admit(rule):
                 _trigger(rule, point)
+
+    async def afire(self, point: str, **ctx) -> None:
+        """``fire`` on an event loop: a latency fault awaits
+        ``asyncio.sleep``, so it slows one stream, not the loop."""
+        rules = self._rules.get(point)
+        if not rules or _shielded():
+            return
+        for rule in rules:
+            if self._admit(rule):
+                if rule.kind == "latency":
+                    await asyncio.sleep(rule.ms / 1000.0)
+                else:
+                    _trigger(rule, point)
 
     def stats(self) -> dict:
         """{point: [{kind, arrivals, fired}]}."""
@@ -148,23 +191,77 @@ class FaultPlan:
 
 
 def _trigger(rule: _Rule, point: str) -> None:
-    if rule.kind == "latency":
+    kind = rule.kind
+    if kind == "latency":
         time.sleep(rule.ms / 1000.0)
-    else:
+    elif kind == "raise":
         raise InjectedFault(point)
+    elif kind == "disconnect":
+        raise ConnectionResetError(f"injected disconnect at {point}")
+    elif kind == "truncate":
+        raise ConnectionResetError(f"injected truncated stream at {point}")
+    else:
+        # crash: nothing flushed, no atexit; each hook contained, since
+        # a broken hook must not save the process from its death
+        for hook in list(_crash_hooks):
+            try:
+                hook(point)
+            except Exception:
+                pass
+        os._exit(CRASH_EXIT)
 
 
 # -- the process-global plan ----------------------------------------------------
 
 _plan: FaultPlan | None = None
+_tl = threading.local()
+_crash_hooks: list = []
+
+
+def on_crash(fn) -> None:
+    """Run ``fn(point)`` right before a ``crash`` fault ends the
+    process.  Idempotent."""
+    if fn not in _crash_hooks:
+        _crash_hooks.append(fn)
+
+
+def remove_crash_hook(fn) -> None:
+    if fn in _crash_hooks:
+        _crash_hooks.remove(fn)
+
+
+def _shielded() -> bool:
+    return getattr(_tl, "shield", 0) > 0
+
+
+class shield:
+    """Context manager: the current thread runs a recovery path, and
+    the injection points it passes never trigger.  Nests."""
+
+    def __enter__(self):
+        _tl.shield = getattr(_tl, "shield", 0) + 1
+        return self
+
+    def __exit__(self, *exc):
+        _tl.shield -= 1
+        return False
 
 
 def configure(spec: str = "", seed: int | None = None) -> FaultPlan | None:
-    """Arm the global plan from a spec (empty: disarm).  Returns the
-    plan."""
+    """Arm the global plan from a spec (empty: disarm); ``seed``
+    defaults to ``FABTPU_FAULTS_SEED``.  Returns the plan."""
     global _plan
+    if seed is None:
+        seed_s = os.environ.get(ENV_SEED, "")
+        seed = int(seed_s) if seed_s else None
     _plan = FaultPlan(spec, seed=seed) if spec else None
     return _plan
+
+
+def install(plan: FaultPlan | None) -> None:
+    """Arm an already-built plan (a caller holds it to read stats)."""
+    global _plan
+    _plan = plan
 
 
 def reset() -> None:
@@ -172,8 +269,29 @@ def reset() -> None:
     _plan = None
 
 
+def plan() -> FaultPlan | None:
+    return _plan
+
+
 def fire(point: str, **ctx) -> None:
     """The hook: one global read when no plan is armed."""
     p = _plan
     if p is not None:
         p.fire(point, **ctx)
+
+
+async def afire(point: str, **ctx) -> None:
+    """The event-loop hook; call sites check ``plan() is not None``
+    first, so the unarmed path makes no coroutine."""
+    p = _plan
+    if p is not None:
+        await p.afire(point, **ctx)
+
+
+def _init_from_env() -> None:
+    spec = os.environ.get(ENV_SPEC, "")
+    if spec:
+        configure(spec)
+
+
+_init_from_env()

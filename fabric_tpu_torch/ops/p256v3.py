@@ -35,7 +35,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from fabric_tpu_torch import kernels, native
+from fabric_tpu_torch import faults, kernels, native
 from fabric_tpu_torch.crypto import ec_ref
 from fabric_tpu_torch.device import resolve_device
 from fabric_tpu_torch.ops import fp256
@@ -455,7 +455,8 @@ class VerifyHandle:
 def verify_launch(items, device="cuda") -> VerifyHandle:
     """Stage (digest, r, s, qx, qy) tuples or ``SigColumns`` and launch
     the verify kernel without waiting: one launch over the whole
-    bucketed batch."""
+    bucketed batch.  Fires the ``p256v3.verify_launch`` fault point."""
+    faults.fire("p256v3.verify_launch")
     dev = resolve_device(device)
     if not isinstance(items, SigColumns):
         items = list(items)
@@ -470,7 +471,9 @@ def verify_launch_many(batches, device="cuda") -> list[VerifyHandle]:
     """Several blocks' signature batches as ONE launch.  Block b keeps
     the lane layout a solo launch would give it — lanes
     [off_b, off_b + _bucket(n_b)) — so each handle's ``device_out`` is a
-    slice; the total pads out to ``_bucket(sum of buckets)``."""
+    slice; the total pads out to ``_bucket(sum of buckets)``.  Fires the
+    ``p256v3.verify_launch`` fault point."""
+    faults.fire("p256v3.verify_launch")
     dev = resolve_device(device)
     batches = [b if isinstance(b, SigColumns) else list(b) for b in batches]
     offs, total = [], 0

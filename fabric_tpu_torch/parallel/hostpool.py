@@ -13,7 +13,9 @@ thread unless a pool shares it out.  This is that pool:
   device preprocessing (``BlockValidator.preprocess_many``);
 * per-task accounting: ``stats()`` holds the tasks and seconds per
   stage and worker.  The reference's registry histogram and tracer
-  spans come with the port's observe hooks.
+  spans come with the port's observe hooks;
+* the ``hostpool.task`` fault point fires inside every task, so a
+  fault plan can fail exactly one worker task.
 
 The knob (``BlockValidator(host_stage_workers=)``) resolves as the
 reference's: 0 is off (serial staging), -1 is one worker per core, n is
@@ -32,6 +34,8 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+
+from fabric_tpu_torch import faults
 
 
 def _label_task_error(e: BaseException, stage: str, worker: str) -> None:
@@ -85,6 +89,7 @@ class HostStagePool:
             worker = name.rsplit("_", 1)[-1] if "_" in name else name
             t0 = time.perf_counter()
             try:
+                faults.fire("hostpool.task", stage=stage)
                 return fn(*args, **kwargs)
             except BaseException as e:
                 _label_task_error(e, stage, worker)

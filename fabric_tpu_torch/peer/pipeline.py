@@ -1,5 +1,5 @@
 """Depth-N commit pipeline (counterpart: ``fabric_tpu/peer/pipeline.py``,
-without its fault-injection, tracing and metrics machinery).
+without its tracing and metrics machinery).
 
     prefetch thread   preprocess(block n+1)     decode + verify launch
     caller thread     validate_finish(block n-1), validate_launch(block n)
@@ -38,21 +38,44 @@ or just before a group makes every later block of the group stale
 (:622-657).
 
 Each commit runs ``commit_fn`` and then the validator's
-``resident_commit`` (the device-resident state's write-set scatter,
-``state/residency.py``), on the committer thread or inline, before the
-commit's future resolves: a launch whose overlay no longer covers a
-block is ordered after that block's scatter.  An error in either
-surfaces like any stage exception.
+``resident_commit`` when it has one (the device-resident state's
+write-set scatter, ``state/residency.py``), on the committer thread or
+inline, before the commit's future resolves: a launch whose overlay no
+longer covers a block is ordered after that block's scatter.  An error
+in either surfaces like any stage exception.
+
+Containment (the reference's :364-410): a stage exception (prefetch,
+launch, finish or commit) is recorded (``last_failure`` = (block
+number, stage), ``stats()["stage_failures"]`` by stage) and closes the
+pipe: it surfaces once, in-flight state is dropped, both worker threads
+drain, and later submits raise.  The caller builds a new pipe and
+resumes from its committed height.  The fault points
+``pipeline.prefetch``, ``pipeline.launch`` and ``pipeline.commit`` fire
+at the top of those stages.
 """
 
 from __future__ import annotations
 
-from collections import deque
+import logging
+import threading
+from collections import Counter, deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
+from fabric_tpu_torch import faults
 from fabric_tpu_torch.ledger.statedb import UpdateBatch
 from fabric_tpu_torch.peer.validator import LIFECYCLE_NS
+
+_log = logging.getLogger("fabric_tpu_torch.pipeline")
+
+
+def _number(block):
+    """A block's number: a ``DecodedBlock``'s or ``WireBlock``'s
+    ``number``, else its header's."""
+    num = getattr(block, "number", None)
+    if num is None:
+        num = getattr(getattr(block, "header", None), "number", None)
+    return num
 
 
 def _is_barrier(pend, batch) -> bool:
@@ -132,6 +155,9 @@ class CommitPipeline:
         self._stale_prefetch = False
         self.barriers = 0
         self.stale_prefetches = 0
+        self.last_failure: tuple | None = None  # (block number, stage)
+        self._failures: Counter = Counter()
+        self._failures_lock = threading.Lock()
 
     def __enter__(self):
         return self
@@ -158,6 +184,20 @@ class CommitPipeline:
         self._prefetch.shutdown(wait=True)
         self._committer.shutdown(wait=True)
 
+    def stats(self) -> dict:
+        """Barriers, stale re-preprocesses, stage failures by stage and
+        the last failure."""
+        with self._failures_lock:
+            return {"barriers": self.barriers, "stale_prefetches": self.stale_prefetches,
+                    "stage_failures": dict(self._failures), "last_failure": self.last_failure}
+
+    def _note_stage_failure(self, stage: str, number) -> None:
+        with self._failures_lock:
+            self.last_failure = (number, stage)
+            self._failures[stage] += 1
+        _log.warning("pipeline %s stage failed for block %s; the pipe closes, resume from "
+                     "the committed height", stage, number)
+
     def _drain_commits(self, keep: int) -> None:
         while len(self._commits) > keep:
             self._commits.popleft().fut.result()
@@ -174,9 +214,8 @@ class CommitPipeline:
             raise RuntimeError("pipeline is closed")
         try:
             if self.depth == 1:
-                pend = self.validator.validate_launch(block)
-                return self._finish_and_commit(pend, tail=True)
-            self._pre = (block, self._prefetch.submit(self.validator.preprocess, block))
+                return self._submit_serial(block)
+            self._pre = (block, self._prefetch.submit(self._prefetch_one, block))
             out = None
             if self._launched is not None:
                 out = self._finish_and_commit(self._launched)
@@ -185,6 +224,29 @@ class CommitPipeline:
         except BaseException:
             self._shutdown()
             raise
+
+    def _prefetch_one(self, block):
+        faults.fire("pipeline.prefetch")
+        return self.validator.preprocess(block)
+
+    def _prefetch_group(self, many, group):
+        faults.fire("pipeline.prefetch")
+        return many(group)
+
+    def _submit_serial(self, block) -> CommittedBlock:
+        """Depth 1: prefetch, launch, finish and commit in turn."""
+        num = _number(block)
+        stage = "launch"
+        try:
+            faults.fire("pipeline.launch")
+            stage = "prefetch"
+            pre = self._prefetch_one(block)
+            stage = "launch"
+            pend = self.validator.validate_launch(block, pre=pre)
+        except BaseException:
+            self._note_stage_failure(stage, num)
+            raise
+        return self._finish_and_commit(pend, tail=True)
 
     def submit_many(self, blocks) -> list:
         """Feed height-ordered blocks in groups of ``coalesce_blocks``,
@@ -213,7 +275,7 @@ class CommitPipeline:
         out = []
         for g in range(0, len(blocks), k):
             group = blocks[g:g + k]
-            fut = self._prefetch.submit(many, group)
+            fut = self._prefetch.submit(self._prefetch_group, many, group)
             # the whole group was staged at once: a barrier committing
             # during this loop makes every remaining block of it stale
             stale_group = False
@@ -248,23 +310,46 @@ class CommitPipeline:
     def _launch_next(self) -> None:
         block, fut = self._pre
         self._pre = None
-        pre = fut.result()
-        if self._stale_prefetch:
-            self._stale_prefetch = False
-            self.stale_prefetches += 1
-            pre = self.validator.preprocess(block)
-        overlay, extra = self._launch_overlay()
-        self._launched = self.validator.validate_launch(
-            block, pre=pre, overlay=overlay, extra_txids=extra)
+        num = _number(block)
+        try:
+            pre = fut.result()
+            if self._stale_prefetch:
+                self._stale_prefetch = False
+                self.stale_prefetches += 1
+                pre = self.validator.preprocess(block)
+        except BaseException:
+            self._note_stage_failure("prefetch", num)
+            raise
+        try:
+            faults.fire("pipeline.launch")
+            overlay, extra = self._launch_overlay()
+            self._launched = self.validator.validate_launch(
+                block, pre=pre, overlay=overlay, extra_txids=extra)
+        except BaseException:
+            self._note_stage_failure("launch", num)
+            raise
 
     def _run_commit(self, res: CommittedBlock) -> None:
-        """The one commit body: the ledger commit, then the resident
-        table's scatter of the same write set."""
-        self.commit_fn(res)
-        self.validator.resident_commit(res.batch)
+        """The one commit body: the ``pipeline.commit`` point, the ledger
+        commit, then the resident table's scatter of the same write set
+        (a validator without ``resident_commit`` skips it).  A failure
+        is recorded as the commit stage's."""
+        try:
+            faults.fire("pipeline.commit")
+            self.commit_fn(res)
+            fn = getattr(self.validator, "resident_commit", None)
+            if fn is not None:
+                fn(res.batch)
+        except BaseException:
+            self._note_stage_failure("commit", _number(res.block))
+            raise
 
     def _finish_and_commit(self, pend, tail: bool = False) -> CommittedBlock:
-        flt, batch, history = self.validator.validate_finish(pend)
+        try:
+            flt, batch, history = self.validator.validate_finish(pend)
+        except BaseException:
+            self._note_stage_failure("finish", _number(pend.block))
+            raise
         barrier = _is_barrier(pend, batch)
         # keep at most depth-2 older commits in flight beside this one;
         # a barrier drains them all and commits inline

@@ -84,7 +84,24 @@ of reading every unique read key from the state DB, and
 boundary; a caller committing outside the pipeline calls it after each
 commit) scatters each committed write set into the table.  Blocks with
 range queries, and working sets larger than the table, keep the host
-read.  Errors of the resident path raise; nothing falls back.
+read.  A failed admission or commit scatter disables the cache
+(``ResidencyManager``'s latch): every later block reads on the host.
+
+The device lane's guard (``device_fail_threshold`` > 0;
+``peer/degrade.py``; the reference's :215-281, :560-640, :1436-1515):
+each verify launch goes through ``DeviceLaneGuard.run_launch``, which
+retries, latches after consecutive failures and probes for recovery.  A
+block whose lane failed gets a ``_SyncedHandle`` from
+``_host_verify_fallback``: the verify kernel on this device, launched
+and synced at once, whose ``device_out`` feeds the fused stage 2 as a
+lane launch's would; if that launch fails too, the block raises.  A
+launched block's handle is a ``_GuardedHandle``, whose failed fetch
+re-verifies the block on the fallback.  A stage-2 dispatch or sync
+failure is dispatched again on the card within the guard's retries
+(``DeviceLaneGuard.retry``), then raises: no failure moves a block's
+kernel work to the host.  Without a guard, the default, each of these
+failures raises at once.  The ``validator.stage2`` fault point fires
+before every stage-2 dispatch.
 
 ``kernel`` selects the verify kernel through the facade ``ops/p256.py``
 (None: ``FABRIC_TPU_P256``, default v3).  Under the comparison kernels
@@ -151,6 +168,7 @@ is judged under the new record.
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from dataclasses import dataclass, field
@@ -159,7 +177,7 @@ from functools import cached_property
 import numpy as np
 import torch
 
-from fabric_tpu_torch import protoutil
+from fabric_tpu_torch import faults, protoutil
 from fabric_tpu_torch.crypto import policy as pol
 from fabric_tpu_torch.crypto.msp import policy_from_proto
 from fabric_tpu_torch.device import resolve_device
@@ -174,6 +192,7 @@ from fabric_tpu_torch.ops import p256, p256v3
 from fabric_tpu_torch.parallel.hostpool import resolve_host_pool
 from fabric_tpu_torch.peer import frontend
 from fabric_tpu_torch.peer.decoded import DecodedBlock, DecodedEndorsement, DecodedTx
+from fabric_tpu_torch.peer.degrade import DeviceLaneGuard
 from fabric_tpu_torch.peer.device_block import DeviceBlockPipeline, resident_ver_ok
 from fabric_tpu_torch.peer.txcodes import TxValidationCode as C
 from fabric_tpu_torch.protos import messages as pm
@@ -183,6 +202,8 @@ from fabric_tpu_torch.state.residency import ResidencyManager, build_launch_pack
 from fabric_tpu_torch.utils.batching import next_pow2
 
 _NV = int(C.NOT_VALIDATED)
+
+_log = logging.getLogger("fabric_tpu_torch.validator")
 
 __all__ = ["BlockValidationCtx", "BlockValidator", "DecodedBlock", "DecodedEndorsement",
            "DecodedTx", "NamespaceInfo", "PolicyProvider", "ValidationPlugin"]
@@ -382,6 +403,69 @@ class PendingBlock:
         return {ptx.txid for ptx in self.txs if ptx.txid}
 
 
+class _SyncedHandle:
+    """A completed verify in the shape of a verify handle: the degraded
+    lane's route (``_host_verify_fallback``).  ``device_out`` is the
+    kernel's accept vector on the card, so the block's stage 2 runs as
+    on the lane."""
+
+    __slots__ = ("device_out", "n_real", "result")
+
+    def __init__(self, device_out, n_real: int, result: list):
+        self.device_out = device_out
+        self.n_real = n_real
+        self.result = result
+
+    def fetch(self) -> list:
+        return self.result
+
+    def __call__(self) -> list:
+        return self.result
+
+
+class _GuardedHandle:
+    """A lane's verify handle with the guard's accounting at the fetch:
+    ``device_out`` passes through, so the fused stage 2 is unchanged; a
+    failed fetch counts toward the latch and re-verifies this block on
+    the fallback (``fell_back``).  ``validate_finish`` records the
+    block's success."""
+
+    __slots__ = ("_h", "_guard", "_validator", "_items", "_result", "fell_back")
+
+    def __init__(self, handle, guard, validator, items):
+        self._h = handle
+        self._guard = guard
+        self._validator = validator
+        self._items = items
+        self._result = None
+        self.fell_back = False
+
+    @property
+    def device_out(self):
+        return getattr(self._h, "device_out", None)
+
+    @property
+    def n_real(self) -> int:
+        return getattr(self._h, "n_real", 0)
+
+    def fetch(self) -> list:
+        if self._result is not None:
+            return self._result
+        try:
+            self._result = self._h.fetch()
+        except Exception as e:
+            self._guard.record_failure(e)
+            self._guard.count_fallback()
+            self.fell_back = True
+            _log.warning("verify sync failed (%s); this block is verified again on the "
+                         "fallback", e)
+            self._result = self._validator._host_verify_fallback(self._items).fetch()
+        return self._result
+
+    def __call__(self) -> list:
+        return self.fetch()
+
+
 def _has_meta_writes(rwset) -> bool:
     return rwset is not None and any(n.metadata_writes for n in rwset.ns.values())
 
@@ -397,13 +481,23 @@ class BlockValidator:
     ``host_stage_workers``: the staging pool's size (0 off, -1 one
     worker per core); ``close()`` shuts it down.  ``plugins``: {name:
     ValidationPlugin} beside the built-in "default";
-    ``config_processor``: a ``channelconfig.ConfigTxProcessor``."""
+    ``config_processor``: a ``channelconfig.ConfigTxProcessor``.
+
+    ``device_fail_threshold`` (0: no guard, the default),
+    ``device_retries`` and ``device_recovery_s`` build ``device_guard``
+    (``peer/degrade.py``), the reference's knobs with its defaults: the
+    verify launches go through it, a block whose lane failed takes
+    ``_host_verify_fallback`` (the same kernel, launched and synced at
+    once), and a stage-2 dispatch or sync failure is dispatched again on
+    the card within the retries.  Without a guard each of those
+    failures raises."""
 
     def __init__(self, policy_provider: PolicyProvider, state_db, block_store=None,
                  device="cuda", state_resident: bool = False, state_resident_mb: int = 64,
                  state_resident_range_bits: int = 12, msp=None, kernel: str | None = None,
                  host_stage_workers: int = 0, plugins: dict | None = None,
-                 config_processor=None):
+                 config_processor=None, device_fail_threshold: int = 0,
+                 device_retries: int = 2, device_recovery_s: float = 30.0):
         self.msp = msp
         self.plugins = {"default": DefaultValidation(), **(plugins or {})}
         self.config_processor = config_processor
@@ -423,6 +517,10 @@ class BlockValidator:
         self._timings_lock = threading.Lock()
         self.host_stage_workers = int(host_stage_workers)
         self.host_pool = resolve_host_pool(self.host_stage_workers)
+        self.device_guard = (DeviceLaneGuard(retries=device_retries,
+                                             fail_threshold=device_fail_threshold,
+                                             recovery_s=device_recovery_s)
+                             if device_fail_threshold > 0 else None)
 
     def close(self) -> None:
         """Shut the staging pool down (its threads outlive the
@@ -1022,13 +1120,50 @@ class BlockValidator:
             return self._device_pre(txs, block)
 
     def verify_launch(self, items):
-        """Launch the block's signature verify without waiting."""
-        return p256.verify_launch(items, kernel=self.kernel, device=self.device)
+        """Launch the block's signature verify without waiting, through
+        ``device_guard`` when there is one (the reference's
+        ``_verify_launch_guarded``)."""
+        return self._guarded(
+            lambda: p256.verify_launch(items, kernel=self.kernel, device=self.device),
+            [items], many=False)
 
     def verify_launch_many(self, itemsets) -> list:
         """Several blocks' signatures in one launch (v3; one launch a
-        block under v1 and v2) → one handle a block."""
-        return p256.verify_launch_many(itemsets, kernel=self.kernel, device=self.device)
+        block under v1 and v2) → one handle a block; through the guard,
+        one attempt covers the group and a fallback verifies each
+        block's batch (each counted)."""
+        itemsets = list(itemsets)
+        return self._guarded(
+            lambda: p256.verify_launch_many(itemsets, kernel=self.kernel, device=self.device),
+            itemsets, many=True)
+
+    def _guarded(self, launch, itemsets: list, many: bool):
+        """``launch()`` on the lane, or its fallback, under
+        ``device_guard`` (None: the bare launch) → a handle, or one a
+        batch when ``many``."""
+        guard = self.device_guard
+        if guard is None:
+            return launch()
+        if many:
+            fallback = lambda: [self._host_verify_fallback(it) for it in itemsets]
+        else:
+            fallback = lambda: self._host_verify_fallback(itemsets[0])
+        out = guard.run_launch(launch, fallback, fallback_count=len(itemsets))
+        handles = out if many else [out]
+        wrapped = [h if isinstance(h, _SyncedHandle) else _GuardedHandle(h, guard, self, it)
+                   for h, it in zip(handles, itemsets)]
+        return wrapped if many else wrapped[0]
+
+    def _host_verify_fallback(self, items) -> _SyncedHandle:
+        """A block's signatures off the failed lane (the reference's
+        name): the verify kernel on this validator's device, launched
+        and synced at once under ``faults.shield()`` → a completed
+        handle whose ``device_out`` the fused stage 2 reads.  A failure
+        raises: the block fails closed, and nothing is verified on the
+        host."""
+        with faults.shield():
+            h = p256.verify_launch(items, kernel=self.kernel, device=self.device)
+            return _SyncedHandle(h.device_out, h.n_real, [bool(v) for v in h.fetch()])
 
     # -- launch -------------------------------------------------------------
 
@@ -1065,9 +1200,16 @@ class BlockValidator:
                                dpre=pre.dpre, overlay=overlay, wire=pre.wire,
                                hd_bytes=pre.hd_bytes)
         if txs and pre.dpre is not None and not self._sbe_launch_veto(pending):
-            pending.fetch2, pending.range_phantom = self._launch_device(
-                txs, pre.handle, pre.dpre, overlay)
+            if self.device_guard is None:
+                self._dispatch_stage2(pending)
+            else:
+                self.device_guard.retry(lambda: self._dispatch_stage2(pending),
+                                        "stage-2 dispatch")
         return pending
+
+    def _dispatch_stage2(self, pending: PendingBlock) -> None:
+        pending.fetch2, pending.range_phantom = self._launch_device(
+            pending.txs, pending.handle, pending.dpre, pending.overlay)
 
     # -- key-level endorsement ------------------------------------------------
 
@@ -1231,6 +1373,7 @@ class BlockValidator:
             launch_vec[:, 2] = static.host_ver_ok(committed)
             lv = torch.from_numpy(launch_vec).to(self.device)
         t0 = self._t("state_fill", t0)
+        faults.fire("validator.stage2")
         fetch2 = self._stage2.run(handle, lv, dpre.groups, dpre.static_t, static.dims, T,
                                   dpre.frames)
         self._t("stage2_dispatch", t0)
@@ -1241,10 +1384,11 @@ class BlockValidator:
     def _resident_launch_vec(self, launch_vec, dpre: DevicePre, overlay):
         """The launch vector on the device with its ver_ok column
         computed by ``resident_ver_ok`` against the resident table, or
-        None when the block takes the host read (no resident state, range
-        queries, a working set larger than the table)."""
+        None when the block takes the host read (no resident state, a
+        disabled cache, range queries, a working set larger than the
+        table)."""
         res = self.resident
-        if res is None:
+        if res is None or not res.enabled:
             return None
         static = dpre.static
         if static.u_pairs is None:
@@ -1265,25 +1409,49 @@ class BlockValidator:
         """Scatter one committed block's write set into the resident
         table; ``CommitPipeline`` calls it at the commit boundary, before
         the block's commit future resolves.  A no-op without resident
-        state; a failure raises."""
+        state; a failed scatter disables the cache."""
         if self.resident is not None:
             self.resident.apply_batch(batch)
 
     # -- finish ---------------------------------------------------------------
 
     def validate_finish(self, pending: PendingBlock):
-        if pending.fetch2 is not None:
-            result = self._finish_device(pending)
-            if result is not None:
-                return result
-        return self._validate_host(pending)
+        """The block's (filter, batch, history): from the fused stage 2,
+        or from ``_validate_host``.  Under a guard, a block whose verify
+        went over the lane without a fallback records the lane's success
+        here, once."""
+        result = self._finish_device(pending) if pending.fetch2 is not None else None
+        if result is None:
+            result = self._validate_host(pending)
+        h = pending.handle
+        if isinstance(h, _GuardedHandle) and not h.fell_back:
+            self.device_guard.record_success()
+        return result
+
+    def _stage2_out(self, pending: PendingBlock) -> dict:
+        """The block's stage-2 output.  Under a guard a failed sync
+        counts toward the latch and the next attempt dispatches the
+        stage 2 again on the card, within the guard's retries; then the
+        error raises."""
+        if self.device_guard is None:
+            return pending.fetch2()
+
+        def sync():
+            if pending.fetch2 is None:
+                self._dispatch_stage2(pending)
+            fetch2, pending.fetch2 = pending.fetch2, None
+            out = fetch2()
+            pending.fetch2 = fetch2
+            return out
+
+        return self.device_guard.retry(sync, "stage-2 sync")
 
     def _finish_device(self, pending: PendingBlock):
         """Codes from the packed stage-2 output; None sends the block to
         the exact host path (a consumption-unsafe policy row)."""
         txs, dpre = pending.txs, pending.dpre
         t0 = time.perf_counter()
-        out = pending.fetch2()
+        out = self._stage2_out(pending)
         t0 = self._t("device_wait", t0)
         for safe_bits, ents in zip(out["safe"], dpre.group_entries):
             if not np.all(safe_bits[:len(ents)]):

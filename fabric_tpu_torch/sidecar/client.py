@@ -14,7 +14,11 @@ the verdicts arrive at ``fetch()``.
 * connection loss, an ERROR answer, a timeout or a verdict vector of
   the wrong length raise ``SidecarUnavailable`` from ``fetch()``;
 * a ``submit`` while detached connects anew, so the next block after a
-  sidecar restart re-attaches.
+  sidecar restart re-attaches (the validator's recovery probe is such a
+  submit); ``attached`` says whether a stream is open;
+* ``set_weight`` changes the tenant's weight in place by an in-stream
+  re-hello, which the server acknowledges; detached, the new weight
+  rides the next hello.
 """
 
 from __future__ import annotations
@@ -87,6 +91,7 @@ class SidecarLink:
         self._reader_task: asyncio.Task | None = None
         self._conn_lock: asyncio.Lock | None = None  # created on the loop
         self._pending: dict[int, asyncio.Future] = {}
+        self._hello_ack: asyncio.Future | None = None
         self._seq = 0
         self._closed = False
         self._loop = asyncio.new_event_loop()
@@ -103,6 +108,11 @@ class SidecarLink:
 
     # -- sync surface (validator threads) ------------------------------------
 
+    @property
+    def attached(self) -> bool:
+        """A stream to the sidecar is open."""
+        return self._stream is not None
+
     def submit(self, tuples) -> RemoteVerifyHandle:
         """Queue one signature batch; raises ``SidecarUnavailable`` only
         when the link is closed (transport errors surface at fetch)."""
@@ -117,6 +127,19 @@ class SidecarLink:
     def submit_many(self, tuple_sets) -> list:
         """One handle a batch; the server's scheduler coalesces them."""
         return [self.submit(t) for t in tuple_sets]
+
+    def set_weight(self, weight: float, timeout_s: float = 5.0) -> bool:
+        """Change this tenant's weight in place by an in-stream re-hello
+        → True on the server's ack; False when detached or refused (the
+        weight then rides the next hello)."""
+        self.weight = float(weight)
+        if self._closed or self._stream is None:
+            return False
+        try:
+            return bool(asyncio.run_coroutine_threadsafe(
+                self._arehello(self.weight), self._loop).result(timeout_s))
+        except Exception:
+            return False
 
     def close(self) -> None:
         if self._closed:
@@ -188,9 +211,30 @@ class SidecarLink:
             self.attach_total += 1
             return st
 
+    async def _arehello(self, weight: float) -> bool:
+        st = self._stream
+        if st is None:
+            return False
+        ack = self._loop.create_future()
+        self._hello_ack = ack
+        try:
+            await st.send(wire.encode_hello(self.tenant, weight))
+            got = await asyncio.wait_for(ack, CONNECT_TIMEOUT_S)
+            return bool(got.get("ok"))
+        finally:
+            self._hello_ack = None
+
     async def _reader(self, st) -> None:
         try:
             async for payload in st:
+                if payload[:1] == b"{":  # a re-hello's ack (see server.py)
+                    ack = self._hello_ack
+                    if ack is not None and not ack.done():
+                        try:
+                            ack.set_result(json.loads(payload))
+                        except ValueError:
+                            ack.set_result({})
+                    continue
                 hdr, verdicts = wire.decode_response(payload)
                 fut = self._pending.pop(int(hdr.get("seq", -1)), None)
                 if fut is not None and not fut.done():
@@ -213,6 +257,9 @@ class SidecarLink:
         for fut in pending.values():
             if not fut.done():
                 fut.set_exception(SidecarUnavailable("sidecar connection lost"))
+        ack, self._hello_ack = self._hello_ack, None
+        if ack is not None and not ack.done():
+            ack.set_exception(SidecarUnavailable("sidecar connection lost"))
         if cli is not None:
             t = asyncio.ensure_future(self._close_client(cli))
             t.add_done_callback(lambda _t: None)

@@ -118,6 +118,12 @@ class WeightedScheduler:
             t.weight = float(weight)
             return True
 
+    def weight(self, name: str) -> float | None:
+        """A live registration's weight (None when not registered)."""
+        with self._lock:
+            t = self._tenants.get(name)
+            return t.weight if t is not None else None
+
     def set_shed(self, name: str, shed: bool) -> None:
         """While shed, every arrival of the tenant is turned away; what
         was admitted still completes."""

@@ -5,7 +5,11 @@ Flow per connection: the client's first frame (hello) registers a
 tenant with a weight and the server answers a welcome; every later
 frame is one block's signature batch (``sidecar/wire.py``), admitted to
 the tenant's bounded queue in the weighted-deficit-round-robin
-scheduler, or answered BUSY when the queue is full.  One dispatcher
+scheduler, or answered BUSY when the queue is full.  A later frame that
+is a JSON object (a request frame leads with a u32 header length, whose
+first byte is 0) is an in-stream re-hello: it changes the tenant's
+weight in place, deficit and stats kept, and is answered with an ack
+(``_re_hello``).  One dispatcher
 task drains up to ``coalesce`` cross-tenant requests at a time into ONE
 ``ops.p256.verify_launch_many`` call on a single executor thread (the
 card serializes dispatches anyway) and streams each request's verdict
@@ -17,9 +21,11 @@ group's pop and its dispatch.
 ``stats()`` holds what the reference puts in its metrics registry:
 requests by tenant and status, the per-stage latency samples
 (queue_wait, dispatch, total), coalesce occupancy in requests and in
-signatures, and the dispatch count.  Left out: mesh and topology
-resolution, ``verify_chunk``, device recoding, the autopilot, tracer
-spans and ``remote`` trace payloads, and the fault-injection hooks.
+signatures, and the dispatch count.  The fault points: ``sidecar.request``
+by ``afire`` at each frame's admission, ``sidecar.dispatch`` in the
+coalesced dispatch.  Left out: mesh and topology resolution,
+``verify_chunk``, device recoding, the autopilot, tracer spans and
+``remote`` trace payloads.
 
 ``verify_fn(itemsets) -> list[list[bool]]`` replaces the card dispatch
 (tests); ``kernel`` and ``device`` select the facade's kernel and card.
@@ -35,6 +41,7 @@ import time
 from collections import Counter, deque
 from concurrent.futures import ThreadPoolExecutor
 
+from fabric_tpu_torch import faults
 from fabric_tpu_torch.comm.rpc import RpcServer
 from fabric_tpu_torch.device import resolve_device
 from fabric_tpu_torch.ops import p256
@@ -202,6 +209,17 @@ class SidecarServer:
         try:
             await stream.send(wire.encode_welcome(tenant, self.coalesce))
             async for payload in stream:
+                if faults.plan() is not None:
+                    await faults.afire("sidecar.request", tenant=tenant)
+                if payload[:1] == b"{":
+                    err = self._re_hello(tenant, payload)
+                    if err is not None:
+                        await stream.error(err)
+                        return
+                    await stream.send(json.dumps(
+                        {"ok": True, "tenant": tenant, "weight": self.scheduler.weight(tenant),
+                         "rehello": True}).encode())
+                    continue
                 try:
                     hdr, items = wire.decode_request(payload)
                 except (ValueError, KeyError) as e:
@@ -221,6 +239,23 @@ class SidecarServer:
             self._conns -= 1
             for req in self.scheduler.unregister(tenant):
                 self._count(req.tenant, "dropped")  # their reply stream is gone
+
+    def _re_hello(self, tenant: str, payload: bytes) -> str | None:
+        """An in-stream weight update → an error text, or None.  The
+        frame must name the stream's own tenant."""
+        try:
+            hello = json.loads(payload)
+            who = str(hello["tenant"])
+            weight = float(hello.get("weight", 1.0))
+        except (ValueError, KeyError, TypeError) as e:
+            return f"bad re-hello: {e}"
+        if who != tenant:
+            return f"bad re-hello: stream is registered as {tenant!r}, not {who!r}"
+        try:
+            self.scheduler.set_weight(tenant, weight)
+        except ValueError as e:
+            return f"bad re-hello: {e}"
+        return None
 
     # -- the dispatcher ----------------------------------------------------------
 
@@ -261,6 +296,7 @@ class SidecarServer:
                             self._count(req.tenant, "dropped")
 
     def _verify_batch(self, itemsets: list) -> list:
+        faults.fire("sidecar.dispatch", n=len(itemsets))
         if self._verify_fn is not None:
             return self._verify_fn(itemsets)
         handles = p256.verify_launch_many(itemsets, kernel=self.kernel, device=self.device)

@@ -47,13 +47,20 @@ writes rows; no copy of 48 MiB per block).  So:
   lanes in this block, never read from the table) or free slots (no
   hit points at them).  No hit row changes under the block.
 
-Also left out of the port: mesh sharding and ``reshard`` (a later
-multi-GPU slice), the metrics registry (counters stay in ``stats()``),
-and the disable latch.  The reference turns a device error into "cache
-off, take the host path"; that is a fallback that hides the kernel, so
-here a failing table build, read or scatter raises to the caller.
-Two routings are semantics, not failure, and are counted in
-``stats()``: a working set larger than the table takes the host path
+The disable latch (the reference's ``_disable_locked``, :577-584,
+:719-726, :759): a failed admission or commit scatter drops the table
+and the directory and latches the cache off, with a warning.  From then
+``enabled`` is False, every lookup misses, nothing is admitted or
+scattered, ``read`` refuses (so a block whose lookup ran before the
+latch, on another thread, takes the host read too), and the validator
+reads every key on the host: the verdicts do not change, only where the
+versions come from.  A failing table read
+(``resident_verok``) raises, as the reference's manager does.
+
+Left out of the port: mesh sharding and ``reshard`` (a later multi-GPU
+slice) and the metrics registry (counters stay in ``stats()``).  Two
+routings are semantics, not failure, and are counted in ``stats()``: a
+working set larger than the table takes the host path
 (``host_path_oversize_total``), and so does a block with range queries
 (``host_path_range_total``, counted by the validator).
 """
@@ -62,6 +69,7 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import logging
 import threading
 from collections import OrderedDict, deque
 
@@ -80,6 +88,8 @@ MIN_SLOTS = 256
 #: per-apply_batch cap on brand-new ranges a write set may open (free
 #: slots only, never evicting); the reference's default
 WRITE_ADMIT_BUDGET = 2
+
+_log = logging.getLogger("fabric_tpu_torch.state.residency")
 
 #: the smallest u_pack bucket (pow2 rows)
 _MIN_PACK = 16
@@ -133,7 +143,10 @@ def build_launch_pack(res: "ResidencyManager", pairs: list, state, overlay=None,
                       u_index: dict | None = None, read=None):
     """One block's resident-state launch operand ``u_pack [Ub, 4]`` int32
     numpy (slot | present | vb | vt; slot −1 = host lane), or None when
-    the working set exceeds the table (the host path).
+    the block takes the host path: the working set exceeds the table, or
+    the cache was disabled before its ``read`` (the disable latch may
+    fire on the committer's thread between this block's lookup and its
+    read).
 
     * hits reference table slots;
     * misses ride host lanes filled from ``state.get_versions_cols``
@@ -183,8 +196,8 @@ def build_launch_pack(res: "ResidencyManager", pairs: list, state, overlay=None,
     if U:
         u_pack[:U, 0] = slots
         u_pack[:U, 1:4] = host_pack
-    if read is not None:
-        res.read(read, u_pack)
+    if read is not None and not res.read(read, u_pack):
+        return None
     if miss_rows:
         res.admit(miss_pairs, up, uv)
     res.note_upload(u_pack.nbytes)
@@ -214,6 +227,7 @@ class ResidencyManager:
         self._lock = threading.Lock()
         self._stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
                         else None)
+        self._enabled = True
         self._table: torch.Tensor | None = None
         self._dir: dict[tuple, tuple] = {}  # (ns, key) → (slot, range id)
         self._ranges: OrderedDict[int, list] = OrderedDict()  # LRU
@@ -226,6 +240,22 @@ class ResidencyManager:
         self._write_admits_total = 0
         self._h2d_bytes_total = 0
         self._host_path = {"oversize": 0, "range": 0, "hashed": 0}
+
+    @property
+    def enabled(self) -> bool:
+        return self._enabled
+
+    def _disable_locked(self, reason: str) -> None:
+        """Latch the cache off (module docstring); caller holds the lock."""
+        was = self._enabled
+        self._enabled = False
+        self._table = None
+        self._dir.clear()
+        self._ranges.clear()
+        self._free = list(range(self.capacity - 1, -1, -1))
+        if was:
+            _log.warning("device-resident state cache DISABLED (%s); blocks read their "
+                         "versions on the host", reason or "unspecified")
 
     def range_of(self, ns: str, key: str) -> int:
         """Stable range id: the top ``range_bits`` bits of a 64-bit
@@ -256,29 +286,47 @@ class ResidencyManager:
             table_scatter(table, np.asarray(idx, np.int32),
                           np.asarray(rows, np.int32).reshape(-1, 3))
 
-    def read(self, fn, u_pack: np.ndarray):
+    def _scatter_or_disable(self, idx: list, rows: list, what: str) -> bool:
+        """``_scatter``; a failure latches the cache off → False.
+        Caller holds the lock."""
+        try:
+            self._scatter(idx, rows)
+        except Exception as e:
+            self._disable_locked(f"{what} scatter failed: {e}")
+            return False
+        return True
+
+    def read(self, fn, u_pack: np.ndarray) -> bool:
         """``fn(table, u_pack tensor)`` under the lock on the manager's
         stream, after the caller's stream's pending work (the block's
         operands); the caller's stream then waits for it.  The one way
-        a launch reads the table."""
+        a launch reads the table.  → False, calling nothing, once the
+        cache is disabled: the pack's slots came from a lookup into the
+        dropped table, which no table can serve."""
         with self._lock:
+            if not self._enabled:
+                return False
             table = self._ensure_table()
             with self._on_stream():
                 # uploaded before the wait below: a blocking copy here
                 # then waits for table work only, not the caller's queue
                 u = torch.from_numpy(np.ascontiguousarray(u_pack, np.int32)).to(self.device)
             if self._stream is None:
-                return fn(table, u)
+                fn(table, u)
+                return True
             caller = torch.cuda.current_stream(self.device)
             self._stream.wait_stream(caller)
             with self._on_stream():
-                out = fn(table, u)
+                fn(table, u)
             caller.wait_stream(self._stream)
-            return out
+            return True
 
     def table_rows(self) -> np.ndarray:
-        """A host copy of the whole table (tests and checks)."""
+        """A host copy of the whole table (tests and checks); zeros once
+        the cache is disabled."""
         with self._lock:
+            if not self._enabled:
+                return np.zeros((self.capacity, 3), np.int32)
             table = self._ensure_table()
             with self._on_stream():
                 return table.to("cpu").numpy()
@@ -295,6 +343,8 @@ class ResidencyManager:
         U = len(pairs)
         slots = np.full(U, -1, np.int32)
         with self._lock:
+            if not self._enabled:
+                return slots
             get = self._dir.get
             touched: set[int] = set()
             hits = forced = 0
@@ -343,6 +393,8 @@ class ResidencyManager:
         idx: list[int] = []
         rows: list[tuple] = []
         with self._lock:
+            if not self._enabled:
+                return 0
             admitting: set[int] = set()
             for i, pr in enumerate(pairs):
                 if pr in self._dir:
@@ -365,9 +417,8 @@ class ResidencyManager:
                 p = bool(present[i])
                 rows.append((int(p), *(_ver_i32(int(vers[i][0]), int(vers[i][1]))
                                        if p else (0, 0))))
-            if not idx:
+            if not idx or not self._scatter_or_disable(idx, rows, "admission"):
                 return 0
-            self._scatter(idx, rows)
             nbytes = len(idx) * SLOT_BYTES
             self._h2d_bytes_total += nbytes
         return nbytes
@@ -430,6 +481,8 @@ class ResidencyManager:
         if batch is None or not batch.updates:
             return 0
         with self._lock:
+            if not self._enabled:
+                return 0
             idx: list[int] = []
             rows: list[tuple] = []
             new_rids: set[int] = set()
@@ -453,9 +506,8 @@ class ResidencyManager:
                 rows.append((0, 0, 0) if vv.value is None else
                             (1, *_ver_i32(int(vv.version[0]), int(vv.version[1]))))
                 idx.append(slot)
-            if not idx:
+            if not idx or not self._scatter_or_disable(idx, rows, "commit"):
                 return 0
-            self._scatter(idx, rows)
             nbytes = len(idx) * SLOT_BYTES
             self._h2d_bytes_total += nbytes
             self._write_admits_total += len(new_rids)
@@ -487,13 +539,13 @@ class ResidencyManager:
             self._h2d_bytes_total += int(nbytes)
 
     def stats(self) -> dict:
-        """The reference's keys (one shard, never resharded, always
-        enabled) plus the two host-path routings."""
+        """The reference's keys (one shard, never resharded) plus the
+        host-path routings."""
         with self._lock:
             wh = sum(h for h, _t in self._recent)
             wt = sum(t for _h, t in self._recent)
             return {
-                "enabled": True,
+                "enabled": self._enabled,
                 "capacity_slots": self.capacity,
                 "range_bits": self.range_bits,
                 "shards": 1,

@@ -626,3 +626,41 @@ def test_comparison_kernels_at_lane_counts(cuda, kernel, lanes):
     assert [bool(got[i]) for i in sample] == [
         ec_ref.verify_digest(items[i][3:], *items[i][:3]) for i in sample]
     assert bool(got[0]) and bool(got[1])
+
+
+def test_guarded_launch_matches_unguarded_and_launches_the_kernel(cuda):
+    """``BlockValidator(device_fail_threshold=...)``: the guarded launch
+    gives the unguarded verdicts and launches ``p256_verify`` once; a
+    fallback forced by a persistent launch fault verifies with
+    ``p256_verify`` on the card, launched and synced at once, and hands
+    its accept vector on the card to the stage 2; the plain version
+    never runs on a card tensor."""
+    from fabric_tpu_torch import faults, kernels
+    from fabric_tpu_torch.ledger.statedb import MemVersionedDB
+    from fabric_tpu_torch.peer import validator as pv
+
+    items = _items(96)
+    want = [ec_ref.verify_digest((qx, qy), e, r, s) for e, r, s, qx, qy in items]
+    plain = pv.BlockValidator(pv.PolicyProvider({}), MemVersionedDB(), device=cuda)
+    guarded = pv.BlockValidator(pv.PolicyProvider({}), MemVersionedDB(), device=cuda,
+                                device_fail_threshold=1, device_retries=0)
+    assert plain.device_guard is None
+    kernels.reset_counts()
+    h = guarded.verify_launch(items)
+    assert isinstance(h, pv._GuardedHandle) and h.device_out.is_cuda
+    assert h.fetch() == plain.verify_launch(items).fetch() == want
+    assert kernels.launches["p256_verify"] == 2
+    refs = []
+    real_ref = v3.verify_batch_ref
+    v3.verify_batch_ref = lambda *a, **kw: refs.append(1) or real_ref(*a, **kw)
+    faults.configure("validator.verify_launch:raise")
+    try:
+        kernels.reset_counts()
+        h = guarded.verify_launch(items)
+        assert isinstance(h, pv._SyncedHandle) and h.device_out.is_cuda
+        assert h.fetch() == want and h.device_out[:len(items)].tolist() == want
+        assert kernels.launches["p256_verify"] == 1 and not refs
+        assert guarded.device_guard.stats()["fallback_blocks_total"] == 1
+    finally:
+        faults.reset()
+        v3.verify_batch_ref = real_ref

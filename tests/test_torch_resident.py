@@ -422,10 +422,13 @@ class _Boom(RuntimeError):
 
 @pytest.mark.parametrize("depth", [1, 2])
 def test_scatter_failure_propagates(stream, monkeypatch, depth):
-    """No latch: a failing commit scatter raises out of resident_commit
-    and out of the pipeline (inline at depth 1, from the committer
-    thread at depth 2)."""
-    decoded, _, rows = stream
+    """The disable latch: a failing commit scatter propagates into the
+    cache's state, not out of the pipeline (inline at depth 1, on the
+    committer thread at depth 2).  The cache reports ``enabled`` False
+    with an empty directory, no later block reads the table, and the
+    verdicts equal the reference's.  A bare ``resident_commit`` whose
+    scatter fails latches the same way."""
+    decoded, want, rows = stream
     calls = []
 
     def boom(table, idx, rows_):
@@ -436,9 +439,19 @@ def test_scatter_failure_propagates(stream, monkeypatch, depth):
                                     torch.from_numpy(np.asarray(rows_, np.int32)))
 
     monkeypatch.setattr(residency, "table_scatter", boom)
-    with pytest.raises(_Boom):
-        _run(decoded[:4], rows, depth, state_resident=True)
+    res = ResidencyManager(slots=1024, device="cpu")
+    reads = []
+    orig_read = res.read
+    monkeypatch.setattr(res, "read", lambda fn, u: reads.append(res.enabled) or orig_read(fn, u))
+    got, _, v = _run(decoded[:4], rows, depth, resident=res, state_resident=True)
+    assert [(r.tx_filter, _rows(r.batch), r.history) for r in got] == want[:4]
+    st = v.resident.stats()
+    assert not v.resident.enabled and st["enabled"] is False
+    assert st["resident_keys"] == 0 and st["resident_ranges"] == 0
+    # block 0 read the table; blocks launched after the latch read on the host
+    assert all(reads) and 1 <= len(reads) <= depth
     v = pv.BlockValidator(pv.PolicyProvider({}), MemVersionedDB(), device="cpu",
                           state_resident=True)
-    with pytest.raises(_Boom):
-        v.resident_commit(_batch(UpdateBatch, [("ns", "k", (1, 0))]))
+    v.resident_commit(_batch(UpdateBatch, [("ns", "k", (1, 0))]))
+    assert not v.resident.enabled
+    assert v.resident.lookup([("ns", "k")]).tolist() == [-1]

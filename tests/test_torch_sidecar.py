@@ -10,10 +10,14 @@ welcome, request and response frames on a real socket); the
 then the port's server and client on localhost: a crypto-free
 ``verify_fn`` and the facade on ``device="cpu"``, an ERROR answer that
 raises ``SidecarUnavailable`` while the stream survives, BUSY retried,
-re-attach after a server restart, ``MAX_FRAME`` on send, and
-``set_coalesce`` at the drain boundary.  Last, ``SidecarValidator``
-under ``CommitPipeline`` on ``tests/test_torch_slice.py``'s blocks
-against the JAX ``BlockValidator``."""
+re-attach after a server restart, ``MAX_FRAME`` on send,
+``set_coalesce`` at the drain boundary, ``set_weight`` by in-stream
+re-hello (each client against each server), and the ``sidecar.request``,
+``sidecar.dispatch`` and ``rpc.frame`` fault points.  Last,
+``SidecarValidator`` under ``CommitPipeline`` on
+``tests/test_torch_slice.py``'s blocks against the JAX
+``BlockValidator``, and its latch: a server stopped and restarted, the
+blocks between verified on the peer, a probe that re-attaches."""
 
 import asyncio
 import random
@@ -32,7 +36,7 @@ from fabric_tpu.sidecar.client import SidecarLink as JSidecarLink
 from fabric_tpu.sidecar.scheduler import Request as JRequest
 from fabric_tpu.sidecar.scheduler import WeightedScheduler as JScheduler
 from fabric_tpu.sidecar.server import SidecarServer as JSidecarServer
-from fabric_tpu_torch import carry
+from fabric_tpu_torch import carry, faults
 from fabric_tpu_torch.comm import rpc
 from fabric_tpu_torch.crypto import ec_ref
 from fabric_tpu_torch.peer.pipeline import CommitPipeline
@@ -397,6 +401,90 @@ def test_set_coalesce_applies_at_the_drain_boundary():
         srv.stop_background()
 
 
+@pytest.mark.parametrize("server", ["port", "ref"])
+@pytest.mark.parametrize("client", ["port", "ref"])
+def test_set_weight_by_in_stream_rehello(server, client):
+    """Each client against each server: a live re-hello changes the
+    tenant's weight in place (the same stream keeps serving), a refused
+    weight answers False and drops the stream, and a detached link
+    keeps the weight for its next hello."""
+    lt = _LoopThread()
+    if server == "port":
+        srv = _server()
+        sched, stop = srv.scheduler, srv.stop_background
+    else:
+        srv = JSidecarServer(verify_fn=toy_verify, registry=Registry())
+        lt.run(srv.start())
+        sched, stop = srv.scheduler, lambda: lt.run(srv.stop())
+    link = (SidecarLink("127.0.0.1", srv.port, tenant="w", weight=1.0) if client == "port"
+            else JSidecarLink("127.0.0.1", srv.port, tenant="w", weight=1.0,
+                              registry=Registry()))
+    try:
+        assert link.set_weight(2.0) is False  # not attached yet: rides the hello
+        assert link.submit([(1, 1, 0, 0, 0)]).fetch() == [True]
+        assert sched.weight("w") == 2.0 and link.attached
+        assert link.set_weight(3.5) is True
+        assert sched.weight("w") == 3.5
+        assert link.submit([(2, 0, 0, 0, 0)]).fetch() == [False]
+        assert link.set_weight(-1.0) is False  # refused: the server ends the stream
+        deadline = time.time() + 5
+        while link.attached and time.time() < deadline:
+            time.sleep(0.01)
+        assert not link.attached
+        link.weight = 1.5
+        assert link.submit([(3, 1, 0, 0, 0)]).fetch() == [True]  # re-attaches
+        assert sched.weight("w") == 1.5
+    finally:
+        link.close()
+        stop()
+        lt.stop()
+
+
+def test_rehello_must_name_the_streams_tenant():
+    srv = _server()
+    try:
+        assert srv._re_hello("a", b'{"tenant": "a", "weight": 2}') is None
+        assert "registered as 'a'" in srv._re_hello("a", b'{"tenant": "b", "weight": 2}')
+        assert srv._re_hello("a", b"{not json").startswith("bad re-hello")
+    finally:
+        srv.stop_background()
+
+
+def test_dispatch_and_request_fault_points():
+    """``sidecar.dispatch`` fails one coalesced dispatch (an ERROR
+    answer, the stream survives); ``sidecar.request`` by ``afire``: a
+    latency slows the stream only, a raise ends it and the next submit
+    re-attaches; ``rpc.frame`` cuts a frame's send."""
+    srv = _server()
+    link = SidecarLink("127.0.0.1", srv.port, tenant="f", timeout_s=5.0)
+    try:
+        plan = faults.configure("sidecar.dispatch:raise:n=1")
+        with pytest.raises(SidecarUnavailable, match="injected fault at sidecar.dispatch"):
+            link.submit([(1, 1, 0, 0, 0)]).fetch()
+        assert link.submit([(1, 1, 0, 0, 0)]).fetch() == [True]
+        assert plan.fired("sidecar.dispatch") == 1 and link.attach_total == 1
+        plan = faults.configure("sidecar.request:latency:ms=50:n=1")
+        t0 = time.perf_counter()
+        assert link.submit([(2, 0, 0, 0, 0)]).fetch() == [False]
+        assert time.perf_counter() - t0 >= 0.045 and plan.fired() == 1
+        plan = faults.configure("sidecar.request:raise:n=1")
+        with pytest.raises(SidecarUnavailable):
+            link.submit([(3, 1, 0, 0, 0)]).fetch()
+        assert link.submit([(3, 1, 0, 0, 0)]).fetch() == [True]
+        assert link.attach_total == 2
+        plan = faults.configure("rpc.frame:disconnect:n=1")
+        with pytest.raises(SidecarUnavailable):
+            link.submit([(4, 1, 0, 0, 0)]).fetch()
+        assert plan.fired("rpc.frame") == 1
+        assert link.submit([(4, 1, 0, 0, 0)]).fetch() == [True]
+        st = srv.stats()["requests"]["f"]
+        assert st["error"] == 1
+    finally:
+        faults.reset()
+        link.close()
+        srv.stop_background()
+
+
 # ---------------------------------------------------------------------------
 # SidecarValidator under CommitPipeline
 
@@ -448,14 +536,84 @@ def test_sidecar_validator_matches_reference(stream, depth):
 
 
 def test_sidecar_validator_raises_when_the_sidecar_is_gone(stream):
-    decoded, _, rows = stream
+    """The link raises ``SidecarUnavailable`` when the sidecar is gone;
+    the validator's latch turns each failure into a fallback verify on
+    the peer's own device with the reference's verdicts, and latches
+    after two (``sidecar_fail_threshold``), so the third block goes
+    straight to the fallback."""
+    decoded, want, rows = stream
     srv = _server()
     port = srv.port
     srv.stop_background()
     state, prov, _ = carry.from_reference(rows, POLICIES, [])
-    v = SidecarValidator(prov, state, device="cpu", sidecar_endpoint=f"127.0.0.1:{port}")
+    store = _Store()
+    v = SidecarValidator(prov, state, block_store=store, device="cpu",
+                         sidecar_endpoint=f"127.0.0.1:{port}", sidecar_recovery_s=60.0)
+    got = []
     try:
         with pytest.raises(SidecarUnavailable):
-            v.validate(decoded[0])
+            v.link.submit([(1, 1, 0, 0, 0)]).fetch()
+        for blk in decoded[:3]:
+            flt, batch, hist = v.validate(blk)
+            state.apply_updates(batch)
+            store.txids.update(p.txid for p in v.last_parsed if p.txid)
+            got.append((flt, _rows(batch), hist))
     finally:
         v.close()
+    assert got == want[:3]
+    st = v.sidecar_guard.stats()
+    assert v.device_guard is v.sidecar_guard
+    assert st["degraded"] and st["failures_total"] == 2 and st["fallback_blocks_total"] == 3
+    assert st["probes_total"] == 0 and not v.link.attached
+
+
+def test_sidecar_restart_latches_and_reattaches(stream):
+    """The server stops after block 1 and comes back on its port before
+    block 4: blocks 2 and 3 fail over the link and verify on the peer
+    (the latch engages at the second), a probe re-attaches the link,
+    and every verdict is the reference's; every failure falls between
+    the stop and the restart."""
+    decoded, want, rows = stream
+    srv = SidecarServer(device="cpu").start_background()
+    port = srv.port
+    state, prov, _ = carry.from_reference(rows, POLICIES, [])
+    store = _Store()
+    v = SidecarValidator(prov, state, block_store=store, device="cpu", tenant="r",
+                         sidecar_endpoint=f"127.0.0.1:{port}", sidecar_recovery_s=0.05)
+    got, seen = [], {}
+
+    def commit(res):
+        state.apply_updates(res.batch)
+        store.txids.update(t for t, _ in res.txids)
+        got.append((res.tx_filter, _rows(res.batch), res.history))
+
+    try:
+        with CommitPipeline(v, commit, depth=2) as pipe:
+            def feed(lo, hi):
+                for blk in decoded[lo:hi]:
+                    pipe.submit(blk)
+                pipe.flush()
+
+            feed(0, 2)
+            seen["before"] = v.sidecar_guard.stats()
+            srv.stop_background()
+            feed(2, 4)
+            seen["stopped"] = v.sidecar_guard.stats()
+            srv = SidecarServer(port=port, device="cpu").start_background()
+            time.sleep(0.06)
+            feed(4, 5)  # the probe
+            feed(5, 6)
+            seen["after"] = v.sidecar_guard.stats()
+        assert v.link.attached
+    finally:
+        v.close()
+        srv.stop_background()
+    assert got == want
+    assert seen["before"]["failures_total"] == 0 and not seen["before"]["degraded"]
+    assert seen["stopped"]["degraded"] and seen["stopped"]["failures_total"] == 2
+    assert seen["stopped"]["fallback_blocks_total"] == 2
+    after = seen["after"]
+    assert not after["degraded"] and after["failures_total"] == 2
+    assert after["fallback_blocks_total"] == 2 and after["probes_total"] == 1
+    assert after["degraded_s"] > 0
+    assert srv.stats()["requests"]["r"]["ok"] == 2  # the probe's block and the last
