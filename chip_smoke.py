@@ -106,11 +106,16 @@ on the host, an epoch-record rotation at a barrier), and the ledger
 and its catch-up paths (``ledger_path``: 12 chained wire blocks
 committed into a sqlite-backed ``KVLedger``, reopened, crashed and
 recovered on the card, replayed from its block store, and joined from
-a snapshot with the resident table warmed), and the commit path under
-failure (``chaos_path``: the ledger's blocks through a guarded
+a snapshot with the resident table warmed), the observe hooks
+(``observe_path``: the ledger's first 6 blocks with the span tracer,
+the launch ledger and the tx-flow journal armed and disarmed in turns,
+every span, ledger row, metric and flow checked, the telemetry's cost
+a block), and the commit path under failure (``chaos_path``: the
+ledger's blocks through a guarded
 ``BlockValidator`` under a seeded fault plan and the containment loop,
-equal to a fault-free run; the resident cache's disable latch; a
-sidecar stopped and restarted under the sidecar latch); their functions
+equal to a fault-free run, its pipe's spans by lane under a private
+tracer; the resident cache's disable latch; a sidecar stopped and
+restarted under the sidecar latch); their functions
 say what each checks.  Each path's launch counts are reset just
 before it and read just after; a kernel's entry in the kernels line
 gives its time at the shape its path launched it with most often.  Then the kernels line (JSON),
@@ -741,7 +746,10 @@ def device_busy(blocks, seed_rows=None, validator=None, coalesce=0):
         else:
             _, secs, _ = run_validator(blocks, validator, coalesce=coalesce)
     launched = kernels.launches["p256_verify"] - before
-    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # the dispatch annotations (``fabtpu.*``, record_function) also show
+    # as ranges on the card's timeline; they are not device work
+    dev_events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and not e.name.startswith("fabtpu.")]
     names = Counter(e.name[:40] for e in dev_events)
     traced = sum(n for name, n in names.items() if "p256_verify" in name)
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
@@ -3205,6 +3213,335 @@ def phase_ledger_path(dev, built=None, check_launches=True):
     log("ledger_path", blocks=n_blocks, txs=n_tx, equal=True)
 
 
+# the observe hooks on the card (observe/{tracer,ledger,txflow,overlap}.py)
+OBSERVE_BLOCKS = 6        # the ledger's first 6 blocks
+OBSERVE_TURNS = 3         # armed and disarmed in turns, ABABAB
+OBSERVE_RING = 64         # the global tracer's ring while armed
+OBSERVE_SIGN_DIGESTS = 64
+OBSERVE_STAGES = ("prefetch", "prefetch_wait", "launch", "finish", "commit_wait", "commit")
+# the validator's stage spans under the pipeline's (BlockValidator._t)
+OBSERVE_NESTED = {"prefetch": {"host_parse", "sig_prepare_launch", "device_pre", "hd_frame"},
+                  "launch": {"state_fill", "stage2_dispatch"},
+                  "finish": {"device_wait", "postprocess"}}
+# ledger kernel name → the launch counter that kernel's record stands for
+OBSERVE_ROWS = {"verify": "p256_verify", "stage2": "stage2_mvcc",
+                "resident_scatter": "table_scatter", "sign": "p256_sign"}
+
+
+def _identity_ok(r) -> bool:
+    """The reference's attribution identity (tests/test_ledger.py:626-632)."""
+    parts = r["compile_ms"] + r["queue_ms"] + r["execute_ms"] + r["h2d_ms"]
+    return abs(r["wall_ms"] - parts) <= 0.05 * r["wall_ms"] + r["dispatch_ms"] + 0.01
+
+
+def _observe_sign_burst(dev, reg):
+    """64 digests from 8 threads through the card's ``SignBatcher``
+    under the armed ledger, its observer the journal's → (launches,
+    seconds); signatures equal to the serial oracle's."""
+    from fabric_tpu_torch import kernels
+    from fabric_tpu_torch.observe import txflow
+    from fabric_tpu_torch.peer import signlane
+
+    d = 0x5EED0B5 + SEED
+    digests = [int.from_bytes(np.random.default_rng(SEED + 41 + i).bytes(32), "big")
+               for i in range(OBSERVE_SIGN_DIGESTS)]
+    before = kernels.launches["p256_sign"]
+    t0 = time.perf_counter()
+    with signlane.SignBatcher(signlane.device_sign_backend(d, device=dev), batch_max=64,
+                              wait_ms=5.0, registry=reg,
+                              observer=txflow.sign_observer()) as sb:
+        with ThreadPoolExecutor(8) as ex:
+            sigs = list(ex.map(sb.sign_digest, digests))
+    secs = time.perf_counter() - t0
+    if sigs != signlane.cpu_sign_backend(d)(digests):
+        raise AssertionError("observe_path: the sign burst differs from the serial oracle")
+    return kernels.launches["p256_sign"] - before, secs
+
+
+def _observe_run(dev, built, root_dir, name, armed, sign=False):
+    """The ledger's first ``OBSERVE_BLOCKS`` wire blocks through
+    ``CommitPipeline(depth=2)`` into a fresh sqlite ``KVLedger`` (a
+    copy of ``root_dir``'s seeded ``seed`` ledger) with the async
+    applier, over a ``state_resident=True`` validator.  Armed: the
+    global tracer's ring on, the launch ledger and the tx-flow journal
+    on private registries (``sign``: then the sign burst, same ledger);
+    disarmed: the ring at 0, ledger and journal off.  The pipe's own
+    metrics go to a private registry either way."""
+    import shutil
+
+    from fabric_tpu_torch import kernels, observe
+    from fabric_tpu_torch.ledger.kvledger import KVLedger
+    from fabric_tpu_torch.observe import ledger, txflow
+    from fabric_tpu_torch.ops_metrics import Registry
+    from fabric_tpu_torch.peer.pipeline import CommitPipeline
+    from fabric_tpu_torch.protos import messages as m
+
+    blocks = [m.Block.parse(r) for r in built["raw"][:OBSERVE_BLOCKS]]
+    shutil.copytree(os.path.join(root_dir, "seed"), os.path.join(root_dir, name))
+    lg = KVLedger(os.path.join(root_dir, name), async_commit=True)
+    v = _ledger_validator(dev, lg, built, state_resident=True)
+    reg, lreg = Registry(), Registry()
+    tr = observe.global_tracer()
+    observe.configure(ring_blocks=OBSERVE_RING if armed else 0)
+    led = ledger.configure(registry=lreg, tracer=tr) if armed else ledger.configure(False)
+    journal = txflow.configure(registry=reg, tracer=tr) if armed else txflow.configure(False)
+    first = {k: kernels.first_launch(c) for k, c in OBSERVE_ROWS.items()}
+    kernels.reset_counts()
+    out = []
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    with CommitPipeline(v, _ledger_commit(lg), depth=2, channel=name, registry=reg) as pipe:
+        for b in blocks:
+            got = pipe.submit(b)
+            if got is not None:
+                out.append(got)
+        got = pipe.flush()
+        if got is not None:
+            out.append(got)
+    lg.drain_state()
+    sync()
+    secs = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    run = {"name": name, "armed": armed, "secs": secs, "res": out, "counts": counts,
+           "view": {"height": lg.height, "commit_hash": lg.commit_hash,
+                    "digest": lg.state_digest()},
+           "reg": reg, "first": first,
+           "tables": len(v._stage2._tables)}
+    if armed:
+        run["roots"] = [r for r in tr.recent_roots() if r.attrs.get("channel") == name]
+        table = v.resident._table
+        run["table_bytes"] = None if table is None else table.nbytes
+        if cuda:
+            run["live"] = (ledger.live_device_bytes(dev), torch.cuda.memory_allocated(dev))
+        if sign:
+            run["sign"] = _observe_sign_burst(dev, reg)
+        run["lreg"], run["journal"] = lreg, journal
+        run["ledger_stats"], run["rows"] = led.stats(), led.rows()
+    ledger.configure(False)
+    txflow.configure(False)
+    observe.configure(ring_blocks=observe.DEFAULT_RING_BLOCKS)
+    lg.close()
+    v.close()
+    return run
+
+
+def _check_observed(run, expected, check_launches):
+    """Every check of the armed run ``run``; raises on the first miss."""
+    from fabric_tpu_torch.peer.txcodes import TxValidationCode
+
+    name = run["name"]
+    fail = lambda what: AssertionError(f"observe_path {name}: {what}")
+    roots, res = run["roots"], run["res"]
+    if [bytes(r.tx_filter) for r in res] != expected:
+        raise fail("filters differ from construction")
+    # -- span trees ------------------------------------------------------------
+    if sorted(r.attrs["block"] for r in roots) != [r.block.number for r in res]:
+        raise fail(f"roots {[r.attrs['block'] for r in roots]}: not one a block")
+    fused = 0
+    for root in roots:
+        by = {}
+        for c in root.children:
+            by.setdefault(c.name, []).append(c)
+        for st in OBSERVE_STAGES:
+            if len(by.get(st, ())) != 1:
+                raise fail(f"block {root.attrs['block']}: {len(by.get(st, ()))} {st} spans")
+            sp = by[st][0]
+            if sp.t1 is None or sp.t0 < root.t0 - 1e-6 or sp.t1 > root.t1 + 1e-6:
+                raise fail(f"block {root.attrs['block']}: {st} outside the root's window")
+        want_thread = {"prefetch": "fabtpu-prefetch", "prefetch_wait": "MainThread",
+                       "launch": "MainThread", "finish": "MainThread",
+                       "commit_wait": "MainThread",
+                       "commit": "MainThread" if root.attrs.get("tail") else "fabtpu-committer"}
+        for st, th in want_thread.items():
+            if not by[st][0].thread.startswith(th):
+                raise fail(f"block {root.attrs['block']}: {st} on {by[st][0].thread}")
+        for st, need in OBSERVE_NESTED.items():
+            have = {c.name for c in by[st][0].children}
+            if not need <= have:
+                raise fail(f"block {root.attrs['block']}: {st} lacks {sorted(need - have)}")
+        fused += bool(by["launch"][0].attrs.get("device"))
+    if not roots[-1].attrs.get("tail"):
+        raise fail("the last block's root has no tail mark")
+    # -- ledger rows ---------------------------------------------------------------
+    rows, counts = run["rows"], run["counts"]
+    by_kernel = Counter(r["kernel"] for r in rows)
+    verify_rows = [r for r in rows if r["kernel"] == "verify"]
+    if len(verify_rows) != len(res) or by_kernel["stage2"] != fused:
+        raise fail(f"{len(verify_rows)} verify and {by_kernel['stage2']} stage2 rows for "
+                   f"{len(res)} blocks, {fused} fused")
+    if sum(r["wall_ms"] is None for r in verify_rows) != fused:
+        raise fail("a fused block's verify row was not completed enqueue-only")
+    if check_launches:
+        for k in ("resident_scatter", "sign"):
+            launched = counts[OBSERVE_ROWS[k]] if k != "sign" else run.get("sign", (0,))[0]
+            if by_kernel[k] != launched:
+                raise fail(f"{by_kernel[k]} {k} rows for {launched} launches")
+    bad = [r for r in rows if r["wall_ms"] is not None and not _identity_ok(r)]
+    if bad:
+        raise fail(f"rows off the attribution identity: {bad[:3]}")
+    misses = Counter(r["kernel"] for r in rows if r["cache"] == "miss")
+    want = {k: int(run["first"][k]) for k in ("verify", "resident_scatter", "sign")}
+    want["stage2"] = run["tables"] if fused else 0
+    if check_launches and {k: misses[k] for k in want} != want:
+        raise fail(f"cache misses {dict(misses)}, expected {want} (a miss is the kernel's "
+                   "first launch in the process, for stage 2 a policy table built)")
+    # -- registry ------------------------------------------------------------------------
+    snap = run["lreg"].counter("device_launches_total").snapshot()
+    per = Counter()
+    for key, n in snap.items():
+        per[dict(key)["kernel"]] += n
+    if dict(per) != dict(by_kernel):
+        raise fail(f"device_launches_total {dict(per)} against rows {dict(by_kernel)}")
+    blocks_total = sum(run["reg"].counter("commit_pipeline_blocks_total").snapshot().values())
+    if blocks_total != len(res):
+        raise fail(f"commit_pipeline_blocks_total {blocks_total}")
+    # -- tx-flow journal --------------------------------------------------------------
+    flows: dict = {}
+    for r in run["journal"].rows():
+        if (r["outcome"] != TxValidationCode(r["code"]).name
+                or list(r["milestones"]) != ["included", "durable", "applied"]):
+            raise fail(f"journal row {r}")
+        flows.setdefault(r["block"], Counter())[(r["tx_id"], r["code"])] += 1
+    for cb in res:
+        want_flows = Counter((p.txid, int(cb.tx_filter[p.idx])) for p in cb.pend.txs if p.txid)
+        if flows.get(cb.block.number) != want_flows:
+            raise fail(f"block {cb.block.number}: the journal's verdicts differ from its filter")
+    waits = run["journal"].stats()["sign_wait_ms"] or {"n": 0}
+    if waits["n"] != OBSERVE_SIGN_DIGESTS * ("sign" in run):
+        raise fail(f"sign_wait samples {waits}")
+    # -- device memory ------------------------------------------------------------------
+    hbm = run["ledger_stats"]["hbm"]
+    if hbm.get("resident_table", {}).get("current_bytes") != run["table_bytes"]:
+        raise fail(f"hbm.resident_table {hbm.get('resident_table')} against the table's "
+                   f"{run['table_bytes']} bytes")
+    if "live" in run and run["live"][0] != run["live"][1]:
+        raise fail(f"live_device_bytes {run['live'][0]} against memory_allocated "
+                   f"{run['live'][1]}")
+    return fused
+
+
+def _observe_annotations(dev, built, root_dir) -> tuple:
+    """One armed block's preprocess and launch on this thread under
+    ``torch.profiler``'s CPU activity (it records the capturing thread's
+    events only), its finish after → (the events' names, the ledger's
+    rows, the captured seconds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fabric_tpu_torch import observe
+    from fabric_tpu_torch.ledger.kvledger import KVLedger
+    from fabric_tpu_torch.observe import ledger
+    from fabric_tpu_torch.ops_metrics import Registry
+    from fabric_tpu_torch.protos import messages as m
+
+    lg = KVLedger(os.path.join(root_dir, "seed"))
+    v = _ledger_validator(dev, lg, built, state_resident=True)
+    block = m.Block.parse(built["raw"][0])
+    led = ledger.configure(registry=Registry(), tracer=observe.global_tracer())
+    try:
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            pend = v.validate_launch(block, pre=v.preprocess(block))
+        secs = time.perf_counter() - t0
+        v.validate_finish(pend)
+        return {e.name for e in prof.events()}, led.rows(), secs
+    finally:
+        ledger.configure(False)
+        lg.close()
+        v.close()
+
+
+def phase_observe_path(dev, built=None, check_launches=True):
+    """The observe hooks on ``dev`` at the ledger's first 6 wire blocks:
+    ``CommitPipeline(depth=2)`` into a fresh sqlite ``KVLedger`` (async
+    applier) over ``state_resident=True``, armed (the global tracer, the
+    launch ledger and the tx-flow journal on private registries) and
+    disarmed (the tracer's ring at 0, ledger and journal off) in turns,
+    ABABAB; the first armed run also signs a 64-digest burst through
+    the card's ``SignBatcher``.  Checks, each raising: one root a block
+    with the six stage spans once each, inside its window, on the
+    reference's threads, the validator's stages under them; one verify
+    row a block (enqueue-only when fused) and one stage-2 row a fused
+    block; scatter and sign rows equal to their launches; every synced
+    row on the attribution identity; a miss exactly where the kernel
+    launched first in the process (for stage 2, where a policy table
+    was built); ``device_launches_total`` equal to the rows and
+    ``commit_pipeline_blocks_total`` to the blocks; every transaction's
+    journal row included, durable, applied with its filter's verdict;
+    the resident table's bytes on ``hbm.resident_table``;
+    ``live_device_bytes()`` equal to ``torch.cuda.memory_allocated()``;
+    every run's filters, digest and commit hash equal.  Then one armed
+    block under ``torch.profiler`` must show ``fabtpu.verify_dispatch``
+    and ``fabtpu.stage2_dispatch``.  Prints the cost a block, the
+    ledger's decomposition by kernel, coverage and the journal's
+    stages."""
+    import shutil
+    import tempfile
+
+    from fabric_tpu_torch import observe
+    from fabric_tpu_torch.utils.stats import nearest_rank
+
+    if built is None:
+        built = build_ledger()
+    expected = built["expected"][:OBSERVE_BLOCKS]
+    root_dir = tempfile.mkdtemp(prefix="fabtorch-observe-")
+    t_phase = time.perf_counter()
+    try:
+        _seeded_ledger(os.path.join(root_dir, "seed"), built["rows"], async_commit=True).close()
+        runs = []
+        for turn in range(OBSERVE_TURNS):
+            for armed in (True, False):
+                runs.append(_observe_run(dev, built, root_dir,
+                                         f"obs{turn}{'a' if armed else 'd'}", armed,
+                                         sign=armed and turn == 0))
+        names, prof_rows, prof_s = _observe_annotations(dev, built, root_dir)
+    finally:
+        shutil.rmtree(root_dir, ignore_errors=True)
+    armed_runs = [r for r in runs if r["armed"]]
+    fused = [_check_observed(r, expected, check_launches) for r in armed_runs]
+    base = runs[0]
+    for r in runs[1:]:
+        if [bytes(c.tx_filter) for c in r["res"]] != expected:
+            raise AssertionError(f"observe_path {r['name']}: filters differ")
+        _same_ledger(f"observe {r['name']}", r["view"], base["view"],
+                     keys=("height", "commit_hash", "digest"))
+    missing = {"fabtpu.verify_dispatch", "fabtpu.stage2_dispatch"} - names
+    if missing:
+        raise AssertionError(f"observe_path: the profiled block shows no {sorted(missing)}")
+    ms = lambda r: 1e3 * r["secs"] / OBSERVE_BLOCKS
+    a_ms = [ms(r) for r in runs if r["armed"]]
+    d_ms = [ms(r) for r in runs if not r["armed"]]
+    med = lambda x: sorted(x)[len(x) // 2]
+    log("observe_cost", blocks=OBSERVE_BLOCKS, turns="ABABAB", armed_ms_per_block=a_ms,
+        disarmed_ms_per_block=d_ms, armed_median=med(a_ms), disarmed_median=med(d_ms),
+        cost_ms_per_block=med(a_ms) - med(d_ms),
+        cost_pct=100.0 * (med(a_ms) - med(d_ms)) / med(d_ms))
+    first = armed_runs[0]
+    log("observe_ledger", kernels=first["ledger_stats"]["kernels"],
+        hbm=first["ledger_stats"]["hbm"], sign_launches=first["sign"][0],
+        sign_burst_s=first["sign"][1],
+        profiled_block={"rows": [{k: r[k] for k in ("kernel", "cache", "dispatch_ms",
+                                                    "compile_ms", "queue_ms", "execute_ms",
+                                                    "h2d_bytes", "d2h_bytes", "wall_ms")}
+                                 for r in prof_rows]})
+    cov = observe.coverage_from_roots(first["roots"], window=1)
+    log("observe_coverage", window=1, mean=cov["mean"], p50=cov["p50"], min=cov["min"],
+        per_block=cov["per_block"])
+    stages = {}
+    for root in first["roots"]:
+        for c in root.children:
+            stages.setdefault(c.name, []).append(1e3 * c.dur)
+    jst = first["journal"].stats()
+    log("observe_txflow", flows_completed=jst["flows_completed"],
+        flows_partial=jst["flows_partial"], stages_ms=jst["stages_ms"], e2e_ms=jst["e2e_ms"],
+        visibility_lag_ms=jst["visibility_lag_ms"], sign_wait_ms=jst["sign_wait_ms"])
+    log("observe_path", blocks=OBSERVE_BLOCKS, runs=len(runs), fused_blocks=fused,
+        span_ms_p50={k: nearest_rank(sorted(v), 50) for k, v in sorted(stages.items())},
+        launches=first["counts"], profiled_s=prof_s, seconds=time.perf_counter() - t_phase,
+        filters_digest_commit_hash_equal=True, checks_passed=True)
+
+
 # the commit path under failure (bench.py::_bench_block_commit_chaos :1042)
 CHAOS_SPEC = ("validator.verify_launch:raise:p=0.35;validator.stage2:raise:n=1:after=3;"
               "hostpool.task:raise:n=1:after=6;pipeline.prefetch:disconnect:n=1:after=6;"
@@ -3218,6 +3555,8 @@ CHAOS_SIDECAR_BLOCKS = 8    # the sidecar variant's: stopped after block 3, back
 CHAOS_SIDECAR_RECOVERY_S = 0.2
 # (a)'s kernels: a fault never sends a block to ``_validate_host`` (``mvcc_validate``)
 CHAOS_KERNELS = ("p256_verify", "stage2_policy", "stage2_mvcc")
+CHAOS_RING = 64  # the device lane's private tracer: every root, re-runs included
+CHAOS_SPAN_STAGES = ("prefetch_wait", "launch", "finish", "commit_wait", "commit")
 
 
 def _host_path_blocks(v) -> list:
@@ -3228,14 +3567,16 @@ def _host_path_blocks(v) -> list:
     return host
 
 
-def _chaos_drive(v, lg, raw, coalesce, marks):
+def _chaos_drive(v, lg, raw, coalesce, marks, tracer=None, fails=None):
     """The containment loop (``bench.py:1120-1140``): the wire blocks
     from the ledger's height through a ``CommitPipeline(depth=2)``; a
     stage exception of the plan's own types (``InjectedFault``, and the
     ``ConnectionResetError`` of ``disconnect``) closes the pipe, and a
     new one resumes from the committed height.  Any other exception
     fails the run.  ``marks`` receives (block, pipe, commit time, took
-    the fallback) a commit.  → (restarts, [(block, stage)])."""
+    the fallback) a commit; ``fails`` (when given) (the new pipe, the
+    time the failure surfaced) a restart; ``tracer``: the pipes'.
+    → (restarts, [(block, stage)])."""
     from fabric_tpu_torch import faults
     from fabric_tpu_torch.peer.pipeline import CommitPipeline
     from fabric_tpu_torch.peer.validator import _SyncedHandle
@@ -3251,7 +3592,7 @@ def _chaos_drive(v, lg, raw, coalesce, marks):
                       isinstance(h, _SyncedHandle) or getattr(h, "fell_back", False)))
 
     restarts, failures = 0, []
-    pipe = CommitPipeline(v, commit_fn, depth=2, coalesce_blocks=coalesce)
+    pipe = CommitPipeline(v, commit_fn, depth=2, coalesce_blocks=coalesce, tracer=tracer)
     try:
         while True:
             try:
@@ -3264,13 +3605,17 @@ def _chaos_drive(v, lg, raw, coalesce, marks):
                 pipe.flush()
                 break
             except (faults.InjectedFault, ConnectionResetError):
+                t_fail = time.perf_counter()
                 restarts += 1
                 failures.append(pipe.last_failure)
                 if restarts > 50:
                     raise AssertionError("chaos_path: the containment loop does not converge")
                 pipe.close(flush=False)
                 pipes[0] += 1
-                pipe = CommitPipeline(v, commit_fn, depth=2, coalesce_blocks=coalesce)
+                if fails is not None:
+                    fails.append((pipes[0], t_fail))
+                pipe = CommitPipeline(v, commit_fn, depth=2, coalesce_blocks=coalesce,
+                                      tracer=tracer)
     finally:
         pipe.close(flush=False)
     return restarts, failures
@@ -3323,7 +3668,7 @@ def phase_chaos_path(dev, built=None, check_launches=True):
     import shutil
     import tempfile
 
-    from fabric_tpu_torch import carry, faults, kernels
+    from fabric_tpu_torch import carry, faults, kernels, observe
     from fabric_tpu_torch.sidecar import SidecarServer
     from fabric_tpu_torch.sidecar.validator import SidecarValidator
     from fabric_tpu_torch.utils.stats import nearest_rank
@@ -3356,12 +3701,15 @@ def phase_chaos_path(dev, built=None, check_launches=True):
         chaos_host = _host_path_blocks(v)
         plan = faults.FaultPlan(CHAOS_SPEC, seed=CHAOS_SEED)
         marks: list = []
+        fails: list = []
+        ctr = observe.Tracer(ring_blocks=CHAOS_RING, slow_factor=0)
         kernels.reset_counts()
         sync()
         t0 = time.perf_counter()
         faults.install(plan)
         try:
-            restarts, failures = _chaos_drive(v, lg, raw, CHAOS_COALESCE, marks)
+            restarts, failures = _chaos_drive(v, lg, raw, CHAOS_COALESCE, marks, tracer=ctr,
+                                              fails=fails)
         finally:
             faults.reset()
         lg.drain_state()
@@ -3386,6 +3734,20 @@ def phase_chaos_path(dev, built=None, check_launches=True):
                                  f"path, {sorted(set(clean_host))} without faults")
         walls, lane = _block_walls(marks)
         ms = sorted(walls.values())
+        # the pipe's spans a block (its last root: a re-run after a
+        # restart replaces the failed one), by lane, and each restart's
+        # wait from the failure to its pipe's first commit
+        last = {r.attrs["block"]: r for r in ctr.recent_roots()}
+        spans = {k: {st: [] for st in CHAOS_SPAN_STAGES} for k in ("device", "fallback")}
+        for num, r in last.items():
+            if num in lane:
+                for c in r.children:
+                    if c.name in CHAOS_SPAN_STAGES:
+                        spans["fallback" if lane[num] else "device"][c.name].append(1e3 * c.dur)
+        span_p50 = {k: {st: nearest_rank(sorted(x), 50) if x else None for st, x in v_.items()}
+                    for k, v_ in spans.items()}
+        restart_ms = [1e3 * (min(t for _, p_, t, _ in marks if p_ == p) - t_fail)
+                      for p, t_fail in fails if any(p_ == p for _, p_, _, _ in marks)]
         by_lane = {k: [w for b, w in walls.items() if lane[b] == (k == "fallback")]
                    for k in ("device", "fallback")}
         device_lane = {
@@ -3398,6 +3760,10 @@ def phase_chaos_path(dev, built=None, check_launches=True):
                                       for k, x in by_lane.items()},
             "blocks_by_lane": {k: len(x) for k, x in by_lane.items()},
             "fault_free_ms_per_block": 1e3 * clean_s / n_blocks,
+            "span_ms_p50_by_lane": span_p50,
+            "span_blocks_by_lane": {k: len(x["commit"]) for k, x in spans.items()},
+            "restart_wait_ms": restart_ms,
+            "restart_wait_ms_p50": nearest_rank(sorted(restart_ms), 50) if restart_ms else None,
             "digest_equal": True, "commit_hash_equal": True, "blocks_equal": True}
         log("chaos_device_lane", **device_lane)
 
@@ -3520,6 +3886,7 @@ def phase_chaos_path(dev, built=None, check_launches=True):
         degraded_s=gst["degraded_s"], launches=counts,
         block_ms_p50=device_lane["block_ms_p50"], block_ms_p99=device_lane["block_ms_p99"],
         block_ms_by_lane=device_lane["block_ms_mean_by_lane"],
+        span_ms_p50_by_lane=span_p50, restart_wait_ms_p50=device_lane["restart_wait_ms_p50"],
         fault_free_ms_per_block=device_lane["fault_free_ms_per_block"],
         resident_enabled=rst["enabled"], sidecar_latch_to_reattach_s=after["degraded_s"],
         equal=True)
@@ -3613,6 +3980,7 @@ def main() -> int:
     phase_config5_path(dev)
     ledger_built = build_ledger()
     phase_ledger_path(dev, ledger_built)
+    phase_observe_path(dev, ledger_built)
     phase_chaos_path(dev, ledger_built)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "mismatches",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

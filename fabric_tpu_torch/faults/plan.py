@@ -45,8 +45,9 @@ child process needs no plumbing.  With no plan armed ``fire`` is one
 global read.  ``shield()`` marks the current thread as a recovery path
 (the degraded lane's fallback): its arrivals never trigger, so a
 persistent fault cannot chase the fallback through shared entry points.
-The reference's triggered-fault counter lives in its metrics registry;
-here ``stats()`` and ``fired()`` report it.
+Each triggered fault counts in the registry's
+``faults_injected_total{point,kind}`` (the reference's :292-298);
+``stats()`` and ``fired()`` report the plan's own counts.
 """
 
 from __future__ import annotations
@@ -150,6 +151,7 @@ class FaultPlan:
             if rule.p < 1.0 and rule.rng.random() >= rule.p:
                 return False
             rule.fired += 1
+        _injected_counter().add(1, point=rule.point, kind=rule.kind)
         return True
 
     def fire(self, point: str, **ctx) -> None:
@@ -188,6 +190,14 @@ class FaultPlan:
             rules = (self._rules.get(point, ()) if point is not None
                      else [r for rs in self._rules.values() for r in rs])
             return sum(r.fired for r in rules)
+
+
+def _injected_counter():
+    from fabric_tpu_torch.ops_metrics import global_registry
+
+    return global_registry().counter(
+        "faults_injected_total", "chaos faults triggered by point and kind"
+    )
 
 
 def _trigger(rule: _Rule, point: str) -> None:

@@ -17,7 +17,10 @@ operand checks are ``is_cuda`` and ``is_contiguous()``.
 ``fabric_tpu_torch/tools/launch_steps.py`` times each of these steps.
 
 ``launches`` counts the wrappers' kernel launches by name; a wrapper
-adds one where it launches and nowhere else.  One count is one call of
+adds one where it launches and nowhere else.  ``first_launch(name)`` is
+True until the named kernel has launched once in this process (the
+launch ledger's cache-miss verdict on the card, ``observe/ledger.py``);
+``reset_counts`` leaves it as it is.  One count is one call of
 the named kernel: ``stage2_mvcc`` is two CUDA launches (bitsets, then
 the fixpoint block) and ``mvcc_validate`` three (the per-read compare
 first).
@@ -48,6 +51,7 @@ launches = {"p256_verify": 0, "stage2_policy": 0, "stage2_mvcc": 0,
 build_log: dict = {}
 
 _libs: dict = {}
+_launched: set = set()  # kernels launched at least once in this process
 _lock = threading.Lock()
 _count_lock = threading.Lock()
 
@@ -120,9 +124,17 @@ def reset_counts() -> None:
             launches[k] = 0
 
 
+def first_launch(name: str) -> bool:
+    """True until ``name`` has launched once in this process: its next
+    launch loads its library if nothing built it yet, and pays CUDA's
+    lazy load of its module onto the card."""
+    return name not in _launched
+
+
 def _count(name: str) -> None:
     with _count_lock:
         launches[name] += 1
+        _launched.add(name)
 
 
 def _nvcc() -> str:

@@ -19,9 +19,9 @@ and redelivery or replay re-commits.  ``sync()`` closes the window,
 ``ensure_synced(num)`` is the durability fence of the async applier,
 ``close()`` syncs.  ``ledger.fsync.before`` and ``ledger.fsync.after``
 fire around every ``os.fsync``.  ``stats()["fsyncs"]`` counts the
-fsyncs by the trigger that closed their window (the reference's
-``blockstore_fsync_total{trigger}``): ``group``, ``lag``, ``forced``,
-``apply``.
+fsyncs by the trigger that closed their window, and so does the
+registry's ``blockstore_fsync_total{trigger}`` (the reference's :210-224):
+``group``, ``lag``, ``forced``, ``apply``.
 """
 
 from __future__ import annotations
@@ -62,6 +62,7 @@ class BlockStore:
         self._unsynced = 0
         self._oldest_unsynced: float | None = None
         self.fsyncs = dict.fromkeys(_TRIGGERS, 0)
+        self._fsync_ctr = None  # blockstore_fsync_total, looked up at first use
         self._last_hash: bytes | None = None
         # serializes segment writes and fsyncs between the committer
         # (add_block) and the applier thread (ensure_synced)
@@ -290,10 +291,24 @@ class BlockStore:
             yield blk
             num += 1
 
+    def _count_fsync(self, trigger: str) -> None:
+        """``blockstore_fsync_total{trigger}``: how each fsync window
+        closed (the registry is looked up at the first fsync)."""
+        ctr = self._fsync_ctr
+        if ctr is None:
+            from fabric_tpu_torch.ops_metrics import global_registry
+
+            ctr = self._fsync_ctr = global_registry().counter(
+                "blockstore_fsync_total",
+                "segment fsyncs by closing trigger",
+            )
+        ctr.add(1, trigger=trigger)
+
     def _sync_locked(self, trigger: str) -> None:
         # the caller holds _io_lock
         if self._unsynced:
             self.fsyncs[trigger] += 1
+            self._count_fsync(trigger)
             self._fh.flush()
             _faults.fire("ledger.fsync.before")
             os.fsync(self._fh.fileno())

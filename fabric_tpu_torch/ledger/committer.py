@@ -22,10 +22,12 @@ front of the real one:
 
 ``ledger.apply.before`` and ``ledger.apply.after`` fire around each
 apply (a ``raise`` there latches the engine like any apply error);
-``abort()`` drops the queue as a crash would.  The reference's registry
-gauge and histograms are ``stats()`` here: queue depth, applies, apply
-ms (total and last), back-pressure waits.  The reference's ``txflow``
-durable/applied marks are not ported.
+``abort()`` drops the queue as a crash would.  ``stats()`` holds the
+queue depth, applies, apply ms (total and last) and back-pressure
+waits; the registry gets the reference's ``commit_apply_queue_depth``,
+``commit_state_apply_seconds`` and ``commit_state_applies_total``
+(:387-407).  The tx-flow journal (``observe/txflow.py``) gets each
+block's ``durable`` mark at the fence and ``applied`` after its apply.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from collections import deque
 
 from fabric_tpu_torch import faults as _faults
 from fabric_tpu_torch.ledger.statedb import VersionedDB, _selector_match
+from fabric_tpu_torch.observe import txflow as _txflow
 
 
 class _Pending:
@@ -92,6 +95,7 @@ class AsyncApplyEngine(VersionedDB):
         self._error: BaseException | None = None
         self._applied_num = -1
         self._applies_total = 0
+        self._metrics = None  # registry instruments, looked up at the first apply
         self._apply_s_total = 0.0
         self._apply_s_last = 0.0
         self._backpressure_total = 0
@@ -157,18 +161,44 @@ class AsyncApplyEngine(VersionedDB):
                 self._apply_s_total += dur
                 self._apply_s_last = dur
                 self._cond.notify_all()
+            self._observe(dur)
 
     def _apply_one(self, entry: _Pending) -> float:
         _faults.fire("ledger.apply.before", block=entry.num)
         if self._blocks is not None and self.durable:
             self._blocks.ensure_synced(entry.num)
+            _txflow.block_durable(entry.num)
         t0 = time.perf_counter()
         self._inner.apply_updates(entry.batch, entry.sp)
         if entry.post_apply is not None:
             entry.post_apply()
         dur = time.perf_counter() - t0
+        # the block's writes (and history) are readable from here
+        _txflow.block_applied(entry.num)
         _faults.fire("ledger.apply.after", block=entry.num)
         return dur
+
+    def _observe(self, dur: float) -> None:
+        """The applier's registry instruments (looked up at the first
+        apply): queue depth, the apply's seconds, the count."""
+        m = self._metrics
+        if m is None:
+            from fabric_tpu_torch.ops_metrics import global_registry
+
+            reg = global_registry()
+            m = self._metrics = (
+                reg.gauge("commit_apply_queue_depth", "pending state-apply batches"),
+                reg.histogram("commit_state_apply_seconds",
+                              "background state-DB apply per block"),
+                reg.counter("commit_state_applies_total",
+                            "state batches applied in the background"),
+            )
+        gauge, hist, ctr = m
+        with self._cond:
+            depth = len(self._queue)
+        gauge.set(float(depth))
+        hist.observe(dur)
+        ctr.add(1)
 
     # -- read side: the pending overlay in front of the inner DB ------------------
 

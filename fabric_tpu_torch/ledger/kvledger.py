@@ -20,9 +20,12 @@ history)``; ``validating_replayer`` makes one of a ``BlockValidator``
 ``last_commit_timings`` splits a commit into ``ledger_append`` (step 2)
 and ``state_apply`` (steps 3 and 4; under the async engine its submit
 and any back-pressure wait); ``commit_seconds`` sums them, and the
-whole ``ledger_commit``, over the commits.  The reference's registry
-histograms and its ``txflow`` journal are not ported; ``stats()``
-gives these sums and the block store's and the engine's counters.
+whole ``ledger_commit``, over the commits; the registry gets the
+reference's ``ledger_append_seconds`` and ``ledger_state_apply_seconds``
+(:193-205), and the serial path marks each block ``durable`` and
+``applied`` on the tx-flow journal (``observe/txflow.py``; the async
+engine marks them on its applier).  ``stats()`` gives these sums and
+the block store's and the engine's counters.
 ``abort()`` leaves the directory as a process that died would.
 """
 
@@ -38,6 +41,7 @@ from fabric_tpu_torch.ledger.blockstore import BlockStore
 from fabric_tpu_torch.ledger.history import HistoryDB
 from fabric_tpu_torch.ledger.pvtdata import PvtDataStore, decode_kv
 from fabric_tpu_torch.ledger.statedb import SqliteVersionedDB, UpdateBatch, VersionedDB
+from fabric_tpu_torch.observe import txflow as _txflow
 from fabric_tpu_torch.protos import messages as m
 
 _log = logging.getLogger("fabric_tpu_torch.ledger")
@@ -106,6 +110,7 @@ class KVLedger:
         self.last_commit_timings: dict = {}
         self.commit_seconds = {"ledger_commit": 0.0, "ledger_append": 0.0, "state_apply": 0.0}
         self.commits = 0
+        self._commit_hists = None  # registry histograms, looked up at the first commit
 
     def _reconcile_on_open(self) -> None:
         """A savepoint behind the block height is the normal crash
@@ -176,9 +181,12 @@ class KVLedger:
             if getattr(self.state, "durable", True):
                 # a durable savepoint never gets ahead of the block files
                 self.blocks.sync()
+                _txflow.block_durable(num)
             self.state.apply_updates(batch, (num, 0))
             if self.history is not None and history_writes:
                 self.history.commit_block(num, history_writes)
+            # the serial path's writes are readable from here
+            _txflow.block_applied(num)
         self._purge_expired_pvt(num)
         t2 = time.perf_counter()
         self._commit_hash = commit_hash
@@ -188,6 +196,19 @@ class KVLedger:
         cs["ledger_append"] += t1 - t0
         cs["state_apply"] += t2 - t1
         self.commits += 1
+        hists = self._commit_hists
+        if hists is None:
+            from fabric_tpu_torch.ops_metrics import global_registry
+
+            reg = global_registry()
+            hists = self._commit_hists = (
+                reg.histogram("ledger_append_seconds",
+                              "block-store append on the commit path"),
+                reg.histogram("ledger_state_apply_seconds",
+                              "state apply (or enqueue) on the commit path"),
+            )
+        hists[0].observe(t1 - t0)
+        hists[1].observe(t2 - t1)
 
     def _purge_expired_pvt(self, num: int) -> None:
         """Expired collections leave the private data store and the

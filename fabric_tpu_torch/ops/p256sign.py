@@ -26,6 +26,14 @@ and refuses a batch with a rejected lane.  The reference's ``chunk``,
 ``sign_batch_limbs`` is the kernel wrapper: a CPU tensor runs the plain
 version ``sign_batch_ref`` (torch ops over ``ops/fp256.py``), a CUDA
 tensor launches ``p256_sign`` (``kernels/csrc/p256_sign.cu``).
+
+Telemetry (the reference's :121, :270-290, :385-425): each launch opens a
+``sign`` record on the launch ledger (``observe/ledger.py``; on the card
+its cache verdict is the kernel's first launch in the process, on the
+CPU the reference's first sight of the bucket), inside the
+``fabtpu.sign_dispatch`` annotation; ``SignHandle.fetch`` brackets its
+copy to the host; the kernel's comb table is the ledger's
+``comb_table`` owner once it is on the card.
 """
 
 from __future__ import annotations
@@ -39,6 +47,8 @@ import torch
 from fabric_tpu_torch import kernels
 from fabric_tpu_torch.crypto import ec_ref
 from fabric_tpu_torch.device import resolve_device
+from fabric_tpu_torch.observe import device_annotation
+from fabric_tpu_torch.observe import ledger as _ledger
 from fabric_tpu_torch.ops import fp256, p256v3
 
 P = ec_ref.P
@@ -87,6 +97,8 @@ def _kernel_tables(device: torch.device):
 
     consts = words([(ec_ref.B * fp256.R) % P, fp256.R_MOD_P])
     comb = words([v for row in comb_points() for v in _mont_ints(row)])
+    # the ledger's comb_table owner: on the card for the process's life
+    _ledger.account_hbm("comb_table", comb.nbytes)
     return consts, comb
 
 
@@ -212,21 +224,29 @@ class SignHandle:
     """An in-flight sign batch: the device's (X̃, Z̃) and the host
     context that ``fetch()`` needs to finish (r, s)."""
 
-    __slots__ = ("device_out", "n_real", "es", "ds", "k_invs", "verify_after")
+    __slots__ = ("device_out", "n_real", "es", "ds", "k_invs", "verify_after", "rec")
 
-    def __init__(self, device_out, n_real: int, es, ds, k_invs, verify_after: bool = False):
+    def __init__(self, device_out, n_real: int, es, ds, k_invs, verify_after: bool = False,
+                 rec=None):
         self.device_out = device_out
         self.n_real = n_real
         self.es = es
         self.ds = ds
         self.k_invs = k_invs
         self.verify_after = verify_after
+        self.rec = rec  # the launch ledger's record, which fetch brackets
 
     def fetch(self) -> list[tuple[int, int]]:
         """→ [(r, s)] low-S, bit-equal to the RFC 6979 oracle."""
         if not self.n_real:
             return []
-        out = self.device_out[:self.n_real].to("cpu").numpy().view(np.uint32)
+        rec = self.rec
+        if rec is not None:
+            rec.sync_begin()
+        host = self.device_out[:self.n_real].to("cpu")
+        if rec is not None:
+            rec.sync_end(d2h_bytes=host.nbytes)
+        out = host.numpy().view(np.uint32)
         xs, zs = _to_ints(out[:, 0]), _to_ints(out[:, 1])
         if 0 in zs:
             raise ValueError("a sign lane returned the point at infinity")
@@ -290,8 +310,15 @@ def sign_launch(digests, key, ks=None, verify_after: bool = False,
     limbs = np.zeros((p256v3._bucket(B0), 16), np.int16)
     limbs[:B0] = p256v3._limbs16(ks)
     limbs[B0:, -1] = 1  # pad lanes sign with k = 1
-    out = sign_batch_limbs(torch.from_numpy(limbs).to(dev))
-    return SignHandle(out, B0, digests, ds, k_invs, verify_after=verify_after)
+    rec = _ledger.launch("sign", key=(limbs.shape[0], 0), lanes=B0,
+                         compiled=kernels.first_launch("p256_sign") if dev.type == "cuda"
+                         else None,
+                         h2d_bytes=limbs.nbytes)
+    with device_annotation("fabtpu.sign_dispatch"):
+        out = sign_batch_limbs(torch.from_numpy(limbs).to(dev))
+    if rec is not None:
+        rec.dispatched()
+    return SignHandle(out, B0, digests, ds, k_invs, verify_after=verify_after, rec=rec)
 
 
 def sign_digests(digests, key, **kw) -> list[tuple[int, int]]:

@@ -26,6 +26,17 @@ gathers from a wire block (the reference's ``ColumnarSigBatch``).
 ``verify_batch_packed`` is the kernel wrapper: a CPU frame runs the
 plain version ``verify_batch_ref`` (torch ops over ``ops/fp256.py``), a
 CUDA frame launches ``kernels/csrc/p256_verify.cu``.
+
+Telemetry (the reference's :1011-1093, :1330-1342): each launch opens a
+``verify`` record on the launch ledger (``observe/ledger.py``), notes the
+frame's bytes, re-anchors at the copy to the card and marks the
+dispatch; ``VerifyHandle.fetch`` brackets its copy to the host (a
+coalesced launch's record rides the first live block's handle).  On the
+card the record's cache verdict is the kernel's first launch in the
+process; on the CPU it is the reference's first sight of the bucket.
+The copy and the launch run inside the ``fabtpu.verify_dispatch``
+annotation; ``h2d_bytes_per_block`` and ``coalesced_blocks_per_launch``
+go to the registry.
 """
 
 from __future__ import annotations
@@ -38,6 +49,8 @@ import torch
 from fabric_tpu_torch import faults, kernels, native
 from fabric_tpu_torch.crypto import ec_ref
 from fabric_tpu_torch.device import resolve_device
+from fabric_tpu_torch.observe import device_annotation
+from fabric_tpu_torch.observe import ledger as _ledger
 from fabric_tpu_torch.ops import fp256
 from fabric_tpu_torch.utils.batching import next_pow2
 
@@ -434,22 +447,68 @@ def verify_batch_packed(frame: torch.Tensor) -> torch.Tensor:
 # Launch API
 
 
+def _h2d_hist():
+    from fabric_tpu_torch.ops_metrics import global_registry
+
+    return global_registry().histogram(
+        "h2d_bytes_per_block",
+        "packed verify-batch H2D bytes per launch",
+        buckets=(1 << 14, 1 << 16, 1 << 18, 1 << 20, 1 << 22,
+                 float("inf")),
+    )
+
+
+def _coalesce_metric():
+    from fabric_tpu_torch.ops_metrics import global_registry
+
+    return global_registry().histogram(
+        "coalesced_blocks_per_launch",
+        "signature batches (blocks) concatenated per verify dispatch",
+        buckets=(1, 2, 3, 4, 6, 8, float("inf")),
+    )
+
+
 class VerifyHandle:
     """An in-flight verify batch: the device-resident accept vector
     (``device_out``, bool, padded to the bucket) and ``fetch()``, which
-    syncs and returns the first ``n_real`` bits."""
+    syncs and returns the first ``n_real`` bits.  ``rec``: the launch
+    ledger's record, which ``fetch`` brackets."""
 
-    __slots__ = ("device_out", "n_real")
+    __slots__ = ("device_out", "n_real", "rec")
 
-    def __init__(self, device_out: torch.Tensor, n_real: int):
+    def __init__(self, device_out: torch.Tensor, n_real: int, rec=None):
         self.device_out = device_out
         self.n_real = n_real
+        self.rec = rec
 
     def fetch(self) -> list[bool]:
-        return self.device_out[: self.n_real].to("cpu").tolist()
+        rec = self.rec
+        if rec is not None:
+            rec.sync_begin()
+        out = self.device_out[: self.n_real].to("cpu")
+        if rec is not None:
+            rec.sync_end(d2h_bytes=out.nbytes)
+        return out.tolist()
 
     def __call__(self) -> list[bool]:
         return self.fetch()
+
+
+def _launch_frame(frame: np.ndarray, dev: torch.device, n_real: int) -> tuple:
+    """The staged frame to the card and its kernel launch, under a
+    ``verify`` ledger record → (accept vector, record or None)."""
+    compiled = kernels.first_launch("p256_verify") if dev.type == "cuda" else None
+    rec = _ledger.launch("verify", key=(frame.shape[0], True, 0), lanes=n_real,
+                         compiled=compiled)
+    _h2d_hist().observe(frame.nbytes, recode="device")
+    if rec is not None:
+        rec.note_h2d(frame.nbytes)
+        rec.begin_dispatch()  # the staging above was host work
+    with device_annotation("fabtpu.verify_dispatch"):
+        out = verify_batch_packed(torch.from_numpy(frame).to(dev))
+    if rec is not None:
+        rec.dispatched()
+    return out, rec
 
 
 def verify_launch(items, device="cuda") -> VerifyHandle:
@@ -463,16 +522,17 @@ def verify_launch(items, device="cuda") -> VerifyHandle:
     n = len(items)
     if not n:
         return VerifyHandle(torch.zeros(0, dtype=torch.bool, device=dev), 0)
-    frame = stage_frame(items, _bucket(n))
-    return VerifyHandle(verify_batch_packed(torch.from_numpy(frame).to(dev)), n)
+    out, rec = _launch_frame(stage_frame(items, _bucket(n)), dev, n)
+    return VerifyHandle(out, n, rec)
 
 
 def verify_launch_many(batches, device="cuda") -> list[VerifyHandle]:
     """Several blocks' signature batches as ONE launch.  Block b keeps
     the lane layout a solo launch would give it — lanes
     [off_b, off_b + _bucket(n_b)) — so each handle's ``device_out`` is a
-    slice; the total pads out to ``_bucket(sum of buckets)``.  Fires the
-    ``p256v3.verify_launch`` fault point."""
+    slice; the total pads out to ``_bucket(sum of buckets)``.  One
+    ledger record covers the launch, on the first live block's handle.
+    Fires the ``p256v3.verify_launch`` fault point."""
     faults.fire("p256v3.verify_launch")
     dev = resolve_device(device)
     batches = [b if isinstance(b, SigColumns) else list(b) for b in batches]
@@ -488,12 +548,16 @@ def verify_launch_many(batches, device="cuda") -> list[VerifyHandle]:
     for off, b in zip(offs, batches):
         if b:
             frame[off:off + _bucket(len(b))] = stage_frame(b, _bucket(len(b)))
-    out = verify_batch_packed(torch.from_numpy(frame).to(dev))
-    return [
-        VerifyHandle(out[off:off + _bucket(len(b))], len(b)) if b
-        else VerifyHandle(torch.zeros(0, dtype=torch.bool, device=dev), 0)
-        for off, b in zip(offs, batches)
-    ]
+    _coalesce_metric().observe(sum(1 for b in batches if b))
+    out, rec = _launch_frame(frame, dev, grand)
+    handles = []
+    for off, b in zip(offs, batches):
+        if b:
+            handles.append(VerifyHandle(out[off:off + _bucket(len(b))], len(b), rec))
+            rec = None
+        else:
+            handles.append(VerifyHandle(torch.zeros(0, dtype=torch.bool, device=dev), 0))
+    return handles
 
 
 def verify_host(items, device="cuda") -> list[bool]:

@@ -12,8 +12,10 @@ thread unless a pool shares it out.  This is that pool:
 * one task a block: the validator submits each block's parse and its
   device preprocessing (``BlockValidator.preprocess_many``);
 * per-task accounting: ``stats()`` holds the tasks and seconds per
-  stage and worker.  The reference's registry histogram and tracer
-  spans come with the port's observe hooks;
+  stage and worker, the registry's ``host_stage_pool_seconds{stage,worker}``
+  the same times (the reference's :46-55), and each task runs as a span
+  named for its stage under the span that was current on the thread
+  that submitted it (the reference's :57-68);
 * the ``hostpool.task`` fault point fires inside every task, so a
   fault plan can fail exactly one worker task.
 
@@ -36,6 +38,18 @@ from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
 from fabric_tpu_torch import faults
+from fabric_tpu_torch.observe import global_tracer
+
+
+def _pool_hist():
+    from fabric_tpu_torch.ops_metrics import global_registry
+
+    return global_registry().histogram(
+        "host_stage_pool_seconds",
+        "host staging pool task time (s) by stage and worker",
+        buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                 0.1, 0.25, 1.0, float("inf")),
+    )
 
 
 def _label_task_error(e: BaseException, stage: str, worker: str) -> None:
@@ -64,7 +78,9 @@ class HostStagePool:
             raise ValueError("HostStagePool needs >= 2 workers "
                              "(resolve_host_pool returns None below that)")
         self.workers = int(workers)
-        self._ex = ThreadPoolExecutor(self.workers, thread_name_prefix="fabtorch-hoststage")
+        self._ex = ThreadPoolExecutor(self.workers, thread_name_prefix="fabtpu-hoststage")
+        self._hist = _pool_hist()
+        self._trc = global_tracer()
         self._lock = threading.Lock()
         self._durs: deque = deque(maxlen=1024)  # recent task seconds
         self._tasks = 0
@@ -73,6 +89,7 @@ class HostStagePool:
     # -- submission ------------------------------------------------------------
 
     def _observe(self, stage: str, worker: str, dt: float) -> None:
+        self._hist.observe(dt, stage=stage, worker=worker)
         with self._lock:
             self._durs.append(dt)
             self._tasks += 1
@@ -80,17 +97,21 @@ class HostStagePool:
             rec[0] += 1
             rec[1] += dt
 
-    def _timed(self, fn, stage: str):
+    def _timed(self, fn, stage: str, parent):
         """``fn`` timed inside its worker (so the worker label names the
-        thread that ran it); an exception is labelled there."""
+        thread that ran it), as a span under ``parent`` (the submitting
+        thread's current span, captured at submit); an exception is
+        labelled there."""
+        trc = self._trc
 
         def run(*args, **kwargs):
             name = threading.current_thread().name
             worker = name.rsplit("_", 1)[-1] if "_" in name else name
             t0 = time.perf_counter()
             try:
-                faults.fire("hostpool.task", stage=stage)
-                return fn(*args, **kwargs)
+                with trc.span(stage, parent=parent, worker=worker):
+                    faults.fire("hostpool.task", stage=stage)
+                    return fn(*args, **kwargs)
             except BaseException as e:
                 _label_task_error(e, stage, worker)
                 raise
@@ -102,7 +123,7 @@ class HostStagePool:
     def submit(self, fn, *args, stage: str = "task", **kwargs):
         """One task → its Future, timed and labelled in its worker; a
         failed task raises at ``result()`` and is never retried."""
-        return self._ex.submit(self._timed(fn, stage), *args, **kwargs)
+        return self._ex.submit(self._timed(fn, stage, self._trc.current()), *args, **kwargs)
 
     # -- introspection and lifecycle ---------------------------------------------
 

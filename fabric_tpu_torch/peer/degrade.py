@@ -25,13 +25,15 @@ and the fallback runs under ``faults.shield()``.  ``fail_threshold=0``
 is the "no guard" setting of every validator: callers then construct
 none, so a threshold of 0 here is an error.
 
-The reference's ``validator_degraded`` gauge and its
-``device_verify_retries_total`` and ``fallback_blocks_total`` counters
-are ``stats()`` here, with ``failures_total`` beside them: every failed
-device attempt (each ``record_failure`` call and each failed probe), so
-a run can set the lane's failures beside the faults it injected.  The
-reference's flight-recorder notice at the latch waits for the port's
-observe hooks.
+The global registry gets the reference's
+``validator_degraded`` gauge and its ``device_verify_retries_total`` and
+``fallback_blocks_total`` counters (:95-107; the port's retries count
+the stage-2 re-dispatches of ``retry`` too).  ``stats()`` holds the same
+values with ``failures_total`` beside them: every failed device attempt
+(each ``record_failure`` call and each failed probe), so a run can set
+the lane's failures beside the faults it injected.  The reference's
+flight-recorder notice at the latch comes with its ``blackbox.py``,
+which is not ported yet.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import threading
 import time
 
 from fabric_tpu_torch import faults
+from fabric_tpu_torch.ops_metrics import global_registry
 from fabric_tpu_torch.utils.backoff import Backoff
 
 _log = logging.getLogger("fabric_tpu_torch.validator.degrade")
@@ -78,6 +81,20 @@ class DeviceLaneGuard:
         self._retries_total = 0
         self._fallbacks = 0
         self._probes = 0
+        registry = global_registry()
+        self._gauge = registry.gauge(
+            "validator_degraded",
+            "1 while the device verify lane is latched to CPU fallback",
+        )
+        self._retries_ctr = registry.counter(
+            "device_verify_retries_total",
+            "device verify attempts retried after a failure",
+        )
+        self._fallback_ctr = registry.counter(
+            "fallback_blocks_total",
+            "blocks routed through the CPU verify fallback",
+        )
+        self._gauge.set(0, channel=self.channel)
 
     # -- state ------------------------------------------------------------------
 
@@ -115,6 +132,7 @@ class DeviceLaneGuard:
                 self._degraded_at = self._last_probe = self._clock()
                 n = self._consecutive
         if latched:
+            self._gauge.set(1, channel=self.channel)
             _log.warning("%s: device verify lane DEGRADED after %d consecutive failures (%s); "
                          "blocks take the fallback, a recovery probe every %.1fs",
                          self.channel or "validator", n, err, self.recovery_s)
@@ -129,6 +147,7 @@ class DeviceLaneGuard:
                 self._degraded_accum_s += down_s
                 self._degraded = False
         if rearmed:
+            self._gauge.set(0, channel=self.channel)
             _log.warning("%s: device verify lane RECOVERED after %.1fs degraded",
                          self.channel or "validator", down_s)
 
@@ -193,6 +212,7 @@ class DeviceLaneGuard:
                     break
                 with self._lock:
                     self._retries_total += 1
+                self._retries_ctr.add(1, channel=self.channel)
                 self._sleep(self._backoff.next())
                 continue
             if eager and not self.check_deadline(self._clock() - t0):
@@ -216,6 +236,7 @@ class DeviceLaneGuard:
                              what, e)
                 with self._lock:
                     self._retries_total += 1
+                self._retries_ctr.add(1, channel=self.channel)
                 self._sleep(self._backoff.next())
 
     def count_fallback(self, count: int = 1) -> None:
@@ -223,6 +244,7 @@ class DeviceLaneGuard:
         (a fetch-side re-verify)."""
         with self._lock:
             self._fallbacks += count
+        self._fallback_ctr.add(count, channel=self.channel)
 
     def _fallback(self, fallback_fn, count: int = 1):
         self.count_fallback(count)

@@ -38,16 +38,29 @@ run ``resident_ver_ok_ref``, CUDA tensors launch ``resident_verok``
 (``kernels/csrc/resident.cu``).  It runs under the residency manager's
 lock on the manager's stream, before the block's own admissions can
 reuse a slot it reads (``state.build_launch_pack``).
+
+Telemetry (the reference's :212-355): each ``run`` opens a ``stage2``
+record on the launch ledger (``observe/ledger.py``), its cache verdict
+the policy-table cache's (and, on the card, the first launch of the
+stage-2 kernels in the process), completes the verify handle's record
+enqueue-only (the fused path never fetches it), pins the operands and
+the output on the ledger's ``launch_frames`` and ``outputs`` owners,
+and brackets the fetch's copy to the host.  The two launches run inside
+the ``fabtpu.stage2_dispatch`` annotation; ``device_stage2_dispatch_seconds``
+and ``device_stage2_programs`` (the cache's size) go to the registry.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from fabric_tpu_torch import kernels
+from fabric_tpu_torch.observe import device_annotation
+from fabric_tpu_torch.observe import ledger as _ledger
 from fabric_tpu_torch.crypto import policy as pol
 from fabric_tpu_torch.ops import mvcc as mvcc_ops
 
@@ -260,23 +273,42 @@ def stage2(sig_valid, launch_vec, groups, static_p, dims, table=None,
 class DeviceBlockPipeline:
     """Runs the fused stage 2 of one block on the verify handle's
     device and returns a fetch for the unpacked result.  Policy tables
-    are built once per set of plans and shapes and device."""
+    are built once per set of plans and shapes and device (the cache
+    holds the key alone on the CPU, where no table is built)."""
 
     MAX_TABLES = 256
 
     def __init__(self):
-        # ((id(plan), Eb, S) a group, device) → (plans, PolicyTable); the
-        # plans are held, so their ids stay theirs
+        # ((id(plan), Eb, S) a group, device) → (plans, PolicyTable or
+        # None); the plans are held, so their ids stay theirs
         self._tables: dict = {}
+        from fabric_tpu_torch.ops_metrics import global_registry
 
-    def _policy_table(self, groups, dev) -> PolicyTable:
-        key = (tuple((id(g[0]), g[2], g[3]) for g in groups), dev)
+        reg = global_registry()
+        self._dispatch_hist = reg.histogram(
+            "device_stage2_dispatch_seconds",
+            "host-side fused stage-2 dispatch time (s)",
+            buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                     0.1, float("inf")),
+        )
+        self._cache_gauge = reg.gauge(
+            "device_stage2_programs", "compiled stage-2 program cache size"
+        )
+
+    @staticmethod
+    def _table_key(groups, dev):
+        return (tuple((id(g[0]), g[2], g[3]) for g in groups), dev)
+
+    def _policy_table(self, groups, dev) -> PolicyTable | None:
+        key = self._table_key(groups, dev)
         hit = self._tables.get(key)
         if hit is None:
             if len(self._tables) >= self.MAX_TABLES:
                 self._tables.clear()
-            hit = self._tables[key] = (
-                [g[0] for g in groups], policy_table([(g[0], g[2], g[3]) for g in groups], dev))
+            table = (policy_table([(g[0], g[2], g[3]) for g in groups], dev)
+                     if dev.type == "cuda" else None)
+            hit = self._tables[key] = ([g[0] for g in groups], table)
+            self._cache_gauge.set(len(self._tables))
         return hit[1]
 
     def run(self, handle, launch_vec: torch.Tensor, groups, static_packed, static_dims,
@@ -290,13 +322,40 @@ class DeviceBlockPipeline:
         policy_ok, sig_valid, safe: [per-group arrays])."""
         sv = handle.device_out
         dev = sv.device
-        table = self._policy_table(groups, dev) if dev.type == "cuda" else None
-        packed = stage2(sv, launch_vec, groups, static_packed, static_dims, table, frames)
+        compiled = self._table_key(groups, dev) not in self._tables
+        if dev.type == "cuda":
+            compiled = compiled or kernels.first_launch("stage2_mvcc")
+        rec = _ledger.launch("stage2", compiled=compiled, lanes=t_bucket,
+                             h2d_bytes=launch_vec.nbytes)
+        # the fused path never fetches the verify handle: its record
+        # completes enqueue-only, and this record's sync owns the chain
+        vrec = getattr(handle, "rec", None)
+        if vrec is not None:
+            vrec.complete()
+        t0 = time.perf_counter()
+        table = self._policy_table(groups, dev)
+        if rec is not None:
+            ops = [sv, launch_vec, static_packed]
+            ops += [frames] if frames is not None else [g[1] for g in groups]
+            if table is not None:
+                ops.append(table.meta)
+            rec.pin_hbm("launch_frames", sum(int(t.nbytes) for t in ops))
+        with device_annotation("fabtpu.stage2_dispatch"):
+            packed = stage2(sv, launch_vec, groups, static_packed, static_dims, table, frames)
+        if rec is not None:
+            rec.dispatched()
+            rec.pin_hbm("outputs", int(packed.nbytes))
+        self._dispatch_hist.observe(time.perf_counter() - t0)
         n_sig = int(sv.shape[0])
         e_sizes = [g[2] for g in groups]
 
         def fetch():
-            flat = packed.to("cpu").numpy().astype(bool)
+            if rec is not None:
+                rec.sync_begin()
+            flat = packed.to("cpu").numpy()
+            if rec is not None:
+                rec.sync_end(d2h_bytes=flat.nbytes)
+            flat = flat.astype(bool)
             T = t_bucket
             out = {
                 "valid": flat[0:T], "conflict": flat[T:2 * T],

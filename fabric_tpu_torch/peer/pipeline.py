@@ -1,5 +1,4 @@
-"""Depth-N commit pipeline (counterpart: ``fabric_tpu/peer/pipeline.py``,
-without its tracing and metrics machinery).
+"""Depth-N commit pipeline (counterpart: ``fabric_tpu/peer/pipeline.py``).
 
     prefetch thread   preprocess(block n+1)     decode + verify launch
     caller thread     validate_finish(block n-1), validate_launch(block n)
@@ -44,6 +43,24 @@ inline, before the commit's future resolves: a launch whose overlay no
 longer covers a block is ordered after that block's scatter.  An error
 in either surfaces like any stage exception.
 
+Telemetry (the reference's :234-292, :502-578, :625-699, :782-889): one
+root span a block on the tracer (``observe/tracer.py``, the global one
+unless ``tracer=`` is given), with ``prefetch`` (prefetch thread),
+``prefetch_wait``, ``launch``, ``finish`` and ``commit_wait`` (caller's
+thread) and ``commit`` (committer thread, or inline for a barrier, the
+tail and depth 1) children; the validator's stage spans nest under
+them.  The last block's root carries ``tail``, a barrier's ``barrier``,
+a coalesced group's members ``coalesce_group``/``coalesce_size`` (the
+group's ``prefetch`` hangs off its leader); a stale prefetch leaves a
+``stale_prefetch_reparse`` event and a ``re-prefetch`` span.  The
+registry (``registry=``, else the global one) gets
+``commit_pipeline_stage_seconds{channel,stage}``,
+``commit_pipeline_overlap_ratio``, ``commit_pipeline_inflight``,
+``commit_pipeline_blocks_total{channel,mode}`` and
+``commit_pipeline_stage_failures_total{channel,stage}``.  Each commit
+first stamps the tx-flow journal's inclusion (``observe/txflow.py``,
+``replay=True`` tags it as a catch-up block).
+
 Containment (the reference's :364-410): a stage exception (prefetch,
 launch, finish or commit) is recorded (``last_failure`` = (block
 number, stage), ``stats()["stage_failures"]`` by stage) and closes the
@@ -58,12 +75,14 @@ from __future__ import annotations
 
 import logging
 import threading
+import time
 from collections import Counter, deque
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 from fabric_tpu_torch import faults
 from fabric_tpu_torch.ledger.statedb import UpdateBatch
+from fabric_tpu_torch.observe import txflow as _txflow
 from fabric_tpu_torch.peer.validator import LIFECYCLE_NS
 
 _log = logging.getLogger("fabric_tpu_torch.pipeline")
@@ -96,6 +115,10 @@ class CommittedBlock:
     batch: object
     history: list
     barrier: bool = False
+    # the block's stage seconds (launch, finish, commit_wait)
+    stage_s: dict = field(default_factory=dict)
+    # the block's root span: a commit_fn hangs its spans off it
+    root_span: object = None
 
     @property
     def txids(self) -> list:
@@ -137,17 +160,53 @@ class CommitPipeline:
     serialized in block order, followed by the validator's
     ``resident_commit``.  A stage exception closes the pipe: it
     surfaces once and later submits raise.  ``coalesce_blocks``: the
-    group size of ``submit_many`` (0: off)."""
+    group size of ``submit_many`` (0: off).  ``channel`` labels the
+    metrics and the roots; ``tracer``/``registry``: the span tracer
+    and metrics registry (None: the global ones); ``replay``: the
+    blocks are catch-up blocks (the journal's inclusion tag)."""
 
-    def __init__(self, validator, commit_fn, depth: int = 2, coalesce_blocks: int = 0):
+    def __init__(self, validator, commit_fn, depth: int = 2, coalesce_blocks: int = 0,
+                 channel: str = "", tracer=None, registry=None, replay: bool = False):
         self.validator = validator
         self.commit_fn = commit_fn
         self.depth = max(1, int(depth))
         self.coalesce_blocks = int(coalesce_blocks)
-        self._prefetch = ThreadPoolExecutor(1, thread_name_prefix="fabtorch-prefetch")
-        self._committer = ThreadPoolExecutor(1, thread_name_prefix="fabtorch-committer")
-        self._pre = None        # (block, prefetch future)
+        self.channel = channel
+        self.replay = bool(replay)
+        if tracer is None:
+            from fabric_tpu_torch.observe import global_tracer
+
+            tracer = global_tracer()
+        self.tracer = tracer
+        if registry is None:
+            from fabric_tpu_torch.ops_metrics import global_registry
+
+            registry = global_registry()
+        self._stage_hist = registry.histogram(
+            "commit_pipeline_stage_seconds",
+            "per-block commit pipeline stage time (s)",
+        )
+        self._overlap_hist = registry.histogram(
+            "commit_pipeline_overlap_ratio",
+            "1 - blocked/total per pipelined block",
+            buckets=(0.1, 0.25, 0.5, 0.75, 0.9, 0.95, 0.99, 1.0, float("inf")),
+        )
+        self._inflight_gauge = registry.gauge(
+            "commit_pipeline_inflight", "blocks launched or committing"
+        )
+        self._blocks_ctr = registry.counter(
+            "commit_pipeline_blocks_total", "blocks through the pipeline"
+        )
+        self._stage_fail_ctr = registry.counter(
+            "commit_pipeline_stage_failures_total",
+            "pipeline stage exceptions by stage",
+        )
+        self._prefetch = ThreadPoolExecutor(1, thread_name_prefix="fabtpu-prefetch")
+        self._committer = ThreadPoolExecutor(1, thread_name_prefix="fabtpu-committer")
+        self._pre = None        # (block, prefetch future, root span)
         self._launched = None   # PendingBlock in flight
+        self._launched_root = None  # its root span
+        self._launch_s = 0.0    # its launch seconds, for its CommittedBlock
         self._commits: deque = deque()
         self._closed = False
         # the staged block was prefetched before a barrier predecessor
@@ -181,8 +240,16 @@ class CommitPipeline:
         self._closed = True
         self._pre = None
         self._launched = None
+        self._launched_root = None
         self._prefetch.shutdown(wait=True)
         self._committer.shutdown(wait=True)
+        self._inflight_gauge.set(0, channel=self.channel)
+
+    @property
+    def inflight(self) -> int:
+        """Blocks accepted and not yet committed: staged, launched or
+        committing (the ``commit_pipeline_inflight`` gauge)."""
+        return (self._pre is not None) + (self._launched is not None) + len(self._commits)
 
     def stats(self) -> dict:
         """Barriers, stale re-preprocesses, stage failures by stage and
@@ -195,6 +262,7 @@ class CommitPipeline:
         with self._failures_lock:
             self.last_failure = (number, stage)
             self._failures[stage] += 1
+        self._stage_fail_ctr.add(1, channel=self.channel, stage=stage)
         _log.warning("pipeline %s stage failed for block %s; the pipe closes, resume from "
                      "the committed height", stage, number)
 
@@ -209,44 +277,70 @@ class CommitPipeline:
         return (UpdateBatch.merged([r.batch for r in recs]),
                 set().union(*(r.txids for r in recs)))
 
+    def _begin(self, block, **attrs):
+        return self.tracer.begin_block(_number(block), channel=self.channel, **attrs)
+
     def submit(self, block):
         if self._closed:
             raise RuntimeError("pipeline is closed")
         try:
             if self.depth == 1:
                 return self._submit_serial(block)
-            self._pre = (block, self._prefetch.submit(self._prefetch_one, block))
+            t_sub = time.perf_counter()
+            root = self._begin(block)
+            self._pre = (block, self._prefetch.submit(self._prefetch_one, block, root), root)
+            self._inflight_gauge.set(self.inflight, channel=self.channel)
             out = None
             if self._launched is not None:
                 out = self._finish_and_commit(self._launched)
-            self._launch_next()
+            self._launch_next(out.stage_s if out is not None else {}, t_sub)
             return out
         except BaseException:
             self._shutdown()
             raise
 
-    def _prefetch_one(self, block):
-        faults.fire("pipeline.prefetch")
-        return self.validator.preprocess(block)
+    def _prefetch_one(self, block, root):
+        """Prefetch-thread task: its span is the validator's stage
+        spans' parent (the handle crosses the executor explicitly)."""
+        with self.tracer.span("prefetch", parent=root):
+            faults.fire("pipeline.prefetch")
+            return self.validator.preprocess(block)
 
-    def _prefetch_group(self, many, group):
-        faults.fire("pipeline.prefetch")
-        return many(group)
+    def _prefetch_group(self, many, group, root):
+        with self.tracer.span("prefetch", parent=root, coalesced=len(group)):
+            faults.fire("pipeline.prefetch")
+            return many(group)
 
     def _submit_serial(self, block) -> CommittedBlock:
         """Depth 1: prefetch, launch, finish and commit in turn."""
         num = _number(block)
+        tr = self.tracer
+        root = self._begin(block, mode="serial")
+        t0 = time.perf_counter()
         stage = "launch"
         try:
-            faults.fire("pipeline.launch")
-            stage = "prefetch"
-            pre = self._prefetch_one(block)
-            stage = "launch"
-            pend = self.validator.validate_launch(block, pre=pre)
+            with tr.span("launch", parent=root):
+                faults.fire("pipeline.launch")
+                with tr.span("prefetch"):  # inline at depth 1
+                    stage = "prefetch"
+                    faults.fire("pipeline.prefetch")
+                    pre = self.validator.preprocess(block)
+                    stage = "launch"
+                pend = self.validator.validate_launch(block, pre=pre)
+            stage = "finish"
+            with tr.span("finish", parent=root):
+                flt, batch, history = self.validator.validate_finish(pend)
         except BaseException:
             self._note_stage_failure(stage, num)
             raise
-        return self._finish_and_commit(pend, tail=True)
+        t1 = time.perf_counter()
+        res = CommittedBlock(block=pend.block, pend=pend, tx_filter=flt, batch=batch,
+                             history=history, barrier=_is_barrier(pend, batch),
+                             stage_s={"finish": t1 - t0}, root_span=root)
+        self._commit_traced(res, root)
+        res.stage_s["commit_wait"] = time.perf_counter() - t1
+        self._blocks_ctr.add(1, channel=self.channel, mode="serial")
+        return res
 
     def submit_many(self, blocks) -> list:
         """Feed height-ordered blocks in groups of ``coalesce_blocks``,
@@ -271,23 +365,36 @@ class CommitPipeline:
     def _submit_many_coalesced(self, blocks, k: int, many) -> list:
         """Each group: one prefetch call stages every block and launches
         their signatures together; then each block finishes its
-        predecessor and launches on its own slice, as ``submit`` does."""
+        predecessor and launches on its own slice, as ``submit`` does.
+        The group's prefetch span hangs off its leader's root; every
+        member's root names the group."""
         out = []
         for g in range(0, len(blocks), k):
             group = blocks[g:g + k]
-            fut = self._prefetch.submit(self._prefetch_group, many, group)
+            lead = _number(group[0])
+            roots = []
+            for b in group:
+                r = self._begin(b)
+                self.tracer.set_attrs(r, coalesce_group=int(lead), coalesce_size=len(group))
+                roots.append(r)
+            fut = self._prefetch.submit(self._prefetch_group, many, group, roots[0])
             # the whole group was staged at once: a barrier committing
             # during this loop makes every remaining block of it stale
             stale_group = False
             for j, block in enumerate(group):
-                self._pre = (block, _SliceFuture(fut, j))
+                t_sub = time.perf_counter()
+                self._pre = (block, _SliceFuture(fut, j), roots[j])
+                self._inflight_gauge.set(self.inflight, channel=self.channel)
+                res = None
                 if self._launched is not None:
-                    out.append(self._finish_and_commit(self._launched))
+                    res = self._finish_and_commit(self._launched)
                 if self._stale_prefetch:
                     stale_group = True
                 elif stale_group:
                     self._stale_prefetch = True
-                self._launch_next()
+                self._launch_next(res.stage_s if res is not None else {}, t_sub)
+                if res is not None:
+                    out.append(res)
         return out
 
     def flush(self):
@@ -298,72 +405,123 @@ class CommitPipeline:
             if self._launched is not None:
                 out = self._finish_and_commit(self._launched, tail=True)
             if self._pre is not None:
-                self._launch_next()
+                self._launch_next({}, time.perf_counter())
                 out = self._finish_and_commit(self._launched, tail=True)
             self._drain_commits(0)
             self._stale_prefetch = False  # nothing is staged past this point
+            self._inflight_gauge.set(0, channel=self.channel)
             return out
         except BaseException:
             self._shutdown()
             raise
 
-    def _launch_next(self) -> None:
-        block, fut = self._pre
+    def _launch_next(self, prev_stage_s: dict, t_sub: float) -> None:
+        block, fut, root = self._pre
         self._pre = None
         num = _number(block)
+        t0 = time.perf_counter()
         try:
             pre = fut.result()
             if self._stale_prefetch:
                 self._stale_prefetch = False
                 self.stale_prefetches += 1
-                pre = self.validator.preprocess(block)
+                self.tracer.event("stale_prefetch_reparse", parent=root)
+                with self.tracer.span("re-prefetch", parent=root):
+                    pre = self.validator.preprocess(block)
         except BaseException:
             self._note_stage_failure("prefetch", num)
             raise
+        t1 = time.perf_counter()
+        self.tracer.add("prefetch_wait", t0, t1, parent=root)
         try:
-            faults.fire("pipeline.launch")
-            overlay, extra = self._launch_overlay()
-            self._launched = self.validator.validate_launch(
-                block, pre=pre, overlay=overlay, extra_txids=extra)
+            with self.tracer.span("launch", parent=root) as lsp:
+                faults.fire("pipeline.launch")
+                overlay, extra = self._launch_overlay()
+                self._launched = self.validator.validate_launch(
+                    block, pre=pre, overlay=overlay, extra_txids=extra)
+                # a block riding the host path (no fused stage 2) shows
+                self.tracer.set_attrs(
+                    lsp, device=getattr(self._launched, "fetch2", None) is not None)
         except BaseException:
             self._note_stage_failure("launch", num)
             raise
+        self._launched_root = root
+        t2 = time.perf_counter()
+        self._launch_s = t2 - t1
+        self._inflight_gauge.set(self.inflight, channel=self.channel)
+        self._stage_hist.observe(t1 - t0, channel=self.channel, stage="prefetch_wait")
+        self._stage_hist.observe(t2 - t1, channel=self.channel, stage="launch")
+        total = t2 - t_sub
+        if prev_stage_s and total > 0:
+            blocked = (t1 - t0) + prev_stage_s.get("commit_wait", 0.0)
+            self._overlap_hist.observe(max(0.0, 1.0 - blocked / total), channel=self.channel)
 
     def _run_commit(self, res: CommittedBlock) -> None:
-        """The one commit body: the ``pipeline.commit`` point, the ledger
-        commit, then the resident table's scatter of the same write set
-        (a validator without ``resident_commit`` skips it).  A failure
-        is recorded as the commit stage's."""
+        """The one commit body: the journal's inclusion stamp (before
+        the ledger's durable and applied fences can look for it), the
+        ledger commit, then the resident table's scatter of the same
+        write set (a validator without ``resident_commit`` skips it)."""
+        if _txflow.enabled():
+            flt = res.tx_filter
+            _txflow.block_included(_number(res.block),
+                                   [(p.txid, int(flt[p.idx])) for p in res.pend.txs if p.txid],
+                                   channel=self.channel, replay=self.replay)
+        self.commit_fn(res)
+        fn = getattr(self.validator, "resident_commit", None)
+        if fn is not None:
+            fn(res.batch)
+
+    def _commit_traced(self, res: CommittedBlock, root) -> None:
+        """A commit under its span, the ``pipeline.commit`` point first;
+        then the block's root is finalized (ring and watchdog), on the
+        committing thread.  A failure is recorded as the commit
+        stage's."""
         try:
-            faults.fire("pipeline.commit")
-            self.commit_fn(res)
-            fn = getattr(self.validator, "resident_commit", None)
-            if fn is not None:
-                fn(res.batch)
+            with self.tracer.span("commit", parent=root):
+                faults.fire("pipeline.commit")
+                self._run_commit(res)
         except BaseException:
             self._note_stage_failure("commit", _number(res.block))
             raise
+        finally:
+            self.tracer.finish_block(root)
 
     def _finish_and_commit(self, pend, tail: bool = False) -> CommittedBlock:
+        root = self._launched_root
+        self._launched_root = None
+        t0 = time.perf_counter()
         try:
-            flt, batch, history = self.validator.validate_finish(pend)
+            with self.tracer.span("finish", parent=root):
+                flt, batch, history = self.validator.validate_finish(pend)
         except BaseException:
             self._note_stage_failure("finish", _number(pend.block))
             raise
+        t1 = time.perf_counter()
         barrier = _is_barrier(pend, batch)
         # keep at most depth-2 older commits in flight beside this one;
         # a barrier drains them all and commits inline
         self._drain_commits(0 if tail or barrier else max(0, self.depth - 2))
+        t2 = time.perf_counter()
+        self.tracer.add("commit_wait", t1, t2, parent=root)
         res = CommittedBlock(block=pend.block, pend=pend, tx_filter=flt, batch=batch,
-                             history=history, barrier=barrier)
+                             history=history, barrier=barrier,
+                             stage_s={"launch": self._launch_s, "finish": t1 - t0,
+                                      "commit_wait": t2 - t1},
+                             root_span=root)
+        self._launch_s = 0.0
+        self._stage_hist.observe(t1 - t0, channel=self.channel, stage="finish")
+        self._stage_hist.observe(t2 - t1, channel=self.channel, stage="commit_wait")
         self._launched = None
         if barrier:
             self.barriers += 1
             self._stale_prefetch = True
         if tail or barrier:
-            self._run_commit(res)
+            self.tracer.set_attrs(root, **({"barrier": True} if barrier else {"tail": True}))
+            self._commit_traced(res, root)
         else:
             self._commits.append(_InflightCommit(
-                fut=self._committer.submit(self._run_commit, res), batch=batch,
+                fut=self._committer.submit(self._commit_traced, res, root), batch=batch,
                 txids=pend.txids))
+        self._blocks_ctr.add(1, channel=self.channel,
+                             mode="barrier" if barrier else "pipelined")
         return res

@@ -17,9 +17,14 @@ pipeline (``peer/pipeline.py``) from a block iterator:
   is the authority: ``KVLedger.commit_block`` refuses a block out of
   order, so a resume cannot apply a block twice.
 
-The reference's driver also holds its traffic autopilot in throughput
-mode for the run; the port has no autopilot yet, and ``autopilot=``
-accepts only None.  Its tracer and pipeline hook are not ported.
+The pipe runs with ``replay=True`` (the tx-flow journal records a
+replayed block from inclusion to apply only); at depth >= 2 the run's
+stats carry the overlap coverage of the global tracer's recent block
+trees
+(``pipeline_overlap_coverage``, the reference's :272-283).  The
+reference's driver also holds its traffic autopilot in throughput mode
+for the run; the port has no autopilot yet, and ``autopilot=`` accepts
+only None.  Its pipeline hook is not ported.
 """
 
 from __future__ import annotations
@@ -135,9 +140,9 @@ class ReplayDriver:
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         reader_exc: list = []
         rt = threading.Thread(target=self._reader, args=(blocks, start, q, reader_exc),
-                              name="fabtorch-replay-read", daemon=True)
+                              name="fabtpu-replay-read", daemon=True)
         pipe = CommitPipeline(self.validator, self._commit, depth=self.depth,
-                              coalesce_blocks=self.coalesce_blocks)
+                              coalesce_blocks=self.coalesce_blocks, replay=True)
         self._t0 = time.perf_counter()
         submitted = 0
         try:
@@ -185,7 +190,7 @@ class ReplayDriver:
             if self.checkpoint is not None and self._last_height is not None:
                 self.checkpoint.save(self._last_height)
         dt = time.perf_counter() - self._t0
-        return {
+        stats = {
             "blocks": self._committed_blocks,
             "txs_valid": self._committed_txs,
             "submitted": submitted,
@@ -196,6 +201,14 @@ class ReplayDriver:
             "height": self._last_height,
             "depth": self.depth,
         }
+        if self.depth > 1:
+            from fabric_tpu_torch import observe
+
+            cov = observe.coverage_from_roots(pipe.tracer.recent_roots(),
+                                              window=max(1, self.depth - 1))
+            cov.pop("per_block", None)
+            stats["pipeline_overlap_coverage"] = cov
+        return stats
 
 
 def replay_into(ledger, validator, source_store, *, depth: int = 4,

@@ -14,15 +14,24 @@ when they launch as one batch.  ``SignBatcher`` sits between them:
 * ``stats()`` keeps the counters, wait percentiles and occupancy.
 
 Nonces are RFC 6979 in both backends, so batched device signing and the
-serial CPU backend give bit-equal signatures.  Left out of the port:
-the metrics registry, the trace roots, the per-request observer (the
-reference's SLO feed) and the runtime knob setters its autopilot
-drives; the counters stay in ``stats()``.
+serial CPU backend give bit-equal signatures.
+
+Telemetry (the reference's :95-120, :300-362): ``sign_batch_lanes``,
+``sign_batch_wait_seconds``, ``sign_batch_backend_seconds``,
+``sign_requests_total`` and ``sign_busy_total`` go to the registry
+(``registry=``, else the global one); each flush is a trace root in the
+global tracer's ``"sign"`` namespace, so the launch ledger's ``sign``
+record and its device spans hang off it; ``observer(wait_ms, busy)``,
+called outside the lock for each flushed request (its coalescing wait)
+and each BUSY bounce (None), takes the tx-flow journal's
+``sign_observer()``.  Left out of the port: the runtime knob setters
+the reference's autopilot drives.
 """
 
 from __future__ import annotations
 
 import hashlib
+import logging
 import math
 import threading
 import time
@@ -30,7 +39,10 @@ from collections import deque
 
 from fabric_tpu_torch.crypto import ec_ref
 from fabric_tpu_torch.device import resolve_device
+from fabric_tpu_torch.observe import global_tracer
 from fabric_tpu_torch.ops import p256sign
+
+_log = logging.getLogger("fabric_tpu_torch.signlane")
 
 #: retry hint a BUSY answer carries (ms)
 SIGN_RETRY_MS = 50
@@ -70,12 +82,47 @@ class _Pending:
         self.t_submit = t_submit
 
 
+def _metrics(registry):
+    if registry is None:
+        from fabric_tpu_torch.ops_metrics import global_registry
+
+        registry = global_registry()
+    return (
+        registry.histogram(
+            "sign_batch_lanes",
+            "sign requests coalesced per batch flush",
+            buckets=(1, 4, 16, 64, 256, 1024, float("inf")),
+        ),
+        registry.histogram(
+            "sign_batch_wait_seconds",
+            "submit → batch-dispatch wait per sign request (s)",
+            buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
+                     0.05, 0.1, float("inf")),
+        ),
+        registry.histogram(
+            "sign_batch_backend_seconds",
+            "backend sign time per batch flush (s)",
+            buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0,
+                     float("inf")),
+        ),
+        registry.counter(
+            "sign_requests_total", "sign requests admitted"
+        ),
+        registry.counter(
+            "sign_busy_total", "sign requests bounced with BUSY"
+        ),
+    )
+
+
 class SignBatcher:
     """See the module docstring.  ``sign_many``: the backend,
     ``list[digest int] → list[(r, s)]`` (``device_sign_backend``,
-    ``cpu_sign_backend`` or a test double)."""
+    ``cpu_sign_backend`` or a test double); ``registry``: the metrics
+    registry (None: the global one); ``observer``: the per-request
+    observer."""
 
-    def __init__(self, sign_many, batch_max: int = 256, wait_ms: float = 2.0):
+    def __init__(self, sign_many, batch_max: int = 256, wait_ms: float = 2.0,
+                 registry=None, observer=None):
         if batch_max < 1:
             raise ValueError("batch_max must be >= 1")
         if wait_ms < 0:
@@ -94,6 +141,10 @@ class SignBatcher:
         self._signed_total = 0
         self._busy_total = 0
         self._batches_total = 0
+        (self._lanes_h, self._wait_h, self._backend_h,
+         self._req_ctr, self._busy_ctr) = _metrics(registry)
+        self.observer = observer
+        self._flush_seq = 0
 
     # -- lifecycle -------------------------------------------------------------
 
@@ -101,7 +152,7 @@ class SignBatcher:
         if self._thread is None:
             with self._cond:
                 self._stopped = False
-            self._thread = threading.Thread(target=self._run, name="fabtorch-signlane",
+            self._thread = threading.Thread(target=self._run, name="fabtpu-signlane",
                                             daemon=True)
             self._thread.start()
         return self
@@ -134,6 +185,7 @@ class SignBatcher:
         Raises ``SignBusy`` on admission overflow, and the backend's
         error if its batch failed."""
         now = time.monotonic()
+        busy = None
         with self._cond:
             cap = self._batch_max * _QUEUE_BATCHES
             if self._stopped:
@@ -141,11 +193,17 @@ class SignBatcher:
             if len(self._pending) >= cap:
                 self._busy_total += 1
                 self._recent.append((now, False))
-                raise SignBusy(len(self._pending), cap)
-            p = _Pending(int(digest), now)
-            self._pending.append(p)
-            self._recent.append((now, True))
-            self._cond.notify_all()
+                self._busy_ctr.add()
+                busy = SignBusy(len(self._pending), cap)
+            else:
+                p = _Pending(int(digest), now)
+                self._pending.append(p)
+                self._recent.append((now, True))
+                self._req_ctr.add()
+                self._cond.notify_all()
+        if busy is not None:
+            self._observe(None, True)  # outside the lock
+            raise busy
         if not p.event.wait(timeout=timeout_s):
             raise TimeoutError("sign batch never flushed")
         if p.error is not None:
@@ -190,6 +248,17 @@ class SignBatcher:
             for p in batch:
                 self._wait_samples.append((t0, max(0.0, (t0 - p.t_submit) * 1000.0)))
             self._occupancy.append(len(batch))
+        for p in batch:
+            w = max(0.0, t0 - p.t_submit)
+            self._wait_h.observe(w)
+            self._observe(w * 1000.0, False)
+        self._lanes_h.observe(len(batch))
+        # one trace root a flush in the "sign" ring: the launch
+        # ledger's device spans need a tree on the flusher thread
+        tr = global_tracer()
+        self._flush_seq += 1
+        root = tr.begin_block(self._flush_seq, ns="sign", lanes=len(batch))
+        tok = tr.attach(root) if root is not None else None
         try:
             sigs = self.sign_many([p.digest for p in batch])
             if len(sigs) != len(batch):
@@ -200,6 +269,11 @@ class SignBatcher:
                 p.error = e
                 p.event.set()
             return
+        finally:
+            if root is not None:
+                tr.detach(tok)
+                tr.finish_block(root)
+        self._backend_h.observe(time.monotonic() - t0)
         with self._cond:
             self._batches_total += 1
             self._signed_total += len(batch)
@@ -208,6 +282,17 @@ class SignBatcher:
             p.event.set()
 
     # -- observability ----------------------------------------------------------------
+
+    def _observe(self, wait_ms, busy: bool) -> None:
+        """One request event to ``observer``, contained: an observer's
+        error never reaches the flusher or a signing thread."""
+        obs = self.observer
+        if obs is None:
+            return
+        try:
+            obs(wait_ms, busy)
+        except Exception as e:
+            _log.debug("sign-lane observer failed: %s", e)
 
     def stats(self) -> dict:
         """Trailing busy rate, wait percentiles, batch occupancy and the

@@ -51,8 +51,13 @@ then go to the card in one ``verify_launch_many``, each block's frame
 staged by one C call.  Pool tasks that copy to the card do so on the
 stream of the thread that called ``preprocess_many``.
 
-``timings`` (None: off) sums each phase's seconds over the blocks under
-the reference's keys (validator.py:460, :541-544): ``host_parse``,
+Every phase timer (``_t``, the reference's :541-546) observes
+``validator_stage_seconds{stage}`` in the metrics registry and adds the
+stage's span under the span the calling thread is attached to (the
+pipeline's ``prefetch``, ``launch`` and ``finish``; nothing off a traced
+path), whether or not ``timings`` is on.  ``timings`` (None: off) sums
+each phase's seconds over the blocks under the reference's keys
+(validator.py:460, :541-544): ``host_parse``,
 ``sig_prepare_launch`` and ``device_pre`` on the prefetch thread (under
 ``preprocess_many`` with a pool: the prefetch thread's wait for each);
 ``state_fill``, ``stage2_dispatch``, ``device_wait`` and ``postprocess``
@@ -187,8 +192,11 @@ from fabric_tpu_torch.ledger.rwset import (
 )
 from fabric_tpu_torch.ledger.statedb import UpdateBatch
 from fabric_tpu_torch.native import blockparse, mvccprep
+from fabric_tpu_torch.observe import global_tracer
+from fabric_tpu_torch.observe import ledger as _ledger
 from fabric_tpu_torch.ops import mvcc as mvcc_ops
 from fabric_tpu_torch.ops import p256, p256v3
+from fabric_tpu_torch.ops_metrics import global_registry
 from fabric_tpu_torch.parallel.hostpool import resolve_host_pool
 from fabric_tpu_torch.peer import frontend
 from fabric_tpu_torch.peer.decoded import DecodedBlock, DecodedEndorsement, DecodedTx
@@ -448,6 +456,10 @@ class _GuardedHandle:
     def n_real(self) -> int:
         return getattr(self._h, "n_real", 0)
 
+    @property
+    def rec(self):
+        return getattr(self._h, "rec", None)
+
     def fetch(self) -> list:
         if self._result is not None:
             return self._result
@@ -515,6 +527,13 @@ class BlockValidator:
         # seconds per phase, summed over blocks (validator.py:460); None: off
         self.timings: dict | None = None
         self._timings_lock = threading.Lock()
+        # the same stages feed the registry and the span tracer always
+        # (validator.py:463-475)
+        self._stage_hist = global_registry().histogram(
+            "validator_stage_seconds",
+            "per-block validator stage time (s), bench-breakdown stages",
+        )
+        self._tracer = global_tracer()
         self.host_stage_workers = int(host_stage_workers)
         self.host_pool = resolve_host_pool(self.host_stage_workers)
         self.device_guard = (DeviceLaneGuard(retries=device_retries,
@@ -530,16 +549,18 @@ class BlockValidator:
             pool.shutdown()
 
     def _t(self, key: str, t0: float) -> float:
-        """Add the seconds since ``t0`` to ``timings[key]`` and return
-        now; with timers off, one attribute test and ``t0`` back.  The
+        """The stage since ``t0``: observed in ``validator_stage_seconds``,
+        added as a span under the thread's current span, and added to
+        ``timings[key]`` when the timers are on; returns now.  The
         prefetch thread (``preprocess``) and the caller's thread
         (launch, finish) add to the dict at once, so each addition
         takes ``_timings_lock``."""
-        if self.timings is None:
-            return t0
         t1 = time.perf_counter()
-        with self._timings_lock:
-            self.timings[key] = self.timings.get(key, 0.0) + (t1 - t0)
+        if self.timings is not None:
+            with self._timings_lock:
+                self.timings[key] = self.timings.get(key, 0.0) + (t1 - t0)
+        self._stage_hist.observe(t1 - t0, stage=key)
+        self._tracer.add(key, t0, t1)  # a no-op off the traced paths
         return t1
 
     def _plan(self, policy) -> pol.BatchPlan:
@@ -955,9 +976,11 @@ class BlockValidator:
         set is there) and the H2D copies: the groups' host frames
         ([(plan, gp array, Eb, S)]) in one buffer, one copy, each group's
         tensor a view of it → ``DevicePre``."""
-        frames = torch.from_numpy(
-            np.concatenate([g[1].reshape(-1) for g in groups]) if groups
-            else np.zeros(0, np.int32)).to(self.device)
+        host_frames = (np.concatenate([g[1].reshape(-1) for g in groups]) if groups
+                       else np.zeros(0, np.int32))
+        # prefetch-thread upload: the ledger's stage2_prefetch h2d lane
+        _ledger.note_h2d("stage2_prefetch", host_frames.nbytes)
+        frames = torch.from_numpy(host_frames).to(self.device)
         off, dev_groups = 0, []
         for plan, gp, Eb, S in groups:
             dev_groups.append((plan, frames[off:off + gp.size].view(gp.shape), Eb, S))

@@ -1,6 +1,5 @@
 """Client side of the validation sidecar (counterpart:
-``fabric_tpu/sidecar/client.py``, without trace stitching and metrics;
-its counters are attributes).
+``fabric_tpu/sidecar/client.py``).
 
 ``SidecarLink`` owns one connection per tenant: a daemon thread runs a
 private asyncio loop with the ``comm.rpc`` client, one ``validate``
@@ -19,17 +18,30 @@ the verdicts arrive at ``fetch()``.
 * ``set_weight`` changes the tenant's weight in place by an in-stream
   re-hello, which the server acknowledges; detached, the new weight
   rides the next hello.
+
+Telemetry (the reference's :94-135, :160-320): ``busy_total`` and
+``attach_total`` are attributes and the registry's
+``sidecar_client_busy_total`` and ``sidecar_client_attach_total``; a
+``submit`` from a thread attached to a traced block ships the block's
+context in the request's ``trace`` field, and ``_stitch`` hangs the
+server's returned subtree under that block's root as a
+``sidecar_request`` span (process ``sidecar``), shifted by the NTP-style
+clock-offset estimate of the send and receive times.
 """
 
 from __future__ import annotations
 
 import asyncio
 import json
+import logging
 import threading
 
 from fabric_tpu_torch.comm.rpc import RpcClient, RpcError
+from fabric_tpu_torch.observe import global_tracer, span_from_dict
 from fabric_tpu_torch.sidecar import wire
 from fabric_tpu_torch.utils.backoff import Backoff
+
+_log = logging.getLogger("fabric_tpu_torch.sidecar.client")
 
 #: seconds granted to connect + hello before a submit gives up
 CONNECT_TIMEOUT_S = 5.0
@@ -76,7 +88,8 @@ class SidecarLink:
     """See module docstring."""
 
     def __init__(self, host: str, port: int, tenant: str, weight: float = 1.0, ssl_ctx=None,
-                 timeout_s: float = 30.0, busy_retries: int = 6, backoff: Backoff | None = None):
+                 timeout_s: float = 30.0, busy_retries: int = 6, backoff: Backoff | None = None,
+                 registry=None):
         self.host, self.port = host, int(port)
         self.tenant = tenant
         self.weight = float(weight)
@@ -94,8 +107,21 @@ class SidecarLink:
         self._hello_ack: asyncio.Future | None = None
         self._seq = 0
         self._closed = False
+        self.tracer = global_tracer()
+        if registry is None:
+            from fabric_tpu_torch.ops_metrics import global_registry
+
+            registry = global_registry()
+        self._busy_ctr = registry.counter(
+            "sidecar_client_busy_total",
+            "BUSY backpressure frames absorbed by client backoff",
+        )
+        self._reattach_ctr = registry.counter(
+            "sidecar_client_attach_total",
+            "sidecar stream (re)attachments by tenant",
+        )
         self._loop = asyncio.new_event_loop()
-        self._thread = threading.Thread(target=self._run_loop, name=f"fabtorch-sidecar-{tenant}",
+        self._thread = threading.Thread(target=self._run_loop, name=f"fabtpu-sidecar-{tenant}",
                                         daemon=True)
         self._thread.start()
 
@@ -119,7 +145,16 @@ class SidecarLink:
         if self._closed or not self._thread.is_alive():
             raise SidecarUnavailable("sidecar link is closed")
         tuples = list(tuples)
-        fut = asyncio.run_coroutine_threadsafe(self._asubmit(tuples), self._loop)
+        # the caller's trace context, read here: the link loop's thread
+        # has no current span of ours
+        cur = self.tracer.current()
+        stitch_root = trace = None
+        if cur is not None:
+            stitch_root = cur.root if cur.root is not None else cur
+            trace = {"block": stitch_root.attrs.get("block"),
+                     "root": id(stitch_root) & 0xFFFFFFFF, "tenant": self.tenant}
+        fut = asyncio.run_coroutine_threadsafe(self._asubmit(tuples, trace, stitch_root),
+                                               self._loop)
         # worst case: every attempt burns its timeout, plus the backoff
         bound = (self.busy_retries + 1) * self.timeout_s + 10.0
         return RemoteVerifyHandle(fut, bound, n_real=len(tuples))
@@ -152,7 +187,8 @@ class SidecarLink:
 
     # -- async internals (link loop only) -------------------------------------
 
-    async def _asubmit(self, tuples: list) -> list:
+    async def _asubmit(self, tuples: list, trace: dict | None = None,
+                       stitch_root=None) -> list:
         bo = self._backoff_proto or Backoff(base=0.02, cap=0.5, jitter=0.5)
         busy = 0
         while True:
@@ -162,8 +198,10 @@ class SidecarLink:
             fut = self._loop.create_future()
             self._pending[seq] = fut
             try:
-                await st.send(wire.encode_request(seq, tuples))
+                t_send = self.tracer.clock()
+                await st.send(wire.encode_request(seq, tuples, trace=trace))
                 hdr, verdicts = await asyncio.wait_for(fut, self.timeout_s)
+                t_recv = self.tracer.clock()
             except (RpcError, ConnectionError, OSError, asyncio.TimeoutError,
                     asyncio.IncompleteReadError) as e:
                 self._pending.pop(seq, None)
@@ -175,6 +213,7 @@ class SidecarLink:
             if status == "BUSY":
                 busy += 1
                 self.busy_total += 1
+                self._busy_ctr.add(1, tenant=self.tenant)
                 if busy > self.busy_retries:
                     raise SidecarUnavailable(f"sidecar still BUSY after {busy} attempts")
                 await asyncio.sleep(bo.next())
@@ -185,7 +224,34 @@ class SidecarLink:
                 # a remote trust boundary: a short (or long) vector is refused
                 raise SidecarUnavailable(f"sidecar answered {len(verdicts)} verdicts for a "
                                          f"{len(tuples)}-signature batch")
+            if stitch_root is not None:
+                self._stitch(stitch_root, hdr.get("remote"), t_send, t_recv)
             return verdicts
+
+    def _stitch(self, root, remote, t_send: float, t_recv: float) -> None:
+        """Hang the sidecar's finished request subtree under the block
+        root, on the local timeline: offset (server clock − local) =
+        ((t_rx − t_send) + (t_tx − t_recv)) / 2, NTP's estimate, good
+        to half the round trip's asymmetry (``clock_offset_ms`` and
+        ``rtt_ms`` on the stitched span).  A malformed payload is
+        dropped with a debug line: it never fails the verify."""
+        if not isinstance(remote, dict) or "spans" not in remote:
+            return
+        try:
+            t_rx = float(remote["t_rx"]) / 1000.0
+            t_tx = float(remote["t_tx"]) / 1000.0
+            offset = ((t_rx - t_send) + (t_tx - t_recv)) / 2.0
+            sp = span_from_dict(remote["spans"], offset_s=offset, proc="sidecar")
+            sp.name = "sidecar_request"
+            # the server's request number must not shadow the block's
+            if "block" in sp.attrs:
+                sp.attrs["req"] = sp.attrs.pop("block")
+            sp.attrs["clock_offset_ms"] = round(offset * 1000.0, 3)
+            sp.attrs["rtt_ms"] = round(max(0.0, (t_recv - t_send) - (t_tx - t_rx)) * 1000.0, 3)
+            sp.root = root
+            root.children.append(sp)  # GIL-atomic; the root may be live
+        except (TypeError, ValueError, KeyError, AttributeError) as e:
+            _log.debug("sidecar trace stitch failed: %s", e)
 
     async def _ensure_attached(self):
         if self._conn_lock is None:
@@ -209,6 +275,7 @@ class SidecarLink:
             self._client, self._stream = cli, st
             self._reader_task = asyncio.ensure_future(self._reader(st))
             self.attach_total += 1
+            self._reattach_ctr.add(1, tenant=self.tenant)
             return st
 
     async def _arehello(self, weight: float) -> bool:

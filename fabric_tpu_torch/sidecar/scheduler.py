@@ -1,6 +1,10 @@
 """Weighted deficit round-robin admission for the validation sidecar
-(counterpart: ``fabric_tpu/sidecar/scheduler.py``, without its registry
-gauges; ``stats()`` keeps their values).
+(counterpart: ``fabric_tpu/sidecar/scheduler.py``).  ``stats()`` holds
+the tenants' numbers; the registry (``registry=``, else the global one)
+gets the reference's ``sidecar_queue_depth``, ``sidecar_tenant_share``,
+``sidecar_tenant_deficit`` gauges, ``sidecar_queue_age_seconds`` and the
+``sidecar_busy_total`` and ``sidecar_shed_total`` counters, each bumped
+outside the scheduler's lock.
 
 Every tenant registers with a ``weight``; each visit of the rotation to
 a backlogged tenant credits its deficit ``weight * quantum`` signatures
@@ -28,12 +32,16 @@ DEFAULT_QUANTUM = 4096
 
 @dataclass
 class Request:
-    """One queued signature batch; the scheduler reads only ``cost``."""
+    """One queued signature batch; the scheduler reads only ``cost``
+    (``root``: the server's trace root; ``trace``: the peer's trace
+    context the request carried)."""
 
     tenant: str
     seq: int
     items: list
     stream: object = None
+    root: object = None
+    trace: dict | None = None
     t_enqueue: float = 0.0
     cost: int = field(default=0)
 
@@ -63,7 +71,7 @@ class WeightedScheduler:
     """Thread-safe; every public method takes the one lock briefly."""
 
     def __init__(self, queue_limit: int = 8, quantum: int = DEFAULT_QUANTUM,
-                 clock=time.perf_counter):
+                 registry=None, clock=time.perf_counter):
         if queue_limit < 1:
             raise ValueError(f"queue_limit must be >= 1, got {queue_limit}")
         if quantum < 1:
@@ -79,6 +87,38 @@ class WeightedScheduler:
         self._shed: set[str] = set()
         # totals of fully disconnected tenants, restored on re-register
         self._retired: dict[str, dict] = {}
+        if registry is None:
+            from fabric_tpu_torch.ops_metrics import global_registry
+
+            registry = global_registry()
+        self._depth_gauge = registry.gauge(
+            "sidecar_queue_depth",
+            "requests waiting in a tenant's sidecar admission queue",
+        )
+        self._share_gauge = registry.gauge(
+            "sidecar_tenant_share",
+            "tenant's fraction of signatures served by the sidecar",
+        )
+        self._age_hist = registry.histogram(
+            "sidecar_queue_age_seconds",
+            "time a request waited in its tenant's admission queue "
+            "before the DRR drain picked it",
+        )
+        self._deficit_gauge = registry.gauge(
+            "sidecar_tenant_deficit",
+            "tenant's current deficit credit (signatures) in the "
+            "weighted-deficit-round-robin rotation",
+        )
+        self._busy_ctr = registry.counter(
+            "sidecar_busy_total",
+            "requests rejected at a full tenant admission queue "
+            "(answered with a typed BUSY frame)",
+        )
+        self._shed_ctr = registry.counter(
+            "sidecar_shed_total",
+            "requests turned away by autopilot shed mode (answered "
+            "with a typed BUSY frame + retry-after)",
+        )
 
     # -- tenant lifecycle --------------------------------------------------
 
@@ -157,12 +197,14 @@ class WeightedScheduler:
                                    "shed_count": t.shed_count, "_ages": list(t.ages)}
             orphans = list(t.queue)
             t.queue.clear()
+        self._depth_gauge.set(0, tenant=name)
         return orphans
 
     # -- admission ---------------------------------------------------------
 
     def submit(self, req: Request) -> bool:
         """Admit one request; False = queue full or tenant shed."""
+        shed = False
         with self._lock:
             t = self._tenants.get(req.tenant)
             if t is None:
@@ -170,15 +212,24 @@ class WeightedScheduler:
             if req.tenant in self._shed:
                 t.rejected += 1
                 t.shed_count += 1
-                return False
-            if len(t.queue) >= self.queue_limit:
+                shed = True
+                depth = None
+            elif len(t.queue) >= self.queue_limit:
                 t.rejected += 1
-                return False
-            if not req.t_enqueue:
-                req.t_enqueue = self.clock()
-            t.queue.append(req)
-            t.enqueued += 1
-            return True
+                depth = None
+            else:
+                if not req.t_enqueue:
+                    req.t_enqueue = self.clock()
+                t.queue.append(req)
+                t.enqueued += 1
+                depth = len(t.queue)
+        if depth is None:
+            self._busy_ctr.add(1, tenant=req.tenant)
+            if shed:
+                self._shed_ctr.add(1, tenant=req.tenant)
+            return False
+        self._depth_gauge.set(depth, tenant=req.tenant)
+        return True
 
     # -- the DRR drain -----------------------------------------------------
 
@@ -188,6 +239,7 @@ class WeightedScheduler:
         that fills while a tenant still holds credit parks the rotation
         there, so the next call resumes without re-crediting."""
         out: list = []
+        touched: set = set()
         now = self.clock()
         with self._lock:
             while len(out) < max_requests:
@@ -216,6 +268,7 @@ class WeightedScheduler:
                     if req.t_enqueue:
                         t.ages.append(max(0.0, now - req.t_enqueue))
                     out.append(req)
+                    touched.add(t.name)
                 if not t.queue:
                     t.deficit = 0.0  # an emptied tenant banks no credit
                     self._rr = (self._rr + 1) % n
@@ -223,6 +276,18 @@ class WeightedScheduler:
                     self._rr = (self._rr + 1) % n
                 else:
                     self._carry = t.name
+            total = sum(t.served_cost for t in self._tenants.values())
+            gauges = {name: (len(self._tenants[name].queue),
+                             self._tenants[name].served_cost / total if total else 0.0,
+                             self._tenants[name].deficit)
+                      for name in touched}
+        for name, (depth, share, deficit) in gauges.items():
+            self._depth_gauge.set(depth, tenant=name)
+            self._share_gauge.set(round(share, 4), tenant=name)
+            self._deficit_gauge.set(round(deficit, 1), tenant=name)
+        for req in out:
+            if req.t_enqueue:
+                self._age_hist.observe(max(0.0, now - req.t_enqueue), tenant=req.tenant)
         return out
 
     # -- introspection -----------------------------------------------------

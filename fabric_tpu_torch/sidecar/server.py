@@ -18,14 +18,22 @@ request of the group with a typed ERROR frame; the streams survive.
 ``set_coalesce`` is applied at the next drain boundary, never between a
 group's pop and its dispatch.
 
-``stats()`` holds what the reference puts in its metrics registry:
-requests by tenant and status, the per-stage latency samples
-(queue_wait, dispatch, total), coalesce occupancy in requests and in
-signatures, and the dispatch count.  The fault points: ``sidecar.request``
-by ``afire`` at each frame's admission, ``sidecar.dispatch`` in the
-coalesced dispatch.  Left out: mesh and topology resolution,
-``verify_chunk``, device recoding, the autopilot, tracer spans and
-``remote`` trace payloads.
+``stats()`` holds requests by tenant and status, the per-stage latency
+samples (queue_wait, dispatch, total), coalesce occupancy in requests
+and in signatures, and the dispatch count; the registry (``registry=``,
+else the global one) gets the reference's ``sidecar_request_seconds
+{tenant,stage}``, ``sidecar_requests_total{tenant,status}``,
+``sidecar_tenants`` and ``sidecar_coalesce_occupancy{unit}``.  Each
+request is a trace root in the global tracer's ``"sidecar"`` namespace
+with ``queue_wait`` and ``dispatch``
+children; the coalesced dispatch runs under its leader's root, so the
+launch ledger's device spans land there.  A request that carries the
+peer's ``trace`` context is answered with its finished subtree in the
+``remote`` field (``_remote``), which the client stitches onto its
+block.  The fault points: ``sidecar.request`` by ``afire`` at each
+frame's admission, ``sidecar.dispatch`` in the coalesced dispatch.
+Left out: mesh and topology resolution, ``verify_chunk``, device
+recoding and the autopilot.
 
 ``verify_fn(itemsets) -> list[list[bool]]`` replaces the card dispatch
 (tests); ``kernel`` and ``device`` select the facade's kernel and card.
@@ -37,13 +45,13 @@ import asyncio
 import json
 import logging
 import threading
-import time
 from collections import Counter, deque
 from concurrent.futures import ThreadPoolExecutor
 
 from fabric_tpu_torch import faults
 from fabric_tpu_torch.comm.rpc import RpcServer
 from fabric_tpu_torch.device import resolve_device
+from fabric_tpu_torch.observe import global_tracer
 from fabric_tpu_torch.ops import p256
 from fabric_tpu_torch.sidecar import wire
 from fabric_tpu_torch.sidecar.scheduler import Request, WeightedScheduler
@@ -63,16 +71,41 @@ class SidecarServer:
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0, *, queue_blocks: int = 8,
                  coalesce: int = 4, quantum: int | None = None, ssl_ctx=None, verify_fn=None,
-                 kernel: str | None = None, device="cuda"):
+                 kernel: str | None = None, device="cuda", registry=None):
         self.host, self.port = host, port
         self.coalesce = max(1, int(coalesce))
         self.kernel = kernel
         self.device = resolve_device(device)
         self._verify_fn = verify_fn
         self._rpc = RpcServer(host, port, ssl_ctx=ssl_ctx)
+        self.tracer = tracer = global_tracer()
         kw = {} if quantum is None else {"quantum": int(quantum)}
-        self.scheduler = WeightedScheduler(queue_limit=queue_blocks, **kw)
-        self._device = ThreadPoolExecutor(1, thread_name_prefix="fabtorch-sidecar-dev")
+        self.scheduler = WeightedScheduler(queue_limit=queue_blocks, registry=registry,
+                                           clock=tracer.clock, **kw)
+        if registry is None:
+            from fabric_tpu_torch.ops_metrics import global_registry
+
+            registry = global_registry()
+        self._req_hist = registry.histogram(
+            "sidecar_request_seconds",
+            "per-request sidecar time (s) by tenant and stage",
+        )
+        self._req_ctr = registry.counter(
+            "sidecar_requests_total",
+            "sidecar validate requests by tenant and outcome",
+        )
+        self._tenants_gauge = registry.gauge(
+            "sidecar_tenants", "tenant connections currently attached"
+        )
+        self._coalesce_hist = registry.histogram(
+            "sidecar_coalesce_occupancy",
+            "cross-tenant batches merged per device dispatch "
+            "(unit=requests) and their total cost (unit=signatures)",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 256, 1024, 4096,
+                     float("inf")),
+        )
+        self._req_counter = 0  # the request roots' numbers
+        self._device = ThreadPoolExecutor(1, thread_name_prefix="fabtpu-sidecar-dev")
         self._work: asyncio.Event | None = None
         self._dispatcher: asyncio.Task | None = None
         self._conns = 0
@@ -144,7 +177,7 @@ class SidecarServer:
             finally:
                 loop.close()
 
-        self._thread = threading.Thread(target=run, name="fabtorch-sidecar", daemon=True)
+        self._thread = threading.Thread(target=run, name="fabtpu-sidecar", daemon=True)
         self._thread.start()
         ready.wait()
         if failed:
@@ -189,6 +222,11 @@ class SidecarServer:
     def _count(self, tenant: str, status: str) -> None:
         with self._stats_lock:
             self._requests[(tenant, status)] += 1
+        self._req_ctr.add(1, tenant=tenant, status=status)
+
+    def _next_req_id(self) -> int:
+        self._req_counter += 1
+        return self._req_counter
 
     # -- the validate stream ---------------------------------------------------
 
@@ -206,6 +244,7 @@ class SidecarServer:
             await stream.error(f"bad hello: {e}")
             return
         self._conns += 1
+        self._tenants_gauge.set(self._conns)
         try:
             await stream.send(wire.encode_welcome(tenant, self.coalesce))
             async for payload in stream:
@@ -226,19 +265,32 @@ class SidecarServer:
                     await stream.error(f"bad request: {e}")
                     return
                 seq = int(hdr["seq"])
-                req = Request(tenant=tenant, seq=seq, items=items, stream=stream,
-                              t_enqueue=time.perf_counter())
+                trace = hdr.get("trace")
+                if not isinstance(trace, dict):
+                    trace = None
+                extra = ({} if trace is None else
+                         {"peer_block": trace.get("block"), "peer_root": trace.get("root")})
+                # the "sidecar" ring: request trees neither evict nor
+                # collide with a colocated peer's block trees
+                root = self.tracer.begin_block(self._next_req_id(), ns="sidecar",
+                                               channel=f"sidecar:{tenant}", seq=seq, **extra)
+                req = Request(tenant=tenant, seq=seq, items=items, stream=stream, root=root,
+                              trace=trace, t_enqueue=self.tracer.clock())
                 if not self.scheduler.submit(req):
                     shed = self.scheduler.is_shed(tenant)
                     self._count(tenant, "shed" if shed else "busy")
+                    self.tracer.set_attrs(root, busy=True, **({"shed": True} if shed else {}))
+                    self.tracer.finish_block(root)
                     await stream.send(wire.encode_busy(seq, SHED_RETRY_MS if shed
                                                        else BUSY_RETRY_MS))
                     continue
                 self._work.set()
         finally:
             self._conns -= 1
+            self._tenants_gauge.set(self._conns)
             for req in self.scheduler.unregister(tenant):
                 self._count(req.tenant, "dropped")  # their reply stream is gone
+                self.tracer.finish_block(req.root)
 
     def _re_hello(self, tenant: str, payload: bytes) -> str | None:
         """An in-stream weight update → an error text, or None.  The
@@ -273,14 +325,17 @@ class SidecarServer:
                     self._occupancy["requests"].append(len(batch))
                     self._occupancy["signatures"].append(sum(r.cost for r in batch))
                     self._dispatches += 1
-                t0 = time.perf_counter()
+                self._coalesce_hist.observe(len(batch), unit="requests")
+                self._coalesce_hist.observe(sum(r.cost for r in batch), unit="signatures")
+                t0 = self.tracer.clock()
                 try:
                     verdicts = await loop.run_in_executor(
-                        self._device, self._verify_batch, [r.items for r in batch])
+                        self._device, self._dispatch_traced, [r.items for r in batch],
+                        batch[0].root)
                     if len(verdicts) != len(batch):
                         raise ValueError(f"verify returned {len(verdicts)} verdict vectors "
                                          f"for {len(batch)} requests")
-                    await self._answer(batch, verdicts, t0, time.perf_counter())
+                    await self._answer(batch, verdicts, t0, self.tracer.clock())
                 except asyncio.CancelledError:
                     raise
                 except Exception as e:
@@ -294,6 +349,18 @@ class SidecarServer:
                         _log.warning("sidecar error answers failed too: %s", e2)
                         for req in batch:
                             self._count(req.tenant, "dropped")
+                            self.tracer.finish_block(req.root)
+
+    def _dispatch_traced(self, itemsets: list, root) -> list:
+        """Executor-thread shim: the group's leader request tree is the
+        thread's current span for the verify, so the launch ledger's
+        device spans attach to it."""
+        tok = self.tracer.attach(root) if root is not None else None
+        try:
+            return self._verify_batch(itemsets)
+        finally:
+            if root is not None:
+                self.tracer.detach(tok)
 
     def _verify_batch(self, itemsets: list) -> list:
         faults.fire("sidecar.dispatch", n=len(itemsets))
@@ -304,6 +371,12 @@ class SidecarServer:
 
     async def _answer(self, batch: list, verdicts: list, t0: float, t1: float) -> None:
         for req, ok in zip(batch, verdicts):
+            self._req_hist.observe(t0 - req.t_enqueue, tenant=req.tenant, stage="queue_wait")
+            self._req_hist.observe(t1 - t0, tenant=req.tenant, stage="dispatch")
+            self._req_hist.observe(t1 - req.t_enqueue, tenant=req.tenant, stage="total")
+            self.tracer.add("queue_wait", req.t_enqueue, t0, parent=req.root)
+            self.tracer.add("dispatch", t0, t1, parent=req.root, coalesced=len(batch),
+                            n_sigs=req.cost)
             with self._stats_lock:
                 st = self._latency.setdefault(
                     req.tenant, {s: deque(maxlen=SAMPLES) for s in ("queue_wait", "dispatch",
@@ -314,16 +387,33 @@ class SidecarServer:
                 # counted before the send, so a tenant holding its answer
                 # finds it counted; moved to "dropped" if the send fails
                 self._requests[(req.tenant, "ok")] += 1
-            if not await self._send(req, wire.encode_response(req.seq, ok)):
+            sent = await self._send(req, wire.encode_response(req.seq, ok,
+                                                              remote=self._remote(req)))
+            if not sent:
                 with self._stats_lock:
                     self._requests[(req.tenant, "ok")] -= 1
                     self._requests[(req.tenant, "dropped")] += 1
+            self._req_ctr.add(1, tenant=req.tenant, status="ok" if sent else "dropped")
+            self.tracer.finish_block(req.root)
+
+    def _remote(self, req: Request) -> dict | None:
+        """The finished request subtree and the receive and send times
+        the client stitches it with; only for a request that carried a
+        trace context, with tracing on here."""
+        if req.trace is None or req.root is None:
+            return None
+        self.tracer.end(req.root)  # the shipped tree has its whole window
+        return {"spans": req.root.to_dict(0.0),
+                "t_rx": round(req.t_enqueue * 1000.0, 3),
+                "t_tx": round(self.tracer.clock() * 1000.0, 3)}
 
     async def _answer_error(self, batch: list, err: Exception) -> None:
         msg = f"{type(err).__name__}: {err}"
         for req in batch:
             self._count(req.tenant, "error")
             await self._send(req, wire.encode_error(req.seq, msg))
+            self.tracer.set_attrs(req.root, error=msg[:120])
+            self.tracer.finish_block(req.root)
 
     @staticmethod
     async def _send(req: Request, payload: bytes) -> bool:

@@ -7,13 +7,20 @@ Frames ride ``comm.rpc`` MSG payloads:
 
     hello    := JSON {"tenant": str, "weight": float}
     welcome  := JSON {"ok": true, "tenant": str, "coalesce": int}
-    request  := u32 hdr_len | JSON {"seq": int, "n": int} | items
+    request  := u32 hdr_len | JSON {"seq": int, "n": int
+                [, "trace": {"block", "root", "tenant"}]} | items
     response := u32 hdr_len | JSON {"seq": int [, "status", "error",
-                "retry_ms"]} | verdict bytes (one 0/1 byte per item)
+                "retry_ms"] [, "remote": {"spans", "t_rx", "t_tx"}]}
+                | verdict bytes (one 0/1 byte per item)
 
 Every frame the port encodes is byte for byte the reference's.  The
-reference's optional ``trace`` request field and ``remote`` response
-field (cross-process trace stitching) are accepted and ignored.
+optional ``trace`` request field carries the peer's trace context (its
+block number, root span and tenant), under which the sidecar roots its
+``queue_wait`` and ``dispatch`` spans; the optional ``remote`` response
+field ships that finished subtree back (``spans``: ``Span.to_dict(0.0)``,
+absolute times on the sidecar's clock; ``t_rx``/``t_tx``: the request's
+receipt and the response's send on that clock), from which the client
+estimates the clock offset and stitches the subtree onto its block.
 
 ``items`` packs each tuple as five 32-byte big-endian integers; a
 component that does not fit becomes the all-zero item, which every
@@ -76,8 +83,11 @@ def encode_welcome(tenant: str, coalesce: int) -> bytes:
     return json.dumps({"ok": True, "tenant": tenant, "coalesce": coalesce}).encode()
 
 
-def encode_request(seq: int, tuples) -> bytes:
-    return _frame({"seq": int(seq), "n": len(tuples)}, pack_items(tuples))
+def encode_request(seq: int, tuples, trace: dict | None = None) -> bytes:
+    hdr = {"seq": int(seq), "n": len(tuples)}
+    if trace:
+        hdr["trace"] = trace
+    return _frame(hdr, pack_items(tuples))
 
 
 def decode_request(payload: bytes) -> tuple[dict, list]:
@@ -89,8 +99,11 @@ def decode_request(payload: bytes) -> tuple[dict, list]:
     return hdr, items
 
 
-def encode_response(seq: int, verdicts) -> bytes:
-    return _frame({"seq": int(seq)}, bytes(1 if v else 0 for v in verdicts))
+def encode_response(seq: int, verdicts, remote: dict | None = None) -> bytes:
+    hdr = {"seq": int(seq)}
+    if remote:
+        hdr["remote"] = remote
+    return _frame(hdr, bytes(1 if v else 0 for v in verdicts))
 
 
 def encode_busy(seq: int, retry_ms: float) -> bytes:

@@ -57,10 +57,17 @@ reads every key on the host: the verdicts do not change, only where the
 versions come from.  A failing table read
 (``resident_verok``) raises, as the reference's manager does.
 
+Telemetry (the reference's :287-321, :406, :436, :817): the
+``state_resident_*`` counters and gauges and ``h2d_state_bytes_per_block``
+go to the global metrics registry beside ``stats()`` (channel label
+"": the port's validator names no channel); the table's bytes are the
+launch ledger's ``resident_table`` owner (``observe/ledger.py``), each
+scatter a ``resident_scatter`` record (enqueue-only: nothing waits for
+it), and a block's state upload the ledger's ``state`` h2d lane.
+
 Left out of the port: mesh sharding and ``reshard`` (a later multi-GPU
-slice) and the metrics registry (counters stay in ``stats()``).  Two
-routings are semantics, not failure, and are counted in ``stats()``: a
-working set larger than the table takes the host path
+slice).  Two routings are semantics, not failure, and are counted in
+``stats()``: a working set larger than the table takes the host path
 (``host_path_oversize_total``), and so does a block with range queries
 (``host_path_range_total``, counted by the validator).
 """
@@ -78,6 +85,8 @@ import torch
 
 from fabric_tpu_torch import kernels
 from fabric_tpu_torch.device import resolve_device
+from fabric_tpu_torch.observe import ledger as _ledger
+from fabric_tpu_torch.ops_metrics import global_registry
 
 #: bytes per table slot: (present, ver_block, ver_txnum) int32
 SLOT_BYTES = 12
@@ -131,12 +140,22 @@ def table_scatter(table: torch.Tensor, idx: np.ndarray, rows: np.ndarray) -> Non
     bad = (idx < 0) | (idx >= cap)
     if bad.any():
         raise IndexError(f"table_scatter: index {int(idx[bad][0])} outside [0, {cap})")
+    # enqueue-only ledger record: compile and h2d, no execute (nothing
+    # waits for a scatter); on the CPU a miss is the reference's first
+    # sight of the row bucket (its update program per bucket)
+    cuda = table.device.type == "cuda"
+    rec = _ledger.launch("resident_scatter", lanes=len(idx),
+                         key=max(_MIN_PACK, 1 << (len(idx) - 1).bit_length()),
+                         compiled=kernels.first_launch("table_scatter") if cuda else None,
+                         h2d_bytes=idx.nbytes + rows.nbytes)
     it = torch.from_numpy(idx).to(table.device)
     rt = torch.from_numpy(rows).to(table.device)
-    if table.device.type == "cpu":
-        table_scatter_ref(table, it, rt)
-    else:
+    if cuda:
         kernels.table_scatter(table, it, rt)
+    else:
+        table_scatter_ref(table, it, rt)
+    if rec is not None:
+        rec.complete()
 
 
 def build_launch_pack(res: "ResidencyManager", pairs: list, state, overlay=None,
@@ -198,9 +217,9 @@ def build_launch_pack(res: "ResidencyManager", pairs: list, state, overlay=None,
         u_pack[:U, 1:4] = host_pack
     if read is not None and not res.read(read, u_pack):
         return None
-    if miss_rows:
-        res.admit(miss_pairs, up, uv)
+    nbytes = res.admit(miss_pairs, up, uv) if miss_rows else 0
     res.note_upload(u_pack.nbytes)
+    res.observe_block(nbytes + u_pack.nbytes)
     return u_pack
 
 
@@ -240,6 +259,46 @@ class ResidencyManager:
         self._write_admits_total = 0
         self._h2d_bytes_total = 0
         self._host_path = {"oversize": 0, "range": 0, "hashed": 0}
+        self.channel = ""  # the instruments' channel label
+        registry = global_registry()
+        self._hits_ctr = registry.counter(
+            "state_resident_hits_total",
+            "unique read keys served from the device-resident table",
+        )
+        self._miss_ctr = registry.counter(
+            "state_resident_misses_total",
+            "unique read keys that fell back to the host state gather",
+        )
+        self._forced_ctr = registry.counter(
+            "state_resident_overlay_forced_total",
+            "unique read keys routed onto overlay-valued host lanes "
+            "(neither a resident hit nor a state-gather miss)",
+        )
+        self._evict_ctr = registry.counter(
+            "state_resident_evictions_total",
+            "key ranges evicted from the device-resident table (LRU)",
+        )
+        self._write_admit_ctr = registry.counter(
+            "state_resident_write_admits_total",
+            "brand-new key ranges the commit write path admitted into "
+            "the resident table (budgeted per block, free slots only)",
+        )
+        self._hit_gauge = registry.gauge(
+            "state_resident_hit_rate",
+            "trailing resident hit rate over unique read keys",
+        )
+        self._enabled_gauge = registry.gauge(
+            "state_resident_enabled",
+            "1 while the device-resident state cache is serving lookups",
+        )
+        self._h2d_hist = registry.histogram(
+            "h2d_state_bytes_per_block",
+            "state bytes uploaded per block on the resident path "
+            "(miss fill + launch slot frame + write-set delta)",
+            buckets=(256, 1024, 4096, 16384, 65536, 262144, 1048576,
+                     float("inf")),
+        )
+        self._enabled_gauge.set(1, channel=self.channel)
 
     @property
     def enabled(self) -> bool:
@@ -253,6 +312,7 @@ class ResidencyManager:
         self._dir.clear()
         self._ranges.clear()
         self._free = list(range(self.capacity - 1, -1, -1))
+        self._enabled_gauge.set(0, channel=self.channel)
         if was:
             _log.warning("device-resident state cache DISABLED (%s); blocks read their "
                          "versions on the host", reason or "unspecified")
@@ -276,6 +336,8 @@ class ResidencyManager:
             with self._on_stream():
                 self._table = torch.zeros((self.capacity, 3), dtype=torch.int32,
                                           device=self.device)
+            # the ledger's resident_table owner: capacity * 12 bytes
+            _ledger.account_hbm("resident_table", self.capacity * SLOT_BYTES)
         return self._table
 
     def _scatter(self, idx: list, rows: list) -> None:
@@ -368,6 +430,16 @@ class ResidencyManager:
             self._overlay_forced_total += forced
             if hits or misses:
                 self._recent.append((hits, hits + misses))
+            wh = sum(h for h, _t in self._recent)
+            wt = sum(t for _h, t in self._recent)
+        if hits:
+            self._hits_ctr.add(hits, channel=self.channel)
+        if misses:
+            self._miss_ctr.add(misses, channel=self.channel)
+        if forced:
+            self._forced_ctr.add(forced, channel=self.channel)
+        if wt:
+            self._hit_gauge.set(round(wh / wt, 4), channel=self.channel)
         return slots
 
     def route_host(self, reason: str) -> None:
@@ -465,6 +537,7 @@ class ResidencyManager:
                 if e is not None:
                     self._free.append(e[0])
             self._evictions_total += 1
+            self._evict_ctr.add(1, channel=self.channel)
             return True
         return False
 
@@ -511,6 +584,8 @@ class ResidencyManager:
             nbytes = len(idx) * SLOT_BYTES
             self._h2d_bytes_total += nbytes
             self._write_admits_total += len(new_rids)
+        if new_rids:
+            self._write_admit_ctr.add(len(new_rids), channel=self.channel)
         return nbytes
 
     def invalidate_keys(self, pairs) -> None:
@@ -537,6 +612,13 @@ class ResidencyManager:
         """Count a block's u_pack bytes toward the h2d total."""
         with self._lock:
             self._h2d_bytes_total += int(nbytes)
+
+    def observe_block(self, nbytes: int) -> None:
+        """One block's state upload (admissions and u_pack) → the
+        ``h2d_state_bytes_per_block`` histogram and the launch ledger's
+        ``state`` h2d lane."""
+        self._h2d_hist.observe(int(nbytes), channel=self.channel)
+        _ledger.note_h2d("state", nbytes)
 
     def stats(self) -> dict:
         """The reference's keys (one shard, never resharded) plus the

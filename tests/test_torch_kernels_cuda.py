@@ -664,3 +664,41 @@ def test_guarded_launch_matches_unguarded_and_launches_the_kernel(cuda):
     finally:
         faults.reset()
         v3.verify_batch_ref = real_ref
+
+
+def test_launch_ledger_rows_on_the_card(cuda):
+    """One ``p256_verify`` launch and one fused stage 2 under an armed
+    launch ledger: the verify row completes enqueue-only (the fused path
+    never fetches it), the stage-2 row meets the reference's identity
+    (|wall - (compile + queue + execute + h2d)| <= 0.05 wall + dispatch
+    + 0.01 ms), and a row is a cache miss exactly when its launch was
+    the kernel's first in the process.  A launch given an operand on the
+    wrong device raises through the armed hook."""
+    from fabric_tpu_torch import kernels, ops_metrics
+    from fabric_tpu_torch.observe import ledger, tracer
+
+    led = ledger.configure(registry=ops_metrics.Registry(),
+                           tracer=tracer.Tracer(ring_blocks=4))
+    try:
+        first_verify = kernels.first_launch("p256_verify")
+        h = v3.verify_launch(_items(512), device=cuda)
+        sv, lv, groups, sp, dims = _stage2_operands(cuda)
+        assert h.device_out.shape == sv.shape
+        pipe = db.DeviceBlockPipeline()
+        out = pipe.run(h, lv, groups, sp, dims, lv.shape[0])()
+        want = db.stage2_ref(h.device_out, lv, groups, sp, dims).cpu().numpy().astype(bool)
+        assert np.array_equal(out["valid"], want[:lv.shape[0]])
+        (vrow,) = led.rows(kernel="verify")
+        (srow,) = led.rows(kernel="stage2")
+        assert vrow["wall_ms"] is None and vrow["queue_ms"] is None
+        assert vrow["cache"] == ("miss" if first_verify else "hit")
+        assert srow["cache"] == "miss"  # a new pipeline's policy table is built
+        parts = srow["compile_ms"] + srow["queue_ms"] + srow["execute_ms"] + srow["h2d_ms"]
+        assert abs(srow["wall_ms"] - parts) <= (0.05 * srow["wall_ms"] + srow["dispatch_ms"]
+                                                + 0.01), srow
+        assert srow["d2h_bytes"] > 0 and srow["h2d_bytes"] == lv.nbytes
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            pipe.run(h, lv.cpu(), groups, sp, dims, lv.shape[0])
+        assert len(led.rows(kernel="stage2")) == 1
+    finally:
+        ledger.configure(enabled=False)
