@@ -115,7 +115,14 @@ ledger's blocks through a guarded
 ``BlockValidator`` under a seeded fault plan and the containment loop,
 equal to a fault-free run, its pipe's spans by lane under a private
 tracer; the resident cache's disable latch; a sidecar stopped and
-restarted under the sidecar latch); their functions
+restarted under the sidecar latch), and BASELINE config 1's network
+(``network_path``: an ``OrdererNode`` with Raft and a ``PeerNode``
+whose endorser signs on the card's sign lane, over localhost; 8 gateway
+clients send 512 transactions, a 500-transaction block cut by count
+with 25 MVCC conflicts and a 12-transaction block cut by the timeout;
+filters against the port's serial host validation, every key read back
+through Query, commit status, every endorsement verified, the
+endorse latency while blocks commit); their functions
 say what each checks.  Each path's launch counts are reset just
 before it and read just after; a kernel's entry in the kernels line
 gives its time at the shape its path launched it with most often.  Then the kernels line (JSON),
@@ -3892,6 +3899,431 @@ def phase_chaos_path(dev, built=None, check_launches=True):
         equal=True)
 
 
+# ---------------------------------------------------------------------------
+# BASELINE config 1: the network from a client's proposal to the commit
+
+
+NETWORK_CHANNEL = "basicchan"
+NETWORK_CC = "basic"
+NETWORK_TXS = 512        # the first block cut by count at 500, the rest by the timeout
+NETWORK_CLIENTS = 8
+NETWORK_CONFLICTS = 25   # keys each read and written by two txs of the first block
+NETWORK_POLICY = "OutOf(1, 'Org1MSP.member')"
+NETWORK_HOST_CHECKS = 32  # proposals whose host check is timed alone
+NETWORK_KERNELS = ("p256_sign", "p256_verify", "stage2_policy", "stage2_mvcc")
+
+
+def network_txs(n_tx: int, first: int, conflicts: int):
+    """The chaincode calls → (the first block's, the second's).  The
+    first block: ``conflicts`` pairs that read and write one key each
+    (``transfer c_i → d_i`` and ``c_i → e_i`` of 0: one of each pair
+    ends MVCC_READ_CONFLICT), then puts of ``acct_j``; the second:
+    transfers between the accounts the first block wrote."""
+    a = []
+    for i in range(conflicts):
+        a += [[b"transfer", b"c%d" % i, b"d%d" % i, b"0"],
+              [b"transfer", b"c%d" % i, b"e%d" % i, b"0"]]
+    a += [[b"put", b"acct%d" % j, b"%d" % (100 + j)] for j in range(first - 2 * conflicts)]
+    b = [[b"transfer", b"acct%d" % (2 * j), b"acct%d" % (2 * j + 1), b"5"]
+         for j in range(n_tx - first)]
+    return a, b
+
+
+def network_expected(blocks, calls) -> tuple[list, dict]:
+    """The orderer's blocks and the call of each tx id → (the codes a
+    block by construction, {key: (value, version)}): in a conflict
+    pair the first in block order wins."""
+    from fabric_tpu_torch import protoutil
+    from fabric_tpu_torch.peer.txcodes import TxValidationCode as C
+
+    codes, state, read = [], {}, set()
+    for blk in blocks:
+        out = []
+        for i, env in enumerate(blk.data.data):
+            args = calls[protoutil.channel_header(env).tx_id]
+            ver = (blk.header.number, i)
+            if args[0] == b"put":
+                state[args[1].decode()] = (args[2], ver)
+                out.append(C.VALID)
+                continue
+            frm, to, amt = args[1].decode(), args[2].decode(), int(args[3])
+            if amt == 0 and frm in read:
+                out.append(C.MVCC_READ_CONFLICT)
+                continue
+            read.add(frm)
+            a = int(state.get(frm, (b"0",))[0]) - amt
+            b = int(state.get(to, (b"0",))[0]) + amt
+            state[frm], state[to] = (b"%d" % a, ver), (b"%d" % b, ver)
+            out.append(C.VALID)
+        codes.append(bytes(out))
+    return codes, state
+
+
+@contextlib.contextmanager
+def first_launches(name, key):
+    """Inside, the first launch of kernel ``name`` at each ``key(*args)``
+    is kept (its operands and output, cloned) in the dict this yields."""
+    from fabric_tpu_torch import kernels
+
+    seen, fn, lock = {}, getattr(kernels, name), threading.Lock()
+
+    def wrapped(*a):
+        out = fn(*a)
+        k = key(*a)
+        with lock:
+            if k not in seen:
+                seen[k] = ([x.clone() if torch.is_tensor(x) else x for x in a], out.clone())
+        return out
+
+    setattr(kernels, name, wrapped)
+    try:
+        yield seen
+    finally:
+        setattr(kernels, name, fn)
+
+
+def _lat(vals) -> dict:
+    from fabric_tpu_torch.utils.stats import nearest_rank
+
+    vals = sorted(vals)
+    return {"n": len(vals), "p50": nearest_rank(vals, 50) if vals else None,
+            "p99": nearest_rank(vals, 99) if vals else None}
+
+
+async def _network_run(dev, org, n_tx, first, conflicts, clients, batch, root):
+    """One orderer and one peer over localhost, driven by ``clients``
+    gateway clients → what the checks read."""
+    import asyncio
+
+    from fabric_tpu_torch import kernels, observe
+    from fabric_tpu_torch.comm.rpc import RpcClient
+    from fabric_tpu_torch.crypto import policy as pol
+    from fabric_tpu_torch.crypto.msp import MSPManager
+    from fabric_tpu_torch.ordering import OrdererNode
+    from fabric_tpu_torch.peer import signlane
+    from fabric_tpu_torch.peer.chaincode import ChaincodeRuntime, KVContract
+    from fabric_tpu_torch.peer.gateway import GatewayClient
+    from fabric_tpu_torch.peer.node import PeerNode
+    from fabric_tpu_torch.peer.validator import NamespaceInfo, PolicyProvider
+
+    ch_id, cc = NETWORK_CHANNEL, NETWORK_CC
+    peer_signer = org.nodes["peer0.org1.basic.example.com"]
+    user = org.users["User1@org1.basic.example.com"]
+    mgr = MSPManager({"Org1MSP": org.msp()})
+    orderer = OrdererNode("orderer0", f"{root}/orderer", {}, batch_config=batch)
+    await orderer.start()
+    orderer.cluster["orderer0"] = ("127.0.0.1", orderer.port)
+    chain = orderer.join_channel(ch_id)
+    rt = ChaincodeRuntime()
+    rt.register(cc, KVContract())
+    peer = PeerNode("peer0", f"{root}/peer", mgr, peer_signer, rt, device=dev,
+                    sign_device=True, pipeline_depth=2)
+    await peer.start()
+    ch = peer.join_channel(ch_id, PolicyProvider(
+        {cc: NamespaceInfo(policy=pol.from_dsl(NETWORK_POLICY))}))
+    # when the orderer cut each block, and when the peer committed it
+    cut_at, committed_at = {}, {}
+    add_block, signal = chain.blocks.add_block, ch._signal_height
+
+    def timed_add(blk, *a, **kw):
+        cut_at[blk.header.number] = time.perf_counter()
+        return add_block(blk, *a, **kw)
+
+    def timed_signal():
+        committed_at[ch.height - 1] = time.perf_counter()
+        signal()
+
+    chain.blocks.add_block, ch._signal_height = timed_add, timed_signal
+    ch.start_deliver([orderer.cluster["orderer0"]])
+    # the clients sign on the card too, through a lane of their own
+    client_lane = signlane.SignBatcher(signlane.device_sign_backend(user.d, device=dev)).start()
+    signer = signlane.BatchedSigner(user, client_lane)
+    gcs = [GatewayClient("127.0.0.1", peer.port, signer) for _ in range(clients)]
+    out = {"calls": {}, "status": {}, "endorse_ms": [], "submit_status_ms": [],
+           "probes": [], "cut_at": cut_at, "committed_at": committed_at}
+    try:
+        loop = asyncio.get_event_loop()
+        deadline = loop.time() + 30
+        while chain.raft.state != "leader":
+            if loop.time() > deadline:
+                raise AssertionError("network_path: the orderer elected no leader")
+            await asyncio.sleep(0.02)
+
+        async def endorse_all(calls):
+            envs = []
+
+            async def client(ci):
+                for args in calls[ci::clients]:
+                    t0 = time.perf_counter()
+                    tx_id, env = await gcs[ci].endorse(ch_id, cc, args)
+                    out["endorse_ms"].append(1e3 * (time.perf_counter() - t0))
+                    out["calls"][tx_id] = args
+                    envs.append((ci, tx_id, env))
+
+            await asyncio.gather(*(client(ci) for ci in range(clients)))
+            return envs
+
+        async def submit_all(envs):
+            """Every envelope submitted, then the commit statuses
+            awaited (asked once the submissions are in, so that they
+            take no event-loop time from them; the latency runs from
+            each submit)."""
+            sent = []
+
+            async def status(ci, tx_id, t0):
+                out["status"][tx_id] = await gcs[ci].commit_status(ch_id, tx_id)
+                out["submit_status_ms"].append(1e3 * (time.perf_counter() - t0))
+
+            async def client(ci):
+                for c, tx_id, env in envs:
+                    if c == ci:
+                        t0 = time.perf_counter()
+                        await gcs[ci].submit(ch_id, env)
+                        sent.append((ci, tx_id, t0))
+
+            await asyncio.gather(*(client(ci) for ci in range(clients)))
+            return [asyncio.ensure_future(status(*x)) for x in sent]
+
+        async def probe_commit(height):
+            """Endorsements (evaluated, not submitted) from every client
+            while block ``height - 1`` is cut and not yet committed."""
+            while chain.height < height:
+                await asyncio.sleep(0.002)
+
+            async def client(ci):
+                while ch.height < height:
+                    t0 = time.perf_counter()
+                    r = await gcs[ci].evaluate(ch_id, cc, [b"put", b"probe%d" % ci, b"x"])
+                    if r.status != 200:
+                        raise AssertionError(f"network_path: a probe endorsement gave {r}")
+                    out["probes"].append((t0, time.perf_counter()))
+
+            await asyncio.gather(*(client(ci) for ci in range(clients)))
+
+        calls_a, calls_b = network_txs(n_tx, first, conflicts)
+        t0 = time.perf_counter()
+        envs = await endorse_all(calls_a)
+        out["endorse_a_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        waits = await submit_all(envs)
+        # all the first block's envelopes must reach the orderer inside
+        # its batch timeout for the block to be cut by count
+        out["submit_a_s"] = time.perf_counter() - t1
+        await probe_commit(1)
+        await asyncio.gather(*waits)
+        envs = await endorse_all(calls_b)
+        out["submit_b_at"] = time.perf_counter()
+        waits = await submit_all(envs)
+        await probe_commit(2)
+        await asyncio.gather(*waits)
+        out["wall_s"] = time.perf_counter() - t0
+        out["launches"] = dict(kernels.launches)
+        out["peer_lane"] = peer.sign_batcher.stats()
+        out["client_lane"] = client_lane.stats()
+        ch.ledger.drain_state()
+        out["query"] = {}
+        cli = RpcClient("127.0.0.1", peer.port)
+        await cli.connect()
+        for key in sorted({a.decode() for args in out["calls"].values() for a in args[1:3]}):
+            out["query"][key] = json.loads(await cli.unary("Query", json.dumps(
+                {"channel": ch_id, "ns": cc, "key": key}).encode()))
+        await cli.close()
+        # each block's trip through the peer's pipe: its root's children
+        # (prefetch, launch, finish, commit, ledger_commit, fsync) in ms
+        out["spans_ms"] = {}
+        for r in observe.global_tracer().recent_roots():
+            if r.attrs.get("channel") == ch_id:
+                d = out["spans_ms"][r.attrs["block"]] = {"total": 1e3 * r.dur}
+                for c in r.children:
+                    d[c.name] = d.get(c.name, 0.0) + 1e3 * c.dur
+        out["orderer_blocks"] = [chain.blocks.get_block(n) for n in range(chain.height)]
+        out["peer_blocks"] = [ch.ledger.blocks.get_block(n) for n in range(ch.height)]
+        out["peer_public"] = peer_signer.public
+        out["msp"] = mgr
+    finally:
+        for g in gcs:
+            await g.close()
+        client_lane.stop()
+        await peer.stop()
+        await orderer.stop()
+    return out
+
+
+def network_host_check_ms(org, n: int = NETWORK_HOST_CHECKS) -> float:
+    """The endorser's proposal check alone (identity, ``ec_ref``
+    signature, tx id): ms a proposal, over ``n`` proposals."""
+    from fabric_tpu_torch import protoutil
+    from fabric_tpu_torch.crypto.msp import MSPManager, verify_signature
+    from fabric_tpu_torch.peer import txassembly as txa
+    from fabric_tpu_torch.protos import messages as m
+
+    user = org.users["User1@org1.basic.example.com"]
+    props = [txa.create_signed_proposal(user, NETWORK_CHANNEL, NETWORK_CC, [b"get", b"k%d" % i])[0]
+             for i in range(n)]
+    mgr = MSPManager({"Org1MSP": org.msp()})
+    t0 = time.perf_counter()
+    for sp in props:
+        hdr = m.Header.parse(m.Proposal.parse(sp.proposal_bytes).header)
+        ch, sh = m.ChannelHeader.parse(hdr.channel_header), m.SignatureHeader.parse(hdr.signature_header)
+        ident = mgr.deserialize_identity(sh.creator)
+        if not (ident.is_valid and verify_signature(ident, sp.proposal_bytes, sp.signature)
+                and ch.tx_id == protoutil.compute_tx_id(sh.nonce, sh.creator)):
+            raise AssertionError("network_path: a proposal failed its host check")
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def phase_network_path(dev, n_tx=NETWORK_TXS, conflicts=NETWORK_CONFLICTS,
+                       clients=NETWORK_CLIENTS, batch=None, check_launches=True,
+                       sign_batch=card_signer):
+    """BASELINE config 1 (the e2e basic network: one peer, a solo
+    orderer, a sample chaincode) on ``dev``, through the entry points a
+    user calls: an ``OrdererNode`` (one-node Raft, ``BatchConfig()``:
+    500 messages, 2 MiB, 10 MiB, 2 s) and a ``PeerNode(device=dev,
+    sign_device=True, pipeline_depth=2)`` of Org1 with ``KVContract``
+    under a 1-of-1 Org1 member policy, one process over localhost.
+    ``clients`` ``GatewayClient``s endorse the first block's ``first``
+    transactions, submit them (cut by count), then endorse and submit
+    the rest (cut by the timeout, reading keys the first committed);
+    endorsements evaluated from every client while each block commits
+    give the endorse latency under commit.  Checks: each block's filter
+    equals the port's serial host validation of the orderer's block
+    bytes and construction (``conflicts`` MVCC conflicts in the first);
+    every committed key reads back through Query at its version; commit
+    status gives every tx its final code; every endorsement verifies
+    under the peer's key; the four kernels launched (``check_launches``)
+    and each held against its plain version at the shapes the path
+    launched.  The channel is joined in dev mode (the peer's MSP and
+    policy given, no genesis block): the orderer admits by size, as the
+    reference's does without a genesis config."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    from fabric_tpu_torch import kernels, protoutil
+    from fabric_tpu_torch.crypto import cryptogen, ec_ref
+    from fabric_tpu_torch.crypto import policy as pol
+    from fabric_tpu_torch.ledger.statedb import MemVersionedDB
+    from fabric_tpu_torch.ops import p256sign, p256v3
+    from fabric_tpu_torch.ordering import BatchConfig
+    from fabric_tpu_torch.peer.txcodes import TxValidationCode as C
+    from fabric_tpu_torch.peer.validator import BlockValidator, NamespaceInfo, PolicyProvider
+    from fabric_tpu_torch.protos import messages as m
+
+    t_phase = time.perf_counter()
+    batch = batch or BatchConfig()
+    first = batch.max_message_count
+    org = cryptogen.generate_org("Org1MSP", "org1.basic.example.com",
+                                 np.random.default_rng(SEED + 41), now=WIRE_NOW,
+                                 sign_batch=sign_batch)
+    host_check_ms = network_host_check_ms(org)
+    gc.collect()  # the earlier paths' garbage, collected outside the run
+    root = tempfile.mkdtemp(prefix="network_path-")
+    kernels.reset_counts()
+    try:
+        with first_launches("p256_sign", lambda limbs, *a: limbs.shape[0]) as signs, \
+                first_launches("p256_verify", lambda frame, *a: frame.shape[0]) as verifies:
+            run = asyncio.run(_network_run(dev, org, n_tx, first, conflicts, clients, batch,
+                                           root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    counts = run["launches"]
+    missing = [k for k in NETWORK_KERNELS if counts.get(k, 0) == 0]
+    if check_launches and missing:
+        raise AssertionError(f"network_path: kernels not launched: {missing} ({counts})")
+
+    # the blocks: sizes, construction, the serial host validation
+    oblocks = [m.Block.parse(b.serialize()) for b in run["orderer_blocks"]]
+    sizes = [len(b.data.data) for b in oblocks]
+    if sizes != [first, n_tx - first]:
+        raise AssertionError(f"network_path: blocks of {sizes} txs, expected "
+                             f"{[first, n_tx - first]}")
+    want_codes, want_state = network_expected(oblocks, run["calls"])
+    got = [protoutil.get_tx_filter(b) for b in run["peer_blocks"]]
+    v = BlockValidator(PolicyProvider({NETWORK_CC: NamespaceInfo(
+        policy=pol.from_dsl(NETWORK_POLICY))}), MemVersionedDB(), device=dev, msp=run["msp"])
+    v.blocks = TxidStore()
+    v.validate_finish = v._validate_host
+    host = []
+    for b in oblocks:
+        flt, upd, _ = v.validate(b)
+        v.state.apply_updates(upd)
+        v.blocks.txids.update(p.txid for p in v.last_parsed if p.txid)
+        host.append(bytes(flt))
+    if got != host or got != want_codes:
+        raise AssertionError(f"network_path: filters differ (peer / host validation / "
+                             f"construction): {[list(g) for g in got]} {[list(h) for h in host]}")
+    conflicts_got = got[0].count(bytes([C.MVCC_READ_CONFLICT]))
+    if conflicts_got != conflicts or got[0].count(bytes([C.VALID])) != first - conflicts \
+            or got[1] != bytes([C.VALID]) * (n_tx - first):
+        raise AssertionError(f"network_path: codes {[list(g) for g in got]}")
+    codes = {protoutil.channel_header(env).tx_id: got[n][i]
+             for n, b in enumerate(oblocks) for i, env in enumerate(b.data.data)}
+    bad_status = [t for t, st in run["status"].items() if st["code"] != codes[t]]
+    if len(run["status"]) != n_tx or bad_status:
+        raise AssertionError(f"network_path: {len(run['status'])} commit statuses, "
+                             f"{len(bad_status)} wrong")
+    bad_keys = [k for k, (val, ver) in want_state.items()
+                if run["query"][k]["value"] != val.hex() or tuple(run["query"][k]["version"]) != ver]
+    if bad_keys or any(run["query"][k]["status"] != 404 for k in run["query"] if k not in want_state):
+        raise AssertionError(f"network_path: {len(bad_keys)} keys read back wrong: {bad_keys[:5]}")
+
+    # every endorsement under the peer's key, on the card in one launch
+    qx, qy = run["peer_public"]
+    items = []
+    for b in oblocks:
+        for env in b.data.data:
+            _, _, cap, prp, _ = protoutil.extract_action(m.Envelope.parse(env))
+            for e in cap.action.endorsements:
+                r, s = ec_ref.der_decode_sig(e.signature)
+                items.append((ec_ref.digest_int(cap.action.proposal_response_payload + e.endorser),
+                              r, s, qx, qy))
+    ok = p256v3.verify_launch(items, device=dev).fetch()
+    if len(items) != n_tx or not all(ok):
+        raise AssertionError(f"network_path: {len(items) - sum(ok)} of {len(items)} "
+                             "endorsements do not verify under the peer's key")
+
+    # each kernel against its plain version at the shapes the path launched
+    held = {}
+    for lanes, (args, out) in sorted(signs.items()):
+        want = p256sign.sign_batch_ref(args[0], chains=args[3])
+        held[f"p256_sign@{lanes}"] = int((out != want).any(dim=2).any(dim=1).sum())
+    for lanes, (args, out) in sorted(verifies.items()):
+        held[f"p256_verify@{lanes}"] = int((out != p256v3.verify_batch_ref(args[0])).sum())
+    if any(held.values()):
+        raise AssertionError(f"network_path: kernels differ from their plain versions: {held}")
+
+    cut, done = run["cut_at"], run["committed_at"]
+    windows = [(cut[n], done[n]) for n in sorted(done) if n in cut]
+    during = [1e3 * (b - a) for a, b in run["probes"]
+              if any(a < w1 and b > w0 for w0, w1 in windows)]
+    log("network_blocks", blocks=[{
+        "number": n, "txs": sizes[n], "cut_by": "count" if sizes[n] == batch.max_message_count
+        else "timeout", "commit_wall_ms": 1e3 * (done[n] - cut[n]),
+        "valid": got[n].count(bytes([C.VALID])),
+        "mvcc_read_conflict": got[n].count(bytes([C.MVCC_READ_CONFLICT])),
+        "spans_ms": run["spans_ms"].get(n)}
+        for n in range(len(sizes))],
+        second_cut_after_submit_s=cut[1] - run["submit_b_at"],
+        batch_timeout_s=batch.batch_timeout_s)
+    log("network_latency", endorse_ms_idle=_lat(run["endorse_ms"]),
+        endorse_ms_while_committing=_lat(during), probes=len(run["probes"]),
+        submit_to_status_ms=_lat(run["submit_status_ms"]),
+        host_check_ms_per_proposal=host_check_ms,
+        host_check_share_of_endorse_p50=host_check_ms / _lat(run["endorse_ms"])["p50"],
+        first_block_endorse_s=run["endorse_a_s"], first_block_submit_s=run["submit_a_s"])
+    lane = run["peer_lane"]
+    log("network_path", txs=n_tx, clients=clients, launches=counts,
+        sign_lane={"signed": lane["signed_total"], "batches": lane["batches_total"],
+                   "occupancy": lane["occupancy"], "wait_ms": lane["wait_ms"],
+                   "busy": lane["busy_total"]},
+        client_lane_batches=run["client_lane"]["batches_total"],
+        sign_lanes_launched=sorted(signs), verify_lanes_launched=sorted(verifies),
+        plain_mismatches=held, tx_per_s=n_tx / run["wall_s"], wall_s=run["wall_s"],
+        host_validation_equal=True, keys_read_back=len(want_state),
+        endorsements_verified=sum(ok), seconds=time.perf_counter() - t_phase)
+    return counts
+
+
 def kernel_frames(build_log: dict, names) -> dict:
     """ptxas's report for the kernels whose mangled names hold one of
     ``names``: {name: {stack, spill_stores, spill_loads, registers}}
@@ -3982,6 +4414,12 @@ def main() -> int:
     phase_ledger_path(dev, ledger_built)
     phase_observe_path(dev, ledger_built)
     phase_chaos_path(dev, ledger_built)
+    # the kernels line gives each kernel's launches on the network path
+    # where it has any
+    net_counts = phase_network_path(dev)
+    for r in recs:
+        if r["name"] in NETWORK_KERNELS:
+            r["launches"] = net_counts[r["name"]]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "mismatches",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in order} for r in recs]}), flush=True)

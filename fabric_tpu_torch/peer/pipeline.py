@@ -163,11 +163,17 @@ class CommitPipeline:
     group size of ``submit_many`` (0: off).  ``channel`` labels the
     metrics and the roots; ``tracer``/``registry``: the span tracer
     and metrics registry (None: the global ones); ``replay``: the
-    blocks are catch-up blocks (the journal's inclusion tag)."""
+    blocks are catch-up blocks (the journal's inclusion tag).
+    ``pre_launch_fn(block)`` runs on the caller's thread at the top of
+    each block's launch (the reference's :214-220): a peer verifies the
+    orderer's block signatures there, after any predecessor barrier has
+    rotated the channel's bundle; a raise is the launch's failure."""
 
     def __init__(self, validator, commit_fn, depth: int = 2, coalesce_blocks: int = 0,
-                 channel: str = "", tracer=None, registry=None, replay: bool = False):
+                 channel: str = "", tracer=None, registry=None, replay: bool = False,
+                 pre_launch_fn=None):
         self.validator = validator
+        self.pre_launch_fn = pre_launch_fn
         self.commit_fn = commit_fn
         self.depth = max(1, int(depth))
         self.coalesce_blocks = int(coalesce_blocks)
@@ -321,6 +327,8 @@ class CommitPipeline:
         try:
             with tr.span("launch", parent=root):
                 faults.fire("pipeline.launch")
+                if self.pre_launch_fn is not None:
+                    self.pre_launch_fn(block)
                 with tr.span("prefetch"):  # inline at depth 1
                     stage = "prefetch"
                     faults.fire("pipeline.prefetch")
@@ -436,6 +444,8 @@ class CommitPipeline:
         try:
             with self.tracer.span("launch", parent=root) as lsp:
                 faults.fire("pipeline.launch")
+                if self.pre_launch_fn is not None:
+                    self.pre_launch_fn(block)
                 overlay, extra = self._launch_overlay()
                 self._launched = self.validator.validate_launch(
                     block, pre=pre, overlay=overlay, extra_txids=extra)

@@ -18,9 +18,10 @@ from fabric_tpu_torch.protos.wire import (
 
 # common.HeaderType values the front end tells apart
 HEADER_CONFIG, HEADER_ENDORSER_TRANSACTION = 1, 3
-# common.BlockMetadataIndex: five slots, TRANSACTIONS_FILTER the third,
-# COMMIT_HASH the fifth
-META_TRANSACTIONS_FILTER, META_COMMIT_HASH, N_METADATA = 2, 4, 5
+# common.BlockMetadataIndex: five slots, SIGNATURES the first,
+# TRANSACTIONS_FILTER the third, ORDERER the fourth, COMMIT_HASH the fifth
+META_SIGNATURES, META_TRANSACTIONS_FILTER, META_ORDERER, META_COMMIT_HASH = 0, 2, 3, 4
+N_METADATA = 5
 # protos.ChaincodeSpec.Type
 CHAINCODE_EXTERNAL = 5
 
@@ -79,6 +80,16 @@ class Block(Message):
               Field(3, "metadata", MESSAGE, message=BlockMetadata))
 
 
+class MetadataSignature(Message):
+    FIELDS = (Field(1, "signature_header", BYTES), Field(2, "signature", BYTES),
+              Field(3, "identifier_header", BYTES))
+
+
+class Metadata(Message):
+    FIELDS = (Field(1, "value", BYTES),
+              Field(2, "signatures", MESSAGE, repeated=True, message=MetadataSignature))
+
+
 # -- proposal.proto -----------------------------------------------------------
 
 
@@ -129,6 +140,11 @@ class ProposalResponse(Message):
               Field(4, "response", MESSAGE, message=Response), Field(5, "payload", BYTES),
               Field(6, "endorsement", MESSAGE, message=Endorsement),
               Field(7, "interest", STRING))
+
+
+class ChaincodeEvent(Message):
+    FIELDS = (Field(1, "chaincode_id", STRING), Field(2, "tx_id", STRING),
+              Field(3, "event_name", STRING), Field(4, "payload", BYTES))
 
 
 class ProposalResponsePayload(Message):

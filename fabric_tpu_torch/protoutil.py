@@ -1,7 +1,9 @@
 """Wire-format helpers over the port's messages (counterpart:
 ``fabric_tpu/protoutil.py``): the nonce and transaction id, the block
-header and data hashes, block assembly, action extraction with its
-validation codes, and the TRANSACTIONS_FILTER helpers."""
+header and data hashes, block assembly and the orderer's block
+signatures (``sign_block``, ``block_signed_data``), an envelope as the
+policy engine's signed data, action extraction with its validation
+codes, and the TRANSACTIONS_FILTER helpers."""
 
 from __future__ import annotations
 
@@ -75,6 +77,58 @@ def new_block(number: int, previous_hash: bytes) -> m.Block:
 def finalize_block(blk: m.Block) -> m.Block:
     blk.header.data_hash = block_data_hash(blk.data)
     return blk
+
+
+def sign_block(blk: m.Block, signer) -> None:
+    """Append the orderer's signature to the SIGNATURES metadata (the
+    reference's :224): signed bytes = metadata.value ‖ signature header
+    ‖ header hash, binding the signature to this block's header."""
+    md = m.Metadata()
+    slots = blk.metadata.metadata
+    if len(slots) > m.META_SIGNATURES and slots[m.META_SIGNATURES]:
+        md = m.Metadata.parse(slots[m.META_SIGNATURES])
+    sh = m.SignatureHeader(creator=signer.serialized, nonce=os.urandom(24)).serialize()
+    sig = signer.sign(md.value + sh + block_header_hash(blk.header))
+    md.signatures.append(m.MetadataSignature(signature_header=sh, signature=sig))
+    while len(slots) <= m.META_SIGNATURES:
+        slots.append(b"")
+    slots[m.META_SIGNATURES] = md.serialize()
+
+
+def block_signed_data(blk: m.Block) -> list:
+    """SIGNATURES metadata → [(creator identity bytes, signed bytes,
+    signature)] (the reference's :247); a signature whose header does
+    not parse contributes nothing."""
+    slots = blk.metadata.metadata if blk.metadata is not None else []
+    if len(slots) <= m.META_SIGNATURES or not slots[m.META_SIGNATURES]:
+        return []
+    md = m.Metadata.parse(slots[m.META_SIGNATURES])
+    hh = block_header_hash(blk.header)
+    out = []
+    for ms in md.signatures:
+        try:
+            sh = m.SignatureHeader.parse(ms.signature_header)
+        except DecodeError:
+            continue
+        out.append((sh.creator, md.value + ms.signature_header + hh, ms.signature))
+    return out
+
+
+def envelope_as_signed_data(env: m.Envelope):
+    """An envelope as the policy engine's ``SignedData`` (payload,
+    creator, signature; the reference's :140)."""
+    from fabric_tpu_torch.channelconfig import SignedData
+
+    payload = m.Payload.parse(env.payload)
+    sh = m.SignatureHeader.parse((payload.header or m.Header()).signature_header)
+    return SignedData(identity=sh.creator, data=env.payload, signature=env.signature)
+
+
+def channel_header(env_bytes: bytes) -> m.ChannelHeader:
+    """The channel header of a serialized envelope (raises
+    ``DecodeError`` on bytes that do not parse)."""
+    payload = m.Payload.parse(m.Envelope.parse(env_bytes).payload)
+    return m.ChannelHeader.parse((payload.header or m.Header()).channel_header)
 
 
 # ---------------------------------------------------------------------------
