@@ -118,12 +118,19 @@ tracer; the resident cache's disable latch; a sidecar stopped and
 restarted under the sidecar latch), and BASELINE config 1's network
 (``network_path``: an ``OrdererNode`` with Raft and a ``PeerNode``
 whose endorser signs on the card's sign lane, over localhost; 8 gateway
-clients send 512 transactions, a 500-transaction block cut by count
-with 25 MVCC conflicts and a 12-transaction block cut by the timeout;
-filters against the port's serial host validation, every key read back
-through Query, commit status, every endorsement verified, the
-endorse latency while blocks commit); their functions
-say what each checks.  Each path's launch counts are reset just
+clients send 64 transactions, one block cut by the timeout with 8 MVCC
+conflicts; filters against the port's serial host validation, every
+key read back through Query, commit status, every endorsement verified,
+the endorse latency while the block commits), BASELINE config 4 as a
+network (``config4_network_path``: 3 Raft orderers in a child process,
+4 peers of 4 orgs with gossip's private-data push, pull, reconciliation
+and anti-entropy; 8 gateway clients, 500 transactions cut by count
+with 10 MVCC conflicts; Org3's peer started late and caught up from a
+peer) and the BFT ordering service (``bft_path``: 4 consenters in a
+child process and a peer that checks each block's quorum attestation;
+3 blocks of 16, two forgeries refused, the leader stopped, a block
+after the view change); their functions say what each checks, and a
+``phases`` line gives each phase's seconds.  Each path's launch counts are reset just
 before it and read just after; a kernel's entry in the kernels line
 gives its time at the shape its path launched it with most often.  Then the kernels line (JSON),
 the card's name and power limit as nvidia-smi reports them, and the
@@ -3905,9 +3912,9 @@ def phase_chaos_path(dev, built=None, check_launches=True):
 
 NETWORK_CHANNEL = "basicchan"
 NETWORK_CC = "basic"
-NETWORK_TXS = 512        # the first block cut by count at 500, the rest by the timeout
+NETWORK_TXS = 64         # one block cut by the timeout (config 4's network cuts 500 by count)
 NETWORK_CLIENTS = 8
-NETWORK_CONFLICTS = 25   # keys each read and written by two txs of the first block
+NETWORK_CONFLICTS = 8    # keys each read and written by two txs of the first block
 NETWORK_POLICY = "OutOf(1, 'Org1MSP.member')"
 NETWORK_HOST_CHECKS = 32  # proposals whose host check is timed alone
 NETWORK_KERNELS = ("p256_sign", "p256_verify", "stage2_policy", "stage2_mvcc")
@@ -4104,18 +4111,19 @@ async def _network_run(dev, org, n_tx, first, conflicts, clients, batch, root):
         t0 = time.perf_counter()
         envs = await endorse_all(calls_a)
         out["endorse_a_s"] = time.perf_counter() - t0
-        t1 = time.perf_counter()
+        t1 = out["submit_a_at"] = time.perf_counter()
         waits = await submit_all(envs)
-        # all the first block's envelopes must reach the orderer inside
-        # its batch timeout for the block to be cut by count
+        # a block cut by count needs all its envelopes at the orderer
+        # inside its batch timeout
         out["submit_a_s"] = time.perf_counter() - t1
         await probe_commit(1)
         await asyncio.gather(*waits)
-        envs = await endorse_all(calls_b)
-        out["submit_b_at"] = time.perf_counter()
-        waits = await submit_all(envs)
-        await probe_commit(2)
-        await asyncio.gather(*waits)
+        if calls_b:
+            envs = await endorse_all(calls_b)
+            out["submit_b_at"] = time.perf_counter()
+            waits = await submit_all(envs)
+            await probe_commit(2)
+            await asyncio.gather(*waits)
         out["wall_s"] = time.perf_counter() - t0
         out["launches"] = dict(kernels.launches)
         out["peer_lane"] = peer.sign_batcher.stats()
@@ -4182,9 +4190,10 @@ def phase_network_path(dev, n_tx=NETWORK_TXS, conflicts=NETWORK_CONFLICTS,
     sign_device=True, pipeline_depth=2)`` of Org1 with ``KVContract``
     under a 1-of-1 Org1 member policy, one process over localhost.
     ``clients`` ``GatewayClient``s endorse the first block's ``first``
-    transactions, submit them (cut by count), then endorse and submit
-    the rest (cut by the timeout, reading keys the first committed);
-    endorsements evaluated from every client while each block commits
+    transactions (``n_tx`` when it is below the batch's count) and
+    submit them, then endorse and submit any rest (cut by the timeout,
+    reading keys the first committed); endorsements evaluated from every
+    client while each block commits
     give the endorse latency under commit.  Checks: each block's filter
     equals the port's serial host validation of the orderer's block
     bytes and construction (``conflicts`` MVCC conflicts in the first);
@@ -4202,16 +4211,15 @@ def phase_network_path(dev, n_tx=NETWORK_TXS, conflicts=NETWORK_CONFLICTS,
     from fabric_tpu_torch import kernels, protoutil
     from fabric_tpu_torch.crypto import cryptogen, ec_ref
     from fabric_tpu_torch.crypto import policy as pol
-    from fabric_tpu_torch.ledger.statedb import MemVersionedDB
-    from fabric_tpu_torch.ops import p256sign, p256v3
+    from fabric_tpu_torch.ops import p256v3
     from fabric_tpu_torch.ordering import BatchConfig
     from fabric_tpu_torch.peer.txcodes import TxValidationCode as C
-    from fabric_tpu_torch.peer.validator import BlockValidator, NamespaceInfo, PolicyProvider
+    from fabric_tpu_torch.peer.validator import NamespaceInfo, PolicyProvider
     from fabric_tpu_torch.protos import messages as m
 
     t_phase = time.perf_counter()
     batch = batch or BatchConfig()
-    first = batch.max_message_count
+    first = min(batch.max_message_count, n_tx)
     org = cryptogen.generate_org("Org1MSP", "org1.basic.example.com",
                                  np.random.default_rng(SEED + 41), now=WIRE_NOW,
                                  sign_batch=sign_batch)
@@ -4234,27 +4242,19 @@ def phase_network_path(dev, n_tx=NETWORK_TXS, conflicts=NETWORK_CONFLICTS,
     # the blocks: sizes, construction, the serial host validation
     oblocks = [m.Block.parse(b.serialize()) for b in run["orderer_blocks"]]
     sizes = [len(b.data.data) for b in oblocks]
-    if sizes != [first, n_tx - first]:
+    if sizes != [s for s in (first, n_tx - first) if s]:
         raise AssertionError(f"network_path: blocks of {sizes} txs, expected "
                              f"{[first, n_tx - first]}")
     want_codes, want_state = network_expected(oblocks, run["calls"])
     got = [protoutil.get_tx_filter(b) for b in run["peer_blocks"]]
-    v = BlockValidator(PolicyProvider({NETWORK_CC: NamespaceInfo(
-        policy=pol.from_dsl(NETWORK_POLICY))}), MemVersionedDB(), device=dev, msp=run["msp"])
-    v.blocks = TxidStore()
-    v.validate_finish = v._validate_host
-    host = []
-    for b in oblocks:
-        flt, upd, _ = v.validate(b)
-        v.state.apply_updates(upd)
-        v.blocks.txids.update(p.txid for p in v.last_parsed if p.txid)
-        host.append(bytes(flt))
+    host = host_filters(dev, oblocks, PolicyProvider({NETWORK_CC: NamespaceInfo(
+        policy=pol.from_dsl(NETWORK_POLICY))}), run["msp"])
     if got != host or got != want_codes:
         raise AssertionError(f"network_path: filters differ (peer / host validation / "
                              f"construction): {[list(g) for g in got]} {[list(h) for h in host]}")
     conflicts_got = got[0].count(bytes([C.MVCC_READ_CONFLICT]))
     if conflicts_got != conflicts or got[0].count(bytes([C.VALID])) != first - conflicts \
-            or got[1] != bytes([C.VALID]) * (n_tx - first):
+            or got[1:] != [bytes([C.VALID]) * (n_tx - first)] * (n_tx > first):
         raise AssertionError(f"network_path: codes {[list(g) for g in got]}")
     codes = {protoutil.channel_header(env).tx_id: got[n][i]
              for n, b in enumerate(oblocks) for i, env in enumerate(b.data.data)}
@@ -4283,14 +4283,7 @@ def phase_network_path(dev, n_tx=NETWORK_TXS, conflicts=NETWORK_CONFLICTS,
                              "endorsements do not verify under the peer's key")
 
     # each kernel against its plain version at the shapes the path launched
-    held = {}
-    for lanes, (args, out) in sorted(signs.items()):
-        want = p256sign.sign_batch_ref(args[0], chains=args[3])
-        held[f"p256_sign@{lanes}"] = int((out != want).any(dim=2).any(dim=1).sum())
-    for lanes, (args, out) in sorted(verifies.items()):
-        held[f"p256_verify@{lanes}"] = int((out != p256v3.verify_batch_ref(args[0])).sum())
-    if any(held.values()):
-        raise AssertionError(f"network_path: kernels differ from their plain versions: {held}")
+    held = held_to_plain("network_path", signs, verifies)
 
     cut, done = run["cut_at"], run["committed_at"]
     windows = [(cut[n], done[n]) for n in sorted(done) if n in cut]
@@ -4303,7 +4296,7 @@ def phase_network_path(dev, n_tx=NETWORK_TXS, conflicts=NETWORK_CONFLICTS,
         "mvcc_read_conflict": got[n].count(bytes([C.MVCC_READ_CONFLICT])),
         "spans_ms": run["spans_ms"].get(n)}
         for n in range(len(sizes))],
-        second_cut_after_submit_s=cut[1] - run["submit_b_at"],
+        last_cut_after_submit_s=cut[len(sizes) - 1] - run.get("submit_b_at", run["submit_a_at"]),
         batch_timeout_s=batch.batch_timeout_s)
     log("network_latency", endorse_ms_idle=_lat(run["endorse_ms"]),
         endorse_ms_while_committing=_lat(during), probes=len(run["probes"]),
@@ -4322,6 +4315,1073 @@ def phase_network_path(dev, n_tx=NETWORK_TXS, conflicts=NETWORK_CONFLICTS,
         host_validation_equal=True, keys_read_back=len(want_state),
         endorsements_verified=sum(ok), seconds=time.perf_counter() - t_phase)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# The ordering service: each orderer in a child process of its own, as a
+# deployment runs them.  Its event loop and its interpreter lock are
+# apart from the peers' and from the other orderers', so neither a
+# peer's commit nor the leader's replication of a 500-transaction entry
+# (3.3 MB, re-sent on every heartbeat until acknowledged) starves a
+# follower's Raft timers or BFT's view timer
+
+
+def _orderer_child(conn, spec, oid, index):
+    """Child process: orderer ``oid`` of ``spec``, serving the parent's
+    commands on ``conn`` until ``exit``."""
+    import asyncio
+    import traceback
+
+    try:
+        asyncio.run(_orderer_main(conn, spec, oid, index))
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+
+
+async def _orderer_main(conn, spec, oid, index):
+    import asyncio
+    import random
+
+    from fabric_tpu_torch.ordering import BatchConfig, OrdererNode
+    from fabric_tpu_torch.protos import messages as m
+
+    async def recv():
+        while not conn.poll():
+            await asyncio.sleep(0.01)
+        return conn.recv()
+
+    ch_id = spec["channel"]
+    node = OrdererNode(oid, f"{spec['dir']}/{oid}", {},
+                       batch_config=BatchConfig(**spec["batch"]), consensus=spec["consensus"],
+                       signer=(spec.get("signers") or {}).get(oid),
+                       verifiers=spec.get("verifiers"),
+                       view_timeout=spec.get("view_timeout", 2.0),
+                       rng=random.Random(spec["seed"] + index))
+    await node.start()
+    conn.send(("ok", node.port))
+    _, cluster = await recv()
+    node.cluster.update(cluster)
+    chain = node.join_channel(ch_id, m.Block.parse(spec["genesis"]) if spec.get("genesis")
+                              else None)
+    if spec.get("raft_options"):
+        # Raft's timers as a deployment's channel config sets them
+        # (Fabric's EtcdRaft Options); the node and the chain take no
+        # such knob, the reference's neither
+        chain.raft.heartbeat = spec["raft_options"]["heartbeat"]
+        chain.raft.election_timeout = tuple(spec["raft_options"]["election_timeout"])
+    cut_at = {}  # block number → when this orderer materialized it
+
+    def timed(blk, *a, _add=chain.blocks.add_block, **kw):
+        cut_at.setdefault(blk.header.number, time.monotonic())
+        return _add(blk, *a, **kw)
+
+    chain.blocks.add_block = timed
+    conn.send(("ok", None))
+    changes, seen, live = [], None, True
+    # how late this process's loop wakes from its 10 ms sleeps: a late
+    # wake is a stretch in which no Raft or BFT timer could run
+    lags, t_wake = [], None
+
+    def consensus():
+        r = chain.raft
+        return {"state": r.state, "leader": r.leader_id,
+                "term": r.wal.term if spec["consensus"] == "raft" else None,
+                "view": getattr(r, "view", None), "height": chain.height}
+
+    while True:
+        if live:  # leader changes, as this node sees them
+            c = consensus()
+            key = (c["state"], c["leader"], c["term"], c["view"])
+            if key != seen:
+                seen = key
+                changes.append({"t": time.monotonic(), "node": oid, **c})
+        if not conn.poll():
+            t_wake = time.monotonic() + 0.01
+            await asyncio.sleep(0.01)
+            lag = time.monotonic() - t_wake
+            if lag > 0.05:
+                lags.append((t_wake, lag))
+            continue
+        cmd, *_ = conn.recv()
+        if cmd == "info":
+            conn.send(("ok", consensus()))
+        elif cmd == "blocks":
+            conn.send(("ok", [chain.blocks.get_block(k).serialize()
+                              for k in range(chain.height)]))
+        elif cmd in ("stop", "exit"):
+            if live:
+                await node.stop()
+                live = False
+            conn.send(("ok", {"changes": changes, "cut_at": cut_at, "lags": lags}))
+            if cmd == "exit":
+                return
+
+
+class OrderingService:
+    """``spec["ids"]``'s orderers, each in a ``_orderer_child`` process,
+    and their command pipes; ``cluster``: {orderer id: (host, port)}."""
+
+    def __init__(self, spec):
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")  # never fork a process that holds a CUDA context
+        self.procs, self.conns, self.records = {}, {}, {}
+        self._lock = threading.Lock()
+        for i, oid in enumerate(spec["ids"]):
+            self.conns[oid], child = ctx.Pipe()
+            self.procs[oid] = ctx.Process(target=_orderer_child, args=(child, spec, oid, i),
+                                          daemon=True)
+            self.procs[oid].start()
+            child.close()
+        self.cluster = {oid: ("127.0.0.1", self._recv(oid, 120)) for oid in spec["ids"]}
+        for oid in spec["ids"]:
+            self.conns[oid].send(("cluster", self.cluster))
+        for oid in spec["ids"]:
+            self._recv(oid, 60)
+        self.live = list(spec["ids"])
+
+    def _recv(self, oid, timeout):
+        if not self.conns[oid].poll(timeout):
+            raise AssertionError(f"ordering service: {oid} does not answer")
+        tag, payload = self.conns[oid].recv()
+        if tag == "error":
+            raise AssertionError(f"ordering service: {oid} failed:\n{payload}")
+        return payload
+
+    def call(self, oid, cmd, timeout=60):
+        with self._lock:
+            self.conns[oid].send((cmd,))
+            return self._recv(oid, timeout)
+
+    def info(self) -> dict:
+        return {oid: self.call(oid, "info") for oid in self.live}
+
+    def blocks(self, oid=None) -> list:
+        return self.call(oid or self.live[0], "blocks")
+
+    def stop_leader(self) -> dict:
+        before = self.info()
+        oid = next(o for o, c in before.items() if c["state"] == "leader")
+        self.records[oid] = self.call(oid, "stop")
+        self.live.remove(oid)
+        return {"stopped": oid, "before": before}
+
+    async def acall(self, method, *args):
+        import asyncio
+
+        return await asyncio.get_event_loop().run_in_executor(
+            None, lambda: getattr(self, method)(*args))
+
+    async def wait_leader(self, timeout=30.0) -> str:
+        import asyncio
+
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            leaders = [o for o, c in (await self.acall("info")).items() if c["state"] == "leader"]
+            if leaders:
+                return leaders[0]
+            await asyncio.sleep(0.05)
+        raise AssertionError("ordering service: no leader")
+
+    def close(self) -> dict:
+        """→ the orderers' leader changes (in time order), each
+        block's first cut time and each orderer's late wakes over 50 ms
+        ((when, seconds late)); every process is gone after."""
+        for oid, proc in self.procs.items():
+            if proc.is_alive():
+                try:
+                    self.records[oid] = self.call(oid, "exit", timeout=30)
+                except (AssertionError, OSError, EOFError):
+                    pass
+            proc.join(10)
+            if proc.is_alive():
+                proc.kill()
+                proc.join(5)
+        cut_at = {}
+        for rec in self.records.values():
+            for n, t in rec["cut_at"].items():
+                cut_at[n] = min(t, cut_at.get(n, t))
+        return {"changes": sorted((c for r in self.records.values() for c in r["changes"]),
+                                  key=lambda c: c["t"]),
+                "cut_at": cut_at,
+                "lags": {oid: r["lags"] for oid, r in self.records.items()}}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def launches_by_owner(names, owners: dict):
+    """Inside, every call of a kernel wrapper in ``names`` is counted
+    under the owner (``owners``: {id(object): label}) of the nearest
+    frame up its stack whose ``self`` is one of ``owners``' objects: a
+    peer's validator or its sign lane, say (``other`` when none is)."""
+    from fabric_tpu_torch import kernels
+
+    counts, lock = Counter(), threading.Lock()
+    fns = {n: getattr(kernels, n) for n in names}
+
+    def wrap(name, fn):
+        def wrapped(*a, **kw):
+            who, f = "other", sys._getframe(1)
+            while f is not None:
+                me = f.f_locals.get("self")
+                label = owners.get(id(me)) if me is not None else None
+                if label is not None:
+                    who = label
+                    break
+                f = f.f_back
+            with lock:
+                counts[who, name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    for n, fn in fns.items():
+        setattr(kernels, n, wrap(n, fn))
+    try:
+        yield counts
+    finally:
+        for n, fn in fns.items():
+            setattr(kernels, n, fn)
+
+
+def _public_digest(state) -> str:
+    """``snapshot.state_digest``'s XOR of records over the state without
+    the private collections' cleartext namespaces (``ns$coll``): what
+    every peer of a channel holds alike, members or not."""
+    from fabric_tpu_torch.ledger.snapshot import state_digest
+
+    class Public:
+        def iter_all(self):
+            return ((k, vv) for k, vv in state.iter_all()
+                    if "$" not in k[0] or k[0].endswith("#hashed"))
+
+    return state_digest(Public())
+
+
+def held_to_plain(name: str, signs: dict, verifies: dict) -> dict:
+    """``p256_sign`` and ``p256_verify`` at each shape a path launched
+    them with (``first_launches``) against their plain versions →
+    {kernel@lanes: mismatches}."""
+    from fabric_tpu_torch.ops import p256sign, p256v3
+
+    held = {}
+    for lanes, (args, out) in sorted(signs.items()):
+        want = p256sign.sign_batch_ref(args[0], chains=args[3])
+        held[f"p256_sign@{lanes}"] = int((out != want).any(dim=2).any(dim=1).sum())
+    for lanes, (args, out) in sorted(verifies.items()):
+        held[f"p256_verify@{lanes}"] = int((out != p256v3.verify_batch_ref(args[0])).sum())
+    if any(held.values()):
+        raise AssertionError(f"{name}: kernels differ from their plain versions: {held}")
+    return held
+
+
+def host_filters(dev, blocks, provider, msp) -> list:
+    """The port's serial host validation (``_validate_host``) of
+    ``blocks`` over an empty state → their filters."""
+    from fabric_tpu_torch.ledger.statedb import MemVersionedDB
+    from fabric_tpu_torch.peer.validator import BlockValidator
+
+    v = BlockValidator(provider, MemVersionedDB(), device=dev, msp=msp)
+    v.blocks = TxidStore()
+    v.validate_finish = v._validate_host
+    out = []
+    for b in blocks:
+        flt, upd, _ = v.validate(b)
+        v.state.apply_updates(upd)
+        v.blocks.txids.update(p.txid for p in v.last_parsed if p.txid)
+        out.append(bytes(flt))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# BASELINE config 4 as a network: 3 Raft orderers, 4 peers of 4 orgs,
+# gossip's private-data push, pull, reconciliation and anti-entropy
+
+
+CONFIG4_NET_TXS = 500       # one block cut by count (BatchConfig's 500)
+CONFIG4_NET_CLIENTS = 8     # 3 on Org1's gateway, 3 on Org2's, 2 on Org4's
+CONFIG4_NET_CONFLICTS = 10  # basic key pairs: one tx of each ends MVCC_READ_CONFLICT
+CONFIG4_COLLECTIONS = {"pvtcc": {"collA": {
+    "member_orgs": ["Org1MSP", "Org2MSP", "Org3MSP"], "required_peer_count": 1,
+    "max_peer_count": 2, "btl": 0}}}
+CONFIG4_LATE = 2            # Org3's peer starts after the block commits on the others
+CONFIG4_NET_KERNELS = ("p256_verify", "stage2_policy", "stage2_mvcc")
+# the peers' deliver censorship check (Fabric's BlockCensorshipTimeout
+# default): the monitor takes a block slower to commit than this window
+# for a withholding orderer, so it must exceed a block's commit
+CENSORSHIP_CHECK_S = 30.0
+CONFIG4_PROBE_GAP_S = 0.1  # a client's pause between evaluations while blocks commit
+# a submission a deposed Raft leader held in its block cutter is lost
+# (the reference's ordering, as Fabric's): a client whose transaction
+# has no commit status after this wait submits it again, twice at most
+CONFIG4_STATUS_WAIT_S = 20.0
+CONFIG4_RESUBMITS = 2
+# Fabric's sample etcdraft options (configtx.yaml: TickInterval 500 ms,
+# ElectionTick 10, HeartbeatTick 1): a 500 ms heartbeat and a 5-10 s
+# election timeout.  The port's defaults (the reference's: 50 ms and
+# 0.15-0.30 s) elected new leaders mid-burst: a 500-transaction entry's
+# encoding and fsync held the leader's loop 134 ms (PERF.md, PR 18 call 6)
+CONFIG4_RAFT_OPTIONS = {"heartbeat": 0.5, "election_timeout": (5.0, 10.0)}
+
+
+def config4_calls(n_tx: int, conflicts: int) -> list:
+    """→ [(chaincode, args, transient)]: ``conflicts`` pairs of
+    ``basic`` transfers that read and write one key each, then
+    ``build_config4``'s mix (``r = 37 i mod 100``): 45% ``basic`` puts,
+    35% ``pvtcc`` private writes to ``collA`` (the value in the
+    transient map), 20% ``sbecc`` puts."""
+    calls = []
+    for i in range(conflicts):
+        calls += [("basic", [b"transfer", b"c%d" % i, b"d%d" % i, b"0"], None),
+                  ("basic", [b"transfer", b"c%d" % i, b"e%d" % i, b"0"], None)]
+    for i in range(n_tx - 2 * conflicts):
+        r = (i * 37) % 100
+        if r < 45:
+            calls.append(("basic", [b"put", b"k%05d" % i, b"v%d" % i], None))
+        elif r < 80:
+            calls.append(("pvtcc", [b"put_private", b"collA", b"pk%05d" % i],
+                          {"value": b"secret-%d" % i}))
+        else:
+            calls.append(("sbecc", [b"put", b"e%05d" % i, b"v%d" % i], None))
+    return calls
+
+
+def config4_expected(blocks, calls) -> list:
+    """The codes by construction, in block order: VALID, but the second
+    transfer of a conflict pair is MVCC_READ_CONFLICT and a transaction
+    submitted again after it was ordered is DUPLICATE_TXID."""
+    from fabric_tpu_torch import protoutil
+    from fabric_tpu_torch.peer.txcodes import TxValidationCode as C
+
+    read, seen, out = set(), set(), []
+    for blk in blocks:
+        codes = []
+        for env in blk.data.data:
+            tx_id = protoutil.channel_header(env).tx_id
+            if tx_id in seen:
+                codes.append(C.DUPLICATE_TXID)
+                continue
+            seen.add(tx_id)
+            _, args, _ = calls[tx_id]
+            if args[0] == b"transfer" and args[1] in read:
+                codes.append(C.MVCC_READ_CONFLICT)
+                continue
+            if args[0] == b"transfer":
+                read.add(args[1])
+            codes.append(C.VALID)
+        out.append(bytes(codes))
+    return out
+
+
+def config4_provider():
+    from fabric_tpu_torch.crypto import policy as pol
+    from fabric_tpu_torch.peer.validator import NamespaceInfo, PolicyProvider
+
+    return PolicyProvider({ns: NamespaceInfo(policy=pol.from_dsl(d),
+                                             collections=dict(CONFIG4_COLLECTIONS.get(ns, {})))
+                           for ns, d in CONFIG4_NS.items()})
+
+
+async def _config4_network_run(dev, orgs, n_tx, conflicts, clients, batch, root,
+                               sign_device=True):
+    """The ordering service (3 Raft orderers, a child process), the
+    peers of Org1, Org2 and Org4, ``clients`` gateway clients that
+    endorse every transaction and then submit them in one burst; Org3's
+    peer after the commit, caught up by anti-entropy → what the checks
+    read."""
+    import asyncio
+
+    from fabric_tpu_torch import kernels, observe
+    from fabric_tpu_torch.crypto.msp import MSPManager
+    from fabric_tpu_torch.discovery import PeerInfo
+    from fabric_tpu_torch.peer import signlane
+    from fabric_tpu_torch.peer.chaincode import ChaincodeRuntime, KVContract
+    from fabric_tpu_torch.peer.gateway import GatewayClient, GatewayError
+    from fabric_tpu_torch.peer.node import PeerNode
+
+    ch_id = CONFIG4_CHANNEL
+    user = orgs[0].users["User1@org1.config4.example.com"]
+    signers = [o.nodes[f"peer0.org{i + 1}.config4.example.com"] for i, o in enumerate(orgs)]
+    mgr = MSPManager({o.msp_id: o.msp() for o in orgs})
+    svc = OrderingService({"channel": ch_id, "ids": ["orderer0", "orderer1", "orderer2"],
+                           "consensus": "raft", "dir": f"{root}/orderers", "seed": SEED + 43,
+                           "raft_options": CONFIG4_RAFT_OPTIONS,
+                           "batch": {"max_message_count": batch.max_message_count,
+                                     "preferred_max_bytes": batch.preferred_max_bytes,
+                                     "absolute_max_bytes": batch.absolute_max_bytes,
+                                     "batch_timeout_s": batch.batch_timeout_s}})
+    ports = [None, None, free_port(), None]
+    peers, chans = [None] * 4, [None] * 4
+    committed_at = [{} for _ in range(4)]
+    owners = {}
+
+    def make_peer(i):
+        rt = ChaincodeRuntime()
+        for ns in CONFIG4_NS:
+            rt.register(ns, KVContract())
+        return PeerNode(f"peer0.org{i + 1}", f"{root}/peer{i}", mgr, signers[i], rt,
+                        port=ports[i] or 0, device=dev, sign_device=sign_device,
+                        pipeline_depth=2)
+
+    async def up(i):
+        p = make_peer(i)
+        await p.start()
+        ports[i], peers[i] = p.port, p
+        ch = chans[i] = p.join_channel(ch_id, config4_provider())
+        ch.tracer = observe.Tracer(ring_blocks=16, slow_factor=0)  # this peer's spans
+        signal = ch._signal_height
+
+        def timed_signal(i=i, ch=ch, signal=signal):
+            committed_at[i][ch.height - 1] = time.monotonic()
+            signal()
+
+        ch._signal_height = timed_signal
+        owners[id(ch.validator)] = f"org{i + 1}"
+        if p.sign_batcher is not None:
+            owners[id(p.sign_batcher)] = f"org{i + 1}"
+        return p
+
+    out = {"calls": {}, "status": {}, "endorse_ms": [], "submit_status_ms": [], "probes": [],
+           "committed_at": committed_at, "resubmitted": []}
+    gcs, client_lane = [], None
+
+    def txs_held(ch):
+        lg = ch.ledger
+        return sum(len(lg.blocks.get_block(k).data.data) for k in range(lg.blocks.height))
+
+    async def watch(t0=time.perf_counter()):
+        """A progress line every 15 s while the run lasts."""
+        while True:
+            await asyncio.sleep(15)
+            log("config4_network_progress", s=time.perf_counter() - t0,
+                endorsed=len(out["calls"]), statuses=len(out["status"]),
+                probes=len(out["probes"]),
+                heights=[ch.height if ch is not None else None for ch in chans],
+                txs_held=[txs_held(ch) if ch is not None else None for ch in chans],
+                orderers=await svc.acall("info"),
+                gossip=[p.gossip_service.stats if p is not None else None for p in peers])
+
+    log("config4_network_start", threads=threading.active_count(), loadavg=os.getloadavg())
+    watcher = asyncio.ensure_future(watch())
+    # the loop serves four peers and eight clients: four peers' share of
+    # worker threads for their endorsers, sign-lane waits and gossip's
+    # host signatures
+    asyncio.get_event_loop().set_default_executor(ThreadPoolExecutor(64))
+    try:
+        # the peers list the leader first: a follower answers a
+        # broadcast with a redirect, and the client backs off 50 ms
+        # before it retries (``BroadcastClient``), which would stretch
+        # the burst past the batch timeout
+        leader = await svc.wait_leader()
+        addrs = [svc.cluster[leader]] + [a for o, a in svc.cluster.items() if o != leader]
+        for i in (0, 1, 3):
+            await up(i)
+        for i in range(4):
+            for j in range(4):
+                if j != i and peers[i] is not None:
+                    peers[i].registry.add(PeerInfo(orgs[j].msp_id, "127.0.0.1", ports[j]))
+        for i in (0, 1, 3):
+            chans[i].start_deliver(addrs, censorship_check_s=CENSORSHIP_CHECK_S)
+            peers[i].gossip_service.start_reconciler(ch_id, interval=0.5)
+        # the clients sign on the card too, through a lane of their own
+        signer = user
+        if sign_device:
+            client_lane = signlane.SignBatcher(
+                signlane.device_sign_backend(user.d, device=dev)).start()
+            owners[id(client_lane)] = "clients"
+            signer = signlane.BatchedSigner(user, client_lane)
+        gw_of = [0, 0, 0, 1, 1, 1, 3, 3][:clients]  # the peer each client's gateway is
+        gcs = [GatewayClient("127.0.0.1", ports[gw_of[c]], signer) for c in range(clients)]
+        calls = config4_calls(n_tx, conflicts)
+        member_clients = [c for c in range(clients) if gw_of[c] != 3]
+        plan = [[] for _ in range(clients)]
+        for k, call in enumerate(calls):  # a private write goes through a member's gateway
+            plan[member_clients[k % len(member_clients)] if call[0] == "pvtcc"
+                 else k % clients].append(call)
+
+        with launches_by_owner(("p256_verify", "stage2_policy", "stage2_mvcc", "p256_sign"),
+                               owners) as by_owner:
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            envs = []
+
+            async def endorse(ci):
+                for cc, args, transient in plan[ci]:
+                    t = time.perf_counter()
+                    tx_id, env = await gcs[ci].endorse(ch_id, cc, args, transient)
+                    out["endorse_ms"].append(1e3 * (time.perf_counter() - t))
+                    out["calls"][tx_id] = (cc, args, transient)
+                    envs.append((ci, tx_id, env))
+
+            await asyncio.gather(*(endorse(ci) for ci in range(clients)))
+            out["endorse_s"] = time.perf_counter() - t0
+            # let the endorsement-time pushes land before the burst
+            await asyncio.sleep(0.5)
+            sent = []
+
+            async def submit(ci):
+                for c, tx_id, env in envs:
+                    if c == ci:
+                        t = time.perf_counter()
+                        await gcs[ci].submit(ch_id, env)
+                        sent.append((ci, tx_id, t, env))
+
+            t1 = time.perf_counter()
+            await asyncio.gather(*(submit(ci) for ci in range(clients)))
+            # every submission must reach the orderer inside the batch
+            # timeout for the block to be cut by count
+            out["first_block_submit_s"] = time.perf_counter() - t1
+
+            async def status(ci, tx_id, t, env):
+                for attempt in range(CONFIG4_RESUBMITS + 1):
+                    try:
+                        st = await gcs[ci].commit_status(ch_id, tx_id,
+                                                         timeout=CONFIG4_STATUS_WAIT_S)
+                        break
+                    except GatewayError as e:
+                        if e.status != 408 or attempt == CONFIG4_RESUBMITS:
+                            raise
+                        out["resubmitted"].append(tx_id)
+                        await gcs[ci].submit(ch_id, env)
+                out["status"][tx_id] = st
+                out["submit_status_ms"].append(1e3 * (time.perf_counter() - t))
+
+            waits = [asyncio.ensure_future(status(*x)) for x in sent]
+
+            def all_in(i):
+                if time.perf_counter() - t1 > 180:
+                    raise AssertionError(f"config4_network_path: after 180 s the live peers "
+                                         f"hold {[txs_held(chans[j]) for j in (0, 1, 3)]} "
+                                         f"of {n_tx} transactions")
+                return txs_held(chans[i]) >= n_tx
+
+            async def probe(ci):
+                """Evaluations from each client, ``CONFIG4_PROBE_GAP_S``
+                apart, until every live peer holds every transaction:
+                the endorse latency while blocks commit."""
+                while not all(all_in(i) for i in (0, 1, 3)):
+                    t = time.monotonic()
+                    r = await gcs[ci].evaluate(ch_id, "basic", [b"put", b"probe%d" % ci, b"x"])
+                    if r.status != 200:
+                        raise AssertionError(f"config4_network_path: a probe gave {r}")
+                    out["probes"].append((t, time.monotonic()))
+                    await asyncio.sleep(CONFIG4_PROBE_GAP_S)
+
+            await asyncio.gather(*(probe(ci) for ci in range(clients)))
+            await asyncio.gather(*waits)
+            out["committed_s"] = time.perf_counter() - t0
+
+            # Org3's peer: started now, caught up from a peer by
+            # anti-entropy, its collA cleartext pulled at commit or
+            # reconciled after
+            height = chans[0].height
+            t2 = time.perf_counter()
+            await up(CONFIG4_LATE)
+            for j in (0, 1, 3):
+                peers[CONFIG4_LATE].registry.add(PeerInfo(orgs[j].msp_id, "127.0.0.1", ports[j]))
+            late = peers[CONFIG4_LATE].gossip_service
+            late.start_anti_entropy(ch_id, interval=0.2)
+            late.start_reconciler(ch_id, interval=0.5)
+            lch = chans[CONFIG4_LATE]
+            deadline = time.monotonic() + 120
+            while lch.height < height or lch.ledger.pvtdata.missing_data(height):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"config4_network_path: the late peer reached height "
+                                         f"{lch.height} of {height}")
+                await asyncio.sleep(0.05)
+            out["late_catchup_s"] = time.perf_counter() - t2
+            out["wall_s"] = time.perf_counter() - t0
+            out["launches"] = dict(kernels.launches)
+        out["by_owner"] = {f"{who}:{k}": n for (who, k), n in sorted(by_owner.items())}
+        out["peer_lanes"] = [p.sign_batcher.stats() if sign_device else {} for p in peers]
+        out["client_lane"] = client_lane.stats() if sign_device else {}
+        out["gossip"] = [dict(p.gossip_service.stats) for p in peers]
+        out["peers"] = []
+        for i, (p, ch) in enumerate(zip(peers, chans)):
+            lg = ch.ledger
+            lg.drain_state()
+            spans = {}
+            for r in ch.tracer.recent_roots():
+                d = spans[r.attrs["block"]] = {"total": 1e3 * r.dur}
+                for c in r.children:
+                    d[c.name] = d.get(c.name, 0.0) + 1e3 * c.dur
+            pvt_rows = [row for n in range(lg.height) for row in lg.pvtdata.get_pvt_data(n)]
+            out["peers"].append({
+                "blocks": [lg.blocks.get_block(n).serialize() for n in range(lg.height)],
+                "digest": lg.state_digest(), "public_digest": _public_digest(lg.state),
+                "commit_hash": (lg.commit_hash or b"").hex(),
+                "clear": {k: vv.value for (ns, k), vv in lg.state.iter_all()
+                          if ns == "pvtcc$collA"},
+                "hashed": {k: vv.value for (ns, k), vv in lg.state.iter_all()
+                           if ns == "pvtcc$collA#hashed"},
+                "pvt_rows": pvt_rows,
+                "transient": sum(len(ch.transient.get(t)) for t in out["calls"]),
+                "missing": lg.pvtdata.missing_data(lg.height),
+                "missing_all": lg.pvtdata.missing_data(lg.height, eligible_only=False),
+                "spans_ms": spans})
+        out["orderer_blocks"] = await svc.acall("blocks")
+        out["msp"] = mgr
+    finally:
+        watcher.cancel()
+        for g in gcs:
+            await g.close()
+        if client_lane is not None:
+            client_lane.stop()
+        for p in peers:
+            if p is not None:
+                await p.stop()
+        record = out["ordering"] = svc.close()
+        log("config4_network_orderers", changes=[
+            {k: c[k] for k in ("t", "node", "state", "leader", "term")}
+            for c in (record or {}).get("changes", ())],
+            late_wakes=(record or {}).get("lags"))
+    return out
+
+
+def phase_config4_network_path(dev, n_tx=CONFIG4_NET_TXS, conflicts=CONFIG4_NET_CONFLICTS,
+                               clients=CONFIG4_NET_CLIENTS, batch=None, check_launches=True,
+                               sign_batch=card_signer, sign_device=True):
+    """BASELINE config 4 (``raft network: 3 orderers / 4 peers, pvtdata
+    chaincode, mixed endorsement policies``) as a network on ``dev``,
+    through the entry points a user calls: three ``OrdererNode``s of one
+    Raft cluster (``BatchConfig()``: 500 messages, 2 MiB, 10 MiB, 2 s) in
+    a child process; four ``PeerNode(device=dev, sign_device=True,
+    pipeline_depth=2)`` of Org1–Org4, each knowing the other three and
+    running gossip; ``CONFIG4_NS``'s policies in dev mode, ``pvtcc``'s
+    ``collA`` shared by Org1–Org3 (required 1, max 2, BTL 0).  ``clients``
+    gateway clients (on Org1's, Org2's and Org4's gateways; a private
+    write through a member's) endorse ``n_tx`` transactions (``conflicts``
+    conflict pairs and ``build_config4``'s mix), then submit them in one
+    burst; Org3's peer starts after the block has committed on the
+    others and catches up by anti-entropy from a peer, its ``collA``
+    cleartext by pull at commit or by the reconciler.  Checks: the same
+    block bytes, filters (the port's serial host validation of the
+    orderers' bytes, and the construction), commit hashes and public
+    digests on the four peers, full state digests on Org1–3; every
+    ``collA`` write as cleartext on Org1–3 and as its hash on all four,
+    none of it in Org4's transient or pvtdata store and no eligible
+    missing entry there, no missing entry left on a member; commit
+    status for every transaction; ``p256_verify``, ``stage2_policy`` and
+    ``stage2_mvcc`` launched by every peer at least once a block, and
+    ``p256_sign`` (``check_launches``), ``p256_sign`` and ``p256_verify``
+    held against their plain versions at the path's shapes.
+    ``sign_device=False`` (a CPU rehearsal) signs on the host instead."""
+    import asyncio
+    import hashlib
+    import shutil
+    import tempfile
+
+    from fabric_tpu_torch import protoutil
+    from fabric_tpu_torch.crypto import cryptogen
+    from fabric_tpu_torch.ordering import BatchConfig
+    from fabric_tpu_torch.peer.txcodes import TxValidationCode as C
+    from fabric_tpu_torch.protos import messages as m
+
+    t_phase = time.perf_counter()
+    batch = batch or BatchConfig()
+    rng = np.random.default_rng(SEED + 42)
+    orgs = [cryptogen.generate_org(f"Org{i}MSP", f"org{i}.config4.example.com", rng,
+                                   now=WIRE_NOW, sign_batch=sign_batch) for i in (1, 2, 3, 4)]
+    gc.collect()
+    root = tempfile.mkdtemp(prefix="config4_network-")
+    try:
+        with first_launches("p256_sign", lambda limbs, *a: limbs.shape[0]) as signs, \
+                first_launches("p256_verify", lambda frame, *a: frame.shape[0]) as verifies:
+            run = asyncio.run(_config4_network_run(dev, orgs, n_tx, conflicts, clients, batch,
+                                                   root, sign_device))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    counts, peers = run["launches"], run["peers"]
+    oblocks = [m.Block.parse(b) for b in run["orderer_blocks"]]
+    n_blocks = len(oblocks)
+    ordered = [protoutil.channel_header(env).tx_id for b in oblocks for env in b.data.data]
+    if set(ordered) != set(run["calls"]) or len(ordered) > n_tx + len(run["resubmitted"]):
+        raise AssertionError(f"config4_network_path: the orderers hold "
+                             f"{[len(b.data.data) for b in oblocks]} txs, {len(set(ordered))} "
+                             f"distinct, of {n_tx} ({len(run['resubmitted'])} submitted again)")
+    per_peer = {f"org{i + 1}": {k: run["by_owner"].get(f"org{i + 1}:{k}", 0)
+                                for k in CONFIG4_NET_KERNELS} for i in range(4)}
+    short = {p: c for p, c in per_peer.items() if min(c.values()) < n_blocks}
+    if check_launches and (short or counts.get("p256_sign", 0) == 0):
+        raise AssertionError(f"config4_network_path: a peer launched a kernel fewer times than "
+                             f"its {n_blocks} blocks: {short}, or p256_sign never ({counts})")
+
+    # the same blocks, filters, hashes and digests on every peer
+    ref = peers[0]
+    for i, p in enumerate(peers):
+        if p["blocks"] != ref["blocks"] or p["commit_hash"] != ref["commit_hash"] \
+                or p["public_digest"] != ref["public_digest"]:
+            raise AssertionError(f"config4_network_path: org{i + 1}'s peer differs from org1's "
+                                 f"(blocks {p['blocks'] == ref['blocks']}, commit hash, digest)")
+        if i < 3 and p["digest"] != ref["digest"]:
+            raise AssertionError(f"config4_network_path: org{i + 1}'s full state digest differs")
+    pblocks = [m.Block.parse(b) for b in ref["blocks"]]
+    for a, b in zip(pblocks, oblocks):
+        if a.header.serialize() != b.header.serialize() or a.data.serialize() != b.data.serialize():
+            raise AssertionError("config4_network_path: a peer's block differs from the orderers'")
+    got = [protoutil.get_tx_filter(b) for b in pblocks]
+    host = host_filters(dev, oblocks, config4_provider(), run["msp"])
+    want = config4_expected(oblocks, run["calls"])
+    if got != host or got != want:
+        raise AssertionError(f"config4_network_path: filters differ (peer / host validation / "
+                             f"construction): {[list(g) for g in got]} {[list(h) for h in host]}")
+    codes = {}  # a tx id's code: its first occurrence's
+    for n, b in enumerate(oblocks):
+        for i, env in enumerate(b.data.data):
+            codes.setdefault(protoutil.channel_header(env).tx_id, got[n][i])
+    bad_status = [t for t, st in run["status"].items() if st["code"] != codes[t]]
+    if len(run["status"]) != n_tx or bad_status:
+        raise AssertionError(f"config4_network_path: {len(run['status'])} commit statuses, "
+                             f"{len(bad_status)} wrong")
+    n_conflicts = sum(g.count(bytes([C.MVCC_READ_CONFLICT])) for g in got)
+    if n_conflicts != conflicts:
+        raise AssertionError(f"config4_network_path: {n_conflicts} MVCC conflicts, "
+                             f"expected {conflicts}")
+
+    # collA: cleartext on the members, its hash everywhere, nothing on Org4
+    writes = {args[2].decode(): tr["value"] for cc, args, tr in run["calls"].values()
+              if cc == "pvtcc"}
+    hashed = {hashlib.sha256(k.encode()).hexdigest(): hashlib.sha256(v).digest()
+              for k, v in writes.items()}
+    for i, p in enumerate(peers):
+        if p["hashed"] != hashed:
+            raise AssertionError(f"config4_network_path: org{i + 1}'s collA hashes differ")
+        member = i < 3
+        if member and (p["clear"] != writes or p["missing"]):
+            raise AssertionError(f"config4_network_path: org{i + 1} holds "
+                                 f"{len(p['clear'])} of {len(writes)} collA values, "
+                                 f"{len(p['missing'])} missing")
+        if not member and (p["clear"] or p["transient"] or p["pvt_rows"] or p["missing"]):
+            raise AssertionError(f"config4_network_path: org4 (no member) holds collA data: "
+                                 f"{len(p['clear'])} values, {p['transient']} transient, "
+                                 f"{len(p['pvt_rows'])} store rows, {len(p['missing'])} "
+                                 "eligible missing")
+    held = held_to_plain("config4_network_path", signs, verifies)
+
+    cut = (run["ordering"] or {}).get("cut_at", {})
+    windows = [(cut[n], at[n]) for at in run["committed_at"] for n in at if n in cut]
+    during = [1e3 * (b - a) for a, b in run["probes"]
+              if any(a < w1 and b > w0 for w0, w1 in windows)]
+    changes = (run["ordering"] or {}).get("changes", [])
+    leaders = [(c["node"], c["term"]) for c in changes if c["state"] == "leader"]
+    log("config4_network_gossip",
+        pushes=[g["pushes"] for g in run["gossip"]], acks=[g["acks"] for g in run["gossip"]],
+        pulls_served=[g["pulls"] for g in run["gossip"]],
+        pulled=[g["pulled"] for g in run["gossip"]],
+        reconciled=[g["reconciled"] for g in run["gossip"]],
+        anti_entropy_blocks=run["gossip"][CONFIG4_LATE]["ae_blocks"],
+        late_catchup_s=run["late_catchup_s"], collA_writes=len(writes),
+        ineligible_missing_org4=len(peers[3]["missing_all"]))
+    log("config4_network_leaders", leader_elections=leaders,
+        leader_changes=max(0, len(leaders) - 1), resubmitted=len(run["resubmitted"]),
+        duplicates=len(ordered) - n_tx)
+    log("config4_network_blocks", blocks=[{
+        "number": n, "txs": len(oblocks[n].data.data),
+        "cut_by": "count" if len(oblocks[n].data.data) == batch.max_message_count else "timeout",
+        "valid": got[n].count(bytes([C.VALID])),
+        "mvcc_read_conflict": got[n].count(bytes([C.MVCC_READ_CONFLICT])),
+        "cut_to_committed_ms": {f"org{i + 1}": 1e3 * (at[n] - cut[n])
+                                for i, at in enumerate(run["committed_at"])
+                                if n in at and n in cut},
+        "spans_ms": {f"org{i + 1}": p["spans_ms"].get(n) for i, p in enumerate(peers)}}
+        for n in range(n_blocks)])
+    log("config4_network_latency", endorse_ms_idle=_lat(run["endorse_ms"]),
+        endorse_ms_while_committing=_lat(during), probes=len(run["probes"]),
+        submit_to_status_ms=_lat(run["submit_status_ms"]), endorse_s=run["endorse_s"],
+        first_block_submit_s=run["first_block_submit_s"],
+        batch_timeout_s=batch.batch_timeout_s)
+    log("config4_network_path", txs=n_tx, clients=clients, blocks=n_blocks, launches=counts,
+        launches_by_peer=per_peer,
+        sign_lanes={f"org{i + 1}": {k: lane.get(k) for k in ("signed_total", "batches_total")}
+                    for i, lane in enumerate(run["peer_lanes"])},
+        client_lane_batches=run["client_lane"].get("batches_total"),
+        sign_lanes_launched=sorted(signs), verify_lanes_launched=sorted(verifies),
+        plain_mismatches=held, tx_per_s=n_tx / run["committed_s"], wall_s=run["wall_s"],
+        host_validation_equal=True, commit_hash=ref["commit_hash"],
+        seconds=time.perf_counter() - t_phase)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# The BFT ordering service: 4 consenters (f = 1) and a peer that checks
+# each block's quorum attestation before its launch
+
+
+BFT_CHANNEL = "bftchan"
+BFT_BLOCKS = 3         # blocks before the leader is stopped; one more after
+BFT_BLOCK_TXS = 16     # a block, cut by count
+BFT_VIEW_TIMEOUT = 6.0  # beyond a normal block's ~1-2 s of ec_ref work on the orderers' core
+BFT_POLICY = "OutOf(1, 'Org1MSP.peer')"
+
+
+def bft_material(sign_batch=card_signer, seed=SEED + 44):
+    """An orderer org of 4 consenters (carried through
+    ``carry.from_cryptogen``), Org1 with a peer and a client, the genesis
+    block (``consensus_type="bft"``, the consenters' identities)."""
+    from fabric_tpu_torch import carry
+    from fabric_tpu_torch.crypto import cryptogen, der
+    from fabric_tpu_torch.crypto.msp import MSPManager
+    from fabric_tpu_torch.tools import configtxgen as cg
+
+    rng = np.random.default_rng(seed)
+    org1 = cryptogen.generate_org("Org1MSP", "org1.bft.example.com", rng, now=WIRE_NOW,
+                                  sign_batch=sign_batch)
+    ca = cryptogen.CA.create("ord.bft.example.com", rng, now=WIRE_NOW, sign_batch=sign_batch)
+    names = [f"orderer{i}.ord.bft.example.com" for i in range(4)]
+    made = ca.issue_many([(n, "orderer") for n in names], sign_batch)
+    carried, omsp = carry.from_cryptogen("OrdererMSP", der.pem_certificate(ca.cert_pem), {
+        n: (der.pem_certificate(pem), d) for n, (d, pem) in zip(names, made)})
+    ids = [f"o{i}" for i in range(4)]
+    signers = {oid: carried[n] for oid, n in zip(ids, names)}
+    omgr = MSPManager({"OrdererMSP": omsp})
+    verifiers = {oid: omgr.deserialize_identity(s.serialized) for oid, s in signers.items()}
+    profile = cg.Profile(BFT_CHANNEL, application_orgs=[cg.OrgProfile("Org1MSP", org1.msp())],
+                         orderer_orgs=[cg.OrgProfile("OrdererMSP", omsp)], consensus_type="bft",
+                         raft_consenters=[("127.0.0.1", 7050 + i, signers[oid].serialized, oid)
+                                          for i, oid in enumerate(ids)],
+                         max_message_count=BFT_BLOCK_TXS)
+    return {"ids": ids, "signers": signers, "verifiers": verifiers, "org1": org1,
+            "genesis": cg.genesis_block(profile)}
+
+
+def bft_envelopes(org1, n_blocks, n_tx, sign_batch=card_signer) -> list:
+    """``n_blocks`` x ``n_tx`` ``basic`` puts of the Org1 client, endorsed
+    by Org1's peer → serialized envelopes, a list a block."""
+    from fabric_tpu_torch.ledger.rwset import TxRWSet
+    from fabric_tpu_torch.peer import txassembly as txa
+
+    client = org1.users["User1@org1.bft.example.com"]
+    peer = org1.nodes["peer0.org1.bft.example.com"]
+    specs = []
+    for b in range(n_blocks):
+        for i in range(n_tx):
+            rw = TxRWSet()
+            rw.ns_rwset("basic").writes[f"b{b}_{i:03d}"] = b"v%d" % i
+            specs.append(txa.TxSpec(client, [peer], rw.to_bytes(), "basic",
+                                    channel_id=BFT_CHANNEL))
+    envs = txa.build_envelopes(specs, sign_batch)
+    return [envs[b * n_tx:(b + 1) * n_tx] for b in range(n_blocks)]
+
+
+def bft_forgeries(mat, good, prev_hash: bytes) -> dict:
+    """Two forgeries of the block after ``good`` (the last block of the
+    stream), its transactions but the last, both signed by consenter o0
+    as a byzantine orderer: one whose proof holds its own COMMIT alone,
+    one that carries ``good``'s proof (2f+1 real signatures over another
+    digest)."""
+    import hashlib
+
+    from fabric_tpu_torch import protoutil
+    from fabric_tpu_torch.ordering.bft import _signable
+    from fabric_tpu_torch.protos import messages as m
+
+    evil = mat["signers"]["o0"]
+    out = {}
+    for kind in ("one_signature", "other_digest"):
+        blk = protoutil.new_block(good.header.number + 1, prev_hash)
+        blk.data.data.extend(good.data.data[:-1])  # replayed transactions
+        blk = protoutil.finalize_block(blk)
+        seq = json.loads(bytes(good.metadata.metadata[m.META_ORDERER]))["index"] + 1
+        if kind == "one_signature":
+            d = hashlib.sha256(json.dumps([bytes(e).hex() for e in blk.data.data])
+                               .encode()).hexdigest()
+            msg = {"type": "bft_commit", "from": "o0", "view": 0, "seq": seq, "digest": d}
+            msg["sig"] = evil.sign(_signable(msg)).hex()
+            msg["from_cert"] = evil.serialized.hex()
+            meta = {"term": 0, "index": seq, "bft_proof": [msg]}
+        else:
+            meta = json.loads(bytes(good.metadata.metadata[m.META_ORDERER]))
+        blk.metadata.metadata[m.META_ORDERER] = json.dumps(meta).encode()
+        protoutil.sign_block(blk, evil)
+        out[kind] = blk
+    return out
+
+
+async def _bft_run(dev, mat, blocks_envs, root, sign_device=True):
+    """The BFT ordering service (a child process) and the Org1 peer:
+    ``BFT_BLOCKS`` blocks, the forgeries, the leader stopped, one block
+    more → what the checks read."""
+    import asyncio
+
+    from fabric_tpu_torch import kernels, protoutil
+    from fabric_tpu_torch.crypto import policy as pol
+    from fabric_tpu_torch.ordering import BroadcastClient
+    from fabric_tpu_torch.peer.chaincode import ChaincodeRuntime
+    from fabric_tpu_torch.peer.node import PeerNode
+    from fabric_tpu_torch.peer.validator import NamespaceInfo, PolicyProvider
+
+    org1 = mat["org1"]
+    svc = OrderingService({
+        "channel": BFT_CHANNEL, "ids": mat["ids"], "consensus": "bft", "dir": f"{root}/orderers",
+        "seed": SEED + 45, "genesis": mat["genesis"].serialize(), "signers": mat["signers"],
+        "verifiers": mat["verifiers"], "view_timeout": BFT_VIEW_TIMEOUT,
+        "batch": {"max_message_count": BFT_BLOCK_TXS, "batch_timeout_s": 2.0}})
+    addrs = list(svc.cluster.values())
+    peer = PeerNode("peer0.org1", f"{root}/peer", None, org1.nodes["peer0.org1.bft.example.com"],
+                    ChaincodeRuntime(), device=dev, sign_device=sign_device, pipeline_depth=2)
+    bc = BroadcastClient(addrs)
+    out = {"accepted": [], "refused": {}, "commit_s": []}
+    try:
+        await peer.start()
+        ch = peer.join_channel(BFT_CHANNEL, PolicyProvider(
+            {"basic": NamespaceInfo(policy=pol.from_dsl(BFT_POLICY))}), genesis_block=mat["genesis"])
+        attest = ch._verify_bft_attestation
+
+        def recorded(blk, bundle):
+            attest(blk, bundle)
+            out["accepted"].append(blk.header.number)
+
+        ch._verify_bft_attestation = recorded
+        ch.start_deliver(addrs, censorship_check_s=CENSORSHIP_CHECK_S)
+        kernels.reset_counts()
+
+        def txs_held():
+            return sum(len(ch.ledger.blocks.get_block(k).data.data)
+                       for k in range(1, ch.height))
+
+        async def block(envs):
+            """``envs`` broadcast together, until the peer holds them all
+            (one block cut by count; after the leader's stop, the retried
+            broadcasts may arrive spread over more than one)."""
+            want, t = txs_held() + len(envs), time.perf_counter()
+            res = await asyncio.gather(*(bc.broadcast(BFT_CHANNEL, e, retries=200)
+                                         for e in envs))
+            bad = [r for r in res if r.get("status") != 200]
+            if bad:
+                raise AssertionError(f"bft_path: broadcasts refused: {bad[:3]}")
+            deadline = time.monotonic() + 60
+            while txs_held() < want:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"bft_path: the peer holds {txs_held()} of {want} "
+                                         "transactions")
+                await asyncio.sleep(0.02)
+            out["commit_s"].append(time.perf_counter() - t)
+
+        for envs in blocks_envs[:-1]:
+            await block(envs)
+        info = await svc.acall("info")
+        out["views_before_stop"] = {o: c["view"] for o, c in info.items()}
+        # forgeries of the next block, from the stream's own material
+        good = ch.ledger.blocks.get_block(ch.height - 1)
+        h = ch.height
+        for kind, blk in bft_forgeries(mat, good, protoutil.block_header_hash(good.header)).items():
+            try:
+                await ch.commit_block(blk)
+                out["refused"][kind] = None
+            except ValueError as e:
+                out["refused"][kind] = str(e)
+        out["height_after_forgeries"] = (h, ch.height)
+        stopped = await svc.acall("stop_leader")
+        out["stopped"] = stopped["stopped"]
+        t = time.perf_counter()
+        await block(blocks_envs[-1])
+        out["view_change_block_s"] = time.perf_counter() - t
+        out["launches"] = dict(kernels.launches)
+        info = await svc.acall("info")
+        out["views_after"] = {o: c["view"] for o, c in info.items()}
+        out["orderer_blocks"] = {o: await svc.acall("blocks", o) for o in info}
+        ch.ledger.drain_state()
+        out["peer_blocks"] = [ch.ledger.blocks.get_block(n) for n in range(ch.height)]
+        out["msp"] = ch.validator.msp
+    finally:
+        await bc.close()
+        await peer.stop()
+        out["ordering"] = svc.close()
+    return out
+
+
+def phase_bft_path(dev, n_blocks=BFT_BLOCKS, n_tx=BFT_BLOCK_TXS, check_launches=True,
+                   sign_batch=card_signer, sign_device=True):
+    """The BFT ordering service on ``dev``: four ``OrdererNode(consensus=
+    "bft")`` of an orderer org (f = 1) with ``signer`` and ``verifiers``
+    from ``carry.from_cryptogen``, on a channel made from a genesis
+    block with ``consensus_type="bft"`` and the consenters' identities, in
+    a child process, and a ``PeerNode(device=dev, sign_device=True)`` of
+    Org1 joined from that genesis block, which checks each block's
+    orderer signature and quorum attestation at ``pre_launch_fn``.
+    ``n_blocks`` blocks of ``n_tx`` transactions cut by count, two
+    forged blocks (one COMMIT signature; another block's proof), the
+    leader stopped, one block more after the view change.  Checks: each
+    block carries 3 or more distinct consenter COMMIT signatures and the
+    peer accepted each; the forgeries are refused and the height stays;
+    no view change before the leader stopped, one after; the surviving
+    orderers' blocks are equal; the peer's filters equal the host
+    validation; ``p256_verify`` launched (``check_launches``).
+    ``sign_device=False`` (a CPU rehearsal) keeps the peer's sign lane
+    off."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    from fabric_tpu_torch import protoutil
+    from fabric_tpu_torch.crypto import policy as pol
+    from fabric_tpu_torch.peer.validator import NamespaceInfo, PolicyProvider
+    from fabric_tpu_torch.protos import messages as m
+
+    t_phase = time.perf_counter()
+    mat = bft_material(sign_batch)
+    envs = bft_envelopes(mat["org1"], n_blocks + 1, n_tx, sign_batch)
+    root = tempfile.mkdtemp(prefix="bft_path-")
+    try:
+        run = asyncio.run(_bft_run(dev, mat, envs, root, sign_device))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    counts = run["launches"]
+    if check_launches and counts.get("p256_verify", 0) < n_blocks + 1:
+        raise AssertionError(f"bft_path: p256_verify launched {counts.get('p256_verify', 0)} "
+                             f"times for {n_blocks + 1} blocks")
+    pblocks = run["peer_blocks"]
+    want_numbers = list(range(1, len(pblocks)))
+    sizes = [len(b.data.data) for b in pblocks[1:]]
+    if sizes[:n_blocks] != [n_tx] * n_blocks or sum(sizes) != n_tx * (n_blocks + 1) or \
+            sorted(set(run["accepted"])) != want_numbers:
+        raise AssertionError(f"bft_path: the peer holds blocks of {sizes} txs, accepted "
+                             f"{sorted(set(run['accepted']))}")
+    if any(v is None for v in run["refused"].values()) or \
+            run["height_after_forgeries"][0] != run["height_after_forgeries"][1]:
+        raise AssertionError(f"bft_path: a forged block was not refused: {run['refused']}")
+    if any(v != 0 for v in run["views_before_stop"].values()) or \
+            not all(v >= 1 for v in run["views_after"].values()):
+        raise AssertionError(f"bft_path: views {run['views_before_stop']} before the stop, "
+                             f"{run['views_after']} after")
+    proofs = []
+    for b in pblocks[1:]:
+        meta = json.loads(bytes(b.metadata.metadata[m.META_ORDERER]))
+        signers = {c["from_cert"] for c in meta["bft_proof"]}
+        proofs.append(len(signers))
+    if min(proofs) < 3:
+        raise AssertionError(f"bft_path: COMMIT signatures a block {proofs}")
+    survivors = [[m.Block.parse(raw) for raw in blks] for blks in run["orderer_blocks"].values()]
+    heads = [[(b.header.serialize(), b.data.serialize()) for b in blks] for blks in survivors]
+    if any(h != heads[0] for h in heads) or len(heads[0]) != len(pblocks):
+        raise AssertionError("bft_path: the surviving orderers' blocks differ")
+    for a, b in zip(pblocks, survivors[0]):
+        if a.header.serialize() != b.header.serialize():
+            raise AssertionError("bft_path: the peer's blocks differ from the orderers'")
+    got = [protoutil.get_tx_filter(b) for b in pblocks[1:]]
+    host = host_filters(dev, survivors[0][1:], PolicyProvider(
+        {"basic": NamespaceInfo(policy=pol.from_dsl(BFT_POLICY))}), run["msp"])
+    if got != host or any(g != bytes(len(g)) for g in got):
+        raise AssertionError(f"bft_path: filters {[list(g) for g in got]} against the host's "
+                             f"{[list(h) for h in host]}")
+    changes = (run["ordering"] or {}).get("changes", [])
+    log("bft_path", blocks=len(pblocks) - 1, txs=sizes, commit_signatures=proofs,
+        accepted=sorted(set(run["accepted"])),
+        refused={k: v.split(":")[-1].strip() for k, v in run["refused"].items()},
+        stopped_leader=run["stopped"], views_before_stop=run["views_before_stop"],
+        views_after=run["views_after"],
+        view_changes=sum(1 for c in changes if c["state"] == "leader") - 1,
+        block_commit_s=run["commit_s"], view_change_block_s=run["view_change_block_s"],
+        view_timeout_s=BFT_VIEW_TIMEOUT, launches=counts, host_validation_equal=True,
+        seconds=time.perf_counter() - t_phase)
+    return counts
+
 
 
 def kernel_frames(build_log: dict, names) -> dict:
@@ -4364,10 +5424,21 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
         torch=torch.__version__, cuda=torch.version.cuda)
+    phases = {}  # each phase's seconds, the phases line
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        try:
+            return fn(*a)
+        finally:
+            phases[name] = time.perf_counter() - t
+
+    t_build = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:  # g++ beside nvcc
         host = pool.submit(native.build)
         secs = kernels.build()
         host_secs = host.result()
+    phases["build"] = time.perf_counter() - t_build
     regs = {n: [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
             for n, text in kernels.build_log.items()}
     # static shared memory per block of each kernel, as ptxas reports it
@@ -4387,39 +5458,43 @@ def main() -> int:
                              f"did not report it: {frames}, unread {unread}")
     t0 = time.perf_counter()
     net = Net(SEED)
+    phases["signatures"] = time.perf_counter() - t0
     log("signatures", identities=len(net.keys), per_identity=POOL,
         seconds=time.perf_counter() - t0)
     dev = torch.device("cuda")
-    recs = [phase_verify(net, dev)]
-    recs += phase_stage2(dev)
-    counts, main_res = phase_main_path(net)
+    recs = [timed("verify", phase_verify, net, dev)]
+    recs += timed("stage2", phase_stage2, dev)
+    counts, main_res = timed("main_path", phase_main_path, net)
     for r in recs:
         r["launches"] = counts[r["name"]]
-    counts, path_ubs = phase_resident_path(net)
-    res_recs = phase_resident_kernels(dev, path_ubs)
+    counts, path_ubs = timed("resident_path", phase_resident_path, net)
+    res_recs = timed("resident_kernels", phase_resident_kernels, dev, path_ubs)
     for r in res_recs:
         r["launches"] = counts[r["name"]]
     recs += res_recs
-    recs.append(phase_sign(net, dev))
-    wired = phase_wire_path(dev)
+    recs.append(timed("sign", phase_sign, net, dev))
+    wired = timed("wire_path", phase_wire_path, dev)
     wire, msp = wired["wire"], wired["msp"]
-    phase_coalesced_path(dev, wired)
-    phase_host_stage(net, wire, msp)
-    recs.append(phase_sha256(dev, wire[0]))
-    recs += phase_comparison(net, dev, main_res)
-    phase_sidecar(net, main_res)
-    phase_config4_path(dev)
-    phase_config5_path(dev)
-    ledger_built = build_ledger()
-    phase_ledger_path(dev, ledger_built)
-    phase_observe_path(dev, ledger_built)
-    phase_chaos_path(dev, ledger_built)
-    # the kernels line gives each kernel's launches on the network path
-    # where it has any
-    net_counts = phase_network_path(dev)
+    timed("coalesced_path", phase_coalesced_path, dev, wired)
+    timed("host_stage", phase_host_stage, net, wire, msp)
+    recs.append(timed("sha256", phase_sha256, dev, wire[0]))
+    recs += timed("comparison", phase_comparison, net, dev, main_res)
+    timed("sidecar", phase_sidecar, net, main_res)
+    timed("config4_path", phase_config4_path, dev)
+    timed("config5_path", phase_config5_path, dev)
+    ledger_built = timed("ledger_build", build_ledger)
+    timed("ledger_path", phase_ledger_path, dev, ledger_built)
+    timed("observe_path", phase_observe_path, dev, ledger_built)
+    timed("chaos_path", phase_chaos_path, dev, ledger_built)
+    timed("network_path", phase_network_path, dev)
+    # the kernels line gives the launches of the peers' kernels on
+    # config 4's network: the four peers' commit paths and sign lanes
+    net_counts = timed("config4_network_path", phase_config4_network_path, dev)
     for r in recs:
         if r["name"] in NETWORK_KERNELS:
             r["launches"] = net_counts[r["name"]]
+    timed("bft_path", phase_bft_path, dev)
+    log("phases", seconds=phases, total_s=sum(phases.values()))
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "mismatches",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in order} for r in recs]}), flush=True)

@@ -22,6 +22,12 @@ fire around every ``os.fsync``.  ``stats()["fsyncs"]`` counts the
 fsyncs by the trigger that closed their window, and so does the
 registry's ``blockstore_fsync_total{trigger}`` (the reference's :210-224):
 ``group``, ``lag``, ``forced``, ``apply``.
+
+Where the port departs: the index connection runs one statement at a
+time under a lock (``_LockedIndex``).  The committer writes it while a
+deliver loop's launch checks tx ids and the event loop answers commit
+statuses; the reference shares its connection unguarded, and a status
+read beside a launch raised ``InterfaceError`` there.
 """
 
 from __future__ import annotations
@@ -54,6 +60,41 @@ def _tx_id(env_bytes: bytes) -> str:
     return ch.tx_id
 
 
+class _Rows(list):
+    """A statement's fetched rows, read as its cursor would be."""
+
+    def fetchone(self):
+        return self[0] if self else None
+
+
+class _LockedIndex:
+    """The index connection, one statement at a time: the committer
+    writes it while a deliver loop's launch checks tx ids and the event
+    loop answers commit statuses, and one sqlite3 connection used from
+    two threads at once raises ``InterfaceError`` ("bad parameter or
+    other API misuse").  ``execute`` returns the rows fetched."""
+
+    def __init__(self, conn):
+        self._conn = conn
+        self._lock = threading.Lock()
+
+    def execute(self, *args) -> _Rows:
+        with self._lock:
+            return _Rows(self._conn.execute(*args).fetchall())
+
+    def executemany(self, *args) -> None:
+        with self._lock:
+            self._conn.executemany(*args)
+
+    def commit(self) -> None:
+        with self._lock:
+            self._conn.commit()
+
+    def close(self) -> None:
+        with self._lock:
+            self._conn.close()
+
+
 class BlockStore:
     def __init__(self, dirpath: str, group_commit: int = 8, group_max_lag_s: float = 0.5):
         self.dir = dirpath
@@ -68,8 +109,8 @@ class BlockStore:
         # (add_block) and the applier thread (ensure_synced)
         self._io_lock = threading.Lock()
         os.makedirs(dirpath, exist_ok=True)
-        self._idx = sqlite3.connect(os.path.join(dirpath, "index.db"),
-                                    check_same_thread=False)
+        self._idx = _LockedIndex(sqlite3.connect(os.path.join(dirpath, "index.db"),
+                                                 check_same_thread=False))
         self._idx.execute("PRAGMA journal_mode=WAL")
         # derived state, rebuilt from the files: NORMAL keeps the WAL
         # checkpoint crash-safe without an fsync a commit

@@ -5,8 +5,8 @@ opens).
 Analog of core/ledger/pvtdatastorage/store.go: pvt write-sets keyed
 (block, tx, namespace, collection) with an expiry block, the same
 tables as the reference's (its ``missing`` table included, so either
-package opens the other's file).  The reconciler's reads and writes of
-missing data (``missing_data``, ``resolve_missing``) are not ported.
+package opens the other's file), and the reconciler's reads and
+writes of missing data (``missing_data``, ``resolve_missing``).
 """
 
 from __future__ import annotations
@@ -77,6 +77,25 @@ class PvtDataStore:
         ):
             out[(txnum, ns, coll)] = rwset
         return out
+
+    def missing_data(self, max_block: int, eligible_only: bool = True):
+        q = "SELECT block, txnum, ns, coll FROM missing WHERE block<=?"
+        if eligible_only:
+            q += " AND eligible=1"
+        return list(self._conn.execute(q, (max_block,)))
+
+    def resolve_missing(self, block: int, txnum: int, ns: str, coll: str, rwset: bytes, expiry: int = 0):
+        """Reconciler delivered previously missing data."""
+        cur = self._conn.cursor()
+        cur.execute(
+            "INSERT OR REPLACE INTO pvt VALUES (?,?,?,?,?,?)",
+            (block, txnum, ns, coll, rwset, expiry),
+        )
+        cur.execute(
+            "DELETE FROM missing WHERE block=? AND txnum=? AND ns=? AND coll=?",
+            (block, txnum, ns, coll),
+        )
+        self._conn.commit()
 
     def purge_expired(self, current_block: int) -> list:
         """BTL expiry (analog pvtstatepurgemgmt): drop pvt data whose

@@ -1,6 +1,6 @@
 """Per-channel ordering chain: broadcast → filters → blockcutter →
-raft → deterministic block assembly → deliver (counterpart:
-``fabric_tpu/ordering/chain.py``, Raft consensus only).
+raft or BFT → deterministic block assembly → deliver (counterpart:
+``fabric_tpu/ordering/chain.py``).
 
 Reference shape: `Chain.run` propose/apply loop
 (orderer/consensus/etcdraft/chain.go:614), broadcast filter chain
@@ -21,9 +21,11 @@ Reference shape: `Chain.run` propose/apply loop
 * Deliver is a height-watched block stream off the block store, the
   seek semantics of common/deliver/deliver.go:158.
 
-``consensus="bft"`` raises ``NotImplementedError``: ``ordering/bft.py``
-is not ported yet (ROADMAP Queue 1 item 10), and with it the BFT
-commit proofs and the catch-up's attestation check.
+``consensus="bft"`` runs ``ordering/bft.py``'s ``BFTNode`` in Raft's
+place: its 2f+1 signed COMMIT messages ride the block's ORDERER
+metadata as ``bft_proof``, a committed consenter-set change rotates
+its verifier registry, and a catch-up pull accepts only blocks whose
+proof verifies (``_catchup_block_ok``).
 
 Durability coupling: the orderer's BlockStore runs with
 ``group_commit=1`` (fsync every block) — broadcast ACKs a batch once
@@ -37,20 +39,20 @@ here unless compaction learns to lag the unsynced window.
 from __future__ import annotations
 
 import asyncio
+import hashlib
 import json
 import logging
 
 from fabric_tpu_torch import protoutil
-from fabric_tpu_torch.crypto.msp import verify_signature
+from fabric_tpu_torch.crypto.identity import Identity
+from fabric_tpu_torch.crypto.msp import load_pem_certificate, verify_signature
 from fabric_tpu_torch.ledger.blockstore import BlockStore
+from fabric_tpu_torch.ordering.bft import COMMIT, BFTNode, _signable
 from fabric_tpu_torch.ordering.blockcutter import BatchConfig, BlockCutter
 from fabric_tpu_torch.ordering.raft import WAL, Entry, RaftNode
 from fabric_tpu_torch.protos import messages as m
 
 _log = logging.getLogger("fabric_tpu_torch.orderer")
-
-BFT_NOT_PORTED = ("consensus='bft': ordering/bft.py is not ported yet "
-                  "(ROADMAP Queue 1 item 10)")
 
 
 class MsgProcessor:
@@ -102,18 +104,32 @@ def _is_config(env_bytes: bytes) -> bool:
 
 
 def assemble_block(number: int, prev_hash: bytes, batch: list[bytes], term: int,
-                   index: int, signer=None) -> m.Block:
+                   index: int, signer=None, bft_proof: list | None = None) -> m.Block:
     """The block a committed batch becomes (the reference's ``_apply``
-    :262-289): header over the batch, ORDERER metadata
-    ``{"term", "index"}``, the orderer's signature when ``signer``."""
+    :262-295): header over the batch, ORDERER metadata
+    ``{"term", "index"}`` and, for BFT, ``"bft_proof"`` (the 2f+1
+    signed COMMIT messages binding view, seq and the batch's digest —
+    the quorum attestation peers check at deliver), the orderer's
+    signature when ``signer``."""
     blk = protoutil.new_block(number, prev_hash)
     blk.data.data.extend(batch)
     blk = protoutil.finalize_block(blk)
-    blk.metadata.metadata[m.META_ORDERER] = json.dumps(
-        {"term": term, "index": index}).encode()
+    meta = {"term": term, "index": index}
+    if bft_proof is not None:
+        meta["bft_proof"] = bft_proof
+    blk.metadata.metadata[m.META_ORDERER] = json.dumps(meta).encode()
     if signer is not None:
         protoutil.sign_block(blk, signer)
     return blk
+
+
+def _consenter_identity(serialized: bytes) -> Identity:
+    """A consenter's identity as a config block carries it (the
+    reference's ``Identity.from_serialized``, taken as valid): the
+    certificate's P-256 key under its MSP id."""
+    sid = m.SerializedIdentity.parse(serialized)
+    qx, qy = load_pem_certificate(sid.id_bytes).public_key
+    return Identity(sid.mspid, "orderer", qx, qy)
 
 
 class OrderingChain:
@@ -123,11 +139,11 @@ class OrderingChain:
                  data_dir: str, send_cb, config: BatchConfig | None = None,
                  msgproc: MsgProcessor | None = None,
                  genesis_block: m.Block | None = None,
-                 consensus: str = "raft", signer=None, block_puller=None,
+                 consensus: str = "raft", signer=None, verifiers=None,
+                 view_timeout: float = 2.0, block_puller=None,
                  on_consenters=None, wal_retention: int = 256, rng=None):
-        if consensus != "raft":
-            raise NotImplementedError(BFT_NOT_PORTED if consensus == "bft"
-                                      else f"unknown consensus {consensus!r}")
+        if consensus not in ("raft", "bft"):
+            raise NotImplementedError(f"unknown consensus {consensus!r}")
         self.channel = channel_id
         self.config = config or BatchConfig()
         self.cutter = BlockCutter(self.config)
@@ -145,13 +161,22 @@ class OrderingChain:
         self.blocks = BlockStore(f"{data_dir}/chains", group_commit=1)
         if self.blocks.height == 0 and genesis_block is not None:
             self.blocks.add_block(genesis_block)
-        self.raft = RaftNode(node_id, peers, WAL(f"{data_dir}/wal"), apply_cb=self._apply,
-                             send_cb=send_cb, catchup_cb=self._on_snapshot_hint, rng=rng)
+        # consenter selection — the consensus.Chain SPI seam
+        # (consensus.go:57; registry main.go:635: etcdraft | BFT)
+        if consensus == "bft":
+            self.raft = BFTNode(node_id, peers, WAL(f"{data_dir}/wal"), apply_cb=self._apply,
+                                send_cb=send_cb, signer=signer, verifiers=verifiers,
+                                view_timeout=view_timeout,
+                                catchup_cb=self._on_snapshot_hint)
+        else:
+            self.raft = RaftNode(node_id, peers, WAL(f"{data_dir}/wal"), apply_cb=self._apply,
+                                 send_cb=send_cb, catchup_cb=self._on_snapshot_hint, rng=rng)
         self.consenter = self.raft  # canonical name; raft kept for compat
         self._offset = 0  # block number of raft entry 1, set at start()
         self._catchup_task: asyncio.Task | None = None
         self._catchup_pending = 0
         self._catchup_term = 0
+        self._last_digest = None
         self._timer_task: asyncio.Task | None = None
         self._height_changed = asyncio.Event()
 
@@ -209,6 +234,10 @@ class OrderingChain:
         if reason is not None:
             return {"status": 400, "info": reason}
         if self.raft.state != "leader":
+            # BFT: a client knocking on a follower while the leader is
+            # dead is the liveness signal for a view change
+            if hasattr(self.raft, "note_client_request"):
+                self.raft.note_client_request()
             return {"status": 503, "info": "not leader", "leader": self.raft.leader_id}
         if _is_config(env_bytes):
             # config messages cut into their OWN single-envelope block
@@ -229,14 +258,24 @@ class OrderingChain:
             self._timer_task = None
         if last_index is not None:
             try:
-                await asyncio.wait_for(self.raft.wait_applied(last_index), timeout=10.0)
+                confirmed = await asyncio.wait_for(
+                    self.raft.wait_applied(last_index, digest=self._last_digest),
+                    timeout=10.0)
             except asyncio.TimeoutError:
                 return {"status": 500, "info": "commit timeout"}
+            if confirmed is False:
+                # a view change reassigned the sequence: this batch was
+                # NOT ordered — the client must resubmit
+                return {"status": 503, "info": "reordered during view change"}
         return {"status": 200}
 
     def _propose_batch(self, batch: list[bytes]) -> int | None:
-        # the Raft entry (the reference's :242): the batch's envelopes in hex
-        return self.raft.propose(json.dumps([b.hex() for b in batch]).encode())
+        # the consensus entry (the reference's :242): the batch's
+        # envelopes in hex; its digest lets a BFT waiter confirm that
+        # its own payload was what applied
+        payload = json.dumps([b.hex() for b in batch]).encode()
+        self._last_digest = hashlib.sha256(payload).hexdigest()
+        return self.raft.propose(payload)
 
     def _arm_timer(self):
         if self._timer_task is not None and not self._timer_task.done():
@@ -259,11 +298,13 @@ class OrderingChain:
             return  # already materialized (restart replay / catch-up)
         prev = (protoutil.block_header_hash(self.blocks.get_block(self.blocks.height - 1).header)
                 if self.blocks.height else b"\x00" * 32)
-        # orderer metadata: consensus term/index; the orderer's
-        # signature, which deliver-side verification against the
-        # channel's BlockValidation policy depends on
+        # orderer metadata: consensus term/index and, for BFT, the
+        # commit proof; the orderer's signature, which deliver-side
+        # verification against the channel's BlockValidation policy
+        # depends on
+        proof_of = getattr(self.raft, "commit_proof", None)
         blk = assemble_block(self.blocks.height, prev, batch, entry.term, entry.index,
-                             self.signer)
+                             self.signer, proof_of(entry.index) if proof_of else None)
         self.blocks.add_block(blk)
         self._height_changed.set()
         self._height_changed = asyncio.Event()
@@ -304,23 +345,42 @@ class OrderingChain:
                 if self.on_consenters is not None:
                     self.on_consenters(addr_map)
                 self.raft.update_peers(ids)
+                self._rotate_verifiers(meta.consenters, ids)
             return True
         except Exception:
             _log.exception("%s: consenter reconfiguration from config block failed",
                            self.channel)
         return False
 
+    def _rotate_verifiers(self, consenters, ids: list) -> None:
+        """Rotate the BFT message-verifier registry with the
+        membership: an added consenter authenticates by the identity the
+        config block carries; a removed one loses its vote (smartbft
+        configverifier.go)."""
+        vers = getattr(self.raft, "verifiers", None)
+        if not vers:
+            return
+        for c in consenters:
+            if c.id and c.identity and c.id not in vers:
+                try:
+                    vers[c.id] = _consenter_identity(bytes(c.identity))
+                except Exception:
+                    _log.warning("%s: bad identity for added consenter %s", self.channel,
+                                 c.id)
+        for nid in list(vers):
+            if nid not in ids:
+                vers.pop(nid)
+
     # -- snapshot catch-up (follower_chain.go) -----------------------------
 
     def _on_snapshot_hint(self, snap_index: int, snap_term: int) -> None:
-        """The leader compacted past us: pull the missing BLOCKS, then
+        """The leader compacted past us (raft) or the cluster vouched
+        for sequences we missed (BFT): pull the missing BLOCKS, then
         fast-forward the consensus log state.  Hints arriving while a
         pull is in flight raise the pending target instead of being
         dropped — install_snapshot itself may re-hint for a residual
         gap, and that must not be swallowed by the running-task
-        guard.  CFT raft trusts cluster peers for catch-up, as the
-        reference's follower chain does; prev-hash chaining is enforced
-        by ``add_block``."""
+        guard."""
         if self.block_puller is None:
             return
         self._catchup_pending = max(self._catchup_pending, snap_index)
@@ -340,11 +400,17 @@ class OrderingChain:
                         blk = m.Block.parse(raw)
                         if blk.header.number != self.blocks.height:
                             continue
+                        if not self._catchup_block_ok(blk):
+                            _log.warning("%s: catch-up block %d failed attestation — refusing",
+                                         self.channel, blk.header.number)
+                            break
                         self.blocks.add_block(blk)
                         self._height_changed.set()
                         self._height_changed = asyncio.Event()
-                        # a pulled CONFIG block rotates membership AT
-                        # ITS HEIGHT
+                        # a pulled CONFIG block rotates membership (and
+                        # the BFT verifier registry) AT ITS HEIGHT, so
+                        # later blocks verify against the consenter set
+                        # actually in effect when they were attested
                         self._maybe_reconfigure(list(blk.data.data))
                     # block 0 may have arrived out-of-band: refresh the
                     # entry→block mapping and re-derive membership from
@@ -363,6 +429,40 @@ class OrderingChain:
                     return
 
         self._catchup_task = asyncio.ensure_future(go())
+
+    def _catchup_block_ok(self, blk) -> bool:
+        """Pulled blocks must carry the attestation this round's
+        deliver-side verification demands: under BFT (a byzantine
+        cluster peer is IN the fault model) the 2f+1 commit proof over
+        the batch digest, verified against the consenter identity
+        registry; prev-hash chaining is enforced by add_block either
+        way.  CFT raft trusts cluster peers for catch-up, as the
+        reference's follower chain does."""
+        verifiers = getattr(self.raft, "verifiers", None)
+        if not verifiers:
+            return True  # raft / dev mode
+        try:
+            meta = json.loads(bytes(blk.metadata.metadata[m.META_ORDERER]))
+            proof = meta["bft_proof"]
+            want = hashlib.sha256(
+                json.dumps([bytes(e).hex() for e in blk.data.data]).encode()).hexdigest()
+            quorum = getattr(self.raft, "quorum", 1)
+            good = set()
+            for msg in proof:
+                if not isinstance(msg, dict) or msg.get("type") != COMMIT:
+                    continue
+                if msg.get("digest") != want:
+                    continue
+                sender = msg.get("from")
+                ver = verifiers.get(sender)
+                sig = msg.get("sig")
+                if sender in good or ver is None or not sig:
+                    continue
+                if verify_signature(ver, _signable(msg), bytes.fromhex(sig)):
+                    good.add(sender)
+            return len(good) >= quorum
+        except Exception:
+            return False
 
     # -- deliver --------------------------------------------------------------
 

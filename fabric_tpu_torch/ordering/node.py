@@ -3,12 +3,14 @@
 
 The analog of orderer/common/server/main.go:69-222 plus the
 multichannel registrar (registrar.go:93): one process hosts N
-channels, each with its own raft chain; exposed services:
+channels, each with its own Raft or BFT chain (``consensus=``; BFT
+takes the node's ``signer`` and the consenters' ``verifiers``);
+exposed services:
 
 * ``Broadcast``  — submit an envelope to a channel (unary; non-leader
   answers 503 with a leader hint and the client retries there).
 * ``Deliver``    — stream blocks from a seek position (server-stream).
-* ``Step``       — orderer↔orderer raft transport (fire-and-forget
+* ``Step``       — orderer↔orderer Raft/BFT transport (fire-and-forget
   messages; the cluster-comm analog, orderer/common/cluster/comm.go).
 * ``Join``       — channel participation: create a chain from a
   genesis block (channelparticipation/restapi.go analog).
@@ -18,9 +20,9 @@ Wire format: tiny JSON headers + raw envelope/block bytes — the
 content payloads themselves are the canonical protos.  Method names and
 framing are the reference's, so either package's clients talk to
 either package's node.  Waiting for a later module, and raising
-``NotImplementedError`` when set: ``consensus="bft"``, ``tls`` (mTLS,
+``NotImplementedError`` when set: ``tls`` (mTLS,
 ``comm/rpc.py::TlsProfile``) and ``operations_port`` (``opsserver.py``),
-all ROADMAP Queue 1 item 10.
+both ROADMAP Queue 1 item 10.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import random
 
 from fabric_tpu_torch.comm.rpc import RpcClient, RpcServer
 from fabric_tpu_torch.ordering.blockcutter import BatchConfig
-from fabric_tpu_torch.ordering.chain import BFT_NOT_PORTED, MsgProcessor, OrderingChain
+from fabric_tpu_torch.ordering.chain import MsgProcessor, OrderingChain
 from fabric_tpu_torch.protos import messages as m
 
 _log = logging.getLogger("fabric_tpu_torch.orderer")
@@ -46,9 +48,8 @@ class OrdererNode:
                  host: str = "127.0.0.1", port: int = 0,
                  batch_config: BatchConfig | None = None,
                  msp_manager=None, consensus: str = "raft",
-                 signer=None, tls=None, rng: random.Random | None = None):
-        if consensus == "bft":
-            raise NotImplementedError(BFT_NOT_PORTED)
+                 signer=None, verifiers=None, view_timeout: float = 2.0,
+                 tls=None, rng: random.Random | None = None):
         if tls is not None:
             raise NotImplementedError(TLS_NOT_PORTED)
         self.id = node_id
@@ -61,6 +62,10 @@ class OrdererNode:
         self.broadcast_rate = 0.0  # msgs/s per channel; 0 = unthrottled
         self._throttle: dict[str, list] = {}  # channel -> [tokens, last_ts]
         self.signer = signer
+        # BFT: {consenter id: identity} the chains verify messages by,
+        # and the replicas' no-progress timeout before a view change
+        self.verifiers = verifiers or {}
+        self.view_timeout = view_timeout
         # the election timers' draws (raft.py): one generator for the
         # node's chains, which a caller may seed
         self.rng = rng if rng is not None else random.Random()
@@ -142,7 +147,7 @@ class OrdererNode:
             channel_id, self.id, list(self.cluster), data_dir=f"{self.dir}/{channel_id}",
             send_cb=self._send(channel_id), config=self.batch_config, msgproc=msgproc,
             genesis_block=genesis_block, consensus=self.consensus, signer=self.signer,
-            block_puller=self._pull_blocks, on_consenters=self._on_consenters, rng=self.rng)
+            verifiers=self.verifiers, view_timeout=self.view_timeout, block_puller=self._pull_blocks, on_consenters=self._on_consenters, rng=self.rng)
         self.chains[channel_id] = chain
         if start:
             chain.start()

@@ -7,7 +7,13 @@ cleartext (local transient store → pull from peers), VERIFY it against
 the committed hashed write-set (sha256(key)/sha256(value) must match
 the rwset the endorsers signed), commit cleartext to the pvt state
 namespaces + the pvtdata store, and record what's still missing for
-the background reconciler (gossip/privdata/reconcile.go)."""
+the background reconciler (gossip/privdata/reconcile.go).
+
+Where the port departs: given ``eligible(ns, coll)``, a collection this
+peer's org is no member of is neither pulled nor recorded eligible — it
+goes to ``ineligible``, which the peer stores with ``eligible=0``, as
+Fabric's coordinator.go does (the JAX package pulls it, is refused by
+every member, and records it eligible)."""
 
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ class PvtResult:
     updates: list = field(default_factory=list)   # (ns$coll, key, value|None, ver)
     store_data: dict = field(default_factory=dict)  # txnum -> {(ns,coll): {k: v}}
     missing: list = field(default_factory=list)   # (txnum, txid, ns, coll)
+    ineligible: list = field(default_factory=list)  # (txnum, txid, ns, coll)
 
 
 def _match_cleartext(hashed_writes: dict, cleartext: dict) -> dict | None:
@@ -48,12 +55,15 @@ def _match_cleartext(hashed_writes: dict, cleartext: dict) -> dict | None:
 
 
 class PvtDataCoordinator:
-    def __init__(self, transient, puller=None):
+    def __init__(self, transient, puller=None, eligible=None):
         """puller: ASYNC callable (txid, block_num, txnum, ns, coll) →
         {key: value} | None — the gossip pull path for data this peer
-        never saw at endorsement time."""
+        never saw at endorsement time.  eligible: (ns, coll) → bool,
+        whether this peer's org may hold the collection (None: every
+        collection)."""
         self.transient = transient
         self.puller = puller
+        self.eligible = eligible
 
     async def gather(self, block_num: int, parsed_txs, tx_filter: bytes) -> PvtResult:
         res = PvtResult()
@@ -69,6 +79,10 @@ class PvtDataCoordinator:
                     if clear is None:
                         clear = self.transient.get(ptx.txid) if self.transient else {}
                     kv = _match_cleartext(writes, clear.get((ns_name, coll), {}))
+                    if kv is None and self.eligible is not None \
+                            and not self.eligible(ns_name, coll):
+                        res.ineligible.append((ptx.idx, ptx.txid, ns_name, coll))
+                        continue
                     if kv is None and self.puller is not None:
                         pulled = await self.puller(
                             ptx.txid, block_num, ptx.idx, ns_name, coll

@@ -18,6 +18,10 @@ framing):
 * ``Query``        — read-only state access (qscc-style convenience).
 * ``Info``, ``Discover``, ``Snapshot`` and the gateway's ``Gw*``
   methods (``peer/gateway.py``).
+* ``GossipPing``, ``PvtPush``, ``PvtPull`` — ``gossip.py``: membership,
+  endorsement-time private-data push, commit-time pull; anti-entropy
+  and the reconciler are started per channel
+  (``node.gossip_service.start_anti_entropy`` / ``start_reconciler``).
 
 The node takes ``device="cuda"`` by default (a host without CUDA
 raises unless ``device="cpu"`` is asked for) and hands it to every
@@ -32,10 +36,12 @@ Queue 1 item 10 when set to anything but their default: ``slos``,
 knobs (``peer/ccpackage.py``), and the validator's ``verify_chunk``,
 ``mesh_devices``, ``mesh_topology``, ``recode_device``,
 ``host_stage_mode="process"`` and ``verify_deadline_ms`` (items 9 and
-10).  BFT block attestation (``_verify_bft_attestation``) waits with
-``ordering/bft.py``; gossip's private-data push and pull wait with
-``gossip.py``; ``replay_local`` waits with a ``pre_launch_fn`` in
-``peer/replay.py``.
+10).  ``replay_local`` waits with a ``pre_launch_fn`` in
+``peer/replay.py`` (item 10).  A BFT channel's blocks pass
+``_verify_bft_attestation`` (2f+1 consenter COMMIT signatures over the
+block's own batch, host ``ec_ref`` checks) before the card's kernels
+launch.  A collection this peer's org is no member of is recorded
+missing with ``eligible=0`` and never pulled (``peer/coordinator.py``).
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from __future__ import annotations
 import asyncio
 import concurrent.futures as _cf
 import contextlib
+import hashlib
 import json
 import logging
 import time
@@ -52,6 +59,7 @@ from fabric_tpu_torch import faults as _faults
 from fabric_tpu_torch import observe, protoutil
 from fabric_tpu_torch.channelconfig import Bundle, ConfigTxProcessor, SignedData
 from fabric_tpu_torch.comm.rpc import RpcClient, RpcServer
+from fabric_tpu_torch.crypto.msp import verify_signature
 from fabric_tpu_torch.device import resolve_device
 from fabric_tpu_torch.discovery import DiscoveryService, PeerRegistry
 from fabric_tpu_torch.ledger.confighistory import ConfigHistoryDB
@@ -60,6 +68,7 @@ from fabric_tpu_torch.ledger.pvtdata import encode_kv
 from fabric_tpu_torch.ledger.statedb import MemVersionedDB, UpdateBatch
 from fabric_tpu_torch.observe import txflow as _txflow
 from fabric_tpu_torch.ops_metrics import global_registry
+from fabric_tpu_torch.ordering.bft import COMMIT, _signable
 from fabric_tpu_torch.ordering.node import DeliverClient
 from fabric_tpu_torch.peer import gateway as gw
 from fabric_tpu_torch.peer.acl import PROPOSE, ACLProvider
@@ -238,15 +247,20 @@ class PeerChannel:
             if warmed:
                 _log.info("%s: resident cache warmed with %d keys from snapshot",
                           channel_id, warmed)
+        self._bft_seqs: dict = {}  # block number → its verified BFT proof's seq
         self.transient = TransientStore(f"{data_dir}/transient.db")
-        self.pvt_puller = None  # async callable injected by a gossip layer
+        self.pvt_puller = None  # async callable injected by the gossip layer
+        # this peer's org (set by PeerNode.join_channel): collections it
+        # is no member of are recorded ineligible, never pulled
+        self.member_org = None
 
         async def _pull(*a):
             if self.pvt_puller is None:
                 return None
             return await self.pvt_puller(*a)
 
-        self.coordinator = PvtDataCoordinator(self.transient, puller=_pull)
+        self.coordinator = PvtDataCoordinator(self.transient, puller=_pull,
+                                              eligible=self.eligible)
         self.confighistory = ConfigHistoryDB(f"{data_dir}/confighistory.db")
         self.transient_retention = 50  # blocks (core.yaml transientstore)
         # endorsement vs commit: simulations take the SHARED side, the
@@ -273,6 +287,15 @@ class PeerChannel:
         is committed, static otherwise; None = undefined."""
         fn = getattr(self.validator.policies, "collection", None)
         return fn(ns, coll) if fn else None
+
+    def eligible(self, ns: str, coll: str) -> bool:
+        """Whether this peer's org may hold a collection's cleartext:
+        a member org of a defined collection (an undefined one is the
+        endorsing org's alone, ``gossip.GossipService._members``)."""
+        if self.member_org is None:
+            return True
+        cfg = self.collection_config(ns, coll)
+        return cfg is None or self.member_org in cfg.get("member_orgs", [])
 
     def make_endorser(self, msp, signer, runtime):
         """Endorser over THIS channel's state, system chaincodes and
@@ -347,10 +370,11 @@ class PeerChannel:
             self.ledger.commit_block(block, flt, batch, history, pvt_data=pvt_store,
                                      txids=[(p.txid, p.idx) for p in txs if p.txid],
                                      hd_bytes=hd_bytes)
-        if pvt.missing:
+        if pvt.missing or pvt.ineligible:
             self.ledger.pvtdata.commit_block(
                 block.header.number, {},
-                [(txnum, ns, coll, True) for (txnum, _txid, ns, coll) in pvt.missing])
+                [(txnum, ns, coll, True) for (txnum, _txid, ns, coll) in pvt.missing]
+                + [(txnum, ns, coll, False) for (txnum, _txid, ns, coll) in pvt.ineligible])
         self.transient.purge_below(max(0, block.header.number - self.transient_retention))
         # clients key retries off commit acknowledgment: force any open
         # group-commit fsync window closed BEFORE signalling height /
@@ -449,8 +473,7 @@ class PeerChannel:
         before it may commit.  The genesis block is the trust anchor,
         and channels whose config carries no orderer orgs (dev/test
         assemblies) have no identity set to verify against — both skip.
-        A BFT channel's quorum attestation waits with
-        ``ordering/bft.py``: such a channel raises."""
+        A BFT channel's block also needs its quorum attestation."""
         if block.header.number == 0:
             return
         bundle = getattr(self.processor, "bundle", None)
@@ -465,9 +488,90 @@ class PeerChannel:
                 "/Channel/Orderer/BlockValidation", signed):
             raise ValueError(f"block {block.header.number}: orderer block-signature "
                              "verification failed (BlockValidation policy not met)")
+        self._verify_bft_attestation(block, bundle)
+
+    def _verify_bft_attestation(self, block, bundle) -> None:
+        """For BFT channels a single orderer signature is NOT enough —
+        one byzantine orderer could sign a forged block.  The block's
+        consensus metadata must carry the 2f+1 signed COMMIT messages
+        for (view, seq, digest-of-batch), each by a distinct, valid
+        orderer-org identity, with the digest recomputed from the
+        block's own envelopes and seq strictly increasing along the
+        chain (reference: BFT quorum attestations,
+        common/deliverclient/block_verification.go:278).  Each
+        signature is a host ``ec_ref`` check."""
         ct = bundle.orderer_value("ConsensusType", m.ConsensusType)
-        if ct is not None and ct.type == "bft":
-            raise _not_ported("the BFT block attestation (ordering/bft.py)")
+        if ct is None or ct.type != "bft":
+            return
+        meta = m.RaftConfigMetadata.parse(ct.metadata)
+        n = len(meta.consenters)
+        quorum = 2 * ((n - 1) // 3) + 1 if n else 1
+        try:
+            omd = json.loads(bytes(block.metadata.metadata[m.META_ORDERER]))
+            proof = omd["bft_proof"]
+            seq = int(omd["index"])
+        except Exception:
+            raise ValueError(f"block {block.header.number}: missing BFT commit proof")
+        want_digest = hashlib.sha256(
+            json.dumps([bytes(e).hex() for e in block.data.data]).encode()).hexdigest()
+        # votes count only from the CONSENTER SET (identities pinned in
+        # the channel config), deduped by identity — not by the
+        # unauthenticated "from" label: a single compromised identity
+        # cannot fabricate 2f+1 votes by inventing sender names, and no
+        # non-consenter identity (app orgs, orderer-org admins/users)
+        # can vote at all.  Channels whose config predates consenter
+        # identities fall back to orderer-ORG membership.
+        consenter_ids = {bytes(c.identity) for c in meta.consenters if c.identity}
+        ordg = bundle.config.channel_group.groups.get("Orderer")
+        orderer_orgs = set(ordg.groups) if ordg is not None else set()
+        voters = set()  # distinct identity bytes
+        for msg in proof:
+            if not isinstance(msg, dict) or msg.get("type") != COMMIT:
+                continue
+            if msg.get("digest") != want_digest or int(msg.get("seq", -1)) != seq:
+                continue
+            cert = msg.get("from_cert")
+            sig = msg.get("sig")
+            if not cert or not sig:
+                continue
+            try:
+                raw_cert = bytes.fromhex(cert)
+                if raw_cert in voters:
+                    continue
+                if consenter_ids and raw_cert not in consenter_ids:
+                    continue
+                ident = bundle.msp_manager.deserialize_identity(raw_cert)
+                if not ident.is_valid or ident.msp_id not in orderer_orgs:
+                    continue
+                if not verify_signature(ident, _signable(msg), bytes.fromhex(sig)):
+                    continue
+            except Exception as e:
+                _log.debug("attestation vote rejected: %s", e)
+                continue
+            voters.add(raw_cert)
+        if len(voters) < quorum:
+            raise ValueError(f"block {block.header.number}: BFT attestation has "
+                             f"{len(voters)} valid commits, quorum is {quorum}")
+        # seq monotonicity along the chain: a replayed proof from an
+        # older batch cannot attest a later block.  The predecessor's
+        # seq is the one this channel verified for block n-1, else the
+        # ledger's; a block delivered again after a pipe restart is held
+        # against its predecessor, where the reference holds it against
+        # the last seq it verified (itself) and refuses it for ever
+        num = block.header.number
+        prev_seq = self._bft_seqs.get(num - 1)
+        if prev_seq is None and num >= 2:
+            try:
+                prev = self.ledger.blocks.get_block(num - 1)
+                prev_seq = int(json.loads(bytes(prev.metadata.metadata[m.META_ORDERER]))["index"])
+            except Exception:
+                prev_seq = None
+        if prev_seq is not None and seq <= prev_seq:
+            raise ValueError(f"block {num}: BFT proof seq {seq} does "
+                             f"not advance past predecessor's {prev_seq}")
+        self._bft_seqs[num] = seq
+        for old in [n for n in self._bft_seqs if n < num - 64]:
+            del self._bft_seqs[old]
 
     async def run_deliver(self, orderer_addr: tuple[str, int]):
         """Pull blocks from the orderer starting at our height and
@@ -840,6 +944,8 @@ class PeerNode:
         self.server = RpcServer(host, port)
         self.registry = PeerRegistry()  # org → endorsing peers (gateway/discovery)
         self.gateway = None
+        self.gossip_service = None
+        self._bg: set = set()  # strong refs: GC destroys weakly-held tasks
 
     def join_channel(self, channel_id: str, policy_provider: PolicyProvider | None = None,
                      state_db=None, config_processor=None, genesis_block=None,
@@ -859,7 +965,10 @@ class PeerNode:
             sidecar_recovery_s=self.sidecar_recovery_s, async_commit=self.async_commit,
             apply_queue_blocks=self.apply_queue_blocks, device=self.device)
         ch.runtime = self.runtime  # resolved-binding invalidation hook
+        ch.member_org = getattr(self.signer, "msp_id", None)
         self.channels[channel_id] = ch
+        if self.gossip_service is not None:
+            ch.pvt_puller = self.gossip_service.pull_pvt_for(channel_id)
         return ch
 
     # -- services ------------------------------------------------------------
@@ -903,6 +1012,9 @@ class PeerNode:
         self.server.register_unary("InstallChaincode", self._on_install)
         self.server.register_unary("QueryInstalled", self._on_install)
         self.gateway = gw.register(self)
+        from fabric_tpu_torch.gossip import GossipService
+
+        self.gossip_service = GossipService(self).register()
         await self.server.start()
         self.port = self.server.port
         return self
@@ -932,6 +1044,8 @@ class PeerNode:
             await self.gateway.close()
         for ch in self.channels.values():
             ch.stop()
+        if self.gossip_service is not None:
+            await self.gossip_service.stop()
         await self.server.stop()
 
     async def _on_install(self, req: bytes) -> bytes:
@@ -953,9 +1067,14 @@ class PeerNode:
             # stall Deliver/Query/commit service latency
             result = await loop.run_in_executor(None, endorser.process_proposal, signed)
         if result.pvt_cleartext and result.tx_id:
-            # endorsement-time pvt data: transient store (distribution
-            # to other peers waits with gossip.py)
+            # endorsement-time pvt data: transient store + distribution
+            # to eligible peers (gossip/privdata/distributor.go)
             chan.transient.persist(result.tx_id, result.pvt_cleartext, chan.height)
+            if self.gossip_service is not None:
+                t = asyncio.ensure_future(self.gossip_service.push_pvt(
+                    ch_hdr.channel_id, result.tx_id, result.pvt_cleartext, chan.height))
+                self._bg.add(t)
+                t.add_done_callback(self._bg.discard)
         return result.response.serialize()
 
     async def _on_deliver_blocks(self, stream):

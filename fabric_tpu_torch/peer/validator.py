@@ -226,6 +226,10 @@ LIFECYCLE_NS = "_lifecycle"
 class NamespaceInfo:
     policy: object  # crypto.policy AST
     plugin: str = "default"
+    # {coll: {"member_orgs": [...], "required_peer_count": int,
+    #  "max_peer_count": int, "btl": int}} — static assemblies;
+    # lifecycle-backed providers read the committed definition instead
+    collections: dict = field(default_factory=dict)
 
 
 class PolicyProvider:
@@ -236,6 +240,15 @@ class PolicyProvider:
 
     def info(self, namespace: str) -> NamespaceInfo | None:
         return self.infos.get(namespace)
+
+    def collection(self, namespace: str, coll: str) -> dict | None:
+        """Collection config for (namespace, coll), or None when
+        undefined — undefined collections are treated as
+        maximally-private (own org only) by the dissemination layer."""
+        info = self.info(namespace)
+        if info is None:
+            return None
+        return getattr(info, "collections", {}).get(coll)
 
 
 @dataclass

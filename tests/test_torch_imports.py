@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of fabric_tpu_torch
 brings in neither JAX, the JAX package, protobuf nor cryptography (the
-idemix MSP, ``crypto/idemix.py``, and the ledger and catch-up modules
-included), no source file names them,
+idemix MSP, ``crypto/idemix.py``, the ledger and catch-up modules, and
+the gossip layer and BFT consenter included), no source file names them,
 no file of its host C++ (``native/``) names the JAX package's, and an entry point asked for the default CUDA device on a
 host without one raises instead of falling back.  A host C++ build that
 fails raises too: the wire block is not decoded in Python instead.  The
@@ -69,6 +69,7 @@ def test_import_brings_in_no_reference_package():
     assert "fabric_tpu_torch.sidecar.server" in loaded
     assert "fabric_tpu_torch.channelconfig" in loaded
     assert "fabric_tpu_torch.crypto.idemix" in loaded
+    assert {"fabric_tpu_torch.gossip", "fabric_tpu_torch.ordering.bft"} <= set(loaded)
     assert set(LEDGER) <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 

@@ -702,3 +702,92 @@ def test_launch_ledger_rows_on_the_card(cuda):
         assert len(led.rows(kernel="stage2")) == 1
     finally:
         ledger.configure(enabled=False)
+
+
+def test_two_peers_share_a_private_write_over_gossip_on_the_card(cuda, tmp_path):
+    """Two port peers of two orgs on the card, gossip on: a ``collA``
+    private write endorsed on the first is pushed to the second's
+    transient store at endorsement, and both commit it alike (state
+    digest, commit hash, the cleartext), each peer's commit path
+    launching ``p256_verify``, ``stage2_policy`` and ``stage2_mvcc``."""
+    import asyncio
+
+    from chip_smoke import launches_by_owner
+    from fabric_tpu_torch.comm.rpc import RpcClient
+    from fabric_tpu_torch.crypto import cryptogen
+    from fabric_tpu_torch.crypto.msp import MSPManager
+    from fabric_tpu_torch.discovery import PeerInfo
+    from fabric_tpu_torch.ordering import BatchConfig, BroadcastClient, OrdererNode
+    from fabric_tpu_torch.peer import txassembly as txa
+    from fabric_tpu_torch.peer.chaincode import ChaincodeRuntime, KVContract
+    from fabric_tpu_torch.peer.node import PeerNode
+    from fabric_tpu_torch.peer.validator import NamespaceInfo, PolicyProvider
+    from fabric_tpu_torch.protos import messages as M
+
+    rng = np.random.default_rng(11)
+    orgs = [cryptogen.generate_org(f"Org{i}MSP", f"org{i}.gossip.example.com", rng)
+            for i in (1, 2)]
+    mgr = MSPManager({o.msp_id: o.msp() for o in orgs})
+    client = orgs[0].users["User1@org1.gossip.example.com"]
+    colls = {"collA": {"member_orgs": ["Org1MSP", "Org2MSP"], "required_peer_count": 1,
+                       "max_peer_count": 1, "btl": 0}}
+
+    async def scenario():
+        orderer = OrdererNode("o0", str(tmp_path / "o0"), {},
+                              batch_config=BatchConfig(max_message_count=1, batch_timeout_s=0.2))
+        await orderer.start()
+        orderer.cluster["o0"] = ("127.0.0.1", orderer.port)
+        orderer.join_channel("gchan")
+        peers, chans = [], []
+        for i, o in enumerate(orgs):
+            rt = ChaincodeRuntime()
+            rt.register("pvtcc", KVContract())
+            p = PeerNode(f"p{i}", str(tmp_path / f"p{i}"), mgr,
+                         o.nodes[f"peer0.org{i + 1}.gossip.example.com"], rt, device=cuda)
+            await p.start()
+            chans.append(p.join_channel("gchan", PolicyProvider({"pvtcc": NamespaceInfo(
+                policy=pol.from_dsl("OutOf(1, 'Org1MSP.peer', 'Org2MSP.peer')"),
+                collections=colls)})))
+            peers.append(p)
+        for i, p in enumerate(peers):
+            p.registry.add(PeerInfo(orgs[1 - i].msp_id, "127.0.0.1", peers[1 - i].port))
+        owners = {id(ch.validator): f"p{i}" for i, ch in enumerate(chans)}
+        try:
+            with launches_by_owner(("p256_verify", "stage2_policy", "stage2_mvcc"),
+                                   owners) as counts:
+                for ch in chans:
+                    ch.start_deliver([orderer.cluster["o0"]])
+                signed, tx_id, prop = txa.create_signed_proposal(
+                    client, "gchan", "pvtcc", [b"put_private", b"collA", b"card-key"],
+                    transient={"value": b"card-value"})
+                cli = RpcClient("127.0.0.1", peers[0].port)
+                await cli.connect()
+                pr = M.ProposalResponse.parse(await cli.unary("Endorse", signed.serialize()))
+                await cli.close()
+                assert pr.response.status == 200, pr.response.message
+                deadline = asyncio.get_event_loop().time() + 30
+                while not chans[1].transient.get(tx_id):  # the push
+                    assert asyncio.get_event_loop().time() < deadline
+                    await asyncio.sleep(0.02)
+                bc = BroadcastClient([orderer.cluster["o0"]])
+                env = txa.assemble_transaction(prop, [pr], client)
+                assert (await bc.broadcast("gchan", env.serialize()))["status"] == 200
+                await bc.close()
+                while not all(ch.height == 1 for ch in chans):
+                    assert asyncio.get_event_loop().time() < deadline
+                    await asyncio.sleep(0.02)
+            for ch in chans:
+                ch.ledger.drain_state()
+                assert ch.ledger.state.get_state("pvtcc$collA", "card-key").value == b"card-value"
+            assert chans[0].ledger.state_digest() == chans[1].ledger.state_digest()
+            assert chans[0].ledger.commit_hash == chans[1].ledger.commit_hash
+            assert peers[0].gossip_service.stats["acks"] == {"collA": 1}
+            for who in ("p0", "p1"):
+                assert all(counts[who, k] >= 1
+                           for k in ("p256_verify", "stage2_policy", "stage2_mvcc")), counts
+        finally:
+            for p in peers:
+                await p.stop()
+            await orderer.stop()
+
+    asyncio.run(asyncio.wait_for(scenario(), 120))

@@ -880,3 +880,46 @@ def test_fault_spec_errors(bad):
         pfaults.FaultPlan(bad)
     with pytest.raises(jfaults.FaultSpecError):
         jfaults.FaultPlan(bad)
+
+
+def test_block_store_index_serves_threads_at_once(tmp_path):
+    """Three threads read the index (tx ids, blocks) while a fourth
+    appends 300 blocks of 50 tx ids, each fsynced: one sqlite3 connection used from two threads at
+    once raises ``InterfaceError``, so the store runs one statement at a
+    time; every block and tx id reads back."""
+    import threading
+
+    from fabric_tpu_torch.ledger.blockstore import BlockStore
+
+    bs = BlockStore(str(tmp_path / "bs"), group_commit=1)
+    errors, stop = [], threading.Event()
+
+    def reader():
+        while not stop.is_set():
+            try:
+                for i in range(50):
+                    bs.get_tx_loc(f"tx{i}_0")
+                    bs.get_block(i)
+            except Exception as e:  # the failure under test, reported below
+                errors.append(repr(e))
+                return
+
+    readers = [threading.Thread(target=reader) for _ in range(3)]
+    for t in readers:
+        t.start()
+    prev = b""
+    try:
+        for n in range(300):
+            blk = ptu.new_block(n, prev)
+            blk.data.data.extend([b"env-%d-%d" % (n, i) for i in range(50)])
+            blk = ptu.finalize_block(blk)
+            bs.add_block(blk, txids=[(f"tx{n}_{i}", i) for i in range(50)])
+            prev = ptu.block_header_hash(blk.header)
+    finally:
+        stop.set()
+        for t in readers:
+            t.join(10)
+    assert not any(t.is_alive() for t in readers) and errors == []
+    assert bs.get_tx_loc("tx299_49")[:2] == (299, 49)
+    assert [bs.get_block(n).header.number for n in (0, 299)] == [0, 299]
+    bs.close()

@@ -314,15 +314,39 @@ def test_writers_policy_gates_broadcast(orgs, genesis, tmp_path):  # noqa: F811
 
 def test_knobs_not_yet_ported_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        OrdererNode("o0", str(tmp_path / "a"), {}, consensus="bft")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         OrdererNode("o0", str(tmp_path / "b"), {}, tls=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        pchain.OrderingChain(CHANNEL, "o0", ["o0"], str(tmp_path / "c"), send_cb=None,
-                             consensus="bft")
 
     async def ops():
         await OrdererNode("o0", str(tmp_path / "d"), {}).start(operations_port=9443)
 
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         run(ops())
+
+
+def test_bft_consensus_builds_a_node_and_a_chain(tmp_path):
+    """``consensus="bft"`` (once refused by name) builds an orderer node
+    whose chains run ``BFTNode``, and an ``OrderingChain`` over it."""
+    from fabric_tpu_torch.ordering.bft import BFTNode
+
+    async def scenario():
+        node = OrdererNode("o0", str(tmp_path / "a"), {}, consensus="bft", view_timeout=30.0,
+                           batch_config=pbc.BatchConfig(max_message_count=1))
+        await node.start()
+        try:
+            node.cluster["o0"] = ("127.0.0.1", node.port)
+            chain = node.join_channel(CHANNEL)
+            assert isinstance(chain.raft, BFTNode) and chain.raft.view_timeout == 30.0
+            assert chain.raft.state == "leader"  # a one-node cluster leads view 0
+            assert (await chain.broadcast(b"env"))["status"] == 200
+            meta = json.loads(bytes(chain.blocks.get_block(0).metadata.metadata[
+                M.META_ORDERER]))
+            assert chain.height == 1 and meta["index"] == 1
+            assert [c["type"] for c in meta["bft_proof"]] == ["bft_commit"]
+        finally:
+            await node.stop()
+
+    run(scenario())
+    chain = pchain.OrderingChain(CHANNEL, "o0", ["o0"], str(tmp_path / "c"), send_cb=None,
+                                 consensus="bft")
+    assert isinstance(chain.raft, BFTNode) and chain.raft.quorum == 1
+    chain.blocks.close()
