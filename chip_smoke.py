@@ -129,7 +129,14 @@ with 10 MVCC conflicts; Org3's peer started late and caught up from a
 peer) and the BFT ordering service (``bft_path``: 4 consenters in a
 child process and a peer that checks each block's quorum attestation;
 3 blocks of 16, two forgeries refused, the leader stopped, a block
-after the view change); their functions say what each checks, and a
+after the view change), and the node as operators run it (``cli_path``:
+``python -m fabric_tpu_torch.cli`` daemons in processes of their own,
+one orderer, a chaincode server and two peers on the card with mutual
+TLS and operations ports, the chaincode packaged, installed, approved
+and committed by the CLI's verbs, 500 transactions from 8 gateway
+clients cut by count with 10 MVCC conflicts, each peer's own /launches,
+``ledgerutil`` and an offline ``replay`` on the card); their functions
+say what each checks, and a
 ``phases`` line gives each phase's seconds.  Each path's launch counts are reset just
 before it and read just after; a kernel's entry in the kernels line
 gives its time at the shape its path launched it with most often.  Then the kernels line (JSON),
@@ -3912,11 +3919,11 @@ def phase_chaos_path(dev, built=None, check_launches=True):
 
 NETWORK_CHANNEL = "basicchan"
 NETWORK_CC = "basic"
-NETWORK_TXS = 64         # one block cut by the timeout (config 4's network cuts 500 by count)
+NETWORK_TXS = 32         # one block cut by the timeout (config 4's and the CLI's networks cut 500 by count)
 NETWORK_CLIENTS = 8
 NETWORK_CONFLICTS = 8    # keys each read and written by two txs of the first block
 NETWORK_POLICY = "OutOf(1, 'Org1MSP.member')"
-NETWORK_HOST_CHECKS = 32  # proposals whose host check is timed alone
+NETWORK_HOST_CHECKS = 16  # proposals whose host check is timed alone
 NETWORK_KERNELS = ("p256_sign", "p256_verify", "stage2_policy", "stage2_mvcc")
 
 
@@ -5384,6 +5391,502 @@ def phase_bft_path(dev, n_blocks=BFT_BLOCKS, n_tx=BFT_BLOCK_TXS, check_launches=
 
 
 
+# ---------------------------------------------------------------------------
+# The node as operators run it: the CLI's daemons
+
+
+CLI_CHANNEL = "clichan"
+CLI_CC = "clicc"
+CLI_TXS = 500            # one block at BatchConfig()'s max_message_count
+CLI_CONFLICTS = 10       # planned conflict pairs in the burst
+CLI_CLIENTS = 8
+CLI_SETUP_TIMEOUT_S = 0.2   # OrdererConfig's batch timeout while the lifecycle is set up
+CLI_BURST_TIMEOUT_S = 300.0  # the burst's: its block must be cut by count
+CLI_WAIT_S = 180
+CLI_STATUS_WAIT_S = 360
+CLI_PEER_KERNELS = ("p256_verify", "stage2_policy", "stage2_mvcc", "p256_sign")
+CLI_RESIDENT_KERNELS = ("resident_verok", "table_scatter")
+
+
+class CliNetwork:
+    """Daemons started by ``python -m fabric_tpu_torch.cli`` in
+    ``subprocess.Popen`` children (a fresh interpreter each: no process
+    holding a CUDA context is forked), their output in files."""
+
+    def __init__(self, root: str, env: dict):
+        self.root, self.env, self.procs = root, env, {}
+
+    def cli(self, *args, timeout=CLI_WAIT_S) -> str:
+        """One verb to its end → its stdout; a non-zero exit raises."""
+        res = subprocess.run([sys.executable, "-m", "fabric_tpu_torch.cli", *args],
+                             cwd=str(Path(__file__).resolve().parent), env=self.env,
+                             capture_output=True, text=True, timeout=timeout)
+        if res.returncode != 0:
+            raise AssertionError(f"cli_path: `{' '.join(args[:8])}` exited {res.returncode}: "
+                                 f"{res.stdout[-2000:]}{res.stderr[-4000:]}")
+        return res.stdout
+
+    def cli_json(self, *args, **kw):
+        return json.loads(self.cli(*args, **kw).strip().splitlines()[-1])
+
+    def spawn(self, name: str, *args, port: int) -> float:
+        """Start a daemon → seconds from spawn to its port open."""
+        log_path = f"{self.root}/{name}.log"
+        t0 = time.perf_counter()
+        with open(log_path, "ab") as out:
+            self.procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "fabric_tpu_torch.cli", *args],
+                cwd=str(Path(__file__).resolve().parent), env=self.env, stdout=out,
+                stderr=subprocess.STDOUT)
+        import socket
+
+        deadline = t0 + CLI_WAIT_S
+        while time.perf_counter() < deadline:
+            if self.procs[name].poll() is not None:
+                raise AssertionError(f"cli_path: {name} exited {self.procs[name].returncode} "
+                                     f"before its port opened")
+            try:
+                socket.create_connection(("127.0.0.1", port), 1).close()
+                return time.perf_counter() - t0
+            except OSError:
+                time.sleep(0.1)
+        raise AssertionError(f"cli_path: {name}'s port {port} did not open in {CLI_WAIT_S} s")
+
+    def stop(self, name: str) -> None:
+        """SIGINT, then a kill after 10 s."""
+        import signal
+
+        p = self.procs.pop(name)
+        p.send_signal(signal.SIGINT)
+        try:
+            p.wait(10)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+    def stop_all(self) -> None:
+        for name in list(self.procs):
+            self.stop(name)
+
+    def cpu_s(self) -> dict:
+        """CPU seconds (user + system) each daemon and this process have
+        used so far, read from /proc."""
+        tick = os.sysconf("SC_CLK_TCK")
+        out = {"smoke": sum(os.times()[:2])}
+        for name, p in self.procs.items():
+            try:
+                with open(f"/proc/{p.pid}/stat") as f:
+                    fields = f.read().rsplit(")", 1)[1].split()
+                out[name] = (int(fields[11]) + int(fields[12])) / tick
+            except (OSError, IndexError, ValueError):
+                out[name] = None
+        return out
+
+    def logs(self) -> str:
+        out = []
+        for path in sorted(Path(self.root).glob("*.log")):
+            out.append(f"----- {path.name} -----\n{path.read_text(errors='replace')[-6000:]}")
+        return "\n".join(out)
+
+
+def _http_json(port: int, path: str):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+        return r.status, json.loads(r.read())
+
+
+def _http_text(port: int, path: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+        return r.read().decode()
+
+
+async def _cli_transport_refused(port, ctx) -> bool:
+    """Whether a client with ``ctx`` (None: plaintext) is refused at the
+    transport: its ``Info`` call fails or is cut."""
+    from fabric_tpu_torch.comm.rpc import RpcClient
+
+    cli = RpcClient("127.0.0.1", port, ssl_ctx=ctx)
+    try:
+        await cli.connect()
+        await cli.unary("Info", b'{"channel": "x"}', timeout=30)
+        return False
+    except Exception:
+        return True
+    finally:
+        await cli.close()
+
+
+async def _cli_burst(dev, port, ssl_ctx, user, calls, clients, sign_device, cpu_s):
+    """``calls`` from ``clients`` gateway clients over mTLS, each client
+    endorsing a transaction and submitting it at once, then every commit
+    status awaited → what the checks read, with ``cpu_s()`` (each
+    process's CPU seconds) at the start, after the submissions and at
+    the end.  The clients sign on a sign lane of their own."""
+    import asyncio
+
+    from fabric_tpu_torch.peer import signlane
+    from fabric_tpu_torch.peer.gateway import GatewayClient
+
+    lane = None
+    signer = user
+    if sign_device:
+        lane = signlane.SignBatcher(signlane.device_sign_backend(user.d, device=dev)).start()
+        signer = signlane.BatchedSigner(user, lane)
+    gcs = [GatewayClient("127.0.0.1", port, signer, ssl_ctx=ssl_ctx) for _ in range(clients)]
+    out = {"calls": {}, "status": {}, "endorse_ms": [], "submit_ms": [],
+           "submit_status_ms": []}
+    try:
+        sent = []
+
+        async def client(ci):
+            for args in calls[ci::clients]:
+                t0 = time.perf_counter()
+                tx_id, env = await gcs[ci].endorse(CLI_CHANNEL, CLI_CC, args)
+                t1 = time.perf_counter()
+                out["endorse_ms"].append(1e3 * (t1 - t0))
+                out["calls"][tx_id] = args
+                await gcs[ci].submit(CLI_CHANNEL, env)
+                out["submit_ms"].append(1e3 * (time.perf_counter() - t1))
+                sent.append((ci, tx_id, t1))
+
+        async def status(ci, tx_id, t):
+            out["status"][tx_id] = await gcs[ci].commit_status(CLI_CHANNEL, tx_id,
+                                                               timeout=CLI_STATUS_WAIT_S)
+            out["submit_status_ms"].append(1e3 * (time.perf_counter() - t))
+
+        out["cpu_s"] = [cpu_s()]
+        t0 = time.perf_counter()
+        await asyncio.gather(*(client(ci) for ci in range(clients)))
+        out["submitted_s"] = time.perf_counter() - t0
+        out["cpu_s"].append(cpu_s())
+        await asyncio.gather(*(status(*x) for x in sent))
+        out["burst_s"] = time.perf_counter() - t0
+        out["cpu_s"].append(cpu_s())
+        out["client_lane"] = lane.stats() if lane is not None else None
+    finally:
+        for g in gcs:
+            await g.close()
+        if lane is not None:
+            lane.stop()
+    return out
+
+
+def phase_cli_path(dev, n_tx=CLI_TXS, conflicts=CLI_CONFLICTS, clients=CLI_CLIENTS,
+                   check_launches=True, sign_device=True, root=None):
+    """``tests/test_cli_network.py``'s network, started only through
+    ``python -m fabric_tpu_torch.cli``: cryptogen (Org1, Org2 and an
+    orderer org; certificates signed by ``p256_sign`` on the card), a
+    genesis block with the orderer org (peers check every block's
+    signature), one Raft orderer, one ``chaincode`` server (``kv``) and
+    two peers on the card (``sign_device``, ``pipeline_depth`` 2; Org1's
+    with ``state_resident``), mutual TLS on every node's listener and an
+    operations port on every node.  The verbs set up the chaincode
+    (ccpackage, ccinstall on both peers, ccqueryinstalled, approve from
+    each org binding the package id, commit; no chaincode registered
+    statically), then invoke, query, discover.  The orderer is restarted
+    with a batch timeout past the burst's admission (its Writers check
+    of each envelope is a host ``ec_ref`` check), and 8 gateway clients
+    in this process, over the mTLS client profile and a sign lane of
+    their own, endorse ``n_tx`` transactions on both peers (the
+    lifecycle's MAJORITY ``Endorsement``), each submitted once endorsed:
+    one block cut by count, ``conflicts`` of them MVCC_READ_CONFLICT.  Checks: the
+    codes against construction, /healthz on every node,
+    ``ledger_blockchain_height`` in /metrics, each peer's /launches
+    (its own process's kernel counts), plaintext and uncertified clients
+    refused by every listener, the two ledgers ``ledgerutil`` identical
+    and verified, and ``replay`` of Org2's config from Org1's block
+    store on the card identical to Org1's ledger."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    from fabric_tpu_torch import kernels, protoutil
+    from fabric_tpu_torch.comm.rpc import make_client_tls
+    from fabric_tpu_torch.crypto.cryptogen import load_signing_identity
+    from fabric_tpu_torch.ledger.blockstore import BlockStore
+    from fabric_tpu_torch.peer.txcodes import TxValidationCode as C
+
+    own = root is None
+    root = root or tempfile.mkdtemp(prefix="fabtpu-cli-")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(Path(__file__).resolve().parent)
+    env.pop("FABTPU_FAULTS", None)
+    net = CliNetwork(root, env)
+    device = dev.type
+    kernels.reset_counts()
+    t_phase = time.perf_counter()
+    try:
+        crypto = f"{root}/crypto"
+        t0 = time.perf_counter()
+        net.cli("cryptogen", "--device", device, "--org", "Org1MSP:org1.example.com",
+                "--org", "Org2MSP:org2.example.com", "--org", "OrdererMSP:ord.example.com",
+                "--orderers", "1", "--output", crypto)
+        cryptogen_s = time.perf_counter() - t0
+        org1, org2, ordorg = (f"{crypto}/{d}.example.com" for d in ("org1", "org2", "ord"))
+        ca_bundle = f"{root}/tls-ca-bundle.pem"
+        with open(ca_bundle, "wb") as bf:
+            for od in (org1, org2, ordorg):
+                bf.write(Path(f"{od}/tlsca/tlsca-cert.pem").read_bytes())
+
+        def tls_cfg(org_dir, node):
+            tdir = f"{org_dir}/nodes/{node}/tls"
+            return {"cert": f"{tdir}/server.pem", "key": f"{tdir}/key.pem", "ca": ca_bundle}
+
+        with open(f"{root}/profile.json", "w") as f:
+            json.dump({"channel": CLI_CHANNEL,
+                       "application_orgs": [{"msp_id": "Org1MSP", "dir": org1},
+                                            {"msp_id": "Org2MSP", "dir": org2}],
+                       "orderer_orgs": [{"msp_id": "OrdererMSP", "dir": ordorg}],
+                       "max_message_count": n_tx}, f)
+        genesis = f"{root}/genesis.block"
+        net.cli("configtxgen", "--profile", f"{root}/profile.json", "--output", genesis)
+
+        cc_port, ord_port, p1_port, p2_port = (free_port() for _ in range(4))
+        ops = {"orderer": free_port(), "p1": free_port(), "p2": free_port()}
+
+        def write_orderer(timeout_s):
+            with open(f"{root}/orderer.json", "w") as f:
+                json.dump({"id": "o0", "data_dir": f"{root}/o0", "port": ord_port,
+                           "cluster": {"o0": ["127.0.0.1", ord_port]},
+                           "max_message_count": n_tx, "batch_timeout_s": timeout_s,
+                           "msp_id": "OrdererMSP",
+                           "msp_dir": f"{ordorg}/nodes/orderer0.ord.example.com/msp",
+                           "tls": tls_cfg(ordorg, "orderer0.ord.example.com"),
+                           "operations_port": ops["orderer"],
+                           "channels": [{"name": CLI_CHANNEL, "genesis": genesis}]}, f)
+
+        def peer_cfg(pid, port, org_dir, msp_id, other_port, other_msp, resident):
+            node = f"peer0.{os.path.basename(org_dir)}"
+            return {"id": pid, "data_dir": f"{root}/{pid}", "port": port, "msp_id": msp_id,
+                    "msp_dir": f"{org_dir}/nodes/{node}/msp", "tls": tls_cfg(org_dir, node),
+                    "org_msps": [org1, org2], "device": device, "sign_device": sign_device,
+                    "pipeline_depth": 2, "state_resident": resident,
+                    "peers": [{"msp_id": other_msp, "host": "127.0.0.1", "port": other_port}],
+                    "channels": [{"name": CLI_CHANNEL, "genesis": genesis,
+                                  "orderers": [["127.0.0.1", ord_port]]}],
+                    "operations_port": ops[pid]}
+
+        cfgs = {"p1": peer_cfg("p1", p1_port, org1, "Org1MSP", p2_port, "Org2MSP", True),
+                "p2": peer_cfg("p2", p2_port, org2, "Org2MSP", p1_port, "Org1MSP", False)}
+        for pid, cfg in cfgs.items():
+            with open(f"{root}/{pid}.json", "w") as f:
+                json.dump(cfg, f)
+        write_orderer(CLI_SETUP_TIMEOUT_S)
+        spawn_s = {"chaincode": net.spawn("chaincode", "chaincode", "--name", CLI_CC,
+                                          "--port", str(cc_port), port=cc_port),
+                   "orderer": net.spawn("orderer", "orderer", "--config",
+                                        f"{root}/orderer.json", port=ord_port)}
+        with ThreadPoolExecutor(2) as pool:  # both peers start together
+            futs = {pid: pool.submit(net.spawn, pid, "peer", "--config", f"{root}/{pid}.json",
+                                     port=port) for pid, port in (("p1", p1_port),
+                                                                  ("p2", p2_port))}
+            spawn_s.update({pid: f.result() for pid, f in futs.items()})
+
+        ptls = f"{org1}/nodes/peer0.org1.example.com/tls"
+        cli_tls = ("--tls-ca", ca_bundle, "--tls-cert", f"{ptls}/server.pem",
+                   "--tls-key", f"{ptls}/key.pem")
+        verbs = {}
+
+        def verb(name, *args):
+            t = time.perf_counter()
+            got = net.cli_json(*args)
+            verbs.setdefault(name, []).append(time.perf_counter() - t)
+            return got
+
+        pkg = f"{root}/kv.tgz"
+        pkg_id = verb("ccpackage", "ccpackage", "--label", "kv_1", "--address",
+                      f"127.0.0.1:{cc_port}", "--output", pkg)["package_id"]
+        for pp in (p1_port, p2_port):
+            got = verb("ccinstall", *cli_tls, "ccinstall", "--port", str(pp), "--package", pkg)
+            if got["status"] != 200 or got["package_id"] != pkg_id:
+                raise AssertionError(f"cli_path: ccinstall gave {got}")
+        got = verb("ccqueryinstalled", *cli_tls, "ccqueryinstalled", "--port", str(p1_port))
+        if got["installed"] != [{"package_id": pkg_id, "label": "kv_1"}]:
+            raise AssertionError(f"cli_path: ccqueryinstalled gave {got}")
+        spec = json.dumps({"policy": {"ref": "Endorsement"}, "package_id": pkg_id})
+        for msp_id, org_dir in (("Org1MSP", org1), ("Org2MSP", org2)):
+            u = f"{org_dir}/users/User1@{os.path.basename(org_dir)}/msp"
+            got = verb("approve", *cli_tls, "invoke", "--port", str(p1_port), "--channel",
+                       CLI_CHANNEL, "--chaincode", "_lifecycle", "--msp-dir", u, "--msp-id",
+                       msp_id, "approve", CLI_CC, "1", spec)
+            if got.get("code") != 0:
+                raise AssertionError(f"cli_path: approve by {msp_id} gave {got}")
+        user_msp = f"{org1}/users/User1@org1.example.com/msp"
+        got = verb("commit", *cli_tls, "invoke", "--port", str(p1_port), "--channel",
+                   CLI_CHANNEL, "--chaincode", "_lifecycle", "--msp-dir", user_msp,
+                   "--msp-id", "Org1MSP", "commit", CLI_CC, "1", spec)
+        if got.get("code") != 0:
+            raise AssertionError(f"cli_path: commit gave {got}")
+        got = verb("invoke", *cli_tls, "invoke", "--port", str(p1_port), "--channel",
+                   CLI_CHANNEL, "--chaincode", CLI_CC, "--msp-dir", user_msp, "--msp-id",
+                   "Org1MSP", "put", "city", "lucerne")
+        if got.get("code_name") != "VALID":
+            raise AssertionError(f"cli_path: invoke gave {got}")
+        got = verb("query", *cli_tls, "query", "--port", str(p2_port), "--channel",
+                   CLI_CHANNEL, "--chaincode", CLI_CC, "--msp-dir", user_msp, "--msp-id",
+                   "Org1MSP", "get", "city")
+        if got.get("payload") != "lucerne":
+            raise AssertionError(f"cli_path: query gave {got}")
+        got = verb("discover", *cli_tls, "discover", "--port", str(p1_port), "--channel",
+                   CLI_CHANNEL, "--query", "endorsers", "--chaincode", CLI_CC)
+        if got.get("status") != 200 or \
+                {"Org1MSP": 1, "Org2MSP": 1} not in got["descriptor"]["layouts"]:
+            raise AssertionError(f"cli_path: discover gave {got}")
+        setup_s = time.perf_counter() - t_phase
+        log("cli_path_setup", spawn_to_port_s=spawn_s, cryptogen_s=cryptogen_s,
+            verb_s=verbs, setup_s=setup_s, package_id=pkg_id)
+
+        # the burst's block is cut by count: the orderer restarts with a
+        # batch timeout past the burst's admission
+        net.stop("orderer")
+        write_orderer(CLI_BURST_TIMEOUT_S)
+        spawn_s["orderer_restart"] = net.spawn("orderer", "orderer", "--config",
+                                               f"{root}/orderer.json", port=ord_port)
+        user = load_signing_identity(user_msp, "Org1MSP")
+        ctx = make_client_tls(Path(ca_bundle).read_bytes(),
+                              Path(f"{ptls}/server.pem").read_bytes(),
+                              Path(f"{ptls}/key.pem").read_bytes())
+        calls, _ = network_txs(n_tx, n_tx, conflicts)
+        burst = asyncio.run(_cli_burst(dev, p1_port, ctx, user, calls, clients, sign_device,
+                                       net.cpu_s))
+        smoke_launches = dict(kernels.launches)
+
+        # every listener refuses plaintext and uncertified clients
+        plain_ctx = make_client_tls(Path(ca_bundle).read_bytes())
+
+        async def refusals():
+            out = {}
+            for name, port in (("orderer", ord_port), ("p1", p1_port), ("p2", p2_port)):
+                out[name] = (await _cli_transport_refused(port, None),
+                             await _cli_transport_refused(port, plain_ctx))
+            await asyncio.sleep(0.1)  # the cut connections' pumps end
+            return out
+
+        refused = asyncio.run(refusals())
+        if not all(a and b for a, b in refused.values()):
+            raise AssertionError(f"cli_path: a listener served a plaintext or uncertified "
+                                 f"client: {refused}")
+        health, heights, launches, traces, ledgers = {}, {}, {}, {}, {}
+        for name, port in ops.items():
+            status, body = _http_json(port, "/healthz")
+            health[name] = body["status"]
+            if status != 200 or body["status"] != "OK":
+                raise AssertionError(f"cli_path: /healthz of {name}: {status} {body}")
+        for pid in ("p1", "p2"):
+            metrics = _http_text(ops[pid], "/metrics")
+            hl = [ln for ln in metrics.splitlines()
+                  if ln.startswith("ledger_blockchain_height")]
+            heights[pid] = float(hl[0].rsplit(" ", 1)[1]) if hl else None
+            _, body = _http_json(ops[pid], "/launches?n=0")
+            launches[pid] = {
+                "kernel_launches": body["kernel_launches"],
+                # the ledger's stats cover its retained rows only
+                "ledger_rows_retained": body["rows_retained"],
+                "ledger": {k: {"launches": v["launches"], "execute_ms": v["execute_ms"]}
+                           for k, v in body["kernels"].items()}}
+        log("cli_path_launches", smoke=smoke_launches, peers=launches)
+        burst_block = None
+        status_codes = {s.get("code_name") for s in burst["status"].values()}
+        block_nums = {s.get("block") for s in burst["status"].values()}
+        for pid in ("p1", "p2"):
+            for num in sorted(n for n in block_nums if n is not None):
+                code, tree = 0, None
+                try:
+                    code, tree = _http_json(ops[pid], f"/trace?block={num}")
+                except Exception as e:
+                    tree = {"error": str(e)}
+                if code == 200:
+                    traces.setdefault(pid, {})[num] = {
+                        "total_ms": tree["dur_ms"],
+                        "spans_ms": {c["name"]: c["dur_ms"] for c in tree.get("children", [])}}
+        log("cli_path_traces", peers=traces)
+    except BaseException:
+        print(net.logs(), file=sys.stderr, flush=True)
+        raise
+    finally:
+        net.stop_all()
+
+    try:
+        p1_dir, p2_dir = f"{root}/p1/{CLI_CHANNEL}", f"{root}/p2/{CLI_CHANNEL}"
+        store = BlockStore(f"{p1_dir}/chains")
+        try:
+            blocks = [store.get_block(n) for n in range(store.height)]
+        finally:
+            store.close()
+        burst_blocks = [b for b in blocks
+                        if any(protoutil.channel_header(e).tx_id in burst["calls"]
+                               for e in b.data.data)]
+        expected, _ = network_expected(burst_blocks, burst["calls"])
+        got_codes = [protoutil.get_tx_filter(b) for b in burst_blocks]
+        n_conflicts = sum(c == C.MVCC_READ_CONFLICT for f in got_codes for c in f)
+        if [len(b.data.data) for b in burst_blocks] != [n_tx]:
+            raise AssertionError(f"cli_path: the burst took blocks of "
+                                 f"{[len(b.data.data) for b in burst_blocks]} txs, not one of "
+                                 f"{n_tx} cut by count")
+        if got_codes != expected or n_conflicts != conflicts:
+            raise AssertionError(f"cli_path: the burst's codes differ from construction "
+                                 f"({n_conflicts} conflicts)")
+        height = len(blocks)
+        if any(h != height for h in heights.values()):
+            raise AssertionError(f"cli_path: /metrics heights {heights}, ledger {height}")
+        for pid in ("p1", "p2"):
+            ledgers[pid] = net.cli_json("ledgerutil", "verify", f"{root}/{pid}/{CLI_CHANNEL}")
+            if not ledgers[pid]["ok"] or ledgers[pid]["height"] != height:
+                raise AssertionError(f"cli_path: ledgerutil verify {pid}: {ledgers[pid]}")
+        compare = net.cli_json("ledgerutil", "compare", p1_dir, p2_dir)
+        if not compare["identical"]:
+            raise AssertionError(f"cli_path: the resident and plain peers differ: {compare}")
+        rcfg = dict(cfgs["p2"], data_dir=f"{root}/p2r", operations_port=None)
+        with open(f"{root}/p2r.json", "w") as f:
+            json.dump(rcfg, f)
+        t0 = time.perf_counter()
+        replay = net.cli_json("replay", "--config", f"{root}/p2r.json", "--channel",
+                              CLI_CHANNEL, "--source", f"{p1_dir}/chains")
+        replay["wall_s"] = time.perf_counter() - t0
+        rcompare = net.cli_json("ledgerutil", "compare", p1_dir, f"{root}/p2r/{CLI_CHANNEL}")
+        if replay["height"] != height or not rcompare["identical"]:
+            raise AssertionError(f"cli_path: the replay reached {replay['height']} of "
+                                 f"{height}: {rcompare}")
+        log("cli_path_replay", **{k: v for k, v in replay.items()
+                                  if k != "pipeline_overlap_coverage"},
+            overlap=replay.get("pipeline_overlap_coverage"))
+    except BaseException:
+        print(net.logs(), file=sys.stderr, flush=True)
+        raise
+    if check_launches:
+        for pid in ("p1", "p2"):
+            kl = launches[pid]["kernel_launches"]
+            need = CLI_PEER_KERNELS + (CLI_RESIDENT_KERNELS if pid == "p1" else ())
+            if any(kl[k] == 0 for k in need):
+                raise AssertionError(f"cli_path: peer {pid} launched none of some of {need}: "
+                                     f"{kl}")
+            if pid == "p2" and any(kl[k] for k in CLI_RESIDENT_KERNELS):
+                raise AssertionError(f"cli_path: the non-resident peer launched "
+                                     f"{CLI_RESIDENT_KERNELS}: {kl}")
+        if smoke_launches["p256_sign"] == 0:
+            raise AssertionError("cli_path: the clients' sign lane launched no p256_sign")
+    n = len(burst["submit_status_ms"])
+    log("cli_path_burst", txs=n, blocks=[len(b.data.data) for b in burst_blocks],
+        conflicts=n_conflicts, submitted_s=burst["submitted_s"], burst_s=burst["burst_s"],
+        tx_per_s=n / burst["burst_s"], submit_ms=_lat(burst["submit_ms"]),
+        submit_to_status_ms=_lat(burst["submit_status_ms"]),
+        endorse_ms=_lat(burst["endorse_ms"]), status_codes=sorted(map(str, status_codes)),
+        cpu_s_to_submitted={k: v - burst["cpu_s"][0][k] for k, v in burst["cpu_s"][1].items()
+                            if v is not None and burst["cpu_s"][0].get(k) is not None},
+        cpu_s_to_committed={k: v - burst["cpu_s"][1][k] for k, v in burst["cpu_s"][2].items()
+                            if v is not None and burst["cpu_s"][1].get(k) is not None},
+        client_lane=burst["client_lane"])
+    log("cli_path", ok=True, height=height, health=health, metrics_height=heights,
+        refused=refused, ledgers=ledgers, identical=compare["identical"],
+        replay_identical=rcompare["identical"], seconds=time.perf_counter() - t_phase)
+    if own:
+        shutil.rmtree(root, ignore_errors=True)
+    return {pid: launches[pid]["kernel_launches"] for pid in ("p1", "p2")}
+
+
 def kernel_frames(build_log: dict, names) -> dict:
     """ptxas's report for the kernels whose mangled names hold one of
     ``names``: {name: {stack, spill_stores, spill_loads, registers}}
@@ -5494,6 +5997,7 @@ def main() -> int:
         if r["name"] in NETWORK_KERNELS:
             r["launches"] = net_counts[r["name"]]
     timed("bft_path", phase_bft_path, dev)
+    timed("cli_path", phase_cli_path, dev)
     log("phases", seconds=phases, total_s=sum(phases.values()))
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "mismatches",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

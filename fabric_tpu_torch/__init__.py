@@ -16,6 +16,14 @@ when CUDA is absent unless the caller asked for ``device="cpu"``; on the
 CPU every kernel wrapper runs its plain PyTorch version.
 """
 
-from fabric_tpu_torch.device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    # resolve_device on first use: importing the package (as the CLI's
+    # client verbs do) does not import torch
+    if name == "resolve_device":
+        from fabric_tpu_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(name)

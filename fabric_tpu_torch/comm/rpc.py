@@ -13,7 +13,12 @@ bidi-streaming methods over one TCP connection):
 Handlers are ``async def handler(stream)``: iterate the stream for
 request payloads, ``await stream.send(...)`` to reply.  Frames longer
 than ``MAX_FRAME`` are refused on send (``FrameTooLargeError``) and on
-read.  ``ssl_ctx`` goes to ``asyncio``'s server and connection.  Every
+read.  ``ssl_ctx`` goes to ``asyncio``'s server and connection:
+``make_server_tls`` / ``make_client_tls`` build the mutual-TLS contexts
+(Python's ``ssl`` over OpenSSL; a server given a CA bundle requires a
+client certificate, a client checks the chain but not the host name),
+and ``TlsProfile`` carries one node's material to every listener and
+dial, as the reference's do.  Every
 frame sent passes the ``rpc.frame`` fault point by ``afire``, so an
 armed latency slows one stream and a ``disconnect`` cuts it.
 """
@@ -277,3 +282,71 @@ class RpcClient:
             self.conn = None
         if self._pump_task:
             self._pump_task.cancel()
+
+
+def _load_chain(ctx: ssl.SSLContext, cert_pem: bytes, key_pem: bytes) -> None:
+    import tempfile
+
+    with tempfile.NamedTemporaryFile(suffix=".pem") as cf, \
+            tempfile.NamedTemporaryFile(suffix=".pem") as kf:
+        cf.write(cert_pem)
+        cf.flush()
+        kf.write(key_pem)
+        kf.flush()
+        ctx.load_cert_chain(cf.name, kf.name)
+
+
+def make_server_tls(cert_pem: bytes, key_pem: bytes, ca_pem: bytes | None = None):
+    """Server-side TLS context; with ``ca_pem`` a client certificate
+    that chains to it is required (mutual TLS)."""
+    ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+    _load_chain(ctx, cert_pem, key_pem)
+    if ca_pem:
+        ctx.load_verify_locations(cadata=ca_pem.decode())
+        ctx.verify_mode = ssl.CERT_REQUIRED
+    return ctx
+
+
+def make_client_tls(ca_pem: bytes, cert_pem: bytes | None = None,
+                    key_pem: bytes | None = None):
+    """Client-side TLS context trusting ``ca_pem``, presenting
+    ``cert_pem``/``key_pem`` when given."""
+    ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
+    ctx.check_hostname = False
+    ctx.load_verify_locations(cadata=ca_pem.decode())
+    if cert_pem and key_pem:
+        _load_chain(ctx, cert_pem, key_pem)
+    return ctx
+
+
+class TlsProfile:
+    """One node's TLS material: its certificate and key and the CA
+    bundle it trusts.  Every listener built from it requires client
+    certificates and every dial presents one."""
+
+    def __init__(self, cert_pem: bytes, key_pem: bytes, ca_pem: bytes):
+        self.cert_pem = cert_pem
+        self.key_pem = key_pem
+        self.ca_pem = ca_pem
+        self._server = None
+        self._client = None
+
+    @classmethod
+    def load(cls, cert_path: str, key_path: str, ca_path: str) -> "TlsProfile":
+        with open(cert_path, "rb") as f:
+            cert = f.read()
+        with open(key_path, "rb") as f:
+            key = f.read()
+        with open(ca_path, "rb") as f:
+            ca = f.read()
+        return cls(cert, key, ca)
+
+    def server_ctx(self) -> ssl.SSLContext:
+        if self._server is None:
+            self._server = make_server_tls(self.cert_pem, self.key_pem, self.ca_pem)
+        return self._server
+
+    def client_ctx(self) -> ssl.SSLContext:
+        if self._client is None:
+            self._client = make_client_tls(self.ca_pem, self.cert_pem, self.key_pem)
+        return self._client

@@ -46,6 +46,7 @@ OID_O = "2.5.4.10"
 OID_C = "2.5.4.6"
 OID_BASIC_CONSTRAINTS = "2.5.29.19"
 OID_KEY_USAGE = "2.5.29.15"
+OID_SUBJECT_ALT_NAME = "2.5.29.17"
 
 # signature algorithm → (hash name, family)
 SIG_ALGS = {
@@ -447,6 +448,84 @@ def key_usage(digital_signature=True, key_cert_sign=False, crl_sign=False) -> by
     return tlv(BIT_STRING, bytes([unused, bits]))
 
 
+def subject_alt_name(names) -> bytes:
+    """A subjectAltName value: each name an IP address (``[7]``, its 4
+    or 16 octets) when it parses as one, else a DNS name (``[2]``
+    IA5String), in the given order, as ``cryptography``'s
+    ``SubjectAlternativeName`` of ``IPAddress`` / ``DNSName`` writes it."""
+    import ipaddress
+
+    body = b""
+    for name in names:
+        try:
+            body += tlv(0x87, ipaddress.ip_address(name).packed)
+        except ValueError:
+            body += tlv(0x82, name.encode("ascii"))
+    return tlv(SEQUENCE, body)
+
+
+# ---------------------------------------------------------------------------
+# P-256 private keys: PKCS#8 PrivateKeyInfo (what ``cryptography``'s
+# ``PrivateFormat.PKCS8`` writes) and SEC1 ECPrivateKey
+
+
+def _ec_private_key(d: int, with_params: bool) -> bytes:
+    x, y = ec_ref.pt_mul(d, ec_ref.G)
+    params = tlv(0xA0, _oid_tlv(OID_P256)) if with_params else b""
+    return tlv(SEQUENCE, der_integer(1) + tlv(OCTET_STRING, d.to_bytes(32, "big")) + params
+               + tlv(0xA1, tlv(BIT_STRING, b"\x00\x04" + x.to_bytes(32, "big")
+                               + y.to_bytes(32, "big"))))
+
+
+def encode_pkcs8_key(d: int) -> bytes:
+    """A P-256 scalar → PrivateKeyInfo DER: version 0, the
+    id-ecPublicKey / prime256v1 AlgorithmIdentifier, and an
+    ECPrivateKey (version 1, the 32-byte scalar, the public point)
+    whose curve the AlgorithmIdentifier names."""
+    alg = tlv(SEQUENCE, _oid_tlv(OID_EC_PUBLIC_KEY) + _oid_tlv(OID_P256))
+    return tlv(SEQUENCE, der_integer(0) + alg + tlv(OCTET_STRING, _ec_private_key(d, False)))
+
+
+def _read_ec_private_key(der: bytes, s: int, e: int, curve_known: bool) -> int:
+    parts = _children(der, s, e)
+    if len(parts) < 2 or parts[0][0] != INTEGER or parts[1][0] != OCTET_STRING \
+            or _integer(der[parts[0][1]:parts[0][2]]) != 1:
+        raise DERError("bad ECPrivateKey")
+    raw = der[parts[1][1]:parts[1][2]]
+    d = int.from_bytes(raw, "big")
+    for t, cs, ce, _ in parts[2:]:
+        if t == 0xA0:
+            if der[cs:ce] != _oid_tlv(OID_P256):
+                raise DERError("EC private key on another curve than P-256")
+            curve_known = True
+        elif t != 0xA1:
+            raise DERError("bad ECPrivateKey field")
+    if not curve_known:
+        raise DERError("EC private key without its curve")
+    if not 0 < d < ec_ref.N:
+        raise DERError("EC private scalar out of range")
+    return d
+
+
+def decode_private_key(der: bytes) -> int:
+    """PrivateKeyInfo (PKCS#8) or SEC1 ECPrivateKey DER → the P-256
+    scalar; any other key or curve raises ``DERError``."""
+    der = bytes(der)
+    s, e = _expect(der, 0, len(der), SEQUENCE)
+    if e != len(der):
+        raise DERError("trailing bytes after the key")
+    parts = _children(der, s, e)
+    if len(parts) >= 3 and parts[1][0] == SEQUENCE:  # PKCS#8
+        if _integer(der[parts[0][1]:parts[0][2]]) != 0 or parts[2][0] != OCTET_STRING:
+            raise DERError("bad PrivateKeyInfo")
+        oid, params = _alg(der, parts[1][1], parts[1][2])
+        if oid != OID_EC_PUBLIC_KEY or params != _oid_tlv(OID_P256):
+            raise DERError("not a P-256 EC key")
+        ks, ke = _expect(der, parts[2][1], parts[2][2], SEQUENCE)
+        return _read_ec_private_key(der, ks, ke, True)
+    return _read_ec_private_key(der, s, e, False)
+
+
 # ---------------------------------------------------------------------------
 # PEM
 
@@ -454,15 +533,31 @@ def key_usage(digital_signature=True, key_cert_sign=False, crl_sign=False) -> by
 _PEM = re.compile(rb"-----BEGIN ([^\r\n-]*)-----(.*?)-----END ([^\r\n-]*)-----", re.S)
 
 
-def pem_encode(der: bytes) -> bytes:
-    """A certificate's DER as PEM, 64 base64 characters a line."""
+def pem_encode(der: bytes, label: bytes = b"CERTIFICATE") -> bytes:
+    """DER as PEM under ``label``, 64 base64 characters a line."""
     b64 = base64.b64encode(der)
     lines = b"\n".join(b64[i:i + 64] for i in range(0, len(b64), 64))
-    return b"-----BEGIN CERTIFICATE-----\n%s\n-----END CERTIFICATE-----\n" % lines
+    return b"-----BEGIN %s-----\n%s\n-----END %s-----\n" % (label, lines, label)
+
+
+def pem_private_key(d: int) -> bytes:
+    """A P-256 scalar as a ``PRIVATE KEY`` (PKCS#8) PEM."""
+    return pem_encode(encode_pkcs8_key(d), b"PRIVATE KEY")
+
+
+def read_pem_private_key(data: bytes) -> int:
+    """The P-256 scalar of the first ``PRIVATE KEY`` (PKCS#8) or ``EC
+    PRIVATE KEY`` (SEC1) section of a PEM document."""
+    return decode_private_key(pem_section(data, (b"PRIVATE KEY", b"EC PRIVATE KEY")))
 
 
 def pem_certificate(data: bytes) -> bytes:
     """The DER of the first CERTIFICATE section of a PEM document."""
+    return pem_section(data, (b"CERTIFICATE", b"X509 CERTIFICATE"))
+
+
+def pem_section(data: bytes, labels) -> bytes:
+    """The DER of the first section labelled one of ``labels``."""
     found = None
     sections = list(_PEM.finditer(bytes(data)))
     if not sections:
@@ -477,8 +572,8 @@ def pem_certificate(data: bytes) -> bytes:
             raise DERError("bad base64") from e
         if base64.b64encode(raw) != body:
             raise DERError("base64 not in its canonical form")
-        if found is None and sec.group(1) in (b"CERTIFICATE", b"X509 CERTIFICATE"):
+        if found is None and sec.group(1) in labels:
             found = raw
     if found is None:
-        raise DERError("no CERTIFICATE section")
+        raise DERError(f"no {labels[0].decode()} section")
     return found

@@ -14,11 +14,16 @@ the serialized form has the idemix shape (``is_valid``), no EC key
 (``has_ec_key`` False, ``idemix`` True), and ``verify(message, sig)``,
 the presentation check under its MSP's current key and epoch record.
 ``crypto/policy.py::Principal.matched_by`` reads it like any other.
+
+``SigningIdentity`` is the local signer: a P-256 scalar, its
+certificate and the MSP id (``from_pem`` reads a cryptogen keystore's
+PKCS#8 or SEC1 key and its certificate, as the reference's does).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property
 
 ROLE_CLIENT = "client"
 ROLE_PEER = "peer"
@@ -55,3 +60,41 @@ class IdemixIdentity:
 
     def verify(self, message: bytes, sig: bytes) -> bool:
         return self.msp.verify(self.ou, self.role, message, sig)
+
+
+@dataclass
+class SigningIdentity:
+    """A private scalar, its certificate and the MSP id."""
+
+    msp_id: str
+    d: int
+    cert_pem: bytes
+
+    @classmethod
+    def from_pem(cls, msp_id: str, key_pem: bytes, cert_pem: bytes) -> "SigningIdentity":
+        """A ``PRIVATE KEY`` / ``EC PRIVATE KEY`` PEM and a certificate
+        PEM; the certificate is re-armoured as the reference re-encodes
+        it, so both packages serialize the same identity bytes."""
+        from fabric_tpu_torch.crypto import der
+
+        return cls(msp_id, der.read_pem_private_key(key_pem),
+                   der.pem_encode(der.pem_certificate(cert_pem)))
+
+    @cached_property
+    def serialized(self) -> bytes:
+        from fabric_tpu_torch.protos.messages import SerializedIdentity
+
+        return SerializedIdentity(mspid=self.msp_id, id_bytes=self.cert_pem).serialize()
+
+    @cached_property
+    def public(self):
+        from fabric_tpu_torch.crypto import ec_ref
+
+        return ec_ref.pt_mul(self.d, ec_ref.G)
+
+    def sign(self, message: bytes) -> bytes:
+        """DER ECDSA-SHA256 signature (RFC 6979 nonce, low-S)."""
+        from fabric_tpu_torch.crypto import ec_ref
+
+        return ec_ref.der_encode_sig(*ec_ref.SigningKey(self.d).sign_digest(
+            ec_ref.digest_int(message)))

@@ -23,8 +23,8 @@ The wire JSON of ``GossipPing``, ``PvtPush`` and ``PvtPull`` is the
 reference's byte for byte, so either package's peer serves the other.
 Where the port departs: the pull's request signature (a host ``ec_ref``
 signature) and the responder's check of it run in a worker thread, not
-on the event loop; ``_ssl()`` is None, since mTLS
-(``comm/rpc.py::TlsProfile``) waits (ROADMAP Queue 1 item 10).
+on the event loop.  Every dial presents the node's ``tls`` profile
+(mutual TLS) when the node has one.
 """
 
 from __future__ import annotations
@@ -88,7 +88,8 @@ class GossipService:
         return self
 
     def _ssl(self):
-        return None  # mTLS waits with comm/rpc.py::TlsProfile
+        tls = getattr(self.node, "tls", None)
+        return tls.client_ctx() if tls else None
 
     async def _client(self, host, port) -> RpcClient:
         key = (host, port)

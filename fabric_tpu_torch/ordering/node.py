@@ -19,10 +19,10 @@ exposed services:
 Wire format: tiny JSON headers + raw envelope/block bytes — the
 content payloads themselves are the canonical protos.  Method names and
 framing are the reference's, so either package's clients talk to
-either package's node.  Waiting for a later module, and raising
-``NotImplementedError`` when set: ``tls`` (mTLS,
-``comm/rpc.py::TlsProfile``) and ``operations_port`` (``opsserver.py``),
-both ROADMAP Queue 1 item 10.
+either package's node.  ``tls`` (a ``comm/rpc.py::TlsProfile``) puts
+mutual TLS on the listener and on every orderer-to-orderer dial;
+``start(operations_port=)`` serves ``opsserver.py`` with the
+``consensus`` health check.
 """
 
 from __future__ import annotations
@@ -39,8 +39,6 @@ from fabric_tpu_torch.protos import messages as m
 
 _log = logging.getLogger("fabric_tpu_torch.orderer")
 
-TLS_NOT_PORTED = "tls: comm/rpc.py::TlsProfile is not ported yet (ROADMAP Queue 1 item 10)"
-
 
 class OrdererNode:
     def __init__(self, node_id: str, data_dir: str,
@@ -50,8 +48,6 @@ class OrdererNode:
                  msp_manager=None, consensus: str = "raft",
                  signer=None, verifiers=None, view_timeout: float = 2.0,
                  tls=None, rng: random.Random | None = None):
-        if tls is not None:
-            raise NotImplementedError(TLS_NOT_PORTED)
         self.id = node_id
         self.dir = data_dir
         self.cluster = dict(cluster)  # node_id -> (host, port)
@@ -70,7 +66,9 @@ class OrdererNode:
         # node's chains, which a caller may seed
         self.rng = rng if rng is not None else random.Random()
         self.chains: dict[str, OrderingChain] = {}
-        self.server = RpcServer(host, port)
+        self.tls = tls  # comm.rpc.TlsProfile: mTLS on every surface
+        self.server = RpcServer(host, port, ssl_ctx=tls.server_ctx() if tls else None)
+        self.operations = None
         self._peer_clients: dict[str, asyncio.Task] = {}
         self._bg: set = set()  # strong refs: GC destroys weakly-held tasks
 
@@ -92,7 +90,8 @@ class OrdererNode:
             addr = self.cluster[peer_id]
 
             async def connect():
-                return await RpcClient(*addr).connect()
+                return await RpcClient(
+                    *addr, ssl_ctx=self.tls.client_ctx() if self.tls else None).connect()
 
             task = asyncio.ensure_future(connect())
             self._peer_clients[peer_id] = task
@@ -187,9 +186,6 @@ class OrdererNode:
     # -- services -----------------------------------------------------------------
 
     async def start(self, operations_port: int | None = None):
-        if operations_port is not None:
-            raise NotImplementedError("operations_port: opsserver.py is not ported yet "
-                                      "(ROADMAP Queue 1 item 10)")
         self.server.register_unary("Broadcast", self._on_broadcast)
         self.server.register("Deliver", self._on_deliver)
         self.server.register("Step", self._on_step)
@@ -197,9 +193,25 @@ class OrdererNode:
         self.server.register_unary("Info", self._on_info)
         await self.server.start()
         self.port = self.server.port
+        if operations_port is not None:
+            from fabric_tpu_torch.opsserver import HealthRegistry, OperationsServer
+
+            health = HealthRegistry()
+
+            def _chains():  # evaluated per check: covers late joins
+                for cid, chain in self.chains.items():
+                    if chain.raft.state not in ("leader", "follower", "candidate"):
+                        return f"consensus {cid} stopped"
+                return None
+
+            health.register("consensus", _chains)
+            self.operations = await OperationsServer(port=operations_port,
+                                                     health=health).start()
         return self
 
     async def stop(self):
+        if self.operations is not None:
+            await self.operations.stop()
         for chain in self.chains.values():
             chain.stop()
         for task in self._peer_clients.values():

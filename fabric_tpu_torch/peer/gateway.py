@@ -71,6 +71,11 @@ class Gateway:
 
     # -- helpers -----------------------------------------------------------
 
+    def _ssl(self):
+        """The node's mTLS client context for its dials, None without TLS."""
+        tls = getattr(self.node, "tls", None)
+        return tls.client_ctx() if tls else None
+
     def _parse_proposal(self, req: bytes):
         signed = m.SignedProposal.parse(req)
         prop = m.Proposal.parse(signed.proposal_bytes)
@@ -97,7 +102,7 @@ class Gateway:
         a retryable GatewayError(503) so the layout loop fails over to
         the next layout instead of tearing the whole Endorse down."""
         try:
-            cli = RpcClient(host, port)
+            cli = RpcClient(host, port, ssl_ctx=self._ssl())
             await cli.connect()
             try:
                 raw = await cli.unary("Endorse", req)
@@ -195,7 +200,8 @@ class Gateway:
             _txflow.submit_begin(tx_id)
         cli = self._broadcast.get(channel)
         if cli is None or cli.endpoints != list(addrs):
-            cli = self._broadcast[channel] = BroadcastClient(list(addrs))
+            cli = self._broadcast[channel] = BroadcastClient(list(addrs),
+                                                             ssl_ctx=self._ssl())
         res = await cli.broadcast(channel, env_bytes)
         if res.get("status") != 200:
             raise GatewayError(res.get("status", 500), res.get("info", "broadcast failed"))

@@ -28,16 +28,24 @@ raises unless ``device="cpu"`` is asked for) and hands it to every
 channel's validator and to the sign lane.  Where the port departs from
 the reference: under ``sign_device=True`` a signer without a P-256
 scalar makes ``start`` raise (the reference logs and keeps the serial
-signer), so no endorsement quietly signs off the card.  Knobs whose
-module is not ported yet raise ``NotImplementedError`` naming ROADMAP
-Queue 1 item 10 when set to anything but their default: ``slos``,
-``vitals_*``, ``blackbox_dir``, ``autopilot*``, ``tls``,
-``operations_port``, ``sidecar_listen``, the install RPC and its
-knobs (``peer/ccpackage.py``), and the validator's ``verify_chunk``,
-``mesh_devices``, ``mesh_topology``, ``recode_device``,
-``host_stage_mode="process"`` and ``verify_deadline_ms`` (items 9 and
-10).  ``replay_local`` waits with a ``pre_launch_fn`` in
-``peer/replay.py`` (item 10).  A BFT channel's blocks pass
+signer), so no endorsement quietly signs off the card.  ``tls`` (a
+``comm/rpc.py::TlsProfile``) puts mutual TLS on the listener and on
+every dial (deliver, gateway endorse and submit, gossip, the sidecar
+link).  ``InstallChaincode`` / ``QueryInstalled`` keep packages in a
+``peer/ccpackage.py::PackageStore`` under the data dir (a size cap, and
+with ``install_require_admin`` an admin-signed request of this peer's
+org); a chaincode with a committed definition whose package this org
+approved and installed resolves to a ``CCaaSProxy`` on first use.
+``start(operations_port=)`` serves ``opsserver.py`` with the
+``rpc_server``, ``ledgers`` and ``device_verify_lane`` health checks.
+``PeerChannel.replay_local`` catches a channel up from a local block
+store through ``peer/replay.py``.  Knobs whose module is not ported yet
+raise ``NotImplementedError`` naming ROADMAP Queue 1 item 9 or 10 when
+set to anything but their default: ``slos``, ``vitals_*``,
+``blackbox_dir``, ``autopilot*``, ``sidecar_listen``, and the
+validator's ``verify_chunk``, ``mesh_devices``, ``mesh_topology``,
+``recode_device``, ``host_stage_mode="process"`` and
+``verify_deadline_ms``.  A BFT channel's blocks pass
 ``_verify_bft_attestation`` (2f+1 consenter COMMIT signatures over the
 block's own batch, host ``ec_ref`` checks) before the card's kernels
 launch.  A collection this peer's org is no member of is recorded
@@ -66,6 +74,7 @@ from fabric_tpu_torch.ledger.confighistory import ConfigHistoryDB
 from fabric_tpu_torch.ledger.kvledger import KVLedger
 from fabric_tpu_torch.ledger.pvtdata import encode_kv
 from fabric_tpu_torch.ledger.statedb import MemVersionedDB, UpdateBatch
+from fabric_tpu_torch.nodeconfig import DEFAULT_MAX_PACKAGE_SIZE
 from fabric_tpu_torch.observe import txflow as _txflow
 from fabric_tpu_torch.ops_metrics import global_registry
 from fabric_tpu_torch.ordering.bft import COMMIT, _signable
@@ -86,9 +95,6 @@ from fabric_tpu_torch.utils.backoff import Backoff
 from fabric_tpu_torch.utils.locks import AsyncRWLock
 
 _log = logging.getLogger("fabric_tpu_torch.peer")
-
-# the reference's nodeconfig default (a knob of the install RPC)
-DEFAULT_MAX_PACKAGE_SIZE = 16 * 1024 * 1024
 
 
 def _not_ported(what: str, item: int = 10) -> NotImplementedError:
@@ -821,6 +827,41 @@ class PeerChannel:
             return await loop.run_in_executor(None, lambda: generate_snapshot(
                 self.ledger, out_dir, channel_id=self.id, config_bytes=cfg))
 
+    async def replay_local(self, src_dir: str, depth: int | None = None) -> dict:
+        """Catch this channel up from a local block store directory (a
+        serving peer's copied chain, a mirror, this peer's own pre-wipe
+        store) at full pipeline depth with no time between blocks
+        (``peer/replay.py``): every block's orderer signature is checked
+        before its kernels launch, as on the deliver path.  Resumes from
+        the committed height; returns the replay's stats."""
+        from fabric_tpu_torch.ledger.blockstore import BlockStore
+        from fabric_tpu_torch.peer.replay import ReplayCheckpoint, ReplayDriver
+
+        loop = asyncio.get_event_loop()
+
+        def hook(pipe):
+            self.pipe = pipe
+
+        src = BlockStore(src_dir)
+        drv = ReplayDriver(
+            self.validator, self._commit_fn(loop),
+            depth=self.pipeline_depth if depth is None else depth,
+            checkpoint=ReplayCheckpoint(f"{self.ledger.blocks.dir}/replay_checkpoint.json"),
+            pre_launch_fn=self.verify_block_signature, channel=self.id,
+            coalesce_blocks=self.coalesce_blocks, tracer=self.tracer, pipe_hook=hook)
+        start = self.height
+        # a dedicated feeder thread, as the deliver driver's: submit()
+        # waits on card syncs and must not starve the shared pool
+        feeder = ThreadPoolExecutor(1, thread_name_prefix="fabtpu-replay")
+        try:
+            stats = await loop.run_in_executor(
+                feeder, lambda: drv.run(src.iter_blocks(start), start=start))
+        finally:
+            feeder.shutdown(wait=False)
+            src.close()
+        stats["resumed_from"] = start
+        return stats
+
     async def wait_height(self, h: int, timeout: float = 30.0):
         loop = asyncio.get_event_loop()
         deadline = loop.time() + timeout
@@ -883,10 +924,6 @@ class PeerNode:
                  apply_queue_blocks: int = 4,
                  tx_flow: bool = True,
                  device="cuda"):
-        if tls is not None:
-            raise _not_ported("tls (comm/rpc.py::TlsProfile and mTLS)")
-        if max_package_size != DEFAULT_MAX_PACKAGE_SIZE or install_require_admin:
-            raise _not_ported("the install RPC's knobs (peer/ccpackage.py)")
         if slos:
             raise _not_ported("slos (observe/slo.py)")
         if vitals_interval_s or vitals_retention != 240 or blackbox_dir:
@@ -940,11 +977,22 @@ class PeerNode:
         if faults:
             # chaos spec: arm the process-global fault plan
             _faults.configure(faults)
+        # chaincode install surface: the store always, a size cap
+        # always, and optionally an admin-signed request envelope
+        self.max_package_size = int(max_package_size)
+        self.install_require_admin = bool(install_require_admin)
+        from fabric_tpu_torch.peer.ccpackage import PackageStore
+
+        self.packages = PackageStore(data_dir)
+        if self.runtime.resolver is None:
+            self.runtime.resolver = self._resolve_chaincode
+        self.tls = tls  # comm.rpc.TlsProfile: mTLS on every surface
         self.channels: dict[str, PeerChannel] = {}
-        self.server = RpcServer(host, port)
+        self.server = RpcServer(host, port, ssl_ctx=tls.server_ctx() if tls else None)
         self.registry = PeerRegistry()  # org → endorsing peers (gateway/discovery)
         self.gateway = None
         self.gossip_service = None
+        self.operations = None
         self._bg: set = set()  # strong refs: GC destroys weakly-held tasks
 
     def join_channel(self, channel_id: str, policy_provider: PolicyProvider | None = None,
@@ -962,8 +1010,11 @@ class PeerNode:
             state_resident=self.state_resident, state_resident_mb=self.state_resident_mb,
             state_resident_range_bits=self.state_resident_range_bits,
             sidecar_endpoint=self.sidecar_endpoint, sidecar_weight=self.sidecar_weight,
-            sidecar_recovery_s=self.sidecar_recovery_s, async_commit=self.async_commit,
-            apply_queue_blocks=self.apply_queue_blocks, device=self.device)
+            sidecar_recovery_s=self.sidecar_recovery_s,
+            sidecar_ssl=self.tls.client_ctx() if self.tls else None,
+            async_commit=self.async_commit, apply_queue_blocks=self.apply_queue_blocks,
+            device=self.device)
+        ch.client_ssl = self.tls.client_ctx() if self.tls else None
         ch.runtime = self.runtime  # resolved-binding invalidation hook
         ch.member_org = getattr(self.signer, "msp_id", None)
         self.channels[channel_id] = ch
@@ -974,8 +1025,6 @@ class PeerNode:
     # -- services ------------------------------------------------------------
 
     async def start(self, operations_port: int | None = None):
-        if operations_port is not None:
-            raise _not_ported("operations_port (opsserver.py)")
         if self.sign_device:
             # the card's ESCC sign lane: concurrent Endorse/gateway
             # sign requests coalesce into one p256_sign launch, RFC 6979
@@ -1010,14 +1059,47 @@ class PeerNode:
         self.server.register_unary("Discover", self._on_discover)
         self.server.register_unary("Snapshot", self._on_snapshot)
         self.server.register_unary("InstallChaincode", self._on_install)
-        self.server.register_unary("QueryInstalled", self._on_install)
+        self.server.register_unary("QueryInstalled", self._on_query_installed)
         self.gateway = gw.register(self)
         from fabric_tpu_torch.gossip import GossipService
 
         self.gossip_service = GossipService(self).register()
         await self.server.start()
         self.port = self.server.port
+        if operations_port is not None:
+            from fabric_tpu_torch.opsserver import HealthRegistry, OperationsServer
+
+            health = HealthRegistry()
+            health.register("rpc_server", lambda: None if self.server._server else "down")
+
+            def _ledgers():  # evaluated per check: covers late joins
+                for cid, ch in self.channels.items():
+                    if ch.height < 0:
+                        return f"ledger {cid} unhealthy"
+                return None
+
+            health.register("ledgers", _ledgers)
+            health.register("device_verify_lane", self._device_lanes)
+            self.operations = await OperationsServer(
+                port=operations_port, health=health, launches=self.launch_ledger,
+                txflow=self.txflow_journal).start()
         return self
+
+    def _device_lanes(self):
+        """Health of the channels' verify lanes: a degraded lane is a
+        failed check whose reason says how the channel commits meanwhile
+        (the port has no CPU fallback: the card's ``p256_verify``
+        launched and synced at once, or the peer's own one in place of a
+        lost sidecar link)."""
+        for cid, ch in self.channels.items():
+            g = getattr(ch.validator, "device_guard", None)
+            if g is not None and g.degraded:
+                if getattr(ch.validator, "link", None) is not None:
+                    return (f"channel {cid}: sidecar link DEGRADED — committing via the "
+                            "peer's own p256_verify on the card, recovery probe armed")
+                return (f"channel {cid}: device verify lane DEGRADED — committing via a "
+                        "synchronous p256_verify on the card, recovery probe armed")
+        return None
 
     @property
     def endorse_signer(self):
@@ -1046,10 +1128,117 @@ class PeerNode:
             ch.stop()
         if self.gossip_service is not None:
             await self.gossip_service.stop()
+        if self.operations is not None:
+            await self.operations.stop()
         await self.server.stop()
 
+    # -- lifecycle install / package resolution ------------------------------
+
     async def _on_install(self, req: bytes) -> bytes:
-        raise _not_ported("the install RPC (peer/ccpackage.py)")
+        """InstallChaincode: persist a package to the install store.
+        Admission: mTLS at the transport, a size cap on the wire request
+        and on the package, and with ``install_require_admin`` a signed
+        envelope ``{"package", "identity", "signature"}`` (hex) from a
+        valid admin of this peer's org whose signature covers the
+        package."""
+        wire_bound = (2 * self.max_package_size + 65536 if self.install_require_admin
+                      else self.max_package_size)
+        if len(req) > wire_bound:
+            return json.dumps({
+                "status": 413,
+                "message": (f"install request too large: {len(req)} bytes "
+                            f"exceeds the bound of {wire_bound}"),
+            }).encode()
+        raw = req
+        if self.install_require_admin:
+            err, raw = self._check_install_auth(req)
+            if err is not None:
+                return err
+        if len(raw) > self.max_package_size:
+            return json.dumps({
+                "status": 413,
+                "message": (f"package too large: {len(raw)} bytes exceeds the "
+                            f"configured max of {self.max_package_size}"),
+            }).encode()
+        try:
+            info = self.packages.install(raw)
+        except ValueError as e:
+            return json.dumps({"status": 400, "message": str(e)}).encode()
+        return json.dumps({"status": 200, **info}).encode()
+
+    def _check_install_auth(self, req: bytes):
+        """→ (error_response | None, package_bytes)."""
+        from fabric_tpu_torch.crypto.identity import ROLE_ADMIN
+
+        def deny(msg: str) -> bytes:
+            return json.dumps({"status": 403, "message": msg}).encode()
+
+        try:
+            envelope = json.loads(req)
+            pkg = bytes.fromhex(envelope["package"])
+            ident_ser = bytes.fromhex(envelope["identity"])
+            sig = bytes.fromhex(envelope["signature"])
+        except Exception:
+            return deny("install requires an admin-signed request envelope "
+                        '{"package", "identity", "signature"} (hex fields)'), b""
+        try:
+            ident = self.msp.deserialize_identity(ident_ser)
+        except Exception as e:
+            return deny(f"unknown installer identity: {e}"), b""
+        if not ident.is_valid:
+            return deny("installer identity failed MSP validation"), b""
+        my_msp = getattr(self.signer, "msp_id", None)
+        if my_msp and ident.msp_id != my_msp:
+            # the install policy is this peer's own MSP's admins
+            return deny(f"installer org '{ident.msp_id}' is not this peer's "
+                        f"org '{my_msp}'"), b""
+        if getattr(ident, "role", None) != ROLE_ADMIN:
+            return deny(f"installer '{ident.msp_id}' is not an admin"), b""
+        if not verify_signature(ident, pkg, sig):
+            return deny("install signature does not cover package"), b""
+        return None, pkg
+
+    async def _on_query_installed(self, req: bytes) -> bytes:
+        return json.dumps({"status": 200, "installed": self.packages.list()}).encode()
+
+    def _resolve_chaincode(self, name: str, channel: str = ""):
+        """Registry miss: a namespace with a committed lifecycle
+        definition on this channel whose package (the id this org's
+        approval binds) is installed here resolves to a ``CCaaSProxy``
+        to the endpoint its connection.json names."""
+        import re
+
+        from fabric_tpu_torch.peer.ccaas import CCaaSProxy
+        from fabric_tpu_torch.peer.lifecycle import (ChaincodeDefinition, approval_key,
+                                                     definition_key)
+
+        ch = self.channels.get(channel)
+        if ch is None:
+            return None
+        my_msp = getattr(self.signer, "msp_id", None)
+        state = ch.ledger.state
+        vv = state.get_state(LIFECYCLE_NS, definition_key(name))
+        if vv is None:
+            return None
+        try:
+            cd = ChaincodeDefinition.from_bytes(vv.value)
+        except Exception:
+            return None
+        # the package THIS ORG approved for the current sequence
+        av = state.get_state(LIFECYCLE_NS, approval_key(name, cd.sequence, my_msp or ""))
+        if av is None:
+            return None
+        try:
+            spec = json.loads(av.value)
+            pkg_id = spec.get("package_id", "") if isinstance(spec, dict) else ""
+        except Exception:
+            return None
+        conn = self.packages.connection(pkg_id) if pkg_id else None
+        addr = (conn or {}).get("address", "")
+        hp = re.fullmatch(r"(.+):(\d+)", addr)
+        if hp:
+            return CCaaSProxy(name, hp.group(1), int(hp.group(2)))
+        return None
 
     async def _on_endorse(self, req: bytes) -> bytes:
         signed = m.SignedProposal.parse(req)

@@ -24,7 +24,10 @@ trees
 (``pipeline_overlap_coverage``, the reference's :272-283).  The
 reference's driver also holds its traffic autopilot in throughput mode
 for the run; the port has no autopilot yet, and ``autopilot=`` accepts
-only None.  Its pipeline hook is not ported.
+only None.  ``pre_launch_fn`` (a peer's block-signature check),
+``channel`` and ``tracer`` go to the pipe; ``pipe_hook`` is called with
+the live pipe at the start and None at the end (a hosting
+``PeerChannel`` exposes it as ``pipe`` meanwhile).
 """
 
 from __future__ import annotations
@@ -78,10 +81,15 @@ class ReplayDriver:
                  prefetch: int = DEFAULT_PREFETCH,
                  checkpoint: ReplayCheckpoint | str | None = None,
                  checkpoint_every: int = DEFAULT_CHECKPOINT_EVERY,
-                 coalesce_blocks: int = 0, autopilot=None):
+                 pre_launch_fn=None, channel: str = "",
+                 coalesce_blocks: int = 0, tracer=None, autopilot=None, pipe_hook=None):
         if autopilot is not None:
             raise ValueError("the port has no traffic autopilot: autopilot= takes None")
         self.validator = validator
+        self.pre_launch_fn = pre_launch_fn
+        self.channel = channel
+        self.tracer = tracer
+        self._pipe_hook = pipe_hook
         self.depth = max(1, int(depth))
         self.prefetch = max(1, int(prefetch))
         if isinstance(checkpoint, str):
@@ -142,7 +150,11 @@ class ReplayDriver:
         rt = threading.Thread(target=self._reader, args=(blocks, start, q, reader_exc),
                               name="fabtpu-replay-read", daemon=True)
         pipe = CommitPipeline(self.validator, self._commit, depth=self.depth,
-                              coalesce_blocks=self.coalesce_blocks, replay=True)
+                              coalesce_blocks=self.coalesce_blocks, replay=True,
+                              pre_launch_fn=self.pre_launch_fn, channel=self.channel,
+                              tracer=self.tracer)
+        if self._pipe_hook is not None:
+            self._pipe_hook(pipe)
         self._t0 = time.perf_counter()
         submitted = 0
         try:
@@ -183,6 +195,8 @@ class ReplayDriver:
             if reader_exc:
                 raise reader_exc[0]
         finally:
+            if self._pipe_hook is not None:
+                self._pipe_hook(None)
             self._stop.set()
             rt.join(timeout=_POLL_S)
             if rt.is_alive():

@@ -38,9 +38,7 @@ import time
 from collections import deque
 
 from fabric_tpu_torch.crypto import ec_ref
-from fabric_tpu_torch.device import resolve_device
 from fabric_tpu_torch.observe import global_tracer
-from fabric_tpu_torch.ops import p256sign
 
 _log = logging.getLogger("fabric_tpu_torch.signlane")
 
@@ -346,7 +344,12 @@ def cpu_sign_backend(d: int):
 def device_sign_backend(d: int, device="cuda", verify_after: bool = False):
     """Batched signing through ``ops.p256sign`` on ``device`` (default
     ``"cuda"``; raises here when CUDA is absent unless ``"cpu"`` was
-    asked for).  ``verify_after`` re-verifies each batch before release."""
+    asked for).  ``verify_after`` re-verifies each batch before release.
+    torch is imported here, not with the module: the endorser's and the
+    gateway client's imports stay free of it."""
+    from fabric_tpu_torch.device import resolve_device
+    from fabric_tpu_torch.ops import p256sign
+
     d = int(d)
     dev = resolve_device(device)
 

@@ -1,7 +1,9 @@
 """The port stands alone: importing every module of fabric_tpu_torch
 brings in neither JAX, the JAX package, protobuf nor cryptography (the
-idemix MSP, ``crypto/idemix.py``, the ledger and catch-up modules, and
-the gossip layer and BFT consenter included), no source file names them,
+idemix MSP, ``crypto/idemix.py``, the ledger and catch-up modules, the
+gossip layer and BFT consenter, and the operator surface — the CLI,
+node configs, the operations server, ccaas and the offline tools —
+included), no source file names them,
 no file of its host C++ (``native/``) names the JAX package's, and an entry point asked for the default CUDA device on a
 host without one raises instead of falling back.  A host C++ build that
 fails raises too: the wire block is not decoded in Python instead.  The
@@ -25,6 +27,12 @@ LEDGER = ("fabric_tpu_torch.faults", "fabric_tpu_torch.faults.plan",
           "fabric_tpu_torch.ledger.blockstore", "fabric_tpu_torch.ledger.committer",
           "fabric_tpu_torch.ledger.kvledger", "fabric_tpu_torch.ledger.snapshot",
           "fabric_tpu_torch.peer.replay")
+# the operator surface: the CLI, node configs, the operations server,
+# chaincode packages and ccaas, the JSON codec and the offline tools
+OPERATOR = ("fabric_tpu_torch.cli", "fabric_tpu_torch.nodeconfig", "fabric_tpu_torch.opsserver",
+            "fabric_tpu_torch.peer.ccaas", "fabric_tpu_torch.peer.ccpackage",
+            "fabric_tpu_torch.protos.jsonfmt", "fabric_tpu_torch.tools.configtxlator",
+            "fabric_tpu_torch.tools.ledgerutil", "fabric_tpu_torch.tools.nodeops")
 
 
 def _sources():
@@ -53,6 +61,7 @@ def test_import_brings_in_no_reference_package():
     assert {"fabric_tpu_torch.channelconfig", "fabric_tpu_torch.tools.configtxgen",
             "fabric_tpu_torch.crypto.idemix"} <= set(mods)
     assert set(LEDGER) <= set(mods)
+    assert set(OPERATOR) <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -71,6 +80,7 @@ def test_import_brings_in_no_reference_package():
     assert "fabric_tpu_torch.crypto.idemix" in loaded
     assert {"fabric_tpu_torch.gossip", "fabric_tpu_torch.ordering.bft"} <= set(loaded)
     assert set(LEDGER) <= set(loaded)
+    assert set(OPERATOR) <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -130,6 +140,10 @@ def test_entry_points_raise_without_cuda():
             BlockValidator(PolicyProvider({}), MemVersionedDB(), kernel=kernel)
     with pytest.raises(RuntimeError, match="CUDA"):
         SidecarServer()
+    from fabric_tpu_torch.peer.node import PeerNode
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PeerNode("p", "/nonexistent", MSPManager(), None)  # before any file is touched
     v = BlockValidator(PolicyProvider({}), MemVersionedDB(), device="cpu", state_resident=True)
     assert v.resident.device.type == "cpu"
     assert BlockValidator(PolicyProvider({}), MemVersionedDB(), device="cpu").device.type == "cpu"

@@ -313,14 +313,31 @@ def test_writers_policy_gates_broadcast(orgs, genesis, tmp_path):  # noqa: F811
 
 
 def test_knobs_not_yet_ported_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        OrdererNode("o0", str(tmp_path / "b"), {}, tls=object())
+    """``tls`` and ``operations_port``, once refused, are ported: the
+    profile's server context goes to the listener and the operations
+    server answers /healthz with the ``consensus`` check."""
+    import urllib.request
+
+    class Profile:
+        def server_ctx(self):
+            return None
+
+        def client_ctx(self):
+            return None
+
+    assert OrdererNode("o0", str(tmp_path / "b"), {}, tls=Profile()).tls is not None
 
     async def ops():
-        await OrdererNode("o0", str(tmp_path / "d"), {}).start(operations_port=9443)
+        node = await OrdererNode("o0", str(tmp_path / "d"), {}).start(operations_port=0)
+        try:
+            url = f"http://127.0.0.1:{node.operations.port}/healthz"
+            raw = await asyncio.get_event_loop().run_in_executor(
+                None, lambda: urllib.request.urlopen(url, timeout=10).read())
+            return json.loads(raw)
+        finally:
+            await node.stop()
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        run(ops())
+    assert run(ops()) == {"status": "OK", "failed_checks": []}
 
 
 def test_bft_consensus_builds_a_node_and_a_chain(tmp_path):
