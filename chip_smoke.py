@@ -68,6 +68,15 @@ coalesced path: the same 9 blocks through
 ``CommitPipeline(coalesce_blocks=4).submit_many`` (one ``p256_verify``
 launch a group of 4, 12,288 lanes), with a host staging pool of one
 worker a core and without, each block equal to the wire path's.  The
+autopilot path (``autopilot_path``), on the same blocks: the traffic
+autopilot ticked by the smoke after each submission moves the chunk
+(one ``p256_verify`` launch a chunk into one output vector), the depth,
+the coalescing and the staging pool; every block equal to the wire
+path's, the launches to what the decisions imply, every launched shape
+to its plain version; the sign lane under its batch and wait knobs
+(``p256_sign`` at every bucket it launched against its plain version); a
+sidecar tenant shed and unshed by a sidecar-local autopilot; and the
+flight recorder's bundles at a guard's latch and a failed pipe.  The
 host stage, on one block each, every result byte-equal to the plain
 Python it replaces: ``stage_frame`` against ``stage_frame_ref`` at the
 main path's 3,072 lanes (a decoded block's tuples and a wire block's
@@ -298,7 +307,7 @@ def adversarial_items(net: Net, n: int):
 
 
 def verify_bound(v3, frame, got):
-    """``p256_verify``'s bound, two ways → (ms, by, needed ms).  The
+    """``p256_verify``'s bound, two ways → (ms, by, needed ms, needed by).  The
     first, which the kernels line gives, counts the reference schedule's
     Montgomery products — 2 to_mont + 3 on-curve + 14 table adds x 14 +
     per step 4 doublings x 13 + add 14 + mixed add 13 (only at nonzero
@@ -314,8 +323,8 @@ def verify_bound(v3, frame, got):
     squares = B * (2 + 64 * 4 * 3)
     moved = nbytes(frame, got) + 24 * 4 + 16 * 64
     ms, by = bound(moved, products * 128 * 2)
-    needed_ms, _ = bound(moved, ((products - squares) * 64 + squares * 36) * 2)
-    return ms, by, needed_ms
+    needed_ms, needed_by = bound(moved, ((products - squares) * 64 + squares * 36) * 2)
+    return ms, by, needed_ms, needed_by
 
 
 VERIFY_SHAPES = (6144, 12288)  # the sidecar's coalesced launches
@@ -353,7 +362,7 @@ def phase_verify(net: Net, dev):
     accepted = int(got.sum())
     ms = cuda_ms(lambda: v3.verify_batch_packed(frame), 10)
     plain_ms = cuda_ms(lambda: v3.verify_batch_ref(frame), 1)
-    b_ms, b_by, needed_ms = verify_bound(v3, frame, got)
+    b_ms, b_by, needed_ms, _ = verify_bound(v3, frame, got)
     log("verify", lanes=frame.shape[0], accepted=accepted, mismatches=mism,
         lanes_per_kind={k: int((kinds == i).sum()) for i, k in enumerate(KINDS)},
         x_wrapped_accepted=wrapped_accepted, oracle_lanes=len(sample),
@@ -369,7 +378,7 @@ def phase_verify(net: Net, dev):
         if m:
             raise AssertionError(f"p256_verify at {lanes} lanes: {m} lanes differ from "
                                  "verify_batch_ref")
-        sb_ms, _, s_needed = verify_bound(v3, f, o)
+        sb_ms, _, s_needed, _ = verify_bound(v3, f, o)
         log("verify_shape", lanes=f.shape[0], accepted=int(o.sum()), mismatches=m,
             ms=cuda_ms(lambda: v3.verify_batch_packed(f), 5), bound_ms=sb_ms,
             bound_needed_ms=s_needed)
@@ -1525,7 +1534,7 @@ def phase_coalesced_path(dev, wired):
         try:
             kernels.reset_counts()
             first_t, rest_t = {}, {}
-            with launch_shapes("p256_verify", lambda frame, consts: frame.shape[0]) as lanes:
+            with launch_shapes("p256_verify", lambda frame, *a, **kw: frame.shape[0]) as lanes:
                 res, first_s, _ = run_validator(wire[:1], v, timings=first_t,
                                                 coalesce=COALESCE)
                 rest, secs, _ = run_validator(wire[1:], v, timings=rest_t, coalesce=COALESCE)
@@ -1570,6 +1579,575 @@ def phase_coalesced_path(dev, wired):
     log("device_busy_coalesced", profiled_seconds=psecs, device_events=n_ev, by_name=names,
         busy_ms_per_block=busy_ms / len(wire) if ok else None,
         idle_share_profiled=1 - busy_ms / (1e3 * psecs) if ok else None)
+
+
+# ---------------------------------------------------------------------------
+# Phase 8c: the traffic autopilot and the flight recorder on the card
+
+
+# (a) the peer's knobs: cool=0, and "up" bands that every reading crosses,
+# so each knob takes its ladder's steps on the first ticks it reads a
+# signal (one step a tick, in the controller's priority order)
+AP_PEER_KNOBS = ("coalesce_blocks", "verify_chunk", "pipeline_depth", "host_stage_workers")
+AP_PEER_SPEC = ("coalesce_blocks:min=0:max=2:cool=0;verify_chunk:min=512:max=1024:cool=0;"
+                "pipeline_depth:min=2:max=3:cool=0;host_stage_workers:min=0:max=2:cool=0")
+AP_PEER_BANDS = {"queue_hi_ms": -1.0, "launch_hi_ms": -1.0, "devq_hi_ms": -1.0,
+                 "coverage_lo": -2.0, "coverage_hi": -1.0, "prefetch_hi_ms": -1.0}
+AP_PASSES = 3  # at most; each into fresh state, until every knob has moved
+# (b) the sign lane: 8 client threads, 8 requests in flight each; the
+# lane lingers 8 ms at first, so that a flush fills past 16 lanes
+AP_SIGN_SPEC = "sign_batch_max:min=16:max=64:cool=0;sign_batch_wait_ms:min=2:max=8:cool=0"
+AP_SIGN_BANDS = {"sign_busy_hi": -1.0, "sign_wait_hi_ms": -1.0}
+AP_SIGN_CLIENTS, AP_SIGN_INFLIGHT, AP_SIGN_ROUNDS, AP_SIGN_PER_ROUND = 8, 8, 5, 256
+AP_SIGN_WAIT_MS = 8.0
+# (c) the sidecar: one tenant floods, one submits serially; an objective
+# that the flood's queued requests break, and a 2 s window it ages out of
+AP_SIDECAR_SLO = "lat:latency:ms=15:target=0.9:windows=2:min_events=3:fast=0"
+AP_SIDECAR_SPEC = "verify_chunk:min=1024:max=1024:cool=0;weight:cool=0;shed:cool=0"
+AP_SIDECAR_BANDS = {"launch_hi_ms": -1.0, "devq_hi_ms": -1.0, "shed_hi": 2.0, "shed_lo": 1.0}
+AP_FLOOD_REQS, AP_FLOOD_CAP, AP_FLOOD_INFLIGHT, AP_CALM_REQS = 48, 400, 8, 6
+AP_SIDECAR_WAIT_S = 60.0
+# (d) the flight recorder
+AP_VITALS_S = 0.2
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _ap_specs(spec: str, names) -> dict:
+    """Only the named knobs of a parsed spec: the others' rules never
+    read a signal here, so they take no tick."""
+    from fabric_tpu_torch.control import parse_knob_specs
+
+    ks = parse_knob_specs(spec)
+    return {k: ks[k] for k in names}
+
+
+class _Backlog:
+    """The scheduler-shaped source of the peer pass: the blocks the feed
+    still holds, and the age of the oldest (``queue_age_ms``), as a
+    deliver backlog."""
+
+    def __init__(self):
+        self.waiting, self.t0 = 0, time.perf_counter()
+
+    def stats(self) -> dict:
+        age = 1e3 * (time.perf_counter() - self.t0)
+        n = self.waiting
+        return {"deliver": {"depth": n, "share": 1.0, "busy_rate": 0.0,
+                            "queue_age_ms": {"n": n, "p99": age if n else 0.0}}}
+
+
+def _verify_capture():
+    """Wrap ``kernels.p256_verify``: the launches by lane count, and the
+    first frame and output at each (cloned on the stream)."""
+    from fabric_tpu_torch import kernels
+
+    seen, first, fn, lock = Counter(), {}, kernels.p256_verify, threading.Lock()
+
+    def wrapped(frame, consts, out=None):
+        res = fn(frame, consts) if out is None else fn(frame, consts, out=out)
+        n = int(frame.shape[0])
+        with lock:
+            seen[n] += 1
+            if n not in first:
+                first[n] = (frame.clone(), res.clone())
+        return res
+
+    return wrapped, seen, first
+
+
+@contextlib.contextmanager
+def _captured_verify():
+    from fabric_tpu_torch import kernels
+
+    wrapped, seen, first = _verify_capture()
+    fn = kernels.p256_verify
+    kernels.p256_verify = wrapped
+    try:
+        yield seen, first
+    finally:
+        kernels.p256_verify = fn
+
+
+def _expected_launches(n: int, chunk: int) -> int:
+    from fabric_tpu_torch.ops import p256v3
+
+    return len(p256v3._chunk_bounds(n, chunk)) if chunk and n > chunk else 1
+
+
+def _ap_peer(dev, wired, ap_log, check_launches=True):
+    """(a) The wire blocks through ``CommitPipeline`` over a
+    ``BlockValidator``, the smoke ticking the autopilot with its real
+    ``read_signals()`` after each submission; a pass into fresh state
+    with the knob vector the last pass ended at, until every knob has
+    moved (at most AP_PASSES)."""
+    from fabric_tpu_torch import carry, kernels
+    from fabric_tpu_torch.control import Autopilot
+    from fabric_tpu_torch.ops import p256v3
+    from fabric_tpu_torch.peer.pipeline import CommitPipeline
+    from fabric_tpu_torch.peer.validator import BlockValidator
+
+    wire, single = wired["wire"], {r.block.number: r for r in wired["res"]}
+    n_sigs = [len(single[b.header.number].pend.items) for b in wire]
+    rows = lambda x: sorted((k, vv.value, vv.version) for k, vv in x.batch.items())
+    backlog = _Backlog()
+    live = {}  # the pass's pipe and validator: apply_knob's targets
+
+    def apply(knob, value):
+        if knob == "coalesce_blocks":
+            live["pipe"].set_coalesce_blocks(int(value))
+        elif knob == "pipeline_depth":
+            live["pipe"].set_depth(int(value))
+        elif knob == "verify_chunk":
+            live["v"].set_verify_chunk(int(value))
+        elif knob == "host_stage_workers":
+            live["v"].set_host_stage_workers(int(value))
+
+    ap = Autopilot(_ap_specs(AP_PEER_SPEC, AP_PEER_KNOBS), apply, scheduler=backlog,
+                   bands=AP_PEER_BANDS,
+                   initial={"coalesce_blocks": 0, "verify_chunk": 0, "pipeline_depth": 2,
+                            "host_stage_workers": 0})
+    moved, passes, shapes, per_pass = set(), 0, Counter(), []
+    with _captured_verify() as (seen, first):
+        # a second pass runs at the vector the first ended at (the pool,
+        # chunks and depth then in effect from the first block on)
+        while passes < 2 or (passes < AP_PASSES and moved != set(AP_PEER_KNOBS)):
+            passes += 1
+            state, prov, _ = carry.from_reference(wired["seed_rows"], WIRE_NAMESPACES, [])
+            vals = ap.values
+            v = BlockValidator(prov, state, device=dev, msp=wired["msp"],
+                               verify_chunk=vals["verify_chunk"],
+                               host_stage_workers=vals["host_stage_workers"])
+            v.blocks = TxidStore()
+
+            def commit(res, v=v):
+                v.state.apply_updates(res.batch)
+                v.blocks.txids.update(t for t, _ in res.txids)
+
+            pipe = CommitPipeline(v, commit, depth=vals["pipeline_depth"],
+                                  coalesce_blocks=vals["coalesce_blocks"])
+            live.update(pipe=pipe, v=v)
+            out, subs, i = [], [], 0
+            before = kernels.launches["p256_verify"]
+            _sync(dev)
+            t0 = time.perf_counter()
+            backlog.t0, backlog.waiting = t0, len(wire)
+            try:
+                while i < len(wire):
+                    k = max(1, ap.values["coalesce_blocks"])
+                    group = wire[i:i + k]
+                    chunk = ap.values["verify_chunk"]  # what this prefetch applies
+                    if len(group) == 1:
+                        want = _expected_launches(n_sigs[i], chunk)
+                        r = pipe.submit(group[0])
+                        out += [r] if r is not None else []
+                    else:
+                        grand = p256v3._bucket(sum(p256v3._bucket(n)
+                                                   for n in n_sigs[i:i + k]))
+                        want = _expected_launches(grand, chunk)
+                        out += pipe.submit_many(group)
+                    # the vector this submission ran under
+                    subs.append({"blocks": [b.header.number for b in group],
+                                 "chunk": v.verify_chunk, "depth": pipe.depth,
+                                 "coalesce": pipe.coalesce_blocks,
+                                 "pool": v.host_pool.workers if v.host_pool else 0,
+                                 "p256_verify_want": want})
+                    if v.verify_chunk != chunk:
+                        raise AssertionError(f"autopilot_path (a): the validator ran chunk "
+                                             f"{v.verify_chunk}, the autopilot set {chunk}")
+                    i += len(group)
+                    backlog.waiting = len(wire) - i
+                    d = ap.tick(ap.read_signals())
+                    if d is not None:
+                        moved.add(d.knob)
+                        ap_log.append({"pass": passes, "after_blocks": i, **d.to_dict()})
+                r = pipe.flush()
+                out += [r] if r is not None else []
+                pipe.close()
+            finally:
+                v.close()
+            _sync(dev)
+            secs = time.perf_counter() - t0
+            got = kernels.launches["p256_verify"] - before
+            want = sum(s["p256_verify_want"] for s in subs)
+            if check_launches and got != want:
+                raise AssertionError(f"autopilot_path (a) pass {passes}: p256_verify launched "
+                                     f"{got} times, the decisions imply {want}: {subs}")
+            if [r.block.number for r in out] != [b.header.number for b in wire]:
+                raise AssertionError(f"autopilot_path (a): blocks {[r.block.number for r in out]}")
+            for r in out:
+                s = single[r.block.number]
+                if r.tx_filter != s.tx_filter or rows(r) != rows(s) or r.history != s.history:
+                    raise AssertionError(f"autopilot_path (a) pass {passes}: block "
+                                         f"{r.block.number} differs from the wire path")
+            per_pass.append({"pass": passes, "seconds": secs, "submissions": subs,
+                             "p256_verify": got})
+    missing = set(AP_PEER_KNOBS) - moved
+    if missing:
+        raise AssertionError(f"autopilot_path (a): {sorted(missing)} never actuated in "
+                             f"{passes} passes: {ap_log}")
+    shapes.update(seen)
+    return ap, per_pass, shapes, first
+
+
+def _ap_sign(dev, ap_log):
+    """(b) The sign lane under the sign knobs: 8 client threads, each
+    with AP_SIGN_INFLIGHT requests in flight (a BUSY answer is retried
+    after its hint), a tick after each round."""
+    from fabric_tpu_torch import kernels
+    from fabric_tpu_torch.control import Autopilot
+    from fabric_tpu_torch.crypto import ec_ref
+    from fabric_tpu_torch.ops import p256sign, p256v3
+    from fabric_tpu_torch.peer import signlane
+
+    rng = np.random.default_rng(SEED + 60)
+    d = int.from_bytes(rng.bytes(32), "big") % (ec_ref.N - 1) + 1
+    lane = signlane.SignBatcher(signlane.device_sign_backend(d, device=dev), batch_max=16,
+                                wait_ms=AP_SIGN_WAIT_MS)
+
+    def apply(knob, value):
+        if knob == "sign_batch_max":
+            lane.set_batch_max(int(value))
+        elif knob == "sign_batch_wait_ms":
+            lane.set_wait_ms(float(value))
+
+    ap = Autopilot(_ap_specs(AP_SIGN_SPEC, ("sign_batch_max", "sign_batch_wait_ms")), apply,
+                   sign_source=lane, bands=AP_SIGN_BANDS,
+                   initial={"sign_batch_max": 16, "sign_batch_wait_ms": AP_SIGN_WAIT_MS})
+    got, errors, busy = {}, [], Counter()
+
+    def one(e):
+        while True:
+            try:
+                got[e] = lane.sign_digest(e)
+                return
+            except signlane.SignBusy as b:
+                busy["retries"] += 1
+                time.sleep(b.retry_ms / 1000.0)
+
+    def client(digests):
+        try:
+            with ThreadPoolExecutor(AP_SIGN_INFLIGHT) as ex:
+                list(ex.map(one, digests))
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    p256sign.sign_digests([1], d, device=dev)  # the comb table, before the rounds
+    moved, rounds = set(), []
+    with launch_shapes("p256_sign", lambda limbs, *_: limbs.shape[0]) as buckets, \
+            first_launches("p256_sign", lambda limbs, *a: limbs.shape[0]) as firsts, lane:
+        for r in range(AP_SIGN_ROUNDS):
+            digests = [int.from_bytes(rng.bytes(32), "big") for _ in range(AP_SIGN_PER_ROUND)]
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(digests[c::AP_SIGN_CLIENTS],))
+                       for c in range(AP_SIGN_CLIENTS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=300)
+            if errors:
+                raise AssertionError(f"autopilot_path (b): {errors[:3]}")
+            rounds.append({"round": r, "batch_max": lane.batch_max, "wait_ms": lane.wait_ms,
+                           "seconds": time.perf_counter() - t0})
+            dec = ap.tick(ap.read_signals())
+            if dec is not None:
+                moved.add(dec.knob)
+                ap_log.append({"round": r, **dec.to_dict()})
+        st = lane.stats()
+    if moved != {"sign_batch_max", "sign_batch_wait_ms"}:
+        raise AssertionError(f"autopilot_path (b): only {sorted(moved)} actuated")
+    serial = signlane.cpu_sign_backend(d)
+    keys = sorted(got)
+    if [got[e] for e in keys] != serial(keys):
+        raise AssertionError("autopilot_path (b): signatures differ from cpu_sign_backend")
+    checked = {}
+    for lanes, ((limbs, *_), out) in sorted(firsts.items()):
+        want = p256sign.sign_batch_ref(limbs, chains=p256sign.sign_chains(lanes))
+        torch.cuda.synchronize()
+        mism = int((out != want).any(dim=2).any(dim=1).sum())
+        if mism:
+            raise AssertionError(f"autopilot_path (b): p256_sign at {lanes} lanes: {mism} "
+                                 "lanes differ from its plain version")
+        ms = cuda_ms(lambda: kernels.p256_sign(limbs, *p256sign._kernel_tables(dev),
+                                               p256sign.sign_chains(lanes)), 10)
+        # the bound of the work needed (64 wide products a Montgomery
+        # product), the reference schedule's (128) beside it, as sign_kernel
+        nonzero = int((p256v3.recode_windows(limbs) != 0).sum())
+        moved = nbytes(limbs, out) + 64 + 64 * 16 * 64
+        need_ms, need_by = bound(moved, nonzero * 13 * 64 * 2)
+        sched_ms, _ = bound(moved, nonzero * 13 * 128 * 2)
+        checked[lanes] = {"launches": buckets[lanes], "mismatches": mism, "ms": ms,
+                          "bound_ms": need_ms, "bound_by": need_by,
+                          "bound_schedule_ms": sched_ms}
+    return {"rounds": rounds, "busy_retries": busy["retries"], "signed": len(got),
+            "batches": st["batches_total"], "buckets": checked}
+
+
+def _ap_sidecar(dev, wired, ap_log, check_launches=True):
+    """(c) A ``SidecarServer`` with a sidecar-local autopilot over its
+    scheduler and the global SLO engine: tenant "flood" keeps
+    AP_FLOOD_INFLIGHT requests in flight, "calm" submits one at a time;
+    the smoke ticks the controller every 50 ms until the flood was shed
+    and unshed and both tenants are done."""
+    from fabric_tpu_torch.control import Autopilot
+    from fabric_tpu_torch.observe import slo
+    from fabric_tpu_torch.ops import p256v3
+    from fabric_tpu_torch.ops_metrics import global_registry
+    from fabric_tpu_torch.sidecar.client import SidecarLink
+    from fabric_tpu_torch.sidecar.server import SidecarServer
+    from fabric_tpu_torch.utils.backoff import Backoff
+
+    blocks = [list(r.pend.items) for r in wired["res"]]
+    truth = [p256v3.verify_launch(b, device=dev).fetch() for b in blocks]
+    shed_ctr = global_registry().counter("sidecar_shed_total")
+    shed_before = shed_ctr.value(tenant="flood")
+    engine = slo.configure(AP_SIDECAR_SLO)
+    srv = SidecarServer("127.0.0.1", 0, device=dev, coalesce=4, queue_blocks=64)
+
+    def apply(knob, value):
+        if knob == "verify_chunk":
+            srv.set_verify_chunk(int(value))
+
+    ap = Autopilot(_ap_specs(AP_SIDECAR_SPEC, ("verify_chunk", "weight", "shed")), apply,
+                   set_weight=srv.scheduler.set_weight, set_shed=srv.scheduler.set_shed,
+                   slo=engine, scheduler=srv.scheduler, bands=AP_SIDECAR_BANDS,
+                   initial={"verify_chunk": 0})
+    srv.autopilot = ap
+    links, results, errors = {}, {"flood": [], "calm": []}, []
+    try:
+        srv.start_background()
+        for name in ("flood", "calm"):
+            links[name] = SidecarLink("127.0.0.1", srv.port, tenant=name, timeout_s=60.0,
+                                      busy_retries=100000,
+                                      backoff=Backoff(base=0.02, cap=0.05, jitter=0.0))
+
+        unshed = threading.Event()  # set by the ticking loop
+
+        def flood():
+            # at least AP_FLOOD_REQS, and on until the flood was shed and
+            # unshed, so that it keeps arriving while shed
+            try:
+                pending, j = [], 0
+                while (j < AP_FLOOD_REQS or not unshed.is_set()) and j < AP_FLOOD_CAP:
+                    b = j % len(blocks)
+                    pending.append((b, links["flood"].submit(blocks[b])))
+                    j += 1
+                    if len(pending) >= AP_FLOOD_INFLIGHT:
+                        b, h = pending.pop(0)
+                        results["flood"].append((b, h.fetch()))
+                for b, h in pending:
+                    results["flood"].append((b, h.fetch()))
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+
+        def calm():
+            try:
+                for j in range(AP_CALM_REQS):
+                    b = (3 * j + 1) % len(blocks)
+                    results["calm"].append((b, links["calm"].submit(blocks[b]).fetch()))
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=flood), threading.Thread(target=calm)]
+        with _captured_verify() as (seen, _first):
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            shed_seen = False
+            while True:
+                dec = ap.tick(ap.read_signals())
+                if dec is not None:
+                    ap_log.append({"t_s": time.perf_counter() - t0, **dec.to_dict()})
+                    shed_seen |= dec.knob == "shed" and dec.tenant == "flood"
+                    if shed_seen and dec.knob == "shed" and dec.direction == "off":
+                        unshed.set()
+                done = not any(th.is_alive() for th in threads)
+                if done and (not srv.scheduler.is_shed("flood")) and shed_seen:
+                    break
+                if time.perf_counter() - t0 > AP_SIDECAR_WAIT_S:
+                    raise AssertionError(f"autopilot_path (c): not done in {AP_SIDECAR_WAIT_S} "
+                                         f"s (shed seen {shed_seen}): {ap_log[-6:]}")
+                if done and not srv.scheduler.is_shed("flood") and not shed_seen:
+                    raise AssertionError("autopilot_path (c): the flood was never shed")
+                time.sleep(0.05)
+            secs = time.perf_counter() - t0
+        for th in threads:
+            th.join()
+        if errors:
+            raise AssertionError(f"autopilot_path (c): {errors[:3]}")
+        stats, sched = srv.stats(), srv.scheduler.stats()
+    finally:
+        for link in links.values():
+            link.close()
+        srv.stop_background()
+        slo.configure("")
+    kinds = [(d["knob"], d["direction"], d.get("tenant")) for d in ap_log
+             if "t_s" in d]
+    if ("shed", "on", "flood") not in kinds or ("shed", "off", "flood") not in kinds:
+        raise AssertionError(f"autopilot_path (c): the flood was not shed and unshed: {kinds}")
+    busy = links["flood"].busy_total
+    shed_total = shed_ctr.value(tenant="flood") - shed_before
+    if not busy or busy != sched["flood"]["shed_count"] or busy != shed_total or \
+            stats["requests"]["flood"].get("busy", 0):
+        raise AssertionError(f"autopilot_path (c): BUSY answers {busy}, shed_count "
+                             f"{sched['flood']['shed_count']}, sidecar_shed_total {shed_total}, "
+                             f"requests {stats['requests']['flood']}")
+    if srv.verify_chunk != 1024 or (check_launches and seen[1024] == 0):
+        raise AssertionError(f"autopilot_path (c): verify_chunk {srv.verify_chunk}, "
+                             f"p256_verify shapes {dict(seen)}")
+    bad = [(t, b) for t in results for b, got in results[t] if got != truth[b]]
+    if bad or len(results["flood"]) < AP_FLOOD_REQS or len(results["calm"]) != AP_CALM_REQS:
+        raise AssertionError(f"autopilot_path (c): verdicts differ from the in-process v3's "
+                             f"at {bad[:5]}")
+    return {"seconds": secs, "flood_requests": len(results["flood"]), "flood_busy": busy,
+            "shed_count": sched["flood"]["shed_count"],
+            "requests": stats["requests"], "dispatches": stats["dispatches"],
+            "verify_chunk": srv.verify_chunk, "p256_verify_lanes": dict(seen)}
+
+
+def _ap_recorder(dev, wired, peer_ap):
+    """(d) The SLO engine with a latency objective, the sampler every
+    AP_VITALS_S and a black box writing to a temporary directory; a
+    ``validator.verify_launch`` raise plan latches a guarded
+    validator's lane (the block commits through the synchronous
+    ``p256_verify``), then a ``pipeline.commit`` raise fails a pipe
+    closed; both bundles read back from disk; /slo, /autopilot and
+    /vitals read from an ``OperationsServer`` over these objects."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    from fabric_tpu_torch import carry, faults
+    from fabric_tpu_torch.observe import blackbox, slo, timeseries
+    from fabric_tpu_torch.opsserver import OperationsServer
+    from fabric_tpu_torch.peer.validator import BlockValidator
+
+    root = tempfile.mkdtemp(prefix="fabtpu-blackbox-")
+    single = {r.block.number: r for r in wired["res"]}
+    loop = asyncio.new_event_loop()
+    lt = threading.Thread(target=loop.run_forever, daemon=True)
+    lt.start()
+    try:
+        engine = slo.configure("commit:latency:ms=5000")
+        sampler = timeseries.configure(AP_VITALS_S, retention=64)
+        bb = blackbox.configure(out_dir=root, sampler=sampler, autopilot=peer_ap, slo=engine)
+        time.sleep(2.5 * AP_VITALS_S)  # the trails hold a few points
+
+        def run(plan, guard, blocks):
+            state, prov, _ = carry.from_reference(wired["seed_rows"], WIRE_NAMESPACES, [])
+            kw = {"device_fail_threshold": 2, "device_retries": 1} if guard else {}
+            v = BlockValidator(prov, state, device=dev, msp=wired["msp"], **kw)
+            faults.configure(plan)
+            try:
+                return run_validator(blocks, v)[0], v
+            finally:
+                v.close()
+
+        res, v = run("validator.verify_launch:raise:n=2", True, wired["wire"][:2])
+        if not v.device_guard.degraded or [r.tx_filter for r in res] != \
+                [single[r.block.number].tx_filter for r in res]:
+            raise AssertionError("autopilot_path (d): the latch or its verdicts")
+        failed = None
+        try:
+            run("pipeline.commit:raise:n=1", False, wired["wire"][:3])
+        except faults.InjectedFault as e:
+            failed = e
+        if failed is None:
+            raise AssertionError("autopilot_path (d): the failed commit did not surface")
+        faults.reset()
+        bundles = {}
+        for path in sorted(Path(root).glob("blackbox-*.json")):
+            b = json.loads(path.read_text())
+            bundles[b["kind"]] = b
+        need = {"vitals", "traces", "autopilot", "slo", "faults"}
+        for kind in ("degrade_latch", "pipeline_fail_closed"):
+            b = bundles.get(kind)
+            if b is None or not need <= set(b) or not b["vitals"] or not b["traces"]:
+                raise AssertionError(f"autopilot_path (d): bundle {kind}: "
+                                     f"{sorted(b) if b else None}")
+        if bundles["degrade_latch"]["detail"].get("fallback") != \
+                "synchronous p256_verify on the card":
+            raise AssertionError(f"autopilot_path (d): {bundles['degrade_latch']['detail']}")
+        ops = asyncio.run_coroutine_threadsafe(
+            OperationsServer(port=0, slo=engine, autopilot=peer_ap, vitals=sampler,
+                             blackbox=bb).start(), loop).result(30)
+        try:
+            routes = {p: _http_json(ops.port, p)[1] for p in
+                      ("/slo", "/autopilot", "/vitals",
+                       f"/vitals?incident={bundles['degrade_latch']['seq']}")}
+        finally:
+            asyncio.run_coroutine_threadsafe(ops.stop(), loop).result(30)
+        if ([o["name"] for o in routes["/slo"]["objectives"]] != ["commit"]
+                or not routes["/autopilot"]["configured"]
+                or not routes["/autopilot"]["decisions"]
+                or routes["/vitals"]["samples"] < 2
+                or len(routes["/vitals"]["incidents"]) != 2
+                or routes[f"/vitals?incident={bundles['degrade_latch']['seq']}"]["kind"]
+                != "degrade_latch"):
+            raise AssertionError(f"autopilot_path (d): the routes: "
+                                 f"{json.dumps(routes)[:2000]}")
+        return {"bundles": {k: {"seq": b["seq"], "sections": sorted(b),
+                                "bytes": len(json.dumps(b)), "detail": b["detail"]}
+                            for k, b in bundles.items()},
+                "vitals_samples": routes["/vitals"]["samples"],
+                "vitals_series": routes["/vitals"]["series_count"]}
+    finally:
+        faults.reset()
+        blackbox.configure(enabled=False)
+        timeseries.configure(0)
+        slo.configure("")
+        loop.call_soon_threadsafe(loop.stop)
+        lt.join(10)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_autopilot_path(dev, wired, check_launches=True):
+    """The traffic autopilot and the flight recorder on the wire path's
+    blocks: (a) the peer's knobs on a live pipe, (b) the sign lane's,
+    (c) a sidecar's tenants shed and unshed, (d) the incident bundles
+    and the operations routes → the ``p256_verify`` and ``p256_sign``
+    shapes the phase launched, each held against its plain version.
+    ``check_launches=False`` rehearses it on the CPU, where the wrappers
+    launch nothing."""
+    from fabric_tpu_torch import kernels
+    from fabric_tpu_torch.ops import p256v3
+
+    t_phase = time.perf_counter()
+    ap_log = []
+    peer_ap, passes, shapes, first = _ap_peer(dev, wired, ap_log, check_launches)
+    log("autopilot_peer", passes=passes, decisions=ap_log,
+        knobs=peer_ap.report()["knobs"])
+    verify_shapes = {}
+    for lanes, (frame, out) in sorted(first.items()):
+        want = p256v3.verify_batch_ref(frame)
+        torch.cuda.synchronize()
+        mism = int((out != want).sum())
+        if mism:
+            raise AssertionError(f"autopilot_path: p256_verify at {lanes} lanes: {mism} lanes "
+                                 "differ from its plain version")
+        consts = p256v3._kernel_consts(frame.device)
+        ms = cuda_ms(lambda: kernels.p256_verify(frame, consts), 10)
+        # the bound of the work needed; the reference schedule's beside it
+        sched_ms, _, need_ms, need_by = verify_bound(p256v3, frame, out)
+        verify_shapes[lanes] = {"launches": shapes[lanes], "mismatches": mism, "ms": ms,
+                                "bound_ms": need_ms, "bound_by": need_by,
+                                "bound_schedule_ms": sched_ms}
+    log("autopilot_verify_shapes", shapes=verify_shapes)
+    sign_log = []
+    sign = _ap_sign(dev, sign_log)
+    log("autopilot_sign", decisions=sign_log, **sign)
+    side_log = []
+    side = _ap_sidecar(dev, wired, side_log, check_launches)
+    log("autopilot_sidecar", decisions=side_log, **side)
+    rec = _ap_recorder(dev, wired, peer_ap)
+    log("autopilot_recorder", **rec)
+    secs = time.perf_counter() - t_phase
+    log("autopilot_path", ok=True, seconds=secs,
+        knobs_actuated=sorted({d["knob"] for d in ap_log + sign_log + side_log}))
+    return {"verify_shapes": verify_shapes, "sign_buckets": sign["buckets"]}
 
 
 def best_ms(fn, reps: int = 5) -> float:
@@ -2174,7 +2752,7 @@ def phase_sidecar(net: Net, main_res):
 
         frames = {}  # lanes → a copy of the first frame the path launched at that shape
 
-        def first_frame(frame, consts):
+        def first_frame(frame, *a, **kw):
             n = int(frame.shape[0])
             if n not in frames:
                 frames[n] = frame.clone()
@@ -3981,8 +4559,8 @@ def first_launches(name, key):
 
     seen, fn, lock = {}, getattr(kernels, name), threading.Lock()
 
-    def wrapped(*a):
-        out = fn(*a)
+    def wrapped(*a, **kw):
+        out = fn(*a, **kw)
         k = key(*a)
         with lock:
             if k not in seen:
@@ -4236,7 +4814,7 @@ def phase_network_path(dev, n_tx=NETWORK_TXS, conflicts=NETWORK_CONFLICTS,
     kernels.reset_counts()
     try:
         with first_launches("p256_sign", lambda limbs, *a: limbs.shape[0]) as signs, \
-                first_launches("p256_verify", lambda frame, *a: frame.shape[0]) as verifies:
+                first_launches("p256_verify", lambda frame, *a, **kw: frame.shape[0]) as verifies:
             run = asyncio.run(_network_run(dev, org, n_tx, first, conflicts, clients, batch,
                                            root))
     finally:
@@ -4999,7 +5577,7 @@ def phase_config4_network_path(dev, n_tx=CONFIG4_NET_TXS, conflicts=CONFIG4_NET_
     root = tempfile.mkdtemp(prefix="config4_network-")
     try:
         with first_launches("p256_sign", lambda limbs, *a: limbs.shape[0]) as signs, \
-                first_launches("p256_verify", lambda frame, *a: frame.shape[0]) as verifies:
+                first_launches("p256_verify", lambda frame, *a, **kw: frame.shape[0]) as verifies:
             run = asyncio.run(_config4_network_run(dev, orgs, n_tx, conflicts, clients, batch,
                                                    root, sign_device))
     finally:
@@ -5405,6 +5983,8 @@ CLI_BURST_TIMEOUT_S = 300.0  # the burst's: its block must be cut by count
 CLI_WAIT_S = 180
 CLI_STATUS_WAIT_S = 360
 CLI_PEER_KERNELS = ("p256_verify", "stage2_policy", "stage2_mvcc", "p256_sign")
+# Org2's peer: the autopilot, an SLO and the flight recorder (and its blackbox_dir)
+CLI_OBSERVE = {"autopilot": True, "slos": "commit:latency:ms=2000", "vitals_interval_s": 0.5}
 CLI_RESIDENT_KERNELS = ("resident_verok", "table_scatter")
 
 
@@ -5671,6 +6251,10 @@ def phase_cli_path(dev, n_tx=CLI_TXS, conflicts=CLI_CONFLICTS, clients=CLI_CLIEN
 
         cfgs = {"p1": peer_cfg("p1", p1_port, org1, "Org1MSP", p2_port, "Org2MSP", True),
                 "p2": peer_cfg("p2", p2_port, org2, "Org2MSP", p1_port, "Org1MSP", False)}
+        # Org2's peer arms the traffic autopilot, the SLO engine and the
+        # flight recorder: its blocks must still equal Org1's
+        cfgs["p2"].update(CLI_OBSERVE)
+        cfgs["p2"]["blackbox_dir"] = f"{root}/p2-blackbox"
         for pid, cfg in cfgs.items():
             with open(f"{root}/{pid}.json", "w") as f:
                 json.dump(cfg, f)
@@ -5775,11 +6359,20 @@ def phase_cli_path(dev, n_tx=CLI_TXS, conflicts=CLI_CONFLICTS, clients=CLI_CLIEN
             health[name] = body["status"]
             if status != 200 or body["status"] != "OK":
                 raise AssertionError(f"cli_path: /healthz of {name}: {status} {body}")
-        for pid in ("p1", "p2"):
-            metrics = _http_text(ops[pid], "/metrics")
-            hl = [ln for ln in metrics.splitlines()
+        def metrics_height(pid):
+            hl = [ln for ln in _http_text(ops[pid], "/metrics").splitlines()
                   if ln.startswith("ledger_blockchain_height")]
-            heights[pid] = float(hl[0].rsplit(" ", 1)[1]) if hl else None
+            return float(hl[0].rsplit(" ", 1)[1]) if hl else None
+
+        # the burst's statuses come from Org1's peer: Org2's may still be
+        # committing the block
+        deadline = time.perf_counter() + CLI_WAIT_S
+        while True:
+            heights.update({pid: metrics_height(pid) for pid in ("p1", "p2")})
+            if heights["p1"] == heights["p2"] or time.perf_counter() > deadline:
+                break
+            time.sleep(0.2)
+        for pid in ("p1", "p2"):
             _, body = _http_json(ops[pid], "/launches?n=0")
             launches[pid] = {
                 "kernel_launches": body["kernel_launches"],
@@ -5788,6 +6381,22 @@ def phase_cli_path(dev, n_tx=CLI_TXS, conflicts=CLI_CONFLICTS, clients=CLI_CLIEN
                 "ledger": {k: {"launches": v["launches"], "execute_ms": v["execute_ms"]}
                            for k, v in body["kernels"].items()}}
         log("cli_path_launches", smoke=smoke_launches, peers=launches)
+        observed = {path: _http_json(ops["p2"], path)[1] for path in ("/slo", "/autopilot",
+                                                                      "/vitals")}
+        if ("commit" not in [o["name"] for o in observed["/slo"]["objectives"]]
+                or not (observed["/autopilot"]["configured"]
+                        and observed["/autopilot"]["enabled"])
+                or not observed["/vitals"]["enabled"] or observed["/vitals"]["samples"] < 1):
+            raise AssertionError(f"cli_path: Org2's /slo, /autopilot or /vitals: "
+                                 f"{json.dumps(observed)[:3000]}")
+        log("cli_path_observe",
+            slo={o["name"]: o["channels"] for o in observed["/slo"]["objectives"]},
+            autopilot={"knobs": {k: v["value"] for k, v in
+                                 observed["/autopilot"]["knobs"].items()},
+                       "decisions": observed["/autopilot"]["decisions"]},
+            vitals={"samples": observed["/vitals"]["samples"],
+                    "series": observed["/vitals"]["series_count"],
+                    "incidents": observed["/vitals"]["incidents"]})
         burst_block = None
         status_codes = {s.get("code_name") for s in burst["status"].values()}
         block_nums = {s.get("block") for s in burst["status"].values()}
@@ -5839,7 +6448,8 @@ def phase_cli_path(dev, n_tx=CLI_TXS, conflicts=CLI_CONFLICTS, clients=CLI_CLIEN
         compare = net.cli_json("ledgerutil", "compare", p1_dir, p2_dir)
         if not compare["identical"]:
             raise AssertionError(f"cli_path: the resident and plain peers differ: {compare}")
-        rcfg = dict(cfgs["p2"], data_dir=f"{root}/p2r", operations_port=None)
+        rcfg = dict(cfgs["p2"], data_dir=f"{root}/p2r", operations_port=None,
+                    blackbox_dir="")
         with open(f"{root}/p2r.json", "w") as f:
             json.dump(rcfg, f)
         t0 = time.perf_counter()
@@ -5979,6 +6589,7 @@ def main() -> int:
     wired = timed("wire_path", phase_wire_path, dev)
     wire, msp = wired["wire"], wired["msp"]
     timed("coalesced_path", phase_coalesced_path, dev, wired)
+    ap_shapes = timed("autopilot_path", phase_autopilot_path, dev, wired)
     timed("host_stage", phase_host_stage, net, wire, msp)
     recs.append(timed("sha256", phase_sha256, dev, wire[0]))
     recs += timed("comparison", phase_comparison, net, dev, main_res)
@@ -6001,7 +6612,16 @@ def main() -> int:
     log("phases", seconds=phases, total_s=sum(phases.values()))
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "mismatches",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in order} for r in recs]}), flush=True)
+    # the autopilot path's launches of the shapes the knobs moved to
+    for r in recs:
+        if r["name"] == "p256_verify":
+            r["autopilot_shapes"] = ap_shapes["verify_shapes"]
+        elif r["name"] == "p256_sign":
+            r["autopilot_shapes"] = ap_shapes["sign_buckets"]
+    print(json.dumps({"kernels": [{**{k: r[k] for k in order},
+                                   **({"autopilot_shapes": r["autopilot_shapes"]}
+                                      if "autopilot_shapes" in r else {})}
+                                  for r in recs]}), flush=True)
     log("total", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -50,15 +50,7 @@ _SIDECAR_UNPORTED = {
     "mesh_coordinator": ("", "parallel/topology.py", 9),
     "mesh_process_id": (0, "parallel/topology.py", 9),
     "mesh_num_processes": (1, "parallel/topology.py", 9),
-    "verify_chunk": (0, "the mesh's chunked verify", 9),
     "recode_device": (False, "on-card window recoding", 10),
-    "slos": ("", "observe/slo.py", 10),
-    "vitals_interval_s": (0.0, "observe/timeseries.py", 10),
-    "vitals_retention": (240, "observe/timeseries.py", 10),
-    "blackbox_dir": ("", "observe/blackbox.py", 10),
-    "autopilot": (False, "control/autopilot.py", 10),
-    "autopilot_tick_s": (1.0, "control/autopilot.py", 10),
-    "autopilot_knobs": ("", "control/autopilot.py", 10),
 }
 
 
@@ -181,8 +173,12 @@ def _build_peer(cfg):
         tls=_node_tls(cfg), max_package_size=cfg.max_package_size,
         install_require_admin=cfg.install_require_admin,
         pipeline_depth=cfg.pipeline_depth, coalesce_blocks=cfg.coalesce_blocks,
-        host_stage_workers=cfg.host_stage_workers,
+        host_stage_workers=cfg.host_stage_workers, verify_chunk=cfg.verify_chunk,
         trace_ring_blocks=cfg.trace_ring_blocks, trace_slow_factor=cfg.trace_slow_factor,
+        slos=cfg.slos, vitals_interval_s=cfg.vitals_interval_s,
+        vitals_retention=cfg.vitals_retention, blackbox_dir=cfg.blackbox_dir,
+        autopilot=cfg.autopilot, autopilot_tick_s=cfg.autopilot_tick_s,
+        autopilot_knobs=cfg.autopilot_knobs,
         device_ledger=cfg.device_ledger, sign_device=cfg.sign_device,
         sign_batch_max=cfg.sign_batch_max, sign_batch_wait_ms=cfg.sign_batch_wait_ms,
         sign_self_check=cfg.sign_self_check,
@@ -273,6 +269,15 @@ async def _run_sidecar(args):
     from fabric_tpu_torch.sidecar.client import parse_endpoint
     from fabric_tpu_torch.sidecar.server import SidecarServer
 
+    if args.slos:
+        from fabric_tpu_torch.observe import slo as slo_mod
+
+        slo_mod.configure(args.slos)
+    if args.vitals_interval_s > 0:
+        # the flight recorder's trailing series at /vitals
+        from fabric_tpu_torch.observe import timeseries as ts_mod
+
+        ts_mod.configure(interval_s=args.vitals_interval_s, retention=args.vitals_retention)
     if args.device_ledger:
         from fabric_tpu_torch.observe import ledger as ledger_mod
 
@@ -292,9 +297,37 @@ async def _run_sidecar(args):
         ssl_ctx = make_server_tls(cert, key, ca)
     host, port = parse_endpoint(args.listen)
     srv = SidecarServer(host, port, queue_blocks=args.queue_blocks, coalesce=args.coalesce,
-                        ssl_ctx=ssl_ctx, device=args.device)
+                        ssl_ctx=ssl_ctx, device=args.device, verify_chunk=args.verify_chunk)
     await srv.start()
     print(f"validation sidecar serving on {srv.host}:{srv.port}", flush=True)
+    if args.vitals_interval_s > 0 or args.blackbox_dir:
+        from fabric_tpu_torch.observe import blackbox as bb_mod
+
+        # armed after start, so bundles carry the live scheduler's stats
+        bb_mod.configure(out_dir=args.blackbox_dir, scheduler=srv.scheduler)
+    if args.autopilot:
+        # a sidecar-local autopilot: its own scheduler's telemetry and
+        # the global SLO engine; it actuates the server's coalescing
+        # and verify chunk at the drain boundary, and tenant weights
+        # and shed mode on the live scheduler
+        from fabric_tpu_torch.control import Autopilot, set_global
+        from fabric_tpu_torch.observe.slo import global_engine
+
+        def _apply(knob, value):
+            if knob == "coalesce_blocks":
+                srv.set_coalesce(int(value))
+            elif knob == "verify_chunk":
+                srv.set_verify_chunk(int(value))
+
+        ap = Autopilot(args.autopilot_knobs or None, _apply, set_weight=srv.scheduler.set_weight,
+                       set_shed=srv.scheduler.set_shed, slo=global_engine(),
+                       scheduler=srv.scheduler, tick_s=args.autopilot_tick_s,
+                       initial={"coalesce_blocks": args.coalesce,
+                                "verify_chunk": args.verify_chunk})
+        srv.autopilot = ap
+        set_global(ap)
+        ap.start()
+        print("sidecar autopilot armed", flush=True)
     if args.operations_port is not None:
         from fabric_tpu_torch.opsserver import HealthRegistry, OperationsServer
 
@@ -311,11 +344,35 @@ def _cmd_sidecar(args):
             print(f"--{flag.replace('_', '-')}: {module} is not ported yet "
                   f"(ROADMAP Queue 1 item {item})", file=sys.stderr)
             sys.exit(2)
+    _check_sidecar_specs(args)
     _device_or_exit(args.device)
     try:
         asyncio.run(_run_sidecar(args))
     except KeyboardInterrupt:
         pass
+
+
+def _check_sidecar_specs(args) -> None:
+    """A malformed ``--slos`` or ``--autopilot-knobs`` spec, or a
+    negative ``--vitals-interval-s``, exits 2 naming the flag."""
+    from fabric_tpu_torch.control import KnobSpecError, parse_knob_specs
+    from fabric_tpu_torch.observe.slo import SloError, parse_slos
+
+    try:
+        parse_slos(args.slos)
+        parse_knob_specs(args.autopilot_knobs)
+    except (SloError, KnobSpecError) as e:
+        flag = "--slos" if isinstance(e, SloError) else "--autopilot-knobs"
+        print(f"{flag}: {e}", file=sys.stderr)
+        sys.exit(2)
+    for flag, value, ok, want in (
+            ("--vitals-interval-s", args.vitals_interval_s, args.vitals_interval_s >= 0, ">= 0"),
+            ("--vitals-retention", args.vitals_retention, args.vitals_retention >= 1, ">= 1"),
+            ("--verify-chunk", args.verify_chunk, args.verify_chunk >= 0, ">= 0"),
+            ("--autopilot-tick-s", args.autopilot_tick_s, args.autopilot_tick_s > 0, "> 0")):
+        if not ok:
+            print(f"{flag}: must be {want}, got {value}", file=sys.stderr)
+            sys.exit(2)
 
 
 async def _run_chaincode(args):
@@ -573,27 +630,30 @@ def parser() -> argparse.ArgumentParser:
                    help="this process's rank in the distributed mesh (not ported)")
     c.add_argument("--mesh-num-processes", type=int, default=1,
                    help="total process count in the distributed mesh (not ported)")
-    c.add_argument("--verify-chunk", type=int, default=0)
+    c.add_argument("--verify-chunk", type=int, default=0,
+                   help="signatures per p256_verify launch (0: one launch a dispatch)")
     c.add_argument("--recode-device", action="store_true")
     c.add_argument("--queue-blocks", type=int, default=8,
                    help="per-tenant admission queue bound (BUSY past it)")
     c.add_argument("--coalesce", type=int, default=4,
                    help="max cross-tenant batches per device dispatch")
     c.add_argument("--operations-port", type=int, default=None)
-    c.add_argument("--slos", default="", help="SLO spec string (not ported: exits 2 when set)")
+    c.add_argument("--slos", default="",
+                   help="SLO spec string, e.g. 'req:latency:ms=50;busy:busy:pct=5' (/slo)")
     c.add_argument("--vitals-interval-s", type=float, default=0.0,
-                   help="flight-data recorder sample interval (not ported: exits 2 when set)")
+                   help="flight-data recorder sample interval (0: off; /vitals)")
     c.add_argument("--vitals-retention", type=int, default=240,
-                   help="points retained per metric series (not ported)")
+                   help="points retained per metric series")
     c.add_argument("--blackbox-dir", default="",
-                   help="black-box incident bundles (not ported: exits 2 when set)")
+                   help="directory for black-box incident bundles (arms the recorder)")
     c.add_argument("--device-ledger", type=int, default=1,
                    help="per-launch device-time ledger at /launches (1 = on, the default)")
     c.add_argument("--autopilot", action="store_true",
-                   help="a sidecar-local traffic autopilot (not ported: exits 2 when set)")
+                   help="a sidecar-local traffic autopilot (coalescing, verify chunk, "
+                        "tenant weights and shed mode; /autopilot)")
     c.add_argument("--autopilot-tick-s", type=float, default=1.0)
     c.add_argument("--autopilot-knobs", default="",
-                   help="per-knob min/max clamp spec (not ported: exits 2 when set)")
+                   help="per-knob min/max clamp spec, e.g. 'verify_chunk:min=512:max=4096'")
 
     c = sub.add_parser("chaincode", help="run a sample ccaas chaincode server")
     c.add_argument("--name", required=True)

@@ -218,10 +218,16 @@ def _cuda(*ts) -> None:
 # Launch wrappers: the ops modules call these only for CUDA tensors.
 
 
-def p256_verify(frame: torch.Tensor, consts: torch.Tensor) -> torch.Tensor:
-    """[B, cols] int16 frame → [B] bool (``ops/p256v3.py``)."""
-    _cuda(frame, consts)
-    out = torch.empty(frame.shape[0], dtype=torch.bool, device=frame.device)
+def p256_verify(frame: torch.Tensor, consts: torch.Tensor,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+    """[B, cols] int16 frame → [B] bool (``ops/p256v3.py``), written
+    into ``out`` when given (a contiguous [B] bool tensor: one chunk's
+    slice of a chunked launch's output vector)."""
+    if out is None:
+        out = torch.empty(frame.shape[0], dtype=torch.bool, device=frame.device)
+    elif out.dtype != torch.bool or out.shape != (frame.shape[0],):
+        raise ValueError(f"p256_verify: out must be a [{frame.shape[0]}] bool tensor")
+    _cuda(frame, consts, out)
     _entries["fab_p256_verify"](frame.data_ptr(), frame.shape[0], consts.data_ptr(),
                                 out.data_ptr(), _stream(frame))
     _count("p256_verify")

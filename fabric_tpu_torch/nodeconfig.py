@@ -11,13 +11,14 @@ format is JSON.
 The port adds one key: ``PeerConfig.device`` (default ``"cuda"``,
 ``FABTPU_DEVICE``), the device the peer's kernels run on; a peer asks
 for ``"cpu"`` to run the plain versions.  It stands where the
-reference's processes read ``JAX_PLATFORMS``.  Keys whose module the
-port has not ported yet (``slos``, ``autopilot*``, ``vitals_*``,
-``blackbox_dir``, ``mesh_*``, ``verify_chunk``, ``recode_device``,
-``verify_deadline_ms``, ``sidecar_listen`` and its queue knobs,
-``host_stage_mode="process"``) raise ``ConfigError`` naming their
-ROADMAP item when set to anything but their default; every other
-``ConfigError`` has the reference's text.
+reference's processes read ``JAX_PLATFORMS``.  ``slos`` and
+``autopilot_knobs`` are checked through their modules
+(``observe/slo.py``, ``control/autopilot.py``) as the reference checks
+them.  Keys whose module the port has not ported yet (``mesh_*``,
+``recode_device``, ``verify_deadline_ms``, ``sidecar_listen`` and its
+queue knobs, ``host_stage_mode="process"``) raise ``ConfigError``
+naming their ROADMAP item when set to anything but their default; every
+other ``ConfigError`` has the reference's text.
 """
 
 from __future__ import annotations
@@ -328,7 +329,9 @@ class PeerConfig:
     # per-knob min/max clamp spec (autopilot.parse_knob_specs), e.g.
     # 'coalesce_blocks:min=0:max=8;verify_chunk:min=512:max=4096;
     # pipeline_depth:min=2:max=4;weight:min=0.125:max=8'.  Empty =
-    # the validated defaults; named knobs override per-key.
+    # the validated defaults; named knobs override per-key.  The port
+    # drives verify_chunk only where this spec names it
+    # (control/autopilot.py OPT_IN_KNOBS).
     autopilot_knobs: str = ""
     # device-batched endorsement signing (peer/signlane.py SignBatcher
     # + ops/p256sign.py): with sign_device on, concurrent ESCC sign
@@ -665,10 +668,20 @@ def _load(cls, source, environ=None):
         )
     if isinstance(cfg, PeerConfig) and (cfg.autopilot
                                         or cfg.autopilot_knobs):
-        raise _unported("autopilot" if cfg.autopilot else "autopilot_knobs",
-                        "control/autopilot.py", 10)
+        # the knob-clamp spec fails here, as a config error, not mid-start
+        from fabric_tpu_torch.control import KnobSpecError, parse_knob_specs
+
+        try:
+            parse_knob_specs(cfg.autopilot_knobs)
+        except KnobSpecError as e:
+            raise ConfigError(f"key 'autopilot_knobs': {e}") from None
     if isinstance(cfg, PeerConfig) and cfg.slos:
-        raise _unported("slos", "observe/slo.py", 10)
+        from fabric_tpu_torch.observe.slo import SloError, parse_slos
+
+        try:
+            parse_slos(cfg.slos)
+        except SloError as e:
+            raise ConfigError(f"key 'slos': {e}") from None
     if isinstance(cfg, PeerConfig):
         _refuse_unported(cfg)
     if isinstance(cfg, OrdererConfig) and cfg.consensus not in (
@@ -688,14 +701,9 @@ _UNPORTED = {
     "mesh_coordinator": ("parallel/topology.py", 9),
     "mesh_process_id": ("parallel/topology.py", 9),
     "mesh_num_processes": ("parallel/topology.py", 9),
-    "verify_chunk": ("the mesh's chunked verify", 9),
     "recode_device": ("on-card window recoding", 10),
     "verify_deadline_ms": ("the guard's verify deadline", 10),
     "host_stage_mode": ("the process staging pool", 10),
-    "autopilot_tick_s": ("control/autopilot.py", 10),
-    "vitals_interval_s": ("observe/timeseries.py", 10),
-    "vitals_retention": ("observe/timeseries.py", 10),
-    "blackbox_dir": ("observe/blackbox.py", 10),
     "sidecar_listen": ("a sidecar server hosted by the peer", 10),
     "sidecar_queue_blocks": ("a sidecar server hosted by the peer", 10),
     "sidecar_coalesce": ("a sidecar server hosted by the peer", 10),

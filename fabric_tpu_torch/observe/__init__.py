@@ -1,10 +1,11 @@
 """The port's observability layer (counterpart: ``fabric_tpu/observe/``):
 the block span tracer (``tracer.py``), the overlap-coverage analyser
-(``overlap.py``), the per-launch device-time ledger (``ledger.py``) and
-the per-transaction flow journal (``txflow.py``).  The metrics registry
-they publish to is ``fabric_tpu_torch/ops_metrics.py``.  The
-reference's flight-data recorder and SLO engine (``blackbox.py``,
-``timeseries.py``, ``slo.py``) are not ported yet."""
+(``overlap.py``), the per-launch device-time ledger (``ledger.py``),
+the per-transaction flow journal (``txflow.py``), the SLO burn-rate
+engine (``slo.py``) and the flight-data recorder: the metrics sampler
+(``timeseries.py``, served at ``/vitals``) and the black-box incident
+bundles (``blackbox.py``).  The metrics registry they publish to is
+``fabric_tpu_torch/ops_metrics.py``."""
 
 from fabric_tpu_torch.observe.overlap import (  # noqa: F401
     coverage_from_roots,

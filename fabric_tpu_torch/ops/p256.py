@@ -82,12 +82,15 @@ def _empty(dev) -> VerifyHandle:
     return VerifyHandle(torch.zeros(0, dtype=torch.bool, device=dev), 0)
 
 
-def verify_launch(items, kernel: str | None = None, device="cuda") -> VerifyHandle:
+def verify_launch(items, kernel: str | None = None, device="cuda", chunk: int | None = None,
+                  pool=None) -> VerifyHandle:
     """Stage (digest, r, s, qx, qy) tuples and launch the selected
-    kernel over the bucketed batch without waiting."""
+    kernel over the bucketed batch without waiting.  ``chunk`` and
+    ``pool`` go to v3 (chunked launches, ``p256v3.verify_launch``); v1
+    and v2 launch the whole batch at once."""
     k = selected(kernel)
     if k == "v3":
-        return p256v3.verify_launch(items, device=device)
+        return p256v3.verify_launch(items, device=device, chunk=chunk, pool=pool)
     dev = resolve_device(device)
     items = list(items)
     n = len(items)
@@ -102,11 +105,12 @@ def verify_launch(items, kernel: str | None = None, device="cuda") -> VerifyHand
     return VerifyHandle(out, n)
 
 
-def verify_launch_many(batches, kernel: str | None = None, device="cuda") -> list:
-    """Several blocks' batches: ONE coalesced launch under v3, one
-    launch per batch under v1 and v2."""
+def verify_launch_many(batches, kernel: str | None = None, device="cuda",
+                       chunk: int | None = None, pool=None) -> list:
+    """Several blocks' batches: ONE coalesced launch under v3 (chunked
+    with ``chunk``), one launch per batch under v1 and v2."""
     if selected(kernel) == "v3":
-        return p256v3.verify_launch_many(batches, device=device)
+        return p256v3.verify_launch_many(batches, device=device, chunk=chunk, pool=pool)
     return [verify_launch(b, kernel=kernel, device=device) for b in batches]
 
 

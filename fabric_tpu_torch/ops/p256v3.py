@@ -37,10 +37,26 @@ process; on the CPU it is the reference's first sight of the bucket.
 The copy and the launch run inside the ``fabtpu.verify_dispatch``
 annotation; ``h2d_bytes_per_block`` and ``coalesced_blocks_per_launch``
 go to the registry.
+
+Chunked verify (the reference's :1103-1180, :1247, :1358):
+``verify_launch(chunk=)`` and ``verify_launch_many(chunk=)`` split a
+batch into ``_chunk_bounds`` microbatches, each one ``p256_verify``
+launch on the current stream writing its slice of ONE device-resident
+output vector: every chunk but the last is exactly ``chunk`` lanes and
+the last pads the total to ``_bucket(n)``, so item i sits at index i as
+in a monolithic launch.  On the card every frame, chunked or not, is
+staged into pinned host memory (PyTorch's caching host allocator) and
+copied with ``non_blocking=True``, so staging chunk k+1 overlaps chunk k's copy and
+kernel; with a host pool, chunk k+1 is staged on a worker meanwhile
+(the reference's one-chunk lookahead).  A chunked batch observes
+``verify_chunk_stage_seconds`` and ``verify_chunks_per_batch``, adds one
+``verify_chunk`` span a chunk, and keeps one ledger record with each
+chunk's bytes noted.  A failed chunk launch raises.
 """
 
 from __future__ import annotations
 
+import time
 from functools import lru_cache
 
 import numpy as np
@@ -49,7 +65,7 @@ import torch
 from fabric_tpu_torch import faults, kernels, native
 from fabric_tpu_torch.crypto import ec_ref
 from fabric_tpu_torch.device import resolve_device
-from fabric_tpu_torch.observe import device_annotation
+from fabric_tpu_torch.observe import device_annotation, global_tracer
 from fabric_tpu_torch.observe import ledger as _ledger
 from fabric_tpu_torch.ops import fp256
 from fabric_tpu_torch.utils.batching import next_pow2
@@ -211,27 +227,43 @@ def _pack_tuples(items):
     return e_b, r_b, s_b, q, q_admit(q) & r_in & s_in & qx_in & qy_in
 
 
+def _frame_cols(items):
+    """(digest, r, s, qx, qy) int tuples or ``SigColumns`` → the
+    columns ``_stage_rows`` reads: (digest, r, s [B, 32] uint8; q_idx
+    [B] int32; q_pool [u, 64] uint8; q_ok [u] uint8)."""
+    if isinstance(items, SigColumns):
+        return items.columns()
+    items = list(items)
+    e_b, r_b, s_b, q_pool, ok = _pack_tuples(items)
+    return e_b, r_b, s_b, np.arange(len(items), dtype=np.int32), q_pool, ok.astype(np.uint8)
+
+
+def _stage_rows(cols, lo: int, hi: int, frame: np.ndarray) -> None:
+    """Rows [lo, hi) of a column set → ``frame[:hi - lo]``, in one C
+    call (``native/ecprep.cpp``; its batch inversion covers these rows
+    only).  The caller zeroes the frame: rejected and padding rows stay
+    all-zero (pre_ok 0)."""
+    n = hi - lo
+    if n <= 0:
+        return
+    e_b, r_b, s_b, q_idx, q_pool, q_ok = cols
+    p = native.ptr
+    arrs = [np.ascontiguousarray(a) for a in (e_b[lo:hi], r_b[lo:hi], s_b[lo:hi],
+                                              q_idx[lo:hi], q_pool, q_ok)]
+    native.lib("ecprep").ec_stage_frame(*(p(a) for a in arrs), n, p(frame), FRAME_COLS)
+
+
 def stage_frame(items, pad_to: int | None = None) -> np.ndarray:
     """(digest, r, s, qx, qy) int tuples or ``SigColumns`` → the
     [pad_to, 98] int16 launch frame, in one C call
     (``native/ecprep.cpp``).  Rejected and padding rows stay all-zero
     (pre_ok 0)."""
-    if isinstance(items, SigColumns):
-        e_b, r_b, s_b, q_idx, q_pool, q_ok = items.columns()
-    else:
-        items = list(items)
-        e_b, r_b, s_b, q_pool, ok = _pack_tuples(items)
-        q_idx = np.arange(len(items), dtype=np.int32)
-        q_ok = ok.astype(np.uint8)
-    n = len(e_b)
+    cols = _frame_cols(items)
+    n = len(cols[0])
     if pad_to is not None and pad_to < n:  # the C call writes every item's row
         raise ValueError(f"pad_to={pad_to} is below the {n} items")
     frame = np.zeros((n if pad_to is None else pad_to, FRAME_COLS), np.int16)
-    if n:
-        p = native.ptr
-        arrs = [np.ascontiguousarray(a) for a in (e_b, r_b, s_b, q_idx, q_pool, q_ok)]
-        native.lib("ecprep").ec_stage_frame(*(p(a) for a in arrs), n, p(frame),
-                                            FRAME_COLS)
+    _stage_rows(cols, 0, n, frame)
     return frame
 
 
@@ -432,19 +464,30 @@ def _kernel_consts(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
-def verify_batch_packed(frame: torch.Tensor) -> torch.Tensor:
-    """[B, 98] int16 launch frame → [B] bool accept bits.  A CPU frame
-    runs ``verify_batch_ref``; a CUDA frame launches the kernel."""
+def verify_batch_packed(frame: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """[B, 98] int16 launch frame → [B] bool accept bits, written into
+    ``out`` (a [B] bool tensor, e.g. a slice of a larger vector) when
+    given.  A CPU frame runs ``verify_batch_ref``; a CUDA frame launches
+    the kernel."""
     if frame.dtype != torch.int16 or frame.dim() != 2 or frame.shape[1] != FRAME_COLS:
         raise ValueError(f"expected an int16 [B, {FRAME_COLS}] frame, "
                          f"got {frame.dtype} {tuple(frame.shape)}")
     if frame.device.type == "cpu":
-        return verify_batch_ref(frame)
-    return kernels.p256_verify(frame.contiguous(), _kernel_consts(frame.device))
+        res = verify_batch_ref(frame)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    consts = _kernel_consts(frame.device)
+    if out is None:
+        return kernels.p256_verify(frame.contiguous(), consts)
+    return kernels.p256_verify(frame.contiguous(), consts, out=out)
 
 
 # ---------------------------------------------------------------------------
 # Launch API
+
+
 
 
 def _h2d_hist():
@@ -465,6 +508,25 @@ def _coalesce_metric():
         "coalesced_blocks_per_launch",
         "signature batches (blocks) concatenated per verify dispatch",
         buckets=(1, 2, 3, 4, 6, 8, float("inf")),
+    )
+
+
+def _chunk_metrics():
+    from fabric_tpu_torch.ops_metrics import global_registry
+
+    reg = global_registry()
+    return (
+        reg.histogram(
+            "verify_chunk_stage_seconds",
+            "per-chunk host staging / dispatch time (s)",
+            buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                     0.1, float("inf")),
+        ),
+        reg.histogram(
+            "verify_chunks_per_batch",
+            "microbatch chunks per verify batch",
+            buckets=(1, 2, 4, 8, 16, 32, float("inf")),
+        ),
     )
 
 
@@ -494,45 +556,127 @@ class VerifyHandle:
         return self.fetch()
 
 
-def _launch_frame(frame: np.ndarray, dev: torch.device, n_real: int) -> tuple:
-    """The staged frame to the card and its kernel launch, under a
-    ``verify`` ledger record → (accept vector, record or None)."""
+def _chunk_bounds(n_real: int, chunk: int) -> list[tuple[int, int, int]]:
+    """[(lo, hi, pad)] microbatch slicing (the reference's): every chunk
+    except the last is exactly ``chunk`` lanes and the last pads the
+    total out to ``_bucket(n_real)``, so item i sits at index i of the
+    one output vector (stage 2's gathers need no remapping) and the
+    vector keeps a monolithic launch's length."""
+    bounds = []
+    off = 0
+    total = _bucket(n_real)
+    while off < n_real:
+        k = min(chunk, n_real - off)
+        pad = chunk if off + k < n_real else total - off
+        bounds.append((off, off + k, pad))
+        off += k
+    return bounds
+
+
+def _host_frame(dev: torch.device, rows: int):
+    """A zeroed [rows, 98] int16 host frame: pinned memory for a copy
+    to the card, a plain tensor on the CPU.  The pinned block comes from
+    PyTorch's caching host allocator, which hands it out again only once
+    the ``non_blocking`` copy that read it has completed."""
+    return torch.zeros((rows, FRAME_COLS), dtype=torch.int16,
+                       pin_memory=dev.type == "cuda")
+
+
+def _launch(stage, n: int, chunk: int, dev: torch.device, pool=None) -> tuple:
+    """Launch ``p256_verify`` over ``n`` lanes → (ONE device-resident
+    bool vector of ``_bucket(n)`` lanes, its ledger record or None).
+    With ``chunk`` (and more than ``chunk`` lanes), one launch a
+    ``_chunk_bounds`` chunk, in order on the current stream, each
+    writing its slice of the vector; else one launch.
+    ``stage(lo, hi, pad)`` → a zeroed host frame of ``pad`` rows holding
+    lanes [lo, hi); on the card it is pinned and copied with
+    ``non_blocking=True``.  With a
+    host ``pool``, chunk k+1 is staged on a worker while chunk k is
+    copied and launched (the reference's one-chunk lookahead,
+    ``_launch_chunked``).  A chunked batch observes the chunk
+    histograms and adds one ``verify_chunk`` span a chunk."""
+    chunked = bool(chunk) and n > chunk
+    bounds = _chunk_bounds(n, chunk) if chunked else [(0, n, _bucket(n))]
     compiled = kernels.first_launch("p256_verify") if dev.type == "cuda" else None
-    rec = _ledger.launch("verify", key=(frame.shape[0], True, 0), lanes=n_real,
-                         compiled=compiled)
-    _h2d_hist().observe(frame.nbytes, recode="device")
-    if rec is not None:
-        rec.note_h2d(frame.nbytes)
-        rec.begin_dispatch()  # the staging above was host work
-    with device_annotation("fabtpu.verify_dispatch"):
-        out = verify_batch_packed(torch.from_numpy(frame).to(dev))
+    rec = _ledger.launch("verify", key=(bounds[0][2], True, 0), lanes=n, compiled=compiled)
+    # one launch writes its own vector; chunks write slices of one
+    out = torch.empty(_bucket(n), dtype=torch.bool, device=dev) if chunked else None
+    lookahead = chunked and pool is not None
+    nxt = pool.submit(stage, *bounds[0], stage="chunk_stage") if lookahead else None
+    hist = _h2d_hist()
+    if chunked:
+        stage_hist, chunks_hist = _chunk_metrics()
+        trc = global_tracer()
+    for i, (lo, hi, pad) in enumerate(bounds):
+        t0 = time.perf_counter()
+        host = nxt.result() if lookahead else stage(lo, hi, pad)
+        if lookahead and i + 1 < len(bounds):
+            nxt = pool.submit(stage, *bounds[i + 1], stage="chunk_stage")
+        nbytes = host.numel() * host.element_size()
+        hist.observe(nbytes, recode="device")
+        if rec is not None:
+            rec.note_h2d(nbytes)
+            rec.begin_dispatch()  # the first chunk's staging was host work
+        with device_annotation("fabtpu.verify_dispatch"):
+            frame = host.to(dev, non_blocking=True) if dev.type == "cuda" else host
+            if out is None:
+                out = verify_batch_packed(frame)
+            else:
+                verify_batch_packed(frame, out=out[lo:lo + pad])
+        if chunked:
+            t1 = time.perf_counter()
+            stage_hist.observe(t1 - t0, stage="stage_dispatch")
+            trc.add("verify_chunk", t0, t1, chunk=i, lanes=int(hi - lo))
+    if chunked:
+        chunks_hist.observe(len(bounds))
     if rec is not None:
         rec.dispatched()
     return out, rec
 
 
-def verify_launch(items, device="cuda") -> VerifyHandle:
+def _empty(dev) -> VerifyHandle:
+    return VerifyHandle(torch.zeros(0, dtype=torch.bool, device=dev), 0)
+
+
+def _chunk_arg(chunk) -> int:
+    return max(int(chunk), MIN_BUCKET) if chunk else 0
+
+
+def verify_launch(items, device="cuda", chunk: int | None = None, pool=None) -> VerifyHandle:
     """Stage (digest, r, s, qx, qy) tuples or ``SigColumns`` and launch
     the verify kernel without waiting: one launch over the whole
-    bucketed batch.  Fires the ``p256v3.verify_launch`` fault point."""
+    bucketed batch, or with ``chunk`` (at least ``MIN_BUCKET``) one
+    launch a chunk of ``_chunk_bounds`` into one output vector; a host
+    ``pool`` stages chunk k+1 while chunk k launches.  The accept set is
+    the same either way.  Fires the ``p256v3.verify_launch`` fault
+    point once a batch."""
     faults.fire("p256v3.verify_launch")
     dev = resolve_device(device)
     if not isinstance(items, SigColumns):
         items = list(items)
     n = len(items)
     if not n:
-        return VerifyHandle(torch.zeros(0, dtype=torch.bool, device=dev), 0)
-    out, rec = _launch_frame(stage_frame(items, _bucket(n)), dev, n)
+        return _empty(dev)
+    cols = _frame_cols(items)
+
+    def stage(lo, hi, pad):  # each chunk staged from its own rows
+        host = _host_frame(dev, pad)
+        _stage_rows(cols, lo, hi, host.numpy())
+        return host
+
+    out, rec = _launch(stage, n, _chunk_arg(chunk), dev, pool=pool)
     return VerifyHandle(out, n, rec)
 
 
-def verify_launch_many(batches, device="cuda") -> list[VerifyHandle]:
-    """Several blocks' signature batches as ONE launch.  Block b keeps
-    the lane layout a solo launch would give it — lanes
+def verify_launch_many(batches, device="cuda", chunk: int | None = None,
+                       pool=None) -> list[VerifyHandle]:
+    """Several blocks' signature batches as ONE launch (or, with
+    ``chunk``, one chunked launch sequence over their concatenation).
+    Block b keeps the lane layout a solo launch would give it — lanes
     [off_b, off_b + _bucket(n_b)) — so each handle's ``device_out`` is a
     slice; the total pads out to ``_bucket(sum of buckets)``.  One
     ledger record covers the launch, on the first live block's handle.
-    Fires the ``p256v3.verify_launch`` fault point."""
+    Fires the ``p256v3.verify_launch`` fault point once."""
     faults.fire("p256v3.verify_launch")
     dev = resolve_device(device)
     batches = [b if isinstance(b, SigColumns) else list(b) for b in batches]
@@ -541,22 +685,31 @@ def verify_launch_many(batches, device="cuda") -> list[VerifyHandle]:
         offs.append(total)
         total += _bucket(len(b)) if b else 0
     if not total:
-        return [VerifyHandle(torch.zeros(0, dtype=torch.bool, device=dev), 0)
-                for _ in batches]
+        return [_empty(dev) for _ in batches]
     grand = _bucket(total)
-    frame = np.zeros((grand, FRAME_COLS), np.int16)
-    for off, b in zip(offs, batches):
-        if b:
-            frame[off:off + _bucket(len(b))] = stage_frame(b, _bucket(len(b)))
-    _coalesce_metric().observe(sum(1 for b in batches if b))
-    out, rec = _launch_frame(frame, dev, grand)
+    spans = [(off, off + len(b), _frame_cols(b)) for off, b in zip(offs, batches) if b]
+    _coalesce_metric().observe(len(spans))
+
+    def stage(lo, hi, pad):
+        # every one of the `grand` lanes counts as real to the chunker
+        # (padding rows are zero, pre-rejected), and _bucket(grand) == grand;
+        # each block's rows inside [lo, hi) go straight into the frame
+        host = _host_frame(dev, pad)
+        dst = host.numpy()
+        for a, z, cols in spans:
+            s, e = max(a, lo), min(z, hi)
+            if s < e:
+                _stage_rows(cols, s - a, e - a, dst[s - lo:e - lo])
+        return host
+
+    out, rec = _launch(stage, grand, _chunk_arg(chunk), dev, pool=pool)
     handles = []
     for off, b in zip(offs, batches):
         if b:
             handles.append(VerifyHandle(out[off:off + _bucket(len(b))], len(b), rec))
             rec = None
         else:
-            handles.append(VerifyHandle(torch.zeros(0, dtype=torch.bool, device=dev), 0))
+            handles.append(_empty(dev))
     return handles
 
 

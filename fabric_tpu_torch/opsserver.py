@@ -8,12 +8,16 @@ polled on /healthz; /logspec GET/PUT reads and sets logging levels
 (FABRIC_LOGGING_SPEC syntax, the root being ``fabric_tpu_torch``).
 /metrics renders the port's ``ops_metrics`` registry; /trace, /launches
 and /txflow read the port's tracer, launch ledger and flow journal
-(``observe/``).  The SLO engine, the traffic autopilot and the flight
-recorder are not ported (ROADMAP Queue 1 item 10) and no node of the
-port can configure them, so /slo, /autopilot and /vitals answer as the
-reference does when those modules are not configured: no objectives,
-``{"enabled": false, "configured": false}``, and an unarmed recorder
-with no incidents.
+(``observe/``); /slo the SLO engine's report (``observe/slo.py``, the
+global engine unless ``slo=`` is given); /autopilot the traffic
+autopilot's (``control/autopilot.py``); /vitals the metrics sampler's
+summaries and the black box's incident index
+(``observe/{timeseries,blackbox}.py``), ``?metric=`` one metric's
+series, ``?incident=`` one bundle.  ``autopilot``, ``vitals`` and
+``blackbox`` given as None resolve the process-global ones per request,
+and unarmed the routes answer as the reference's: no objectives,
+``{"enabled": false, "configured": false}``, an unarmed recorder with
+no incidents.
 """
 
 from __future__ import annotations
@@ -21,7 +25,6 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
-import time
 
 from fabric_tpu_torch.ops_metrics import Registry, global_registry
 
@@ -56,7 +59,8 @@ class OperationsServer:
     def __init__(self, host: str = "127.0.0.1", port: int = 0,
                  registry: Registry | None = None,
                  health: HealthRegistry | None = None,
-                 tracer=None, launches=None, txflow=None):
+                 tracer=None, slo=None, autopilot=None, vitals=None, blackbox=None,
+                 launches=None, txflow=None):
         self.host, self.port = host, port
         self.registry = registry or global_registry()
         self.health = health or HealthRegistry()
@@ -65,6 +69,16 @@ class OperationsServer:
 
             tracer = global_tracer()
         self.tracer = tracer  # /trace: the block-commit flight recorder
+        if slo is None:
+            from fabric_tpu_torch.observe.slo import global_engine
+
+            slo = global_engine()
+        self.slo = slo  # /slo: the burn-rate engine
+        # /autopilot and /vitals: None = the process-global controller,
+        # sampler and black box, resolved per request
+        self.autopilot = autopilot
+        self.vitals = vitals
+        self.blackbox = blackbox
         # /launches and /txflow: None = the process-global launch ledger
         # / flow journal, resolved per request
         self.launches = launches
@@ -162,14 +176,19 @@ class OperationsServer:
         if path == "/trace" or path.startswith("/trace?"):
             return self._route_trace(path)
         if path == "/slo" or path.startswith("/slo?"):
-            # an SLO engine with no objectives (observe/slo.py waits)
-            return 200, "application/json", json.dumps(
-                {"objectives": [], "clock_s": round(time.monotonic(), 3)}
-            ).encode()
+            return 200, "application/json", json.dumps(self.slo.report()).encode()
         if path == "/autopilot" or path.startswith("/autopilot?"):
-            # no traffic controller (control/autopilot.py waits)
+            ap = self.autopilot
+            if ap is None:
+                from fabric_tpu_torch.control import global_autopilot
+
+                ap = global_autopilot()
+            if ap is None:
+                return 200, "application/json", json.dumps(
+                    {"enabled": False, "configured": False}
+                ).encode()
             return 200, "application/json", json.dumps(
-                {"enabled": False, "configured": False}
+                {"configured": True, **ap.report()}
             ).encode()
         if path == "/vitals" or path.startswith("/vitals?"):
             return self._route_vitals(path)
@@ -260,30 +279,68 @@ class OperationsServer:
         return 200, "application/json", json.dumps(payload).encode()
 
     def _route_vitals(self, path: str):
-        """The flight-data recorder's surface, unarmed: the port has no
-        sampler and no black box (observe/{timeseries,blackbox}.py
-        wait), so ``/vitals`` is ``enabled`` false with no incidents and
-        every series or incident lookup is a 404, as the reference
-        answers while its recorder is off."""
+        """The flight-data recorder's surface: ``/vitals`` serves the
+        sampler's summaries beside the black box's incident index;
+        ``?metric=NAME`` (and ``&label=k=v``) one metric's trailing
+        series with its trace exemplars; ``?incident=K`` one bundle in
+        full.  Unarmed it answers enabled false, no incidents."""
         from urllib.parse import parse_qs, urlparse
 
+        sampler = self.vitals
+        if sampler is None:
+            from fabric_tpu_torch.observe import timeseries
+
+            sampler = timeseries.global_sampler()
+        bb = self.blackbox
+        if bb is None:
+            from fabric_tpu_torch.observe import blackbox as _blackbox
+
+            bb = _blackbox.global_blackbox()
         q = parse_qs(urlparse(path).query)
         if "incident" in q:
             try:
                 seq = int(q["incident"][0])
             except ValueError:
                 return 400, "application/json", b'{"error": "bad incident"}'
-            return 404, "application/json", json.dumps(
-                {"error": f"incident {seq} not in the black box"}
-            ).encode()
+            bundle = bb.bundle(seq) if bb is not None else None
+            if bundle is None:
+                return 404, "application/json", json.dumps(
+                    {"error": f"incident {seq} not in the black box"}
+                ).encode()
+            return 200, "application/json", json.dumps(bundle).encode()
         if "metric" in q:
             name = q["metric"][0]
-            return 404, "application/json", json.dumps(
-                {"error": f"no recorded series for metric {name!r}"}
-            ).encode()
-        return 200, "application/json", json.dumps(
-            {"enabled": False, "incidents": []}
-        ).encode()
+            series = sampler.series(metric=name) if sampler is not None else {}
+            if not series:
+                return 404, "application/json", json.dumps(
+                    {"error": f"no recorded series for metric {name!r}"}
+                ).encode()
+            variants = series[name]
+            label = q.get("label", [None])[0]
+            if label is not None:
+                variants = {ls: v for ls, v in variants.items()
+                            if ls == label or label in ls.split(",")}
+                if not variants:
+                    return 404, "application/json", json.dumps(
+                        {"error": f"no series for metric {name!r} with "
+                                  f"label {label!r}"}
+                    ).encode()
+            payload = {"metric": name, "series": variants}
+            from fabric_tpu_torch.ops_metrics import exemplars_report
+
+            ex = exemplars_report(self.registry, metric=name).get(name)
+            if ex:
+                if label is not None:
+                    ex = {ls: v for ls, v in ex.items()
+                          if ls == label or label in ls.split(",")}
+                if ex:
+                    payload["exemplars"] = ex
+            return 200, "application/json", json.dumps(payload).encode()
+        payload: dict = {"enabled": sampler is not None}
+        if sampler is not None:
+            payload.update(sampler.report())
+        payload["incidents"] = bb.bundles() if bb is not None else []
+        return 200, "application/json", json.dumps(payload).encode()
 
     def _route_launches(self, path: str):
         """Device-time attribution surface (fabric_tpu_torch.observe.ledger):

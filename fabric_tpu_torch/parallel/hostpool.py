@@ -22,11 +22,15 @@ thread unless a pool shares it out.  This is that pool:
 The knob (``BlockValidator(host_stage_workers=)``) resolves as the
 reference's: 0 is off (serial staging), -1 is one worker per core, n is
 n workers (at most the core count); below 2 gives None, since a pool of
-one worker is only queue overhead.  The size is set at construction.
+one worker is only queue overhead.  ``set_workers(n)`` (the traffic
+autopilot's ``host_stage_workers`` actuator, the reference's :186-225)
+latches a new size, clamped by ``clamp_workers``; the first ``submit``
+that finds the pool idle drains the old executor and builds the new
+one, so a task always finishes on the executor that started it.
 
 Left out of the reference's pool until a caller of the port needs them:
-its process mode, ``set_workers`` (a resize at an idle task boundary),
-``map`` and the row-slice helpers ``slice_bounds``/``map_slices``.
+its process mode, ``map`` and the row-slice helpers
+``slice_bounds``/``map_slices``.
 """
 
 from __future__ import annotations
@@ -39,6 +43,16 @@ from concurrent.futures import ThreadPoolExecutor
 
 from fabric_tpu_torch import faults
 from fabric_tpu_torch.observe import global_tracer
+
+
+def clamp_workers(n: int, cores: int | None = None) -> int:
+    """The one resize-clamp rule (shared by ``set_workers`` and the
+    validator's report of the size a resize will give): at least 2
+    workers and at most the core count; dropping below 2 is a close,
+    not a resize."""
+    if cores is None:
+        cores = os.cpu_count() or 1
+    return max(2, min(int(n), max(2, cores)))
 
 
 def _pool_hist():
@@ -85,6 +99,10 @@ class HostStagePool:
         self._durs: deque = deque(maxlen=1024)  # recent task seconds
         self._tasks = 0
         self._by: dict = {}  # (stage, worker) → [tasks, seconds]
+        # a resize waits for an idle task boundary: tasks in flight
+        # (counted under _lock) and the latched size
+        self._active = 0
+        self._pending_workers: int | None = None
 
     # -- submission ------------------------------------------------------------
 
@@ -120,10 +138,47 @@ class HostStagePool:
 
         return run
 
+    def set_workers(self, n: int) -> None:
+        """Request ``clamp_workers(n)`` workers, applied at the next task
+        boundary: the first ``submit`` that finds the pool idle swaps in
+        a new executor (the old one, empty, shuts down at once)."""
+        n = clamp_workers(n)
+        with self._lock:
+            self._pending_workers = None if n == self.workers else n
+
+    def _maybe_resize_locked(self):
+        """Caller holds ``_lock``.  → the executor a new task goes to,
+        after the latched resize when the pool is idle."""
+        n = self._pending_workers
+        if n is None or self._active > 0:
+            return self._ex
+        self._pending_workers = None
+        old = self._ex
+        self._ex = ThreadPoolExecutor(n, thread_name_prefix="fabtpu-hoststage")
+        self.workers = n
+        old.shutdown(wait=False)  # idle: returns at once
+        return self._ex
+
+    def _task_done(self, _fut) -> None:
+        with self._lock:
+            self._active -= 1
+
     def submit(self, fn, *args, stage: str = "task", **kwargs):
         """One task → its Future, timed and labelled in its worker; a
         failed task raises at ``result()`` and is never retried."""
-        return self._ex.submit(self._timed(fn, stage, self._trc.current()), *args, **kwargs)
+        with self._lock:
+            ex = self._maybe_resize_locked()
+            # counted before the lock drops: a concurrent resize check
+            # never sees the pool idle while this task is on its way
+            self._active += 1
+        try:
+            fut = ex.submit(self._timed(fn, stage, self._trc.current()), *args, **kwargs)
+        except BaseException:
+            with self._lock:
+                self._active -= 1
+            raise
+        fut.add_done_callback(self._task_done)
+        return fut
 
     # -- introspection and lifecycle ---------------------------------------------
 

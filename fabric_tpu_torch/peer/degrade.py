@@ -31,9 +31,11 @@ The global registry gets the reference's
 the stage-2 re-dispatches of ``retry`` too).  ``stats()`` holds the same
 values with ``failures_total`` beside them: every failed device attempt
 (each ``record_failure`` call and each failed probe), so a run can set
-the lane's failures beside the faults it injected.  The reference's
-flight-recorder notice at the latch comes with its ``blackbox.py``,
-which is not ported yet.
+the lane's failures beside the faults it injected.  The latch is a
+flight-recorder incident edge (``observe/blackbox.py``'s
+``degrade_latch``, the reference's :155-157); its detail names the
+port's route while degraded, a synchronous ``p256_verify`` on the card
+(the reference's says "CPU fallback").
 """
 
 from __future__ import annotations
@@ -136,6 +138,11 @@ class DeviceLaneGuard:
             _log.warning("%s: device verify lane DEGRADED after %d consecutive failures (%s); "
                          "blocks take the fallback, a recovery probe every %.1fs",
                          self.channel or "validator", n, err, self.recovery_s)
+            from fabric_tpu_torch.observe import blackbox
+
+            blackbox.notify("degrade_latch", channel=self.channel, consecutive_failures=n,
+                            error=str(err) if err is not None else None,
+                            fallback="synchronous p256_verify on the card")
 
     def record_success(self) -> None:
         with self._lock:

@@ -39,13 +39,21 @@ approved and installed resolves to a ``CCaaSProxy`` on first use.
 ``start(operations_port=)`` serves ``opsserver.py`` with the
 ``rpc_server``, ``ledgers`` and ``device_verify_lane`` health checks.
 ``PeerChannel.replay_local`` catches a channel up from a local block
-store through ``peer/replay.py``.  Knobs whose module is not ported yet
-raise ``NotImplementedError`` naming ROADMAP Queue 1 item 9 or 10 when
-set to anything but their default: ``slos``, ``vitals_*``,
-``blackbox_dir``, ``autopilot*``, ``sidecar_listen``, and the
-validator's ``verify_chunk``, ``mesh_devices``, ``mesh_topology``,
-``recode_device``, ``host_stage_mode="process"`` and
-``verify_deadline_ms``.  A BFT channel's blocks pass
+store through ``peer/replay.py``.  ``start()`` arms what the node's
+knobs ask for and ``stop()`` takes it down (the reference's
+:1551-1810, :1880-1910): ``slos`` the process-global SLO engine
+(``observe/slo.py``; with the sign lane the default endorse
+objectives, with the tx-flow journal the default commit ones),
+``autopilot`` a ``control.Autopilot`` whose ``apply_knob`` reaches every
+channel's ``PeerChannel.apply_knob`` and the sign lane (disabled before
+it is stopped), ``vitals_interval_s`` the refcounted metrics sampler
+and, with it or ``blackbox_dir``, the refcounted black box
+(``observe/{timeseries,blackbox}.py``).  Each channel's validator takes
+``verify_chunk``.  Knobs whose module is not ported yet raise
+``NotImplementedError`` naming ROADMAP Queue 1 item 9 or 10 when set to
+anything but their default: ``sidecar_listen``, and the validator's
+``mesh_devices``, ``mesh_topology``, ``recode_device``,
+``host_stage_mode="process"`` and ``verify_deadline_ms``.  A BFT channel's blocks pass
 ``_verify_bft_attestation`` (2f+1 consenter COMMIT signatures over the
 block's own batch, host ``ec_ref`` checks) before the card's kernels
 launch.  A collection this peer's org is no member of is recorded
@@ -101,13 +109,10 @@ def _not_ported(what: str, item: int = 10) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
-def _refuse_validator_knobs(verify_chunk=0, mesh_devices=0, mesh_topology=None,
-                            recode_device=False, host_stage_mode="thread",
-                            verify_deadline_ms=0.0) -> None:
+def _refuse_validator_knobs(mesh_devices=0, mesh_topology=None, recode_device=False,
+                            host_stage_mode="thread", verify_deadline_ms=0.0) -> None:
     """The reference validator's knobs the port's ``BlockValidator`` does
     not take: each raises when set to anything but its default."""
-    if int(verify_chunk):
-        raise _not_ported("verify_chunk (the mesh's chunked verify)", 9)
     if int(mesh_devices) or mesh_topology is not None:
         raise _not_ported("mesh_devices / mesh_topology (parallel/mesh.py)", 9)
     if recode_device:
@@ -156,8 +161,8 @@ class PeerChannel:
                  sidecar_weight: float = 1.0, sidecar_recovery_s: float = 5.0,
                  sidecar_ssl=None, async_commit: bool = True, apply_queue_blocks: int = 4,
                  device="cuda"):
-        _refuse_validator_knobs(verify_chunk, mesh_devices, mesh_topology, recode_device,
-                                host_stage_mode, verify_deadline_ms)
+        _refuse_validator_knobs(mesh_devices, mesh_topology, recode_device, host_stage_mode,
+                                verify_deadline_ms)
         self.id = channel_id
         self.device = resolve_device(device)
         # block-commit span tracer knobs (nodeconfig trace_ring_blocks
@@ -243,7 +248,7 @@ class PeerChannel:
                 state_resident_range_bits=state_resident_range_bits, msp=msp_manager,
                 host_stage_workers=host_stage_workers, config_processor=config_processor,
                 device_fail_threshold=device_fail_threshold, device_retries=device_retries,
-                device_recovery_s=device_recovery_s)
+                device_recovery_s=device_recovery_s, verify_chunk=verify_chunk)
         if snapshot_dir is not None and getattr(self.validator, "resident", None) is not None:
             # snapshot join + resident cache: warm the device table
             # straight from the snapshot's key ranges
@@ -280,8 +285,36 @@ class PeerChannel:
         self.orderer_addrs: list = []
         self.client_ssl = None
         self.runtime = None
-        # the live CommitPipeline while the deliver loop runs
+        # the live CommitPipeline while the deliver loop (or a local
+        # replay) runs: the autopilot's apply_knob reaches it
         self.pipe = None
+
+    # -- run-time knobs (the traffic autopilot's actuator) --------------------
+
+    def apply_knob(self, knob: str, value) -> None:
+        """One autopilot step on this channel's live commit path (the
+        reference's :268-305).  Every setter latches and applies at a
+        block boundary; a channel with no live pipe keeps the value the
+        next deliver session starts from."""
+        if knob == "verify_chunk":
+            fn = getattr(self.validator, "set_verify_chunk", None)
+            if fn is not None:
+                fn(int(value))
+        elif knob == "host_stage_workers":
+            fn = getattr(self.validator, "set_host_stage_workers", None)
+            if fn is not None:
+                fn(int(value))
+        elif knob == "coalesce_blocks":
+            # the deliver loop reads this per group
+            self.coalesce_blocks = int(value)
+            if self.pipe is not None:
+                self.pipe.set_coalesce_blocks(int(value))
+        elif knob == "pipeline_depth":
+            # a channel configured serial (1) never becomes pipelined
+            if self.pipeline_depth > 1 and int(value) >= 2:
+                self.pipeline_depth = int(value)
+            if self.pipe is not None:
+                self.pipe.set_depth(int(value))
 
     @property
     def height(self) -> int:
@@ -924,17 +957,10 @@ class PeerNode:
                  apply_queue_blocks: int = 4,
                  tx_flow: bool = True,
                  device="cuda"):
-        if slos:
-            raise _not_ported("slos (observe/slo.py)")
-        if vitals_interval_s or vitals_retention != 240 or blackbox_dir:
-            raise _not_ported("vitals_interval_s / vitals_retention / blackbox_dir "
-                              "(observe/{timeseries,blackbox}.py)")
-        if autopilot or autopilot_tick_s != 1.0 or autopilot_knobs:
-            raise _not_ported("autopilot (control/autopilot.py)")
         if sidecar_listen or sidecar_queue_blocks != 8 or sidecar_coalesce != 4:
             raise _not_ported("sidecar_listen (a sidecar server hosted by the peer)")
-        _refuse_validator_knobs(verify_chunk, mesh_devices, mesh_topology, recode_device,
-                                host_stage_mode, verify_deadline_ms)
+        _refuse_validator_knobs(mesh_devices, mesh_topology, recode_device, host_stage_mode,
+                                verify_deadline_ms)
         self.id = node_id
         self.dir = data_dir
         self.msp = msp_manager
@@ -947,6 +973,19 @@ class PeerNode:
         self.apply_queue_blocks = int(apply_queue_blocks)
         self.coalesce_blocks = int(coalesce_blocks)
         self.host_stage_workers = int(host_stage_workers)
+        self.verify_chunk = int(verify_chunk)
+        # the SLO engine, the traffic autopilot and the flight recorder
+        # (armed at start(), taken down at stop())
+        self.slos = slos
+        self.vitals_interval_s = float(vitals_interval_s)
+        self.vitals_retention = int(vitals_retention)
+        self.blackbox_dir = blackbox_dir
+        self.autopilot = bool(autopilot)
+        self.autopilot_tick_s = float(autopilot_tick_s)
+        self.autopilot_knobs = autopilot_knobs
+        self.autopilot_ctl = None
+        self.vitals = None
+        self.blackbox = None
         self.trace_ring_blocks = trace_ring_blocks
         self.trace_slow_factor = trace_slow_factor
         # device-time launch ledger and per-tx flow journal (default
@@ -1004,7 +1043,7 @@ class PeerNode:
             policy_provider, state_db, config_processor, genesis_block=genesis_block,
             snapshot_dir=snapshot_dir, pipeline_depth=self.pipeline_depth,
             coalesce_blocks=self.coalesce_blocks, host_stage_workers=self.host_stage_workers,
-            trace_ring_blocks=self.trace_ring_blocks, trace_slow_factor=self.trace_slow_factor,
+            verify_chunk=self.verify_chunk, trace_ring_blocks=self.trace_ring_blocks, trace_slow_factor=self.trace_slow_factor,
             device_fail_threshold=self.device_fail_threshold,
             device_retries=self.device_retries, device_recovery_s=self.device_recovery_s,
             state_resident=self.state_resident, state_resident_mb=self.state_resident_mb,
@@ -1025,6 +1064,12 @@ class PeerNode:
     # -- services ------------------------------------------------------------
 
     async def start(self, operations_port: int | None = None):
+        if self.slos:
+            # the process-global burn-rate engine on the global tracer's
+            # finished roots (/slo); the spec was checked at config load
+            from fabric_tpu_torch.observe import slo as _slo
+
+            _slo.configure(self.slos)
         if self.sign_device:
             # the card's ESCC sign lane: concurrent Endorse/gateway
             # sign requests coalesce into one p256_sign launch, RFC 6979
@@ -1042,16 +1087,42 @@ class PeerNode:
                                              verify_after=self.sign_self_check),
                 batch_max=self.sign_batch_max, wait_ms=self.sign_batch_wait_ms).start()
             self.sign_signer = signlane.BatchedSigner(self.signer, self.sign_batcher)
+            if self.slos:
+                # the default endorse objectives (unless the spec names
+                # the endorse channel), fed by the lane's per-request
+                # waits and BUSY bounces
+                from fabric_tpu_torch.observe import slo as _slo
+
+                self._add_default_slos(_slo.ENDORSE_CHANNEL, _slo.DEFAULT_ENDORSE_SLOS)
+                self.sign_batcher.observer = _slo.endorse_observer(_slo.global_engine())
+        if self.autopilot:
+            self._arm_autopilot()
+        if self.vitals_interval_s > 0 or self.blackbox_dir:
+            self._arm_recorder()
         if self.device_ledger:
             from fabric_tpu_torch.observe import ledger as _ledgermod
 
             self.launch_ledger = _ledgermod.acquire()
         if self.tx_flow:
             self.txflow_journal = _txflow.acquire()
+            if self.slos:
+                # the default commit objectives, one event a completed flow
+                from fabric_tpu_torch.observe import slo as _slo
+
+                self._add_default_slos(_slo.COMMIT_CHANNEL, _slo.DEFAULT_COMMIT_SLOS)
+                self.txflow_journal.slo_feed = _slo.commit_feed(_slo.global_engine())
             if self.sign_batcher is not None:
-                # the lane's one observer slot feeds the journal's
-                # sign_wait stage
-                self.sign_batcher.observer = _txflow.sign_observer()
+                # the lane's one observer slot: the journal's sign_wait
+                # stage, behind the SLO feed when there is one
+                prev, txobs = self.sign_batcher.observer, _txflow.sign_observer()
+                if prev is None:
+                    self.sign_batcher.observer = txobs
+                else:
+                    def _sign_chain(wait_ms, busy, _a=prev, _b=txobs):
+                        _a(wait_ms, busy)
+                        _b(wait_ms, busy)
+
+                    self.sign_batcher.observer = _sign_chain
         self.server.register_unary("Endorse", self._on_endorse)
         self.server.register("DeliverBlocks", self._on_deliver_blocks)
         self.server.register_unary("Query", self._on_query)
@@ -1081,9 +1152,93 @@ class PeerNode:
             health.register("ledgers", _ledgers)
             health.register("device_verify_lane", self._device_lanes)
             self.operations = await OperationsServer(
-                port=operations_port, health=health, launches=self.launch_ledger,
+                port=operations_port, health=health, autopilot=self.autopilot_ctl,
+                vitals=self.vitals, blackbox=self.blackbox, launches=self.launch_ledger,
                 txflow=self.txflow_journal).start()
         return self
+
+    @staticmethod
+    def _add_default_slos(channel: str, spec: str) -> None:
+        from fabric_tpu_torch.observe import slo as _slo
+
+        engine = _slo.global_engine()
+        if not any(o.channel == channel for o in engine.objectives):
+            engine.set_objectives(tuple(engine.objectives) + tuple(_slo.parse_slos(spec)))
+
+    def _arm_autopilot(self) -> None:
+        """The traffic autopilot over the global SLO engine, the tracer,
+        the launch ledger, the sign lane and the channels' apply queues;
+        its steps reach every joined channel's ``apply_knob`` and the
+        node's sign lane.  The peer hosts no sidecar server, so the
+        weight and shed rules have nothing to act on here."""
+        from types import SimpleNamespace
+
+        from fabric_tpu_torch.control import (Autopilot, host_clamped_specs,
+                                              parse_knob_specs, resolve_host_workers_initial,
+                                              set_global)
+        from fabric_tpu_torch.observe.slo import global_engine
+
+        def _apply(knob, value):
+            # a snapshot: join_channel changes the dict on the event loop
+            for ch in list(self.channels.values()):
+                ch.apply_knob(knob, value)
+            if self.sign_batcher is not None:
+                if knob == "sign_batch_max":
+                    self.sign_batcher.set_batch_max(int(value))
+                elif knob == "sign_batch_wait_ms":
+                    self.sign_batcher.set_wait_ms(float(value))
+
+        def _commit_stats():
+            # the worst state-apply queue age over the async channels
+            ages = [float(ch.ledger.engine.stats().get("oldest_age_ms", 0.0))
+                    for ch in list(self.channels.values())
+                    if getattr(ch.ledger, "engine", None) is not None]
+            return {"oldest_age_ms": max(ages)} if ages else {}
+
+        specs = host_clamped_specs(parse_knob_specs(self.autopilot_knobs or None))
+        if self.sign_batch_wait_ms == 0:
+            # wait_ms 0 is the operator's static flush-at-once choice
+            specs = {k: v for k, v in specs.items() if k != "sign_batch_wait_ms"}
+        self.autopilot_ctl = Autopilot(
+            specs, _apply, slo=global_engine(), sign_source=self.sign_batcher,
+            commit_source=SimpleNamespace(stats=_commit_stats), tick_s=self.autopilot_tick_s,
+            initial={"coalesce_blocks": self.coalesce_blocks, "verify_chunk": self.verify_chunk,
+                     "pipeline_depth": self.pipeline_depth,
+                     "host_stage_workers": resolve_host_workers_initial(
+                         self.host_stage_workers),
+                     "sign_batch_max": self.sign_batch_max,
+                     "sign_batch_wait_ms": self.sign_batch_wait_ms})
+        set_global(self.autopilot_ctl)
+        self.autopilot_ctl.start()
+
+    def _arm_recorder(self) -> None:
+        """The flight recorder, refcounted (colocated nodes share one
+        sampler and one black box; the last ``stop`` disarms them): the
+        sampler when ``vitals_interval_s`` > 0, the black box always."""
+        from types import SimpleNamespace
+
+        from fabric_tpu_torch.observe import blackbox as _blackbox
+        from fabric_tpu_torch.observe import timeseries as _timeseries
+
+        if self.vitals_interval_s > 0:
+            self.vitals = _timeseries.acquire(interval_s=self.vitals_interval_s,
+                                              retention=self.vitals_retention)
+
+        def _commit_report():
+            # how far state apply trails the durable chain, per channel
+            out = {}
+            for cid, ch in list(self.channels.items()):
+                eng = getattr(ch.ledger, "engine", None)
+                if eng is None:
+                    continue
+                st = eng.stats()
+                st["appended_height"] = ch.ledger.height
+                st["synced_height"] = ch.ledger.blocks.synced_height
+                out[cid] = st
+            return out or None
+
+        self.blackbox = _blackbox.acquire(out_dir=self.blackbox_dir,
+                                          commit_source=SimpleNamespace(report=_commit_report))
 
     def _device_lanes(self):
         """Health of the channels' verify lanes: a degraded lane is a
@@ -1110,10 +1265,30 @@ class PeerNode:
         return self.sign_signer if self.sign_signer is not None else self.signer
 
     async def stop(self):
+        if self.autopilot_ctl is not None:
+            # disabled before stopped, so /autopilot and its gauge never
+            # read a dead loop as live; the global handle goes if ours
+            from fabric_tpu_torch.control import global_autopilot, set_global
+
+            self.autopilot_ctl.set_enabled(False)
+            self.autopilot_ctl.stop()
+            if global_autopilot() is self.autopilot_ctl:
+                set_global(None)
+            self.autopilot_ctl = None
         if self.sign_batcher is not None:
             self.sign_batcher.stop()
             self.sign_batcher = None
             self.sign_signer = None
+        if self.vitals is not None:
+            from fabric_tpu_torch.observe import timeseries as _timeseries
+
+            _timeseries.release()
+            self.vitals = None
+        if self.blackbox is not None:
+            from fabric_tpu_torch.observe import blackbox as _blackbox
+
+            _blackbox.release()
+            self.blackbox = None
         if self.launch_ledger is not None:
             from fabric_tpu_torch.observe import ledger as _ledgermod
 

@@ -36,6 +36,13 @@ which preprocessing allows: it reads no ledger state.  A barrier inside
 or just before a group makes every later block of the group stale
 (:622-657).
 
+``set_depth`` and ``set_coalesce_blocks`` (the traffic autopilot's
+actuators, the reference's :317-360) latch a value that the next
+``submit`` / ``submit_many`` adopts, never mid-window; a serial pipe
+stays serial and a pipelined one never drops below depth 2.  A stage
+exception that closes the pipe is the flight recorder's
+``pipeline_fail_closed`` incident (``observe/blackbox.py``).
+
 Each commit runs ``commit_fn`` and then the validator's
 ``resident_commit`` when it has one (the device-resident state's
 write-set scatter, ``state/residency.py``), on the committer thread or
@@ -223,6 +230,39 @@ class CommitPipeline:
         self.last_failure: tuple | None = None  # (block number, stage)
         self._failures: Counter = Counter()
         self._failures_lock = threading.Lock()
+        # run-time knobs (the autopilot's actuators): set_depth and
+        # set_coalesce_blocks latch a value that the next submit boundary
+        # adopts, never mid-window (GIL-atomic attribute writes)
+        self._pending_depth: int | None = None
+        self._pending_coalesce: int | None = None
+
+    # -- run-time knobs ---------------------------------------------------------
+
+    def set_depth(self, depth: int) -> None:
+        """A new depth, applied at the next submit boundary.  A serial
+        pipe (depth 1) stays serial and a pipelined one never drops
+        below 2: the serial/pipelined boundary is not crossed at run
+        time; a shallower depth drains the excess at the next finish."""
+        if self.depth <= 1:
+            return
+        self._pending_depth = max(2, int(depth))
+
+    def set_coalesce_blocks(self, n: int) -> None:
+        """A new ``submit_many`` group size (below 2: off), applied at
+        the next submit boundary."""
+        n = int(n)
+        self._pending_coalesce = 0 if n < 2 else n
+
+    def _apply_pending_knobs(self) -> None:
+        """The block boundary: adopt the latched values (the top of
+        ``submit`` / ``submit_many``, where no block is mid-stage on the
+        caller's thread)."""
+        d, self._pending_depth = self._pending_depth, None
+        if d is not None:
+            self.depth = d
+        c, self._pending_coalesce = self._pending_coalesce, None
+        if c is not None:
+            self.coalesce_blocks = c
 
     def __enter__(self):
         return self
@@ -241,6 +281,19 @@ class CommitPipeline:
         finally:
             self._shutdown()
         return res
+
+    def _fail_closed(self) -> None:
+        """A stage exception closes the pipe: the flight recorder's
+        ``pipeline_fail_closed`` incident (``observe/blackbox.py``, a
+        no-op unarmed) is recorded before the in-flight state drops."""
+        if not self._closed:
+            from fabric_tpu_torch.observe import blackbox
+
+            failure = self.last_failure
+            blackbox.notify("pipeline_fail_closed", channel=self.channel,
+                            block=failure[0] if failure else None,
+                            stage=failure[1] if failure else None)
+        self._shutdown()
 
     def _shutdown(self) -> None:
         self._closed = True
@@ -289,6 +342,7 @@ class CommitPipeline:
     def submit(self, block):
         if self._closed:
             raise RuntimeError("pipeline is closed")
+        self._apply_pending_knobs()
         try:
             if self.depth == 1:
                 return self._submit_serial(block)
@@ -302,7 +356,7 @@ class CommitPipeline:
             self._launch_next(out.stage_s if out is not None else {}, t_sub)
             return out
         except BaseException:
-            self._shutdown()
+            self._fail_closed()
             raise
 
     def _prefetch_one(self, block, root):
@@ -360,6 +414,7 @@ class CommitPipeline:
         blocks = list(blocks)
         if self._closed:
             raise RuntimeError("pipeline is closed")
+        self._apply_pending_knobs()
         k = self.coalesce_blocks
         many = getattr(self.validator, "preprocess_many", None)
         if self.depth == 1 or k < 2 or len(blocks) < 2 or many is None:
@@ -367,7 +422,7 @@ class CommitPipeline:
         try:
             return self._submit_many_coalesced(blocks, k, many)
         except BaseException:
-            self._shutdown()
+            self._fail_closed()
             raise
 
     def _submit_many_coalesced(self, blocks, k: int, many) -> list:
@@ -420,7 +475,7 @@ class CommitPipeline:
             self._inflight_gauge.set(0, channel=self.channel)
             return out
         except BaseException:
-            self._shutdown()
+            self._fail_closed()
             raise
 
     def _launch_next(self, prev_stage_s: dict, t_sub: float) -> None:

@@ -21,10 +21,12 @@ The pipe runs with ``replay=True`` (the tx-flow journal records a
 replayed block from inclusion to apply only); at depth >= 2 the run's
 stats carry the overlap coverage of the global tracer's recent block
 trees
-(``pipeline_overlap_coverage``, the reference's :272-283).  The
-reference's driver also holds its traffic autopilot in throughput mode
-for the run; the port has no autopilot yet, and ``autopilot=`` accepts
-only None.  ``pre_launch_fn`` (a peer's block-signature check),
+(``pipeline_overlap_coverage``, the reference's :272-283).  The run
+holds the traffic autopilot (``autopilot=``, else the process-global
+one, ``control/autopilot.py``) in throughput mode (the reference's
+:138-150): its shed and re-weight rules stay off while the closed-loop
+feed keeps every queue full by design, and its ladder rules keep
+tuning the commit path.  ``pre_launch_fn`` (a peer's block-signature check),
 ``channel`` and ``tracer`` go to the pipe; ``pipe_hook`` is called with
 the live pipe at the start and None at the end (a hosting
 ``PeerChannel`` exposes it as ``pipe`` meanwhile).
@@ -83,8 +85,7 @@ class ReplayDriver:
                  checkpoint_every: int = DEFAULT_CHECKPOINT_EVERY,
                  pre_launch_fn=None, channel: str = "",
                  coalesce_blocks: int = 0, tracer=None, autopilot=None, pipe_hook=None):
-        if autopilot is not None:
-            raise ValueError("the port has no traffic autopilot: autopilot= takes None")
+        self._autopilot = autopilot
         self.validator = validator
         self.pre_launch_fn = pre_launch_fn
         self.channel = channel
@@ -143,6 +144,20 @@ class ReplayDriver:
         skipped.  Returns the replay's stats: blocks, valid txs,
         seconds, blocks and tx a second, the first block's seconds from
         the start to its commit, the height reached."""
+        ap = self._autopilot
+        if ap is None:
+            from fabric_tpu_torch.control.autopilot import global_autopilot
+
+            ap = global_autopilot()
+        if ap is not None:
+            ap.hold_throughput()
+        try:
+            return self._run(blocks, start)
+        finally:
+            if ap is not None:
+                ap.release_throughput()
+
+    def _run(self, blocks, start) -> dict:
         from fabric_tpu_torch.peer.pipeline import CommitPipeline
 
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)

@@ -24,8 +24,11 @@ global tracer's ``"sign"`` namespace, so the launch ledger's ``sign``
 record and its device spans hang off it; ``observer(wait_ms, busy)``,
 called outside the lock for each flushed request (its coalescing wait)
 and each BUSY bounce (None), takes the tx-flow journal's
-``sign_observer()``.  Left out of the port: the runtime knob setters
-the reference's autopilot drives.
+``sign_observer()``.  ``set_batch_max`` and ``set_wait_ms`` (the
+traffic autopilot's ``sign_batch_max`` / ``sign_batch_wait_ms``
+actuators, the reference's :198-219) latch under the lane's lock and
+apply from the next flush: the device lane's ``p256_sign`` then
+launches at the bucket of the new batch size.
 """
 
 from __future__ import annotations
@@ -177,6 +180,32 @@ class SignBatcher:
         return False
 
     # -- the request side ---------------------------------------------------------
+
+    # -- run-time knobs (the autopilot's actuators) -----------------------------
+
+    @property
+    def batch_max(self) -> int:
+        return self._batch_max
+
+    @property
+    def wait_ms(self) -> float:
+        return self._wait_ms
+
+    def set_batch_max(self, n: int) -> None:
+        """Latched under the lane's lock; the flusher reads it at each
+        drain, so the new cap applies from the next flush."""
+        n = max(1, int(n))
+        with self._cond:
+            if n != self._batch_max:
+                self._batch_max = n
+                self._cond.notify_all()
+
+    def set_wait_ms(self, ms: float) -> None:
+        ms = max(0.0, float(ms))
+        with self._cond:
+            if ms != self._wait_ms:
+                self._wait_ms = ms
+                self._cond.notify_all()
 
     def sign_digest(self, digest: int, timeout_s: float = 120.0) -> tuple[int, int]:
         """Block until the batch carrying ``digest`` flushes → (r, s).

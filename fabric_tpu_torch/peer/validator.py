@@ -197,7 +197,7 @@ from fabric_tpu_torch.observe import ledger as _ledger
 from fabric_tpu_torch.ops import mvcc as mvcc_ops
 from fabric_tpu_torch.ops import p256, p256v3
 from fabric_tpu_torch.ops_metrics import global_registry
-from fabric_tpu_torch.parallel.hostpool import resolve_host_pool
+from fabric_tpu_torch.parallel.hostpool import clamp_workers, resolve_host_pool
 from fabric_tpu_torch.peer import frontend
 from fabric_tpu_torch.peer.decoded import DecodedBlock, DecodedEndorsement, DecodedTx
 from fabric_tpu_torch.peer.degrade import DeviceLaneGuard
@@ -504,7 +504,10 @@ class BlockValidator:
     ``block``: a wire ``Block`` (decoded with ``msp``, a
     ``crypto.msp.MSPManager``) or a ``DecodedBlock``.
     ``host_stage_workers``: the staging pool's size (0 off, -1 one
-    worker per core); ``close()`` shuts it down.  ``plugins``: {name:
+    worker per core); ``close()`` shuts it down.  ``verify_chunk``: the
+    signatures a ``p256_verify`` launch takes (0: the whole batch in
+    one).  ``set_verify_chunk`` and ``set_host_stage_workers`` change
+    either at the next block boundary.  ``plugins``: {name:
     ValidationPlugin} beside the built-in "default";
     ``config_processor``: a ``channelconfig.ConfigTxProcessor``.
 
@@ -522,8 +525,19 @@ class BlockValidator:
                  state_resident_range_bits: int = 12, msp=None, kernel: str | None = None,
                  host_stage_workers: int = 0, plugins: dict | None = None,
                  config_processor=None, device_fail_threshold: int = 0,
-                 device_retries: int = 2, device_recovery_s: float = 30.0):
+                 device_retries: int = 2, device_recovery_s: float = 30.0,
+                 verify_chunk: int = 0):
         self.msp = msp
+        # signature-batch microbatching: each block's verify launches in
+        # chunks of this many signatures (ops/p256v3.py); 0 = one launch
+        self.verify_chunk = max(0, int(verify_chunk))
+        # latched by set_verify_chunk / set_host_stage_workers (the
+        # autopilot's actuators), applied at the next block boundary
+        # (_apply_pending_knobs); locked, since the controller thread
+        # sets while the prefetch thread applies
+        self._knob_lock = threading.Lock()
+        self._pending_verify_chunk: int | None = None
+        self._pending_host_workers: int | None = None
         self.plugins = {"default": DefaultValidation(), **(plugins or {})}
         self.config_processor = config_processor
         self.last_parsed: list = []
@@ -560,6 +574,44 @@ class BlockValidator:
         pool, self.host_pool = self.host_pool, None
         if pool is not None:
             pool.shutdown()
+
+    # -- run-time knobs (the autopilot's actuators) ----------------------------
+
+    def set_verify_chunk(self, n: int) -> None:
+        """A new verify chunk size (0: one launch), applied at the next
+        block boundary, the top of ``preprocess`` / ``preprocess_many``,
+        so a block's verify always runs under one chunk size."""
+        with self._knob_lock:
+            self._pending_verify_chunk = max(0, int(n))
+
+    def set_host_stage_workers(self, n: int) -> None:
+        """A new staging pool size, applied at the next block boundary:
+        n >= 2 resizes the live pool (``HostStagePool.set_workers``, at
+        its next idle task boundary) or builds one; n < 2 closes it back
+        to serial staging.  The verdicts are the same either way."""
+        with self._knob_lock:
+            self._pending_host_workers = max(0, int(n))
+
+    def _apply_pending_knobs(self) -> None:
+        with self._knob_lock:
+            n, self._pending_verify_chunk = self._pending_verify_chunk, None
+            w, self._pending_host_workers = self._pending_host_workers, None
+        if n is not None:
+            self.verify_chunk = n
+        if w is None:
+            return
+        if w < 2:
+            pool, self.host_pool = self.host_pool, None
+            self.host_stage_workers = 0
+            if pool is not None:
+                pool.shutdown()
+        elif self.host_pool is not None:
+            self.host_pool.set_workers(w)
+            # the size the pool takes at its idle-boundary swap
+            self.host_stage_workers = clamp_workers(w)
+        else:
+            self.host_pool = resolve_host_pool(w)
+            self.host_stage_workers = self.host_pool.workers if self.host_pool else 0
 
     def _t(self, key: str, t0: float) -> float:
         """The stage since ``t0``: observed in ``validator_stage_seconds``,
@@ -1051,6 +1103,7 @@ class BlockValidator:
         """Decode, parse, launch the block's signature verify without
         waiting, and build the state-independent stage-2 inputs.  Touches
         no ledger state, so it may run while the predecessor commits."""
+        self._apply_pending_knobs()
         t0 = time.perf_counter()
         wire = block
         block, txs, items = self._parse_any(block)
@@ -1089,6 +1142,7 @@ class BlockValidator:
         ``pre`` for ``validate_launch``.  With a staging pool the blocks
         parse at once (``_preprocess_many_pooled``)."""
         blocks = list(blocks)
+        self._apply_pending_knobs()
         if len(blocks) <= 1:
             return [self.preprocess(b) for b in blocks]
         if self.host_pool is not None:
@@ -1159,9 +1213,11 @@ class BlockValidator:
         """Launch the block's signature verify without waiting, through
         ``device_guard`` when there is one (the reference's
         ``_verify_launch_guarded``)."""
-        return self._guarded(
-            lambda: p256.verify_launch(items, kernel=self.kernel, device=self.device),
-            [items], many=False)
+        return self._guarded(lambda: self._launch_one(items), [items], many=False)
+
+    def _launch_one(self, items):
+        return p256.verify_launch(items, kernel=self.kernel, device=self.device,
+                                  chunk=self.verify_chunk or None, pool=self.host_pool)
 
     def verify_launch_many(self, itemsets) -> list:
         """Several blocks' signatures in one launch (v3; one launch a
@@ -1170,7 +1226,9 @@ class BlockValidator:
         block's batch (each counted)."""
         itemsets = list(itemsets)
         return self._guarded(
-            lambda: p256.verify_launch_many(itemsets, kernel=self.kernel, device=self.device),
+            lambda: p256.verify_launch_many(itemsets, kernel=self.kernel, device=self.device,
+                                            chunk=self.verify_chunk or None,
+                                            pool=self.host_pool),
             itemsets, many=True)
 
     def _guarded(self, launch, itemsets: list, many: bool):
@@ -1198,7 +1256,7 @@ class BlockValidator:
         raises: the block fails closed, and nothing is verified on the
         host."""
         with faults.shield():
-            h = p256.verify_launch(items, kernel=self.kernel, device=self.device)
+            h = self._launch_one(items)
             return _SyncedHandle(h.device_out, h.n_real, [bool(v) for v in h.fetch()])
 
     # -- launch -------------------------------------------------------------

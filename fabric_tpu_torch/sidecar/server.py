@@ -15,8 +15,15 @@ task drains up to ``coalesce`` cross-tenant requests at a time into ONE
 card serializes dispatches anyway) and streams each request's verdict
 vector back on its tenant's stream.  A dispatch failure answers each
 request of the group with a typed ERROR frame; the streams survive.
-``set_coalesce`` is applied at the next drain boundary, never between a
-group's pop and its dispatch.
+``set_coalesce`` and ``set_verify_chunk`` (the sidecar-local traffic
+autopilot's actuators, the reference's :154-197) are applied at the
+next drain boundary, never between a group's pop and its dispatch;
+``verify_chunk`` makes each dispatch a chunked
+``verify_launch_many(chunk=)``.  ``autopilot``: a
+``control.Autopilot`` told each tenant's hello and re-hello weight
+(``observe_hello``, its re-weight rule's restore target); while the
+autopilot sheds a tenant, the scheduler turns its arrivals away and the
+server answers BUSY with the longer ``SHED_RETRY_MS`` retry-after.
 
 ``stats()`` holds requests by tenant and status, the per-stage latency
 samples (queue_wait, dispatch, total), coalesce occupancy in requests
@@ -32,8 +39,7 @@ peer's ``trace`` context is answered with its finished subtree in the
 ``remote`` field (``_remote``), which the client stitches onto its
 block.  The fault points: ``sidecar.request`` by ``afire`` at each
 frame's admission, ``sidecar.dispatch`` in the coalesced dispatch.
-Left out: mesh and topology resolution, ``verify_chunk``, device
-recoding and the autopilot.
+Left out: mesh and topology resolution and device recoding.
 
 ``verify_fn(itemsets) -> list[list[bool]]`` replaces the card dispatch
 (tests); ``kernel`` and ``device`` select the facade's kernel and card.
@@ -71,9 +77,12 @@ class SidecarServer:
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0, *, queue_blocks: int = 8,
                  coalesce: int = 4, quantum: int | None = None, ssl_ctx=None, verify_fn=None,
-                 kernel: str | None = None, device="cuda", registry=None):
+                 kernel: str | None = None, device="cuda", registry=None,
+                 verify_chunk: int = 0, autopilot=None):
         self.host, self.port = host, port
         self.coalesce = max(1, int(coalesce))
+        self.verify_chunk = max(0, int(verify_chunk))
+        self.autopilot = autopilot
         self.kernel = kernel
         self.device = resolve_device(device)
         self._verify_fn = verify_fn
@@ -112,6 +121,7 @@ class SidecarServer:
         self._stopped = False
         self._knob_lock = threading.Lock()
         self._pending_coalesce: int | None = None
+        self._pending_verify_chunk: int | None = None
         self._stats_lock = threading.Lock()
         self._requests: Counter = Counter()  # (tenant, status) → n
         self._latency: dict = {}             # tenant → stage → deque of seconds
@@ -128,11 +138,22 @@ class SidecarServer:
         with self._knob_lock:
             self._pending_coalesce = max(1, int(n))
 
+    def set_verify_chunk(self, n: int) -> None:
+        """A new verify chunk for the server's own dispatches (0: one
+        launch), applied at the next drain boundary."""
+        with self._knob_lock:
+            self._pending_verify_chunk = max(0, int(n))
+
     def _apply_pending_knobs(self) -> None:
         with self._knob_lock:
             c, self._pending_coalesce = self._pending_coalesce, None
-        if c is not None:
+            v, self._pending_verify_chunk = self._pending_verify_chunk, None
+        if c is not None and c != self.coalesce:
+            _log.info("sidecar coalesce re-knobbed %d -> %d", self.coalesce, c)
             self.coalesce = c
+        if v is not None and v != self.verify_chunk:
+            _log.info("sidecar verify_chunk re-knobbed %d -> %d", self.verify_chunk, v)
+            self.verify_chunk = v
 
     # -- lifecycle -------------------------------------------------------------
 
@@ -243,6 +264,8 @@ class SidecarServer:
         except (ValueError, KeyError, TypeError) as e:
             await stream.error(f"bad hello: {e}")
             return
+        if self.autopilot is not None:
+            self.autopilot.observe_hello(tenant, weight)
         self._conns += 1
         self._tenants_gauge.set(self._conns)
         try:
@@ -307,6 +330,8 @@ class SidecarServer:
             self.scheduler.set_weight(tenant, weight)
         except ValueError as e:
             return f"bad re-hello: {e}"
+        if self.autopilot is not None:
+            self.autopilot.observe_hello(tenant, weight)
         return None
 
     # -- the dispatcher ----------------------------------------------------------
@@ -366,7 +391,8 @@ class SidecarServer:
         faults.fire("sidecar.dispatch", n=len(itemsets))
         if self._verify_fn is not None:
             return self._verify_fn(itemsets)
-        handles = p256.verify_launch_many(itemsets, kernel=self.kernel, device=self.device)
+        handles = p256.verify_launch_many(itemsets, kernel=self.kernel, device=self.device,
+                                          chunk=self.verify_chunk or None)
         return [h.fetch() for h in handles]
 
     async def _answer(self, batch: list, verdicts: list, t0: float, t1: float) -> None:

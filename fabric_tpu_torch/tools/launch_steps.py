@@ -107,13 +107,12 @@ names another ``csrc`` directory (an older commit's, unpacked with
   apart; every run's filters equal the construction's.
 
 - ``coalesced_path`` (needs ``--parent-tree``): the wire path as above
-  with the parent's package (one ``submit`` a block) and with this
-  tree's, one ``submit`` a block and coalesced (``submit_many`` with
-  ``coalesce_blocks=4`` over ``BlockValidator(host_stage_workers=-1)``:
-  the first block alone, then groups of 4, one ``p256_verify`` launch
-  a group), in turns parent, tree, tree, parent, each a process of its
-  own; this tree's two modes share a process, in the other order in the
-  second tree turn.
+  with the parent's package and with this tree's, each one ``submit`` a
+  block and coalesced (``submit_many`` with ``coalesce_blocks=4`` over
+  ``BlockValidator(host_stage_workers=-1)``: the first block alone, then
+  groups of 4, one ``p256_verify`` launch a group), in turns parent,
+  tree, tree, parent, each a process of its own; a turn's two modes
+  share its process, in the other order in a package's second turn.
 
 - ``sidecar`` (needs ``--parent-tree``): ``chip_smoke.py``'s sidecar
   tenants (3 ``SidecarValidator``s of weights 1, 1 and 2, each over its
@@ -1360,13 +1359,13 @@ def phase_turns(parent_tree: Path, n_blocks: int, mode: str) -> None:
 
 
 def phase_coalesced_path(parent_tree: Path, n_blocks: int) -> None:
-    """The parent's single-block wire path and this tree's single-block
-    and coalesced wire paths (``wire_path_run``), in turns parent, tree,
-    tree, parent, each turn a process of its own (this tree's two modes
-    in one process, their order reversed in the second turn); then each
-    variant's wall ms a block."""
-    turns = (("parent", ("single",)), ("tree", ("single", "coalesced")),
-             ("tree", ("coalesced", "single")), ("parent", ("single",)))
+    """The parent's and this tree's single-block and coalesced wire
+    paths (``wire_path_run``), in turns parent, tree, tree, parent, each
+    turn a process of its own (a turn's two modes in one process, their
+    order reversed in a package's second turn); then each variant's wall
+    ms a block."""
+    turns = (("parent", ("single", "coalesced")), ("tree", ("single", "coalesced")),
+             ("tree", ("coalesced", "single")), ("parent", ("coalesced", "single")))
     runs: dict = {}
     for tag, modes in turns:
         tree = parent_tree.resolve() if tag == "parent" else ROOT

@@ -140,8 +140,8 @@ def _get(port, path):
         return r.status, r.read()
 
 
-@pytest.mark.parametrize("case", ["peer_bad_key", "peer_unported", "orderer_bad_consensus",
-                                  "replay_bad_json"])
+@pytest.mark.parametrize("case", ["peer_bad_key", "peer_unported", "peer_bad_slos",
+                                  "orderer_bad_consensus", "replay_bad_json"])
 def test_a_config_error_exits_2(tmp_path, case):
     cfg = {"id": "p0", "data_dir": str(tmp_path / "d"), "msp_id": "O", "msp_dir": "m",
            "device": "cpu"}
@@ -149,7 +149,9 @@ def test_a_config_error_exits_2(tmp_path, case):
     if case == "peer_bad_key":
         cfg["prot"] = 7051
     elif case == "peer_unported":
-        cfg["slos"] = "commit:latency:ms=250"
+        cfg["recode_device"] = True
+    elif case == "peer_bad_slos":
+        cfg["slos"] = "commit:latency"
     elif case == "orderer_bad_consensus":
         verb, cfg = "orderer", {"id": "o", "data_dir": "d", "consensus": "paxos"}
     path = tmp_path / "cfg.json"
@@ -161,17 +163,65 @@ def test_a_config_error_exits_2(tmp_path, case):
     assert res.stderr.startswith("config error: ")
     if case == "peer_unported":
         assert "ROADMAP Queue 1 item 10" in res.stderr
+    if case == "peer_bad_slos":
+        assert res.stderr.startswith("config error: key 'slos': ")
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("--slos", "req:latency:ms=50", 10), ("--autopilot", None, 10),
-    ("--vitals-interval-s", "0.5", 10), ("--blackbox-dir", "bb", 10),
-    ("--mesh-shape", "2x4", 9), ("--verify-chunk", "64", 9), ("--recode-device", None, 10)])
+    ("--mesh-shape", "2x4", 9), ("--recode-device", None, 10)])
 def test_sidecar_serve_flags_of_unported_modules_exit_2(flag, value, item):
     res = _cli("sidecar-serve", "--device", "cpu", flag, *([value] if value else []))
     assert res.returncode == 2, res.stdout + res.stderr
     assert res.stderr.strip().endswith(f"is not ported yet (ROADMAP Queue 1 item {item})")
     assert res.stderr.startswith(flag)
+
+
+@pytest.mark.parametrize("flag,value", [
+    ("--slos", "req:latency"), ("--autopilot-knobs", "frobnicate:min=1"),
+    ("--vitals-interval-s", "-1"), ("--verify-chunk", "-1")])
+def test_sidecar_serve_malformed_observe_flags_exit_2(flag, value):
+    res = _cli("sidecar-serve", "--device", "cpu", flag, value)
+    assert res.returncode == 2, res.stdout + res.stderr
+    assert res.stderr.startswith(flag)
+
+
+def test_sidecar_serve_arms_the_autopilot_and_the_recorder(tmp_path):
+    """``--slos``, ``--autopilot``, ``--vitals-*``, ``--blackbox-dir``
+    and ``--verify-chunk`` arm the sidecar-local controller, the SLO
+    engine and the flight recorder: /slo, /autopilot and /vitals give
+    the armed answers."""
+    port, ops = _free_port(), _free_port()
+    log = tmp_path / "sidecar.log"
+    proc = _spawn(log, "sidecar-serve", "--device", "cpu", "--listen", f"127.0.0.1:{port}",
+                  "--operations-port", str(ops), "--slos", "req:latency:ms=50",
+                  "--autopilot", "--autopilot-tick-s", "0.2",
+                  "--autopilot-knobs", "verify_chunk:min=512:max=2048",
+                  "--vitals-interval-s", "0.2", "--vitals-retention", "8",
+                  "--blackbox-dir", str(tmp_path / "bb"), "--verify-chunk", "1024")
+    try:
+        assert _wait_port(port, proc) and _wait_port(ops, proc), log.read_text()
+        deadline = time.time() + WAIT_S
+        while True:  # the sampler's first pass lands 0.2 s after start
+            vit = json.loads(_get(ops, "/vitals")[1])
+            if vit.get("samples") or time.time() > deadline:
+                break
+            time.sleep(0.2)
+        slo = json.loads(_get(ops, "/slo")[1])
+        ap = json.loads(_get(ops, "/autopilot")[1])
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(WAIT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    assert [o["name"] for o in slo["objectives"]] == ["req"]
+    assert ap["configured"] and ap["enabled"] and ap["tick_s"] == 0.2
+    assert ap["knobs"]["verify_chunk"]["ladder"] == [0, 2048, 1024, 512]
+    assert ap["knobs"]["verify_chunk"]["value"] == 1024
+    assert vit["enabled"] and vit["retention"] == 8 and vit["samples"] >= 1
+    assert vit["incidents"] == []
+    assert "sidecar autopilot armed" in log.read_text()
 
 
 @pytest.mark.parametrize("verb", ["peer", "cryptogen", "sidecar-serve"])

@@ -1,8 +1,9 @@
 """The port stands alone: importing every module of fabric_tpu_torch
 brings in neither JAX, the JAX package, protobuf nor cryptography (the
 idemix MSP, ``crypto/idemix.py``, the ledger and catch-up modules, the
-gossip layer and BFT consenter, and the operator surface — the CLI,
-node configs, the operations server, ccaas and the offline tools —
+gossip layer and BFT consenter, the operator surface — the CLI,
+node configs, the operations server, ccaas and the offline tools — and
+the traffic autopilot, the SLO engine and the flight recorder
 included), no source file names them,
 no file of its host C++ (``native/``) names the JAX package's, and an entry point asked for the default CUDA device on a
 host without one raises instead of falling back.  A host C++ build that
@@ -34,6 +35,11 @@ OPERATOR = ("fabric_tpu_torch.cli", "fabric_tpu_torch.nodeconfig", "fabric_tpu_t
             "fabric_tpu_torch.protos.jsonfmt", "fabric_tpu_torch.tools.configtxlator",
             "fabric_tpu_torch.tools.ledgerutil", "fabric_tpu_torch.tools.nodeops")
 
+# the traffic autopilot, the SLO engine and the flight recorder
+AUTOPILOT = ("fabric_tpu_torch.control", "fabric_tpu_torch.control.autopilot",
+             "fabric_tpu_torch.observe.slo", "fabric_tpu_torch.observe.timeseries",
+             "fabric_tpu_torch.observe.blackbox")
+
 
 def _sources():
     """The package's Python files (``_build/`` holds generated files only)."""
@@ -62,6 +68,7 @@ def test_import_brings_in_no_reference_package():
             "fabric_tpu_torch.crypto.idemix"} <= set(mods)
     assert set(LEDGER) <= set(mods)
     assert set(OPERATOR) <= set(mods)
+    assert set(AUTOPILOT) <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -81,6 +88,7 @@ def test_import_brings_in_no_reference_package():
     assert {"fabric_tpu_torch.gossip", "fabric_tpu_torch.ordering.bft"} <= set(loaded)
     assert set(LEDGER) <= set(loaded)
     assert set(OPERATOR) <= set(loaded)
+    assert set(AUTOPILOT) <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
 

@@ -140,6 +140,31 @@ def _stage2_operands(dev, T=256, n_sig=512, S=4, seed=5):
     return t(sig_valid), t(lv), groups, t(sp), (R, W, Q)
 
 
+@pytest.mark.parametrize("chunk,pooled", [(512, False), (1024, True), (4096, False)])
+def test_p256_verify_chunked_launches_equal_a_monolithic_launch(cuda, chunk, pooled):
+    """``verify_launch(chunk=)`` on the card: one ``p256_verify`` launch a
+    ``_chunk_bounds`` chunk (pinned frames, ``non_blocking`` copies, a
+    pool's lookahead when pooled), written into one output vector equal
+    to a monolithic launch's and to the plain version's."""
+    from fabric_tpu_torch import kernels
+    from fabric_tpu_torch.parallel.hostpool import HostStagePool
+
+    items = _items(3000)
+    mono = v3.verify_launch(items, device=cuda)
+    pool = HostStagePool(2) if pooled else None
+    before = kernels.launches["p256_verify"]
+    try:
+        h = v3.verify_launch(items, device=cuda, chunk=chunk, pool=pool)
+        torch.cuda.synchronize()
+    finally:
+        if pool is not None:
+            pool.shutdown()
+    assert kernels.launches["p256_verify"] - before == len(v3._chunk_bounds(3000, chunk))
+    assert h.device_out.shape == (3072,) and torch.equal(h.device_out, mono.device_out)
+    frame = torch.from_numpy(v3.stage_frame(items, 3072)).to(cuda)
+    assert torch.equal(h.device_out, v3.verify_batch_ref(frame))
+
+
 def test_stage2_kernels_match_plain(cuda):
     sv, lv, groups, sp, dims = _stage2_operands(cuda)
     got = db.stage2(sv, lv, groups, sp, dims)

@@ -390,9 +390,7 @@ def test_peer_device_and_unported_knobs(orgs, tmp_path):  # noqa: F811
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             PeerNode("p", str(tmp_path / "a"), mgr, signer)
-    for kw in ({"slos": "x"}, {"vitals_interval_s": 1.0}, {"blackbox_dir": "d"},
-               {"autopilot": True}, {"mesh_devices": 2}, {"verify_chunk": 64},
-               {"recode_device": True}, {"host_stage_mode": "process"},
+    for kw in ({"mesh_devices": 2}, {"recode_device": True}, {"host_stage_mode": "process"},
                {"sidecar_listen": "127.0.0.1:1"}, {"verify_deadline_ms": 5.0}):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
             PeerNode("p", str(tmp_path / "b"), mgr, signer, device="cpu", **kw)
@@ -426,6 +424,55 @@ def test_peer_device_and_unported_knobs(orgs, tmp_path):  # noqa: F811
             await node.stop()
 
     run(install_refused())
+
+
+def test_peer_arms_slos_the_autopilot_and_the_recorder(orgs, tmp_path):  # noqa: F811
+    """``slos``, ``autopilot*``, ``vitals_*``, ``blackbox_dir`` and
+    ``verify_chunk`` arm at ``start`` and are served on the operations
+    port; ``stop`` disables the controller before stopping it and drops
+    the process-global handles."""
+    import urllib.request
+
+    from fabric_tpu_torch.control import global_autopilot
+    from fabric_tpu_torch.observe import blackbox, slo, timeseries
+
+    mgr = MSPManager({"Org1MSP": orgs["Org1MSP"]["msp"]})
+    signer = port_signer(orgs, "Org1MSP", "peer")
+
+    def get(port, path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+            return json.loads(r.read())
+
+    async def go():
+        node = PeerNode("p", str(tmp_path / "p"), mgr, signer, device="cpu",
+                        slos="commit:latency:ms=250", vitals_interval_s=0.2,
+                        vitals_retention=8, blackbox_dir=str(tmp_path / "bb"),
+                        autopilot=True, autopilot_tick_s=0.2,
+                        autopilot_knobs="verify_chunk:min=512:max=2048", verify_chunk=1024)
+        await node.start(operations_port=0)
+        loop = asyncio.get_running_loop()
+        ops = node.operations.port
+        try:
+            ap = node.autopilot_ctl
+            assert global_autopilot() is ap and ap.enabled
+            assert await _until(lambda: node.vitals.report()["samples"] >= 1)
+            got = {path: await loop.run_in_executor(None, get, ops, path)
+                   for path in ("/slo", "/autopilot", "/vitals")}
+        finally:
+            await node.stop()
+        return ap, got
+
+    try:
+        ap, got = run(go())
+    finally:
+        slo.configure("")
+    names = [o["name"] for o in got["/slo"]["objectives"]]
+    assert names[0] == "commit" and "commit_e2e" in names  # the journal's defaults
+    assert got["/autopilot"]["configured"] and got["/autopilot"]["enabled"]
+    assert got["/autopilot"]["knobs"]["verify_chunk"]["value"] == 1024
+    assert got["/vitals"]["enabled"] and got["/vitals"]["retention"] == 8
+    assert not ap.enabled and global_autopilot() is None
+    assert blackbox.global_blackbox() is None and timeseries.global_sampler() is None
 
 
 def test_a_failed_launch_fails_the_pipe_closed_and_deliver_resumes(orgs, tmp_path):  # noqa: F811

@@ -92,22 +92,29 @@ CASES = [
         "apply_queue_blocks": 2, "max_package_size": 1024, "install_require_admin": True,
         "group_commit": 1, "transient_retention": 5, "deliver_censorship_check_s": 9.0},
      {}),
+    # the SLO engine, the autopilot, the flight recorder and chunked
+    # verify: checked through their modules, as the reference does
+    ("slos", "peer", {**PEER_MIN, "slos": "commit:latency:ms=250;busy:busy:pct=5"}, {}),
+    ("slos_bad", "peer", {**PEER_MIN, "slos": "commit:latency"}, {}),
+    ("autopilot", "peer", {**PEER_MIN, "autopilot": True}, {}),
+    ("autopilot_knobs", "peer", {**PEER_MIN, "autopilot": True,
+                                 "autopilot_knobs": "coalesce_blocks:min=0:max=8"}, {}),
+    ("autopilot_knobs_bad", "peer", {**PEER_MIN, "autopilot_knobs": "frobnicate:min=1"}, {}),
+    ("autopilot_tick_s", "peer", {**PEER_MIN, "autopilot_tick_s": 2.0}, {}),
+    ("vitals_interval_s", "peer", {**PEER_MIN, "vitals_interval_s": 1.0}, {}),
+    ("vitals_retention_10", "peer", {**PEER_MIN, "vitals_retention": 10}, {}),
+    ("blackbox_dir", "peer", {**PEER_MIN, "blackbox_dir": "/tmp/bb"}, {}),
+    ("verify_chunk", "peer", {**PEER_MIN, "verify_chunk": 64}, {}),
+    ("observe_env", "peer", PEER_MIN, {"FABTPU_SLOS": "c:latency:ms=9",
+                                       "FABTPU_AUTOPILOT": "1", "FABTPU_VERIFY_CHUNK": "512"}),
 ]
 
 # keys whose module waits: the reference accepts them, the port names its item
 UNPORTED = [
-    ("slos", {"slos": "commit:latency:ms=250"}, 10),
-    ("autopilot", {"autopilot": True}, 10),
-    ("autopilot_knobs", {"autopilot_knobs": "coalesce_blocks:min=0:max=8"}, 10),
-    ("autopilot_tick_s", {"autopilot_tick_s": 2.0}, 10),
-    ("vitals_interval_s", {"vitals_interval_s": 1.0}, 10),
-    ("vitals_retention", {"vitals_retention": 10}, 10),
-    ("blackbox_dir", {"blackbox_dir": "/tmp/bb"}, 10),
     ("mesh_devices", {"mesh_devices": 2}, 9),
     ("mesh_shape", {"mesh_shape": "2x4"}, 9),
     ("mesh_distributed", {"mesh_distributed": True, "mesh_coordinator": "h:1"}, 9),
     ("mesh_num_processes", {"mesh_num_processes": 2}, 9),
-    ("verify_chunk", {"verify_chunk": 64}, 9),
     ("recode_device", {"recode_device": True}, 10),
     ("verify_deadline_ms", {"verify_deadline_ms": 5.0}, 10),
     ("host_stage_mode", {"host_stage_mode": "process"}, 10),

@@ -25,6 +25,7 @@ from fabric_tpu_torch import kernels
 from fabric_tpu_torch import opsserver as pops
 from fabric_tpu_torch import ops_metrics as pmetrics
 from fabric_tpu_torch.observe import ledger as pledger
+from fabric_tpu_torch.observe import slo as pslo
 from fabric_tpu_torch.observe import tracer as ptracer
 from fabric_tpu_torch.observe import txflow as ptxflow
 
@@ -48,7 +49,7 @@ def _feed(reg):
 class _Servers:
     """Both packages' servers on one background loop."""
 
-    def __init__(self, health_checks, launches=None, txflow=None):
+    def __init__(self, health_checks, launches=None, txflow=None, armed=None):
         self.loop = asyncio.new_event_loop()
         self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
         self.thread.start()
@@ -62,8 +63,8 @@ class _Servers:
             kw = {"registry": _feed(metrics.Registry()), "health": health,
                   "tracer": tr.Tracer(), "launches": (launches or {}).get(pkg),
                   "txflow": (txflow or {}).get(pkg)}
-            if pkg == "ref":
-                kw["slo"] = jslo.SloEngine()
+            kw["slo"] = (jslo if pkg == "ref" else pslo).SloEngine()
+            kw.update((armed or {}).get(pkg, {}))
             srv = asyncio.run_coroutine_threadsafe(
                 ops.OperationsServer(port=0, **kw).start(), self.loop).result(10)
             self.servers.append(srv)
@@ -94,12 +95,18 @@ def servers(monkeypatch):
     """Servers whose process-global controllers are unconfigured (the
     reference resolves its autopilot, recorder and ledgers lazily)."""
     import fabric_tpu.control as jcontrol
+    import fabric_tpu_torch.control as pcontrol
     from fabric_tpu.observe import blackbox as jbb
     from fabric_tpu.observe import timeseries as jts
+    from fabric_tpu_torch.observe import blackbox as pbb
+    from fabric_tpu_torch.observe import timeseries as pts
 
-    monkeypatch.setattr(jcontrol, "global_autopilot", lambda: None)
-    monkeypatch.setattr(jts, "global_sampler", lambda: None)
-    monkeypatch.setattr(jbb, "global_blackbox", lambda: None)
+    for mod in (jcontrol, pcontrol):
+        monkeypatch.setattr(mod, "global_autopilot", lambda: None)
+    for mod in (jts, pts):
+        monkeypatch.setattr(mod, "global_sampler", lambda: None)
+    for mod in (jbb, pbb):
+        monkeypatch.setattr(mod, "global_blackbox", lambda: None)
     monkeypatch.setattr(jledger, "global_ledger", lambda: None)
     monkeypatch.setattr(pledger, "global_ledger", lambda: None)
     monkeypatch.setattr(jtxflow, "global_journal", lambda: None)
@@ -224,6 +231,93 @@ def test_launches_and_txflow_armed_have_the_references_shape():
             assert set(got) == set(want), path
             if ps != 200:
                 assert got == want
+    finally:
+        s.close()
+
+
+class _Clock:
+    def __init__(self, t: float):
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def _armed(pkg):
+    """One package's SLO engine, autopilot, sampler and black box on a
+    fake clock, put through the same operations: burns, two decisions,
+    three sample passes and one incident bundle."""
+    if pkg == "ref":
+        from fabric_tpu.control import Autopilot, Signals
+        from fabric_tpu.observe import Tracer, blackbox, slo, timeseries
+        metrics = jmetrics
+    else:
+        from fabric_tpu_torch.control import Autopilot, Signals
+        from fabric_tpu_torch.observe import Tracer, blackbox, slo, timeseries
+        metrics = pmetrics
+    clk = _Clock(100.0)
+    reg = metrics.Registry()
+    engine = slo.SloEngine(slo.parse_slos("lat:latency:ms=100:windows=30,300:min_events=2:"
+                                          "fast=0;busy:busy:pct=5"), clock=clk, registry=reg)
+    for i in range(12):
+        clk.t += 0.5
+        engine.record(engine.objectives[0], "ch", good=i % 3 != 0)
+        engine.record(engine.objectives[1], "sidecar:t1", good=i % 5 != 0)
+    tracer = Tracer(ring_blocks=8, slow_factor=0, clock=clk)
+    # "verify_chunk": the reference's default knob set (the port opts it in)
+    ap = Autopilot("verify_chunk", lambda k, v: None, slo=engine, tracer=tracer, clock=clk, registry=reg,
+                   initial={"coalesce_blocks": 0, "verify_chunk": 0, "pipeline_depth": 2})
+    ap.tick(Signals(launch_p99_ms=300.0, clock_s=clk.t))
+    clk.t += 20.0
+    ap.tick(Signals(queue_age_p99_ms={"t1": 80.0}, clock_s=clk.t))
+    sampled = _feed(metrics.Registry())
+    sampler = timeseries.MetricsSampler(interval_s=1.0, retention=8, registry=sampled,
+                                        clock=clk)
+    for _ in range(3):
+        clk.t += 1.0
+        sampler.sample()
+        sampled.counter("deliver_reconnects_total").add(2)
+    bb = blackbox.BlackBox(out_dir="", sampler=sampler, tracer=tracer, autopilot=ap, slo=engine,
+                           registry=reg, clock=clk)
+    bb.record("slo_fast_burn", slo="lat", channel="ch", burn=20.0)
+    return {"slo": engine, "autopilot": ap, "vitals": sampler, "blackbox": bb}
+
+
+def _no_wall(x):
+    if isinstance(x, dict):
+        return {k: _no_wall(v) for k, v in x.items() if k != "wall_s"}
+    if isinstance(x, list):
+        return [_no_wall(v) for v in x]
+    return x
+
+
+@pytest.mark.parametrize("path", [
+    "/slo", "/autopilot", "/vitals", "/vitals?metric=deliver_reconnects_total",
+    "/vitals?metric=ledger_blockchain_height&label=channel=ch", "/vitals?incident=1"])
+def test_armed_routes_answer_as_the_reference(monkeypatch, path):
+    """The SLO engine, the autopilot, the sampler and the black box of
+    each package, put through the same operations, serve the same
+    /slo, /autopilot and /vitals JSON (the bundles' wall-clock times
+    aside)."""
+    from fabric_tpu import faults as jfaults
+    from fabric_tpu_torch import faults as pfaults
+
+    for mod in (jledger, pledger):
+        monkeypatch.setattr(mod, "global_ledger", lambda: None)
+    for mod in (jtxflow, ptxflow):
+        monkeypatch.setattr(mod, "global_journal", lambda: None)
+    for mod in (jfaults, pfaults):
+        monkeypatch.setattr(mod, "plan", lambda: None)
+    s = _Servers([], armed={pkg: _armed(pkg) for pkg in ("ref", "port")})
+    try:
+        (js, jt, jb), (ps, pt, pb) = s.both(path)
+        assert (ps, pt) == (js, jt) == (200, "application/json")
+        got, want = json.loads(pb), json.loads(jb)
+        assert _no_wall(got) == _no_wall(want)
+        if path == "/autopilot":
+            assert [d["knob"] for d in got["decisions"]] == ["verify_chunk", "coalesce_blocks"]
+        if path == "/vitals?incident=1":
+            assert {"vitals", "traces", "autopilot", "slo"} <= set(got)
     finally:
         s.close()
 

@@ -135,8 +135,14 @@ def test_coalesced_replay_equals_single(net, chain, source, ref_replay, tmp_path
 
 
 def test_reader_error_surfaces_and_autopilot_is_refused(net, chain, tmp_path):
-    with pytest.raises(ValueError, match="autopilot"):
-        ReplayDriver(None, None, autopilot=object())
+    """The run holds the traffic autopilot in throughput mode (its shed
+    and re-weight rules off) and releases the hold when the run fails."""
+    from fabric_tpu_torch.control import Autopilot
+    from fabric_tpu_torch.observe import Tracer
+    from fabric_tpu_torch.ops_metrics import Registry
+
+    ap = Autopilot(None, registry=Registry(), tracer=Tracer())
+    held = []
     lg = _ledger("port", tmp_path)
     v = _validator("port", lg, net, chain[1])
 
@@ -147,10 +153,12 @@ def test_reader_error_surfaces_and_autopilot_is_refused(net, chain, tmp_path):
         raise OSError("source read failed")
 
     def commit(res):
+        held.append(ap.throughput_mode)
         lg.commit_block(res.pend.wire, res.tx_filter, res.batch, res.history, None,
                         res.txids, res.pend.hd_bytes)
 
     with pytest.raises(OSError, match="source read failed"):
-        ReplayDriver(v, commit, depth=2).run(blocks())
-    assert lg.height == 1
+        ReplayDriver(v, commit, depth=2, autopilot=ap).run(blocks())
+    assert lg.height == 1 and held == [True]
+    assert not ap.throughput_mode
     lg.close()
